@@ -1,0 +1,1 @@
+"""parallel layer of the PyTorch port (mirrors fakepta_tpu.parallel)."""

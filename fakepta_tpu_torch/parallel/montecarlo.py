@@ -1,0 +1,480 @@
+"""Monte-Carlo ensemble engine on one device (port of fakepta_tpu.parallel.montecarlo).
+
+Simulates thousands of independent PTA realizations (white + ECORR + red +
+DM + chromatic + system noise + correlated GWB) and reduces each to the
+angular-binned cross-correlation curve and the mean auto-correlation.
+
+Streams: per-realization keys are ``fold_in(key(seed), index)`` on the
+threefry key tree of :mod:`fakepta_tpu_torch.utils.rng`, with the JAX
+package's domain tags (0x51 noise, 0x6B GWB) and global pulsar-index folds,
+so every draw equals the JAX engine's to a few float32 ULP, a rerun is
+bit-identical and a realization's draws do not depend on the chunk size.
+
+Statistic paths (``stat_path``):
+
+- ``"einsum"``: residuals, then torch einsums for the correlation and the
+  binning (the JAX package's XLA path; the engine-level plain reference);
+- ``"fused"`` (default): residuals through the hand-written
+  binned-correlation kernel (:mod:`..ops.binned_corr`);
+- ``"mega"``: residual base + GP coefficients through the whole-chunk
+  kernel (:mod:`..ops.megakernel`), which rebuilds the Fourier bases on
+  chip.
+
+Not ported yet: the device mesh, the run pipeline, checkpoints, the
+observability report, the OS / lnlike / serve-lane outputs, deterministic
+and sampled signals (CGW, Roemer), hyperparameter sampling and TOA
+sharding. The ``"det"`` stage name is accepted and adds nothing (there are
+no deterministic sources to add).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..batch import PulsarBatch, fourier_basis_norm
+from ..device import DeviceLike, resolve_device
+from ..ops import binned_corr as binned_corr_ops
+from ..ops import gwb as gwb_ops
+from ..ops import megakernel as mega_ops
+from ..utils import rng
+
+#: realizations per chunk (fakepta_tpu/tune/defaults.py DEFAULT_CHUNK)
+DEFAULT_CHUNK = 1024
+
+STAT_PATHS = ("einsum", "fused", "mega")
+STAGES = ("white", "ecorr", "red", "dm", "chrom", "sys", "gwb", "det")
+
+# key-domain tags, unchanged from the JAX engine: 0x51 noise, 0x6B GWB;
+# 0x9C hyperparameter sampling, 0xE1 white sampling and 0xD7 the OS null
+# stream are reserved for the lanes a later slice ports
+_NOISE_TAG = 0x51
+_GWB_TAG = 0x6B
+_HYPER_TAG = 0x9C
+_WHITE_TAG = 0xE1
+_NULL_TAG = 0xD7
+
+
+@dataclasses.dataclass(frozen=True)
+class GWBConfig:
+    """Common correlated signal: PSD on the grid n/Tspan_array, ORF name,
+    chromatic index ``idx`` at reference frequency ``freqf``. Pass a
+    sequence to inject several signals; config 0 keeps the single-signal
+    key stream."""
+
+    psd: np.ndarray
+    orf: str = "hd"
+    h_map: Optional[np.ndarray] = None
+    idx: float = 0.0
+    freqf: float = 1400.0
+
+
+def _as_config_list(x):
+    if x is None:
+        return []
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    return [x]
+
+
+def _chunk_keys(base_key: torch.Tensor, offset: int,
+                nreal: int) -> torch.Tensor:
+    """(nreal, 2) keys ``fold_in(base_key, offset + i)``: the absolute-index
+    stream, identical at any chunk size."""
+    idx = torch.arange(offset, offset + nreal, dtype=torch.int64,
+                       device=base_key.device)
+    return rng.fold_in(base_key, idx)
+
+
+def pack_stats(curves, autos, *extras):
+    """(n, nbins+1+...) packed statistic lanes: curves, the auto, extras."""
+    return torch.cat([curves, autos[:, None], *extras], dim=1)
+
+
+def unpack_stats(packed, nbins: int):
+    """Inverse of :func:`pack_stats`: (curves (n, nbins), autos (n,))."""
+    return packed[:, :nbins], packed[:, nbins]
+
+
+@dataclasses.dataclass(frozen=True)
+class _StageTerms:
+    """Per-stage weights and bases that do not depend on the realization
+    (the JAX package recomputes them inside each jitted chunk program)."""
+
+    red_w: torch.Tensor                   # (P, NR)
+    dm_w: torch.Tensor                    # (P, ND)
+    chrom_w: Optional[torch.Tensor]       # (P, NC)
+    sys_w: Optional[torch.Tensor]         # (P, B, NS)
+    sys_basis: Optional[torch.Tensor]     # (P, T, 2, NS)
+    gp_basis: Optional[torch.Tensor]      # (P, T, K) concatenated GP basis
+    gwb_group: Tuple[int, ...]            # config -> basis group
+    n_groups: int
+
+
+def _stage_terms(batch: PulsarBatch, gwb_ws, gwb_idxs, gwb_freqfs,
+                 include) -> _StageTerms:
+    """Weights and bases of ``_simulate_block``, in the JAX stage order:
+    red, dm, chrom, then one basis group per distinct GWB
+    ``(idx, freqf, ncomp)`` signature (configs sharing a group sum their
+    coefficients: the projection is linear)."""
+    (_, _, inc_red, inc_dm, inc_chrom, inc_sys, inc_gwb) = include
+    p, t = batch.t_own.shape
+    df = batch.df_own
+    red_w = torch.sqrt(batch.red_psd * df[:, None])
+    dm_w = torch.sqrt(batch.dm_psd * df[:, None])
+    chrom_w = sys_w = sys_basis = None
+    bases = []
+    if inc_red:
+        bases.append(fourier_basis_norm(batch.t_own, batch.red_psd.shape[1]))
+    if inc_dm:
+        bases.append(fourier_basis_norm(batch.t_own, batch.dm_psd.shape[1],
+                                        scale=(1400.0 / batch.freqs) ** 2))
+    if inc_chrom:
+        chrom_w = torch.sqrt(batch.chrom_psd * df[:, None])
+        bases.append(fourier_basis_norm(batch.t_own,
+                                        batch.chrom_psd.shape[1],
+                                        scale=(1400.0 / batch.freqs) ** 4))
+    if inc_sys:
+        sys_w = torch.sqrt(batch.sys_psd * df[:, None, None])
+        sys_basis = fourier_basis_norm(batch.t_own, batch.sys_psd.shape[2])
+    group, seen = [], {}
+    if inc_gwb:
+        for idx_j, freqf_j, w_j in zip(gwb_idxs, gwb_freqfs, gwb_ws):
+            sig = (idx_j, freqf_j, int(w_j.shape[0]))
+            if sig not in seen:
+                seen[sig] = len(seen)
+                scale = (freqf_j / batch.freqs) ** idx_j if idx_j else None
+                bases.append(fourier_basis_norm(batch.t_common, sig[2],
+                                                scale=scale))
+            group.append(seen[sig])
+    gp_basis = (torch.cat([b.reshape(p, t, -1) for b in bases], dim=-1)
+                if bases else None)
+    return _StageTerms(red_w, dm_w, chrom_w, sys_w, sys_basis, gp_basis,
+                       tuple(group), len(seen))
+
+
+def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
+                    include, terms: _StageTerms, split_gp: bool = False):
+    """Residual blocks for a chunk of realizations.
+
+    keys: (R, 2) per-realization keys. ``include`` is the 7-flag tuple
+    (white, ecorr, red, dm, chrom, sys, gwb). Returns (R, P, T) TOA-masked
+    residuals, or with ``split_gp=True`` (the megakernel contract) the
+    masked base without the GP projection and the (R, P, K) coefficients in
+    stage order. Draw keys, shapes and order are the JAX engine's, so the
+    two streams agree draw for draw.
+    """
+    (inc_white, inc_ecorr, inc_red, inc_dm, inc_chrom, inc_sys,
+     inc_gwb) = include
+    R = keys.shape[0]
+    p, T = batch.t_own.shape
+    dev = keys.device
+
+    # noise keys fold the 0x51 tag, then the GLOBAL pulsar index, then
+    # split six ways: (white, red, dm, chrom, ecorr, sys)
+    noise_root = rng.fold_in(keys, _NOISE_TAG)                      # (R, 2)
+    gidx = torch.arange(p, dtype=torch.int64, device=dev)
+    psr_keys = rng.split(rng.fold_in(noise_root[:, None, :], gidx), 6)
+    kw, kr, kd, kc, ke, ks = psr_keys.unbind(2)                     # (R,P,2)
+
+    res = torch.zeros((R, p, T), dtype=batch.dtype, device=dev)
+    if inc_white:
+        res = res + torch.sqrt(batch.sigma2) * rng.normal(kw, T)
+    if inc_ecorr:
+        # sigma^2 I + c^2 11^T per epoch == white plus ONE shared normal per
+        # epoch, indexed by the per-TOA epoch id
+        epoch_draws = rng.normal(ke, T)
+        shared = torch.gather(epoch_draws, 2,
+                              batch.epoch_idx.expand(R, p, T))
+        res = res + batch.ecorr_amp * shared
+    coeffs = []
+    if inc_red:
+        c = rng.normal(kr, (2, terms.red_w.shape[1])) \
+            * terms.red_w[:, None, :]
+        coeffs.append(c.reshape(R, p, -1))
+    if inc_dm:
+        c = rng.normal(kd, (2, terms.dm_w.shape[1])) * terms.dm_w[:, None, :]
+        coeffs.append(c.reshape(R, p, -1))
+    if inc_chrom:
+        c = rng.normal(kc, (2, terms.chrom_w.shape[1])) \
+            * terms.chrom_w[:, None, :]
+        coeffs.append(c.reshape(R, p, -1))
+    if inc_sys:
+        # per-(pulsar, band) GP on the shared basis, masked to the band
+        n_bands, n_sys = terms.sys_w.shape[1:]
+        c = rng.normal(ks, (n_bands, 2, n_sys)) \
+            * terms.sys_w[:, :, None, :]                      # (R,P,B,2,NS)
+        for b in range(n_bands):
+            contrib = torch.einsum("ptkn,rpkn->rpt", terms.sys_basis,
+                                   c[:, :, b])
+            res = res + torch.where(batch.sys_mask[:, b], contrib, 0.0)
+    if inc_gwb:
+        # one z per realization (not folded with the pulsar index): the
+        # (P x P) ORF coupling couples every pulsar's coefficients
+        tag = rng.fold_in(keys, _GWB_TAG)
+        gwb_c = [None] * terms.n_groups
+        for j, (chol_j, w_j) in enumerate(zip(chols, gwb_ws)):
+            kg = tag if j == 0 else rng.fold_in(tag, j)
+            zg = rng.normal(kg, (2, w_j.shape[0], p))            # (R,2,C,P)
+            corr = torch.matmul(zg, chol_j.T)
+            c = corr * w_j[None, None, :, None]
+            c = c.permute(0, 3, 1, 2).reshape(R, p, -1)          # (R,P,2C)
+            g = terms.gwb_group[j]
+            gwb_c[g] = c if gwb_c[g] is None else gwb_c[g] + c
+        coeffs.extend(gwb_c)
+    if split_gp:
+        c_all = (torch.cat(coeffs, dim=-1).contiguous() if coeffs
+                 else torch.zeros((R, p, 0), dtype=batch.dtype, device=dev))
+        return torch.where(batch.mask, res, 0.0), c_all
+    if coeffs:
+        c_all = torch.cat(coeffs, dim=-1)
+        res = res + torch.einsum("ptk,rpk->rpt", terms.gp_basis, c_all)
+    return torch.where(batch.mask, res, 0.0)
+
+
+def _correlation_rows(res: torch.Tensor, stats_bf16: bool = False):
+    """(R, P, P) raw pair-product sums, f32 accumulation; ``stats_bf16``
+    rounds the operands to bf16 first (the einsum path's bf16 mode)."""
+    if stats_bf16:
+        res = binned_corr_ops.round_bf16(res)
+    return torch.einsum("rpt,rqt->rpq", res, res)
+
+
+class EnsembleSimulator:
+    """Monte-Carlo engine on one device.
+
+    ``stat_path``: ``"einsum"``, ``"fused"`` (default) or ``"mega"`` (see
+    the module docstring). ``pallas_precision`` is the fused path's default
+    statistic precision (``'bf16'``: bf16 operands, f32 accumulation;
+    ``'f32'``: full f32); the mega and einsum paths default to ``'f32'``,
+    and ``run(precision=...)`` overrides per run. ``device`` defaults to
+    ``"cuda"`` and raises without a GPU unless ``device="cpu"``.
+    """
+
+    def __init__(self, batch: PulsarBatch,
+                 gwb: Optional[Union[GWBConfig, Sequence[GWBConfig]]] = None,
+                 include: Sequence[str] = ("white", "ecorr", "red", "dm",
+                                           "chrom", "sys", "gwb"),
+                 nbins: int = 15, stat_path: Optional[str] = None,
+                 pallas_precision: str = "bf16", device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if batch.dtype != torch.float32:
+            raise TypeError(f"the port runs float32 batches, got "
+                            f"{batch.dtype}")
+        unknown = sorted(set(include) - set(STAGES))
+        if unknown:
+            raise ValueError(f"unknown stages {unknown}; known: {STAGES}")
+        stat_path = "fused" if stat_path is None else stat_path
+        if stat_path not in STAT_PATHS:
+            raise ValueError(f"stat_path must be one of {STAT_PATHS}, got "
+                             f"{stat_path!r}")
+        if pallas_precision not in ("bf16", "f32"):
+            raise ValueError(f"pallas_precision must be 'bf16' or 'f32', "
+                             f"got {pallas_precision!r}")
+        self.stat_path = stat_path
+        self.pallas_precision = pallas_precision
+        self.batch = batch = batch.to(self.device)
+        self.nbins = nbins
+        dtype = batch.dtype
+        host = batch.numpy()
+
+        gwb_cfgs = _as_config_list(gwb)
+        if gwb_cfgs and "gwb" in include:
+            # 1/Tspan at the batch dtype, as the JAX engine forms it
+            df_common = 1.0 / batch.tspan_common
+            chols, ws = [], []
+            for cfg in gwb_cfgs:
+                orf = gwb_ops.build_orf(cfg.orf, host["pos"], cfg.h_map)
+                chols.append(torch.as_tensor(gwb_ops.orf_cholesky(orf))
+                             .to(dtype).to(self.device))
+                psd = torch.tensor(np.asarray(cfg.psd, dtype=np.float64)).to(dtype)
+                ws.append(torch.sqrt(psd.to(self.device) * df_common))
+            self._chol = tuple(chols)
+            self._gwb_w = tuple(ws)
+            self._gwb_idx = tuple(cfg.idx for cfg in gwb_cfgs)
+            self._gwb_freqf = tuple(cfg.freqf for cfg in gwb_cfgs)
+        else:
+            self._chol = (torch.eye(batch.npsr, dtype=dtype,
+                                    device=self.device),)
+            self._gwb_w = (torch.zeros((1,), dtype=dtype,
+                                       device=self.device),)
+            self._gwb_idx = (0.0,)
+            self._gwb_freqf = (1400.0,)
+
+        # optional stages enter only where their parameters are nonzero
+        has_chrom = bool(np.any(host["chrom_psd"] > 0.0))
+        has_ecorr = bool(np.any(host["ecorr_amp"] > 0.0))
+        has_sys = bool(np.any(host["sys_psd"] > 0.0))
+        self._include = (("white" in include),
+                         ("ecorr" in include and has_ecorr),
+                         ("red" in include), ("dm" in include),
+                         ("chrom" in include and has_chrom),
+                         ("sys" in include and has_sys),
+                         ("gwb" in include and bool(gwb_cfgs)))
+        self._terms = _stage_terms(batch, self._gwb_w, self._gwb_idx,
+                                   self._gwb_freqf, self._include)
+
+        # angular bins and pair-count normalization: host float64 setup,
+        # folded into static statistic weights
+        pos = np.asarray(host["pos"], dtype=np.float64)
+        ang = np.arccos(np.clip(pos @ pos.T, -1, 1))
+        edges = np.linspace(0.0, np.pi, nbins + 1)
+        bin_idx = np.clip(np.digitize(ang, edges) - 1, 0, nbins - 1)
+        offdiag = ~np.eye(batch.npsr, dtype=bool)
+        onehot = np.zeros((batch.npsr, batch.npsr, nbins))
+        onehot[np.arange(batch.npsr)[:, None], np.arange(batch.npsr)[None, :],
+               bin_idx] = 1.0
+        onehot *= offdiag[:, :, None]
+        self.bin_centers = edges[:-1] + 0.5 * (edges[1] - edges[0])
+        mask_np = np.asarray(host["mask"], dtype=np.float64)
+        raw_counts = mask_np @ mask_np.T
+        self.pair_counts = raw_counts
+        counts_full = np.maximum(raw_counts, 1.0)
+        bc = np.maximum(onehot.sum((0, 1)), 1.0)
+        w_bins = onehot / counts_full[:, :, None] / bc
+        w_auto = np.eye(batch.npsr) / counts_full / batch.npsr
+        self._counts = torch.as_tensor(counts_full).to(dtype) \
+            .to(self.device)
+        # one (nbins+1, P, P) stack for every path: slot n < nbins is
+        # onehot/(pair counts * bin count), slot nbins the auto trace
+        stack = np.concatenate([np.moveaxis(w_bins, 2, 0), w_auto[None]])
+        self._stat_weights = torch.tensor(stack).to(dtype).to(
+            self.device).contiguous()
+        self._mega_tables = self._build_mega_tables()
+
+    @property
+    def include(self) -> Tuple[bool, ...]:
+        return self._include
+
+    def _build_mega_tables(self):
+        """Stage descriptors + (2, P, T) time and (S, P, T) scale tables for
+        the megakernel, in ``_simulate_block``'s GP stage order and GWB
+        basis-group dedup; scale rows carry the TOA mask."""
+        batch = self.batch
+        rows, row_idx = [], {}
+
+        def scale_row(key, build):
+            if key not in row_idx:
+                row_idx[key] = len(rows)
+                rows.append(torch.where(batch.mask, build(), 0.0)
+                            .to(batch.dtype))
+            return row_idx[key]
+
+        plain = scale_row(("plain",), lambda: torch.ones(
+            (), dtype=batch.dtype, device=self.device))
+        stages = []
+        (_, _, inc_red, inc_dm, inc_chrom, _, inc_gwb) = self._include
+        T_OWN, T_COMMON = mega_ops.T_OWN, mega_ops.T_COMMON
+        if inc_red:
+            stages.append(mega_ops.MegaStage(batch.red_psd.shape[1], T_OWN,
+                                             plain))
+        if inc_dm:
+            stages.append(mega_ops.MegaStage(
+                batch.dm_psd.shape[1], T_OWN,
+                scale_row(("chrom", 2.0),
+                          lambda: (1400.0 / batch.freqs) ** 2)))
+        if inc_chrom:
+            stages.append(mega_ops.MegaStage(
+                batch.chrom_psd.shape[1], T_OWN,
+                scale_row(("chrom", 4.0),
+                          lambda: (1400.0 / batch.freqs) ** 4)))
+        if inc_gwb:
+            seen = set()
+            for idx_j, freqf_j, w_j in zip(self._gwb_idx, self._gwb_freqf,
+                                           self._gwb_w):
+                sig = (idx_j, freqf_j, int(w_j.shape[0]))
+                if sig in seen:
+                    continue
+                seen.add(sig)
+                scol = plain if not idx_j else scale_row(
+                    ("gwb", idx_j, freqf_j),
+                    lambda f=freqf_j, i=idx_j: (f / batch.freqs) ** i)
+                stages.append(mega_ops.MegaStage(sig[2], T_COMMON, scol))
+        times = torch.stack([batch.t_own, batch.t_common]).contiguous()
+        return tuple(stages), times, torch.stack(rows).contiguous()
+
+    def _resolve_precision(self, path: str, precision) -> str:
+        if precision is None:
+            return self.pallas_precision if path == "fused" else "f32"
+        if precision not in ("f32", "bf16"):
+            raise ValueError(f"precision must be 'f32' or 'bf16', got "
+                             f"{precision!r}")
+        return precision
+
+    def _stat_lanes(self, corr: torch.Tensor):
+        """Curve + auto lanes from (R, P, P) raw pair sums: one contraction
+        against the combined weight stack, as the kernels bin."""
+        out = torch.einsum("rpq,npq->rn", corr, self._stat_weights)
+        return unpack_stats(out, self.nbins)
+
+    def _residuals(self, keys, split_gp=False):
+        return _simulate_block(keys, self.batch, self._chol, self._gwb_w,
+                               self._include, self._terms, split_gp=split_gp)
+
+    def step(self, base_key: torch.Tensor, offset: int, nreal: int,
+             path: str, precision: str, with_corr: bool = False):
+        """One chunk: (packed (nreal, nbins+1) statistics, corr or None)."""
+        keys = _chunk_keys(base_key, offset, nreal)
+        if path == "einsum":
+            corr = _correlation_rows(self._residuals(keys),
+                                     stats_bf16=precision == "bf16")
+            curves, autos = self._stat_lanes(corr)
+            return (pack_stats(curves, autos),
+                    corr / self._counts if with_corr else None)
+        if path == "fused":
+            res = self._residuals(keys)
+            curves, autos = binned_corr_ops.binned_correlation(
+                res, res, self._stat_weights, self.nbins,
+                precision=precision)
+            return pack_stats(curves, autos), None
+        base, coefs = self._residuals(keys, split_gp=True)
+        if precision == "bf16":
+            # bf16 STORAGE of the kernel's two big reads; the projection and
+            # every accumulation stay f32 inside the kernel
+            base = base.to(torch.bfloat16)
+            coefs = coefs.to(torch.bfloat16)
+        stages, times, scales = self._mega_tables
+        curves, autos = mega_ops.chunk_stats(
+            base, coefs, times, scales, self._stat_weights, stages=stages,
+            nbins=self.nbins, precision=precision)
+        return pack_stats(curves, autos), None
+
+    def run(self, nreal: int, seed: int = 0, chunk: int = DEFAULT_CHUNK,
+            keep_corr: bool = False,
+            precision: Optional[str] = None) -> dict:
+        """Run the ensemble in chunks of ``chunk`` realizations.
+
+        Returns numpy ``curves`` (nreal, nbins), ``autos`` (nreal,),
+        ``bin_centers`` (nbins,) and, with ``keep_corr`` (which takes the
+        einsum path), ``corr`` (nreal, P, P) normalized pair correlations.
+        Every chunk runs at the full chunk size (the last one overshoots and
+        is truncated).
+        """
+        path = "einsum" if keep_corr else self.stat_path
+        prec = self._resolve_precision(path, precision)
+        nreal = int(nreal)
+        if nreal <= 0:
+            raise ValueError(f"nreal must be > 0, got {nreal}")
+        chunk = max(1, min(int(chunk), nreal))
+        base = rng.key(seed, device=self.device)
+        packed, corrs = [], []
+        with torch.no_grad():
+            for offset in range(0, nreal, chunk):
+                p, c = self.step(base, offset, chunk, path, prec,
+                                 with_corr=keep_corr)
+                packed.append(p)
+                if keep_corr:
+                    corrs.append(c)
+            packed_h = torch.cat(packed)[:nreal].cpu().numpy()
+        if not np.isfinite(packed_h).all():
+            raise FloatingPointError("run produced non-finite statistics")
+        curves, autos = unpack_stats(packed_h, self.nbins)
+        out = {"curves": curves, "autos": autos,
+               "bin_centers": np.asarray(self.bin_centers),
+               "statistic_path": path, "precision": prec}
+        if keep_corr:
+            out["corr"] = torch.cat(corrs)[:nreal].cpu().numpy()
+        return out

@@ -1,0 +1,1 @@
+"""scenarios layer of the PyTorch port (mirrors fakepta_tpu.scenarios)."""

@@ -1,0 +1,123 @@
+"""The PyTorch port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
+without one (a CUDA kernel has no CPU mode). The file imports neither JAX
+nor fakepta_tpu, so it runs on a machine that has only the port's
+dependencies; tests/conftest.py imports JAX, so on such a machine run
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fakepta_tpu_torch import spectrum as spectrum_lib
+from fakepta_tpu_torch.batch import PulsarBatch
+from fakepta_tpu_torch.ops import binned_corr as bc
+from fakepta_tpu_torch.ops import megakernel as mk
+from fakepta_tpu_torch.ops.megakernel import T_COMMON, T_OWN, MegaStage
+from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
+                                                   GWBConfig)
+
+TOL = {"f32": 1e-5, "bf16": 1e-2}
+STAGES = (MegaStage(4, T_OWN, 0), MegaStage(3, T_OWN, 1),
+          MegaStage(4, T_COMMON, 0))
+
+
+@pytest.fixture
+def cuda():
+    """The card, or a skip: decided per test, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_close(got, want, prec):
+    (gc, ga), (wc, wa) = ([np.asarray(torch.as_tensor(x).cpu(), np.float64)
+                           for x in pair] for pair in (got, want))
+    scale = np.abs(np.concatenate([wc.ravel(), wa.ravel()])).max()
+    np.testing.assert_allclose(gc, wc, rtol=0, atol=TOL[prec] * scale)
+    np.testing.assert_allclose(ga, wa, rtol=0, atol=TOL[prec] * scale)
+
+
+def _mega_inputs(seed, R, P, T, nbins=5):
+    rng = np.random.default_rng(seed)
+    K = mk.stage_k(STAGES)
+    t_own = np.tile(np.linspace(0.0, 1.0, T), (P, 1))
+    mask = np.ones((P, T))
+    mask[:, -5:] = 0.0
+    return (rng.standard_normal((R, P, T)) * mask[None],
+            rng.standard_normal((R, P, K)), np.stack([t_own, 0.9 * t_own]),
+            np.stack([mask, mask * 1.7]),
+            rng.standard_normal((nbins + 1, P, P)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("R,PL,PF,T", [(6, 20, 20, 100), (3, 130, 130, 50),
+                                       (2, 12, 40, 33)])
+def test_binned_correlation_kernel_matches_plain(cuda, prec, R, PL, PF, T):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    res_f = torch.randn(R, PF, T, device=cuda, generator=g)
+    res_l = res_f if PL == PF else torch.randn(R, PL, T, device=cuda,
+                                               generator=g)
+    w = torch.randn(7, PL, PF, device=cuda, generator=g)
+    before = bc.launches
+    got = bc.binned_correlation(res_l, res_f, w, 6, precision=prec)
+    torch.cuda.synchronize()
+    assert bc.launches == before + 1
+    want = bc.binned_correlation_plain(res_l, res_f, w, 6, precision=prec)
+    _assert_close(got, want, prec)
+    again = bc.binned_correlation(res_l, res_f, w, 6, precision=prec)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("R,P,T", [(5, 6, 48), (3, 130, 40)])
+def test_chunk_stats_kernel_matches_plain(cuda, prec, R, P, T):
+    base, coef, times, scales, w = _mega_inputs(7, R, P, T)
+    dt = torch.float32 if prec == "f32" else torch.bfloat16
+    args = [torch.tensor(base).to(dt).to(cuda),
+            torch.tensor(coef).to(dt).to(cuda)] + \
+        [torch.tensor(x).float().to(cuda) for x in (times, scales, w)]
+    before = mk.launches
+    got = mk.chunk_stats(*args, stages=STAGES, nbins=5, precision=prec)
+    torch.cuda.synchronize()
+    assert mk.launches == before + 1
+    want = mk.chunk_stats_plain(*args, stages=STAGES, nbins=5,
+                                precision=prec)
+    _assert_close(got, want, prec)
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    res = torch.randn(2, 8, 16, device=cuda)
+    w = torch.randn(3, 8, 8, device=cuda)
+    with pytest.raises(TypeError):
+        bc.binned_correlation(res.double(), res.double(), w, 2)
+    with pytest.raises(ValueError):
+        bc.binned_correlation(res.transpose(1, 2), res, w, 2)
+    with pytest.raises(ValueError):
+        bc.binned_correlation(res, res, w[:, :4], 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "mega"])
+def test_engine_on_the_card_matches_the_cpu(cuda, path):
+    batch = PulsarBatch.synthetic(npsr=8, ntoa=64, tspan_years=10.0,
+                                  n_red=4, n_dm=4, seed=1, device="cpu")
+    f = np.arange(1, 5) / float(batch.tspan_common)
+    gwb = GWBConfig(psd=spectrum_lib.powerlaw(f, log10_A=-13.5,
+                                              gamma=13 / 3).numpy())
+    want = EnsembleSimulator(batch, gwb=gwb, stat_path="einsum",
+                             device="cpu").run(16, seed=3, chunk=8)
+    sim = EnsembleSimulator(batch, gwb=gwb, stat_path=path, device=cuda)
+    got = sim.run(16, seed=3, chunk=8, precision="f32")
+    _assert_close((got["curves"], got["autos"]),
+                  (want["curves"], want["autos"]), "f32")
+    again = sim.run(16, seed=3, chunk=4, precision="f32")
+    np.testing.assert_array_equal(got["curves"], again["curves"])

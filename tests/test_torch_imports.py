@@ -1,0 +1,95 @@
+"""The PyTorch port stands alone: no JAX, no fakepta_tpu, no silent CPU."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "fakepta_tpu_torch"
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "fakepta_tpu")
+IMPORT_RE = re.compile(
+    r"^\s*(?:from|import)\s+(jax|jaxlib|fakepta_tpu)(?![\w])", re.M)
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN_ROOTS!r})\n"
+        "print(bad)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_source_has_no_jax_import(path):
+    src = (ROOT / path).read_text()
+    hits = IMPORT_RE.findall(src)
+    assert not hits, f"{path} imports {hits}"
+    assert "__import__(\"jax" not in src and "import_module(\"jax" not in src
+
+
+def test_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+    from fakepta_tpu_torch.scenarios.registry import flagship_batch
+    from fakepta_tpu_torch.utils import rng
+
+    kw = dict(npsr=4, ntoa=16, n_red=2, n_dm=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rng.key(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PulsarBatch.synthetic(**kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        flagship_batch()
+    batch = PulsarBatch.synthetic(**kw, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EnsembleSimulator(batch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch.to("cuda")
+    # asking for the CPU explicitly works
+    out = EnsembleSimulator(batch, device="cpu").run(2, seed=0, chunk=2)
+    assert out["curves"].shape == (2, 15)
+
+
+def test_package_data_ships_the_cuda_sources():
+    """A non-editable install carries every source the kernels build from."""
+    import fnmatch
+    import tomllib
+
+    cfg = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    patterns = cfg["tool"]["setuptools"]["package-data"]["fakepta_tpu_torch"]
+    sources = sorted(str(p.relative_to(PORT)) for p in
+                     [*PORT.glob("csrc/*.cu"), *PORT.glob("csrc/*.cuh")])
+    assert sources
+    for src in sources:
+        assert any(fnmatch.fnmatch(src, pat) for pat in patterns), src
+    from fakepta_tpu_torch.ops import _build
+    assert _build.BUILD_DIR.is_relative_to(PORT) or \
+        os.environ.get("FAKEPTA_TORCH_BUILD_DIR")
