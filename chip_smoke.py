@@ -12,18 +12,31 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
 2. ``kernels``: at the flagship shapes (R = 1024 realizations, 100 pulsars,
    780 TOAs), hold each kernel against its plain torch version on the same
    inputs, at both precisions, and time kernel, plain version, the
-   byte/FLOP bound and (where one exists) a single PyTorch library call.
+   byte/FLOP bound and (where one exists) a single PyTorch library call;
+   the sharded kernels at a psr shard's rows (PL = 25 or 50) against the
+   whole array.
 3. ``engine``: run ``EnsembleSimulator`` on the flagship batch with an HD
    background for ``stat_path`` ``"fused"`` and ``"mega"`` at ``'f32'`` and
    ``'bf16'``; each must agree with the ``"einsum"`` path, rerun
    bit-identically and launch its kernel (launch counts are zeroed just
    before these runs and read just after). A small array is also held
    against the CPU engine.
-4. ``profile`` (only when asked for): per statistic path, the device time
+4. ``mesh``: the flagship batch on ``make_mesh(["cuda:0"] * S,
+   psr_shards=S)`` for S = 2 and 4, every path (einsum, fused, fused with
+   ``pallas_mxu_binning=False``, mega) at both precisions: each must agree
+   with the 1-shard einsum run, rerun bit-identically and launch its
+   kernel once per shard and chunk (counts zeroed just before, read just
+   after). The shards of such a mesh run one after another on the one
+   card. A small array at one pulsar per shard is held against the CPU
+   engine on the same mesh shape.
+5. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
-   assembly and the statistic, plus torch.profiler's busiest kernels.
+   assembly and the statistic, plus torch.profiler's busiest kernels; then
+   one 4-shard einsum chunk's host enqueue time against each card's busy
+   time (over ``--mesh-cards`` cards).
 
-The last lines are the kernel table as JSON, the card line, and
+The last lines are the kernel table as JSON (one entry per kernel and
+shape the main path launched it at), the card line, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 Details go to ``build/chip_smoke.json`` too.
@@ -50,6 +63,13 @@ PEAK_BF16_FLOPS = 989e12
 NREAL = 4096
 CHUNK = 1024
 TOL = {"f32": 1e-5, "bf16": 1e-2}
+# the mesh phase: psr shard counts on one card, a shorter run, and the JAX
+# package's own mesh-invariance bounds
+MESH_SHARDS = (2, 4)
+MESH_NREAL = 2048
+MESH_TOL = {"f32": 1e-5, "bf16": 5e-3}
+# a psr shard's rows in the kernel rows (100 pulsars over 4 and 2 shards)
+SHARD_PL = (25, 50)
 
 
 def card_line() -> str:
@@ -104,10 +124,10 @@ def stat_flops(R: int, PL: int, PF: int, T: int, NB: int, shared: bool):
     return 2.0 * R * pairs * T, 2.0 * R * NB * pairs
 
 
-def compare(got, want, prec: str, what: str) -> dict:
+def compare(got, want, prec: str, what: str, tol=None) -> dict:
     """Max abs/rel error of (curves, autos) against a reference; raises
-    past the tolerance (TOL * max |reference curve| for the curves,
-    relative TOL for the autos)."""
+    past the tolerance (``tol``, default TOL[prec], times max |reference
+    curve| for the curves, relative for the autos)."""
     import torch
     gc, ga = (torch.as_tensor(x).double().cpu() for x in got)
     wc, wa = (torch.as_tensor(x).double().cpu() for x in want)
@@ -120,7 +140,7 @@ def compare(got, want, prec: str, what: str) -> dict:
     err_c = float((gc - wc).abs().max())
     err_a = float((ga - wa).abs().max())
     rel_a = float(((ga - wa).abs() / wa.abs()).max())
-    tol = TOL[prec]
+    tol = TOL[prec] if tol is None else tol
     row = {"what": what, "precision": prec, "max_abs_err": max(err_c, err_a),
            "curves_err_over_scale": err_c / scale, "autos_rel_err": rel_a,
            "tolerance": tol}
@@ -131,18 +151,62 @@ def compare(got, want, prec: str, what: str) -> dict:
     return row
 
 
-def flagship_sim(stat_path: str, device: str = "cuda"):
+def flagship_sim(stat_path: str, mesh=None, **kw):
+    """The flagship batch with an HD background, on ``mesh`` (default: a
+    1x1 mesh on the card)."""
     from fakepta_tpu_torch import spectrum as spectrum_lib
     from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
                                                        GWBConfig)
     from fakepta_tpu_torch.scenarios.registry import FLAGSHIP, flagship_batch
-    batch = flagship_batch(device=device)
+    batch = flagship_batch(device="cuda")
     tspan = float(batch.tspan_common)
     f = np.arange(1, FLAGSHIP.gwb_ncomp + 1) / tspan
     psd = spectrum_lib.powerlaw(f, log10_A=FLAGSHIP.gwb_log10_A,
                                 gamma=FLAGSHIP.gwb_gamma).numpy()
+    if mesh is None:
+        kw["device"] = "cuda"
     return EnsembleSimulator(batch, gwb=GWBConfig(psd=psd, orf="hd"),
-                             stat_path=stat_path, device=device)
+                             stat_path=stat_path, mesh=mesh, **kw)
+
+
+def small_gwb(batch):
+    """An HD background on a small test array's grid (4 bins)."""
+    from fakepta_tpu_torch import spectrum as spectrum_lib
+    from fakepta_tpu_torch.parallel.montecarlo import GWBConfig
+    f = np.arange(1, 5) / float(batch.tspan_common)
+    return GWBConfig(psd=spectrum_lib.powerlaw(f, log10_A=-13.5,
+                                               gamma=13 / 3).numpy())
+
+
+def counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from fakepta_tpu_torch.ops import binned_corr as bc
+    from fakepta_tpu_torch.ops import megakernel as mk
+    return {"binned_correlation": bc.launches,
+            "binned_correlation_vpu": bc.vpu_launches,
+            "chunk_stats": mk.launches,
+            "chunk_stats_sharded": mk.sharded_launches}
+
+
+def shape_tag(pl: int, pf: int) -> str:
+    return f"PL={pl} PF={pf}"
+
+
+def add_launches(report: dict, shape: str, moved: dict) -> None:
+    """Add main-path launch counts ``{kernel: n}`` made at ``shape`` to
+    ``report["launches_by_shape"][kernel][shape]``."""
+    by = report.setdefault("launches_by_shape", {})
+    for name, n in moved.items():
+        if n:
+            by.setdefault(name, {})
+            by[name][shape] = by[name].get(shape, 0) + n
+
+
+def reset_counts() -> None:
+    from fakepta_tpu_torch.ops import binned_corr as bc
+    from fakepta_tpu_torch.ops import megakernel as mk
+    bc.launches = bc.vpu_launches = 0
+    mk.launches = mk.sharded_launches = 0
 
 
 def phase_build(report: dict) -> None:
@@ -158,6 +222,41 @@ def phase_build(report: dict) -> None:
                 print(f"  {name}: {line.strip()}")
     for name in _build.KERNELS:
         _build.load(name)
+
+
+def kernel_rows(rows: dict, name: str, tag: str, kernel, plain, library,
+                nbytes, flops, iters: int,
+                precs=("bf16", "f32")) -> None:
+    """Hold ``kernel(prec)`` against ``plain(prec)`` at each precision and
+    time kernel, plain version and ``library`` (one PyTorch call, or None)
+    beside the bound from ``nbytes(prec)`` and ``flops(prec)`` ((fp32
+    FLOPs, bf16 FLOPs)). Rows go to ``rows[(name, prec, tag)]``."""
+    import torch
+    kernel_ms = in_turns({p: (lambda p=p: kernel(p)) for p in precs}, iters)
+    plain_ms = in_turns({p: (lambda p=p: plain(p)) for p in precs},
+                        max(5, iters // 2))
+    library_ms = time_ms(library, 10) if library is not None else None
+    for prec in precs:
+        got = kernel(prec)
+        want = plain(prec)
+        torch.cuda.synchronize()
+        row = compare(got, want, prec, f"{name} {tag} vs plain")
+        row.update(ms=kernel_ms[prec], plain_ms=plain_ms[prec],
+                   library_ms=library_ms, shape=tag)
+        row["bound_ms"], row["bound_by"] = bound(nbytes(prec),
+                                                 *flops(prec))
+        rows[(name, prec, tag)] = row
+        lib = ("" if library_ms is None
+               else f", library {library_ms:.4f} ms")
+        print(f"  {name} {tag} [{prec}]: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms{lib}, bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']})", flush=True)
+
+
+def corr_flops_split(prec: str, corr: float, other: float):
+    """(fp32, bf16) FLOPs: the correlation counts at the bf16 tensor-core
+    rate in the bf16 mode, everything else at fp32."""
+    return ((other + corr, 0.0) if prec == "f32" else (other, corr))
 
 
 def phase_kernels(report: dict) -> None:
@@ -179,84 +278,82 @@ def phase_kernels(report: dict) -> None:
     R, P, T = res.shape
     NB = w.shape[0]
     K = mk.stage_k(stages)
+    S = scales.shape[0]
     print(f"kernels: R={R} P={P} T={T} K={K} NB={NB}", flush=True)
     rows = {}
 
-    # -- binned_correlation --------------------------------------------
-    kernel_ms = in_turns({p: (lambda p=p: bc.binned_correlation(
-        res, res, w, nbins, precision=p)) for p in ("bf16", "f32")}, 20)
-    plain_ms = in_turns({p: (lambda p=p: bc.binned_correlation_plain(
-        res, res, w, nbins, precision=p)) for p in ("bf16", "f32")}, 10)
-    library_ms = time_ms(lambda: torch.einsum("rpt,rqt,npq->rn", res, res,
-                                              w), 10)
-    for prec in ("bf16", "f32"):
-        got = bc.binned_correlation(res, res, w, nbins, precision=prec)
-        want = bc.binned_correlation_plain(res, res, w, nbins,
-                                           precision=prec)
-        torch.cuda.synchronize()
-        row = compare(got, want, prec, "binned_correlation vs plain")
-        row["ms"] = kernel_ms[prec]
-        row["plain_ms"] = plain_ms[prec]
-        row["library_ms"] = library_ms
-        # the main path passes one operand set: res_local is res_full
-        corr_flops, bin_flops = stat_flops(R, P, P, T, NB, shared=True)
-        nbytes = 4.0 * (R * P * T + NB * P * P + R * NB)
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, bin_flops + (corr_flops if prec == "f32" else 0.0),
-            corr_flops if prec == "bf16" else 0.0)
-        rows[("binned_correlation", prec)] = row
-        print(f"  binned_correlation [{prec}]: kernel {row['ms']:.4f} ms, "
-              f"plain {row['plain_ms']:.4f} ms, library "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
+    def local(x, pl):
+        """A psr shard's first pl rows, as a tensor of their own."""
+        return x[:, :pl].contiguous()
 
-    # -- chunk_stats ----------------------------------------------------
+    # -- binned_correlation (#1) and its mxu_binning=False variant (#2) --
+    # shared: the single-device path's one operand set (symmetric block);
+    # PL < PF: a psr shard's rows against the gathered array, at each shard
+    # width the mesh phase launches
+    for name, fn in (("binned_correlation", bc.binned_correlation),
+                     ("binned_correlation_vpu", bc.binned_correlation_vpu)):
+        for pl in (P,) + SHARD_PL:
+            shared = pl == P
+            res_l, w_l = (res, w) if shared else (local(res, pl),
+                                                  local(w, pl))
+            corr, binf = stat_flops(R, pl, P, T, NB, shared=shared)
+            nbytes = 4.0 * (R * (pl if shared else pl + P) * T
+                            + NB * pl * P + R * NB)
+            kernel_rows(
+                rows, name, shape_tag(pl, P),
+                lambda p, fn=fn, a=res_l, ww=w_l: fn(a, res, ww, nbins,
+                                                     precision=p),
+                lambda p, a=res_l, ww=w_l: bc.binned_correlation_plain(
+                    a, res, ww, nbins, precision=p),
+                lambda a=res_l, ww=w_l: torch.einsum("rpt,rqt,npq->rn", a,
+                                                     res, ww),
+                lambda p, n=nbytes: n,
+                lambda p, c=corr, b=binf: corr_flops_split(p, c, b),
+                iters=20)
+
+    # -- chunk_stats: shared set (#3), local+full set (#4) ----------------
     # the bf16 mode stores base and coefficients in bfloat16, as the engine
     operands = {"f32": (base, coefs),
                 "bf16": (base.to(torch.bfloat16), coefs.to(torch.bfloat16))}
-    kernel_ms = in_turns({p: (lambda p=p: mk.chunk_stats(
-        *operands[p], times, scales, w, stages=stages, nbins=nbins,
-        precision=p)) for p in ("f32", "bf16")}, 5)
-    plain_ms = in_turns({p: (lambda p=p: mk.chunk_stats_plain(
-        *operands[p], times, scales, w, stages=stages, nbins=nbins,
-        precision=p)) for p in ("f32", "bf16")}, 5)
-    for prec in ("f32", "bf16"):
-        got = mk.chunk_stats(*operands[prec], times, scales, w,
-                             stages=stages, nbins=nbins, precision=prec)
-        want = mk.chunk_stats_plain(*operands[prec], times, scales, w,
-                                    stages=stages, nbins=nbins,
-                                    precision=prec)
-        torch.cuda.synchronize()
-        row = compare(got, want, prec, "chunk_stats vs plain")
-        row["ms"] = kernel_ms[prec]
-        row["plain_ms"] = plain_ms[prec]
-        row["library_ms"] = None
-        sb = 4 if prec == "f32" else 2
-        nbytes = (sb * (R * P * T + R * P * K)
-                  + 4.0 * ((2 + scales.shape[0]) * P * T + NB * P * P
-                           + R * NB))
-        proj_flops = 2.0 * R * P * K * T
-        corr_flops, bin_flops = stat_flops(R, P, P, T, NB, shared=True)
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes,
-            proj_flops + bin_flops + (corr_flops if prec == "f32" else 0.0),
-            corr_flops if prec == "bf16" else 0.0)
-        rows[("chunk_stats", prec)] = row
-        print(f"  chunk_stats [{prec}]: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
-    report["kernels"] = {f"{k[0]}/{k[1]}": v for k, v in rows.items()}
+    for pl in (P,) + SHARD_PL:
+        shared = pl == P
+        name = "chunk_stats" if shared else "chunk_stats_sharded"
+        if shared:
+            kw = {p: {} for p in operands}
+            w_l = w
+        else:
+            kw = {p: dict(base_local=local(operands[p][0], pl),
+                          coef_local=local(operands[p][1], pl),
+                          times_local=local(times, pl),
+                          scales_local=local(scales, pl))
+                  for p in operands}
+            w_l = local(w, pl)
+        rows_read = pl if shared else pl + P
+        corr, binf = stat_flops(R, pl, P, T, NB, shared=shared)
+        proj = 2.0 * R * rows_read * K * T
+        kernel_rows(
+            rows, name, shape_tag(pl, P),
+            lambda p, kw=kw, ww=w_l: mk.chunk_stats(
+                *operands[p], times, scales, ww, stages=stages, nbins=nbins,
+                precision=p, **kw[p]),
+            lambda p, kw=kw, ww=w_l: mk.chunk_stats_plain(
+                *operands[p], times, scales, ww, stages=stages, nbins=nbins,
+                precision=p, **kw[p]),
+            None,
+            lambda p, n=rows_read, pl=pl: (
+                (4 if p == "f32" else 2) * R * n * (T + K)
+                + 4.0 * ((2 + S) * n * T + NB * pl * P + R * NB)),
+            lambda p, c=corr, b=binf, j=proj: corr_flops_split(p, c, b + j),
+            iters=5, precs=("f32", "bf16"))
+    report["kernels"] = {"/".join(k): v for k, v in rows.items()}
     # launches made to compare with the plain versions do not count
-    bc.launches = 0
-    mk.launches = 0
+    reset_counts()
 
 
 def phase_engine(report: dict) -> None:
     import torch
-    from fakepta_tpu_torch.ops import binned_corr as bc
-    from fakepta_tpu_torch.ops import megakernel as mk
 
-    counters = {"fused": bc, "mega": mk}
+    counters = {"fused": "binned_correlation", "mega": "chunk_stats"}
     nchunks = -(-NREAL // CHUNK)
     sims = {p: flagship_sim(p) for p in ("einsum", "fused", "mega")}
 
@@ -274,27 +371,28 @@ def phase_engine(report: dict) -> None:
           f"({dt:.3f} s for {NREAL})", flush=True)
 
     # the main path: launch counts zeroed just before, read just after
-    bc.launches = 0
-    mk.launches = 0
+    reset_counts()
     runs = {}
     for path in ("fused", "mega"):
         for prec in ("f32", "bf16"):
-            mod = counters[path]
-            before = mod.launches
+            before = counts()
             sims[path].run(CHUNK, seed=99, chunk=CHUNK, precision=prec)
             out, dt = timed_run(sims[path], prec)
             again = sims[path].run(NREAL, seed=1, chunk=CHUNK,
                                    precision=prec)
-            launched = mod.launches - before
-            runs[(path, prec)] = (out, again, dt, launched)
-    launches = {"binned_correlation": bc.launches,
-                "chunk_stats": mk.launches}
+            moved = {k: v - before[k] for k, v in counts().items()
+                     if v != before[k]}
+            runs[(path, prec)] = (out, again, dt, moved)
+    launches = counts()
+    npsr = sims["fused"].batch.npsr
+    add_launches(report, shape_tag(npsr, npsr), launches)
 
-    for (path, prec), (out, again, dt, launched) in runs.items():
-        if launched != 1 + 2 * nchunks:
-            raise AssertionError(f"{path} [{prec}] launched its kernel "
-                                 f"{launched} times, expected "
-                                 f"{1 + 2 * nchunks}")
+    for (path, prec), (out, again, dt, moved) in runs.items():
+        launched = moved.get(counters[path], 0)
+        if moved != {counters[path]: 1 + 2 * nchunks}:
+            raise AssertionError(f"{path} [{prec}] launched {moved}, "
+                                 f"expected {counters[path]} "
+                                 f"{1 + 2 * nchunks} times")
         row = compare((out["curves"], out["autos"]),
                       (ref["curves"], ref["autos"]), prec,
                       f"engine {path} vs einsum")
@@ -313,18 +411,13 @@ def phase_engine(report: dict) -> None:
               f"({dt:.3f} s), {launched} launches, rerun bit-identical",
               flush=True)
     report["engine"] = eng
-    report["launches"] = launches
 
     # a small array against the CPU engine (the plain versions)
     from fakepta_tpu_torch.batch import PulsarBatch
-    from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
-                                                       GWBConfig)
+    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
     small = PulsarBatch.synthetic(npsr=8, ntoa=64, tspan_years=10.0,
                                   n_red=4, n_dm=4, seed=1, device="cpu")
-    from fakepta_tpu_torch import spectrum as spectrum_lib
-    f = np.arange(1, 5) / float(small.tspan_common)
-    gwb = GWBConfig(psd=spectrum_lib.powerlaw(f, log10_A=-13.5,
-                                              gamma=13 / 3).numpy())
+    gwb = small_gwb(small)
     cpu = EnsembleSimulator(small, gwb=gwb, stat_path="einsum",
                             device="cpu").run(64, seed=3, chunk=32)
     for path in ("fused", "mega"):
@@ -336,10 +429,105 @@ def phase_engine(report: dict) -> None:
                 f"small array: cuda {path} vs cpu einsum")
 
 
-def phase_profile(report: dict) -> None:
+def phase_mesh(report: dict, cards: int = 1) -> None:
+    """The flagship batch on ``make_mesh(["cuda:0"] * S, psr_shards=S)``
+    for every statistic path at both precisions, held against the 1-shard
+    einsum run, rerun bit-identically, with each path's kernel launched
+    once per shard and chunk; then a small array at one pulsar per shard
+    against the CPU engine on the same mesh shape. With ``cards`` > 1 the
+    flagship meshes span that many cards instead (the rest of the factor
+    goes to the real axis), so shards run on cards of their own."""
+    import torch
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+
+    nchunks = -(-MESH_NREAL // CHUNK)
+    counters = {"einsum": (), "fused": ("binned_correlation",),
+                "fused-vpu": ("binned_correlation_vpu",),
+                "mega": ("chunk_stats_sharded",)}
+    ref_sim = flagship_sim("einsum")
+    refs = {p: ref_sim.run(MESH_NREAL, seed=5, chunk=CHUNK, precision=p)
+            for p in ("f32", "bf16")}
+
+    def sim_for(path, shards):
+        devices = (["cuda:0"] * shards if cards == 1
+                   else [f"cuda:{i}" for i in range(cards)])
+        return flagship_sim(path.split("-")[0],
+                            mesh=make_mesh(devices, psr_shards=shards),
+                            pallas_mxu_binning=path != "fused-vpu")
+
+    where = ("shards run one after another on one card" if cards == 1
+             else f"over {cards} cards")
+
+    sims = {(path, s): sim_for(path, s)
+            for s in MESH_SHARDS for path in counters}
+    torch.cuda.synchronize()
+
+    # the sharded path: launch counts zeroed just before, read just after
+    reset_counts()
+    rows = {}
+    for (path, shards), sim in sims.items():
+        for prec in ("f32", "bf16"):
+            before = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sim.run(MESH_NREAL, seed=5, chunk=CHUNK, precision=prec)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            again = sim.run(MESH_NREAL, seed=5, chunk=CHUNK, precision=prec)
+            moved = {k: v - before[k] for k, v in counts().items()
+                     if v != before[k]}
+            # once per chunk, real shard and psr shard, in each of 2 runs
+            n_real = sim.mesh.shape["real"]
+            want = {k: 2 * nchunks * n_real * shards
+                    for k in counters[path]}
+            if moved != want:
+                raise AssertionError(f"mesh {path} x{shards} [{prec}] "
+                                     f"launched {moved}, expected {want}")
+            npsr = sim.batch.npsr
+            add_launches(report, shape_tag(npsr // shards, npsr), moved)
+            row = compare((out["curves"], out["autos"]),
+                          (refs[prec]["curves"], refs[prec]["autos"]), prec,
+                          f"mesh {path} psr_shards={shards} vs 1-shard "
+                          f"einsum", tol=MESH_TOL[prec])
+            identical = all(np.array_equal(out[k], again[k])
+                            for k in ("curves", "autos"))
+            if not identical:
+                raise AssertionError(f"mesh {path} x{shards} [{prec}] "
+                                     f"rerun is not bit-identical")
+            row.update(realizations_per_s=MESH_NREAL / dt, wall_s=dt,
+                       kernel_launches=moved, rerun_identical=identical)
+            rows[f"{path}/x{shards}/{prec}/{cards} card(s)"] = row
+            print(f"mesh: {path} psr_shards={shards} [{prec}] "
+                  f"{MESH_NREAL / dt:.1f} realizations/s ({dt:.3f} s; "
+                  f"{where}), launches {moved}, rerun bit-identical",
+                  flush=True)
+    report["mesh"] = rows
+
+    # one pulsar per shard, against the CPU engine on the same mesh shape
+    from fakepta_tpu_torch.batch import PulsarBatch
+    small = PulsarBatch.synthetic(npsr=8, ntoa=64, tspan_years=10.0,
+                                  n_red=4, n_dm=4, seed=1, device="cpu")
+    gwb = small_gwb(small)
+    cpu = EnsembleSimulator(small, gwb=gwb, stat_path="einsum",
+                            mesh=make_mesh(["cpu"] * 8, psr_shards=8)
+                            ).run(64, seed=3, chunk=32)
+    for path in counters:
+        gpu = EnsembleSimulator(
+            small, gwb=gwb, stat_path=path.split("-")[0],
+            pallas_mxu_binning=path != "fused-vpu",
+            mesh=make_mesh(["cuda:0"] * 8, psr_shards=8)).run(
+                64, seed=3, chunk=32, precision="f32")
+        compare((gpu["curves"], gpu["autos"]),
+                (cpu["curves"], cpu["autos"]), "f32",
+                f"small array psr_shards=8: cuda {path} vs cpu einsum")
+
+
+def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
-    and the statistic, then torch.profiler's busiest kernels."""
+    and the statistic, then torch.profiler's busiest kernels; then the host
+    and device time of one sharded chunk (:func:`profile_sharded_step`)."""
     import torch
     from fakepta_tpu_torch.ops import binned_corr as bc
     from fakepta_tpu_torch.ops import megakernel as mk
@@ -360,8 +548,9 @@ def phase_profile(report: dict) -> None:
 
             def statistic():
                 if path == "einsum":
-                    return sim._stat_lanes(
-                        torch.einsum("rpt,rqt->rpq", resid, resid))
+                    return torch.einsum(
+                        "rpq,npq->rn",
+                        torch.einsum("rpt,rqt->rpq", resid, resid), w)
                 if path == "fused":
                     return bc.binned_correlation(resid, resid, w, sim.nbins,
                                                  precision=prec)
@@ -399,8 +588,7 @@ def phase_profile(report: dict) -> None:
             row["device_busy_ms"] = sum(k[0] for k in kern)
             row["n_kernel_launches"] = sum(k[1] for k in kern)
             row["top_kernels"] = kern[:6]
-        bc.launches = 0
-        mk.launches = 0
+        reset_counts()
         prof[path] = row
         print(f"profile {path} [{prec}] per {CHUNK}-realization chunk: "
               f"keys {row['keys_ms']:.3f} ms, draws+residuals "
@@ -412,13 +600,76 @@ def phase_profile(report: dict) -> None:
         for ms, count, name in row["top_kernels"]:
             print(f"    {ms:9.3f} ms  x{count:<5d} {name}")
     report["profile"] = prof
+    report["profile_mesh"] = profile_sharded_step(cards)
+
+
+def sync_all() -> None:
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def profile_sharded_step(cards: int, shards: int = 4) -> dict:
+    """Host against device time of one sharded flagship chunk (einsum path,
+    ``psr_shards=shards``; its shards on cuda:0 in turn, or spread over
+    ``cards`` cards as the mesh phase spreads them): the host time until
+    ``step`` returns (the enqueue), the time until every card is done, and
+    each card's kernel busy time in one torch.profiler-traced step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    from fakepta_tpu_torch.utils import rng
+
+    devices = (["cuda:0"] * shards if cards == 1
+               else [f"cuda:{i}" for i in range(cards)])
+    sim = flagship_sim("einsum", mesh=make_mesh(devices, psr_shards=shards))
+    key = rng.key(13, device="cuda")
+    enq, full = [], []
+    with torch.no_grad():
+        sim.step(key, 0, CHUNK, "einsum", "f32")                # warm-up
+        for i in range(3):
+            sync_all()
+            t0 = time.perf_counter()
+            sim.step(key, (i + 1) * CHUNK, CHUNK, "einsum", "f32")
+            enq.append(1e3 * (time.perf_counter() - t0))
+            sync_all()
+            full.append(1e3 * (time.perf_counter() - t0))
+        sync_all()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            sim.step(key, 0, CHUNK, "einsum", "f32")
+            sync_all()
+    busy, launches = {}, {}
+    for ev in p.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev = f"cuda:{ev.device_index}"
+        busy[dev] = busy.get(dev, 0.0) + ev.time_range.elapsed_us() / 1e3
+        launches[dev] = launches.get(dev, 0) + 1
+    row = {"path": "einsum", "precision": "f32", "psr_shards": shards,
+           "cards": cards, "mesh_shape": dict(sim.mesh.shape),
+           "enqueue_ms": sum(enq) / len(enq),
+           "step_ms": sum(full) / len(full),
+           "device_busy_ms": busy, "kernel_launches": launches}
+    print(f"profile sharded step (einsum [f32], psr_shards={shards}, "
+          f"{cards} card(s), mesh {row['mesh_shape']}) per {CHUNK}-"
+          f"realization chunk: host enqueue {row['enqueue_ms']:.3f} ms, "
+          f"step to every card done {row['step_ms']:.3f} ms; traced step "
+          f"device busy {', '.join(f'{d} {ms:.3f} ms' for d, ms in sorted(busy.items()))}; "
+          f"kernel launches {launches}", flush=True)
+    return row
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+",
-                    default=["build", "kernels", "engine"],
-                    choices=["build", "kernels", "engine", "profile"])
+                    default=["build", "kernels", "engine", "mesh"],
+                    choices=["build", "kernels", "engine", "mesh",
+                             "profile"])
+    ap.add_argument("--mesh-cards", type=int, default=1,
+                    help="cards the mesh and profile phases' flagship "
+                         "meshes span (default 1: every shard on cuda:0)")
     args = ap.parse_args(argv)
 
     import torch
@@ -427,8 +678,6 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     import fakepta_tpu_torch  # noqa: F401  (fails outside a checkout)
-    from fakepta_tpu_torch.ops import binned_corr as bc
-    from fakepta_tpu_torch.ops import megakernel as mk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -444,28 +693,45 @@ def main(argv=None) -> int:
         phase_kernels(report)
     if "engine" in args.phases:
         phase_engine(report)
+    if "mesh" in args.phases:
+        phase_mesh(report, args.mesh_cards)
     if "profile" in args.phases:
-        phase_profile(report)
+        phase_profile(report, args.mesh_cards)
     report["total_s"] = time.perf_counter() - t_start
 
+    # one entry per kernel and shape that the main path launched it at (the
+    # shared operand set on the 1-shard engine, PL = 50 and 25 against
+    # PF = 100 on the 2- and 4-shard meshes), each with the launches made
+    # at that shape in the engine and mesh phases; a kernel the phases run
+    # did not launch gets its measured shapes with 0 launches
     table = []
-    specs = (("binned_correlation", bc, "bf16",
+    specs = (("binned_correlation", "bf16",
               "fakepta_tpu_torch/csrc/binned_corr.cu",
               "fakepta_tpu/ops/pallas_kernels.py:160"),
-             ("chunk_stats", mk, "f32",
+             ("binned_correlation_vpu", "bf16",
+              "fakepta_tpu_torch/csrc/binned_corr.cu",
+              "fakepta_tpu/ops/pallas_kernels.py:223"),
+             ("chunk_stats", "f32",
               "fakepta_tpu_torch/csrc/megakernel.cu",
-              "fakepta_tpu/ops/megakernel.py:281"))
-    for name, mod, prec, source, replaces in specs:
-        row = report.get("kernels", {}).get(f"{name}/{prec}", {})
-        table.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "precision": prec,
-            "launches": report.get("launches", {}).get(name, mod.launches),
-            "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
-            "plain_ms": row.get("plain_ms"),
-            "bound_ms": row.get("bound_ms"),
-            "bound_by": row.get("bound_by"),
-            "library_ms": row.get("library_ms")})
+              "fakepta_tpu/ops/megakernel.py:281"),
+             ("chunk_stats_sharded", "f32",
+              "fakepta_tpu_torch/csrc/megakernel.cu",
+              "fakepta_tpu/ops/megakernel.py:384"))
+    kernels = report.get("kernels", {})
+    by_shape = report.get("launches_by_shape", {})
+    for name, prec, source, replaces in specs:
+        shapes = by_shape.get(name) or {
+            k.split("/")[2]: 0 for k in kernels if k.startswith(name + "/")}
+        for shape, n in shapes.items():
+            row = kernels.get(f"{name}/{prec}/{shape}", {})
+            table.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "precision": prec, "shape": shape,
+                "launches": n, "max_abs_err": row.get("max_abs_err"),
+                "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
+                "bound_ms": row.get("bound_ms"),
+                "bound_by": row.get("bound_by"),
+                "library_ms": row.get("library_ms")})
     report["table"] = table
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as fh:

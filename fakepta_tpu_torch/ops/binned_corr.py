@@ -8,12 +8,18 @@ The ensemble statistic is a two-stage contraction per realization r:
 
 :func:`binned_correlation` runs it as one hand-written CUDA kernel
 (``csrc/binned_corr.cu``; its header has the design and the H100 bound)
-that keeps each realization's correlation block in registers, so device
-memory sees only the residual read and the (R, NB) write.
-:func:`binned_correlation_plain` is the same function in plain torch.
+that keeps each realization's correlation block in registers and applies
+the weight slots there, so device memory sees only the residual read and
+the (R, NB) write: the port of the TPU kernel's MXU-binning variant.
+:func:`binned_correlation_vpu` is the port of its ``mxu_binning=False``
+variant (the same source, another epilogue): the block is formed in shared
+memory and each slot runs as one block-wide reduction.
+:func:`binned_correlation_plain` is the same function in plain torch, the
+plain version of both.
 
 Wrapper rules: a CPU tensor takes the plain version; a CUDA tensor launches
-the kernel or raises (no fallback). ``launches`` counts kernel launches.
+the kernel or raises (no fallback). ``launches`` and ``vpu_launches`` count
+each kernel's launches.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from . import _build
 
 #: number of times :func:`binned_correlation` launched its kernel
 launches = 0
+#: number of times :func:`binned_correlation_vpu` launched its kernel
+vpu_launches = 0
 
 TDIM = 16       # threads per side of a realization group (corr_common.cuh)
 MAX_MT = 8      # so a pair tile is at most 128 pulsars a side
@@ -62,24 +70,11 @@ def binned_correlation_plain(res_local, res_full, weights, nbins: int,
     return out[:, :nbins], out[:, nbins]
 
 
-def binned_correlation(res_local, res_full, weights, nbins: int,
-                       precision: str = "bf16"):
-    """Fused correlation + binning.
-
-    res_local: (R, PL, T) residual rows; res_full: (R, PF, T) the rows they
-    correlate against (pass the same tensor for the single-device path);
-    weights: (nbins+1, PL, PF) statistic weights, slot ``nbins`` the auto
-    trace. ``precision``: ``'bf16'`` (bf16 operands, f32 accumulation) or
-    ``'f32'`` (plain fp32 FMAs). Returns (curves (R, nbins), autos (R,)).
-    """
-    global launches
-    _check_precision(precision)
-    if res_local.device.type == "cpu":
-        return binned_correlation_plain(res_local, res_full, weights, nbins,
-                                        precision)
-    if res_local.device.type != "cuda":
-        raise ValueError(f"binned_correlation runs on cuda or cpu tensors, "
-                         f"got {res_local.device}")
+def _launch(entry: str, what: str, res_local, res_full, weights,
+            nbins: int, precision: str):
+    """Check the operands, launch the C entry ``entry`` of
+    ``csrc/binned_corr.cu`` and return (curves (R, nbins), autos (R,)).
+    Both entries share one C signature."""
     for name, x in (("res_local", res_local), ("res_full", res_full),
                     ("weights", weights)):
         if x.device != res_local.device:
@@ -112,7 +107,7 @@ def binned_correlation(res_local, res_full, weights, nbins: int,
     partial = (torch.empty((R, ntl * ntf, NB), dtype=torch.float32,
                            device=dev) if ntl * ntf > 1 else None)
     lib = _build.load("binned_corr")
-    fn = lib.fpt_binned_corr
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
@@ -122,6 +117,52 @@ def binned_correlation(res_local, res_full, weights, nbins: int,
                 out.data_ptr(), partial.data_ptr() if partial is not None
                 else None, R, PL, PF, T, NB, mt,
                 int(precision == "bf16"), shared, stream)
-    _build.check(lib, rc, "binned_correlation")
-    launches += 1
+    _build.check(lib, rc, what)
     return out[:, :nbins], out[:, nbins]
+
+
+def _run(entry: str, what: str, res_local, res_full, weights,
+         nbins: int, precision: str):
+    """The wrapper rules: the plain version for CPU tensors, the kernel for
+    CUDA tensors. Returns (outputs, launched?)."""
+    _check_precision(precision)
+    if res_local.device.type == "cpu":
+        return binned_correlation_plain(res_local, res_full, weights, nbins,
+                                        precision), False
+    if res_local.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu tensors, got "
+                         f"{res_local.device}")
+    return _launch(entry, what, res_local, res_full, weights, nbins,
+                   precision), True
+
+
+def binned_correlation(res_local, res_full, weights, nbins: int,
+                       precision: str = "bf16"):
+    """Fused correlation + binning.
+
+    res_local: (R, PL, T) residual rows; res_full: (R, PF, T) the rows they
+    correlate against (pass the same tensor for the single-device path);
+    weights: (nbins+1, PL, PF) statistic weights, slot ``nbins`` the auto
+    trace. All contiguous on a CUDA device: a psr shard passes its rows as
+    a tensor of their own, never as a row slice of the gathered array.
+    ``precision``: ``'bf16'`` (bf16 operands, f32 accumulation) or
+    ``'f32'`` (plain fp32 FMAs). Returns (curves (R, nbins), autos (R,)),
+    the shard's partial sums when PL < PF.
+    """
+    global launches
+    out, launched = _run("fpt_binned_corr", "binned_correlation", res_local,
+                         res_full, weights, nbins, precision)
+    launches += launched
+    return out
+
+
+def binned_correlation_vpu(res_local, res_full, weights, nbins: int,
+                           precision: str = "bf16"):
+    """The same function as :func:`binned_correlation` (same arguments and
+    result), through the per-slot-reduction kernel: the port of the TPU
+    kernel's ``mxu_binning=False`` variant."""
+    global vpu_launches
+    out, launched = _run("fpt_binned_corr_vpu", "binned_correlation_vpu",
+                         res_local, res_full, weights, nbins, precision)
+    vpu_launches += launched
+    return out

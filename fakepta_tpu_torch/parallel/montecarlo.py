@@ -1,4 +1,4 @@
-"""Monte-Carlo ensemble engine on one device (port of fakepta_tpu.parallel.montecarlo).
+"""Monte-Carlo ensemble engine over a (real, psr) device mesh (port of fakepta_tpu.parallel.montecarlo).
 
 Simulates thousands of independent PTA realizations (white + ECORR + red +
 DM + chromatic + system noise + correlated GWB) and reduces each to the
@@ -8,23 +8,34 @@ Streams: per-realization keys are ``fold_in(key(seed), index)`` on the
 threefry key tree of :mod:`fakepta_tpu_torch.utils.rng`, with the JAX
 package's domain tags (0x51 noise, 0x6B GWB) and global pulsar-index folds,
 so every draw equals the JAX engine's to a few float32 ULP, a rerun is
-bit-identical and a realization's draws do not depend on the chunk size.
+bit-identical and a realization's draws depend neither on the chunk size
+nor on the mesh shape.
+
+Mesh (:mod:`.mesh`): one process drives every shard. The ``'real'`` axis
+splits each chunk's realizations into contiguous blocks; the ``'psr'`` axis
+gives each shard its rows of every per-pulsar field, built once at
+construction. A psr shard draws its own pulsars' noise, draws the full GWB
+z and keeps its own columns of the coupled coefficients, correlates its
+rows against the all-gathered array with its rows of the statistic
+weights, and the shards' partial statistics are psum'ed in shard order. On
+a one-shard mesh every step is the shared single-device code.
 
 Statistic paths (``stat_path``):
 
 - ``"einsum"``: residuals, then torch einsums for the correlation and the
   binning (the JAX package's XLA path; the engine-level plain reference);
 - ``"fused"`` (default): residuals through the hand-written
-  binned-correlation kernel (:mod:`..ops.binned_corr`);
+  binned-correlation kernel (:mod:`..ops.binned_corr`); with
+  ``pallas_mxu_binning=False`` through its per-slot-reduction variant;
 - ``"mega"``: residual base + GP coefficients through the whole-chunk
   kernel (:mod:`..ops.megakernel`), which rebuilds the Fourier bases on
   chip.
 
-Not ported yet: the device mesh, the run pipeline, checkpoints, the
-observability report, the OS / lnlike / serve-lane outputs, deterministic
-and sampled signals (CGW, Roemer), hyperparameter sampling and TOA
-sharding. The ``"det"`` stage name is accepted and adds nothing (there are
-no deterministic sources to add).
+Not ported yet: multi-host meshes, TOA sharding, the run pipeline,
+checkpoints, the observability report, the OS / lnlike / serve-lane
+outputs, deterministic and sampled signals (CGW, Roemer) and
+hyperparameter sampling. The ``"det"`` stage name is accepted and adds
+nothing (there are no deterministic sources to add).
 """
 
 from __future__ import annotations
@@ -36,11 +47,13 @@ import numpy as np
 import torch
 
 from ..batch import PulsarBatch, fourier_basis_norm
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike
 from ..ops import binned_corr as binned_corr_ops
 from ..ops import gwb as gwb_ops
 from ..ops import megakernel as mega_ops
 from ..utils import rng
+from .mesh import (PSR_AXIS, REAL_AXIS, TOA_AXIS, Mesh, all_gather,
+                   make_mesh, psum)
 
 #: realizations per chunk (fakepta_tpu/tune/defaults.py DEFAULT_CHUNK)
 DEFAULT_CHUNK = 1024
@@ -157,15 +170,18 @@ def _stage_terms(batch: PulsarBatch, gwb_ws, gwb_idxs, gwb_freqfs,
 
 
 def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
-                    include, terms: _StageTerms, split_gp: bool = False):
+                    include, terms: _StageTerms, split_gp: bool = False,
+                    p_offset: int = 0):
     """Residual blocks for a chunk of realizations.
 
-    keys: (R, 2) per-realization keys. ``include`` is the 7-flag tuple
-    (white, ecorr, red, dm, chrom, sys, gwb). Returns (R, P, T) TOA-masked
-    residuals, or with ``split_gp=True`` (the megakernel contract) the
-    masked base without the GP projection and the (R, P, K) coefficients in
-    stage order. Draw keys, shapes and order are the JAX engine's, so the
-    two streams agree draw for draw.
+    keys: (R, 2) per-realization keys. ``batch`` holds this psr shard's
+    pulsars, global indices ``p_offset .. p_offset + P - 1``; ``chols`` are
+    the full (npsr, npsr) ORF Cholesky factors. ``include`` is the 7-flag
+    tuple (white, ecorr, red, dm, chrom, sys, gwb). Returns (R, P, T)
+    TOA-masked residuals, or with ``split_gp=True`` (the megakernel
+    contract) the masked base without the GP projection and the (R, P, K)
+    coefficients in stage order. Draw keys, shapes and order are the JAX
+    engine's, so the two streams agree draw for draw on any mesh.
     """
     (inc_white, inc_ecorr, inc_red, inc_dm, inc_chrom, inc_sys,
      inc_gwb) = include
@@ -176,7 +192,8 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
     # noise keys fold the 0x51 tag, then the GLOBAL pulsar index, then
     # split six ways: (white, red, dm, chrom, ecorr, sys)
     noise_root = rng.fold_in(keys, _NOISE_TAG)                      # (R, 2)
-    gidx = torch.arange(p, dtype=torch.int64, device=dev)
+    gidx = torch.arange(p_offset, p_offset + p, dtype=torch.int64,
+                        device=dev)
     psr_keys = rng.split(rng.fold_in(noise_root[:, None, :], gidx), 6)
     kw, kr, kd, kc, ke, ks = psr_keys.unbind(2)                     # (R,P,2)
 
@@ -213,13 +230,17 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
             res = res + torch.where(batch.sys_mask[:, b], contrib, 0.0)
     if inc_gwb:
         # one z per realization (not folded with the pulsar index): the
-        # (P x P) ORF coupling couples every pulsar's coefficients
+        # (npsr x npsr) ORF coupling couples every pulsar's coefficients,
+        # so each psr shard draws the full z, couples it and keeps its own
+        # columns
         tag = rng.fold_in(keys, _GWB_TAG)
         gwb_c = [None] * terms.n_groups
         for j, (chol_j, w_j) in enumerate(zip(chols, gwb_ws)):
             kg = tag if j == 0 else rng.fold_in(tag, j)
-            zg = rng.normal(kg, (2, w_j.shape[0], p))            # (R,2,C,P)
-            corr = torch.matmul(zg, chol_j.T)
+            zg = rng.normal(kg, (2, w_j.shape[0], chol_j.shape[0]))
+            corr = torch.matmul(zg, chol_j.T)                    # (R,2,C,P)
+            if corr.shape[-1] != p:
+                corr = corr[..., p_offset:p_offset + p]
             c = corr * w_j[None, None, :, None]
             c = c.permute(0, 3, 1, 2).reshape(R, p, -1)          # (R,P,2C)
             g = terms.gwb_group[j]
@@ -235,32 +256,90 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
     return torch.where(batch.mask, res, 0.0)
 
 
-def _correlation_rows(res: torch.Tensor, stats_bf16: bool = False):
-    """(R, P, P) raw pair-product sums, f32 accumulation; ``stats_bf16``
-    rounds the operands to bf16 first (the einsum path's bf16 mode)."""
+def _correlation_rows(res_local: torch.Tensor,
+                      res_full: Optional[torch.Tensor] = None,
+                      stats_bf16: bool = False):
+    """(R, PL, PF) raw pair-product sums of local rows against the full
+    array (``res_full=None``: the rows against themselves), f32
+    accumulation; ``stats_bf16`` rounds the operands to bf16 first (the
+    einsum path's bf16 mode)."""
     if stats_bf16:
-        res = binned_corr_ops.round_bf16(res)
-    return torch.einsum("rpt,rqt->rpq", res, res)
+        res_local = binned_corr_ops.round_bf16(res_local)
+        if res_full is not None:
+            res_full = binned_corr_ops.round_bf16(res_full)
+    return torch.einsum("rpt,rqt->rpq", res_local,
+                        res_local if res_full is None else res_full)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """One psr shard's static state on its device: its rows of the batch,
+    of the statistic weights and of the megakernel tables, plus what every
+    shard holds whole (the ORF factors, the GWB weights and the gathered
+    megakernel tables, which are static and so gathered once here)."""
+
+    p_offset: int                       # global index of the first row
+    batch: PulsarBatch                  # (PL, ...) rows
+    chols: Tuple[torch.Tensor, ...]     # (npsr, npsr) each
+    gwb_ws: Tuple[torch.Tensor, ...]
+    terms: _StageTerms
+    weights: torch.Tensor               # (nbins+1, PL, npsr)
+    times: torch.Tensor                 # (2, PL, T)
+    scales: torch.Tensor                # (S, PL, T)
+    times_full: torch.Tensor            # (2, npsr, T)
+    scales_full: torch.Tensor           # (S, npsr, T)
+
+    @property
+    def device(self) -> torch.device:
+        return self.batch.device
+
+
+def _cat(parts, dim: int = 0):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
 class EnsembleSimulator:
-    """Monte-Carlo engine on one device.
+    """Monte-Carlo engine over a (real, psr) device mesh.
 
-    ``stat_path``: ``"einsum"``, ``"fused"`` (default) or ``"mega"`` (see
-    the module docstring). ``pallas_precision`` is the fused path's default
-    statistic precision (``'bf16'``: bf16 operands, f32 accumulation;
-    ``'f32'``: full f32); the mega and einsum paths default to ``'f32'``,
-    and ``run(precision=...)`` overrides per run. ``device`` defaults to
-    ``"cuda"`` and raises without a GPU unless ``device="cpu"``.
+    ``mesh`` (:func:`.mesh.make_mesh`) defaults to a 1x1x1 mesh on
+    ``device``, which defaults to ``"cuda"`` and raises without a GPU
+    unless ``device="cpu"``; pass one of the two. ``stat_path``:
+    ``"einsum"``, ``"fused"`` (default) or ``"mega"`` (see the module
+    docstring). ``pallas_precision`` is the fused path's default statistic
+    precision (``'bf16'``: bf16 operands, f32 accumulation; ``'f32'``: full
+    f32); the mega and einsum paths default to ``'f32'``, and
+    ``run(precision=...)`` overrides per run. ``pallas_mxu_binning=False``
+    sends the fused path through the per-slot-reduction kernel.
     """
 
     def __init__(self, batch: PulsarBatch,
                  gwb: Optional[Union[GWBConfig, Sequence[GWBConfig]]] = None,
+                 mesh: Optional[Mesh] = None,
                  include: Sequence[str] = ("white", "ecorr", "red", "dm",
                                            "chrom", "sys", "gwb"),
                  nbins: int = 15, stat_path: Optional[str] = None,
-                 pallas_precision: str = "bf16", device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 pallas_precision: str = "bf16",
+                 pallas_mxu_binning: bool = True,
+                 device: DeviceLike = None):
+        if mesh is None:
+            mesh = make_mesh(["cuda" if device is None else device])
+        elif device is not None:
+            raise ValueError("pass mesh= or device=, not both")
+        self.mesh = mesh
+        n_real, n_psr, n_toa = (mesh.shape[a] for a in
+                                (REAL_AXIS, PSR_AXIS, TOA_AXIS))
+        if batch.npsr % n_psr != 0:
+            raise ValueError(
+                f"npsr={batch.npsr} must be divisible by the psr mesh axis "
+                f"({n_psr}); pad the batch")
+        if batch.max_toa % n_toa != 0:
+            raise ValueError(
+                f"max_toa={batch.max_toa} must be divisible by the toa mesh "
+                f"axis ({n_toa}); pad the batch")
+        if n_toa > 1:
+            raise NotImplementedError(
+                "toa_shards > 1 is not ported yet (ROADMAP Queue 1 item 3)")
+        self.device = mesh.devices.flat[0]
         if batch.dtype != torch.float32:
             raise TypeError(f"the port runs float32 batches, got "
                             f"{batch.dtype}")
@@ -276,6 +355,7 @@ class EnsembleSimulator:
                              f"got {pallas_precision!r}")
         self.stat_path = stat_path
         self.pallas_precision = pallas_precision
+        self.pallas_mxu_binning = bool(pallas_mxu_binning)
         self.batch = batch = batch.to(self.device)
         self.nbins = nbins
         dtype = batch.dtype
@@ -317,8 +397,9 @@ class EnsembleSimulator:
         self._terms = _stage_terms(batch, self._gwb_w, self._gwb_idx,
                                    self._gwb_freqf, self._include)
 
-        # angular bins and pair-count normalization: host float64 setup,
-        # folded into static statistic weights
+        # angular bins and pair-count normalization: host float64 setup on
+        # the FULL array (every shard's rows use the full pair and bin
+        # counts), folded into static statistic weights
         pos = np.asarray(host["pos"], dtype=np.float64)
         ang = np.arccos(np.clip(pos @ pos.T, -1, 1))
         edges = np.linspace(0.0, np.pi, nbins + 1)
@@ -344,10 +425,54 @@ class EnsembleSimulator:
         self._stat_weights = torch.tensor(stack).to(dtype).to(
             self.device).contiguous()
         self._mega_tables = self._build_mega_tables()
+        _, times, scales = self._mega_tables
+        # the whole array as one shard: the single-device state
+        self._full = _Shard(0, batch, self._chol, self._gwb_w, self._terms,
+                            self._stat_weights, times, scales, times, scales)
+        self._shards = self._build_shards()
 
     @property
     def include(self) -> Tuple[bool, ...]:
         return self._include
+
+    def _build_shards(self):
+        """(real, psr) grid of shard states; a (psr index, device) pair is
+        built once however often the mesh repeats it."""
+        n_psr = self.mesh.shape[PSR_AXIS]
+        p_local = self.batch.npsr // n_psr
+        made, grid = {}, []
+        for r in range(self.mesh.shape[REAL_AXIS]):
+            row = []
+            for s in range(n_psr):
+                dev = self.mesh.devices[r, s, 0]
+                if (s, dev) not in made:
+                    made[(s, dev)] = self._make_shard(s, p_local, dev)
+                row.append(made[(s, dev)])
+            grid.append(row)
+        return grid
+
+    def _make_shard(self, s: int, p_local: int,
+                    dev: torch.device) -> _Shard:
+        full = self._full
+        if p_local == full.batch.npsr and dev == self.device:
+            return full
+        lo, hi = s * p_local, (s + 1) * p_local
+
+        def rows(x, dim=0):
+            return x.narrow(dim, lo, p_local).contiguous().to(dev)
+
+        batch = PulsarBatch(**{
+            f.name: (getattr(full.batch, f.name).to(dev)
+                     if f.name == "tspan_common"
+                     else rows(getattr(full.batch, f.name)))
+            for f in dataclasses.fields(PulsarBatch)})
+        chols = tuple(c.to(dev) for c in full.chols)
+        ws = tuple(w.to(dev) for w in full.gwb_ws)
+        terms = _stage_terms(batch, ws, self._gwb_idx, self._gwb_freqf,
+                             self._include)
+        return _Shard(lo, batch, chols, ws, terms, rows(full.weights, 1),
+                      rows(full.times, 1), rows(full.scales, 1),
+                      full.times.to(dev), full.scales.to(dev))
 
     def _build_mega_tables(self):
         """Stage descriptors + (2, P, T) time and (S, P, T) scale tables for
@@ -404,43 +529,114 @@ class EnsembleSimulator:
                              f"{precision!r}")
         return precision
 
-    def _stat_lanes(self, corr: torch.Tensor):
-        """Curve + auto lanes from (R, P, P) raw pair sums: one contraction
-        against the combined weight stack, as the kernels bin."""
-        out = torch.einsum("rpq,npq->rn", corr, self._stat_weights)
-        return unpack_stats(out, self.nbins)
+    def _residuals(self, keys, split_gp=False, shard: Optional[_Shard] = None):
+        """One shard's residual rows (default: the whole array on the
+        mesh's first device)."""
+        sh = self._full if shard is None else shard
+        return _simulate_block(keys, sh.batch, sh.chols, sh.gwb_ws,
+                               self._include, sh.terms, split_gp=split_gp,
+                               p_offset=sh.p_offset)
 
-    def _residuals(self, keys, split_gp=False):
-        return _simulate_block(keys, self.batch, self._chol, self._gwb_w,
-                               self._include, self._terms, split_gp=split_gp)
+    def _fused_kernel(self):
+        return (binned_corr_ops.binned_correlation if self.pallas_mxu_binning
+                else binned_corr_ops.binned_correlation_vpu)
 
     def step(self, base_key: torch.Tensor, offset: int, nreal: int,
              path: str, precision: str, with_corr: bool = False):
-        """One chunk: (packed (nreal, nbins+1) statistics, corr or None)."""
+        """One chunk: (packed (nreal, nbins+1) statistics, corr or None),
+        on the mesh's first device. ``nreal`` splits into one contiguous
+        block of realizations per real shard."""
+        n_real = len(self._shards)
+        if nreal % n_real != 0:
+            raise ValueError(f"nreal per chunk ({nreal}) must be divisible "
+                             f"by the real mesh axis ({n_real})")
         keys = _chunk_keys(base_key, offset, nreal)
+        r_local = nreal // n_real
+        packed, corrs = [], []
+        for r, shards in enumerate(self._shards):
+            k = keys[r * r_local:(r + 1) * r_local]
+            if len(shards) == 1:
+                p, c = self._step_shared(shards[0], k.to(shards[0].device),
+                                         path, precision, with_corr)
+            else:
+                p, c = self._step_sharded(shards, k, path, precision,
+                                          with_corr)
+            packed.append(p.to(self.device))
+            if with_corr:
+                corrs.append(c.to(self.device))
+        return _cat(packed), (_cat(corrs) if with_corr else None)
+
+    def _step_shared(self, sh: _Shard, keys, path: str, precision: str,
+                     with_corr: bool):
+        """One shard holding every pulsar: one operand set."""
         if path == "einsum":
-            corr = _correlation_rows(self._residuals(keys),
+            corr = _correlation_rows(self._residuals(keys, shard=sh),
                                      stats_bf16=precision == "bf16")
-            curves, autos = self._stat_lanes(corr)
+            # curve + auto lanes: one contraction against the combined
+            # weight stack, as the kernels bin
+            out = torch.einsum("rpq,npq->rn", corr, sh.weights)
+            curves, autos = unpack_stats(out, self.nbins)
             return (pack_stats(curves, autos),
-                    corr / self._counts if with_corr else None)
+                    corr / self._counts.to(corr.device) if with_corr
+                    else None)
         if path == "fused":
-            res = self._residuals(keys)
-            curves, autos = binned_corr_ops.binned_correlation(
-                res, res, self._stat_weights, self.nbins,
-                precision=precision)
+            res = self._residuals(keys, shard=sh)
+            curves, autos = self._fused_kernel()(
+                res, res, sh.weights, self.nbins, precision=precision)
             return pack_stats(curves, autos), None
-        base, coefs = self._residuals(keys, split_gp=True)
+        base, coefs = self._residuals(keys, split_gp=True, shard=sh)
         if precision == "bf16":
             # bf16 STORAGE of the kernel's two big reads; the projection and
             # every accumulation stay f32 inside the kernel
             base = base.to(torch.bfloat16)
             coefs = coefs.to(torch.bfloat16)
-        stages, times, scales = self._mega_tables
         curves, autos = mega_ops.chunk_stats(
-            base, coefs, times, scales, self._stat_weights, stages=stages,
-            nbins=self.nbins, precision=precision)
+            base, coefs, sh.times, sh.scales, sh.weights,
+            stages=self._mega_tables[0], nbins=self.nbins,
+            precision=precision)
         return pack_stats(curves, autos), None
+
+    def _step_sharded(self, shards, keys, path: str, precision: str,
+                      with_corr: bool):
+        """Pulsar-sharded chunk block: each shard's rows against the
+        all-gathered array with its rows of the weights, then the psum of
+        the partial statistics in shard order."""
+        dev0 = shards[0].device
+        bf16 = precision == "bf16"
+        split = path == "mega"
+        local = [self._residuals(keys.to(sh.device), split_gp=split,
+                                 shard=sh) for sh in shards]
+        if path == "mega":
+            if bf16:
+                # cast per shard BEFORE the gather, as the JAX engine does
+                local = [(b.to(torch.bfloat16), c.to(torch.bfloat16))
+                         for b, c in local]
+            base_f = all_gather([b for b, _ in local])
+            coef_f = all_gather([c for _, c in local])
+            parts = [pack_stats(*mega_ops.chunk_stats(
+                bf, cf, sh.times_full, sh.scales_full, sh.weights,
+                stages=self._mega_tables[0], nbins=self.nbins,
+                precision=precision, base_local=b, coef_local=c,
+                times_local=sh.times, scales_local=sh.scales))
+                for sh, (b, c), bf, cf in zip(shards, local, base_f, coef_f)]
+            return psum(parts, dev0), None
+        if path == "einsum":
+            full = all_gather(local)
+            corrs = [_correlation_rows(x, f, stats_bf16=bf16)
+                     for x, f in zip(local, full)]
+            parts = [torch.einsum("rpq,npq->rn", c, sh.weights)
+                     for c, sh in zip(corrs, shards)]
+            corr = None
+            if with_corr:
+                corr = torch.cat([c.to(dev0) for c in corrs], dim=1) \
+                    / self._counts.to(dev0)
+            return psum(parts, dev0), corr
+        full = all_gather(local)
+        kernel = self._fused_kernel()
+        parts = [pack_stats(*kernel(x, f, sh.weights, self.nbins,
+                                    precision=precision))
+                 for x, f, sh in zip(local, full, shards)]
+        return psum(parts, dev0), None
 
     def run(self, nreal: int, seed: int = 0, chunk: int = DEFAULT_CHUNK,
             keep_corr: bool = False,
@@ -450,15 +646,19 @@ class EnsembleSimulator:
         Returns numpy ``curves`` (nreal, nbins), ``autos`` (nreal,),
         ``bin_centers`` (nbins,) and, with ``keep_corr`` (which takes the
         einsum path), ``corr`` (nreal, P, P) normalized pair correlations.
-        Every chunk runs at the full chunk size (the last one overshoots and
-        is truncated).
+        The chunk is clamped to ``nreal`` and rounded down to a multiple of
+        the real mesh axis (at least one realization per real shard). Every
+        chunk runs at the full chunk size (the last one overshoots and is
+        truncated).
         """
         path = "einsum" if keep_corr else self.stat_path
         prec = self._resolve_precision(path, precision)
         nreal = int(nreal)
         if nreal <= 0:
             raise ValueError(f"nreal must be > 0, got {nreal}")
+        n_real = len(self._shards)
         chunk = max(1, min(int(chunk), nreal))
+        chunk = max(chunk - chunk % n_real, n_real)
         base = rng.key(seed, device=self.device)
         packed, corrs = [], []
         with torch.no_grad():

@@ -17,6 +17,7 @@ from fakepta_tpu_torch.batch import PulsarBatch
 from fakepta_tpu_torch.ops import binned_corr as bc
 from fakepta_tpu_torch.ops import megakernel as mk
 from fakepta_tpu_torch.ops.megakernel import T_COMMON, T_OWN, MegaStage
+from fakepta_tpu_torch.parallel.mesh import make_mesh
 from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
                                                    GWBConfig)
 
@@ -121,3 +122,111 @@ def test_engine_on_the_card_matches_the_cpu(cuda, path):
                   (want["curves"], want["autos"]), "f32")
     again = sim.run(16, seed=3, chunk=4, precision="f32")
     np.testing.assert_array_equal(got["curves"], again["curves"])
+
+
+# (R, PL, PF, T): one pulsar per shard, a quarter and the whole array
+# against a 100-pulsar array, and a pair space wider than one 128 tile
+SHARD_SHAPES = [(4, 1, 100, 64), (4, 25, 100, 64), (3, 100, 100, 64),
+                (2, 25, 130, 40)]
+
+
+def _sharded_residuals(cuda, R, PL, PF, T, shared=False):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    res_f = torch.randn(R, PF, T, device=cuda, generator=g)
+    # a shard's rows are a tensor of their own (contiguous), as the engine
+    # passes them; shared: the single-device path's one operand
+    res_l = res_f if shared else res_f[:, PF - PL:].contiguous()
+    w = torch.randn(6, PL, PF, device=cuda, generator=g)
+    return res_l, res_f, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("R,PL,PF,T", SHARD_SHAPES)
+def test_binned_correlation_vpu_kernel_matches_plain(cuda, prec, R, PL, PF,
+                                                     T):
+    for shared in ((False, True) if PL == PF else (False,)):
+        res_l, res_f, w = _sharded_residuals(cuda, R, PL, PF, T, shared)
+        before = (bc.launches, bc.vpu_launches)
+        got = bc.binned_correlation_vpu(res_l, res_f, w, 5, precision=prec)
+        torch.cuda.synchronize()
+        assert (bc.launches, bc.vpu_launches) == (before[0], before[1] + 1)
+        want = bc.binned_correlation_plain(res_l, res_f, w, 5,
+                                           precision=prec)
+        _assert_close(got, want, prec)
+        again = bc.binned_correlation_vpu(res_l, res_f, w, 5,
+                                          precision=prec)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("R,PL,PF,T", SHARD_SHAPES[:2])
+def test_binned_correlation_kernel_local_rows(cuda, prec, R, PL, PF, T):
+    """The MXU-binning kernel with PL < PF, as the sharded fused path
+    launches it."""
+    res_l, res_f, w = _sharded_residuals(cuda, R, PL, PF, T)
+    before = bc.launches
+    got = bc.binned_correlation(res_l, res_f, w, 5, precision=prec)
+    torch.cuda.synchronize()
+    assert bc.launches == before + 1
+    want = bc.binned_correlation_plain(res_l, res_f, w, 5, precision=prec)
+    _assert_close(got, want, prec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("R,PL,PF,T", SHARD_SHAPES)
+def test_chunk_stats_local_full_matches_plain(cuda, prec, R, PL, PF, T):
+    base, coef, times, scales, _ = _mega_inputs(9, R, PF, T)
+    w = np.random.default_rng(10).standard_normal((6, PL, PF))
+    dt = torch.float32 if prec == "f32" else torch.bfloat16
+    full = [torch.tensor(base).to(dt).to(cuda),
+            torch.tensor(coef).to(dt).to(cuda)] + \
+        [torch.tensor(x).float().to(cuda) for x in (times, scales)]
+    lo = PF - PL
+    loc = [x[:, lo:].contiguous() for x in full]
+    kw = dict(stages=STAGES, nbins=5, precision=prec, base_local=loc[0],
+              coef_local=loc[1], times_local=loc[2], scales_local=loc[3])
+    wt = torch.tensor(w).float().to(cuda)
+    before = (mk.launches, mk.sharded_launches)
+    got = mk.chunk_stats(*full, wt, **kw)
+    torch.cuda.synchronize()
+    assert (mk.launches, mk.sharded_launches) == (before[0], before[1] + 1)
+    want = mk.chunk_stats_plain(*full, wt, **kw)
+    _assert_close(got, want, prec)
+    again = mk.chunk_stats(*full, wt, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,mxu", [("einsum", True), ("fused", True),
+                                      ("fused", False), ("mega", True)])
+def test_sharded_engine_on_the_card_matches_one_shard(cuda, path, mxu):
+    """A psr-sharded mesh that names the card twice against the 1-shard
+    run; the sharded path launches its own kernel, and reruns are
+    bit-identical."""
+    batch = PulsarBatch.synthetic(npsr=8, ntoa=64, tspan_years=10.0,
+                                  n_red=4, n_dm=4, seed=1, device="cpu")
+    f = np.arange(1, 5) / float(batch.tspan_common)
+    gwb = GWBConfig(psd=spectrum_lib.powerlaw(f, log10_A=-13.5,
+                                              gamma=13 / 3).numpy())
+    want = EnsembleSimulator(batch, gwb=gwb, stat_path="einsum",
+                             device=cuda).run(16, seed=3, chunk=8,
+                                              precision="f32")
+    sim = EnsembleSimulator(batch, gwb=gwb, stat_path=path,
+                            pallas_mxu_binning=mxu,
+                            mesh=make_mesh(["cuda:0"] * 2, psr_shards=2))
+    counters = {("fused", True): lambda: bc.launches,
+                ("fused", False): lambda: bc.vpu_launches,
+                ("mega", True): lambda: mk.sharded_launches,
+                ("einsum", True): lambda: 0}[(path, mxu)]
+    before = counters()
+    got = sim.run(16, seed=3, chunk=8, precision="f32")
+    # two chunks, two shards: one launch per shard and chunk
+    assert counters() - before == (0 if path == "einsum" else 4)
+    _assert_close((got["curves"], got["autos"]),
+                  (want["curves"], want["autos"]), "f32")
+    again = sim.run(16, seed=3, chunk=8, precision="f32")
+    np.testing.assert_array_equal(got["curves"], again["curves"])
+    np.testing.assert_array_equal(got["autos"], again["autos"])
