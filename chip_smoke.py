@@ -8,13 +8,17 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
 
 1. ``build``: print the card's name and power limit, compile every CUDA
    kernel from ``fakepta_tpu_torch/csrc`` (one nvcc per source, in
-   parallel) and print the build seconds and ptxas' register report.
+   parallel) and print the build seconds, ptxas' register report and the
+   number of ``HMMA`` (tensor-core) instructions in each kernel's SASS
+   (``cuobjdump -sass``); it fails if ``binned_correlation``'s kernels
+   have none.
 2. ``kernels``: at the flagship shapes (R = 1024 realizations, 100 pulsars,
    780 TOAs), hold each kernel against its plain torch version on the same
    inputs, at both precisions, and time kernel, plain version, the
    byte/FLOP bound and (where one exists) a single PyTorch library call;
    the sharded kernels at a psr shard's rows (PL = 25 or 50) against the
-   whole array.
+   whole array. For ``binned_correlation`` also its tiling and the 'f32'
+   mode's 3xTF32 arithmetic emulated on 16 realizations against float64.
 3. ``engine``: run ``EnsembleSimulator`` on the flagship batch with an HD
    background for ``stat_path`` ``"fused"`` and ``"mega"`` at ``'f32'`` and
    ``'bf16'``; each must agree with the ``"einsum"`` path, rerun
@@ -47,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -59,6 +64,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_HBM_BPS = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 
 NREAL = 4096
 CHUNK = 1024
@@ -106,11 +112,13 @@ def in_turns(fns: dict, iters: int) -> dict:
     return {k: sum(v) / len(v) for k, v in got.items()}
 
 
-def bound(bytes_moved: float, fp32_flops: float, bf16_flops: float):
+def bound(bytes_moved: float, fp32_flops: float, bf16_flops: float,
+          tf32_flops: float = 0.0):
     """(bound ms, 'bytes' | 'operations'): the larger of the byte time and
     the operation time at the card's published peaks."""
     t_bytes = bytes_moved / PEAK_HBM_BPS
-    t_ops = fp32_flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+    t_ops = (fp32_flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+             + tf32_flops / PEAK_TF32_FLOPS)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -209,6 +217,24 @@ def reset_counts() -> None:
     mk.launches = mk.sharded_launches = 0
 
 
+def sass_counts(path, opcode: str = "HMMA") -> dict:
+    """{kernel: number of ``opcode`` instructions} in a built library's
+    SASS (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+    from fakepta_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    got, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            got[fn] = 0
+        elif fn is not None and opcode in line:
+            got[fn] += 1
+    return got
+
+
 def phase_build(report: dict) -> None:
     from fakepta_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -218,19 +244,30 @@ def phase_build(report: dict) -> None:
           f"{report['build_s']:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    report["hmma"] = {}
     for name in _build.KERNELS:
         _build.load(name)
+        counts = sass_counts(_build.library_path(name))
+        report["hmma"][name] = counts
+        for fn, n in counts.items():
+            print(f"  {name}: {n:5d} HMMA in {fn}")
+    mma = {fn: n for fn, n in report["hmma"]["binned_corr"].items()
+           if "mma_corr_kernel" in fn}
+    if not mma or min(mma.values()) == 0:
+        raise AssertionError(f"binned_correlation's kernels run no "
+                             f"tensor-core instruction: {mma}")
 
 
 def kernel_rows(rows: dict, name: str, tag: str, kernel, plain, library,
-                nbytes, flops, iters: int,
-                precs=("bf16", "f32")) -> None:
+                nbytes, flops, iters: int, precs=("bf16", "f32")) -> None:
     """Hold ``kernel(prec)`` against ``plain(prec)`` at each precision and
     time kernel, plain version and ``library`` (one PyTorch call, or None)
-    beside the bound from ``nbytes(prec)`` and ``flops(prec)`` ((fp32
-    FLOPs, bf16 FLOPs)). Rows go to ``rows[(name, prec, tag)]``."""
+    beside the bound from ``nbytes(prec)`` and ``flops(prec)`` ((fp32,
+    bf16[, tf32]) FLOPs, each at that type's peak). Rows go to
+    ``rows[(name, prec, tag)]``."""
     import torch
     kernel_ms = in_turns({p: (lambda p=p: kernel(p)) for p in precs}, iters)
     plain_ms = in_turns({p: (lambda p=p: plain(p)) for p in precs},
@@ -257,6 +294,31 @@ def corr_flops_split(prec: str, corr: float, other: float):
     """(fp32, bf16) FLOPs: the correlation counts at the bf16 tensor-core
     rate in the bf16 mode, everything else at fp32."""
     return ((other + corr, 0.0) if prec == "f32" else (other, corr))
+
+
+def tf32_route_flops(prec: str, corr: float, other: float):
+    """(fp32, bf16, tf32) FLOPs of binned_correlation's route: the
+    correlation on the TF32 tensor cores, one pass in the bf16 mode and
+    three (3xTF32) in the 'f32' mode; the binning at fp32."""
+    return other, 0.0, (3 * corr if prec == "f32" else corr)
+
+
+def mma_details(rows: dict, res_l, res_f, w, nbins: int, tag: str) -> None:
+    """binned_correlation's tiling at this shape, and the 'f32' mode's
+    3xTF32 arithmetic, emulated in plain torch on 16 realizations, against
+    float64."""
+    import torch
+    from fakepta_tpu_torch.ops import binned_corr as bc
+    tiling = bc.mma_tiling(res_l.shape[1], res_f.shape[1])
+    print(f"  binned_correlation {tag}: tiling {tiling}", flush=True)
+    a, b = res_l[:16], res_f[:16]
+    f64 = torch.einsum("rpt,rqt,npq->rn", a.double(), b.double(), w.double())
+    emu = compare(bc.binned_correlation_3xtf32(a, b, w, nbins),
+                  (f64[:, :nbins], f64[:, nbins]), "f32",
+                  f"3xTF32 emulation {tag} vs float64")
+    for p in ("bf16", "f32"):
+        rows[("binned_correlation", p, tag)].update(
+            tiling=tiling._asdict(), emulation_vs_f64=emu)
 
 
 def phase_kernels(report: dict) -> None:
@@ -289,7 +351,10 @@ def phase_kernels(report: dict) -> None:
     # -- binned_correlation (#1) and its mxu_binning=False variant (#2) --
     # shared: the single-device path's one operand set (symmetric block);
     # PL < PF: a psr shard's rows against the gathered array, at each shard
-    # width the mesh phase launches
+    # width the mesh phase launches; #1 multiplies on the TF32 tensor cores,
+    # #2 on the fp32 units
+    flops_of = {"binned_correlation": tf32_route_flops,
+                "binned_correlation_vpu": corr_flops_split}
     for name, fn in (("binned_correlation", bc.binned_correlation),
                      ("binned_correlation_vpu", bc.binned_correlation_vpu)):
         for pl in (P,) + SHARD_PL:
@@ -308,8 +373,10 @@ def phase_kernels(report: dict) -> None:
                 lambda a=res_l, ww=w_l: torch.einsum("rpt,rqt,npq->rn", a,
                                                      res, ww),
                 lambda p, n=nbytes: n,
-                lambda p, c=corr, b=binf: corr_flops_split(p, c, b),
+                lambda p, c=corr, b=binf, f=flops_of[name]: f(p, c, b),
                 iters=20)
+            if name == "binned_correlation":
+                mma_details(rows, res_l, res, w_l, nbins, shape_tag(pl, P))
 
     # -- chunk_stats: shared set (#3), local+full set (#4) ----------------
     # the bf16 mode stores base and coefficients in bfloat16, as the engine

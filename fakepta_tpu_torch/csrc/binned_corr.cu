@@ -15,41 +15,89 @@
 // the block is symmetric and needs only its P(P+1)/2 distinct pairs:
 // R P (P+1) T FLOPs (2 R PL PF T for two operand sets) against R P T 4
 // bytes of residual read, about (P+1)/4 = 25 FLOP per byte at the flagship
-// (P = 100). The 'f32' mode runs plain fp32 FMAs (no TF32): 67 TFLOP/s of
-// fp32 units against 3.35 TB/s, so it is bound by the fp32 units. The
-// 'bf16' mode rounds the operands to bf16 and accumulates in f32; its bound
-// counts the bf16 tensor-core rate (989 TFLOP/s), which puts it on the
-// memory line. This kernel still computes all P^2 pairs of a symmetric
-// block (twice the work the bound counts); skipping the mirrored half is
-// later work.
+// (P = 100). At the tensor cores' published rates that is under the memory
+// line, so #1's floor is the residual read; on the fp32 units, #2's, it is
+// above it. Neither kernel skips the mirrored half of a symmetric block
+// (twice the work the bound counts; later work).
 //
-// Design (simple and right first): one block of 256 threads per
-// realization and pair tile. The block streams T through shared memory in
-// tiles of 32 TOAs, each thread fetching its share of the next tile into
-// registers while the current one is multiplied (so the global loads'
-// latency overlaps the products), accumulates its (16 MT)^2 correlation
-// tile in registers (MT x MT per thread: register tiling lifts the
-// FMA:load ratio to MT/2 per shared load). Both modes multiply on the fp32
-// units. The residual is read exactly once; the weights come through L2.
-// The two variants differ only in the epilogue (the Epi template
-// parameter):
-//   REGISTER (MXU binning): each thread applies the weight slots to its own
-//     register tile, then each slot reduces in a fixed order;
-//   BLOCK (mxu_binning=False): the tile is stored to shared memory as a
-//     [rows][cols + 1] block and each slot n runs as ONE block-wide
-//     reduction over it (the TPU variant's nbins+1 `jnp.sum(corr * w[n])`):
-//     thread k sums the elements k, k + 256, ... times w[n] (consecutive
-//     threads on consecutive columns, so the weight reads coalesce), a fixed
-//     shuffle tree folds each warp, and thread n adds the warp sums in warp
-//     order.
-// Arrays wider than 128 pulsars tile the pair space over grid.y and add the
-// tiles in a fixed-order second pass. There is no float atomic: reruns are
-// bit-identical. Tensor cores (wgmma) and TMA are later work.
+// fpt_binned_corr (#1): tensor cores, tiles sized by PL and PF, weight reads
+// shared across realizations where the registers allow.
+//   Tiles. A block's pair tile is BM x BN: BM = PL rounded up to 16, BN = PF
+//     rounded up to 8, each at most 128 (wider arrays tile the pair space
+//     over grid.y and add the tiles in a fixed-order second pass). The tile
+//     is a grid of m16n8 fragments; the block's 8 warps form a WGM x (8/WGM)
+//     grid and each warp owns FM x FN fragments of it, the warp tile
+//     binned_corr.py::mma_tiling picks so that the busiest warp holds the
+//     fewest fragments. A 25-row shard against 100 pulsars runs a 32 x 104
+//     tile, not the old rule's 112 x 112. Rows past the tile are staged as
+//     zeros up to the warp grid's extent, so no warp branches on its
+//     fragments (tools/binned_corr_variants.py's 'skip': a warp-uniform
+//     branch per fragment costs more than the wasted products).
+//   Products: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 in both
+//     modes. 'bf16' is one pass on operands rounded to bf16 at staging (a
+//     bf16 value is exact in TF32 and its products exact in the fp32
+//     accumulator: the TPU kernel's bf16 _corr_block). 'f32' is 3xTF32:
+//     hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), and per k-step the
+//     sum hi.lo + lo.hi + hi.hi from zero, added to the fp32 accumulator
+//     with an IEEE add; the dropped lo.lo and the rounding of lo leave
+//     ~2^-21 relative per product (binned_corr.py::split_tf32 and
+//     binned_correlation_3xtf32 emulate it on the CPU). Chaining the passes
+//     in the tensor core's accumulator instead ('chained') comes within a
+//     factor 2 of 1e-5 of the curve scale over T = 780, because that
+//     accumulation truncates. The reference's
+//     'f32' is Precision.HIGHEST, a multi-pass product too. The split is
+//     done at staging (hi and lo tiles in shared memory): each residual is
+//     split once per block, not once per warp that loads it.
+//   Staging: T streams through shared memory in tiles of TT = 32 TOAs,
+//     stored transposed ([t][p]), each thread fetching its share of every
+//     realization's next tile into registers (16-byte loads, a warp reading
+//     64 contiguous bytes of 8 rows) while the current one is multiplied
+//     (the register prefetch of corr_common.cuh's accumulate_block). The
+//     row stride LD = rows rounded up to 32, plus 8: LD = 8 (mod 32) puts
+//     the fragment loads (lane g + 8k reads [k][g]) on 32 banks; the
+//     transposing stores stay on 32 banks because lane k of a row group
+//     stores its 4 TOAs rotated by k.
+//   Realizations: a block holds RB realizations' accumulators, each with its
+//     own staged tiles. In the epilogue each thread reads w[n, p, q] once
+//     per pair it holds and applies it to all RB realizations, then each
+//     (realization, slot) reduces in a fixed order (shuffle tree, then the
+//     8 warps in order): RB cuts the weight reads through L2 by RB (the old
+//     kernel read all NB PL PF weights once per realization; the TPU kernel
+//     once per rt). RB per warp tile is what fits 128 registers a thread:
+//     two blocks per SM measured faster than one block with more
+//     realizations (the phases of two blocks overlap), so RB is 2 for the
+//     small warp tiles and 1 for the large (rb_max). The 'f32' kernels of
+//     the large warp tiles spill a little at 128 registers (ptxas -v,
+//     printed by chip_smoke.py's build phase); the spill-free variant with
+//     one block per SM and more realizations per block ('one_block') is
+//     slower. The grid is (ceil(R / RB), pair tiles); a ragged last block
+//     masks its missing realizations.
+//   What holds it back (tools/binned_corr_variants.py): the residual read
+//     does not overlap the products (the kernel takes about its time
+//     without the read plus the read), because one batch of prefetch
+//     registers per tile is all the register file allows; a multi-stage
+//     asynchronous copy (cp.async or TMA) is the next step.
+//
+// fpt_binned_corr_vpu (#2): the first design, kept as it was. One block of
+// 256 threads per realization and pair tile of 16 MT pulsars a side, the
+// fp32 register tile of corr_common.cuh's accumulate_block; the tile is
+// stored to shared memory as a [rows][cols + 1] block and each slot n runs
+// as ONE block-wide reduction over it (the TPU variant's nbins+1
+// `jnp.sum(corr * w[n])`): thread k sums the elements k, k + 256, ... times
+// w[n] (consecutive threads on consecutive columns, so the weight reads
+// coalesce), a fixed shuffle tree folds each warp, and thread n adds the
+// warp sums in warp order.
+//
+// No float atomic anywhere: reruns are bit-identical.
+#include <algorithm>
+#include <cstdint>
+
 #include "corr_common.cuh"
 
 namespace fpt {
 
-enum class Epi { REGISTER, BLOCK };
+// ---------------------------------------------------------------------------
+// #2: fp32 register tile, block-wide per-slot reduction (fpt_binned_corr_vpu)
 
 // Block-wide binning of the tile C ([nrows][LD] in shared memory):
 // dst[n] = sum_{p,q} C[p][q] w[n, row0 + p, col0 + q], one fixed-order
@@ -83,20 +131,19 @@ __device__ void bin_block(const float* C, const float* __restrict__ w, int NB,
 
 // DUAL: the column pulsars come from their own rows (res_f, or another pair
 // tile); without it the block correlates its row tile with itself.
-template <int MT, bool DUAL, Epi EPI>
+template <int MT, bool DUAL>
 __global__ void __launch_bounds__(GROUP)
-binned_corr_kernel(const float* __restrict__ res_l,
-                   const float* __restrict__ res_f,
-                   const float* __restrict__ w, float* __restrict__ out,
-                   float* __restrict__ partial, int PL, int PF, int T,
-                   int NB, int bf16, int ntf) {
+vpu_corr_kernel(const float* __restrict__ res_l,
+                const float* __restrict__ res_f, const float* __restrict__ w,
+                float* __restrict__ out, float* __restrict__ partial, int PL,
+                int PF, int T, int NB, int bf16, int ntf) {
   extern __shared__ float smem[];
   constexpr int TILE = TDIM * MT;
   constexpr int LD = TILE + 1;
   float* A = smem;                    // [TT][LD] row pulsars
   float* B = smem + TT * LD;          // [TT][LD] column pulsars (DUAL)
-  float* C = smem + 2 * TT * LD;      // [TILE][LD] the tile (BLOCK only)
-  float* red = EPI == Epi::BLOCK ? C + TILE * LD : C;  // [NB][GROUP_WARPS]
+  float* C = smem + 2 * TT * LD;      // [TILE][LD] the tile
+  float* red = C + TILE * LD;         // [NB][GROUP_WARPS]
 
   const int r = blockIdx.x;
   const int tile = blockIdx.y, ntiles = gridDim.y;
@@ -111,48 +158,435 @@ binned_corr_kernel(const float* __restrict__ res_l,
                              ncols, bf16, A, B, acc);
   float* dst = ntiles == 1 ? out + (size_t)r * NB
                            : partial + ((size_t)r * ntiles + tile) * NB;
-  if constexpr (EPI == Epi::REGISTER) {
-    bin_group<MT>(acc, w, NB, PL, PF, row0, col0, nrows, ncols, ty, tx, tid,
-                  red, dst);
-  } else {
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < MT; ++j)
-        C[(ty + TDIM * i) * LD + tx + TDIM * j] = acc[i][j];
-    __syncthreads();
-    bin_block<LD>(C, w, NB, PL, PF, row0, col0, nrows, ncols, tid, red, dst);
-  }
+    for (int j = 0; j < MT; ++j)
+      C[(ty + TDIM * i) * LD + tx + TDIM * j] = acc[i][j];
+  __syncthreads();
+  bin_block<LD>(C, w, NB, PL, PF, row0, col0, nrows, ncols, tid, red, dst);
 }
 
-template <int MT, Epi EPI>
-int launch(const float* res_l, const float* res_f, const float* w, float* out,
-           float* partial, int R, int PL, int PF, int T, int NB, int bf16,
-           int shared, cudaStream_t stream) {
+template <int MT>
+int launch_vpu(const float* res_l, const float* res_f, const float* w,
+               float* out, float* partial, int R, int PL, int PF, int T,
+               int NB, int bf16, int shared, cudaStream_t stream) {
   constexpr int TILE = TDIM * MT;
   constexpr int LD = TILE + 1;
   const int ntl = (PL + TILE - 1) / TILE, ntf = (PF + TILE - 1) / TILE;
-  const size_t smem = (size_t)(2 * TT * LD + (EPI == Epi::BLOCK ? TILE * LD
-                                                                : 0) +
-                               NB * GROUP_WARPS) * sizeof(float);
+  const size_t smem =
+      (size_t)(2 * TT * LD + TILE * LD + NB * GROUP_WARPS) * sizeof(float);
   const dim3 grid((unsigned)R, (unsigned)(ntl * ntf));
   // one pair tile of one shared operand: correlate the tile with itself
   const bool dual = !(shared && ntl * ntf == 1);
-  auto kernel = dual ? binned_corr_kernel<MT, true, EPI>
-                     : binned_corr_kernel<MT, false, EPI>;
+  auto kernel = dual ? vpu_corr_kernel<MT, true> : vpu_corr_kernel<MT, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, GROUP, smem, stream>>>(res_l, res_f, w, out, partial, PL,
-                                        PF, T, NB, bf16, ntf);
+  kernel<<<grid, GROUP, smem, stream>>>(res_l, res_f, w, out, partial, PL, PF,
+                                        T, NB, bf16, ntf);
   if (ntl * ntf > 1) launch_reduce(partial, out, R, ntl * ntf, NB, stream);
   return 0;
 }
 
-template <Epi EPI>
-int dispatch(const void* res_l, const void* res_f, const void* w, void* out,
-             void* partial, int R, int PL, int PF, int T, int NB, int mt,
-             int bf16, int shared, void* stream) {
+// ---------------------------------------------------------------------------
+// #1: TF32 tensor-core products, PL x PF tiles, RB realizations per block
+// (fpt_binned_corr)
+
+constexpr int MMA_TILE = 128;   // a pair tile is at most 128 x 128 pulsars
+constexpr int WARPS = 8;        // warps per block, two blocks per SM
+constexpr int THREADS = 32 * WARPS;
+
+// Realizations per block for a warp tile of FM x FN fragments, with one
+// operand tile (the single-device path) or two (DUAL): the most whose
+// accumulators (RB FM FN 4 registers) and prefetch registers fit the 128
+// registers a thread has at two blocks per SM (ptxas -v, printed by
+// chip_smoke.py's build phase). The launch takes it from here alone.
+__host__ __device__ constexpr int rb_max(int fm, int fn, bool dual) {
+  return fm == 1 && fn == 4 ? 2 : fm == 1 && fn <= 2 && !dual ? 2 : 1;
+}
+
+// Rows a realization stages per T tile: the warp grid's whole extent,
+// 16 FM WGM row pulsars and 8 FN (8 / WGM) column pulsars (zeros past the
+// tile), so every warp multiplies all its fragments with no branch; without
+// DUAL one tile of max(the two) rows serves both operands. A warp grid
+// whose extent passes 128 on either side is never used.
+__host__ __device__ constexpr int staged_rows(int fm, int fn, int wgm,
+                                              bool dual, bool col) {
+  return col ? (dual ? 8 * fn * (WARPS / wgm) : 0)
+         : dual ? 16 * fm * wgm
+         : 16 * fm * wgm > 8 * fn * (WARPS / wgm) ? 16 * fm * wgm
+                                                  : 8 * fn * (WARPS / wgm);
+}
+
+__host__ __device__ constexpr bool grid_fits(int fm, int fn, int wgm) {
+  return 16 * fm * wgm <= MMA_TILE && 8 * fn * (WARPS / wgm) <= MMA_TILE;
+}
+
+__host__ __device__ constexpr int max_staged_rows(int fm, int fn, bool dual) {
+  int most = 0;
+  for (int wgm = 1; wgm <= WARPS; wgm *= 2) {
+    const int rows = staged_rows(fm, fn, wgm, dual, false) +
+                     staged_rows(fm, fn, wgm, dual, true);
+    if (grid_fits(fm, fn, wgm) && rows > most) most = rows;
+  }
+  return most;
+}
+
+// shared-memory row stride for a tile of `rows` pulsars: = 8 (mod 32)
+__host__ __device__ constexpr int mma_ld(int rows) {
+  return (rows + 31) / 32 * 32 + 8;
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// c += a b: one m16n8k8 TF32 product, fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment layouts (PTX ISA, m16n8k8 .tf32), g = lane >> 2, k = lane & 3:
+//   A (16 x 8, row): a0 (g, k), a1 (g + 8, k), a2 (g, k + 4), a3 (g + 8, k + 4)
+//   B (8 x 8, col):  b0 (k, g), b1 (k + 4, g)
+//   C (16 x 8):      c0 (g, 2k), c1 (g, 2k + 1), c2 (g + 8, 2k),
+//                    c3 (g + 8, 2k + 1)
+// A[m][t] is row pulsar m's residual at TOA t, B[t][n] column pulsar n's;
+// both sit in shared memory as [t][pulsar], so a0 is As[k][g] and b0 Bs[k][g].
+template <int FM, int FN, int RB, bool F32, bool DUAL>
+__global__ void __launch_bounds__(THREADS, 2)
+mma_corr_kernel(const float* __restrict__ res_l,
+                const float* __restrict__ res_f, const float* __restrict__ w,
+                float* __restrict__ out, float* __restrict__ partial, int R,
+                int PL, int PF, int T, int NB, int wgm, int ntf) {
+  extern __shared__ float smem[];
+  // per realization: the row operand's tile, then the column operand's
+  // (DUAL), each [TT][ld] and in the 'f32' mode a hi tile then a lo tile
+  constexpr int NS = F32 ? 2 : 1;
+  constexpr int ROWS_PER_K = 8 * WARPS / 2;     // staged rows per fetch step
+  constexpr int PER = (max_staged_rows(FM, FN, DUAL) + ROWS_PER_K - 1) /
+                      ROWS_PER_K;
+  const int arows = staged_rows(FM, FN, wgm, DUAL, false);
+  const int staged = arows + staged_rows(FM, FN, wgm, DUAL, true);
+  const int lda = mma_ld(arows);
+  const int ldb = DUAL ? mma_ld(staged - arows) : lda;
+  const int boff = DUAL ? NS * TT * lda : 0;   // column operand's offset
+  const int stride = NS * TT * (lda + (DUAL ? ldb : 0));
+
+  const int r0 = blockIdx.x * RB, nr = min(RB, R - r0);
+  const int tile = blockIdx.y, ntiles = gridDim.y;
+  const int ti = tile / ntf, tj = tile % ntf;
+  const int row0 = ti * MMA_TILE, col0 = tj * MMA_TILE;
+  const int nrows = min(MMA_TILE, PL - row0), ncols = min(MMA_TILE, PF - col0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, k4 = lane & 3;
+  const int wm = warp % wgm, wn = warp / wgm;
+
+  float acc[RB][FM][FN][4];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][i][j][c] = 0.f;
+
+  // Staging. Thread (warp, lane) fetches TOAs 4 tg .. 4 tg + 3, tg =
+  // 4 (warp & 1) + (lane & 3), of staged rows rho = 32 k + 8 (warp >> 1) +
+  // (lane >> 2), k < PER, as one 16-byte load where T allows it (a warp
+  // reads 64 contiguous bytes of 8 rows). Rows below arows are res_l's,
+  // the rest res_f's (arows is a multiple of 16: the split is warp-uniform).
+  // Its e-th store writes TOA 4 tg + ((e + lane) & 3): the four lanes of a
+  // row group then write four TOA rows, 8 banks apart, so the transposing
+  // stores stay on 32 banks. A block holds nr <= RB realizations (nr < RB
+  // in a ragged last block); the branches on r < nr are block-uniform.
+  const bool vec = T % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(res_l) |
+                     reinterpret_cast<uintptr_t>(res_f)) & 15) == 0;
+  const int tg = 4 * (warp & 1) + k4;
+  float reg[RB][PER][4];
+  auto fetch = [&](int t0) {
+    const int t = t0 + 4 * tg;
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r >= nr) continue;
+      const size_t rr = (size_t)(r0 + r);
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int rho = ROWS_PER_K * k + 8 * (warp >> 1) + g;
+        const float* x = nullptr;
+        if (rho < arows) {
+          if (rho < nrows) x = res_l + (rr * PL + row0 + rho) * T + t;
+        } else if (DUAL && rho < staged && rho - arows < ncols) {
+          x = res_f + (rr * PF + col0 + rho - arows) * T + t;
+        }
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (x != nullptr) {
+          if (vec) {
+            if (t < T) v = __ldg(reinterpret_cast<const float4*>(x));
+          } else {
+            v.x = t < T ? x[0] : 0.f;
+            v.y = t + 1 < T ? x[1] : 0.f;
+            v.z = t + 2 < T ? x[2] : 0.f;
+            v.w = t + 3 < T ? x[3] : 0.f;
+          }
+        }
+        reg[r][k][0] = v.x;
+        reg[r][k][1] = v.y;
+        reg[r][k][2] = v.z;
+        reg[r][k][3] = v.w;
+      }
+    }
+  };
+  auto stage = [&]() {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r >= nr) continue;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int rho = ROWS_PER_K * k + 8 * (warp >> 1) + g;
+        float* dst;
+        int ld;
+        if (rho < arows) {
+          dst = smem + r * stride + rho;
+          ld = lda;
+        } else if (DUAL && rho < staged) {
+          dst = smem + r * stride + boff + rho - arows;
+          ld = ldb;
+        } else {
+          continue;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int sel = (e + k4) & 3;
+          const float v = sel == 0   ? reg[r][k][0]
+                          : sel == 1 ? reg[r][k][1]
+                          : sel == 2 ? reg[r][k][2]
+                                     : reg[r][k][3];
+          float* d = dst + (4 * tg + sel) * ld;
+          if (F32) {
+            const uint32_t hi = to_tf32(v);
+            d[0] = __uint_as_float(hi);
+            d[TT * ld] = __uint_as_float(to_tf32(v - __uint_as_float(hi)));
+          } else {
+            d[0] = round_bf16(v);
+          }
+        }
+      }
+    }
+  };
+
+  fetch(0);
+  for (int t0 = 0; t0 < T; t0 += TT) {
+    stage();
+    __syncthreads();
+    if (t0 + TT < T) fetch(t0 + TT);
+#pragma unroll
+    for (int ks = 0; ks < TT; ks += 8) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        if (r >= nr) continue;
+        const float* As =
+            smem + r * stride + (ks + k4) * lda + wm * FM * 16 + g;
+        const float* Bs =
+            smem + r * stride + boff + (ks + k4) * ldb + wn * FN * 8 + g;
+        uint32_t ah[FM][4], al[FM][4];
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int col = (c & 2 ? 4 * lda : 0) + 16 * i + (c & 1) * 8;
+            ah[i][c] = __float_as_uint(As[col]);
+            al[i][c] = F32 ? __float_as_uint(As[TT * lda + col]) : 0u;
+          }
+#pragma unroll
+        for (int j = 0; j < FN; ++j) {
+          const float* b = Bs + 8 * j;
+          const uint32_t h0 = __float_as_uint(b[0]);
+          const uint32_t h1 = __float_as_uint(b[4 * ldb]);
+          const uint32_t l0 = F32 ? __float_as_uint(b[TT * ldb]) : 0u;
+          const uint32_t l1 = F32 ? __float_as_uint(b[TT * ldb + 4 * ldb]) : 0u;
+#pragma unroll
+          for (int i = 0; i < FM; ++i) {
+            if (F32) {
+              // the k-step's three passes start from zero and join the
+              // sum with an IEEE add: the tensor core's own accumulation
+              // truncates, which over ~300 chained passes costs ~1e-5 of
+              // the curve scale
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_tf32(d, ah[i], l0, l1);
+              mma_tf32(d, al[i], h0, h1);
+              mma_tf32(d, ah[i], h0, h1);
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[r][i][j][c] += d[c];
+            } else {
+              mma_tf32(acc[r][i][j], ah[i], h0, h1);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Epilogue: every weight this thread's pairs need, read once and applied
+  // to all RB realizations; each (realization, slot) reduces over the lanes
+  // (fixed shuffle tree) and then over the warps in order. A pair past the
+  // tile's edge has a zero correlation and reads the edge's weight (no
+  // branch). The staging tiles are free now and hold the [RB][NB][WARPS]
+  // warp sums.
+  float* red = smem;
+  for (int n = 0; n < NB; ++n) {
+    const float* wn_ = w + (size_t)n * PL * PF + (size_t)row0 * PF + col0;
+    float wv[FM][2][FN][2];
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int p = min((wm * FM + i) * 16 + g + 8 * h, nrows - 1);
+            const int q = min((wn * FN + j) * 8 + 2 * k4 + c, ncols - 1);
+            wv[i][h][j][c] = __ldg(wn_ + (size_t)p * PF + q);
+          }
+    float s[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      s[r] = 0.f;
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < FN; ++j)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              s[r] = fmaf(acc[r][i][j][2 * h + c], wv[i][h][j][c], s[r]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s[r] += __shfl_down_sync(0xffffffffu, s[r], off);
+      if (lane == 0) red[(r * NB + n) * WARPS + warp] = s[r];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < nr * NB; idx += THREADS) {
+    const int r = idx / NB, n = idx - r * NB;
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) s += red[idx * WARPS + k];
+    if (ntiles == 1)
+      out[(size_t)(r0 + r) * NB + n] = s;
+    else
+      partial[((size_t)(r0 + r) * ntiles + tile) * NB + n] = s;
+  }
+}
+
+template <int FM, int FN, bool F32, bool DUAL>
+int launch_mma_kernel(const float* res_l, const float* res_f, const float* w,
+                      float* out, float* partial, int R, int PL, int PF,
+                      int T, int NB, int wgm, int ntl, int ntf,
+                      cudaStream_t stream) {
+  constexpr int RB = rb_max(FM, FN, DUAL);
+  const int arows = staged_rows(FM, FN, wgm, DUAL, false);
+  const int brows = staged_rows(FM, FN, wgm, DUAL, true);
+  const size_t staging = (size_t)RB * (F32 ? 2 : 1) * TT *
+                         (mma_ld(arows) + (DUAL ? mma_ld(brows) : 0));
+  const size_t sums = (size_t)RB * NB * WARPS;
+  const size_t smem = (staging > sums ? staging : sums) * sizeof(float);
+  auto kernel = mma_corr_kernel<FM, FN, RB, F32, DUAL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((R + RB - 1) / RB), (unsigned)(ntl * ntf));
+  kernel<<<grid, THREADS, smem, stream>>>(res_l, res_f, w, out, partial, R,
+                                          PL, PF, T, NB, wgm, ntf);
+  if (ntl * ntf > 1) launch_reduce(partial, out, R, ntl * ntf, NB, stream);
+  return 0;
+}
+
+template <int FM, int FN>
+int launch_mma(const float* res_l, const float* res_f, const float* w,
+               float* out, float* partial, int R, int PL, int PF, int T,
+               int NB, int wgm, int ntl, int ntf, bool f32,
+               bool dual, cudaStream_t stream) {
+#define FPT_LAUNCH(F, D)                                                    \
+  return launch_mma_kernel<FM, FN, F, D>(res_l, res_f, w, out, partial, R, \
+                                         PL, PF, T, NB, wgm, ntl, ntf,     \
+                                         stream)
+  if (f32) {
+    if (dual) FPT_LAUNCH(true, true);
+    FPT_LAUNCH(true, false);
+  }
+  if (dual) FPT_LAUNCH(false, true);
+  FPT_LAUNCH(false, false);
+#undef FPT_LAUNCH
+}
+
+}  // namespace fpt
+
+// C entries, one per binning variant, with one contract: res_l (R, PL, T),
+// res_f (R, PF, T), w (NB, PL, PF), out (R, NB), all float32 and
+// contiguous; partial (R, ntiles, NB) scratch when the pair space needs more
+// than one tile, else null. Return cudaGetLastError() after the launch(es),
+// or cudaErrorInvalidValue for a tiling the source has no kernel for.
+//
+// fpt_binned_corr's `tiling` is binned_corr.py::mma_tiling's warp grid
+// packed as wgm | fm << 4 | fn << 8; the pair tiles are BM = PL rounded up
+// to 16 and BN = PF rounded up to 8, each at most 128, and the realizations
+// per block rb_max(fm, fn, dual), all chosen here.
+extern "C" int fpt_binned_corr(const void* res_l, const void* res_f,
+                               const void* w, void* out, void* partial,
+                               int R, int PL, int PF, int T, int NB,
+                               int tiling, int bf16, int shared,
+                               void* stream) {
+  using namespace fpt;
+  const int wgm = tiling & 15, fm = (tiling >> 4) & 15,
+            fn = (tiling >> 8) & 15;
+  const int bm = std::min(MMA_TILE, (PL + 15) / 16 * 16);
+  const int bn = std::min(MMA_TILE, (PF + 7) / 8 * 8);
+  const int ntl = (PL + bm - 1) / bm, ntf = (PF + bn - 1) / bn;
+  if (wgm < 1 || wgm > WARPS || (wgm & (wgm - 1)) != 0 ||
+      !grid_fits(fm, fn, wgm) || 16 * fm * wgm < bm ||
+      8 * fn * (WARPS / wgm) < bn)
+    return (int)cudaErrorInvalidValue;
+  const float* a = static_cast<const float*>(res_l);
+  const float* b = static_cast<const float*>(res_f);
+  const float* wp = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  float* part = static_cast<float*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // one pair tile of one shared operand: correlate the tile with itself
+  const bool dual = !(shared && ntl * ntf == 1);
+  const bool f32 = !bf16;
+  int rc;
+#define FPT_SHAPE(FM_, FN_)                                                \
+  if (fm == FM_ && fn == FN_)                                              \
+    rc = launch_mma<FM_, FN_>(a, b, wp, o, part, R, PL, PF, T, NB, wgm,     \
+                              ntl, ntf, f32, dual, s);                     \
+  else
+  FPT_SHAPE(1, 1) FPT_SHAPE(1, 2) FPT_SHAPE(1, 4) FPT_SHAPE(1, 7)
+  FPT_SHAPE(2, 4) FPT_SHAPE(2, 7) FPT_SHAPE(2, 8)
+  return (int)cudaErrorInvalidValue;
+#undef FPT_SHAPE
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fpt_binned_corr_vpu(const void* res_l, const void* res_f,
+                                   const void* w, void* out, void* partial,
+                                   int R, int PL, int PF, int T, int NB,
+                                   int mt, int bf16, int shared,
+                                   void* stream) {
   const float* a = static_cast<const float*>(res_l);
   const float* b = static_cast<const float*>(res_f);
   const float* wp = static_cast<const float*>(w);
@@ -161,41 +595,16 @@ int dispatch(const void* res_l, const void* res_f, const void* w, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   switch (mt) {
-    case 1: rc = launch<1, EPI>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 2: rc = launch<2, EPI>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 3: rc = launch<3, EPI>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 4: rc = launch<4, EPI>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 5: rc = launch<5, EPI>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 6: rc = launch<6, EPI>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 7: rc = launch<7, EPI>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 8: rc = launch<8, EPI>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
+    case 1: rc = fpt::launch_vpu<1>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
+    case 2: rc = fpt::launch_vpu<2>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
+    case 3: rc = fpt::launch_vpu<3>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
+    case 4: rc = fpt::launch_vpu<4>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
+    case 5: rc = fpt::launch_vpu<5>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
+    case 6: rc = fpt::launch_vpu<6>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
+    case 7: rc = fpt::launch_vpu<7>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
+    case 8: rc = fpt::launch_vpu<8>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
-}
-
-}  // namespace fpt
-
-// C entries, one per binning variant, with one contract: res_l (R, PL, T),
-// res_f (R, PF, T), w (NB, PL, PF), out (R, NB), all float32 and
-// contiguous; partial (R, ntiles, NB) scratch when the pair space needs more
-// than one tile of 16*mt pulsars a side, else null. Return
-// cudaGetLastError() after the launch(es).
-extern "C" int fpt_binned_corr(const void* res_l, const void* res_f,
-                               const void* w, void* out, void* partial,
-                               int R, int PL, int PF, int T, int NB, int mt,
-                               int bf16, int shared, void* stream) {
-  return fpt::dispatch<fpt::Epi::REGISTER>(res_l, res_f, w, out, partial, R,
-                                           PL, PF, T, NB, mt, bf16, shared,
-                                           stream);
-}
-
-extern "C" int fpt_binned_corr_vpu(const void* res_l, const void* res_f,
-                                   const void* w, void* out, void* partial,
-                                   int R, int PL, int PF, int T, int NB,
-                                   int mt, int bf16, int shared,
-                                   void* stream) {
-  return fpt::dispatch<fpt::Epi::BLOCK>(res_l, res_f, w, out, partial, R, PL,
-                                        PF, T, NB, mt, bf16, shared, stream);
 }

@@ -1,7 +1,8 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own (``nvcc -gencode
-arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC -Xptxas -v``)
+arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC -Xptxas -v
+-split-compile=0``, the last compiling a source's kernels on every core)
 into ``<name>-<hash>.so`` under ``fakepta_tpu_torch/build/kernels/``, beside
 the sources it is built from (``FAKEPTA_TORCH_BUILD_DIR`` names another
 directory, for an installation that cannot write there). Each library has a
@@ -30,7 +31,8 @@ BUILD_DIR = Path(os.environ.get("FAKEPTA_TORCH_BUILD_DIR")
                  or PACKAGE / "build" / "kernels")
 KERNELS = ("binned_corr", "megakernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -61,6 +63,15 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_digest(name)}.so"
 
 
+def start_nvcc(src: Path, dst: Path) -> subprocess.Popen:
+    """Start one nvcc process compiling ``src`` (headers from ``csrc/``)
+    into the library ``dst``; its output is the compiler's log."""
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(dst),
+           str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Compile every missing library in ``names`` (default: all kernels),
     one nvcc process per source, all started together.
@@ -77,11 +88,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         if dst.exists():
             continue
         tmp = dst.with_name(f"{dst.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, dst)
+        procs[name] = (start_nvcc(CSRC / f"{name}.cu", tmp), tmp, dst)
     logs, failed = {}, []
     for name, (proc, tmp, dst) in procs.items():
         log, _ = proc.communicate()

@@ -7,13 +7,16 @@ The ensemble statistic is a two-stage contraction per realization r:
                                                       the auto trace last)
 
 :func:`binned_correlation` runs it as one hand-written CUDA kernel
-(``csrc/binned_corr.cu``; its header has the design and the H100 bound)
-that keeps each realization's correlation block in registers and applies
-the weight slots there, so device memory sees only the residual read and
-the (R, NB) write: the port of the TPU kernel's MXU-binning variant.
-:func:`binned_correlation_vpu` is the port of its ``mxu_binning=False``
-variant (the same source, another epilogue): the block is formed in shared
-memory and each slot runs as one block-wide reduction.
+(``csrc/binned_corr.cu``, C entry ``fpt_binned_corr``; its header has the
+design and the H100 bound): TF32 tensor-core products (3xTF32 in the
+``'f32'`` mode, see :func:`split_tf32`) on a PL x PF pair tile
+(:func:`mma_tiling`), the correlation block kept in registers and binned
+there, each weight read once for RB realizations, so device memory sees
+only the residual read and the (R, NB) write: the port of the TPU kernel's
+MXU-binning variant. :func:`binned_correlation_vpu` is the port of its
+``mxu_binning=False`` variant (a second kernel in the same source): an
+fp32 register tile, formed in shared memory, each slot one block-wide
+reduction.
 :func:`binned_correlation_plain` is the same function in plain torch, the
 plain version of both.
 
@@ -25,6 +28,7 @@ each kernel's launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +42,29 @@ vpu_launches = 0
 TDIM = 16       # threads per side of a realization group (corr_common.cuh)
 MAX_MT = 8      # so a pair tile is at most 128 pulsars a side
 
+MMA_TILE = 128  # binned_correlation's pair tile is at most 128 x 128
+MMA_WARPS = 8   # warps per block, each owning fm x fn m16n8 fragments
+#: the (fm, fn) warp tiles binned_corr.cu instantiates (its FPT_SHAPE
+#: lines); the realizations per block of each it chooses itself
+WARP_TILES = ((1, 1), (1, 2), (1, 4), (1, 7), (2, 4), (2, 7), (2, 8))
+
+
+class MmaTiling(NamedTuple):
+    """:func:`binned_correlation`'s launch shape: a bm x bn pair tile
+    (row_tiles x col_tiles of them), 8 warps in a wgm x (8 / wgm) grid each
+    holding fm x fn m16n8 fragments."""
+    bm: int
+    bn: int
+    row_tiles: int
+    col_tiles: int
+    wgm: int
+    fm: int
+    fn: int
+
+    def code(self) -> int:
+        """The warp grid as ``fpt_binned_corr`` takes it."""
+        return self.wgm | self.fm << 4 | self.fn << 8
+
 
 def _check_precision(precision: str) -> None:
     if precision not in ("bf16", "f32"):
@@ -46,11 +73,61 @@ def _check_precision(precision: str) -> None:
 
 
 def pair_tiling(p_rows: int, p_cols: int):
-    """(mt, row tiles, column tiles) of the kernel's pair space: each thread
-    holds an mt x mt register tile, a block 16*mt pulsars a side."""
+    """(mt, row tiles, column tiles) of the fp32 register-tile kernels'
+    pair space (:func:`binned_correlation_vpu`, ``megakernel.chunk_stats``):
+    each thread holds an mt x mt register tile, a block 16*mt pulsars a
+    side."""
     mt = max(1, min(MAX_MT, -(-max(p_rows, p_cols) // TDIM)))
     tile = TDIM * mt
     return mt, -(-p_rows // tile), -(-p_cols // tile)
+
+
+def mma_tiling(p_rows: int, p_cols: int) -> MmaTiling:
+    """The pair tiling of :func:`binned_correlation`'s kernel: bm = p_rows
+    rounded up to 16 and bn = p_cols rounded up to 8, each at most 128; of
+    the warp grids and :data:`WARP_TILES` that cover the bm/16 x bn/8
+    fragments, the one whose busiest warp (the first) holds the fewest,
+    then the fewest registers, then the fewest shared-memory bytes loaded
+    per product (2 fm + fn)."""
+    bm = min(MMA_TILE, -(-p_rows // 16) * 16)
+    bn = min(MMA_TILE, -(-p_cols // 8) * 8)
+    nfm, nfn = bm // 16, bn // 8
+    best = None
+    for fm, fn in WARP_TILES:
+        for wgm in (1, 2, 4, 8):
+            rows, cols = 16 * fm * wgm, 8 * fn * (MMA_WARPS // wgm)
+            if not bm <= rows <= MMA_TILE or not bn <= cols <= MMA_TILE:
+                continue
+            key = (min(fm, nfm) * min(fn, nfn), fm * fn, 2 * fm + fn)
+            if best is None or key < best[0]:
+                best = (key, wgm, fm, fn)
+    _, wgm, fm, fn = best
+    return MmaTiling(bm, bn, -(-p_rows // bm), -(-p_cols // bn), wgm, fm, fn)
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 values to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: PTX ``cvt.rna.tf32.f32``."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """The 'f32' mode's 3xTF32 operand split, as the kernel does it:
+    ``hi = tf32(x)``, ``lo = tf32(x - hi)``; a product a.b is then taken as
+    ``a_hi.b_lo + a_lo.b_hi + a_hi.b_hi`` in fp32."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def binned_correlation_3xtf32(res_local, res_full, weights, nbins: int):
+    """The 'f32' kernel's arithmetic in plain torch: the products of
+    :func:`split_tf32` operands (exact in fp32), then the binning."""
+    (ah, al), (bh, bl) = split_tf32(res_local), split_tf32(res_full)
+    corr = sum(torch.einsum("rpt,rqt->rpq", a, b)
+               for a, b in ((ah, bl), (al, bh), (ah, bh)))
+    out = torch.einsum("rpq,npq->rn", corr, weights.float())
+    return out[:, :nbins], out[:, nbins]
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -70,11 +147,25 @@ def binned_correlation_plain(res_local, res_full, weights, nbins: int,
     return out[:, :nbins], out[:, nbins]
 
 
+def bind(lib: ctypes.CDLL, entry: str):
+    """The C entry ``entry`` of a library built from ``csrc/binned_corr.cu``,
+    with its signature: (res_local, res_full, weights, out, partial, R, PL,
+    PF, T, NB, tiling, bf16, shared, stream) -> CUDA error code."""
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    return fn
+
+
 def _launch(entry: str, what: str, res_local, res_full, weights,
             nbins: int, precision: str):
     """Check the operands, launch the C entry ``entry`` of
-    ``csrc/binned_corr.cu`` and return (curves (R, nbins), autos (R,)).
-    Both entries share one C signature."""
+    ``csrc/binned_corr.cu`` and return ((curves (R, nbins), autos (R,)),
+    launched?): an empty ensemble or time axis launches nothing. Both
+    entries share one C signature; its tiling argument is
+    :func:`mma_tiling`'s code for ``fpt_binned_corr`` and
+    :func:`pair_tiling`'s mt for ``fpt_binned_corr_vpu``."""
     for name, x in (("res_local", res_local), ("res_full", res_full),
                     ("weights", weights)):
         if x.device != res_local.device:
@@ -98,27 +189,29 @@ def _launch(entry: str, what: str, res_local, res_full, weights,
     if not 0 <= nbins < NB:
         raise ValueError(f"nbins={nbins} needs nbins+1 <= {NB} weight slots")
     shared = int(res_local.data_ptr() == res_full.data_ptr() and PL == PF)
-    mt, ntl, ntf = pair_tiling(PL, PF)
+    if entry == "fpt_binned_corr":
+        tiling = mma_tiling(PL, PF)
+        arg, ntiles = tiling.code(), tiling.row_tiles * tiling.col_tiles
+    else:
+        mt, ntl, ntf = pair_tiling(PL, PF)
+        arg, ntiles = mt, ntl * ntf
     dev = res_local.device
     out = torch.empty((R, NB), dtype=torch.float32, device=dev)
     if R == 0 or T == 0:
         out.zero_()
-        return out[:, :nbins], out[:, nbins]
-    partial = (torch.empty((R, ntl * ntf, NB), dtype=torch.float32,
-                           device=dev) if ntl * ntf > 1 else None)
+        return (out[:, :nbins], out[:, nbins]), False
+    partial = (torch.empty((R, ntiles, NB), dtype=torch.float32,
+                           device=dev) if ntiles > 1 else None)
     lib = _build.load("binned_corr")
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
+    fn = bind(lib, entry)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(res_local.data_ptr(), res_full.data_ptr(), weights.data_ptr(),
                 out.data_ptr(), partial.data_ptr() if partial is not None
-                else None, R, PL, PF, T, NB, mt,
+                else None, R, PL, PF, T, NB, arg,
                 int(precision == "bf16"), shared, stream)
     _build.check(lib, rc, what)
-    return out[:, :nbins], out[:, nbins]
+    return (out[:, :nbins], out[:, nbins]), True
 
 
 def _run(entry: str, what: str, res_local, res_full, weights,
@@ -133,7 +226,7 @@ def _run(entry: str, what: str, res_local, res_full, weights,
         raise ValueError(f"{what} runs on cuda or cpu tensors, got "
                          f"{res_local.device}")
     return _launch(entry, what, res_local, res_full, weights, nbins,
-                   precision), True
+                   precision)
 
 
 def binned_correlation(res_local, res_full, weights, nbins: int,
@@ -146,8 +239,8 @@ def binned_correlation(res_local, res_full, weights, nbins: int,
     trace. All contiguous on a CUDA device: a psr shard passes its rows as
     a tensor of their own, never as a row slice of the gathered array.
     ``precision``: ``'bf16'`` (bf16 operands, f32 accumulation) or
-    ``'f32'`` (plain fp32 FMAs). Returns (curves (R, nbins), autos (R,)),
-    the shard's partial sums when PL < PF.
+    ``'f32'`` (3xTF32 products, ~2^-21 relative each). Returns (curves
+    (R, nbins), autos (R,)), the shard's partial sums when PL < PF.
     """
     global launches
     out, launched = _run("fpt_binned_corr", "binned_correlation", res_local,

@@ -56,24 +56,38 @@ def _mega_inputs(seed, R, P, T, nbins=5):
             rng.standard_normal((nbins + 1, P, P)))
 
 
+def _check_binned_correlation(res_l, res_f, w, nbins, prec):
+    """One launch of the tensor-core kernel (none for an empty ensemble),
+    held against the plain version, and a bit-identical rerun."""
+    before = bc.launches
+    got = bc.binned_correlation(res_l, res_f, w, nbins, precision=prec)
+    torch.cuda.synchronize()
+    assert bc.launches == before + (res_l.shape[0] > 0)
+    assert got[0].shape == (res_l.shape[0], nbins)
+    want = bc.binned_correlation_plain(res_l, res_f, w, nbins,
+                                       precision=prec)
+    if res_l.shape[0]:
+        _assert_close(got, want, prec)
+    again = bc.binned_correlation(res_l, res_f, w, nbins, precision=prec)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# (R, PL, PF, T): PL not a multiple of 16 and PF not of 8, T not of 8 or
+# 32, pair spaces past one 128 tile, PL = 1, R not a multiple of the
+# kernel's realizations per block (RB = 2 at 25 x 100 and 1 x 1) and R = 0
 @pytest.mark.cuda
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
 @pytest.mark.parametrize("R,PL,PF,T", [(6, 20, 20, 100), (3, 130, 130, 50),
-                                       (2, 12, 40, 33)])
+                                       (2, 12, 40, 33), (5, 100, 100, 780),
+                                       (5, 25, 100, 33), (7, 1, 1, 8),
+                                       (0, 20, 20, 33)])
 def test_binned_correlation_kernel_matches_plain(cuda, prec, R, PL, PF, T):
     g = torch.Generator(device=cuda).manual_seed(1)
     res_f = torch.randn(R, PF, T, device=cuda, generator=g)
     res_l = res_f if PL == PF else torch.randn(R, PL, T, device=cuda,
                                                generator=g)
     w = torch.randn(7, PL, PF, device=cuda, generator=g)
-    before = bc.launches
-    got = bc.binned_correlation(res_l, res_f, w, 6, precision=prec)
-    torch.cuda.synchronize()
-    assert bc.launches == before + 1
-    want = bc.binned_correlation_plain(res_l, res_f, w, 6, precision=prec)
-    _assert_close(got, want, prec)
-    again = bc.binned_correlation(res_l, res_f, w, 6, precision=prec)
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _check_binned_correlation(res_l, res_f, w, 6, prec)
 
 
 @pytest.mark.cuda
@@ -161,17 +175,16 @@ def test_binned_correlation_vpu_kernel_matches_plain(cuda, prec, R, PL, PF,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
-@pytest.mark.parametrize("R,PL,PF,T", SHARD_SHAPES[:2])
+@pytest.mark.parametrize("R,PL,PF,T", SHARD_SHAPES[:2] + [
+    (5, 25, 100, 780), (5, 50, 100, 780), (3, 12, 40, 33),
+    (2, 25, 130, 40), (9, 1, 100, 33), (0, 25, 100, 64)])
 def test_binned_correlation_kernel_local_rows(cuda, prec, R, PL, PF, T):
     """The MXU-binning kernel with PL < PF, as the sharded fused path
-    launches it."""
+    launches it: a shard's rows (a 2- and 4-shard mesh's at the flagship
+    width), ragged tiles, a second column tile, one pulsar per shard, R
+    not a multiple of RB and R = 0."""
     res_l, res_f, w = _sharded_residuals(cuda, R, PL, PF, T)
-    before = bc.launches
-    got = bc.binned_correlation(res_l, res_f, w, 5, precision=prec)
-    torch.cuda.synchronize()
-    assert bc.launches == before + 1
-    want = bc.binned_correlation_plain(res_l, res_f, w, 5, precision=prec)
-    _assert_close(got, want, prec)
+    _check_binned_correlation(res_l, res_f, w, 5, prec)
 
 
 @pytest.mark.cuda

@@ -45,7 +45,7 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+    [*PORT.rglob("*.py"), *ROOT.glob("tools/*.py"), ROOT / "chip_smoke.py"]))
 def test_source_has_no_jax_import(path):
     src = (ROOT / path).read_text()
     hits = IMPORT_RE.findall(src)
