@@ -10,18 +10,20 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    kernel from ``fakepta_tpu_torch/csrc`` (one nvcc per source, in
    parallel) and print the build seconds, ptxas' register report and the
    number of ``HMMA`` (tensor-core) instructions in each kernel's SASS
-   (``cuobjdump -sass``); it fails if ``binned_correlation``'s kernels
-   have none.
+   (``cuobjdump -sass``); it fails if the kernels of
+   ``binned_correlation`` or ``binned_correlation_vpu`` have none.
 2. ``kernels``: at the flagship shapes (R = 1024 realizations, 100 pulsars,
    780 TOAs), hold each kernel against its plain torch version on the same
    inputs, at both precisions, and time kernel, plain version, the
    byte/FLOP bound and (where one exists) a single PyTorch library call;
    the sharded kernels at a psr shard's rows (PL = 25 or 50) against the
    whole array. For ``binned_correlation`` also its tiling and the 'f32'
-   mode's 3xTF32 arithmetic emulated on 16 realizations against float64.
+   mode's 3xTF32 arithmetic emulated on 16 realizations against float64;
+   for ``binned_correlation_vpu`` its tiling and realizations per block.
 3. ``engine``: run ``EnsembleSimulator`` on the flagship batch with an HD
-   background for ``stat_path`` ``"fused"`` and ``"mega"`` at ``'f32'`` and
-   ``'bf16'``; each must agree with the ``"einsum"`` path, rerun
+   background for ``stat_path`` ``"fused"``, ``"fused"`` with
+   ``pallas_mxu_binning=False`` (``"fused-vpu"``) and ``"mega"`` at
+   ``'f32'`` and ``'bf16'``; each must agree with the ``"einsum"`` path, rerun
    bit-identically and launch its kernel (launch counts are zeroed just
    before these runs and read just after). A small array is also held
    against the CPU engine.
@@ -254,11 +256,13 @@ def phase_build(report: dict) -> None:
         report["hmma"][name] = counts
         for fn, n in counts.items():
             print(f"  {name}: {n:5d} HMMA in {fn}")
-    mma = {fn: n for fn, n in report["hmma"]["binned_corr"].items()
-           if "mma_corr_kernel" in fn}
-    if not mma or min(mma.values()) == 0:
-        raise AssertionError(f"binned_correlation's kernels run no "
-                             f"tensor-core instruction: {mma}")
+    for name, kernel in (("binned_correlation", "mma_corr_kernel"),
+                         ("binned_correlation_vpu", "vpu_corr_kernel")):
+        mma = {fn: n for fn, n in report["hmma"]["binned_corr"].items()
+               if kernel in fn}
+        if not mma or min(mma.values()) == 0:
+            raise AssertionError(f"{name}'s kernels run no tensor-core "
+                                 f"instruction: {mma}")
 
 
 def kernel_rows(rows: dict, name: str, tag: str, kernel, plain, library,
@@ -297,8 +301,8 @@ def corr_flops_split(prec: str, corr: float, other: float):
 
 
 def tf32_route_flops(prec: str, corr: float, other: float):
-    """(fp32, bf16, tf32) FLOPs of binned_correlation's route: the
-    correlation on the TF32 tensor cores, one pass in the bf16 mode and
+    """(fp32, bf16, tf32) FLOPs of the binned_correlation kernels' route:
+    the correlation on the TF32 tensor cores, one pass in the bf16 mode and
     three (3xTF32) in the 'f32' mode; the binning at fp32."""
     return other, 0.0, (3 * corr if prec == "f32" else corr)
 
@@ -319,6 +323,19 @@ def mma_details(rows: dict, res_l, res_f, w, nbins: int, tag: str) -> None:
     for p in ("bf16", "f32"):
         rows[("binned_correlation", p, tag)].update(
             tiling=tiling._asdict(), emulation_vs_f64=emu)
+
+
+def vpu_details(rows: dict, pl: int, pf: int, nb: int, tag: str) -> None:
+    """binned_correlation_vpu's tiling and realizations per block at this
+    shape, per precision."""
+    from fakepta_tpu_torch.ops import binned_corr as bc
+    for p in ("bf16", "f32"):
+        t = bc.vpu_tiling(pl, pf, nb, p, shared=pl == pf)
+        print(f"  binned_correlation_vpu {tag} [{p}]: tiling {t.mma}, "
+              f"rb {t.rb}, ldc {t.ldc}, {t.smem} B shared memory",
+              flush=True)
+        rows[("binned_correlation_vpu", p, tag)].update(
+            tiling=t.mma._asdict(), rb=t.rb, smem=t.smem)
 
 
 def phase_kernels(report: dict) -> None:
@@ -351,10 +368,7 @@ def phase_kernels(report: dict) -> None:
     # -- binned_correlation (#1) and its mxu_binning=False variant (#2) --
     # shared: the single-device path's one operand set (symmetric block);
     # PL < PF: a psr shard's rows against the gathered array, at each shard
-    # width the mesh phase launches; #1 multiplies on the TF32 tensor cores,
-    # #2 on the fp32 units
-    flops_of = {"binned_correlation": tf32_route_flops,
-                "binned_correlation_vpu": corr_flops_split}
+    # width the mesh phase launches; both multiply on the TF32 tensor cores
     for name, fn in (("binned_correlation", bc.binned_correlation),
                      ("binned_correlation_vpu", bc.binned_correlation_vpu)):
         for pl in (P,) + SHARD_PL:
@@ -373,10 +387,12 @@ def phase_kernels(report: dict) -> None:
                 lambda a=res_l, ww=w_l: torch.einsum("rpt,rqt,npq->rn", a,
                                                      res, ww),
                 lambda p, n=nbytes: n,
-                lambda p, c=corr, b=binf, f=flops_of[name]: f(p, c, b),
+                lambda p, c=corr, b=binf: tf32_route_flops(p, c, b),
                 iters=20)
             if name == "binned_correlation":
                 mma_details(rows, res_l, res, w_l, nbins, shape_tag(pl, P))
+            else:
+                vpu_details(rows, pl, P, NB, shape_tag(pl, P))
 
     # -- chunk_stats: shared set (#3), local+full set (#4) ----------------
     # the bf16 mode stores base and coefficients in bfloat16, as the engine
@@ -420,9 +436,12 @@ def phase_kernels(report: dict) -> None:
 def phase_engine(report: dict) -> None:
     import torch
 
-    counters = {"fused": "binned_correlation", "mega": "chunk_stats"}
+    counters = {"fused": "binned_correlation",
+                "fused-vpu": "binned_correlation_vpu", "mega": "chunk_stats"}
     nchunks = -(-NREAL // CHUNK)
-    sims = {p: flagship_sim(p) for p in ("einsum", "fused", "mega")}
+    sims = {p: flagship_sim(p.split("-")[0],
+                            pallas_mxu_binning=p != "fused-vpu")
+            for p in ("einsum", "fused", "fused-vpu", "mega")}
 
     def timed_run(sim, precision):
         torch.cuda.synchronize()
@@ -440,7 +459,7 @@ def phase_engine(report: dict) -> None:
     # the main path: launch counts zeroed just before, read just after
     reset_counts()
     runs = {}
-    for path in ("fused", "mega"):
+    for path in ("fused", "fused-vpu", "mega"):
         for prec in ("f32", "bf16"):
             before = counts()
             sims[path].run(CHUNK, seed=99, chunk=CHUNK, precision=prec)
@@ -487,8 +506,9 @@ def phase_engine(report: dict) -> None:
     gwb = small_gwb(small)
     cpu = EnsembleSimulator(small, gwb=gwb, stat_path="einsum",
                             device="cpu").run(64, seed=3, chunk=32)
-    for path in ("fused", "mega"):
-        gpu = EnsembleSimulator(small, gwb=gwb, stat_path=path,
+    for path in ("fused", "fused-vpu", "mega"):
+        gpu = EnsembleSimulator(small, gwb=gwb, stat_path=path.split("-")[0],
+                                pallas_mxu_binning=path != "fused-vpu",
                                 device="cuda").run(64, seed=3, chunk=32,
                                                    precision="f32")
         compare((gpu["curves"], gpu["autos"]),

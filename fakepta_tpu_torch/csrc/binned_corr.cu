@@ -16,12 +16,12 @@
 // R P (P+1) T FLOPs (2 R PL PF T for two operand sets) against R P T 4
 // bytes of residual read, about (P+1)/4 = 25 FLOP per byte at the flagship
 // (P = 100). At the tensor cores' published rates that is under the memory
-// line, so #1's floor is the residual read; on the fp32 units, #2's, it is
-// above it. Neither kernel skips the mirrored half of a symmetric block
-// (twice the work the bound counts; later work).
+// line, so both kernels' floor is the residual read. Neither skips the
+// mirrored half of a symmetric block (twice the work the bound counts;
+// later work).
 //
-// fpt_binned_corr (#1): tensor cores, tiles sized by PL and PF, weight reads
-// shared across realizations where the registers allow.
+// Both kernels run one mainloop (mma_mainloop) and differ in their
+// epilogues.
 //   Tiles. A block's pair tile is BM x BN: BM = PL rounded up to 16, BN = PF
 //     rounded up to 8, each at most 128 (wider arrays tile the pair space
 //     over grid.y and add the tiles in a fixed-order second pass). The tile
@@ -29,7 +29,7 @@
 //     grid and each warp owns FM x FN fragments of it, the warp tile
 //     binned_corr.py::mma_tiling picks so that the busiest warp holds the
 //     fewest fragments. A 25-row shard against 100 pulsars runs a 32 x 104
-//     tile, not the old rule's 112 x 112. Rows past the tile are staged as
+//     tile, not a square 112 x 112 one. Rows past the tile are staged as
 //     zeros up to the warp grid's extent, so no warp branches on its
 //     fragments (tools/binned_corr_variants.py's 'skip': a warp-uniform
 //     branch per fragment costs more than the wasted products).
@@ -51,12 +51,14 @@
 //   Staging: T streams through shared memory in tiles of TT = 32 TOAs,
 //     stored transposed ([t][p]), each thread fetching its share of every
 //     realization's next tile into registers (16-byte loads, a warp reading
-//     64 contiguous bytes of 8 rows) while the current one is multiplied
-//     (the register prefetch of corr_common.cuh's accumulate_block). The
-//     row stride LD = rows rounded up to 32, plus 8: LD = 8 (mod 32) puts
-//     the fragment loads (lane g + 8k reads [k][g]) on 32 banks; the
+//     64 contiguous bytes of 8 rows) while the current one is multiplied.
+//     The row stride LD = rows rounded up to 32, plus 8: LD = 8 (mod 32)
+//     puts the fragment loads (lane g + 8k reads [k][g]) on 32 banks; the
 //     transposing stores stay on 32 banks because lane k of a row group
 //     stores its 4 TOAs rotated by k.
+//
+// fpt_binned_corr (#1): RB realizations per block in registers, binned
+// there.
 //   Realizations: a block holds RB realizations' accumulators, each with its
 //     own staged tiles. In the epilogue each thread reads w[n, p, q] once
 //     per pair it holds and applies it to all RB realizations, then each
@@ -78,15 +80,32 @@
 //     registers per tile is all the register file allows; a multi-stage
 //     asynchronous copy (cp.async or TMA) is the next step.
 //
-// fpt_binned_corr_vpu (#2): the first design, kept as it was. One block of
-// 256 threads per realization and pair tile of 16 MT pulsars a side, the
-// fp32 register tile of corr_common.cuh's accumulate_block; the tile is
-// stored to shared memory as a [rows][cols + 1] block and each slot n runs
-// as ONE block-wide reduction over it (the TPU variant's nbins+1
-// `jnp.sum(corr * w[n])`): thread k sums the elements k, k + 256, ... times
-// w[n] (consecutive threads on consecutive columns, so the weight reads
-// coalesce), a fixed shuffle tree folds each warp, and thread n adds the
-// warp sums in warp order.
+// fpt_binned_corr_vpu (#2): each slot one block-wide reduction over the
+// correlation block in shared memory (the TPU variant's nbins+1
+// `jnp.sum(corr * w[n])`), each weight read shared by rb realizations.
+//   The block runs the mainloop for its rb realizations one after another
+//     (one realization's accumulators in registers) and each warp stores its
+//     fragments into that realization's [nrows][LDC] correlation block in
+//     shared memory; the last block takes the staging tiles' room, free
+//     once the mainloop has ended. LDC is BN, or BN + 8 where BN = 0 or 16
+//     (mod 32): LDC = 8 or 24 (mod 32) keeps the 8-byte fragment stores on
+//     32 banks, and consecutive threads read consecutive elements of the
+//     [nrows][LDC] block.
+//   Then each slot is one fixed-order reduction over the whole block:
+//     thread k takes the elements k, k + 256, ... (consecutive threads on
+//     consecutive q, so the w[n, p, q] reads coalesce; columns past the tile
+//     are masked), reads each weight once for all rb blocks, and a fixed
+//     shuffle tree folds each warp; thread (r, n) adds the 8 warp sums in
+//     warp order. A pass carries VPU_SLOTS slots, so that many weight loads
+//     are in flight and each correlation element is read once per pass.
+//   rb is binned_corr.py::vpu_tiling's choice alone: the largest power of
+//     two up to VPU_RB whose correlation blocks, staging tiles and warp
+//     sums fit the shared memory of VPU_BLOCKS blocks per SM (a power of
+//     two so that a power-of-two ensemble fills whole waves of blocks);
+//     the C entry takes it packed beside the warp grid. Shared memory
+//     bounds it, not registers. Two blocks per SM measured faster than one
+//     holding more realizations (tools/binned_corr_variants.py
+//     --kernel vpu).
 //
 // No float atomic anywhere: reruns are bit-identical.
 #include <algorithm>
@@ -96,109 +115,12 @@
 
 namespace fpt {
 
-// ---------------------------------------------------------------------------
-// #2: fp32 register tile, block-wide per-slot reduction (fpt_binned_corr_vpu)
-
-// Block-wide binning of the tile C ([nrows][LD] in shared memory):
-// dst[n] = sum_{p,q} C[p][q] w[n, row0 + p, col0 + q], one fixed-order
-// reduction per slot.
-template <int LD>
-__device__ void bin_block(const float* C, const float* __restrict__ w, int NB,
-                          int PL, int PF, int row0, int col0, int nrows,
-                          int ncols, int tid, float* red, float* dst) {
-  const int warp = tid >> 5, lane = tid & 31;
-  const int n_el = nrows * ncols;
-  for (int n = 0; n < NB; ++n) {
-    const float* wn = w + (size_t)n * PL * PF + (size_t)row0 * PF + col0;
-    float s = 0.f;
-    for (int e = tid; e < n_el; e += GROUP) {
-      const int p = e / ncols, q = e - p * ncols;
-      s = fmaf(C[p * LD + q], wn[(size_t)p * PF + q], s);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) red[n * GROUP_WARPS + warp] = s;
-  }
-  __syncthreads();
-  for (int n = tid; n < NB; n += GROUP) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < GROUP_WARPS; ++k) s += red[n * GROUP_WARPS + k];
-    dst[n] = s;
-  }
-}
-
-// DUAL: the column pulsars come from their own rows (res_f, or another pair
-// tile); without it the block correlates its row tile with itself.
-template <int MT, bool DUAL>
-__global__ void __launch_bounds__(GROUP)
-vpu_corr_kernel(const float* __restrict__ res_l,
-                const float* __restrict__ res_f, const float* __restrict__ w,
-                float* __restrict__ out, float* __restrict__ partial, int PL,
-                int PF, int T, int NB, int bf16, int ntf) {
-  extern __shared__ float smem[];
-  constexpr int TILE = TDIM * MT;
-  constexpr int LD = TILE + 1;
-  float* A = smem;                    // [TT][LD] row pulsars
-  float* B = smem + TT * LD;          // [TT][LD] column pulsars (DUAL)
-  float* C = smem + 2 * TT * LD;      // [TILE][LD] the tile
-  float* red = C + TILE * LD;         // [NB][GROUP_WARPS]
-
-  const int r = blockIdx.x;
-  const int tile = blockIdx.y, ntiles = gridDim.y;
-  const int ti = tile / ntf, tj = tile % ntf;
-  const int row0 = ti * TILE, col0 = tj * TILE;
-  const int nrows = min(TILE, PL - row0), ncols = min(TILE, PF - col0);
-  const int tid = threadIdx.x, ty = tid / TDIM, tx = tid % TDIM;
-
-  float acc[MT][MT];
-  accumulate_block<MT, DUAL>(res_l + ((size_t)r * PL + row0) * T,
-                             res_f + ((size_t)r * PF + col0) * T, T, nrows,
-                             ncols, bf16, A, B, acc);
-  float* dst = ntiles == 1 ? out + (size_t)r * NB
-                           : partial + ((size_t)r * ntiles + tile) * NB;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < MT; ++j)
-      C[(ty + TDIM * i) * LD + tx + TDIM * j] = acc[i][j];
-  __syncthreads();
-  bin_block<LD>(C, w, NB, PL, PF, row0, col0, nrows, ncols, tid, red, dst);
-}
-
-template <int MT>
-int launch_vpu(const float* res_l, const float* res_f, const float* w,
-               float* out, float* partial, int R, int PL, int PF, int T,
-               int NB, int bf16, int shared, cudaStream_t stream) {
-  constexpr int TILE = TDIM * MT;
-  constexpr int LD = TILE + 1;
-  const int ntl = (PL + TILE - 1) / TILE, ntf = (PF + TILE - 1) / TILE;
-  const size_t smem =
-      (size_t)(2 * TT * LD + TILE * LD + NB * GROUP_WARPS) * sizeof(float);
-  const dim3 grid((unsigned)R, (unsigned)(ntl * ntf));
-  // one pair tile of one shared operand: correlate the tile with itself
-  const bool dual = !(shared && ntl * ntf == 1);
-  auto kernel = dual ? vpu_corr_kernel<MT, true> : vpu_corr_kernel<MT, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, GROUP, smem, stream>>>(res_l, res_f, w, out, partial, PL, PF,
-                                        T, NB, bf16, ntf);
-  if (ntl * ntf > 1) launch_reduce(partial, out, R, ntl * ntf, NB, stream);
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// #1: TF32 tensor-core products, PL x PF tiles, RB realizations per block
-// (fpt_binned_corr)
-
 constexpr int MMA_TILE = 128;   // a pair tile is at most 128 x 128 pulsars
 constexpr int WARPS = 8;        // warps per block, two blocks per SM
 constexpr int THREADS = 32 * WARPS;
 
-// Realizations per block for a warp tile of FM x FN fragments, with one
-// operand tile (the single-device path) or two (DUAL): the most whose
+// Realizations per block of #1 for a warp tile of FM x FN fragments, with
+// one operand tile (the single-device path) or two (DUAL): the most whose
 // accumulators (RB FM FN 4 registers) and prefetch registers fit the 128
 // registers a thread has at two blocks per SM (ptxas -v, printed by
 // chip_smoke.py's build phase). The launch takes it from here alone.
@@ -238,6 +160,14 @@ __host__ __device__ constexpr int mma_ld(int rows) {
   return (rows + 31) / 32 * 32 + 8;
 }
 
+// floats of one realization's staging tiles
+__host__ __device__ constexpr int staging_floats(int fm, int fn, int wgm,
+                                                 bool f32, bool dual) {
+  return (f32 ? 2 : 1) * TT *
+         (mma_ld(staged_rows(fm, fn, wgm, dual, false)) +
+          (dual ? mma_ld(staged_rows(fm, fn, wgm, dual, true)) : 0));
+}
+
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
@@ -253,6 +183,29 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---------------------------------------------------------------------------
+// The mainloop of both kernels
+
+// One block's accumulators: RB realizations' FM x FN m16n8 fragments.
+template <int RB, int FM, int FN>
+struct MmaAcc {
+  float v[RB][FM][FN][4];
+};
+
+// Returns acc, acc.v[r] = this warp's FM x FN fragments of realization
+// r0 + r's block of the pair tile blockIdx.y, summed over all of T, for
+// r < nr = min(RB, R - r0) and r0 = rb blockIdx.x + r1 (#1: rb = RB,
+// r1 = 0, its block's RB realizations, nr < RB in a ragged last block;
+// #2: RB = 1, its block's r1-th). The branches on r < nr are
+// block-uniform. smem holds the RB realizations' staging tiles; the loop
+// ends on a barrier, so they are free when it returns.
+// It derives the tile's indices itself, in the order its callers' epilogues
+// derive them again (the compiler merges the two), and returns the
+// accumulators by value, so they stay a local array of the loop's own
+// function: a reference parameter leaves them in memory while the
+// compiler simplifies the loop, which moves #1's 'f32' register
+// allocation and spills (ptxas -v).
+//
 // Fragment layouts (PTX ISA, m16n8k8 .tf32), g = lane >> 2, k = lane & 3:
 //   A (16 x 8, row): a0 (g, k), a1 (g + 8, k), a2 (g, k + 4), a3 (g + 8, k + 4)
 //   B (8 x 8, col):  b0 (k, g), b1 (k + 4, g)
@@ -261,12 +214,9 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // A[m][t] is row pulsar m's residual at TOA t, B[t][n] column pulsar n's;
 // both sit in shared memory as [t][pulsar], so a0 is As[k][g] and b0 Bs[k][g].
 template <int FM, int FN, int RB, bool F32, bool DUAL>
-__global__ void __launch_bounds__(THREADS, 2)
-mma_corr_kernel(const float* __restrict__ res_l,
-                const float* __restrict__ res_f, const float* __restrict__ w,
-                float* __restrict__ out, float* __restrict__ partial, int R,
-                int PL, int PF, int T, int NB, int wgm, int ntf) {
-  extern __shared__ float smem[];
+__device__ __forceinline__ MmaAcc<RB, FM, FN> mma_mainloop(
+    const float* __restrict__ res_l, const float* __restrict__ res_f, int R,
+    int PL, int PF, int T, int wgm, int ntf, int rb, int r1, float* smem) {
   // per realization: the row operand's tile, then the column operand's
   // (DUAL), each [TT][ld] and in the 'f32' mode a hi tile then a lo tile
   constexpr int NS = F32 ? 2 : 1;
@@ -280,8 +230,8 @@ mma_corr_kernel(const float* __restrict__ res_l,
   const int boff = DUAL ? NS * TT * lda : 0;   // column operand's offset
   const int stride = NS * TT * (lda + (DUAL ? ldb : 0));
 
-  const int r0 = blockIdx.x * RB, nr = min(RB, R - r0);
-  const int tile = blockIdx.y, ntiles = gridDim.y;
+  const int r0 = blockIdx.x * rb + r1, nr = min(RB, R - r0);
+  const int tile = blockIdx.y;
   const int ti = tile / ntf, tj = tile % ntf;
   const int row0 = ti * MMA_TILE, col0 = tj * MMA_TILE;
   const int nrows = min(MMA_TILE, PL - row0), ncols = min(MMA_TILE, PF - col0);
@@ -289,7 +239,8 @@ mma_corr_kernel(const float* __restrict__ res_l,
   const int g = lane >> 2, k4 = lane & 3;
   const int wm = warp % wgm, wn = warp / wgm;
 
-  float acc[RB][FM][FN][4];
+  MmaAcc<RB, FM, FN> out;
+  auto& acc = out.v;
 #pragma unroll
   for (int r = 0; r < RB; ++r)
 #pragma unroll
@@ -306,8 +257,7 @@ mma_corr_kernel(const float* __restrict__ res_l,
   // the rest res_f's (arows is a multiple of 16: the split is warp-uniform).
   // Its e-th store writes TOA 4 tg + ((e + lane) & 3): the four lanes of a
   // row group then write four TOA rows, 8 banks apart, so the transposing
-  // stores stay on 32 banks. A block holds nr <= RB realizations (nr < RB
-  // in a ragged last block); the branches on r < nr are block-uniform.
+  // stores stay on 32 banks.
   const bool vec = T % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(res_l) |
                      reinterpret_cast<uintptr_t>(res_f)) & 15) == 0;
@@ -436,6 +386,30 @@ mma_corr_kernel(const float* __restrict__ res_l,
     }
     __syncthreads();
   }
+  return out;
+}
+
+// ---------------------------------------------------------------------------
+// #1: RB realizations per block, binned in registers (fpt_binned_corr)
+
+template <int FM, int FN, int RB, bool F32, bool DUAL>
+__global__ void __launch_bounds__(THREADS, 2)
+mma_corr_kernel(const float* __restrict__ res_l,
+                const float* __restrict__ res_f, const float* __restrict__ w,
+                float* __restrict__ out, float* __restrict__ partial, int R,
+                int PL, int PF, int T, int NB, int wgm, int ntf) {
+  extern __shared__ float smem[];
+  const MmaAcc<RB, FM, FN> mma = mma_mainloop<FM, FN, RB, F32, DUAL>(
+      res_l, res_f, R, PL, PF, T, wgm, ntf, RB, 0, smem);
+  const auto& acc = mma.v;
+  const int r0 = blockIdx.x * RB, nr = min(RB, R - r0);
+  const int tile = blockIdx.y, ntiles = gridDim.y;
+  const int ti = tile / ntf, tj = tile % ntf;
+  const int row0 = ti * MMA_TILE, col0 = tj * MMA_TILE;
+  const int nrows = min(MMA_TILE, PL - row0), ncols = min(MMA_TILE, PF - col0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, k4 = lane & 3;
+  const int wm = warp % wgm, wn = warp / wgm;
 
   // Epilogue: every weight this thread's pairs need, read once and applied
   // to all RB realizations; each (realization, slot) reduces over the lanes
@@ -497,10 +471,7 @@ int launch_mma_kernel(const float* res_l, const float* res_f, const float* w,
                       int T, int NB, int wgm, int ntl, int ntf,
                       cudaStream_t stream) {
   constexpr int RB = rb_max(FM, FN, DUAL);
-  const int arows = staged_rows(FM, FN, wgm, DUAL, false);
-  const int brows = staged_rows(FM, FN, wgm, DUAL, true);
-  const size_t staging = (size_t)RB * (F32 ? 2 : 1) * TT *
-                         (mma_ld(arows) + (DUAL ? mma_ld(brows) : 0));
+  const size_t staging = (size_t)RB * staging_floats(FM, FN, wgm, F32, DUAL);
   const size_t sums = (size_t)RB * NB * WARPS;
   const size_t smem = (staging > sums ? staging : sums) * sizeof(float);
   auto kernel = mma_corr_kernel<FM, FN, RB, F32, DUAL>;
@@ -514,23 +485,234 @@ int launch_mma_kernel(const float* res_l, const float* res_f, const float* w,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// #2: correlation blocks in shared memory, one block-wide reduction per slot
+// (fpt_binned_corr_vpu)
+
+constexpr int VPU_BLOCKS = 2;   // blocks per SM (binned_corr.py::VPU_BLOCKS)
+constexpr int VPU_RB = 4;       // most realizations a block bins together
+constexpr int VPU_SLOTS = 4;    // weight slots per reduction pass
+
+// the correlation block's row stride for a pair tile bn pulsars wide:
+// = 8 or 24 (mod 32)
+__host__ __device__ constexpr int vpu_ldc(int bn) {
+  return bn % 32 == 0 || bn % 32 == 16 ? bn + 8 : bn;
+}
+
+// A #2 block's shared memory, in floats from its start: rb - 1 correlation
+// blocks of cslot floats, the staging tiles (whose room the last block
+// takes once the mainloop has ended), then the [rb][NB][WARPS] warp sums
+// at red. binned_corr.py::vpu_smem mirrors it.
+struct VpuLayout {
+  int ldc, cslot, red, floats;
+};
+
+__host__ __device__ constexpr VpuLayout vpu_layout(int PL, int PF, int NB,
+                                                   int fm, int fn, int wgm,
+                                                   int rb, bool f32,
+                                                   bool dual) {
+  const int ldc = vpu_ldc(PF < MMA_TILE ? (PF + 7) / 8 * 8 : MMA_TILE);
+  const int cslot = (PL < MMA_TILE ? PL : MMA_TILE) * ldc;
+  const int staging = staging_floats(fm, fn, wgm, f32, dual);
+  const int red = (rb - 1) * cslot + (staging > cslot ? staging : cslot);
+  return {ldc, cslot, red, red + rb * NB * WARPS};
+}
+
+template <int FM, int FN, bool F32, bool DUAL>
+__global__ void __launch_bounds__(THREADS, VPU_BLOCKS)
+vpu_corr_kernel(const float* __restrict__ res_l,
+                const float* __restrict__ res_f, const float* __restrict__ w,
+                float* __restrict__ out, float* __restrict__ partial, int R,
+                int PL, int PF, int T, int NB, int wgm, int ntf, int rb,
+                VpuLayout lay) {
+  extern __shared__ float smem[];
+  const int r0 = blockIdx.x * rb, nr = min(rb, R - r0);
+  const int tile = blockIdx.y, ntiles = gridDim.y;
+  const int ti = tile / ntf, tj = tile % ntf;
+  const int row0 = ti * MMA_TILE, col0 = tj * MMA_TILE;
+  const int nrows = min(MMA_TILE, PL - row0), ncols = min(MMA_TILE, PF - col0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, k4 = lane & 3;
+  const int wm = warp % wgm, wn = warp / wgm;
+  const int ldc = lay.ldc, cslot = lay.cslot;
+
+  // realization r's correlation block into slot r: rows past nrows are
+  // never read, and a column pair starting before ncols lies inside LDC
+  for (int r = 0; r < nr; ++r) {
+    const MmaAcc<1, FM, FN> mma = mma_mainloop<FM, FN, 1, F32, DUAL>(
+        res_l, res_f, R, PL, PF, T, wgm, ntf, rb, r, smem + (rb - 1) * cslot);
+    const auto& acc = mma.v;
+    float* C = smem + r * cslot;
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = (wm * FM + i) * 16 + g + 8 * h;
+        if (p >= nrows) continue;
+#pragma unroll
+        for (int j = 0; j < FN; ++j) {
+          const int q = (wn * FN + j) * 8 + 2 * k4;
+          if (q < ncols)
+            *reinterpret_cast<float2*>(C + p * ldc + q) =
+                make_float2(acc[0][i][j][2 * h], acc[0][i][j][2 * h + 1]);
+        }
+      }
+  }
+  __syncthreads();
+
+  // Slots n0 .. n0 + VPU_SLOTS - 1 per pass: thread tid sums the elements
+  // e = tid + 256 k of the [nrows][LDC] blocks, (p, q) = (e / LDC, e % LDC)
+  // stepped without a division; wo is (p, q)'s offset in a weight tile.
+  float* red = smem + lay.red;
+  const int nel = nrows * ldc;
+  const int dq = THREADS % ldc, dwo = THREADS / ldc * PF + dq;
+  const float* wt = w + (size_t)row0 * PF + col0;
+  for (int n0 = 0; n0 < NB; n0 += VPU_SLOTS) {
+    float s[VPU_SLOTS][VPU_RB];
+#pragma unroll
+    for (int k = 0; k < VPU_SLOTS; ++k)
+#pragma unroll
+      for (int r = 0; r < VPU_RB; ++r) s[k][r] = 0.f;
+    int q = tid % ldc, wo = tid / ldc * PF + q;
+#pragma unroll 2
+    for (int e = tid; e < nel; e += THREADS) {
+      if (q < ncols) {
+        float wv[VPU_SLOTS];
+#pragma unroll
+        for (int k = 0; k < VPU_SLOTS; ++k)
+          wv[k] = n0 + k < NB ? __ldg(wt + (size_t)(n0 + k) * PL * PF + wo)
+                              : 0.f;
+#pragma unroll
+        for (int r = 0; r < VPU_RB; ++r) {
+          if (r >= nr) continue;
+          const float c = smem[r * cslot + e];
+#pragma unroll
+          for (int k = 0; k < VPU_SLOTS; ++k)
+            s[k][r] = fmaf(c, wv[k], s[k][r]);
+        }
+      }
+      q += dq;
+      wo += dwo;
+      if (q >= ldc) {
+        q -= ldc;
+        wo += PF - ldc;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VPU_SLOTS; ++k) {
+      if (n0 + k >= NB) continue;
+#pragma unroll
+      for (int r = 0; r < VPU_RB; ++r) {
+        if (r >= nr) continue;
+        float v = s[k][r];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_down_sync(0xffffffffu, v, off);
+        if (lane == 0) red[(r * NB + n0 + k) * WARPS + warp] = v;
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < nr * NB; idx += THREADS) {
+    const int r = idx / NB, n = idx - r * NB;
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) s += red[idx * WARPS + k];
+    if (ntiles == 1)
+      out[(size_t)(r0 + r) * NB + n] = s;
+    else
+      partial[((size_t)(r0 + r) * ntiles + tile) * NB + n] = s;
+  }
+}
+
+template <int FM, int FN, bool F32, bool DUAL>
+int launch_vpu_kernel(const float* res_l, const float* res_f, const float* w,
+                      float* out, float* partial, int R, int PL, int PF,
+                      int T, int NB, int wgm, int rb, int ntl, int ntf,
+                      cudaStream_t stream) {
+  const VpuLayout lay = vpu_layout(PL, PF, NB, FM, FN, wgm, rb, F32, DUAL);
+  const size_t smem = (size_t)lay.floats * sizeof(float);
+  auto kernel = vpu_corr_kernel<FM, FN, F32, DUAL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((R + rb - 1) / rb), (unsigned)(ntl * ntf));
+  kernel<<<grid, THREADS, smem, stream>>>(res_l, res_f, w, out, partial, R,
+                                          PL, PF, T, NB, wgm, ntf, rb, lay);
+  if (ntl * ntf > 1) launch_reduce(partial, out, R, ntl * ntf, NB, stream);
+  return 0;
+}
+
+// Both entries' arguments, decoded and checked: the warp grid (wgm, fm, fn)
+// from the packed tiling, the pair tiles, the operand sets, the mode.
+struct Launch {
+  const float *res_l, *res_f, *w;
+  float *out, *partial;
+  int R, PL, PF, T, NB, wgm, fm, fn, rb, ntl, ntf;
+  bool f32, dual;
+  cudaStream_t stream;
+};
+
+inline bool decode(Launch& a, const void* res_l, const void* res_f,
+                   const void* w, void* out, void* partial, int R, int PL,
+                   int PF, int T, int NB, int tiling, int bf16, int shared,
+                   void* stream) {
+  a.res_l = static_cast<const float*>(res_l);
+  a.res_f = static_cast<const float*>(res_f);
+  a.w = static_cast<const float*>(w);
+  a.out = static_cast<float*>(out);
+  a.partial = static_cast<float*>(partial);
+  a.R = R, a.PL = PL, a.PF = PF, a.T = T, a.NB = NB;
+  a.wgm = tiling & 15, a.fm = (tiling >> 4) & 15, a.fn = (tiling >> 8) & 15;
+  a.rb = (tiling >> 12) & 15;
+  const int bm = std::min(MMA_TILE, (PL + 15) / 16 * 16);
+  const int bn = std::min(MMA_TILE, (PF + 7) / 8 * 8);
+  a.ntl = (PL + bm - 1) / bm, a.ntf = (PF + bn - 1) / bn;
+  // one pair tile of one shared operand: correlate the tile with itself
+  a.dual = !(shared && a.ntl * a.ntf == 1);
+  a.f32 = !bf16;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a.wgm >= 1 && a.wgm <= WARPS && (a.wgm & (a.wgm - 1)) == 0 &&
+         grid_fits(a.fm, a.fn, a.wgm) && 16 * a.fm * a.wgm >= bm &&
+         8 * a.fn * (WARPS / a.wgm) >= bn;
+}
+
 template <int FM, int FN>
-int launch_mma(const float* res_l, const float* res_f, const float* w,
-               float* out, float* partial, int R, int PL, int PF, int T,
-               int NB, int wgm, int ntl, int ntf, bool f32,
-               bool dual, cudaStream_t stream) {
+int launch_mma(const Launch& a) {
 #define FPT_LAUNCH(F, D)                                                    \
-  return launch_mma_kernel<FM, FN, F, D>(res_l, res_f, w, out, partial, R, \
-                                         PL, PF, T, NB, wgm, ntl, ntf,     \
-                                         stream)
-  if (f32) {
-    if (dual) FPT_LAUNCH(true, true);
+  return launch_mma_kernel<FM, FN, F, D>(a.res_l, a.res_f, a.w, a.out,     \
+                                         a.partial, a.R, a.PL, a.PF, a.T,  \
+                                         a.NB, a.wgm, a.ntl, a.ntf,        \
+                                         a.stream)
+  if (a.f32) {
+    if (a.dual) FPT_LAUNCH(true, true);
     FPT_LAUNCH(true, false);
   }
-  if (dual) FPT_LAUNCH(false, true);
+  if (a.dual) FPT_LAUNCH(false, true);
   FPT_LAUNCH(false, false);
 #undef FPT_LAUNCH
 }
+
+template <int FM, int FN>
+int launch_vpu(const Launch& a) {
+#define FPT_LAUNCH(F, D)                                                    \
+  return launch_vpu_kernel<FM, FN, F, D>(a.res_l, a.res_f, a.w, a.out,     \
+                                         a.partial, a.R, a.PL, a.PF, a.T,  \
+                                         a.NB, a.wgm, a.rb, a.ntl, a.ntf,  \
+                                         a.stream)
+  if (a.f32) {
+    if (a.dual) FPT_LAUNCH(true, true);
+    FPT_LAUNCH(true, false);
+  }
+  if (a.dual) FPT_LAUNCH(false, true);
+  FPT_LAUNCH(false, false);
+#undef FPT_LAUNCH
+}
+
+// the warp tiles both kernels are instantiated for (binned_corr.py::
+// WARP_TILES)
+#define FPT_WARP_TILES(X) \
+  X(1, 1) X(1, 2) X(1, 4) X(1, 7) X(2, 4) X(2, 7) X(2, 8)
 
 }  // namespace fpt
 
@@ -540,42 +722,25 @@ int launch_mma(const float* res_l, const float* res_f, const float* w,
 // than one tile, else null. Return cudaGetLastError() after the launch(es),
 // or cudaErrorInvalidValue for a tiling the source has no kernel for.
 //
-// fpt_binned_corr's `tiling` is binned_corr.py::mma_tiling's warp grid
-// packed as wgm | fm << 4 | fn << 8; the pair tiles are BM = PL rounded up
-// to 16 and BN = PF rounded up to 8, each at most 128, and the realizations
-// per block rb_max(fm, fn, dual), all chosen here.
+// `tiling` packs binned_corr.py::mma_tiling's warp grid as wgm | fm << 4 |
+// fn << 8; the pair tiles are BM = PL rounded up to 16 and BN = PF rounded
+// up to 8, each at most 128. fpt_binned_corr chooses its realizations per
+// block itself (rb_max); fpt_binned_corr_vpu takes them as rb << 12
+// (binned_corr.py::vpu_tiling, 1 <= rb <= VPU_RB).
 extern "C" int fpt_binned_corr(const void* res_l, const void* res_f,
                                const void* w, void* out, void* partial,
                                int R, int PL, int PF, int T, int NB,
                                int tiling, int bf16, int shared,
                                void* stream) {
   using namespace fpt;
-  const int wgm = tiling & 15, fm = (tiling >> 4) & 15,
-            fn = (tiling >> 8) & 15;
-  const int bm = std::min(MMA_TILE, (PL + 15) / 16 * 16);
-  const int bn = std::min(MMA_TILE, (PF + 7) / 8 * 8);
-  const int ntl = (PL + bm - 1) / bm, ntf = (PF + bn - 1) / bn;
-  if (wgm < 1 || wgm > WARPS || (wgm & (wgm - 1)) != 0 ||
-      !grid_fits(fm, fn, wgm) || 16 * fm * wgm < bm ||
-      8 * fn * (WARPS / wgm) < bn)
+  Launch a;
+  if (!decode(a, res_l, res_f, w, out, partial, R, PL, PF, T, NB, tiling,
+              bf16, shared, stream))
     return (int)cudaErrorInvalidValue;
-  const float* a = static_cast<const float*>(res_l);
-  const float* b = static_cast<const float*>(res_f);
-  const float* wp = static_cast<const float*>(w);
-  float* o = static_cast<float*>(out);
-  float* part = static_cast<float*>(partial);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // one pair tile of one shared operand: correlate the tile with itself
-  const bool dual = !(shared && ntl * ntf == 1);
-  const bool f32 = !bf16;
   int rc;
-#define FPT_SHAPE(FM_, FN_)                                                \
-  if (fm == FM_ && fn == FN_)                                              \
-    rc = launch_mma<FM_, FN_>(a, b, wp, o, part, R, PL, PF, T, NB, wgm,     \
-                              ntl, ntf, f32, dual, s);                     \
-  else
-  FPT_SHAPE(1, 1) FPT_SHAPE(1, 2) FPT_SHAPE(1, 4) FPT_SHAPE(1, 7)
-  FPT_SHAPE(2, 4) FPT_SHAPE(2, 7) FPT_SHAPE(2, 8)
+#define FPT_SHAPE(FM_, FN_) \
+  if (a.fm == FM_ && a.fn == FN_) rc = launch_mma<FM_, FN_>(a); else
+  FPT_WARP_TILES(FPT_SHAPE)
   return (int)cudaErrorInvalidValue;
 #undef FPT_SHAPE
   if (rc != 0) return rc;
@@ -585,26 +750,36 @@ extern "C" int fpt_binned_corr(const void* res_l, const void* res_f,
 extern "C" int fpt_binned_corr_vpu(const void* res_l, const void* res_f,
                                    const void* w, void* out, void* partial,
                                    int R, int PL, int PF, int T, int NB,
-                                   int mt, int bf16, int shared,
+                                   int tiling, int bf16, int shared,
                                    void* stream) {
-  const float* a = static_cast<const float*>(res_l);
-  const float* b = static_cast<const float*>(res_f);
-  const float* wp = static_cast<const float*>(w);
-  float* o = static_cast<float*>(out);
-  float* part = static_cast<float*>(partial);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using namespace fpt;
+  Launch a;
+  if (!decode(a, res_l, res_f, w, out, partial, R, PL, PF, T, NB, tiling,
+              bf16, shared, stream) ||
+      a.rb < 1 || a.rb > VPU_RB)
+    return (int)cudaErrorInvalidValue;
   int rc;
-  switch (mt) {
-    case 1: rc = fpt::launch_vpu<1>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 2: rc = fpt::launch_vpu<2>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 3: rc = fpt::launch_vpu<3>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 4: rc = fpt::launch_vpu<4>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 5: rc = fpt::launch_vpu<5>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 6: rc = fpt::launch_vpu<6>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 7: rc = fpt::launch_vpu<7>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    case 8: rc = fpt::launch_vpu<8>(a, b, wp, o, part, R, PL, PF, T, NB, bf16, shared, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FPT_SHAPE(FM_, FN_) \
+  if (a.fm == FM_ && a.fn == FN_) rc = launch_vpu<FM_, FN_>(a); else
+  FPT_WARP_TILES(FPT_SHAPE)
+  return (int)cudaErrorInvalidValue;
+#undef FPT_SHAPE
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// The shared-memory bytes fpt_binned_corr_vpu requests for these
+// arguments (binned_corr.py::vpu_smem must agree), or -1 for a tiling it
+// refuses.
+extern "C" long long fpt_binned_corr_vpu_smem(int PL, int PF, int NB,
+                                              int tiling, int bf16,
+                                              int shared) {
+  using namespace fpt;
+  Launch a;
+  if (!decode(a, nullptr, nullptr, nullptr, nullptr, nullptr, 1, PL, PF, 1,
+              NB, tiling, bf16, shared, nullptr) ||
+      a.rb < 1 || a.rb > VPU_RB)
+    return -1;
+  return (long long)vpu_layout(PL, PF, NB, a.fm, a.fn, a.wgm, a.rb, a.f32,
+                               a.dual).floats * (long long)sizeof(float);
 }

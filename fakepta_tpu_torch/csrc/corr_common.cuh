@@ -48,58 +48,6 @@ __device__ __forceinline__ void corr_tile(const float* A, const float* B,
   }
 }
 
-// One realization's correlation tile over all of T, from residual rows in
-// device memory: xl (nrows x T, row stride T) against xf (ncols x T), or
-// xl against itself without DUAL. The block (one group of GROUP threads)
-// streams T through shared memory in tiles of TT TOAs (A and B are
-// [TT][16 MT + 1] each), each thread fetching its share of the next tile
-// into registers while the current one is multiplied, so the global loads'
-// latency overlaps the products. Values past the edges are zero; bf16
-// rounds the operands before they are stored.
-template <int MT, bool DUAL>
-__device__ __forceinline__ void accumulate_block(
-    const float* __restrict__ xl, const float* __restrict__ xf, int T,
-    int nrows, int ncols, int bf16, float* A, float* B,
-    float (&acc)[MT][MT]) {
-  constexpr int TILE = TDIM * MT;
-  constexpr int LD = TILE + 1;
-  constexpr int PER = TILE * TT / GROUP;   // tile elements per thread
-  const int tid = threadIdx.x, ty = tid / TDIM, tx = tid % TDIM;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < MT; ++j) acc[i][j] = 0.f;
-
-  // a thread's PER tile elements: coalesced along t, all loads in flight
-  // together
-  float ra[PER], rb[DUAL ? PER : 1];
-  auto fetch = [&](int t0) {
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int e = tid + k * GROUP, p = e / TT, t = t0 + e % TT;
-      ra[k] = (p < nrows && t < T) ? xl[(size_t)p * T + t] : 0.f;
-      if (DUAL) rb[k] = (p < ncols && t < T) ? xf[(size_t)p * T + t] : 0.f;
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int e = tid + k * GROUP, p = e / TT, t = e % TT;
-      A[t * LD + p] = bf16 ? round_bf16(ra[k]) : ra[k];
-      if (DUAL) B[t * LD + p] = bf16 ? round_bf16(rb[k]) : rb[k];
-    }
-  };
-
-  fetch(0);
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    stage();
-    __syncthreads();
-    if (t0 + TT < T) fetch(t0 + TT);
-    corr_tile<MT>(A, DUAL ? B : A, LD, ty, tx, acc);
-    __syncthreads();
-  }
-}
-
 // Weighted reduction of a group's correlation tile into NB slots:
 //   dst[n] = sum_{p,q in tile} corr[p, q] * w[n, row0 + p, col0 + q].
 // Each thread sums its own pairs, a warp folds with a fixed shuffle tree,

@@ -14,9 +14,10 @@ design and the H100 bound): TF32 tensor-core products (3xTF32 in the
 there, each weight read once for RB realizations, so device memory sees
 only the residual read and the (R, NB) write: the port of the TPU kernel's
 MXU-binning variant. :func:`binned_correlation_vpu` is the port of its
-``mxu_binning=False`` variant (a second kernel in the same source): an
-fp32 register tile, formed in shared memory, each slot one block-wide
-reduction.
+``mxu_binning=False`` variant (a second kernel in the same source, on the
+same tensor-core mainloop and tiling): the correlation blocks of ``rb``
+realizations formed in shared memory (:func:`vpu_tiling`), each slot one
+block-wide, fixed-order reduction over them.
 :func:`binned_correlation_plain` is the same function in plain torch, the
 plain version of both.
 
@@ -44,9 +45,20 @@ MAX_MT = 8      # so a pair tile is at most 128 pulsars a side
 
 MMA_TILE = 128  # binned_correlation's pair tile is at most 128 x 128
 MMA_WARPS = 8   # warps per block, each owning fm x fn m16n8 fragments
-#: the (fm, fn) warp tiles binned_corr.cu instantiates (its FPT_SHAPE
-#: lines); the realizations per block of each it chooses itself
+#: the (fm, fn) warp tiles binned_corr.cu instantiates (its
+#: FPT_WARP_TILES); fpt_binned_corr chooses its realizations per block itself
 WARP_TILES = ((1, 1), (1, 2), (1, 4), (1, 7), (2, 4), (2, 7), (2, 8))
+TT = 32         # TOAs per staged tile (corr_common.cuh)
+
+#: binned_correlation_vpu's blocks per SM (binned_corr.cu's VPU_BLOCKS, its
+#: kernel's launch bounds) and the most realizations a block bins together
+VPU_BLOCKS = 2
+VPU_RB = 4
+#: an H100 SM's shared memory, the most one block may take, and what the
+#: system keeps of it per block (bytes)
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 232448
+SMEM_RESERVED = 1024
 
 
 class MmaTiling(NamedTuple):
@@ -73,10 +85,9 @@ def _check_precision(precision: str) -> None:
 
 
 def pair_tiling(p_rows: int, p_cols: int):
-    """(mt, row tiles, column tiles) of the fp32 register-tile kernels'
-    pair space (:func:`binned_correlation_vpu`, ``megakernel.chunk_stats``):
-    each thread holds an mt x mt register tile, a block 16*mt pulsars a
-    side."""
+    """(mt, row tiles, column tiles) of the fp32 register-tile kernel's
+    pair space (``megakernel.chunk_stats``): each thread holds an mt x mt
+    register tile, a block 16*mt pulsars a side."""
     mt = max(1, min(MAX_MT, -(-max(p_rows, p_cols) // TDIM)))
     tile = TDIM * mt
     return mt, -(-p_rows // tile), -(-p_cols // tile)
@@ -103,6 +114,78 @@ def mma_tiling(p_rows: int, p_cols: int) -> MmaTiling:
                 best = (key, wgm, fm, fn)
     _, wgm, fm, fn = best
     return MmaTiling(bm, bn, -(-p_rows // bm), -(-p_cols // bn), wgm, fm, fn)
+
+
+class VpuTiling(NamedTuple):
+    """:func:`binned_correlation_vpu`'s launch shape: :func:`mma_tiling`'s
+    pair tiles and warp grid, ``rb`` realizations binned per block, their
+    correlation blocks ``ldc`` floats a row, and the block's shared-memory
+    bytes."""
+    mma: MmaTiling
+    rb: int
+    ldc: int
+    smem: int
+
+    def code(self) -> int:
+        """The warp grid and rb as ``fpt_binned_corr_vpu`` takes them."""
+        return self.mma.code() | self.rb << 12
+
+
+def _staged_rows(fm, fn, wgm, dual, col):
+    """binned_corr.cu's staged_rows: the rows a realization stages."""
+    rows, cols = 16 * fm * wgm, 8 * fn * (MMA_WARPS // wgm)
+    if col:
+        return cols if dual else 0
+    return rows if dual else max(rows, cols)
+
+
+def _mma_ld(rows):
+    return -(-rows // 32) * 32 + 8
+
+
+def vpu_ldc(bn: int) -> int:
+    """The correlation block's row stride for a pair tile bn pulsars wide:
+    8 or 24 (mod 32), so the kernel's 8-byte fragment stores stay on 32
+    banks (binned_corr.cu's vpu_ldc)."""
+    return bn + 8 if bn % 32 in (0, 16) else bn
+
+
+def vpu_smem(p_rows: int, nb: int, t: MmaTiling, rb: int, precision: str,
+             dual: bool) -> int:
+    """Shared-memory bytes of a :func:`binned_correlation_vpu` block on
+    the tiling ``t`` of ``p_rows`` rows (binned_corr.cu's vpu_layout): rb - 1
+    correlation blocks, the staging tiles (whose room the last block
+    takes), the [rb][nb][8] warp sums."""
+    cslot = min(MMA_TILE, p_rows) * vpu_ldc(t.bn)
+    staging = (2 if precision == "f32" else 1) * TT * (
+        _mma_ld(_staged_rows(t.fm, t.fn, t.wgm, dual, False))
+        + (_mma_ld(_staged_rows(t.fm, t.fn, t.wgm, dual, True))
+           if dual else 0))
+    return 4 * ((rb - 1) * cslot + max(staging, cslot)
+                + rb * nb * MMA_WARPS)
+
+
+def vpu_tiling(p_rows: int, p_cols: int, nb: int, precision: str,
+               shared: bool, blocks_per_sm: int = VPU_BLOCKS) -> VpuTiling:
+    """:func:`binned_correlation_vpu`'s launch shape for ``nb`` weight
+    slots: :func:`mma_tiling`'s tiles, and the most realizations per block,
+    a power of two up to :data:`VPU_RB`, whose shared memory lets
+    ``blocks_per_sm`` blocks share an SM. ``shared``: one operand set
+    (res_local is res_full). This is the one place rb is chosen.
+
+    A power of two, because an ensemble chunk is one (1024 on the
+    flagship): its blocks then fill whole waves of 2 x 132 block slots,
+    where rb = 3 leaves a second wave a quarter full (measured 1.33x
+    slower than rb = 1 at PL = 50 'f32', PERF.md)."""
+    t = mma_tiling(p_rows, p_cols)
+    dual = not (shared and t.row_tiles * t.col_tiles == 1)
+    budget = min(SMEM_PER_BLOCK,
+                 SMEM_PER_SM // blocks_per_sm - SMEM_RESERVED)
+    rb = VPU_RB
+    while rb > 1 and vpu_smem(p_rows, nb, t, rb, precision, dual) > budget:
+        rb //= 2
+    return VpuTiling(t, rb, vpu_ldc(t.bn),
+                     vpu_smem(p_rows, nb, t, rb, precision, dual))
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -165,7 +248,7 @@ def _launch(entry: str, what: str, res_local, res_full, weights,
     launched?): an empty ensemble or time axis launches nothing. Both
     entries share one C signature; its tiling argument is
     :func:`mma_tiling`'s code for ``fpt_binned_corr`` and
-    :func:`pair_tiling`'s mt for ``fpt_binned_corr_vpu``."""
+    :func:`vpu_tiling`'s for ``fpt_binned_corr_vpu``."""
     for name, x in (("res_local", res_local), ("res_full", res_full),
                     ("weights", weights)):
         if x.device != res_local.device:
@@ -190,11 +273,12 @@ def _launch(entry: str, what: str, res_local, res_full, weights,
         raise ValueError(f"nbins={nbins} needs nbins+1 <= {NB} weight slots")
     shared = int(res_local.data_ptr() == res_full.data_ptr() and PL == PF)
     if entry == "fpt_binned_corr":
-        tiling = mma_tiling(PL, PF)
-        arg, ntiles = tiling.code(), tiling.row_tiles * tiling.col_tiles
+        t = mma_tiling(PL, PF)
+        arg = t.code()
     else:
-        mt, ntl, ntf = pair_tiling(PL, PF)
-        arg, ntiles = mt, ntl * ntf
+        v = vpu_tiling(PL, PF, NB, precision, bool(shared))
+        t, arg = v.mma, v.code()
+    ntiles = t.row_tiles * t.col_tiles
     dev = res_local.device
     out = torch.empty((R, NB), dtype=torch.float32, device=dev)
     if R == 0 or T == 0:
@@ -253,7 +337,10 @@ def binned_correlation_vpu(res_local, res_full, weights, nbins: int,
                            precision: str = "bf16"):
     """The same function as :func:`binned_correlation` (same arguments and
     result), through the per-slot-reduction kernel: the port of the TPU
-    kernel's ``mxu_binning=False`` variant."""
+    kernel's ``mxu_binning=False`` variant. The same TF32 tensor-core
+    products (3xTF32 at ``'f32'``) and pair tiles; the correlation blocks
+    of :func:`vpu_tiling`'s ``rb`` realizations go to shared memory and
+    each weight slot is one block-wide, fixed-order reduction over them."""
     global vpu_launches
     out, launched = _run("fpt_binned_corr_vpu", "binned_correlation_vpu",
                          res_local, res_full, weights, nbins, precision)

@@ -1,19 +1,31 @@
-"""The tensor-core binned_correlation kernel's CPU-side pieces.
+"""The tensor-core binned_correlation kernels' CPU-side pieces.
 
-The kernel itself runs only on a card (tests/test_torch_cuda.py). Here:
-its pair tiling (tile sides by PL and PF, tile counts, the 128 cap, the
-warp grid) and the 'f32' mode's 3xTF32 operand split, emulated in plain
-torch and held against a float64 einsum and the JAX package's Pallas
-kernel (interpret mode) on the same seeded residuals.
+The kernels themselves run only on a card (tests/test_torch_cuda.py).
+Here: their pair tiling (tile sides by PL and PF, tile counts, the 128
+cap, the warp grid), the per-slot-reduction kernel's realizations per
+block and shared memory, and the 'f32' mode's 3xTF32 operand split,
+emulated in plain torch and held against a float64 einsum and the JAX
+package's Pallas kernels (interpret mode) on the same seeded residuals;
+and the 1-shard engine through ``pallas_mxu_binning=False`` against the
+JAX engine's.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from fakepta_tpu.batch import PulsarBatch as JaxBatch
 from fakepta_tpu.ops.pallas_kernels import binned_correlation as jax_binned
+from fakepta_tpu.parallel.mesh import make_mesh
+from fakepta_tpu.parallel.montecarlo import EnsembleSimulator as JaxSim
+from fakepta_tpu.parallel.montecarlo import GWBConfig as JaxGWB
+from fakepta_tpu_torch.batch import PulsarBatch
 from fakepta_tpu_torch.ops import binned_corr as bc
+from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
+                                                   GWBConfig)
+from test_torch_engine import KW, TOL, _assert_stats, _noisy_leaves, _psd
 
 
 @pytest.mark.parametrize("pl,pf,bm,bn,tiles", [
@@ -114,3 +126,124 @@ def test_three_pass_statistic_matches_f64_and_pallas(R, PL, PF, T):
         gc, ga = (x.double().numpy() for x in got)
         assert np.abs(gc - wc).max() <= 1e-5 * np.abs(wc).max()
         assert np.all(np.abs(ga - wa) <= 1e-5 * np.abs(wa))
+
+
+# -- binned_correlation_vpu (the mxu_binning=False variant) -----------------
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("pf", [1, 8, 40, 100, 128, 130])
+def test_vpu_tiling_covers_and_fits(pf, prec):
+    """For every PL up to 128: mma_tiling's tiles and warp grid, rb the
+    most realizations (a power of two up to VPU_RB) that let two blocks
+    share an SM,
+    the block's shared memory within an H100 block's 227 KB, and a
+    correlation-block stride of 8 or 24 (mod 32)."""
+    budget = bc.SMEM_PER_SM // bc.VPU_BLOCKS - bc.SMEM_RESERVED
+    for pl in range(1, 129):
+        for shared in ((False, True) if pl == pf else (False,)):
+            v = bc.vpu_tiling(pl, pf, 16, prec, shared)
+            t = v.mma
+            assert t == bc.mma_tiling(pl, pf)
+            rows, cols = 16 * t.fm * t.wgm, 8 * t.fn * (bc.MMA_WARPS // t.wgm)
+            assert t.bm <= rows <= bc.MMA_TILE and t.bn <= cols <= bc.MMA_TILE
+            assert v.rb in (1, 2, 4) and v.rb <= bc.VPU_RB
+            assert v.smem <= bc.SMEM_PER_BLOCK
+            assert v.rb == 1 or v.smem <= budget
+            dual = not (shared and t.row_tiles * t.col_tiles == 1)
+            assert v.rb == bc.VPU_RB or bc.vpu_smem(
+                pl, 16, t, 2 * v.rb, prec, dual) > budget
+            assert v.ldc >= t.bn and v.ldc % 32 in (8, 24)
+            assert (v.code() & 0xFFF, v.code() >> 12) == (t.code(), v.rb)
+
+
+@pytest.mark.parametrize("pl,prec,warp_grid,rb", [
+    (100, "bf16", (4, 2, 7), 2), (100, "f32", (4, 2, 7), 2),
+    (50, "bf16", (4, 1, 7), 4), (50, "f32", (4, 1, 7), 2),
+    (25, "bf16", (2, 1, 4), 4), (25, "f32", (2, 1, 4), 4)])
+def test_vpu_tiling_flagship(pl, prec, warp_grid, rb):
+    """The flagship shapes (16 slots: 15 bins and the autos): the whole
+    array shared, and a 2- and 4-shard mesh's rows against it."""
+    v = bc.vpu_tiling(pl, 100, 16, prec, shared=pl == 100)
+    assert (v.mma.wgm, v.mma.fm, v.mma.fn) == warp_grid
+    assert (v.mma.bm, v.mma.bn, v.ldc) == (-(-pl // 16) * 16, 104, 104)
+    assert v.rb == rb
+
+
+def _vpu_emulation(res_local, res_full, weights, nbins, precision):
+    """binned_correlation_vpu's arithmetic in plain torch: the products
+    (3xTF32 from split_tf32 at 'f32', bf16-rounded operands in one pass at
+    'bf16', both exact in fp32), then one full sum per weight slot."""
+    if precision == "f32":
+        (ah, al), (bh, bl) = (bc.split_tf32(res_local),
+                              bc.split_tf32(res_full))
+        corr = sum(torch.einsum("rpt,rqt->rpq", a, b)
+                   for a, b in ((ah, bl), (al, bh), (ah, bh)))
+    else:
+        corr = torch.einsum("rpt,rqt->rpq", bc.round_bf16(res_local),
+                            bc.round_bf16(res_full))
+    out = torch.stack([(corr * w).sum((1, 2)) for w in weights.float()], 1)
+    return out[:, :nbins], out[:, nbins]
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("R,PL,PF,T", [(4, 16, 16, 128), (3, 5, 16, 100),
+                                       (2, 1, 12, 33)])
+def test_vpu_arithmetic_matches_pallas_vpu_kernel(prec, R, PL, PF, T):
+    """The emulated per-slot-reduction statistic against the JAX package's
+    mxu_binning=False kernel (interpret mode, float32 inputs), within 1e-5
+    (f32) or 1e-2 (bf16) of the curve scale, autos relative."""
+    rng = np.random.default_rng(R * 100 + PL)
+    res_f = (rng.standard_normal((R, PF, T)) * 1e-6).astype(np.float32)
+    res_l = res_f if PL == PF else res_f[:, :PL].copy()
+    nbins = 4
+    w = rng.standard_normal((nbins + 1, PL, PF)).astype(np.float32)
+    w[nbins] = 0.0
+    w[nbins, np.arange(PL), np.arange(PL)] = 1.0 / PL
+    got = _vpu_emulation(torch.tensor(res_l), torch.tensor(res_f),
+                         torch.tensor(w), nbins, prec)
+    want = jax_binned(jnp.asarray(res_l), jnp.asarray(res_f), jnp.asarray(w),
+                      nbins=nbins, rt=1, interpret=True, precision=prec,
+                      mxu_binning=False)
+    wc, wa = (np.asarray(x, np.float64) for x in want)
+    gc, ga = (x.double().numpy() for x in got)
+    assert np.abs(gc - wc).max() <= TOL[prec] * np.abs(wc).max()
+    assert np.all(np.abs(ga - wa) <= TOL[prec] * np.abs(wa))
+
+
+@pytest.fixture(scope="module")
+def vpu_batches():
+    leaves = _noisy_leaves(JaxBatch.synthetic(**KW))
+    return (JaxBatch(**{k: jnp.asarray(v) for k, v in leaves.items()}),
+            PulsarBatch.from_numpy(leaves, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def jax_fused_vpu_1shard(vpu_batches):
+    """The JAX engine's fused path through its mxu_binning=False kernel on
+    one device (the Pallas kernel in interpret mode on the CPU)."""
+    jb = vpu_batches[0]
+    sim = JaxSim(jb, gwb=JaxGWB(psd=_psd(float(jb.tspan_common)), orf="hd"),
+                 mesh=make_mesh(jax.devices()[:1]), use_pallas=True,
+                 pallas_mxu_binning=False)
+    return {prec: sim.run(8, seed=3, chunk=8, precision=prec)
+            for prec in ("f32", "bf16")}
+
+
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_fused_vpu_engine_matches_jax_one_shard(vpu_batches,
+                                                jax_fused_vpu_1shard, prec):
+    """EnsembleSimulator(stat_path='fused', pallas_mxu_binning=False) on one
+    device against the JAX engine with the same flags, same batch and
+    seed; on CPU tensors the wrapper runs the plain version and launches
+    nothing."""
+    tb = vpu_batches[1]
+    before = (bc.launches, bc.vpu_launches)
+    out = EnsembleSimulator(tb, gwb=GWBConfig(psd=_psd(float(tb.tspan_common)),
+                                              orf="hd"),
+                            stat_path="fused", pallas_mxu_binning=False,
+                            device="cpu").run(8, seed=3, chunk=8,
+                                              precision=prec)
+    assert (bc.launches, bc.vpu_launches) == before
+    assert out["statistic_path"] == "fused" and out["precision"] == prec
+    assert out["curves"].shape == (8, 15) and out["autos"].shape == (8,)
+    _assert_stats(out, jax_fused_vpu_1shard[prec], prec)

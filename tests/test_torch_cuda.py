@@ -8,12 +8,15 @@ dependencies; tests/conftest.py imports JAX, so on such a machine run
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from fakepta_tpu_torch import spectrum as spectrum_lib
 from fakepta_tpu_torch.batch import PulsarBatch
+from fakepta_tpu_torch.ops import _build
 from fakepta_tpu_torch.ops import binned_corr as bc
 from fakepta_tpu_torch.ops import megakernel as mk
 from fakepta_tpu_torch.ops.megakernel import T_COMMON, T_OWN, MegaStage
@@ -56,19 +59,23 @@ def _mega_inputs(seed, R, P, T, nbins=5):
             rng.standard_normal((nbins + 1, P, P)))
 
 
-def _check_binned_correlation(res_l, res_f, w, nbins, prec):
-    """One launch of the tensor-core kernel (none for an empty ensemble),
-    held against the plain version, and a bit-identical rerun."""
-    before = bc.launches
-    got = bc.binned_correlation(res_l, res_f, w, nbins, precision=prec)
+def _check_binned_correlation(res_l, res_f, w, nbins, prec, vpu=False):
+    """One launch of the MXU-binning kernel, or with ``vpu`` of the
+    per-slot-reduction kernel (none for an empty ensemble), held against
+    the plain version, and a bit-identical rerun."""
+    fn = bc.binned_correlation_vpu if vpu else bc.binned_correlation
+    before = (bc.launches, bc.vpu_launches)
+    got = fn(res_l, res_f, w, nbins, precision=prec)
     torch.cuda.synchronize()
-    assert bc.launches == before + (res_l.shape[0] > 0)
+    n = int(res_l.shape[0] > 0)
+    assert (bc.launches, bc.vpu_launches) == (before[0] + n * (not vpu),
+                                              before[1] + n * vpu)
     assert got[0].shape == (res_l.shape[0], nbins)
     want = bc.binned_correlation_plain(res_l, res_f, w, nbins,
                                        precision=prec)
     if res_l.shape[0]:
         _assert_close(got, want, prec)
-    again = bc.binned_correlation(res_l, res_f, w, nbins, precision=prec)
+    again = fn(res_l, res_f, w, nbins, precision=prec)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -154,23 +161,40 @@ def _sharded_residuals(cuda, R, PL, PF, T, shared=False):
     return res_l, res_f, w
 
 
+# (R, PL, PF, T) of the per-slot-reduction kernel besides SHARD_SHAPES: a
+# 2- and 4-shard mesh's rows at the flagship width and the shared
+# PL = PF = 100 block at T = 780, R not a multiple of the realizations per
+# block (a ragged last block), T not a multiple of 4 or 32, a 2 x 2 grid of
+# pair tiles, PL = PF = 1 and R = 0
+VPU_SHAPES = SHARD_SHAPES + [(5, 25, 100, 780), (5, 50, 100, 780),
+                             (3, 12, 40, 33), (9, 1, 100, 33),
+                             (0, 25, 100, 64), (5, 100, 100, 780),
+                             (3, 130, 130, 50), (7, 1, 1, 8)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("prec", ["f32", "bf16"])
-@pytest.mark.parametrize("R,PL,PF,T", SHARD_SHAPES)
+@pytest.mark.parametrize("R,PL,PF,T", VPU_SHAPES)
 def test_binned_correlation_vpu_kernel_matches_plain(cuda, prec, R, PL, PF,
                                                      T):
     for shared in ((False, True) if PL == PF else (False,)):
         res_l, res_f, w = _sharded_residuals(cuda, R, PL, PF, T, shared)
-        before = (bc.launches, bc.vpu_launches)
-        got = bc.binned_correlation_vpu(res_l, res_f, w, 5, precision=prec)
-        torch.cuda.synchronize()
-        assert (bc.launches, bc.vpu_launches) == (before[0], before[1] + 1)
-        want = bc.binned_correlation_plain(res_l, res_f, w, 5,
-                                           precision=prec)
-        _assert_close(got, want, prec)
-        again = bc.binned_correlation_vpu(res_l, res_f, w, 5,
-                                          precision=prec)
-        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _check_binned_correlation(res_l, res_f, w, 5, prec, vpu=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_vpu_tiling_shared_memory_matches_the_source(cuda, prec):
+    """binned_corr.py::vpu_smem mirrors what fpt_binned_corr_vpu requests."""
+    smem = _build.load("binned_corr").fpt_binned_corr_vpu_smem
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_int] * 6
+    for pl, pf, shared in ((100, 100, True), (50, 100, False),
+                           (25, 100, False), (1, 1, True), (130, 130, True),
+                           (12, 40, False), (25, 130, False)):
+        t = bc.vpu_tiling(pl, pf, 16, prec, shared)
+        assert smem(pl, pf, 16, t.code(), int(prec == "bf16"),
+                    int(shared)) == t.smem
 
 
 @pytest.mark.cuda
