@@ -11,7 +11,8 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    parallel) and print the build seconds, ptxas' register report and the
    number of ``HMMA`` (tensor-core) instructions in each kernel's SASS
    (``cuobjdump -sass``); it fails if the kernels of
-   ``binned_correlation`` or ``binned_correlation_vpu`` have none.
+   ``binned_correlation``, ``binned_correlation_vpu`` or ``chunk_stats``'
+   projection pass have none.
 2. ``kernels``: at the flagship shapes (R = 1024 realizations, 100 pulsars,
    780 TOAs), hold each kernel against its plain torch version on the same
    inputs, at both precisions, and time kernel, plain version, the
@@ -19,7 +20,11 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    the sharded kernels at a psr shard's rows (PL = 25 or 50) against the
    whole array. For ``binned_correlation`` also its tiling and the 'f32'
    mode's 3xTF32 arithmetic emulated on 16 realizations against float64;
-   for ``binned_correlation_vpu`` its tiling and realizations per block.
+   for ``binned_correlation_vpu`` its tiling and realizations per block;
+   for ``chunk_stats`` and ``chunk_stats_sharded`` the time of each of
+   their two passes (projection, then ``binned_correlation``'s kernel)
+   beside the whole, and one full-f32 ``einsum`` of the projection against
+   a prebuilt dense basis as the projection's yardstick.
 3. ``engine``: run ``EnsembleSimulator`` on the flagship batch with an HD
    background for ``stat_path`` ``"fused"``, ``"fused"`` with
    ``pallas_mxu_binning=False`` (``"fused-vpu"``) and ``"mega"`` at
@@ -256,9 +261,11 @@ def phase_build(report: dict) -> None:
         report["hmma"][name] = counts
         for fn, n in counts.items():
             print(f"  {name}: {n:5d} HMMA in {fn}")
-    for name, kernel in (("binned_correlation", "mma_corr_kernel"),
-                         ("binned_correlation_vpu", "vpu_corr_kernel")):
-        mma = {fn: n for fn, n in report["hmma"]["binned_corr"].items()
+    for name, lib, kernel in (
+            ("binned_correlation", "binned_corr", "mma_corr_kernel"),
+            ("binned_correlation_vpu", "binned_corr", "vpu_corr_kernel"),
+            ("chunk_stats", "megakernel", "project_kernel")):
+        mma = {fn: n for fn, n in report["hmma"][lib].items()
                if kernel in fn}
         if not mma or min(mma.values()) == 0:
             raise AssertionError(f"{name}'s kernels run no tensor-core "
@@ -294,17 +301,22 @@ def kernel_rows(rows: dict, name: str, tag: str, kernel, plain, library,
               f"ms ({row['bound_by']})", flush=True)
 
 
+def mega_route_flops(prec: str, corr: float, other: float, proj: float):
+    """(fp32, bf16, tf32) FLOPs that chunk_stats' work needs: the
+    projection's ``proj`` FLOPs on the TF32 tensor cores, three times over
+    at 'f32' (3xTF32) and twice under bf16 storage (the coefficients are
+    exact in TF32, so their lo part is 0), then :func:`corr_flops_split`
+    for the rest."""
+    fp32, bf16, tf32 = corr_flops_split(prec, corr, other)
+    return fp32, bf16, tf32 + (3 if prec == "f32" else 2) * proj
+
+
 def corr_flops_split(prec: str, corr: float, other: float):
-    """(fp32, bf16) FLOPs: the correlation counts at the bf16 tensor-core
-    rate in the bf16 mode, everything else at fp32."""
-    return ((other + corr, 0.0) if prec == "f32" else (other, corr))
-
-
-def tf32_route_flops(prec: str, corr: float, other: float):
-    """(fp32, bf16, tf32) FLOPs of the binned_correlation kernels' route:
-    the correlation on the TF32 tensor cores, one pass in the bf16 mode and
-    three (3xTF32) in the 'f32' mode; the binning at fp32."""
-    return other, 0.0, (3 * corr if prec == "f32" else corr)
+    """(fp32, bf16, tf32) FLOPs of a correlation and its binning: the
+    correlation on the tensor cores, at 'f32' three times over at the TF32
+    rate (3xTF32), in the bf16 mode, whose operands are bf16, once at the
+    bf16 rate; the binning at fp32."""
+    return (other, 0.0, 3 * corr) if prec == "f32" else (other, corr, 0.0)
 
 
 def mma_details(rows: dict, res_l, res_f, w, nbins: int, tag: str) -> None:
@@ -336,6 +348,51 @@ def vpu_details(rows: dict, pl: int, pf: int, nb: int, tag: str) -> None:
               flush=True)
         rows[("binned_correlation_vpu", p, tag)].update(
             tiling=t.mma._asdict(), rb=t.rb, smem=t.smem)
+
+
+def mega_details(rows: dict, name: str, tag: str, operands: dict,
+                 times, scales, w_l, kw: dict, stages, nbins: int,
+                 proj_rows: int) -> None:
+    """chunk_stats' two passes at this shape, timed alone in turns at both
+    precisions (pass 1: the projection, ``megakernel._launch_project``;
+    pass 2: ``binned_correlation``'s kernel on its residuals), and the
+    projection's yardstick: one full-f32 einsum against a prebuilt dense
+    basis (its build not timed; chunk_stats never calls it); raises unless
+    a rerun of the whole function is bit-identical."""
+    import torch
+    from fakepta_tpu_torch.ops import binned_corr as bc
+    from fakepta_tpu_torch.ops import megakernel as mk
+    t = mk.project_tiling(operands["f32"][0].shape[0], times.shape[2],
+                          proj_rows, scales.shape[0])
+    print(f"  {name} {tag}: projection tiling {t}", flush=True)
+    local = {p: tuple(kw[p].values()) or (None,) * 4 for p in operands}
+    res = {p: mk._launch_project(*operands[p], times, scales, stages,
+                                 local[p]) for p in operands}
+    fns = {}
+    for p in operands:
+        fns[("pass1", p)] = (lambda p=p: mk._launch_project(
+            *operands[p], times, scales, stages, local[p]))
+        fns[("pass2", p)] = (lambda p=p: bc.binned_correlation(
+            res[p][0], res[p][1], w_l, nbins, precision=p))
+    ms = in_turns(fns, 10)
+    basis = mk.dense_basis(times, scales, stages)
+    coef = operands["f32"][1]
+    yard = time_ms(lambda: torch.einsum("rpk,ptk->rpt", coef, basis), 10)
+    for p in operands:
+        runs = [mk.chunk_stats(*operands[p], times, scales, w_l,
+                               stages=stages, nbins=nbins, precision=p,
+                               **kw[p]) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"{name} {tag} [{p}] rerun is not "
+                                 f"bit-identical")
+        row = rows[(name, p, tag)]
+        row.update(pass1_ms=ms[("pass1", p)], pass2_ms=ms[("pass2", p)],
+                   pass1_einsum_ms=yard, projection_tiling=t._asdict(),
+                   rerun_identical=True)
+        print(f"  {name} {tag} [{p}]: pass 1 {row['pass1_ms']:.4f} ms, "
+              f"pass 2 {row['pass2_ms']:.4f} ms, whole {row['ms']:.4f} ms; "
+              f"pass-1 yardstick (f32 einsum rpk,ptk->rpt, prebuilt "
+              f"basis) {yard:.4f} ms", flush=True)
 
 
 def phase_kernels(report: dict) -> None:
@@ -387,7 +444,7 @@ def phase_kernels(report: dict) -> None:
                 lambda a=res_l, ww=w_l: torch.einsum("rpt,rqt,npq->rn", a,
                                                      res, ww),
                 lambda p, n=nbytes: n,
-                lambda p, c=corr, b=binf: tf32_route_flops(p, c, b),
+                lambda p, c=corr, b=binf: corr_flops_split(p, c, b),
                 iters=20)
             if name == "binned_correlation":
                 mma_details(rows, res_l, res, w_l, nbins, shape_tag(pl, P))
@@ -395,7 +452,11 @@ def phase_kernels(report: dict) -> None:
                 vpu_details(rows, pl, P, NB, shape_tag(pl, P))
 
     # -- chunk_stats: shared set (#3), local+full set (#4) ----------------
-    # the bf16 mode stores base and coefficients in bfloat16, as the engine
+    # two passes: the projection (3xTF32 tensor-core products, two passes
+    # under bf16 storage), then binned_correlation's kernel; the bytes
+    # are the function's own, inputs once and output once (the residuals'
+    # round trip between the passes is the design's, not the work's).
+    # The bf16 mode stores base and coefficients in bfloat16, as the engine
     operands = {"f32": (base, coefs),
                 "bf16": (base.to(torch.bfloat16), coefs.to(torch.bfloat16))}
     for pl in (P,) + SHARD_PL:
@@ -426,8 +487,10 @@ def phase_kernels(report: dict) -> None:
             lambda p, n=rows_read, pl=pl: (
                 (4 if p == "f32" else 2) * R * n * (T + K)
                 + 4.0 * ((2 + S) * n * T + NB * pl * P + R * NB)),
-            lambda p, c=corr, b=binf, j=proj: corr_flops_split(p, c, b + j),
-            iters=5, precs=("f32", "bf16"))
+            lambda p, c=corr, b=binf, j=proj: mega_route_flops(p, c, b, j),
+            iters=10, precs=("f32", "bf16"))
+        mega_details(rows, name, shape_tag(pl, P), operands, times, scales,
+                     w_l, kw, stages, nbins, rows_read)
     report["kernels"] = {"/".join(k): v for k, v in rows.items()}
     # launches made to compare with the plain versions do not count
     reset_counts()

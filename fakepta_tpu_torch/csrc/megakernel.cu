@@ -1,57 +1,88 @@
-// Whole-chunk statistic kernel for Hopper (sm_90a): GP projection with
-// on-chip Fourier bases, correlation and angular binning in one pass.
+// GP projection for Hopper (sm_90a): pass 1 of the port's whole-chunk
+// statistic, ops/megakernel.py::chunk_stats.
 //
-// Replaces the TPU kernel fakepta_tpu/ops/megakernel.py::chunk_stats on
-// both its operand sets (kernel body _mega_kernel with
-// _project_rows/_basis_rows, pallas_call at megakernel.py:399): the shared
-// set (base_local=None, one shard holds every pulsar) and the local+full set
-// of a psr shard (shared=False, megakernel.py:149-157,384-397). Per
-// realization r and TOA t, on each set:
-//   res[p, t] = base[r, p, t] + sum_k coef[r, p, k] B_k(p, t)
-//   B rows    = cosf((2 pi t_norm) n) s, n = 1..nbin, then sinf(...) s,
-//               per stage (nbin, time row, scale row), as _basis_rows builds
-//   out[r, n] = sum_pq (res_l res_f^T)[p, q] w[n, p, q]
-// where res_l is the shard's PL rows (the local set) and res_f the PF rows
-// of the gathered array (the full set); on the shared set both are the one
-// array. The dense (P, T, K) basis and the projected residuals never exist
-// in device memory: it reads base and coef, the small time and scale tables
-// and the weights, and writes (R, NB). Like the TPU kernel, a shard
-// recomputes the full rows from the gathered coefficients instead of
-// gathering projected residuals.
+// Replaces, with binned_corr.cu's fpt_binned_corr as pass 2, the TPU kernel
+// fakepta_tpu/ops/megakernel.py::chunk_stats on both its operand sets
+// (kernel body _mega_kernel with _project_rows/_basis_rows, pallas_call at
+// megakernel.py:399): the shared set (base_local=None, one shard holds every
+// pulsar) and the local+full set of a psr shard (shared=False,
+// megakernel.py:149-157,384-397). Per realization r, pulsar p and TOA t of
+// each set's rows:
+//   res[r, p, t] = base[r, p, t] + sum_k coef[r, p, k] B_k(p, t)
+//   B rows       = cosf((2 pi t_norm) n) s, n = 1..nbin, then sinf(...) s,
+//                  per stage (nbin, time row, scale row), as _basis_rows
+//                  builds them
+// Pass 2 (fpt_binned_corr, launched by the wrapper on the same stream)
+// correlates the local rows against the full rows and bins them.
 //
-// What bounds it on an H100: chunk_bytes_model(mode='mega') counts the
-// base and coefficient bytes twice (written by the draws, read here); this
-// kernel's own traffic is one read of each, R P (T + K) 4 bytes at f32 and
-// half that under bf16 storage. Its work is 2 R P K T FLOPs of projection
-// plus R P (P+1) T of correlation (the block is symmetric: P(P+1)/2
-// distinct pairs; 59 GFLOP per 1024-realization flagship chunk, K = 320) on
-// the fp32 units, plus P T K / 2 sine-cosine pairs per realization tile: it
-// is bound by operations, not bytes. Like binned_corr.cu it still computes
-// all P^2 pairs of the symmetric block.
+// Why two passes. The TPU kernel keeps the residuals in VMEM because a v5e
+// is bound by HBM. On an H100 the residuals' round trip costs R (PL + PF) T
+// 4 bytes, written here and read by pass 2 (2 x 320 MB, ~0.19 ms at
+// 3.35 TB/s for the flagship shared set), while keeping them on chip beside
+// a realization's 100 x 100 fp32 correlation block (40 KB of registers)
+// caps a block at 2-4 realizations, and then each basis value is rebuilt
+// hundreds of times. Here a block projects BM = 128 realizations, so each
+// basis value is built once per 128 realizations.
 //
-// On the local+full set the work is 2 R (PL + PF) K T projection FLOPs and
-// 2 R PL PF T correlation FLOPs (no symmetry), on R (PL + PF) (T + K)
-// elements read.
+// What bounds pass 1: 2 R rows K T FLOPs, three times over on the TF32
+// tensor cores (3xTF32; twice under bf16 storage): 153 GFLOP, 0.31 ms at
+// 495 TFLOP/s, for the flagship shared set (R = 1024, 100 rows, K = 320, T = 780), against
+// base + coef + res = 320 + 131 + 320 MB, 0.23 ms at 3.35 TB/s: the
+// products, then the bytes; plus (R / BM) rows T K / 2 accurate sincosf on
+// the fp32 units.
 //
-// Design (simple and right first): a block takes RT = 2 realizations, 256
-// threads each, and one pair tile: row pulsars from the local set, column
-// pulsars from the full set (the two tiles are one on the shared set's
-// diagonal). For every tile of 32 TOAs, each warp takes one pulsar at a
-// time, evaluates its basis values once (sincosf, accurate: no fast math)
-// and applies them to both realizations' coefficients, adds the base and
-// stores the residual tile in shared memory; each 256-thread group then
-// accumulates its realization's correlation tile in registers as in
-// binned_corr.cu and bins it in a fixed order in the epilogue. RT is the
-// number of realizations whose correlation tile fits the register file at
-// once; a larger RT amortizes the sine-cosine work further (later work,
-// with tensor cores for the two products). No float atomics: reruns are
+// Design.
+//   Blocks. Per pulsar the projection is a GEMM: M = realizations, N = TOAs,
+//     K = basis columns. A block takes BM realizations x BN TOAs of one
+//     pulsar row; the grid is (ceil(R / BM), ceil(T / BN), rows), rows the
+//     set's P on the shared set and PL local rows then PF full rows on the
+//     local+full set (both projected, as the TPU kernel does). 8 warps in a
+//     WGM x (8 / WGM) grid each own FM x FN m16n8 fragments; two blocks per
+//     SM. The source instantiates one tile, FPT_PROJ_TILES: 128 x 128,
+//     1.10-1.12x faster than 128 x 64 and 1.4x faster than 64 x 64 at the
+//     flagship shapes (tools/megakernel_variants.py, which builds the
+//     others): fewer coef re-reads per TOA and fewer basis builds per
+//     realization.
+//   Harmonic chunks. K is consumed NH harmonic slots at a time, the slots of
+//     all stages in order (a chunk may straddle two stages; the last is
+//     zero-padded): KC = 2 NH columns, the chunk's NH cos columns then its
+//     NH sin columns. The block stages the matching coef columns of its BM
+//     realizations ([m][k], row stride KC + 4 = 4 mod 32, so the A-fragment
+//     loads stay on 32 banks) and builds the chunk's basis tile ([k][t],
+//     row stride BN + 8 = 8 mod 32): one accurate sincosf of the reference's
+//     f32 phase (2 pi t) n gives the cos and the sin value. The block's time
+//     rows (times 2 pi) and scale rows sit in shared memory; padding TOAs
+//     have scale 0, so their basis is 0.
+//   Products: mma.sync.aligned.m16n8k8 TF32, 3xTF32 (the projection is f32
+//     in both modes, the reference's Precision.HIGHEST): hi =
+//     cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), split once at staging;
+//     per k-step hi.lo + lo.hi + hi.hi summed from zero, then joined to the
+//     fp32 accumulator with an IEEE add (chaining the passes in the tensor
+//     core's truncating accumulator came within 1.4x of the 1e-5 tolerance
+//     in binned_corr.cu). Under bf16 storage coef is exact in TF32 (8
+//     significant bits of TF32's 11): its lo part is 0, so the coef.lo
+//     product is left out at compile time and pass 1 makes two passes.
+//   Epilogue: the accumulators go through shared memory (the staging tiles'
+//     room), and each row of BN TOAs adds base (bf16 -> f32 under bf16
+//     storage) and is written as f32, consecutive threads on consecutive
+//     TOAs.
+//   With no stage (K = 0) the kernel only converts base to f32.
+// Every sum runs in a fixed order and no float atomic is used: reruns are
 // bit-identical.
+#include <cstdint>
+#include <type_traits>
+
 #include "corr_common.cuh"
 
 namespace fpt {
 
-constexpr int RT = 2;           // realizations per block
 constexpr int MAX_STAGES = 16;
+constexpr int PROJ_WARPS = 8;
+constexpr int PROJ_THREADS = 32 * PROJ_WARPS;
+constexpr int PROJ_BLOCKS = 2;   // blocks per SM (launch bounds)
+constexpr int NH = 16;           // harmonic slots per chunk
+constexpr int KC = 2 * NH;       // basis columns per chunk
+constexpr int LDA = KC + 4;      // coef tile row stride, = 4 (mod 32)
 
 struct Stages {
   int n;
@@ -72,132 +103,233 @@ struct Operands {
   int P;
 };
 
-// Residual rows [row0, row0 + nrows) of operand set `op` for the block's
-// realizations and the TOA tile at t0, rounded to bf16 when asked, stored
-// [rr][t][p] in dst.
-template <int MT, typename TS>
-__device__ void project_tile(const Operands<TS>& op, const Stages& st,
-                             float* dst, int r0, int R, int T, int K,
-                             int row0, int nrows, int t0, int bf16) {
-  const TS* __restrict__ base = op.base;
-  const TS* __restrict__ coef = op.coef;
-  const float* __restrict__ times = op.times;
-  const float* __restrict__ scales = op.scales;
-  const int P = op.P;
-  constexpr int TILE = TDIM * MT;
-  constexpr int LD = TILE + 1;
+// Shared-memory floats of a (BM, BN) block with S scale rows: the staging
+// tiles or the epilogue's accumulator tile, whichever is larger, then the
+// time and scale rows. ops/megakernel.py::project_smem mirrors it.
+__host__ __device__ constexpr int proj_tile_floats(int bm, int bn) {
+  return 2 * bm * LDA + 2 * KC * (bn + 8) > bm * (bn + 8)
+             ? 2 * bm * LDA + 2 * KC * (bn + 8)
+             : bm * (bn + 8);
+}
+
+__host__ __device__ constexpr int proj_floats(int bm, int bn, int S) {
+  return proj_tile_floats(bm, bn) + (2 + S) * bn;
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// c += a b: one m16n8k8 TF32 product, fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x as its TF32 hi part at dst[0] and lo part at dst[lo]
+__device__ __forceinline__ void store_split(float* dst, int lo, float x) {
+  const uint32_t hi = to_tf32(x);
+  dst[0] = __uint_as_float(hi);
+  dst[lo] = __uint_as_float(to_tf32(x - __uint_as_float(hi)));
+}
+
+// The stage s and harmonic index n (0-based) of the harmonic slot that lies
+// `h` slots past (s, n); s = st.n past the last slot.
+__device__ __forceinline__ void walk(const Stages& st, int& s, int& n, int h) {
+  n += h;
+  while (s < st.n && n >= st.nbin[s]) {
+    n -= st.nbin[s];
+    ++s;
+  }
+}
+
+// Fragment layouts (PTX ISA, m16n8k8 .tf32), g = lane >> 2, k = lane & 3:
+//   A (16 x 8, row): a0 (g, k), a1 (g + 8, k), a2 (g, k + 4), a3 (g + 8, k + 4)
+//   B (8 x 8, col):  b0 (k, g), b1 (k + 4, g)
+//   C (16 x 8):      c0 (g, 2k), c1 (g, 2k + 1), c2 (g + 8, 2k),
+//                    c3 (g + 8, 2k + 1)
+// A[m][k] is realization m's coefficient of chunk column k (As, [m][k]);
+// B[k][n] is column k's basis value at TOA n (Bs, [k][n]).
+template <int BM, int BN, int WGM, typename TS>
+__global__ void __launch_bounds__(PROJ_THREADS, PROJ_BLOCKS)
+project_kernel(Operands<TS> loc, Operands<TS> full, Stages st,
+               float* __restrict__ res_l, float* __restrict__ res_f, int R,
+               int T, int K, int S, int nloc) {
+  constexpr int WGN = PROJ_WARPS / WGM;
+  constexpr int FM = BM / (16 * WGM), FN = BN / (8 * WGN);
+  constexpr int LDB = BN + 8;   // = 8 (mod 32)
+  constexpr int LDC = BN + 8;
+  static_assert(FM * 16 * WGM == BM && FN * 8 * WGN == BN, "warp grid");
+  static_assert(PROJ_THREADS % BN == 0 && PROJ_THREADS % KC == 0, "lanes");
+  // coef stored in bfloat16 is exact in TF32: no lo part, no lo product
+  constexpr bool EXACT_A = std::is_same<TS, __nv_bfloat16>::value;
+  extern __shared__ float smem[];
+  float* As = smem;                      // [2][BM][LDA]: hi, lo (unused
+                                         // under EXACT_A)
+  float* Bs = smem + 2 * BM * LDA;       // [2][KC][LDB]: hi, lo
+  float* Cs = smem;                      // [BM][LDC], after the mainloop
+  float* rows = smem + proj_tile_floats(BM, BN);  // [2 + S][BN]
+
+  const int z = blockIdx.z;
+  const bool is_loc = z < nloc;
+  const int p = is_loc ? z : z - nloc;
+  const int P = is_loc ? loc.P : full.P;
+  const TS* __restrict__ base = is_loc ? loc.base : full.base;
+  const TS* __restrict__ coef = is_loc ? loc.coef : full.coef;
+  const float* __restrict__ times = is_loc ? loc.times : full.times;
+  const float* __restrict__ scales = is_loc ? loc.scales : full.scales;
+  float* __restrict__ out = is_loc ? res_l : res_f;
+  const int r0 = blockIdx.x * BM, t0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, k4 = lane & 3;
+  const int wm = warp % WGM, wn = warp / WGM;
+
+  // the block's time rows (times 2 pi, in f32 as the reference rounds it)
+  // and scale rows; 0 past T
   const float two_pi = 6.28318530717958647692f;
-  for (int e = threadIdx.x; e < TILE * TT; e += RT * GROUP) {
-    const int p = e / TT, t = e % TT;
-    const int tg = t0 + t, pg = row0 + p;
-    const bool valid = p < nrows && tg < T;
-    float acc[RT];
+  for (int e = tid; e < (2 + S) * BN; e += PROJ_THREADS) {
+    const int row = e / BN, t = t0 + e % BN;
+    float v = 0.f;
+    if (t < T)
+      v = row < 2 ? two_pi * times[((size_t)row * P + p) * T + t]
+                  : scales[((size_t)(row - 2) * P + p) * T + t];
+    rows[e] = v;
+  }
+  __syncthreads();
+
+  float acc[FM][FN][4];
 #pragma unroll
-    for (int rr = 0; rr < RT; ++rr) acc[rr] = 0.f;
-    if (valid) {
-      for (int s = 0; s < st.n; ++s) {
-        const int nbin = st.nbin[s];
-        const float tv = times[((size_t)st.tcol[s] * P + pg) * T + tg];
-        const float sv = scales[((size_t)st.scol[s] * P + pg) * T + tg];
-        const float tw = two_pi * tv;
-        for (int n = 1; n <= nbin; ++n) {
-          float sn, cs;
-          sincosf(tw * (float)n, &sn, &cs);
-          const float bc = cs * sv, bs = sn * sv;
+  for (int i = 0; i < FM; ++i)
 #pragma unroll
-          for (int rr = 0; rr < RT; ++rr) {
-            const int r = min(r0 + rr, R - 1);
-            const TS* c = coef + ((size_t)r * P + pg) * K + st.k0[s];
-            acc[rr] = fmaf(load_f(c + n - 1), bc, acc[rr]);
-            acc[rr] = fmaf(load_f(c + nbin + n - 1), bs, acc[rr]);
-          }
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+  // Staging roles, fixed for the whole loop: the thread stages column aj of
+  // the coef tile for rows tid / KC + m (PROJ_THREADS / KC) and builds the
+  // basis at TOA bt for slots tid / BN + h (PROJ_THREADS / BN).
+  const int aj = tid % KC, bt = tid % BN;
+  const bool a_sin = aj >= NH;
+  int s0 = 0, n0 = 0;   // the chunk's first slot (block-uniform)
+  for (int q0 = 0; 2 * q0 < K; q0 += NH) {
+    {
+      int s = s0, n = n0;
+      walk(st, s, n, aj % NH);
+      const bool live = s < st.n;
+      const int col = live ? st.k0[s] + (a_sin ? st.nbin[s] : 0) + n : 0;
+      for (int m = tid / KC; m < BM; m += PROJ_THREADS / KC) {
+        const int r = r0 + m;
+        const float v =
+            live && r < R ? load_f(coef + ((size_t)r * P + p) * K + col) : 0.f;
+        if (EXACT_A)
+          As[m * LDA + aj] = v;
+        else
+          store_split(As + m * LDA + aj, BM * LDA, v);
+      }
+    }
+    for (int h = tid / BN; h < NH; h += PROJ_THREADS / BN) {
+      int s = s0, n = n0;
+      walk(st, s, n, h);
+      float bc = 0.f, bs = 0.f;
+      if (s < st.n) {
+        float sn, cs;
+        sincosf(rows[st.tcol[s] * BN + bt] * (float)(n + 1), &sn, &cs);
+        const float sv = rows[(2 + st.scol[s]) * BN + bt];
+        bc = cs * sv;
+        bs = sn * sv;
+      }
+      store_split(Bs + h * LDB + bt, KC * LDB, bc);
+      store_split(Bs + (NH + h) * LDB + bt, KC * LDB, bs);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < KC; ks += 8) {
+      const float* a = As + (wm * FM * 16 + g) * LDA + ks + k4;
+      uint32_t ah[FM][4], al[FM][4];
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int off = (16 * i + (c & 1) * 8) * LDA + (c & 2) * 2;
+          ah[i][c] = __float_as_uint(a[off]);
+          al[i][c] = __float_as_uint(a[BM * LDA + off]);
+        }
+      const float* b = Bs + (ks + k4) * LDB + wn * FN * 8 + g;
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const uint32_t h0 = __float_as_uint(b[8 * j]);
+        const uint32_t h1 = __float_as_uint(b[8 * j + 4 * LDB]);
+        const uint32_t l0 = __float_as_uint(b[KC * LDB + 8 * j]);
+        const uint32_t l1 = __float_as_uint(b[KC * LDB + 8 * j + 4 * LDB]);
+#pragma unroll
+        for (int i = 0; i < FM; ++i) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(d, ah[i], l0, l1);
+          if (!EXACT_A) mma_tf32(d, al[i], h0, h1);
+          mma_tf32(d, ah[i], h0, h1);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][j][c] += d[c];
         }
       }
     }
+    __syncthreads();
+    walk(st, s0, n0, NH);
+  }
+
+  // epilogue: accumulators to [BM][LDC] (8-byte stores, a half-warp on 32
+  // banks), then res = base + acc row by row
 #pragma unroll
-    for (int rr = 0; rr < RT; ++rr) {
-      float v = 0.f;
-      if (valid && r0 + rr < R)
-        v = load_f(base + ((size_t)(r0 + rr) * P + pg) * T + tg) + acc[rr];
-      dst[(rr * TT + t) * LD + p] = bf16 ? round_bf16(v) : v;
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const int m = (wm * FM + i) * 16 + g + 8 * h;
+        const int c = (wn * FN + j) * 8 + 2 * k4;
+        *reinterpret_cast<float2*>(Cs + m * LDC + c) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+  __syncthreads();
+  for (int e = tid; e < BM * BN; e += PROJ_THREADS) {
+    const int m = e / BN, c = e % BN;
+    const int r = r0 + m, t = t0 + c;
+    if (r < R && t < T) {
+      const size_t o = ((size_t)r * P + p) * T + t;
+      out[o] = load_f(base + o) + Cs[m * LDC + c];
     }
   }
 }
 
-template <int MT, typename TS>
-__global__ void __launch_bounds__(RT * GROUP, 1)
-mega_kernel(Operands<TS> loc, Operands<TS> full,
-            const float* __restrict__ w, Stages st, float* __restrict__ out,
-            float* __restrict__ partial, int R, int T, int K, int NB,
-            int bf16, int ntf, int shared) {
-  extern __shared__ float smem[];
-  constexpr int TILE = TDIM * MT;
-  constexpr int LD = TILE + 1;
-  float* rows = smem;                       // [RT][TT][LD]
-  float* cols = smem + RT * TT * LD;        // [RT][TT][LD] (off-diagonal)
-  float* red = smem + 2 * RT * TT * LD;     // [RT][NB][GROUP_WARPS]
-
-  const int r0 = blockIdx.x * RT;
-  const int tile = blockIdx.y, ntiles = gridDim.y;
-  const int ti = tile / ntf, tj = tile % ntf;
-  const int row0 = ti * TILE, col0 = tj * TILE;
-  const int PL = loc.P, PF = full.P;
-  const int nrows = min(TILE, PL - row0), ncols = min(TILE, PF - col0);
-  const bool same = shared && ti == tj;
-  const int g = threadIdx.x / GROUP, gtid = threadIdx.x % GROUP;
-  const int ty = gtid / TDIM, tx = gtid % TDIM;
-
-  float acc[MT][MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < MT; ++j) acc[i][j] = 0.f;
-
-  for (int t0 = 0; t0 < T; t0 += TT) {
-    project_tile<MT, TS>(loc, st, rows, r0, R, T, K, row0, nrows, t0, bf16);
-    if (!same)
-      project_tile<MT, TS>(full, st, cols, r0, R, T, K, col0, ncols, t0,
-                           bf16);
-    __syncthreads();
-    const float* A = rows + g * TT * LD;
-    const float* B = (same ? rows : cols) + g * TT * LD;
-    corr_tile<MT>(A, B, LD, ty, tx, acc);
-    __syncthreads();
-  }
-  const int r = r0 + g;
-  float* dst = nullptr;
-  if (r < R)
-    dst = ntiles == 1 ? out + (size_t)r * NB
-                      : partial + ((size_t)r * ntiles + tile) * NB;
-  bin_group<MT>(acc, w, NB, PL, PF, row0, col0, nrows, ncols, ty, tx, gtid,
-                red + g * NB * GROUP_WARPS, dst);
-}
-
-template <int MT, typename TS>
-int launch(const Operands<TS>& loc, const Operands<TS>& full, const float* w,
-           const Stages& st, float* out, float* partial, int R, int T, int K,
-           int NB, int bf16, int shared, cudaStream_t stream) {
-  constexpr int TILE = TDIM * MT;
-  const int ntl = (loc.P + TILE - 1) / TILE;
-  const int ntf = (full.P + TILE - 1) / TILE;
-  const size_t smem =
-      (size_t)(2 * RT * TT * (TILE + 1) + RT * NB * GROUP_WARPS) *
-      sizeof(float);
+template <int BM, int BN, int WGM, typename TS>
+int launch_project(const Operands<TS>& loc, const Operands<TS>& full,
+                   const Stages& st, float* res_l, float* res_f, int R,
+                   int T, int K, int S, int nloc, int rows,
+                   cudaStream_t stream) {
+  const size_t smem = (size_t)proj_floats(BM, BN, S) * sizeof(float);
+  auto kernel = project_kernel<BM, BN, WGM, TS>;
   cudaError_t err = cudaFuncSetAttribute(
-      mega_kernel<MT, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((R + RT - 1) / RT), (unsigned)(ntl * ntf));
-  mega_kernel<MT, TS><<<grid, RT * GROUP, smem, stream>>>(
-      loc, full, w, st, out, partial, R, T, K, NB, bf16, ntf, shared);
-  if (ntl * ntf > 1) launch_reduce(partial, out, R, ntl * ntf, NB, stream);
+  const dim3 grid((unsigned)((R + BM - 1) / BM), (unsigned)((T + BN - 1) / BN),
+                  (unsigned)rows);
+  kernel<<<grid, PROJ_THREADS, smem, stream>>>(loc, full, st, res_l, res_f, R,
+                                               T, K, S, nloc);
   return 0;
 }
 
+// the (BM, BN, WGM) block tiles the kernel is instantiated for
+// (ops/megakernel.py::PROJ_TILE)
+#define FPT_PROJ_TILES(X) X(128, 128, 4)
+
 template <typename TS>
-int dispatch(const void* const* ptrs, int PL, int PF, const float* w,
-             const Stages& st, float* out, float* partial, int R, int T,
-             int K, int NB, int mt, int bf16, int shared, cudaStream_t s) {
+int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
+             float* res_l, float* res_f, int R, int T, int K, int S,
+             int shared, int bm, int bn, int wgm, cudaStream_t stream) {
   const Operands<TS> loc{static_cast<const TS*>(ptrs[0]),
                          static_cast<const TS*>(ptrs[1]),
                          static_cast<const float*>(ptrs[2]),
@@ -206,17 +338,15 @@ int dispatch(const void* const* ptrs, int PL, int PF, const float* w,
                           static_cast<const TS*>(ptrs[5]),
                           static_cast<const float*>(ptrs[6]),
                           static_cast<const float*>(ptrs[7]), PF};
-  switch (mt) {
-    case 1: return launch<1, TS>(loc, full, w, st, out, partial, R, T, K, NB, bf16, shared, s);
-    case 2: return launch<2, TS>(loc, full, w, st, out, partial, R, T, K, NB, bf16, shared, s);
-    case 3: return launch<3, TS>(loc, full, w, st, out, partial, R, T, K, NB, bf16, shared, s);
-    case 4: return launch<4, TS>(loc, full, w, st, out, partial, R, T, K, NB, bf16, shared, s);
-    case 5: return launch<5, TS>(loc, full, w, st, out, partial, R, T, K, NB, bf16, shared, s);
-    case 6: return launch<6, TS>(loc, full, w, st, out, partial, R, T, K, NB, bf16, shared, s);
-    case 7: return launch<7, TS>(loc, full, w, st, out, partial, R, T, K, NB, bf16, shared, s);
-    case 8: return launch<8, TS>(loc, full, w, st, out, partial, R, T, K, NB, bf16, shared, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int nloc = shared ? 0 : PL;
+  const int rows = nloc + PF;
+#define FPT_TILE(BM_, BN_, WGM_)                                              \
+  if (bm == BM_ && bn == BN_ && wgm == WGM_)                                  \
+    return launch_project<BM_, BN_, WGM_, TS>(loc, full, st, res_l, res_f, R, \
+                                              T, K, S, nloc, rows, stream);
+  FPT_PROJ_TILES(FPT_TILE)
+#undef FPT_TILE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace fpt
@@ -224,23 +354,23 @@ int dispatch(const void* const* ptrs, int PL, int PF, const float* w,
 // C entry. The local set base_l (R, PL, T), coef_l (R, PL, K), times_l
 // (2, PL, T), scales_l (S, PL, T) and the full set base_f (R, PF, T),
 // coef_f (R, PF, K), times_f (2, PF, T), scales_f (S, PF, T): base and coef
-// float32 (store_bf16 = 0) or bfloat16 (store_bf16 = 1), the tables float32.
-// shared = 1 passes the same arrays as both sets (PL = PF). w (NB, PL, PF)
-// and out (R, NB) float32; all contiguous. Stage s covers coef columns
-// [k0[s], k0[s] + 2 nbin[s]) (cos rows then sin rows). partial is
-// (R, ntiles, NB) scratch when the pair space needs more than one tile of
-// 16*mt pulsars a side, else null. Returns cudaGetLastError() after the
-// launch(es).
-extern "C" int fpt_chunk_stats(const void* base_l, const void* coef_l,
-                               const void* times_l, const void* scales_l,
-                               const void* base_f, const void* coef_f,
-                               const void* times_f, const void* scales_f,
-                               const void* w, void* out, void* partial,
-                               int R, int PL, int PF, int T, int K, int NB,
-                               int n_stages, const int* nbin,
-                               const int* tcol, const int* scol, int mt,
-                               int store_bf16, int bf16, int shared,
-                               void* stream) {
+// float32 (store_bf16 = 0) or bfloat16 (store_bf16 = 1), the tables
+// float32. Writes the float32 residuals res_l (R, PL, T) and res_f
+// (R, PF, T); shared = 1 projects the full set alone (res_l and the local
+// operands are not read). Stage s covers coef columns [k0[s], k0[s] +
+// 2 nbin[s]) (cos rows then sin rows). (bm, bn, wgm) is one of
+// FPT_PROJ_TILES (ops/megakernel.py::project_tiling's). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments it has no kernel for.
+extern "C" int fpt_project(const void* base_l, const void* coef_l,
+                           const void* times_l, const void* scales_l,
+                           const void* base_f, const void* coef_f,
+                           const void* times_f, const void* scales_f,
+                           void* res_l, void* res_f, int R, int PL, int PF,
+                           int T, int K, int S, int n_stages, const int* nbin,
+                           const int* tcol, const int* scol, int bm, int bn,
+                           int wgm, int store_bf16, int shared,
+                           void* stream) {
   using namespace fpt;
   if (n_stages < 0 || n_stages > MAX_STAGES) return (int)cudaErrorInvalidValue;
   if (shared && PL != PF) return (int)cudaErrorInvalidValue;
@@ -253,21 +383,29 @@ extern "C" int fpt_chunk_stats(const void* base_l, const void* coef_l,
     st.tcol[s] = live ? tcol[s] : 0;
     st.scol[s] = live ? scol[s] : 0;
     st.k0[s] = k0;
+    if (live && (st.nbin[s] <= 0 || st.tcol[s] < 0 || st.tcol[s] > 1 ||
+                 st.scol[s] < 0 || st.scol[s] >= S))
+      return (int)cudaErrorInvalidValue;
     k0 += 2 * st.nbin[s];
   }
   if (k0 != K) return (int)cudaErrorInvalidValue;
   const void* ptrs[8] = {base_l, coef_l, times_l, scales_l,
                          base_f, coef_f, times_f, scales_f};
-  const float* wp = static_cast<const float*>(w);
-  float* o = static_cast<float*>(out);
-  float* part = static_cast<float*>(partial);
+  float* rl = static_cast<float*>(res_l);
+  float* rf = static_cast<float*>(res_f);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc =
       store_bf16
-          ? dispatch<__nv_bfloat16>(ptrs, PL, PF, wp, st, o, part, R, T, K,
-                                    NB, mt, bf16, shared, s)
-          : dispatch<float>(ptrs, PL, PF, wp, st, o, part, R, T, K, NB, mt,
-                            bf16, shared, s);
+          ? dispatch<__nv_bfloat16>(ptrs, PL, PF, st, rl, rf, R, T, K, S,
+                                    shared, bm, bn, wgm, s)
+          : dispatch<float>(ptrs, PL, PF, st, rl, rf, R, T, K, S, shared, bm,
+                            bn, wgm, s);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// The shared-memory bytes fpt_project requests for a (bm, bn) tile and S
+// scale rows (ops/megakernel.py::project_smem must agree).
+extern "C" long long fpt_project_smem(int bm, int bn, int S) {
+  return (long long)fpt::proj_floats(bm, bn, S) * (long long)sizeof(float);
 }

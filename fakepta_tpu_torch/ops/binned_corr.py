@@ -40,9 +40,6 @@ launches = 0
 #: number of times :func:`binned_correlation_vpu` launched its kernel
 vpu_launches = 0
 
-TDIM = 16       # threads per side of a realization group (corr_common.cuh)
-MAX_MT = 8      # so a pair tile is at most 128 pulsars a side
-
 MMA_TILE = 128  # binned_correlation's pair tile is at most 128 x 128
 MMA_WARPS = 8   # warps per block, each owning fm x fn m16n8 fragments
 #: the (fm, fn) warp tiles binned_corr.cu instantiates (its
@@ -82,15 +79,6 @@ def _check_precision(precision: str) -> None:
     if precision not in ("bf16", "f32"):
         raise ValueError(f"precision must be 'bf16' or 'f32', got "
                          f"{precision!r}")
-
-
-def pair_tiling(p_rows: int, p_cols: int):
-    """(mt, row tiles, column tiles) of the fp32 register-tile kernel's
-    pair space (``megakernel.chunk_stats``): each thread holds an mt x mt
-    register tile, a block 16*mt pulsars a side."""
-    mt = max(1, min(MAX_MT, -(-max(p_rows, p_cols) // TDIM)))
-    tile = TDIM * mt
-    return mt, -(-p_rows // tile), -(-p_cols // tile)
 
 
 def mma_tiling(p_rows: int, p_cols: int) -> MmaTiling:

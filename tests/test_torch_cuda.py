@@ -267,3 +267,134 @@ def test_sharded_engine_on_the_card_matches_one_shard(cuda, path, mxu):
     again = sim.run(16, seed=3, chunk=8, precision="f32")
     np.testing.assert_array_equal(got["curves"], again["curves"])
     np.testing.assert_array_equal(got["autos"], again["autos"])
+
+
+# -- the projection pass of chunk_stats (pass 1) ----------------------------
+
+#: the flagship's stages (K = 320): nbin 30 is not a multiple of the
+#: kernel's 16-harmonic chunks, so chunks straddle stages
+FLAGSHIP_STAGES = (MegaStage(30, T_OWN, 0), MegaStage(100, T_OWN, 1),
+                   MegaStage(30, T_COMMON, 0))
+
+
+def _proj_inputs(cuda, seed, R, P, T, stages, dt):
+    """base (R, P, T) ~1e-6 and coef (R, P, K) ~1e-7 in ``dt``, and float32
+    time rows (own sorted TOAs, a common grid) and scale rows (the TOA mask
+    with 7 padding TOAs, and a chromatic scale), on the card."""
+    rng = np.random.default_rng(seed)
+    t_own = np.sort(rng.uniform(0.0, 1.0, (P, T)), axis=1)
+    mask = np.ones((P, T))
+    mask[:, max(0, T - 7):] = 0.0
+    chrom = (1.4 / rng.uniform(0.5, 3.0, (P, 1))) ** 2
+    base = rng.standard_normal((R, P, T)) * 1e-6 * mask[None]
+    coef = rng.standard_normal((R, P, mk.stage_k(stages))) * 1e-7
+    times = np.stack([t_own, np.tile(np.linspace(0.0, 1.05, T), (P, 1))])
+    scales = np.stack([mask, mask * chrom])
+    return ([torch.tensor(x).to(dt).to(cuda) for x in (base, coef)]
+            + [torch.tensor(x).float().to(cuda) for x in (times, scales)])
+
+
+# (R, PL, PF, T, stages): R not a multiple of BM = 128, T not a multiple
+# of BN = 128 (nor of 4), the flagship's K = 320 and the
+# small stages (nbin 4 and 3, below one chunk), T_COMMON and scale row 1 in
+# both, one pulsar, and a psr shard's rows against a wider array
+PROJ_SHAPES = [(5, 6, 6, 48, STAGES), (130, 9, 9, 100, FLAGSHIP_STAGES),
+               (3, 4, 16, 780, FLAGSHIP_STAGES), (1, 1, 1, 8, STAGES),
+               (67, 25, 100, 33, STAGES)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("R,PL,PF,T,stages", PROJ_SHAPES)
+def test_project_kernel_matches_plain(cuda, storage, R, PL, PF, T, stages):
+    """Pass 1 alone against its plain version (dense basis, full-f32
+    einsum): within 1e-5 of the residual scale (3xTF32 products, ~2^-21
+    relative each, and the accurate sincosf against torch's cos/sin); a
+    rerun is bit-identical."""
+    dt = torch.float32 if storage == "f32" else torch.bfloat16
+    full = _proj_inputs(cuda, 11, R, PF, T, stages, dt)
+    local = (None,) * 4
+    if PL < PF:
+        local = tuple(x[:, PF - PL:].contiguous() for x in full)
+    want = [mk.project_plain(*full, stages)]
+    if PL < PF:
+        want.insert(0, mk.project_plain(*local, stages))
+    got = mk._launch_project(*full, stages, local)
+    torch.cuda.synchronize()
+    assert got[1].dtype == torch.float32
+    for g, w in zip(got[2 - len(want):], want):
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * scale, (err, scale)
+    again = mk._launch_project(*full, stages, local)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_chunk_stats_without_stages_on_the_card(cuda, prec):
+    """stages=() (K = 0): pass 1 only converts base to float32; both sets
+    against the plain version, with a bit-identical rerun."""
+    dt = torch.float32 if prec == "f32" else torch.bfloat16
+    base, coef, times, scales = _proj_inputs(cuda, 12, 6, 20, 100, (), dt)
+    w = torch.randn(6, 20, 20, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    res_l, res = mk._launch_project(base, coef, times, scales, (),
+                                    (None,) * 4)
+    assert torch.equal(res, base.float())
+    for kw, ww in (({}, w), (dict(base_local=base[:, 15:].contiguous(),
+                                  coef_local=coef[:, 15:].contiguous(),
+                                  times_local=times[:, 15:].contiguous(),
+                                  scales_local=scales[:, 15:].contiguous()),
+                             w[:, 15:].contiguous())):
+        got = mk.chunk_stats(base, coef, times, scales, ww, stages=(),
+                             nbins=5, precision=prec, **kw)
+        want = mk.chunk_stats_plain(base, coef, times, scales, ww, stages=(),
+                                    nbins=5, precision=prec, **kw)
+        _assert_close(got, want, prec)
+        again = mk.chunk_stats(base, coef, times, scales, ww, stages=(),
+                               nbins=5, precision=prec, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("pl", [40, 10])
+def test_chunk_stats_flagship_stages_rerun_bit_identical(cuda, prec, pl):
+    """Both operand sets at K = 320 with R and T ragged against the tiles:
+    against the plain version, one counted launch per call, and reruns
+    bit-identical."""
+    dt = torch.float32 if prec == "f32" else torch.bfloat16
+    P = 40
+    full = _proj_inputs(cuda, 13, 130, P, 100, FLAGSHIP_STAGES, dt)
+    w = torch.randn(8, pl, P, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    kw = {}
+    if pl < P:
+        kw = dict(zip(("base_local", "coef_local", "times_local",
+                       "scales_local"), (x[:, :pl].contiguous()
+                                         for x in full)))
+    before = (mk.launches, mk.sharded_launches)
+    got = mk.chunk_stats(*full, w, stages=FLAGSHIP_STAGES, nbins=7,
+                         precision=prec, **kw)
+    torch.cuda.synchronize()
+    assert (mk.launches, mk.sharded_launches) == (
+        before[0] + (pl == P), before[1] + (pl < P))
+    want = mk.chunk_stats_plain(*full, w, stages=FLAGSHIP_STAGES, nbins=7,
+                                precision=prec, **kw)
+    _assert_close(got, want, prec)
+    for _ in range(2):
+        again = mk.chunk_stats(*full, w, stages=FLAGSHIP_STAGES, nbins=7,
+                               precision=prec, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_project_smem_matches_the_source(cuda):
+    """megakernel.py::project_smem mirrors what fpt_project requests."""
+    smem = _build.load("megakernel").fpt_project_smem
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_int] * 3
+    bm, bn, _ = mk.PROJ_TILE
+    for n_scales in (1, 2, 5):
+        assert smem(bm, bn, n_scales) == mk.project_smem(bm, bn, n_scales)

@@ -145,13 +145,6 @@ def test_wrappers_take_the_plain_path_on_cpu():
                        nbins=5, precision="tf32")
 
 
-@pytest.mark.parametrize("p,want", [(8, (1, 1, 1)), (16, (1, 1, 1)),
-                                    (100, (7, 1, 1)), (128, (8, 1, 1)),
-                                    (130, (8, 2, 2)), (300, (8, 3, 3))])
-def test_pair_tiling(p, want):
-    assert bc.pair_tiling(p, p) == want
-
-
 def test_chunk_bytes_model_matches_jax():
     from fakepta_tpu.ops.megakernel import chunk_bytes_model as jax_model
     for mode in ("xla", "fused", "mega", "mega_bf16"):

@@ -362,11 +362,3 @@ def test_chunk_stats_wrapper_local_set_on_cpu():
     with pytest.raises(ValueError, match="all four local operands"):
         mk.chunk_stats(base, coef, times, scales, w, stages=STAGES, nbins=5,
                        base_local=base[:, 2:5])
-
-
-@pytest.mark.parametrize("p", [(25, 100), (1, 100), (50, 100), (25, 130)])
-def test_pair_tiling_local_rows(p):
-    mt, ntl, ntf = bc.pair_tiling(*p)
-    tile = 16 * mt
-    assert mt <= 8 and ntl * tile >= p[0] and ntf * tile >= p[1]
-    assert (ntl - 1) * tile < p[0] and (ntf - 1) * tile < p[1]
