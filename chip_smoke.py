@@ -40,7 +40,23 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    after). The shards of such a mesh run one after another on the one
    card. A small array at one pulsar per shard is held against the CPU
    engine on the same mesh shape.
-5. ``profile`` (only when asked for): per statistic path, the device time
+5. ``scenarios``: the scenario registry's arrays. ``ng15``, uncut (68
+   pulsars padded to 512 TOAs, four backend bands, white hyperprior
+   draws), built by ``registry.get("ng15").build(device="cuda")``: each
+   kernel held against its plain version and timed at its shapes (PL = 68
+   and a 2-shard mesh's PL = 34), then ``run(4096, chunk=1024)`` on
+   ``"einsum"`` f32 (the yardstick), ``"fused"``, ``"fused"`` with
+   ``pallas_mxu_binning=False`` and ``"mega"`` at both precisions, each
+   held to the einsum run with bit-identical reruns and its kernel's
+   launches. The flagship with BASELINE config 8's ``NoiseSampling``
+   (per-pulsar red U(-17, -13) x U(1, 5), GWB amplitude U(-15, -14)) and
+   config 11's ``WhiteSampling`` (efac U(0.5, 2.5), log10_tnequad U(-8,
+   -5)) on ``"fused"`` the same way; a zero-width ``NoiseSampling`` run
+   equal to the fixed-PSD run bit for bit; ``ng15`` on
+   ``make_mesh(["cuda:0"] * 2, psr_shards=2)`` through every path, within
+   the mesh bounds of the 1-shard einsum run; ``ng15`` reduced against the
+   CPU engine.
+6. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -166,21 +182,18 @@ def compare(got, want, prec: str, what: str, tol=None) -> dict:
     return row
 
 
-def flagship_sim(stat_path: str, mesh=None, **kw):
-    """The flagship batch with an HD background, on ``mesh`` (default: a
-    1x1 mesh on the card)."""
-    from fakepta_tpu_torch import spectrum as spectrum_lib
-    from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
-                                                       GWBConfig)
-    from fakepta_tpu_torch.scenarios.registry import FLAGSHIP, flagship_batch
-    batch = flagship_batch(device="cuda")
-    tspan = float(batch.tspan_common)
-    f = np.arange(1, FLAGSHIP.gwb_ncomp + 1) / tspan
-    psd = spectrum_lib.powerlaw(f, log10_A=FLAGSHIP.gwb_log10_A,
-                                gamma=FLAGSHIP.gwb_gamma).numpy()
+def flagship_sim(stat_path: str, mesh=None, batch=None, **kw):
+    """The registry's ``flagship_100`` (its batch and HD background) on
+    ``mesh`` (default: a 1x1 mesh on the card); ``kw`` adds engine
+    arguments, ``batch`` replaces the registry's batch."""
+    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+    from fakepta_tpu_torch.scenarios import registry
+    scn = registry.get("flagship_100")
+    parts = scn.batch_parts(device="cuda")
     if mesh is None:
         kw["device"] = "cuda"
-    return EnsembleSimulator(batch, gwb=GWBConfig(psd=psd, orf="hd"),
+    kw = dict(scn.sim_kwargs(*parts), **kw)
+    return EnsembleSimulator(parts[0] if batch is None else batch,
                              stat_path=stat_path, mesh=mesh, **kw)
 
 
@@ -203,8 +216,8 @@ def counts() -> dict:
             "chunk_stats_sharded": mk.sharded_launches}
 
 
-def shape_tag(pl: int, pf: int) -> str:
-    return f"PL={pl} PF={pf}"
+def shape_tag(pl: int, pf: int, t: int) -> str:
+    return f"PL={pl} PF={pf} T={t}"
 
 
 def add_launches(report: dict, shape: str, moved: dict) -> None:
@@ -396,13 +409,22 @@ def mega_details(rows: dict, name: str, tag: str, operands: dict,
 
 
 def phase_kernels(report: dict) -> None:
+    """Every kernel at the flagship's shapes (the shared set, and a 2- and
+    4-shard mesh's rows)."""
+    measure_kernels(report, flagship_sim("fused"), SHARD_PL, "kernels")
+
+
+def measure_kernels(report: dict, sim, shard_pls, what: str) -> None:
+    """Hold each kernel against its plain version and time it, on one
+    chunk of ``sim``'s own residuals: the shared operand set, and a psr
+    shard's first PL rows for each PL in ``shard_pls``. Rows go to
+    ``report["kernels"]``; the launches made here are not counted."""
     import torch
     from fakepta_tpu_torch.ops import binned_corr as bc
     from fakepta_tpu_torch.ops import megakernel as mk
     from fakepta_tpu_torch.parallel.montecarlo import _chunk_keys
     from fakepta_tpu_torch.utils import rng
 
-    sim = flagship_sim("fused")
     keys = _chunk_keys(rng.key(7, device="cuda"), 0, CHUNK)
     with torch.no_grad():
         res = sim._residuals(keys)
@@ -415,7 +437,9 @@ def phase_kernels(report: dict) -> None:
     NB = w.shape[0]
     K = mk.stage_k(stages)
     S = scales.shape[0]
-    print(f"kernels: R={R} P={P} T={T} K={K} NB={NB}", flush=True)
+    valid = float(sim.batch.mask.float().mean())
+    print(f"{what}: R={R} P={P} T={T} K={K} NB={NB}, {valid:.4f} of the "
+          f"TOA slots valid", flush=True)
     rows = {}
 
     def local(x, pl):
@@ -428,7 +452,7 @@ def phase_kernels(report: dict) -> None:
     # width the mesh phase launches; both multiply on the TF32 tensor cores
     for name, fn in (("binned_correlation", bc.binned_correlation),
                      ("binned_correlation_vpu", bc.binned_correlation_vpu)):
-        for pl in (P,) + SHARD_PL:
+        for pl in (P,) + tuple(shard_pls):
             shared = pl == P
             res_l, w_l = (res, w) if shared else (local(res, pl),
                                                   local(w, pl))
@@ -436,7 +460,7 @@ def phase_kernels(report: dict) -> None:
             nbytes = 4.0 * (R * (pl if shared else pl + P) * T
                             + NB * pl * P + R * NB)
             kernel_rows(
-                rows, name, shape_tag(pl, P),
+                rows, name, shape_tag(pl, P, T),
                 lambda p, fn=fn, a=res_l, ww=w_l: fn(a, res, ww, nbins,
                                                      precision=p),
                 lambda p, a=res_l, ww=w_l: bc.binned_correlation_plain(
@@ -447,9 +471,10 @@ def phase_kernels(report: dict) -> None:
                 lambda p, c=corr, b=binf: corr_flops_split(p, c, b),
                 iters=20)
             if name == "binned_correlation":
-                mma_details(rows, res_l, res, w_l, nbins, shape_tag(pl, P))
+                mma_details(rows, res_l, res, w_l, nbins,
+                            shape_tag(pl, P, T))
             else:
-                vpu_details(rows, pl, P, NB, shape_tag(pl, P))
+                vpu_details(rows, pl, P, NB, shape_tag(pl, P, T))
 
     # -- chunk_stats: shared set (#3), local+full set (#4) ----------------
     # two passes: the projection (3xTF32 tensor-core products, two passes
@@ -459,7 +484,7 @@ def phase_kernels(report: dict) -> None:
     # The bf16 mode stores base and coefficients in bfloat16, as the engine
     operands = {"f32": (base, coefs),
                 "bf16": (base.to(torch.bfloat16), coefs.to(torch.bfloat16))}
-    for pl in (P,) + SHARD_PL:
+    for pl in (P,) + tuple(shard_pls):
         shared = pl == P
         name = "chunk_stats" if shared else "chunk_stats_sharded"
         if shared:
@@ -476,7 +501,7 @@ def phase_kernels(report: dict) -> None:
         corr, binf = stat_flops(R, pl, P, T, NB, shared=shared)
         proj = 2.0 * R * rows_read * K * T
         kernel_rows(
-            rows, name, shape_tag(pl, P),
+            rows, name, shape_tag(pl, P, T),
             lambda p, kw=kw, ww=w_l: mk.chunk_stats(
                 *operands[p], times, scales, ww, stages=stages, nbins=nbins,
                 precision=p, **kw[p]),
@@ -489,76 +514,105 @@ def phase_kernels(report: dict) -> None:
                 + 4.0 * ((2 + S) * n * T + NB * pl * P + R * NB)),
             lambda p, c=corr, b=binf, j=proj: mega_route_flops(p, c, b, j),
             iters=10, precs=("f32", "bf16"))
-        mega_details(rows, name, shape_tag(pl, P), operands, times, scales,
-                     w_l, kw, stages, nbins, rows_read)
-    report["kernels"] = {"/".join(k): v for k, v in rows.items()}
+        mega_details(rows, name, shape_tag(pl, P, T), operands, times,
+                     scales, w_l, kw, stages, nbins, rows_read)
+    report.setdefault("kernels", {}).update(
+        {"/".join(k): dict(v, valid_toa_share=valid)
+         for k, v in rows.items()})
     # launches made to compare with the plain versions do not count
     reset_counts()
 
 
-def phase_engine(report: dict) -> None:
+#: the kernel each engine path launches on one shard, and on a psr-sharded
+#: mesh
+PATH_KERNEL = {"fused": "binned_correlation",
+               "fused-vpu": "binned_correlation_vpu", "mega": "chunk_stats"}
+SHARDED_KERNEL = dict(PATH_KERNEL, mega="chunk_stats_sharded")
+
+
+def timed_run(sim, nreal: int, precision: str, seed: int = 1):
+    """(output, wall seconds) of one ``run(nreal, chunk=CHUNK)``, between
+    two synchronizations."""
     import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sim.run(nreal, seed=seed, chunk=CHUNK, precision=precision)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
-    counters = {"fused": "binned_correlation",
-                "fused-vpu": "binned_correlation_vpu", "mega": "chunk_stats"}
-    nchunks = -(-NREAL // CHUNK)
-    sims = {p: flagship_sim(p.split("-")[0],
-                            pallas_mxu_binning=p != "fused-vpu")
-            for p in ("einsum", "fused", "fused-vpu", "mega")}
 
-    def timed_run(sim, precision):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = sim.run(NREAL, seed=1, chunk=CHUNK, precision=precision)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+def yardstick(label: str, sim, nreal: int = NREAL, seed: int = 1) -> tuple:
+    """The einsum path's f32 run after a one-chunk warm-up: the reference
+    every kernel path is held to, and its realizations/s."""
+    sim.run(CHUNK, seed=99, chunk=CHUNK)
+    out, dt = timed_run(sim, nreal, "f32", seed)
+    row = {"realizations_per_s": nreal / dt, "wall_s": dt}
+    print(f"{label}: einsum [f32] {nreal / dt:.1f} realizations/s "
+          f"({dt:.3f} s for {nreal})", flush=True)
+    return out, row
 
-    sims["einsum"].run(CHUNK, seed=99, chunk=CHUNK)          # warm-up
-    ref, dt = timed_run(sims["einsum"], "f32")
-    eng = {"einsum/f32": {"realizations_per_s": NREAL / dt, "wall_s": dt}}
-    print(f"engine: einsum [f32] {NREAL / dt:.1f} realizations/s "
-          f"({dt:.3f} s for {NREAL})", flush=True)
 
-    # the main path: launch counts zeroed just before, read just after
+def drive_paths(report: dict, label: str, sims: dict, ref, shape: str,
+                nreal: int = NREAL, seed: int = 1, tol=None, shards: int = 1,
+                warm: bool = True, precs=("f32", "bf16")) -> dict:
+    """The main path: each ``sims[path]`` at each precision, with every
+    kernel count zeroed just before and read just after. Each run (after a
+    one-chunk warm-up when ``warm``) is timed, rerun and held to ``ref``
+    (default tolerance TOL[prec]); the rerun must be bit-identical and the
+    path's kernel launched ``shards`` times per chunk. Adds the launches to
+    ``report`` at ``shape`` and returns one row per path and precision."""
+    nchunks = -(-nreal // CHUNK)
     reset_counts()
     runs = {}
-    for path in ("fused", "fused-vpu", "mega"):
-        for prec in ("f32", "bf16"):
+    for path, sim in sims.items():
+        for prec in precs:
             before = counts()
-            sims[path].run(CHUNK, seed=99, chunk=CHUNK, precision=prec)
-            out, dt = timed_run(sims[path], prec)
-            again = sims[path].run(NREAL, seed=1, chunk=CHUNK,
-                                   precision=prec)
+            if warm:
+                sim.run(CHUNK, seed=99, chunk=CHUNK, precision=prec)
+            out, dt = timed_run(sim, nreal, prec, seed)
+            again = sim.run(nreal, seed=seed, chunk=CHUNK, precision=prec)
             moved = {k: v - before[k] for k, v in counts().items()
                      if v != before[k]}
             runs[(path, prec)] = (out, again, dt, moved)
-    launches = counts()
-    npsr = sims["fused"].batch.npsr
-    add_launches(report, shape_tag(npsr, npsr), launches)
-
+    add_launches(report, shape, counts())
+    rows = {}
+    kernels = PATH_KERNEL if shards == 1 else SHARDED_KERNEL
     for (path, prec), (out, again, dt, moved) in runs.items():
-        launched = moved.get(counters[path], 0)
-        if moved != {counters[path]: 1 + 2 * nchunks}:
-            raise AssertionError(f"{path} [{prec}] launched {moved}, "
-                                 f"expected {counters[path]} "
-                                 f"{1 + 2 * nchunks} times")
+        want = {kernels[path]: shards * (int(warm) + 2 * nchunks)} \
+            if path in kernels else {}
+        if moved != want:
+            raise AssertionError(f"{label} {path} [{prec}] launched "
+                                 f"{moved}, expected {want}")
         row = compare((out["curves"], out["autos"]),
                       (ref["curves"], ref["autos"]), prec,
-                      f"engine {path} vs einsum")
+                      f"{label} {path} vs einsum",
+                      tol=None if tol is None else tol[prec])
         identical = (np.array_equal(out["curves"], again["curves"])
                      and np.array_equal(out["autos"], again["autos"]))
         if not identical:
-            raise AssertionError(f"{path} [{prec}] rerun is not "
+            raise AssertionError(f"{label} {path} [{prec}] rerun is not "
                                  f"bit-identical")
-        if out["curves"].shape != (NREAL, sims[path].nbins):
-            raise AssertionError(f"{path}: curves shape "
+        if out["curves"].shape != (nreal, sim.nbins):
+            raise AssertionError(f"{label} {path}: curves shape "
                                  f"{out['curves'].shape}")
-        row.update(realizations_per_s=NREAL / dt, wall_s=dt,
-                   kernel_launches=launched, rerun_identical=identical)
-        eng[f"{path}/{prec}"] = row
-        print(f"engine: {path} [{prec}] {NREAL / dt:.1f} realizations/s "
-              f"({dt:.3f} s), {launched} launches, rerun bit-identical",
+        row.update(realizations_per_s=nreal / dt, wall_s=dt,
+                   kernel_launches=moved, rerun_identical=identical)
+        rows[f"{path}/{prec}"] = row
+        print(f"{label}: {path} [{prec}] {nreal / dt:.1f} realizations/s "
+              f"({dt:.3f} s), launches {moved}, rerun bit-identical",
               flush=True)
+    return rows
+
+
+def phase_engine(report: dict) -> None:
+    sims = {p: flagship_sim(p.split("-")[0],
+                            pallas_mxu_binning=p != "fused-vpu")
+            for p in ("einsum", "fused", "fused-vpu", "mega")}
+    ref, row = yardstick("engine", sims.pop("einsum"))
+    npsr, ntoa = sims["fused"].batch.npsr, sims["fused"].batch.max_toa
+    eng = {"einsum/f32": row}
+    eng.update(drive_paths(report, "engine", sims, ref,
+                           shape_tag(npsr, npsr, ntoa)))
     report["engine"] = eng
 
     # a small array against the CPU engine (the plain versions)
@@ -635,7 +689,8 @@ def phase_mesh(report: dict, cards: int = 1) -> None:
                 raise AssertionError(f"mesh {path} x{shards} [{prec}] "
                                      f"launched {moved}, expected {want}")
             npsr = sim.batch.npsr
-            add_launches(report, shape_tag(npsr // shards, npsr), moved)
+            add_launches(report, shape_tag(npsr // shards, npsr,
+                                           sim.batch.max_toa), moved)
             row = compare((out["curves"], out["autos"]),
                           (refs[prec]["curves"], refs[prec]["autos"]), prec,
                           f"mesh {path} psr_shards={shards} vs 1-shard "
@@ -671,6 +726,142 @@ def phase_mesh(report: dict, cards: int = 1) -> None:
         compare((gpu["curves"], gpu["autos"]),
                 (cpu["curves"], cpu["autos"]), "f32",
                 f"small array psr_shards=8: cuda {path} vs cpu einsum")
+
+
+def ng15_sim(path: str, mesh=None, **kw):
+    """The registry's ``ng15``, uncut, through its own entry point, on the
+    card (or ``mesh``) with statistic path ``path``."""
+    from fakepta_tpu_torch.scenarios import registry
+    return registry.get("ng15").build(
+        mesh=mesh, device=None if mesh is not None else "cuda",
+        stat_path=path.split("-")[0],
+        pallas_mxu_binning=path != "fused-vpu", **kw)
+
+
+def pinned_flagship(stat_path: str):
+    """(fixed, pinned): the flagship with zero-width NoiseSampling ranges
+    at its own red and GWB parameters, and the fixed-PSD flagship whose red
+    PSD and GWB PSD hold the float32 values the sampler computes on the
+    card (the same operations on the same device)."""
+    import torch
+    from fakepta_tpu_torch import spectrum as spectrum_lib
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.parallel.montecarlo import (GWBConfig,
+                                                       NoiseSampling)
+    from fakepta_tpu_torch.scenarios import registry
+    scn = registry.get("flagship_100")
+    batch = scn.batch_parts(device="cuda")[0]
+
+    def full(ndim, v):
+        return torch.full((1,) * ndim, v, dtype=torch.float32, device="cuda")
+
+    f_red = torch.arange(1, scn.n_red + 1, dtype=torch.float32,
+                         device="cuda") * batch.df_own[:, None]
+    f_gwb = torch.arange(1, scn.gwb_ncomp + 1, dtype=torch.float32,
+                         device="cuda") * (1.0 / batch.tspan_common)
+    leaves = batch.numpy()
+    leaves["red_psd"] = spectrum_lib.powerlaw(
+        f_red, full(3, scn.red_log10_A), full(3, scn.red_gamma))[0].cpu() \
+        .numpy()
+    gwb_psd = spectrum_lib.powerlaw(
+        f_gwb, full(2, scn.gwb_log10_A), full(2, scn.gwb_gamma))[0].cpu() \
+        .numpy()
+    fixed = flagship_sim(
+        stat_path, batch=PulsarBatch.from_numpy(leaves, device="cuda"),
+        gwb=GWBConfig(psd=gwb_psd))
+    pin = [NoiseSampling("red", log10_A=(scn.red_log10_A,) * 2,
+                         gamma=(scn.red_gamma,) * 2),
+           NoiseSampling("gwb", log10_A=(scn.gwb_log10_A,) * 2,
+                         gamma=(scn.gwb_gamma,) * 2)]
+    return fixed, flagship_sim(stat_path, noise_sample=pin)
+
+
+def phase_scenarios(report: dict) -> None:
+    """The scenario registry's arrays on the card (module docstring, phase
+    5): ng15 uncut through every path, its kernels at its shapes, the
+    flagship with BASELINE configs 8 and 11's draws, and ng15 on a 2-shard
+    mesh. Each main-path run zeroes the kernel counts just before it and
+    reads them just after."""
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    from fakepta_tpu_torch.parallel.montecarlo import (NoiseSampling,
+                                                       WhiteSampling)
+    out = {}
+
+    # -- ng15, uncut: 68 pulsars padded to 512 TOAs, four backend bands ---
+    ref, out["ng15 einsum/f32"] = yardstick("scenarios ng15",
+                                            ng15_sim("einsum"))
+    sims = {p: ng15_sim(p) for p in ("fused", "fused-vpu", "mega")}
+    batch = sims["fused"].batch
+    npsr, ntoa = batch.npsr, batch.max_toa
+    print(f"scenarios ng15: {npsr} pulsars x {ntoa} TOA slots "
+          f"({float(batch.mask.float().mean()):.4f} valid), "
+          f"{batch.sys_mask.shape[1]} backend bands, white hyperprior "
+          f"draws; stages {sims['mega'].include}", flush=True)
+    measure_kernels(report, sims["fused"], (npsr // 2,), "scenarios ng15")
+    for k, v in drive_paths(report, "scenarios ng15", sims, ref,
+                            shape_tag(npsr, npsr, ntoa)).items():
+        out[f"ng15 {k}"] = v
+
+    # -- the flagship with BASELINE config 8's and config 11's draws ------
+    flag_npsr = 100
+    configs = {
+        "config 8": dict(noise_sample=[
+            NoiseSampling("red", log10_A=(-17.0, -13.0), gamma=(1.0, 5.0)),
+            NoiseSampling("gwb", log10_A=(-15.0, -14.0),
+                          gamma=(13 / 3, 13 / 3))]),
+        "config 11": dict(white_sample=WhiteSampling(
+            efac=(0.5, 2.5), log10_tnequad=(-8.0, -5.0)),
+            # the flagship's raw squared TOA error, no efac or EQUAD baked in
+            toaerr2=np.full((flag_npsr, 780), 1e-7 ** 2)),
+    }
+    for name, kw in configs.items():
+        label = f"scenarios flagship {name}"
+        ref, out[f"flagship {name} einsum/f32"] = yardstick(
+            label, flagship_sim("einsum", **kw))
+        rows = drive_paths(report, label, {"fused": flagship_sim("fused",
+                                                                 **kw)},
+                           ref, shape_tag(flag_npsr, flag_npsr, 780))
+        for k, v in rows.items():
+            out[f"flagship {name} {k}"] = v
+
+    # a zero-width NoiseSampling run is the fixed-PSD run, bit for bit
+    fixed, pinned = pinned_flagship("fused")
+    reset_counts()
+    for prec in ("f32", "bf16"):
+        a = fixed.run(2 * CHUNK, seed=6, chunk=CHUNK, precision=prec)
+        b = pinned.run(2 * CHUNK, seed=6, chunk=CHUNK, precision=prec)
+        if not all(np.array_equal(a[k], b[k]) for k in ("curves", "autos")):
+            raise AssertionError(f"zero-width NoiseSampling [{prec}] is not "
+                                 f"the fixed-PSD run bit for bit")
+    add_launches(report, shape_tag(flag_npsr, flag_npsr, 780), counts())
+    out["flagship zero-width NoiseSampling"] = {"bit_identical": True}
+    print("scenarios flagship: zero-width NoiseSampling equals the "
+          "fixed-PSD run bit for bit (fused, f32 and bf16)", flush=True)
+
+    # -- ng15 on two psr shards of the card (34 pulsars each) -------------
+    ref = ng15_sim("einsum").run(MESH_NREAL, seed=5, chunk=CHUNK,
+                                 precision="f32")
+    mesh = make_mesh(["cuda:0"] * 2, psr_shards=2)
+    sims = {p: ng15_sim(p, mesh=mesh) for p in ("einsum", "fused",
+                                                "fused-vpu", "mega")}
+    rows = drive_paths(report, "scenarios ng15 psr_shards=2", sims, ref,
+                       shape_tag(npsr // 2, npsr, ntoa), nreal=MESH_NREAL,
+                       seed=5, tol=MESH_TOL, shards=2, warm=False)
+    for k, v in rows.items():
+        out[f"ng15 psr_shards=2 {k}"] = v
+
+    # ng15 reduced: the card against the CPU engine (the plain versions)
+    from fakepta_tpu_torch.scenarios import registry
+    small = registry.get("ng15").reduced(max_psr=16, max_toa=128)
+    cpu = small.build(device="cpu", stat_path="einsum").run(64, seed=3,
+                                                           chunk=32)
+    for path in ("fused", "mega"):
+        gpu = small.build(device="cuda", stat_path=path).run(
+            64, seed=3, chunk=32, precision="f32")
+        compare((gpu["curves"], gpu["autos"]),
+                (cpu["curves"], cpu["autos"]), "f32",
+                f"ng15 reduced: cuda {path} vs cpu einsum")
+    report["scenarios"] = out
 
 
 def phase_profile(report: dict, cards: int = 1) -> None:
@@ -814,9 +1005,10 @@ def profile_sharded_step(cards: int, shards: int = 4) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+",
-                    default=["build", "kernels", "engine", "mesh"],
+                    default=["build", "kernels", "engine", "mesh",
+                             "scenarios"],
                     choices=["build", "kernels", "engine", "mesh",
-                             "profile"])
+                             "scenarios", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh and profile phases' flagship "
                          "meshes span (default 1: every shard on cuda:0)")
@@ -845,15 +1037,17 @@ def main(argv=None) -> int:
         phase_engine(report)
     if "mesh" in args.phases:
         phase_mesh(report, args.mesh_cards)
+    if "scenarios" in args.phases:
+        phase_scenarios(report)
     if "profile" in args.phases:
         phase_profile(report, args.mesh_cards)
     report["total_s"] = time.perf_counter() - t_start
 
-    # one entry per kernel and shape that the main path launched it at (the
-    # shared operand set on the 1-shard engine, PL = 50 and 25 against
-    # PF = 100 on the 2- and 4-shard meshes), each with the launches made
-    # at that shape in the engine and mesh phases; a kernel the phases run
-    # did not launch gets its measured shapes with 0 launches
+    # one entry per kernel and shape that the main path launched it at or
+    # the phases measured it at (the flagship's shared operand set and its
+    # 2- and 4-shard meshes' PL = 50 and 25; ng15's PL = 68 and its 2-shard
+    # mesh's PL = 34), each with the launches made at that shape in the
+    # engine, mesh and scenarios phases (0 where none was made)
     table = []
     specs = (("binned_correlation", "bf16",
               "fakepta_tpu_torch/csrc/binned_corr.cu",
@@ -870,8 +1064,10 @@ def main(argv=None) -> int:
     kernels = report.get("kernels", {})
     by_shape = report.get("launches_by_shape", {})
     for name, prec, source, replaces in specs:
-        shapes = by_shape.get(name) or {
-            k.split("/")[2]: 0 for k in kernels if k.startswith(name + "/")}
+        shapes = dict(by_shape.get(name, {}))
+        for k in kernels:
+            if k.startswith(name + "/"):
+                shapes.setdefault(k.split("/")[2], 0)
         for shape, n in shapes.items():
             row = kernels.get(f"{name}/{prec}/{shape}", {})
             table.append({

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .healpix import npix2nside, pix2ang_ring
+
 
 def _pos64(pos) -> np.ndarray:
     if isinstance(pos, torch.Tensor):
@@ -50,6 +52,44 @@ def curn_orf(pos) -> np.ndarray:
     return np.eye(_pos64(pos).shape[0])
 
 
+def antenna_patterns(pos, gwtheta, gwphi):
+    """F+, Fx, cosMu for a batch of pulsars against a batch of GW directions.
+
+    pos: (npsr, 3); gwtheta/gwphi: (nsrc,). Returns (npsr, nsrc) each.
+    """
+    pos = _pos64(pos)
+    gwtheta = np.asarray(gwtheta, dtype=np.float64)
+    gwphi = np.asarray(gwphi, dtype=np.float64)
+    sin_t, cos_t = np.sin(gwtheta), np.cos(gwtheta)
+    sin_p, cos_p = np.sin(gwphi), np.cos(gwphi)
+    m = np.stack([sin_p, -cos_p, np.zeros_like(gwphi)], axis=-1)  # (nsrc, 3)
+    n = np.stack([-cos_t * cos_p, -cos_t * sin_p, sin_t], axis=-1)
+    omhat = np.stack([-sin_t * cos_p, -sin_t * sin_p, -cos_t], axis=-1)
+    mdp = pos @ m.T                                              # (npsr, nsrc)
+    ndp = pos @ n.T
+    odp = pos @ omhat.T
+    fplus = 0.5 * (mdp**2 - ndp**2) / (1.0 + odp)
+    fcross = mdp * ndp / (1.0 + odp)
+    return fplus, fcross, -odp
+
+
+def anisotropic_orf(pos, h_map) -> np.ndarray:
+    """ORF from a HEALPix (RING) intensity map.
+
+    ``orf_ab = 1.5 k_ab sum_pix (F+_a F+_b + Fx_a Fx_b) h_pix / npix`` with
+    ``k_ab = 2`` on the diagonal.
+    """
+    pos = _pos64(pos)
+    h_map = np.asarray(h_map, dtype=np.float64)
+    npix = h_map.shape[0]
+    theta, phi = pix2ang_ring(npix2nside(npix), np.arange(npix))
+    fplus, fcross, _ = antenna_patterns(pos, theta, phi)
+    weighted = ((fplus * h_map[None, :]) @ fplus.T
+                + (fcross * h_map[None, :]) @ fcross.T)
+    orf = 1.5 * weighted / npix
+    return np.where(np.eye(pos.shape[0], dtype=bool), 2.0 * orf, orf)
+
+
 ORF_BUILDERS = {
     "hd": hd_orf,
     "monopole": monopole_orf,
@@ -59,14 +99,14 @@ ORF_BUILDERS = {
 
 
 def build_orf(orf: str, pos, h_map=None) -> np.ndarray:
-    """Dispatch an ORF by name (``'hd' | 'monopole' | 'dipole' | 'curn'``)."""
+    """Dispatch an ORF by name (``'hd' | 'monopole' | 'dipole' | 'curn' |
+    'anisotropic'``; the last needs ``h_map``, a HEALPix RING map)."""
     if orf in ORF_BUILDERS:
         return ORF_BUILDERS[orf](pos)
     if orf == "anisotropic":
-        raise NotImplementedError(
-            "the anisotropic ORF needs the HEALPix module, which the PyTorch "
-            "port does not carry yet; use 'hd', 'monopole', 'dipole' or "
-            "'curn'")
+        if h_map is None:
+            raise ValueError("anisotropic ORF requires h_map")
+        return anisotropic_orf(pos, h_map)
     raise KeyError(f"unknown ORF {orf!r}; known: "
                    f"{sorted(ORF_BUILDERS) + ['anisotropic']}")
 

@@ -122,7 +122,7 @@ def test_orfs_and_cholesky_host_f64(orf):
 
 def test_build_orf_rejects_what_it_lacks():
     pos = np.eye(3)
-    with pytest.raises(NotImplementedError):
-        tgwb.build_orf("anisotropic", pos, h_map=np.ones(12))
+    with pytest.raises(ValueError, match="h_map"):
+        tgwb.build_orf("anisotropic", pos)
     with pytest.raises(KeyError):
         tgwb.build_orf("quadrupole", pos)

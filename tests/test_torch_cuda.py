@@ -398,3 +398,110 @@ def test_project_smem_matches_the_source(cuda):
     bm, bn, _ = mk.PROJ_TILE
     for n_scales in (1, 2, 5):
         assert smem(bm, bn, n_scales) == mk.project_smem(bm, bn, n_scales)
+
+
+# -- the ng15 scenario's shapes: masked padding, PL = PF = 68 ---------------
+
+def _ng15(cuda, **engine_kw):
+    """The registry's ng15, uncut (68 pulsars padded to 512 TOAs, four
+    backend bands, white hyperprior draws), on the card."""
+    from fakepta_tpu_torch.scenarios import registry
+    return registry.get("ng15").build(device=cuda, **engine_kw)
+
+
+@pytest.fixture(scope="module")
+def ng15_residuals():
+    """64 realizations of ng15's residuals (projected, and split into base
+    and GP coefficients) with the engine's statistic weights and megakernel
+    tables; None without a card."""
+    if not torch.cuda.is_available():
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from fakepta_tpu_torch.parallel.montecarlo import _chunk_keys
+    from fakepta_tpu_torch.utils import rng
+    sim = _ng15(torch.device("cuda"))
+    keys = _chunk_keys(rng.key(21, device="cuda"), 0, 64)
+    with torch.no_grad():
+        res = sim._residuals(keys)
+        base, coef = sim._residuals(keys, split_gp=True)
+    return sim, res, base, coef
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vpu", [False, True])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_binned_correlation_at_the_ng15_shape(cuda, ng15_residuals, prec,
+                                              vpu):
+    """#1 and #2 on ng15's own residuals: PL = PF = 68 (no tile multiple),
+    T = 512 with each pulsar's padding TOAs zero."""
+    sim, res, _, _ = ng15_residuals
+    assert res.shape == (64, 68, 512)
+    mask = sim.batch.mask
+    assert not mask.all() and not res[:, ~mask].any()
+    _check_binned_correlation(res, res, sim._stat_weights, sim.nbins, prec,
+                              vpu=vpu)
+
+
+#: ng15's GP stages as the engine builds them (red 30, DM 30, chromatic 15
+#: on own time, the GWB's 30 on the common grid: K = 210; its four system
+#: bands ride the residual base), and the same with the four bands' 10
+#: harmonics as GP columns too (K = 290)
+NG15_K290 = (MegaStage(30, T_OWN, 0), MegaStage(30, T_OWN, 1),
+             MegaStage(15, T_OWN, 2), MegaStage(40, T_OWN, 0),
+             MegaStage(30, T_COMMON, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [210, 290])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_chunk_stats_at_the_ng15_shape(cuda, ng15_residuals, prec, k):
+    """#3 on ng15's base and coefficients (K = 210) and on random
+    coefficients at K = 290: the projection rebuilds the bases on chip and
+    must leave the padding TOAs zero (the scale rows carry the mask), as
+    chunk_stats_plain does; a rerun is bit-identical."""
+    sim, res, base, coef = ng15_residuals
+    stages, times, scales = sim._mega_tables
+    if k == 290:
+        stages = NG15_K290
+        coef = torch.randn(64, 68, 290, device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(5)) * coef.abs().max()
+    assert mk.stage_k(stages) == coef.shape[2] == k
+    dt = torch.float32 if prec == "f32" else torch.bfloat16
+    ops = (base.to(dt), coef.to(dt).contiguous(), times, scales,
+           sim._stat_weights)
+    proj = mk._launch_project(*ops[:4], stages, (None,) * 4)[1]
+    assert not proj[:, ~sim.batch.mask].any()
+    if k == 210 and prec == "f32":
+        assert float((proj - res).abs().max()) <= 1e-5 * float(
+            res.abs().max())
+    before = mk.launches
+    got = mk.chunk_stats(*ops, stages=stages, nbins=sim.nbins,
+                         precision=prec)
+    torch.cuda.synchronize()
+    assert mk.launches == before + 1
+    want = mk.chunk_stats_plain(*ops, stages=stages, nbins=sim.nbins,
+                                precision=prec)
+    _assert_close(got, want, prec)
+    again = mk.chunk_stats(*ops, stages=stages, nbins=sim.nbins,
+                           precision=prec)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["einsum", "fused", "mega"])
+def test_ng15_two_shard_mesh_matches_one_shard(cuda, path):
+    """ng15 on two psr shards of the card (34 pulsars each: #1 and #4 at
+    PL = 34, PF = 68) against the 1-shard einsum run: the white hyperprior
+    draws are the same on both mesh shapes; reruns bit-identical."""
+    want = _ng15(cuda, stat_path="einsum").run(32, seed=4, chunk=16,
+                                                  precision="f32")
+    from fakepta_tpu_torch.scenarios import registry
+    sim = registry.get("ng15").build(
+        mesh=make_mesh(["cuda:0"] * 2, psr_shards=2), stat_path=path)
+    got = sim.run(32, seed=4, chunk=16, precision="f32")
+    _assert_close((got["curves"], got["autos"]),
+                  (want["curves"], want["autos"]), "f32")
+    again = sim.run(32, seed=4, chunk=16, precision="f32")
+    np.testing.assert_array_equal(got["curves"], again["curves"])
+    np.testing.assert_array_equal(got["autos"], again["autos"])

@@ -175,10 +175,11 @@ def test_constructor_validates():
         _port_sim(tb, pallas_precision="f16")
     with pytest.raises(ValueError):
         _port_sim(tb, include=("white", "roemer"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="h_map"):
         EnsembleSimulator(tb, gwb=GWBConfig(psd=np.ones(4),
-                                            orf="anisotropic",
-                                            h_map=np.ones(12)), device="cpu")
+                                            orf="anisotropic"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        EnsembleSimulator(tb, cgw=object(), device="cpu")
     sim = _port_sim(tb)
     assert sim.stat_path == "fused"
     # the CUDA kernels take contiguous operands only; the CPU path does not

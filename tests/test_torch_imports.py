@@ -25,6 +25,20 @@ def _port_modules():
     return mods
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.utils.masks", "fakepta_tpu_torch.ops.white",
+    "fakepta_tpu_torch.ops.healpix", "fakepta_tpu_torch.obs.flightrec",
+    "fakepta_tpu_torch.scenarios.cadence",
+    "fakepta_tpu_torch.scenarios.registry"])
+def test_scenario_modules_are_checked(module):
+    """The scenario layer's modules, each a copy of a numpy-only module of
+    the JAX package, are among the modules the checks below import and
+    read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert not IMPORT_RE.findall(path.read_text())
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
@@ -58,6 +72,7 @@ def test_entry_points_raise_without_a_gpu():
         pytest.skip("a GPU is present: the default device is usable")
     from fakepta_tpu_torch.batch import PulsarBatch
     from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+    from fakepta_tpu_torch.scenarios import registry
     from fakepta_tpu_torch.scenarios.registry import flagship_batch
     from fakepta_tpu_torch.utils import rng
 
@@ -68,6 +83,11 @@ def test_entry_points_raise_without_a_gpu():
         PulsarBatch.synthetic(**kw)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         flagship_batch()
+    ng15 = registry.get("ng15").reduced(max_psr=8, max_toa=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ng15.build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ng15.batch_parts()
     batch = PulsarBatch.synthetic(**kw, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EnsembleSimulator(batch)
