@@ -39,7 +39,11 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    kernel once per shard and chunk (counts zeroed just before, read just
    after). The shards of such a mesh run one after another on the one
    card. A small array at one pulsar per shard is held against the CPU
-   engine on the same mesh shape.
+   engine on the same mesh shape. On the 2-shard ``"mega"`` mesh (#4 at
+   PL = 50) a depth-2 run must equal a depth-0 run bit for bit, and a
+   1-shard run's checkpoint, cut after its first chunk, must resume there
+   with the stored chunk unchanged and within the mesh bounds of the
+   unbroken 1-shard run.
 5. ``scenarios``: the scenario registry's arrays. ``ng15``, uncut (68
    pulsars padded to 512 TOAs, four backend bands, white hyperprior
    draws), built by ``registry.get("ng15").build(device="cuda")``: each
@@ -56,7 +60,22 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    ``make_mesh(["cuda:0"] * 2, psr_shards=2)`` through every path, within
    the mesh bounds of the 1-shard einsum run; ``ng15`` reduced against the
    CPU engine.
-6. ``profile`` (only when asked for): per statistic path, the device time
+6. ``run``: the run loop at the flagship's full width, on ``"fused"``,
+   ``"fused"`` with ``pallas_mxu_binning=False`` and ``"mega"`` at both
+   precisions: ``run(8192, chunk=1024, pipeline_depth=d)`` for d = 0..3,
+   bit-identical, each with its realizations/s and its allocator peak
+   (which must stay under one bare step's peak plus the packed buffers the
+   loop may hold, plus 2 MiB of allocator rounding per live large block);
+   the checkpointed depth-2 run beside the plain one
+   (``ckpt_wait_s``, ``pipeline_stall_s``); a checkpointed run cut by its
+   progress callback after 3 chunks and resumed, and again with a torn
+   chunk file rolled back, both bit-identical to the unbroken run with the
+   checkpoint files gone after; a 1024-slot cohort of RNG lanes, each lane
+   bit-identical to the lane alone at the same chunk and within tolerance
+   of its solo run. Then one pipelined cut-and-resume round of ``ng15`` on
+   ``"mega"``. Every run's launches are counted (zeroed just before, read
+   just after).
+7. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -99,6 +118,15 @@ MESH_NREAL = 2048
 MESH_TOL = {"f32": 1e-5, "bf16": 5e-3}
 # a psr shard's rows in the kernel rows (100 pulsars over 4 and 2 shards)
 SHARD_PL = (25, 50)
+# the run phase: realizations per run, pipeline depths, a 1024-slot lane
+# cohort
+RUN_NREAL = 8192
+RUN_DEPTHS = (0, 1, 2, 3)
+RUN_LANES = ((11, 300), (22, 500), (33, 224))
+# the most a live large-pool block of the caching allocator can exceed its
+# request by, with room: a reused block is split only when more than 1 MiB
+# would be left over, so a peak may read up to that much high per block
+ALLOCATOR_GRANULE = 2 << 20
 
 
 def card_line() -> str:
@@ -707,6 +735,69 @@ def phase_mesh(report: dict, cards: int = 1) -> None:
                   f"{MESH_NREAL / dt:.1f} realizations/s ({dt:.3f} s; "
                   f"{where}), launches {moved}, rerun bit-identical",
                   flush=True)
+
+    # the run loop on a sharded mesh: depth 2 against depth 0, bit for bit
+    sim = sims[("mega", 2)]
+    npsr = sim.batch.npsr
+    for prec in ("f32", "bf16"):
+        outs = {}
+        for d in (0, 2):
+            outs[d], dt, n = counted(
+                report, shape_tag(npsr // 2, npsr, sim.batch.max_toa),
+                "chunk_stats_sharded", lambda: sim.run(
+                    MESH_NREAL, seed=5, chunk=CHUNK, precision=prec,
+                    pipeline_depth=d),
+                want=nchunks * sim.mesh.shape["real"] * 2)
+            rows[f"mega/x2/{prec}/depth{d}"] = {
+                "realizations_per_s": MESH_NREAL / dt, "launches": n}
+        assert_identical(outs[2], outs[0], f"mesh mega psr_shards=2 "
+                                           f"[{prec}] depth 2 against depth 0")
+        rates = [rows[f"mega/x2/{prec}/depth{d}"]["realizations_per_s"]
+                 for d in (0, 2)]
+        print(f"mesh: mega psr_shards=2 [{prec}] depth 2 bit-identical to "
+              f"depth 0 ({rates[0]:.1f} / {rates[1]:.1f} realizations/s)",
+              flush=True)
+
+    # the resumed stream does not depend on the mesh: a 1-shard run cut
+    # after its first chunk resumes on the 2-shard mega mesh, keeps the
+    # stored chunk bit for bit and lands within the mesh bound of the
+    # unbroken 1-shard run
+    ckdir = os.path.join(HERE, "build", "mesh_resume")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    for prec in ("f32", "bf16"):
+        ck = os.path.join(ckdir, f"mesh_{prec}.npz")
+        try:
+            ref_sim.run(MESH_NREAL, seed=5, chunk=CHUNK, precision=prec,
+                        pipeline_depth=2, checkpoint=ck,
+                        progress=kill_after(1))
+        except Kill:
+            pass
+        else:
+            raise AssertionError(f"mesh resume [{prec}]: the cut run "
+                                 f"finished")
+        out, _, n = counted(
+            report, shape_tag(npsr // 2, npsr, sim.batch.max_toa),
+            "chunk_stats_sharded", lambda: sim.run(
+                MESH_NREAL, seed=5, chunk=CHUNK, precision=prec,
+                pipeline_depth=2, checkpoint=ck),
+            want=(nchunks - 1) * sim.mesh.shape["real"] * 2)
+        want = refs[prec]
+        if not all(np.array_equal(out[k][:CHUNK], want[k][:CHUNK])
+                   for k in ("curves", "autos")):
+            raise AssertionError(f"mesh resume [{prec}]: the stored chunk "
+                                 f"changed")
+        if ckpt_family(ck):
+            raise AssertionError(f"mesh resume [{prec}]: "
+                                 f"{ckpt_family(ck)} left")
+        row = compare((out["curves"], out["autos"]),
+                      (want["curves"], want["autos"]), prec,
+                      "mesh mega psr_shards=2 resumed from a 1-shard "
+                      "checkpoint vs the unbroken 1-shard einsum run",
+                      tol=MESH_TOL[prec])
+        row["launches"] = n
+        rows[f"mega/x2/{prec}/resumed_from_1_shard"] = row
+    shutil.rmtree(ckdir, ignore_errors=True)
     report["mesh"] = rows
 
     # one pulsar per shard, against the CPU engine on the same mesh shape
@@ -864,6 +955,254 @@ def phase_scenarios(report: dict) -> None:
     report["scenarios"] = out
 
 
+class Kill(Exception):
+    """Raised by a progress callback to cut a checkpointed run."""
+
+
+def kill_after(n_chunks: int):
+    """A progress callback that ends the run once ``n_chunks`` chunks have
+    drained (each of them checkpointed first)."""
+    def boom(done, nreal):
+        if done >= n_chunks * CHUNK:
+            raise Kill
+    return boom
+
+
+def counted(report: dict, shape: str, kernel: str, fn, want=None):
+    """Run ``fn`` (one main-path run) with every kernel count zeroed just
+    before and read just after; adds the launches to ``report`` at
+    ``shape``. Raises unless only ``kernel`` was launched, ``want`` times
+    when given. Returns (fn's result or the exception it raised, wall
+    seconds between two synchronizations, launches)."""
+    import torch
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = fn()
+    except Kill as exc:
+        # without its traceback: that holds this frame, and a cycle
+        # through it would keep the cut run's simulator on the card
+        result = exc.with_traceback(None)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    moved = {k: v for k, v in counts().items() if v}
+    add_launches(report, shape, moved)
+    if set(moved) != {kernel} or (want is not None
+                                  and moved[kernel] != want):
+        raise AssertionError(f"launched {moved}, expected {kernel} x "
+                             f"{want if want is not None else 'some'}")
+    return result, dt, moved[kernel]
+
+
+def assert_identical(a: dict, b: dict, what: str) -> None:
+    if not all(np.array_equal(a[k], b[k]) for k in ("curves", "autos")):
+        raise AssertionError(f"{what} is not bit-identical")
+
+
+def ckpt_family(ck: str) -> list:
+    """The checkpoint's files (the flight-recorder dump of a cut run
+    aside)."""
+    d, name = os.path.split(ck)
+    return sorted(p for p in os.listdir(d) if p.startswith(name))
+
+
+def step_working_set(sim, prec: str, steps: int = 3) -> int:
+    """Peak allocated bytes of a bare chunk step (with its key), the
+    simulator's resident tensors included: the largest over ``steps``
+    steps at successive offsets, each alone, once the allocator's cache is
+    warm (a cached block may be up to 1 MB larger than the request, so a
+    first step on a cold cache reads low). Their launches are not
+    counted."""
+    import torch
+    peaks = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            packed, _ = sim.step(sim._base_key(21), i * CHUNK, CHUNK,
+                                 sim.stat_path, prec)
+        torch.cuda.synchronize()
+        del packed
+        peaks.append(torch.cuda.max_memory_allocated())
+    reset_counts()
+    return max(peaks)
+
+
+def resume_round(report: dict, label: str, sim, prec: str, kernel: str,
+                 shape: str, ckdir: str, want: dict, nreal: int,
+                 torn: bool) -> dict:
+    """A depth-2 checkpointed run cut after 3 chunks, then resumed; with
+    ``torn`` the second chunk file is truncated before the resume and must
+    roll back. Holds the result to ``want`` bit for bit and checks that the
+    checkpoint's files are gone. Returns the round's row."""
+    ck = os.path.join(ckdir, f"{label.replace(' ', '_')}_{prec}.npz")
+    cut, _, n_cut = counted(report, shape, kernel, lambda: sim.run(
+        nreal, seed=21, chunk=CHUNK, precision=prec, pipeline_depth=2,
+        checkpoint=ck, progress=kill_after(3)))
+    if not isinstance(cut, Kill):
+        raise AssertionError(f"{label} [{prec}]: the cut run finished")
+    saved = [p for p in ckpt_family(ck) if ".c0" in p]
+    if len(saved) < 3:
+        raise AssertionError(f"{label} [{prec}]: {saved} after the cut")
+    if torn:
+        path = ck + ".c000001.npz"
+        with open(path, "rb") as fh:
+            data = fh.read()
+        with open(path, "wb") as fh:
+            fh.write(data[:len(data) // 2])
+    n_chunks = -(-nreal // CHUNK)
+    resumed_chunks = n_chunks - (1 if torn else len(saved))
+    out, _, n_res = counted(report, shape, kernel, lambda: sim.run(
+        nreal, seed=21, chunk=CHUNK, precision=prec, pipeline_depth=2,
+        checkpoint=ck), want=resumed_chunks)
+    assert_identical(out, want, f"{label} [{prec}] resumed run")
+    rolled = out["report"].counters.get("faults.rollbacks", 0)
+    if rolled != (len(saved) - 1 if torn else 0):
+        raise AssertionError(f"{label} [{prec}]: {rolled} chunks rolled "
+                             f"back")
+    if ckpt_family(ck):
+        raise AssertionError(f"{label} [{prec}]: {ckpt_family(ck)} left")
+    what = "torn chunk rolled back" if torn else "resumed"
+    print(f"{label} [{prec}]: cut after {len(saved)} checkpointed chunks "
+          f"({n_cut} launches), {what}: {n_res} chunks, {rolled} rolled "
+          f"back, bit-identical, checkpoint files gone", flush=True)
+    return {"cut_launches": n_cut, "resumed_launches": n_res,
+            "chunks_saved_at_cut": len(saved), "rolled_back": rolled,
+            "bit_identical": True}
+
+
+def run_round(report: dict, label: str, sim, prec: str, kernel: str,
+              shape: str, ckdir: str) -> dict:
+    """The run loop on one path and precision (module docstring, phase
+    ``run``): depths 0-3, the checkpointed run and its cut/resume and
+    torn-chunk rounds, the lane cohort, the report and its peak memory."""
+    import torch
+    row = {}
+    sim.run(CHUNK, seed=99, chunk=CHUNK, precision=prec)      # warm-up
+    working = step_working_set(sim, prec)
+    nchunks = RUN_NREAL // CHUNK
+    outs = {}
+    for d in RUN_DEPTHS:
+        outs[d], dt, n = counted(report, shape, kernel, lambda: sim.run(
+            RUN_NREAL, seed=21, chunk=CHUNK, precision=prec,
+            pipeline_depth=d), want=nchunks)
+        rep = outs[d]["report"]
+        summ = rep.summary()
+        # the packed buffers the loop may hold: the ring's bound when
+        # pipelined; the serial loop keeps every chunk's until the end
+        ring = rep.memory.get("packed_depth_bound_bytes",
+                              nchunks * rep.memory["packed_buffer_bytes"])
+        peak = rep.memory["peak_hbm_bytes"]
+        # what the allocator may add: one granule per live large block
+        # (the run reset the peak counts when it started)
+        blocks = torch.cuda.memory_stats()["active.large_pool.peak"]
+        slack = ALLOCATOR_GRANULE * blocks
+        if peak > working + ring + slack:
+            raise AssertionError(
+                f"{label} [{prec}] depth {d}: peak {peak} B over the step's "
+                f"working set {working} B + the packed buffers {ring} B + "
+                f"{blocks} large blocks' allocator slack {slack} B")
+        assert_identical(outs[d], outs[RUN_DEPTHS[0]],
+                         f"{label} [{prec}] depth {d} against depth 0")
+        row[f"depth{d}"] = {
+            "realizations_per_s": RUN_NREAL / dt, "wall_s": dt,
+            "launches": n, "pipeline_stall_s": summ["pipeline_stall_s"],
+            "peak_hbm_bytes": peak, "packed_ring_bytes": ring,
+            "step_working_set_bytes": working,
+            "live_large_blocks_peak": blocks, "allocator_slack_bytes": slack,
+            "execute_s": [c.get("execute_s") for c in rep.chunks]}
+        print(f"{label} [{prec}] depth {d}: {RUN_NREAL / dt:.1f} "
+              f"realizations/s ({dt:.3f} s), stall "
+              f"{summ['pipeline_stall_s']:.4f} s, peak {peak} B <= step "
+              f"working set {working} B + packed buffers {ring} B + "
+              f"slack {slack} B ({blocks} large blocks; "
+              f"{working + ring - peak} B under the bound without it), "
+              f"bit-identical to depth 0", flush=True)
+    print(f"{label} [{prec}] depth 3 report: "
+          f"{json.dumps(outs[3]['report'].summary())}", flush=True)
+
+    # the checkpointed depth-2 run, unbroken, beside the plain one
+    ck = os.path.join(ckdir, f"full_{label.replace(' ', '_')}_{prec}.npz")
+    full, dt, n = counted(report, shape, kernel, lambda: sim.run(
+        RUN_NREAL, seed=21, chunk=CHUNK, precision=prec, pipeline_depth=2,
+        checkpoint=ck), want=nchunks)
+    assert_identical(full, outs[2], f"{label} [{prec}] checkpointed run")
+    if ckpt_family(ck):
+        raise AssertionError(f"{label} [{prec}]: {ckpt_family(ck)} left")
+    summ = full["report"].summary()
+    row["checkpointed"] = {
+        "realizations_per_s": RUN_NREAL / dt, "wall_s": dt, "launches": n,
+        "ckpt_wait_s": summ["ckpt_wait_s"],
+        "pipeline_stall_s": summ["pipeline_stall_s"],
+        "uncheckpointed_realizations_per_s":
+            row["depth2"]["realizations_per_s"]}
+    print(f"{label} [{prec}] checkpointed depth 2: {RUN_NREAL / dt:.1f} "
+          f"realizations/s beside {row['depth2']['realizations_per_s']:.1f} "
+          f"without; ckpt_wait_s {summ['ckpt_wait_s']:.4f}, "
+          f"pipeline_stall_s {summ['pipeline_stall_s']:.4f}", flush=True)
+    row["resume"] = resume_round(report, label, sim, prec, kernel, shape,
+                                 ckdir, outs[2], RUN_NREAL, torn=False)
+    row["torn"] = resume_round(report, label, sim, prec, kernel, shape,
+                               ckdir, outs[2], RUN_NREAL, torn=True)
+
+    # a 1024-slot cohort of lanes: each lane bit for bit its lane alone at
+    # the same chunk, and within tolerance of its solo run
+    cohort, _, _ = counted(report, shape, kernel, lambda: sim.run(
+        CHUNK, chunk=CHUNK, precision=prec, lanes=RUN_LANES), want=1)
+    lanes, pos = {}, 0
+    for s, n in RUN_LANES:
+        alone, _, _ = counted(report, shape, kernel, lambda: sim.run(
+            CHUNK, chunk=CHUNK, precision=prec, lanes=[(s, n)]), want=1)
+        mine = {k: cohort[k][pos:pos + n] for k in ("curves", "autos")}
+        assert_identical(mine, {k: alone[k][:n] for k in ("curves",
+                                                          "autos")},
+                         f"{label} [{prec}] lane ({s}, {n}) against it alone")
+        solo, _, _ = counted(report, shape, kernel,
+                             lambda: sim.run(n, seed=s, chunk=n,
+                                             precision=prec), want=1)
+        lanes[f"{s}x{n}"] = compare(
+            (mine["curves"], mine["autos"]), (solo["curves"], solo["autos"]),
+            prec, f"{label} lane ({s}, {n}) vs run({n}, seed={s})")
+        pos += n
+    row["lanes"] = lanes
+    print(f"{label} [{prec}]: lanes {list(RUN_LANES)} each bit-identical to "
+          f"the lane alone at chunk {CHUNK}", flush=True)
+    return row
+
+
+def phase_run(report: dict) -> None:
+    """The run loop on the card (module docstring, phase 6): every path at
+    the flagship's full width through :func:`run_round`, then one
+    pipelined checkpoint-resume round of ng15 on ``"mega"``."""
+    import torch
+    ckdir = os.path.join(HERE, "build", "run_phase")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    out = {}
+    for path in ("fused", "fused-vpu", "mega"):
+        sim = flagship_sim(path.split("-")[0],
+                           pallas_mxu_binning=path != "fused-vpu")
+        shape = shape_tag(sim.batch.npsr, sim.batch.npsr, sim.batch.max_toa)
+        for prec in ("f32", "bf16"):
+            out[f"{path}/{prec}"] = run_round(report, f"run {path}", sim,
+                                              prec, PATH_KERNEL[path],
+                                              shape, ckdir)
+        del sim
+        torch.cuda.empty_cache()
+    sim = ng15_sim("mega")
+    shape = shape_tag(sim.batch.npsr, sim.batch.npsr, sim.batch.max_toa)
+    for prec in ("f32", "bf16"):
+        want, _, _ = counted(report, shape, "chunk_stats", lambda: sim.run(
+            NREAL, seed=21, chunk=CHUNK, precision=prec, pipeline_depth=2),
+            want=NREAL // CHUNK)
+        out[f"ng15 mega/{prec}"] = resume_round(
+            report, "run ng15 mega", sim, prec, "chunk_stats", shape, ckdir,
+            want, NREAL, torn=False)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    report["run"] = out
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -1006,9 +1345,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+",
                     default=["build", "kernels", "engine", "mesh",
-                             "scenarios"],
+                             "scenarios", "run"],
                     choices=["build", "kernels", "engine", "mesh",
-                             "scenarios", "profile"])
+                             "scenarios", "run", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh and profile phases' flagship "
                          "meshes span (default 1: every shard on cuda:0)")
@@ -1039,6 +1378,8 @@ def main(argv=None) -> int:
         phase_mesh(report, args.mesh_cards)
     if "scenarios" in args.phases:
         phase_scenarios(report)
+    if "run" in args.phases:
+        phase_run(report)
     if "profile" in args.phases:
         phase_profile(report, args.mesh_cards)
     report["total_s"] = time.perf_counter() - t_start

@@ -22,8 +22,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from ..obs import metrics
 
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
@@ -78,8 +81,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 
     Returns ``{name: compiler output}`` (ptxas' register and spill report)
     for the sources it compiled. Raises with the compiler's output if any
-    build fails.
+    build fails. The seconds spent go to the active metrics collector as
+    ``kernels.build_s`` (a run's report reads them as its ``compile_s``).
     """
+    t0 = time.perf_counter()
     names = tuple(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -98,6 +103,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
                           f"{log}")
             continue
         os.replace(tmp, dst)
+    if procs:
+        metrics.observe("kernels.build_s", time.perf_counter() - t0)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs

@@ -40,20 +40,31 @@ Statistic paths (``stat_path``):
   kernel (:mod:`..ops.megakernel`), which rebuilds the Fourier bases on
   chip.
 
-Not ported yet: multi-host meshes, TOA sharding, the run pipeline,
-checkpoints, the observability report, the OS / lnlike / serve-lane
-outputs and the deterministic and sampled signals (CGW, Roemer): the
-``cgw``, ``roemer``, ``roemer_sample``, ``ephem``, ``cgw_sample`` and
-``toas_abs`` arguments are accepted by name and raise
-``NotImplementedError`` when given. The ``"det"`` stage name is accepted
-and adds nothing (there are no deterministic sources to add).
+The run loop (:meth:`EnsembleSimulator.run`): chunks dispatch on the
+device's current stream; with ``pipeline_depth`` d > 0 each chunk's packed
+statistics copy to a pinned host buffer on a copy stream while later
+chunks run, and a writer thread drains them (checkpoint append, progress)
+with at most d chunks in flight (:mod:`.pipeline`). ``checkpoint=`` resumes
+an interrupted run bit for bit (:mod:`..utils.io`), ``lanes=`` runs
+per-request RNG lanes, and every run returns a
+:class:`..obs.report.RunReport`.
+
+Not ported yet: multi-host meshes, TOA sharding, the OS / lnlike outputs,
+the tuner, the recovery policy and the deterministic and sampled signals
+(CGW, Roemer): those ``run`` options and the ``cgw``, ``roemer``,
+``roemer_sample``, ``ephem``, ``cgw_sample`` and ``toas_abs`` arguments are
+accepted by name and raise ``NotImplementedError`` when given. The
+``"det"`` stage name is accepted and adds nothing (there are no
+deterministic sources to add).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 import warnings
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,15 +72,25 @@ import torch
 from .. import spectrum as spectrum_lib
 from ..batch import PulsarBatch, fourier_basis_norm
 from ..device import DeviceLike
+from ..obs import flightrec
+from ..obs import metrics as obs_metrics
+from ..obs.memwatch import HbmSampler, PackedLedger
+from ..obs.report import RunReport
+from ..obs.timing import now, span
 from ..ops import binned_corr as binned_corr_ops
 from ..ops import gwb as gwb_ops
 from ..ops import megakernel as mega_ops
 from ..utils import rng
+from ..utils.io import EnsembleCheckpoint
+from . import pipeline
 from .mesh import (PSR_AXIS, REAL_AXIS, TOA_AXIS, Mesh, all_gather,
                    make_mesh, psum)
 
 #: realizations per chunk (fakepta_tpu/tune/defaults.py DEFAULT_CHUNK)
 DEFAULT_CHUNK = 1024
+#: chunks in flight before the loop waits for the oldest one's drain
+#: (fakepta_tpu/tune/defaults.py DEFAULT_PIPELINE_DEPTH)
+DEFAULT_PIPELINE_DEPTH = 2
 
 STAT_PATHS = ("einsum", "fused", "mega")
 STAGES = ("white", "ecorr", "red", "dm", "chrom", "sys", "gwb", "det")
@@ -395,13 +416,59 @@ def _as_config_list(x):
     return [x]
 
 
-def _chunk_keys(base_key: torch.Tensor, offset: int,
+def _lane_mode(offset) -> bool:
+    """True when a dispatch carries RNG lanes (a vector offset)."""
+    return isinstance(offset, torch.Tensor) and offset.dim() > 0
+
+
+def _chunk_keys(base_key: torch.Tensor, offset,
                 nreal: int) -> torch.Tensor:
-    """(nreal, 2) keys ``fold_in(base_key, offset + i)``: the absolute-index
-    stream, identical at any chunk size."""
+    """(nreal, 2) per-realization keys for one chunk, in either key mode.
+
+    Batch mode (int ``offset``): ``fold_in(base_key, offset + i)``, the
+    absolute-index stream, identical at any chunk size (checkpoint resume
+    identity).
+
+    Lane mode: ``base_key`` is an (nreal,) integer vector of per-slot
+    request seeds and ``offset`` the matching vector of within-request
+    indices; slot i draws ``fold_in(key(seed_i), within_i)``, exactly the
+    key ``run(n, seed=seed_i)`` gives its realization ``within_i``.
+    """
+    if _lane_mode(offset):
+        seeds = base_key.to(torch.int64)
+        keys = torch.stack([seeds >> 32, seeds & rng.M32], dim=-1)
+        return rng.fold_in(keys, offset)
     idx = torch.arange(offset, offset + nreal, dtype=torch.int64,
                        device=base_key.device)
     return rng.fold_in(base_key, idx)
+
+
+def _lane_arrays(lanes, nreal):
+    """Per-slot (request seed, within-request index) int32 vectors for a
+    lane run.
+
+    ``lanes`` is a sequence of ``(seed, n)`` pairs in slot order; slots
+    past the last lane are padding (seed 0, continuing indices) whose
+    results callers discard.
+    """
+    seeds = np.zeros(nreal, dtype=np.int32)
+    within = np.arange(nreal, dtype=np.int32)
+    pos = 0
+    for s, n in lanes:
+        s, n = int(s), int(n)
+        if n <= 0:
+            raise ValueError(f"lane realization count must be > 0, got {n}")
+        if not 0 <= s < 2 ** 31:
+            # the JAX engine carries lane seeds as int32; key(s) of an
+            # int32 equals key(python s) on this range only
+            raise ValueError(f"lane seed must be in [0, 2**31), got {s}")
+        if pos + n > nreal:
+            raise ValueError(f"lanes need {pos + n} slots but the run has "
+                             f"nreal={nreal}")
+        seeds[pos:pos + n] = s
+        within[pos:pos + n] = np.arange(n, dtype=np.int32)
+        pos += n
+    return seeds, within
 
 
 def pack_stats(curves, autos, *extras):
@@ -424,17 +491,22 @@ class _StageTerms:
     chrom_w: Optional[torch.Tensor]       # (P, NC)
     sys_w: Optional[torch.Tensor]         # (P, B, NS)
     sys_basis: Optional[torch.Tensor]     # (P, T, 2, NS)
-    gp_basis: Optional[torch.Tensor]      # (P, T, K) concatenated GP basis
+    # (P, T, K) concatenated GP basis, float32 (rounded to bfloat16
+    # values under bases_dtype='bf16')
+    gp_basis: Optional[torch.Tensor]
     gwb_group: Tuple[int, ...]            # config -> basis group
     n_groups: int
+    bases_bf16: bool = False              # round the coefficients too
 
 
 def _stage_terms(batch: PulsarBatch, gwb_ws, gwb_idxs, gwb_freqfs,
-                 include) -> _StageTerms:
+                 include, bases_bf16: bool = False) -> _StageTerms:
     """Weights and bases of ``_simulate_block``, in the JAX stage order:
     red, dm, chrom, then one basis group per distinct GWB
     ``(idx, freqf, ncomp)`` signature (configs sharing a group sum their
-    coefficients: the projection is linear)."""
+    coefficients: the projection is linear). ``bases_bf16`` rounds the
+    concatenated GP basis to bfloat16 values once, here, and keeps it in
+    float32."""
     (_, _, inc_red, inc_dm, inc_chrom, inc_sys, inc_gwb) = include
     p, t = batch.t_own.shape
     df = batch.df_own
@@ -467,8 +539,10 @@ def _stage_terms(batch: PulsarBatch, gwb_ws, gwb_idxs, gwb_freqfs,
             group.append(seen[sig])
     gp_basis = (torch.cat([b.reshape(p, t, -1) for b in bases], dim=-1)
                 if bases else None)
+    if bases_bf16 and gp_basis is not None:
+        gp_basis = binned_corr_ops.round_bf16(gp_basis)
     return _StageTerms(red_w, dm_w, chrom_w, sys_w, sys_basis, gp_basis,
-                       tuple(group), len(seen))
+                       tuple(group), len(seen), bases_bf16)
 
 
 def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
@@ -565,6 +639,11 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
         return torch.where(batch.mask, res, 0.0), c_all
     if coeffs:
         c_all = torch.cat(coeffs, dim=-1)
+        if terms.bases_bf16:
+            # the JAX engine's bases_dtype='bf16': bf16 basis (rounded
+            # once, in _stage_terms) times bf16 coefficients; their
+            # products are exact in float32, and the sums run in float32
+            c_all = binned_corr_ops.round_bf16(c_all)
         res = res + torch.einsum("ptk,rpk->rpt", terms.gp_basis, c_all)
     return torch.where(batch.mask, res, 0.0)
 
@@ -625,6 +704,16 @@ class EnsembleSimulator:
     ``run(precision=...)`` overrides per run. ``pallas_mxu_binning=False``
     sends the fused path through the per-slot-reduction kernel.
 
+    ``bases_dtype='bf16'`` rounds the dense GP basis and the coefficients
+    of the residuals' projection to bfloat16 values (``"einsum"`` and
+    ``"fused"``; the mega path builds its bases on chip, so there it is
+    refused); products and sums stay float32. This is bf16 rounding, not
+    bf16 storage: the basis is rounded once and kept in float32, since the
+    port has no bf16-operand einsum with float32 output yet, so the knob
+    gives the JAX option's numbers but not its memory saving. ``stats_dtype='bf16'`` makes bf16
+    operands the einsum path's default statistic precision (refused off
+    the einsum path, whose kernels have ``pallas_precision``).
+
     ``noise_sample`` (:class:`NoiseSampling`, one or a sequence) and
     ``white_sample`` (:class:`WhiteSampling`, with the raw squared TOA
     errors ``toaerr2`` and the per-TOA ``backend_id``, both (P, T)) turn
@@ -640,6 +729,7 @@ class EnsembleSimulator:
                  nbins: int = 15, stat_path: Optional[str] = None,
                  pallas_precision: str = "bf16",
                  pallas_mxu_binning: bool = True,
+                 bases_dtype: str = "f32", stats_dtype: str = "f32",
                  noise_sample: Optional[Union[NoiseSampling,
                                               Sequence[NoiseSampling]]] = None,
                  white_sample: Optional[WhiteSampling] = None,
@@ -689,9 +779,28 @@ class EnsembleSimulator:
         if pallas_precision not in ("bf16", "f32"):
             raise ValueError(f"pallas_precision must be 'bf16' or 'f32', "
                              f"got {pallas_precision!r}")
+        for name, value in (("bases_dtype", bases_dtype),
+                            ("stats_dtype", stats_dtype)):
+            if value not in ("f32", "bf16"):
+                raise ValueError(f"{name} must be 'f32' or 'bf16', got "
+                                 f"{value!r}")
+        self._bases_bf16 = bases_dtype == "bf16"
+        if self._bases_bf16 and stat_path == "mega":
+            raise ValueError(
+                "bases_dtype='bf16' is inert under stat_path='mega' (the "
+                "megakernel builds its bases on chip and never reads the "
+                "dense one); use run(precision='bf16') for the bf16-storage "
+                "mode instead")
+        self._stats_bf16 = stats_dtype == "bf16"
+        if self._stats_bf16 and stat_path != "einsum":
+            raise ValueError(
+                "stats_dtype='bf16' applies to the einsum statistic path "
+                "only (the kernels' precision is pallas_precision); drop "
+                "one of the two")
         self.stat_path = stat_path
         self.pallas_precision = pallas_precision
         self.pallas_mxu_binning = bool(pallas_mxu_binning)
+        self.last_report: Optional[RunReport] = None
         self.batch = batch = batch.to(self.device)
         self.nbins = nbins
         dtype = batch.dtype
@@ -738,7 +847,8 @@ class EnsembleSimulator:
                          ("sys" in include and has_sys),
                          ("gwb" in include and bool(gwb_cfgs)))
         self._terms = _stage_terms(batch, self._gwb_w, self._gwb_idx,
-                                   self._gwb_freqf, self._include)
+                                   self._gwb_freqf, self._include,
+                                   self._bases_bf16)
 
         # angular bins and pair-count normalization: host float64 setup on
         # the FULL array (every shard's rows use the full pair and bin
@@ -903,7 +1013,7 @@ class EnsembleSimulator:
         chols = tuple(c.to(dev) for c in full.chols)
         ws = tuple(w.to(dev) for w in full.gwb_ws)
         terms = _stage_terms(batch, ws, self._gwb_idx, self._gwb_freqf,
-                             self._include)
+                             self._include, self._bases_bf16)
         return _Shard(lo, batch, chols, ws, terms, rows(full.weights, 1),
                       rows(full.times, 1), rows(full.scales, 1),
                       full.times.to(dev), full.scales.to(dev),
@@ -957,7 +1067,12 @@ class EnsembleSimulator:
         return tuple(stages), times, torch.stack(rows).contiguous()
 
     def _resolve_precision(self, path: str, precision) -> str:
+        """The run's statistic precision: ``precision``, or the path's
+        default (einsum: ``stats_dtype``; fused: ``pallas_precision``;
+        mega: 'f32')."""
         if precision is None:
+            if path == "einsum":
+                return "bf16" if self._stats_bf16 else "f32"
             return self.pallas_precision if path == "fused" else "f32"
         if precision not in ("f32", "bf16"):
             raise ValueError(f"precision must be 'f32' or 'bf16', got "
@@ -976,16 +1091,18 @@ class EnsembleSimulator:
         return (binned_corr_ops.binned_correlation if self.pallas_mxu_binning
                 else binned_corr_ops.binned_correlation_vpu)
 
-    def step(self, base_key: torch.Tensor, offset: int, nreal: int,
+    def step(self, base_key: torch.Tensor, offset, nreal: int,
              path: str, precision: str, with_corr: bool = False):
         """One chunk: (packed (nreal, nbins+1) statistics, corr or None),
         on the mesh's first device. ``nreal`` splits into one contiguous
-        block of realizations per real shard."""
+        block of realizations per real shard. ``base_key``/``offset`` are a
+        key and an int, or lane vectors (:func:`_chunk_keys`)."""
         n_real = len(self._shards)
         if nreal % n_real != 0:
             raise ValueError(f"nreal per chunk ({nreal}) must be divisible "
                              f"by the real mesh axis ({n_real})")
-        keys = _chunk_keys(base_key, offset, nreal)
+        with span("keys"):
+            keys = _chunk_keys(base_key, offset, nreal)
         r_local = nreal // n_real
         packed, corrs = [], []
         for r, shards in enumerate(self._shards):
@@ -1004,32 +1121,33 @@ class EnsembleSimulator:
     def _step_shared(self, sh: _Shard, keys, path: str, precision: str,
                      with_corr: bool):
         """One shard holding every pulsar: one operand set."""
-        if path == "einsum":
-            corr = _correlation_rows(self._residuals(keys, shard=sh),
-                                     stats_bf16=precision == "bf16")
-            # curve + auto lanes: one contraction against the combined
-            # weight stack, as the kernels bin
-            out = torch.einsum("rpq,npq->rn", corr, sh.weights)
-            curves, autos = unpack_stats(out, self.nbins)
-            return (pack_stats(curves, autos),
-                    corr / self._counts.to(corr.device) if with_corr
-                    else None)
-        if path == "fused":
-            res = self._residuals(keys, shard=sh)
-            curves, autos = self._fused_kernel()(
-                res, res, sh.weights, self.nbins, precision=precision)
+        with span("residuals"):
+            res = self._residuals(keys, split_gp=path == "mega", shard=sh)
+        with span("statistic"):
+            if path == "einsum":
+                corr = _correlation_rows(res, stats_bf16=precision == "bf16")
+                # curve + auto lanes: one contraction against the combined
+                # weight stack, as the kernels bin
+                out = torch.einsum("rpq,npq->rn", corr, sh.weights)
+                curves, autos = unpack_stats(out, self.nbins)
+                return (pack_stats(curves, autos),
+                        corr / self._counts.to(corr.device) if with_corr
+                        else None)
+            if path == "fused":
+                curves, autos = self._fused_kernel()(
+                    res, res, sh.weights, self.nbins, precision=precision)
+                return pack_stats(curves, autos), None
+            base, coefs = res
+            if precision == "bf16":
+                # bf16 STORAGE of the kernel's two big reads; the projection
+                # and every accumulation stay f32 inside the kernel
+                base = base.to(torch.bfloat16)
+                coefs = coefs.to(torch.bfloat16)
+            curves, autos = mega_ops.chunk_stats(
+                base, coefs, sh.times, sh.scales, sh.weights,
+                stages=self._mega_tables[0], nbins=self.nbins,
+                precision=precision)
             return pack_stats(curves, autos), None
-        base, coefs = self._residuals(keys, split_gp=True, shard=sh)
-        if precision == "bf16":
-            # bf16 STORAGE of the kernel's two big reads; the projection and
-            # every accumulation stay f32 inside the kernel
-            base = base.to(torch.bfloat16)
-            coefs = coefs.to(torch.bfloat16)
-        curves, autos = mega_ops.chunk_stats(
-            base, coefs, sh.times, sh.scales, sh.weights,
-            stages=self._mega_tables[0], nbins=self.nbins,
-            precision=precision)
-        return pack_stats(curves, autos), None
 
     def _step_sharded(self, shards, keys, path: str, precision: str,
                       with_corr: bool):
@@ -1039,8 +1157,17 @@ class EnsembleSimulator:
         dev0 = shards[0].device
         bf16 = precision == "bf16"
         split = path == "mega"
-        local = [self._residuals(keys.to(sh.device), split_gp=split,
-                                 shard=sh) for sh in shards]
+        with span("residuals"):
+            local = [self._residuals(keys.to(sh.device), split_gp=split,
+                                     shard=sh) for sh in shards]
+        with span("statistic"):
+            return self._sharded_statistic(shards, local, path, precision,
+                                           with_corr, dev0, bf16)
+
+    def _sharded_statistic(self, shards, local, path: str, precision: str,
+                           with_corr: bool, dev0, bf16: bool):
+        """The psr shards' partial statistics from their residual rows
+        (``local``), psum'ed on ``dev0``."""
         if path == "mega":
             if bf16:
                 # cast per shard BEFORE the gather, as the JAX engine does
@@ -1073,43 +1200,417 @@ class EnsembleSimulator:
                  for x, f, sh in zip(local, full, shards)]
         return psum(parts, dev0), None
 
-    def run(self, nreal: int, seed: int = 0, chunk: int = DEFAULT_CHUNK,
-            keep_corr: bool = False,
-            precision: Optional[str] = None) -> dict:
+    def _normalize_chunk(self, chunk: int, nreal: int) -> int:
+        """Clamp the chunk to ``nreal`` and round it down to a multiple of
+        the real mesh axis (at least one realization per real shard)."""
+        n_real = len(self._shards)
+        chunk = max(1, min(int(chunk), nreal))
+        return max(chunk - chunk % n_real, n_real)
+
+    def _base_key(self, seed) -> torch.Tensor:
+        """``key(seed)`` on the mesh's first device; ``seed`` must be an
+        integer."""
+        if not isinstance(seed, (int, np.integer)):
+            raise TypeError(f"seed must be an integer, got "
+                            f"{type(seed).__name__}")
+        return rng.key(int(seed), device=self.device)
+
+    def model_bytes_per_chunk(self, chunk: int, path: Optional[str] = None,
+                              precision: Optional[str] = None) -> int:
+        """Analytic device-memory bytes of one chunk's statistic dataflow,
+        :func:`..ops.megakernel.chunk_bytes_model` (the JAX package's model;
+        the einsum path is its ``'xla'`` mode)."""
+        path = path or self.stat_path
+        prec = self._resolve_precision(path, precision)
+        mode = {"einsum": "xla", "fused": "fused"}.get(
+            path, "mega_bf16" if prec == "bf16" else "mega")
+        return mega_ops.chunk_bytes_model(
+            self._normalize_chunk(chunk, chunk), self.batch.npsr,
+            self.batch.max_toa, mega_ops.stage_k(self._mega_tables[0]),
+            mode=mode, psr_shards=self.mesh.shape[PSR_AXIS],
+            dtype_bytes=self.batch.dtype.itemsize)
+
+    def run(self, nreal: int, seed=0, chunk: Optional[int] = None,
+            keep_corr: bool = False, checkpoint=None,
+            progress: Optional[Callable[[int, int], None]] = None,
+            os=None, lnlike=None, pipeline_depth: Optional[int] = None,
+            precision: Optional[str] = None, eventlog=None, lanes=None,
+            recovery=None, tuned=None) -> dict:
         """Run the ensemble in chunks of ``chunk`` realizations.
 
         Returns numpy ``curves`` (nreal, nbins), ``autos`` (nreal,),
-        ``bin_centers`` (nbins,) and, with ``keep_corr`` (which takes the
+        ``bin_centers`` (nbins,), the ``statistic_path`` and ``precision``
+        it ran, ``report`` (a :class:`..obs.report.RunReport`, also
+        ``self.last_report``) and, with ``keep_corr`` (which takes the
         einsum path), ``corr`` (nreal, P, P) normalized pair correlations.
-        The chunk is clamped to ``nreal`` and rounded down to a multiple of
-        the real mesh axis (at least one realization per real shard). Every
-        chunk runs at the full chunk size (the last one overshoots and is
-        truncated).
+        ``chunk`` (default 1024) is clamped to ``nreal`` and rounded down to
+        a multiple of the real mesh axis. Every chunk runs at the full chunk
+        size (the last one overshoots and is truncated).
+
+        ``pipeline_depth`` (default 2): chunks in flight before the loop
+        waits for the oldest one's drain. At depth d > 0 each chunk's
+        packed statistics copy to a pinned host buffer on a copy stream
+        behind the chunk's last kernel, and one writer thread drains the
+        chunks in order (waits for the copy, appends the checkpoint chunk,
+        calls ``progress``) while later chunks run; the loop reuses a
+        drained chunk's device and host buffers for chunk ``i + d``, so a
+        run holds d of each however many chunks it has. Depth 0 is the
+        serial loop: it syncs once per chunk only for a checkpoint, a
+        ``progress`` callback or ``keep_corr``, else it fetches once at the
+        end. The statistics are bit-identical at every depth.
+
+        ``checkpoint``: a path. After every chunk the run appends that
+        chunk's outputs to ``<path>.c<k>.npz`` and updates the manifest at
+        ``<path>`` (the JAX package's layout). A matching manifest for the
+        same (seed, nreal, chunk) resumes the run after its last completed
+        chunk, bit-identical to an unbroken run; a torn chunk file rolls
+        back to the chunk before it. The files are removed when the run
+        completes. Needs an integer seed (``TypeError`` otherwise).
+
+        ``progress``: ``(done, nreal) -> None`` after each chunk, in order
+        (on the writer thread when pipelined). An exception it raises ends
+        the run and reaches the caller.
+
+        ``lanes``: per-request RNG lanes, ``(seed, n)`` pairs in slot
+        order. Slot ``i`` of lane ``(s, n)`` draws from ``fold_in(key(s),
+        i)``, the key ``run(n, seed=s)`` gives its realization ``i``; slots
+        past the last lane are padding. ``seed`` is then not used for the
+        keys, and a checkpoint is refused (``ValueError``).
+
+        The report carries per-chunk records (``wall_s``: the host's
+        dispatch time, or the chunk's whole time where ``synced``;
+        ``stall_s``: waits of the dispatch loop on the depth bound;
+        ``ckpt_wait_s``: the checkpoint append; ``execute_s``: the device
+        time between CUDA events recorded before and after the chunk's
+        dispatch, read once the chunk's output has landed), the run
+        timeline, ``model_bytes_per_chunk``, the allocator's peak over the
+        mesh's CUDA devices (``memory["peak_hbm_bytes"]``; the run resets
+        each device's peak counter when it starts) and the ring
+        accounting, whose bound the run asserts before it returns. A run
+        that raises dumps the flight recorder beside its checkpoint
+        (:mod:`..obs.flightrec`).
+
+        Not ported yet, each ``NotImplementedError`` when given: ``os``
+        (ROADMAP Queue 1 item 5), ``lnlike`` (item 7), ``eventlog``,
+        ``tuned`` and ``recovery`` (item 11); ``recovery=False`` and
+        ``tuned=False`` are accepted (nothing to turn off).
         """
-        path = "einsum" if keep_corr else self.stat_path
-        prec = self._resolve_precision(path, precision)
+        unported = (("os", os, "the detection lane (ROADMAP Queue 1 item 5)"),
+                    ("lnlike", lnlike,
+                     "the likelihood lane (ROADMAP Queue 1 item 7)"),
+                    ("eventlog", eventlog,
+                     "the rest of obs/ (ROADMAP Queue 1 item 11)"),
+                    ("tuned", tuned or None,
+                     "the tuner, tune/ (ROADMAP Queue 1 item 11)"),
+                    ("recovery", recovery or None,
+                     "the recovery policy, faults/ (ROADMAP Queue 1 item "
+                     "11)"))
+        for name, value, what in unported:
+            if value is not None:
+                raise NotImplementedError(f"run({name}=...) is not ported "
+                                          f"yet: {what}")
+        t_run0 = now()
+        collector = obs_metrics.Collector()
+        chunk_records: list = []
         nreal = int(nreal)
         if nreal <= 0:
             raise ValueError(f"nreal must be > 0, got {nreal}")
-        n_real = len(self._shards)
-        chunk = max(1, min(int(chunk), nreal))
-        chunk = max(chunk - chunk % n_real, n_real)
-        base = rng.key(seed, device=self.device)
-        packed, corrs = [], []
-        with torch.no_grad():
-            for offset in range(0, nreal, chunk):
-                p, c = self.step(base, offset, chunk, path, prec,
-                                 with_corr=keep_corr)
-                packed.append(p)
+        path = "einsum" if keep_corr else self.stat_path
+        prec = self._resolve_precision(path, precision)
+        chunk = self._normalize_chunk(
+            DEFAULT_CHUNK if chunk is None else chunk, nreal)
+        depth = max(int(DEFAULT_PIPELINE_DEPTH if pipeline_depth is None
+                        else pipeline_depth), 0)
+        pipelined = depth > 0
+        ring_size = max(depth, 1)
+        nb = self.nbins
+
+        lane_seeds = lane_within = None
+        if lanes is not None:
+            if checkpoint is not None:
+                raise ValueError(
+                    "run(lanes=...) cannot checkpoint: the resume identity "
+                    "is keyed on one (seed, nreal, chunk) triple, not a "
+                    "cohort of lanes")
+            seeds, within = _lane_arrays(lanes, nreal)
+            # padding slots for the last chunk's overshoot; one upload
+            # before the loop (an upload inside it would sync per chunk)
+            n_slots = -(-nreal // chunk) * chunk
+            seeds = np.concatenate([seeds, np.zeros(n_slots - nreal,
+                                                    np.int32)])
+            within = np.concatenate([within, np.arange(nreal, n_slots,
+                                                       dtype=np.int32)])
+            lane_seeds = torch.from_numpy(seeds.astype(np.int64)).to(
+                self.device)
+            lane_within = torch.from_numpy(within.astype(np.int64)).to(
+                self.device)
+
+        ckpt, done, packed_out, corr_out = None, 0, [], []
+        if checkpoint is not None:
+            if not isinstance(seed, (int, np.integer)):
+                raise TypeError("checkpointing requires an integer seed (the "
+                                "checkpoint stores it to validate a resume)")
+            ckpt = EnsembleCheckpoint(checkpoint)
+            state = ckpt.load(seed, nreal, chunk, keep_corr=keep_corr)
+            if state is not None:
+                done = int(state["done"])
+                if state["rolled_back"]:
+                    collector.count("faults.rollbacks", state["rolled_back"])
+                packed_out.append(np.concatenate(
+                    [state["curves"], state["autos"][:, None]], axis=1))
                 if keep_corr:
-                    corrs.append(c)
-            packed_h = torch.cat(packed)[:nreal].cpu().numpy()
-        if not np.isfinite(packed_h).all():
-            raise FloatingPointError("run produced non-finite statistics")
-        curves, autos = unpack_stats(packed_h, self.nbins)
+                    if "corr" not in state:
+                        raise ValueError("checkpoint was written without "
+                                         "keep_corr; cannot resume with it")
+                    corr_out.append(state["corr"])
+        base = self._base_key(seed)
+        sync_each = ckpt is not None and not pipelined
+        on_card = self.device.type == "cuda"
+
+        # run identity, built before the loop so that a crash dump has it
+        meta = {
+            "nreal": nreal, "chunk": int(chunk),
+            "keep_corr": bool(keep_corr), "fused": path != "einsum",
+            "statistic_path": path, "precision": prec,
+            "platform": "gpu" if on_card else "cpu",
+            "device_kind": (torch.cuda.get_device_name(self.device)
+                            if on_card else "cpu"),
+            # distinct devices: a mesh may list one card several times
+            "n_devices": len(set(self.mesh.devices.flat)),
+            "mesh_shape": {k: int(v) for k, v in self.mesh.shape.items()},
+            "npsr": int(self.batch.npsr),
+            "max_toa": int(self.batch.max_toa),
+            "pipeline_depth": depth,
+            "process_index": 0, "process_count": 1, "seed": int(seed),
+        }
+        if lanes is not None:
+            meta["serve_lanes"] = len(list(lanes))
+
+        timeline: list = []
+        ledger = PackedLedger(chunk * (nb + 1) * self.batch.dtype.itemsize,
+                              ring_size, pipelined)
+        sampler = HbmSampler(self.mesh.devices.flat)
+        sampler.start()
+        flightrec.note("run_start", spec_hash=flightrec.spec_hash(meta),
+                       nreal=nreal, chunk=int(chunk), path=path,
+                       depth=depth, resume_done=done)
+        compute = torch.cuda.current_stream(self.device) if on_card else None
+        copy_stream = (torch.cuda.Stream(self.device)
+                       if on_card and pipelined else None)
+        ring: collections.deque = collections.deque()
+        exec_events: dict = {}          # chunk idx -> (start, end) events
+
+        def execute_span(rec: dict, t_ready: Optional[float]) -> None:
+            """The chunk's execute span: the device time between its CUDA
+            events (both complete: the caller saw the chunk's output), or
+            on the host, dispatch start to outputs materialized."""
+            events = exec_events.get(rec["idx"])
+            if events is not None:
+                dur = events[0].elapsed_time(events[1]) / 1e3
+            elif t_ready is not None:
+                dur = max(t_ready - t_run0 - rec["t0_s"], 0.0)
+            else:
+                return
+            rec["execute_s"] = dur
+            timeline.append({"name": "execute", "tid": "device",
+                             "t0": rec["t0_s"], "dur": dur,
+                             "chunk": rec["idx"]})
+
+        def drain(job: dict) -> None:
+            """One chunk's host work, in the serial loop's order: its
+            outputs on the host, the checkpoint append, the progress call.
+            Sets the chunk's drained event even when it fails, so the
+            dispatch loop cannot wait forever."""
+            rec = job["rec"]
+            idx, slot = rec["idx"], job["slot"]
+            t_d0 = now()
+            t_ready = None
+            try:
+                arr = None
+                if pipelined:
+                    arr = pipeline.materialize_copy(job["host"],
+                                                    job["copied"])
+                elif sync_each:
+                    arr = job["packed"].cpu().numpy()
+                if arr is None:
+                    packed_out[slot] = job["packed"]
+                else:
+                    packed_out[slot] = arr
+                    t_ready = now()
+                if keep_corr:
+                    if job["events"] is not None:
+                        # the writer thread's current stream need not be
+                        # the one the step ran on: wait for the step first
+                        job["events"][1].synchronize()
+                    corr_out[slot] = job["corr"].cpu().numpy()
+                    t_ready = now()
+                if arr is not None and not np.isfinite(arr).all():
+                    # fail before the checkpoint can take the chunk in
+                    flightrec.note("poisoned_chunk", idx=idx)
+                    raise FloatingPointError(
+                        f"chunk {idx} produced non-finite packed statistics")
+                if ckpt is not None:
+                    t_ck = now()
+                    ckpt.save(int(seed), nreal, chunk, job["done"],
+                              arr[:, :nb], arr[:, nb],
+                              corr_out[slot] if keep_corr else None)
+                    t_now = now()
+                    rec["ckpt_wait_s"] = t_now - t_ck
+                    timeline.append({"name": "ckpt_append", "tid": "writer",
+                                     "t0": t_ck - t_run0,
+                                     "dur": t_now - t_ck, "chunk": idx})
+                if progress is not None:
+                    if t_ready is None:
+                        if job["events"] is not None:
+                            job["events"][1].synchronize()
+                        t_ready = now()
+                    progress(min(job["done"], nreal), nreal)
+                flightrec.note("chunk_drained", idx=idx)
+            finally:
+                # the chunk's device outputs are no longer the run's: the
+                # caching allocator may reuse them (record_stream keeps a
+                # copy in flight safe), and the ledger stops counting them
+                job["packed"] = job["corr"] = None
+                if t_ready is not None:
+                    rec["t_ready_s"] = t_ready - t_run0
+                    execute_span(rec, t_ready)
+                timeline.append({"name": "drain", "tid": "writer",
+                                 "t0": t_d0 - t_run0,
+                                 "dur": now() - t_d0, "chunk": idx})
+                if job["drained"] is not None:
+                    job["drained"].set()
+
+        writer = pipeline.make_writer(pipelined)
+        try:
+            with obs_metrics.collect(collector):
+                while done < nreal:
+                    t_chunk0 = now()
+                    idx = len(chunk_records)
+                    rec = {"idx": idx, "wall_s": 0.0, "stall_s": 0.0,
+                           "ckpt_wait_s": 0.0,
+                           "synced": bool(sync_each or (
+                               not pipelined
+                               and (keep_corr or progress is not None))),
+                           "t0_s": t_chunk0 - t_run0}
+                    reuse = None
+                    if len(ring) >= ring_size:
+                        # the depth bound: wait for the oldest chunk's
+                        # drain, then reuse its pinned host buffer
+                        reuse = ring.popleft()
+                        t_wait = now()
+                        reuse["drained"].wait()
+                        t_now = now()
+                        rec["stall_s"] += t_now - t_wait
+                        timeline.append({"name": "stall", "tid": "main",
+                                         "t0": t_wait - t_run0,
+                                         "dur": t_now - t_wait,
+                                         "chunk": idx})
+                    events = None
+                    if on_card:
+                        events = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                        events[0].record(compute)
+                    if lane_seeds is not None:
+                        packed, corr = self.step(
+                            lane_seeds[done:done + chunk],
+                            lane_within[done:done + chunk], chunk, path,
+                            prec, with_corr=keep_corr)
+                    else:
+                        packed, corr = self.step(base, done, chunk, path,
+                                                 prec, with_corr=keep_corr)
+                    if on_card:
+                        events[1].record(compute)
+                        exec_events[idx] = events
+                    flightrec.note("chunk_dispatch", idx=idx, offset=done)
+                    rec["live_packed"] = ledger.track(packed)
+                    host = copied = drained = None
+                    if pipelined:
+                        if reuse is None:
+                            host = pipeline.host_buffer(packed)
+                        else:
+                            host = reuse["host"]
+                            timeline.append(
+                                {"name": "recycle", "tid": "main",
+                                 "t0": now() - t_run0, "dur": None,
+                                 "chunk": idx,
+                                 "from_chunk": reuse["rec"]["idx"]})
+                        copied = pipeline.start_d2h(
+                            packed, host, after=events and events[1],
+                            stream=copy_stream)
+                        collector.count("pipeline.d2h_async")
+                        drained = threading.Event()
+                    done += chunk
+                    packed_out.append(None)
+                    if keep_corr:
+                        corr_out.append(None)
+                    job = {"rec": rec, "slot": len(packed_out) - 1,
+                           "done": done, "packed": packed, "corr": corr,
+                           "host": host, "copied": copied,
+                           "drained": drained, "events": events}
+                    if pipelined:
+                        rec["stall_s"] += writer.submit(
+                            lambda job=job: drain(job), drained.set)
+                        ring.append(job)
+                    else:
+                        writer.submit(lambda job=job: drain(job))
+                    rec["wall_s"] = now() - t_chunk0
+                    timeline.append({"name": "dispatch", "tid": "main",
+                                     "t0": rec["t0_s"], "dur": rec["wall_s"],
+                                     "chunk": idx})
+                    chunk_records.append(rec)
+                writer.close()
+                ring.clear()
+                ledger.check()
+                t_f0 = now()
+                packed_h = np.concatenate(
+                    [p if isinstance(p, np.ndarray) else p.cpu().numpy()
+                     for p in packed_out])[:nreal]
+                timeline.append({"name": "final_fetch", "tid": "main",
+                                 "t0": t_f0 - t_run0,
+                                 "dur": now() - t_f0})
+                if not np.isfinite(packed_h).all():
+                    flightrec.note("poisoned_output")
+                    raise FloatingPointError(
+                        "run produced non-finite statistics")
+        except BaseException as exc:
+            writer.abort()
+            flightrec.note("run_abort", error=repr(exc)[:500])
+            # the post-mortem artifact beside the checkpoint; a failed dump
+            # returns None and never masks the exception
+            rec_dir = flightrec.dump_dir(checkpoint)
+            if rec_dir is not None:
+                flightrec.dump(rec_dir, meta, chunks=chunk_records,
+                               error=repr(exc)[:500])
+            raise
+        total_s = now() - t_run0
+        flightrec.note("run_end", total_s=round(total_s, 3))
+        for rec in chunk_records:
+            if "execute_s" not in rec:
+                execute_span(rec, None)     # every event is complete now
+        curves, autos = unpack_stats(packed_h, nb)
         out = {"curves": curves, "autos": autos,
                "bin_centers": np.asarray(self.bin_centers),
                "statistic_path": path, "precision": prec}
         if keep_corr:
-            out["corr"] = torch.cat(corrs)[:nreal].cpu().numpy()
+            out["corr"] = np.concatenate(corr_out)[:nreal]
+        if ckpt is not None:
+            ckpt.delete()
+
+        # the report: telemetry only, after every output is on the host
+        collector.count("obs.chunks", len(chunk_records))
+        memory = sampler.stop()
+        memory.update(ledger.memory_fields())
+        if memory.get("peak_bytes_in_use"):
+            memory["peak_hbm_bytes"] = memory["peak_bytes_in_use"]
+            memory["peak_hbm_source"] = "allocator"
+        report = RunReport.from_collector(
+            collector, meta, retraces=0, total_s=total_s,
+            cost={"model_bytes_per_chunk": self.model_bytes_per_chunk(
+                chunk, path, prec)},
+            memory=memory)
+        report.chunks = chunk_records
+        report.spans = sorted(collector.spans)
+        report.timeline = sorted(timeline, key=lambda e: e.get("t0", 0.0))
+        self.last_report = report
+        out["report"] = report
         return out

@@ -505,3 +505,157 @@ def test_ng15_two_shard_mesh_matches_one_shard(cuda, path):
     again = sim.run(32, seed=4, chunk=16, precision="f32")
     np.testing.assert_array_equal(got["curves"], again["curves"])
     np.testing.assert_array_equal(got["autos"], again["autos"])
+
+
+# -- the run loop on the card: pinned copies, the ring, lanes, peak memory --
+
+def _flagship(cuda, stat_path, **engine_kw):
+    """The registry's flagship_100 at full width (100 pulsars x 780 TOAs,
+    K = 320) on the card."""
+    from fakepta_tpu_torch.scenarios import registry
+    scn = registry.get("flagship_100")
+    parts = scn.batch_parts(device=cuda)
+    return EnsembleSimulator(parts[0], stat_path=stat_path, device=cuda,
+                             **dict(scn.sim_kwargs(*parts), **engine_kw))
+
+
+def _same(a, b):
+    np.testing.assert_array_equal(a["curves"], b["curves"])
+    np.testing.assert_array_equal(a["autos"], b["autos"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "mega"])
+def test_pinned_copy_pipeline_is_bit_identical(cuda, path):
+    """8 full-width chunks through the pinned-copy ring at depths 1-3 equal
+    the serial loop bit for bit; every chunk has a device execute span."""
+    sim = _flagship(cuda, path)
+    want = sim.run(8192, seed=2, chunk=1024, pipeline_depth=0)
+    for d in (1, 2, 3):
+        got = sim.run(8192, seed=2, chunk=1024, pipeline_depth=d)
+        _same(got, want)
+        rep = got["report"]
+        assert rep.counters["pipeline.d2h_async"] == 8
+        assert 1 <= rep.memory["packed_buffers_live_peak"] <= d
+        assert all(c["execute_s"] > 0 for c in rep.chunks)
+        assert rep.meta["platform"] == "gpu"
+        assert rep.meta["device_kind"] == torch.cuda.get_device_name(cuda)
+
+
+@pytest.mark.cuda
+def test_copies_wait_for_the_step_under_a_slowed_drain(cuda, monkeypatch):
+    """The copy stream waits for the event behind each step's last write
+    and a ring slot is reused only after its drain: with the device held
+    up before the packed write (a spin kernel) and every drain slowed on
+    the host, a depth-2 run still equals the serial one bit for bit and
+    the loop records its waits as stall."""
+    import time
+
+    sim = _flagship(cuda, "fused")
+    want = sim.run(4096, seed=3, chunk=1024, pipeline_depth=0)
+    shared = sim._step_shared
+
+    def late_step(*a, **kw):
+        out = shared(*a, **kw)
+        torch.cuda._sleep(20_000_000)       # ~10 ms before the packed write
+        return out
+
+    monkeypatch.setattr(sim, "_step_shared", late_step)
+    seen = []
+
+    def slow_drain(done, nreal):
+        time.sleep(0.3)
+        seen.append(done)
+
+    got = sim.run(4096, seed=3, chunk=1024, pipeline_depth=2,
+                  progress=slow_drain)
+    _same(got, want)
+    assert seen == [1024, 2048, 3072, 4096]
+    rep = got["report"]
+    assert rep.summary()["pipeline_stall_s"] > 0.2
+    assert rep.memory["packed_buffers_live_peak"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_lane_cohort_on_the_vpu_kernel(cuda, prec):
+    """#2 (pallas_mxu_binning=False) at full width: each lane of a
+    1024-slot cohort equals the lane alone at the same chunk bit for bit
+    (vpu_tiling picks the same rb for both)."""
+    sim = _flagship(cuda, "fused", pallas_mxu_binning=False)
+    lanes = [(11, 300), (22, 500), (33, 224)]
+    before = bc.vpu_launches
+    cohort = sim.run(1024, chunk=1024, lanes=lanes, precision=prec)
+    assert bc.vpu_launches == before + 1
+    pos = 0
+    for s, n in lanes:
+        alone = sim.run(1024, chunk=1024, lanes=[(s, n)], precision=prec)
+        np.testing.assert_array_equal(cohort["curves"][pos:pos + n],
+                                      alone["curves"][:n])
+        np.testing.assert_array_equal(cohort["autos"][pos:pos + n],
+                                      alone["autos"][:n])
+        pos += n
+
+
+# the most a live large-pool block of the caching allocator can exceed its
+# request by, with room: a reused block is split only when more than 1 MiB
+# would be left over
+ALLOCATOR_GRANULE = 2 << 20
+
+
+@pytest.mark.cuda
+def test_peak_memory_is_bounded_as_the_depth_grows(cuda):
+    """The allocator's peak grows by at most the extra ring slots between
+    depth 1 and depth 3, give or take one allocator granule per live large
+    block (the run resets the peak counts when it starts)."""
+    sim = _flagship(cuda, "mega")
+    sim.run(1024, seed=1, chunk=1024)
+    peaks, blocks = {}, {}
+    for d in (1, 2, 3):
+        rep = sim.run(6144, seed=1, chunk=1024, pipeline_depth=d)["report"]
+        assert rep.memory["peak_hbm_source"] == "allocator"
+        peaks[d] = rep.memory["peak_hbm_bytes"]
+        blocks[d] = torch.cuda.memory_stats(cuda)["active.large_pool.peak"]
+        slot = rep.memory["packed_buffer_bytes"]
+    slack = ALLOCATOR_GRANULE * max(blocks.values())
+    assert peaks[3] <= peaks[1] + 2 * slot + slack
+    assert peaks[2] <= peaks[1] + slot + slack
+
+
+@pytest.mark.cuda
+def test_keep_corr_pipeline_on_the_card(cuda):
+    """keep_corr drains the (R, P, P) correlations on the writer thread,
+    after the step's event: depth 2 equals the serial loop bit for bit."""
+    sim = _flagship(cuda, "einsum")
+    want = sim.run(2048, seed=4, chunk=1024, keep_corr=True,
+                   pipeline_depth=0)
+    got = sim.run(2048, seed=4, chunk=1024, keep_corr=True,
+                  pipeline_depth=2)
+    _same(got, want)
+    assert got["corr"].shape == (2048, 100, 100)
+    np.testing.assert_array_equal(got["corr"], want["corr"])
+
+
+@pytest.mark.cuda
+def test_bf16_bases_cost_no_memory_on_the_card(cuda):
+    """bases_dtype='bf16' rounds the basis once, at construction: a run's
+    allocator peak stays at the f32-basis run's (give or take one granule
+    per live large block), and the curves within the CPU test's 2e-2 of
+    the f32-basis run."""
+    import gc
+
+    runs = {}
+    for dtype in ("f32", "bf16"):
+        sim = _flagship(cuda, "fused", bases_dtype=dtype)
+        sim.run(1024, seed=1, chunk=1024)
+        out = sim.run(2048, seed=6, chunk=1024)
+        runs[dtype] = (out, out["report"].memory["peak_hbm_bytes"],
+                       torch.cuda.memory_stats(cuda)["active.large_pool.peak"])
+        del sim, out
+        gc.collect()
+    (a, peak_a, blocks_a), (b, peak_b, blocks_b) = runs["f32"], runs["bf16"]
+    assert peak_b <= peak_a + ALLOCATOR_GRANULE * max(blocks_a, blocks_b)
+    assert not np.array_equal(a["curves"], b["curves"])
+    scale = np.abs(a["curves"]).max()
+    np.testing.assert_allclose(b["curves"], a["curves"], rtol=0,
+                               atol=2e-2 * scale)

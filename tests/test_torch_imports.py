@@ -5,6 +5,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 
 import pytest
 import torch
@@ -34,6 +35,20 @@ def test_scenario_modules_are_checked(module):
     """The scenario layer's modules, each a copy of a numpy-only module of
     the JAX package, are among the modules the checks below import and
     read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.utils.io", "fakepta_tpu_torch.obs.metrics",
+    "fakepta_tpu_torch.obs.timing", "fakepta_tpu_torch.obs.flightrec",
+    "fakepta_tpu_torch.obs.memwatch", "fakepta_tpu_torch.obs.report",
+    "fakepta_tpu_torch.parallel.pipeline"])
+def test_run_loop_modules_are_checked(module):
+    """The run loop's modules (checkpoint, observability core, pipeline),
+    each a port of a JAX package module, are among the modules the checks
+    below import and read."""
     assert module in _port_modules()
     path = ROOT / (module.replace(".", "/") + ".py")
     assert not IMPORT_RE.findall(path.read_text())
@@ -93,9 +108,18 @@ def test_entry_points_raise_without_a_gpu():
         EnsembleSimulator(batch)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         batch.to("cuda")
-    # asking for the CPU explicitly works
-    out = EnsembleSimulator(batch, device="cpu").run(2, seed=0, chunk=2)
+    # asking for the CPU explicitly works, the run loop's options too
+    sim = EnsembleSimulator(batch, device="cpu")
+    out = sim.run(2, seed=0, chunk=2)
     assert out["curves"].shape == (2, 15)
+    assert out["report"].meta["platform"] == "cpu"
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = pathlib.Path(tmp) / "mc.npz"
+        again = sim.run(2, seed=0, chunk=2, checkpoint=ck)
+        assert not ck.exists()
+    assert (again["curves"] == out["curves"]).all()
+    lanes = sim.run(2, chunk=2, lanes=[(0, 2)])
+    assert (lanes["curves"] == out["curves"]).all()
 
 
 def test_package_data_ships_the_cuda_sources():
