@@ -60,7 +60,25 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    ``make_mesh(["cuda:0"] * 2, psr_shards=2)`` through every path, within
    the mesh bounds of the 1-shard einsum run; ``ng15`` reduced against the
    CPU engine.
-6. ``run``: the run loop at the flagship's full width, on ``"fused"``,
+6. ``signals``: ``ipta_dr3`` uncut (120 pulsars padded to 896 TOA slots,
+   seven backend bands, per-pulsar red hyperprior draws, an anisotropic
+   background, a CGW source and a BayesEphem Jupiter-mass draw per
+   realization), built by ``registry.get("ipta_dr3").build(device="cuda")``:
+   each kernel held against its plain version and timed at its shapes
+   (PL = 120 and a 2-shard mesh's PL = 60, K = 320), then ``run(4096,
+   chunk=1024)`` on ``"einsum"`` f32 (the yardstick), ``"fused"``,
+   ``"fused"`` with ``pallas_mxu_binning=False`` and ``"mega"`` at both
+   precisions (bit-identical reruns, kernel launches, ``peak_hbm_bytes``);
+   the 2-shard mesh through every path within the mesh bounds; a
+   checkpointed cut-and-resume round on ``"mega"``; the device time of one
+   chunk split into keys, draws, Roemer, CGW and the statistic from the
+   engine's spans in one ``torch.profiler``-traced step, and the Roemer
+   term's mass-only shortcut against its full difference form (bit for
+   bit, both timed). Then the flagship
+   with BASELINE config 6 (a fixed Jupiter-mass ``RoemerConfig``), config
+   9 (``CGWSampling``) and config 9 with the pulsar term and sampled
+   distances (the host's per-chunk bulk staging timed) on ``"fused"``.
+7. ``run``: the run loop at the flagship's full width, on ``"fused"``,
    ``"fused"`` with ``pallas_mxu_binning=False`` and ``"mega"`` at both
    precisions: ``run(8192, chunk=1024, pipeline_depth=d)`` for d = 0..3,
    bit-identical, each with its realizations/s and its allocator peak
@@ -75,7 +93,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    of its solo run. Then one pipelined cut-and-resume round of ``ng15`` on
    ``"mega"``. Every run's launches are counted (zeroed just before, read
    just after).
-7. ``profile`` (only when asked for): per statistic path, the device time
+8. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -623,12 +641,14 @@ def drive_paths(report: dict, label: str, sims: dict, ref, shape: str,
         if out["curves"].shape != (nreal, sim.nbins):
             raise AssertionError(f"{label} {path}: curves shape "
                                  f"{out['curves'].shape}")
+        peak = again["report"].memory.get("peak_hbm_bytes")
         row.update(realizations_per_s=nreal / dt, wall_s=dt,
-                   kernel_launches=moved, rerun_identical=identical)
+                   kernel_launches=moved, rerun_identical=identical,
+                   peak_hbm_bytes=peak)
         rows[f"{path}/{prec}"] = row
         print(f"{label}: {path} [{prec}] {nreal / dt:.1f} realizations/s "
-              f"({dt:.3f} s), launches {moved}, rerun bit-identical",
-              flush=True)
+              f"({dt:.3f} s), launches {moved}, rerun bit-identical, "
+              f"peak_hbm_bytes {peak}", flush=True)
     return rows
 
 
@@ -953,6 +973,227 @@ def phase_scenarios(report: dict) -> None:
                 (cpu["curves"], cpu["autos"]), "f32",
                 f"ng15 reduced: cuda {path} vs cpu einsum")
     report["scenarios"] = out
+
+
+def ipta_sim(path: str, mesh=None, **kw):
+    """The registry's ``ipta_dr3``, uncut, through its own entry point, on
+    the card (or ``mesh``) with statistic path ``path``."""
+    from fakepta_tpu_torch.scenarios import registry
+    return registry.get("ipta_dr3").build(
+        mesh=mesh, device=None if mesh is not None else "cuda",
+        stat_path=path.split("-")[0],
+        pallas_mxu_binning=path != "fused-vpu", **kw)
+
+
+def chunk_split(sim, path: str) -> dict:
+    """Device ms of one chunk step by the engine's spans (keys; residuals,
+    which hold the sampled Roemer and CGW terms; the statistic) in one
+    ``torch.profiler``-traced step. Each span appears on the device
+    timeline as an annotation from its first kernel to its last: its
+    ``busy`` is the time of the kernels inside it, its ``extent`` the
+    annotation's length (idle gaps included). Draws = residuals - roemer -
+    cgw."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fakepta_tpu_torch.utils import rng
+
+    prec = sim._resolve_precision(path, None)
+    base = rng.key(11, device="cuda")
+    with torch.no_grad():
+        sim.step(base, 0, CHUNK, path, prec)                      # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            sim.step(base, CHUNK, CHUNK, path, prec)
+            torch.cuda.synchronize()
+        step_ms = time_ms(lambda: sim.step(base, 2 * CHUNK, CHUNK, path,
+                                           prec), 2, warmup=0)
+    reset_counts()
+    names = ("keys", "residuals", "roemer", "cgw", "statistic")
+    spans, kernels = {}, []
+    for ev in p.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        tr = ev.time_range
+        if ev.name in names:
+            spans.setdefault(ev.name, []).append((tr.start, tr.end))
+        else:
+            kernels.append((tr.start, tr.elapsed_us() / 1e3))
+    if "residuals" not in spans:
+        raise AssertionError(f"chunk split [{path}]: the traced step has no "
+                             f"span on the device timeline: {sorted(spans)}")
+    row = {"path": path, "precision": prec, "step_ms": step_ms,
+           "device_busy_ms": sum(d for _, d in kernels),
+           "kernel_launches": len(kernels)}
+    for name, ivs in spans.items():
+        inside = [(t, d) for t, d in kernels
+                  if any(lo <= t < hi for lo, hi in ivs)]
+        row[f"{name}_ms"] = sum(d for _, d in inside)
+        row[f"{name}_launches"] = len(inside)
+        row[f"{name}_extent_ms"] = sum(hi - lo for lo, hi in ivs) / 1e3
+    for key in ("ms", "launches", "extent_ms"):
+        row[f"draws_{key}"] = row[f"residuals_{key}"] - sum(
+            row.get(f"{n}_{key}", 0) for n in ("roemer", "cgw"))
+    print(f"signals ipta_dr3 chunk split [{path}, {prec}], kernel ms "
+          f"(launches; span extent ms): " + ", ".join(
+              f"{n} {row.get(n + '_ms', 0):.3f} "
+              f"({row.get(n + '_launches', 0)}; "
+              f"{row.get(n + '_extent_ms', 0):.3f})"
+              for n in ("keys", "draws", "roemer", "cgw", "statistic"))
+          + f"; traced step device busy {row['device_busy_ms']:.3f} ms over "
+          f"{len(kernels)} kernel launches; untraced step {step_ms:.3f} ms",
+          flush=True)
+    return row
+
+
+def roemer_shortcut(sim) -> dict:
+    """The sampled Roemer term of one chunk, mass-only draws through the
+    engine's shortcut and through the full difference form (every orbit
+    perturbation its (R, 1, 1) zero draw, as the engine would pass them
+    without the shortcut): the two must agree bit for bit; each is timed
+    between CUDA events."""
+    import torch
+    from fakepta_tpu_torch.models.roemer import roemer_delay_dev
+    from fakepta_tpu_torch.parallel import montecarlo as tmc
+    from fakepta_tpu_torch.utils import rng
+
+    sh = sim._full
+    state, scales, zero = sh.signals.roemer[0]
+    keys = tmc._chunk_keys(rng.key(11, device="cuda"), 0, CHUNK)
+    # the engine's per-realization draws, (R, 1, 1) each; the orbit
+    # perturbations' scales are zero, so theirs are signed zeros
+    d = rng.normal(rng.fold_in(rng.fold_in(keys, tmc._ROEMER_TAG), 0), 7) \
+        * scales
+    full = {name: d[:, i].reshape(-1, 1, 1)
+            for i, name in enumerate(tmc._ROEMER_PARAMS)}
+    if not all(zero[1:]):
+        raise AssertionError(f"ipta_dr3's Roemer draws are not mass-only: "
+                             f"{zero}")
+    with torch.no_grad():
+        got = roemer_delay_dev(state, sh.batch.pos, d_mass=full["d_mass"])
+        want = roemer_delay_dev(state, sh.batch.pos, **full)
+        if not torch.equal(got, want):
+            raise AssertionError("the mass-only Roemer shortcut differs from "
+                                 "the full difference form")
+        row = {"shortcut_ms": time_ms(lambda: roemer_delay_dev(
+            state, sh.batch.pos, d_mass=full["d_mass"]), 3, warmup=1),
+            "difference_form_ms": time_ms(lambda: roemer_delay_dev(
+                state, sh.batch.pos, **full), 3, warmup=1),
+            "bit_identical": True}
+    print(f"signals ipta_dr3 Roemer term, mass-only draws: shortcut "
+          f"{row['shortcut_ms']:.3f} ms, full difference form "
+          f"{row['difference_form_ms']:.3f} ms, bit-identical", flush=True)
+    return row
+
+
+def phase_signals(report: dict) -> None:
+    """CGW and BayesEphem signals on the card (module docstring, phase
+    ``signals``): ipta_dr3 uncut through every path, its kernels at its
+    shapes, its 2-shard mesh, a checkpointed round on mega, the per-stage
+    chunk split, and the flagship with BASELINE configs 6 and 9. Each
+    main-path run zeroes the kernel counts just before it and reads them
+    just after."""
+    from fakepta_tpu_torch.ops import megakernel as mk
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    from fakepta_tpu_torch.parallel.montecarlo import (CGWSampling,
+                                                       RoemerConfig)
+    from fakepta_tpu_torch.scenarios import registry
+    out = {}
+
+    # -- ipta_dr3, uncut --------------------------------------------------
+    yard = ipta_sim("einsum")
+    ref, out["ipta_dr3 einsum/f32"] = yardstick("signals ipta_dr3", yard)
+    sims = {p: ipta_sim(p) for p in ("fused", "fused-vpu", "mega")}
+    batch = sims["fused"].batch
+    npsr, ntoa = batch.npsr, batch.max_toa
+    sig = sims["fused"]._full.signals
+    shape_row = {
+        "spec_hash": registry.get("ipta_dr3").spec_hash(), "pulsars": npsr,
+        "toa_slots": ntoa, "valid_share": float(batch.mask.float().mean()),
+        "backend_bands": int(batch.sys_mask.shape[1]),
+        "K": mk.stage_k(sims["mega"]._mega_tables[0]),
+        "roemer_bodies": len(sig.roemer), "cgw_sources": len(sig.cgw),
+        "stages": list(sims["mega"].include)}
+    out["ipta_dr3 shape"] = shape_row
+    print(f"signals ipta_dr3 ({shape_row['spec_hash']}): {npsr} pulsars x "
+          f"{ntoa} TOA slots ({shape_row['valid_share']:.4f} valid), "
+          f"{shape_row['backend_bands']} backend bands, K = "
+          f"{shape_row['K']}, {len(sig.roemer)} sampled body, "
+          f"{len(sig.cgw)} sampled source; stages {sims['mega'].include}",
+          flush=True)
+    measure_kernels(report, sims["fused"], (npsr // 2,), "signals ipta_dr3")
+    for k, v in drive_paths(report, "signals ipta_dr3", sims, ref,
+                            shape_tag(npsr, npsr, ntoa)).items():
+        out[f"ipta_dr3 {k}"] = v
+    out["ipta_dr3 chunk split"] = {
+        p: chunk_split(s, p) for p, s in (("einsum", yard),
+                                          ("fused", sims["fused"]),
+                                          ("mega", sims["mega"]))}
+    out["ipta_dr3 roemer shortcut"] = roemer_shortcut(sims["fused"])
+
+    # -- a checkpointed cut-and-resume round on mega ----------------------
+    ckdir = os.path.join(HERE, "build", "signals_phase")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    os.makedirs(ckdir)
+    shape = shape_tag(npsr, npsr, ntoa)
+    for prec in ("f32", "bf16"):
+        want, _, _ = counted(report, shape, "chunk_stats",
+                             lambda: sims["mega"].run(
+                                 NREAL, seed=21, chunk=CHUNK, precision=prec,
+                                 pipeline_depth=2), want=NREAL // CHUNK)
+        out[f"ipta_dr3 mega/{prec} resume"] = resume_round(
+            report, "signals ipta_dr3 mega", sims["mega"], prec,
+            "chunk_stats", shape, ckdir, want, NREAL, torn=False)
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    # -- ipta_dr3 on two psr shards of the card (60 pulsars each) ---------
+    ref = yard.run(MESH_NREAL, seed=5, chunk=CHUNK, precision="f32")
+    mesh = make_mesh(["cuda:0"] * 2, psr_shards=2)
+    msims = {p: ipta_sim(p, mesh=mesh) for p in ("einsum", "fused",
+                                                 "fused-vpu", "mega")}
+    rows = drive_paths(report, "signals ipta_dr3 psr_shards=2", msims, ref,
+                       shape_tag(npsr // 2, npsr, ntoa), nreal=MESH_NREAL,
+                       seed=5, tol=MESH_TOL, shards=2, warm=False)
+    for k, v in rows.items():
+        out[f"ipta_dr3 psr_shards=2 {k}"] = v
+    del msims, sims, yard
+
+    # -- the flagship with BASELINE config 6 and config 9 -----------------
+    toas_abs = registry.get("flagship_100").batch_parts(device="cpu")[1]
+    tref = float(toas_abs.mean())
+    configs = {
+        "config 6": dict(roemer=RoemerConfig("jupiter",
+                                             d_mass=1e-4 * 1.899e27)),
+        "config 9": dict(cgw_sample=CGWSampling(tref=tref)),
+        # config 9 with the pulsar term and sampled distances (1 +- 0.2 kpc):
+        # each chunk's retarded-phase bulks are staged on the host
+        "config 9 psrterm": dict(
+            cgw_sample=CGWSampling(tref=tref, psrterm=True,
+                                   sample_pdist=True),
+            pdist=np.tile([1.0, 0.2], (100, 1))),
+    }
+    for name, kw in configs.items():
+        label = f"signals flagship {name}"
+        ref, out[f"flagship {name} einsum/f32"] = yardstick(
+            label, flagship_sim("einsum", toas_abs=toas_abs, **kw))
+        sim = flagship_sim("fused", toas_abs=toas_abs, **kw)
+        rows = drive_paths(report, label, {"fused": sim}, ref,
+                           shape_tag(100, 100, 780))
+        for k, v in rows.items():
+            out[f"flagship {name} {k}"] = v
+    # the host's bulk staging in the last run: chunk 0's before the loop,
+    # each later chunk's right after the previous dispatch
+    staged = [e["dur"] for e in sim.last_report.timeline
+              if e["name"] in ("stage_inputs", "precompute")]
+    if len(staged) != NREAL // CHUNK:
+        raise AssertionError(f"psrterm bulks staged {len(staged)} times for "
+                             f"{NREAL // CHUNK} chunks")
+    out["flagship config 9 psrterm bulk staging ms"] = [
+        1e3 * d for d in staged]
+    print(f"signals flagship config 9 psrterm: host bulk staging per chunk "
+          f"{', '.join(f'{1e3 * d:.3f}' for d in staged)} ms", flush=True)
+    report["signals"] = out
 
 
 class Kill(Exception):
@@ -1345,9 +1586,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+",
                     default=["build", "kernels", "engine", "mesh",
-                             "scenarios", "run"],
+                             "scenarios", "signals", "run"],
                     choices=["build", "kernels", "engine", "mesh",
-                             "scenarios", "run", "profile"])
+                             "scenarios", "signals", "run", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh and profile phases' flagship "
                          "meshes span (default 1: every shard on cuda:0)")
@@ -1378,6 +1619,8 @@ def main(argv=None) -> int:
         phase_mesh(report, args.mesh_cards)
     if "scenarios" in args.phases:
         phase_scenarios(report)
+    if "signals" in args.phases:
+        phase_signals(report)
     if "run" in args.phases:
         phase_run(report)
     if "profile" in args.phases:
@@ -1387,8 +1630,8 @@ def main(argv=None) -> int:
     # one entry per kernel and shape that the main path launched it at or
     # the phases measured it at (the flagship's shared operand set and its
     # 2- and 4-shard meshes' PL = 50 and 25; ng15's PL = 68 and its 2-shard
-    # mesh's PL = 34), each with the launches made at that shape in the
-    # engine, mesh and scenarios phases (0 where none was made)
+    # mesh's PL = 34; ipta_dr3's PL = 120 and 60), each with the launches
+    # made at that shape in the main-path runs (0 where none was made)
     table = []
     specs = (("binned_correlation", "bf16",
               "fakepta_tpu_torch/csrc/binned_corr.cu",

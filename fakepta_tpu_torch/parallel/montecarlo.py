@@ -7,7 +7,8 @@ angular-binned cross-correlation curve and the mean auto-correlation.
 Streams: per-realization keys are ``fold_in(key(seed), index)`` on the
 threefry key tree of :mod:`fakepta_tpu_torch.utils.rng`, with the JAX
 package's domain tags (0x51 noise, 0x6B GWB, 0x9C noise-hyperparameter
-sampling, 0xE1 white sampling) and global pulsar-index folds, so every
+sampling, 0xE1 white sampling, 0x77 BayesEphem sampling, 0xC6 CGW
+sampling) and global pulsar-index folds, so every
 draw equals the JAX engine's to a few float32 ULP, a rerun is
 bit-identical and a realization's draws depend neither on the chunk size
 nor on the mesh shape.
@@ -49,13 +50,17 @@ an interrupted run bit for bit (:mod:`..utils.io`), ``lanes=`` runs
 per-request RNG lanes, and every run returns a
 :class:`..obs.report.RunReport`.
 
+Deterministic and sampled signals: ``cgw=`` (:class:`CGWConfig`),
+``roemer=`` (:class:`RoemerConfig`) and ``waveform=`` (arrays or
+callables) are evaluated once at construction into one (P, T) delay block
+(the ``"det"`` stage); :class:`RoemerSampling` (BayesEphem nuisances, tag
+0x77) and :class:`CGWSampling` (a continuous-wave source per realization,
+tag 0xC6) are drawn per realization and added after it, in the JAX
+engine's order. They need the padded absolute epochs ``toas_abs``.
+
 Not ported yet: multi-host meshes, TOA sharding, the OS / lnlike outputs,
-the tuner, the recovery policy and the deterministic and sampled signals
-(CGW, Roemer): those ``run`` options and the ``cgw``, ``roemer``,
-``roemer_sample``, ``ephem``, ``cgw_sample`` and ``toas_abs`` arguments are
-accepted by name and raise ``NotImplementedError`` when given. The
-``"det"`` stage name is accepted and adds nothing (there are no
-deterministic sources to add).
+the tuner and the recovery policy: those ``run`` options raise
+``NotImplementedError`` when given.
 """
 
 from __future__ import annotations
@@ -69,9 +74,13 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import constants as const
 from .. import spectrum as spectrum_lib
 from ..batch import PulsarBatch, fourier_basis_norm
 from ..device import DeviceLike
+from ..ephemeris import Ephemeris
+from ..models import cgw as cgw_model
+from ..models import roemer as roemer_model
 from ..obs import flightrec
 from ..obs import metrics as obs_metrics
 from ..obs.memwatch import HbmSampler, PackedLedger
@@ -97,14 +106,20 @@ STAGES = ("white", "ecorr", "red", "dm", "chrom", "sys", "gwb", "det")
 
 # key-domain tags, unchanged from the JAX engine: 0x51 noise, 0x6B GWB,
 # 0x9C hyperparameter sampling (one subtag per target), 0xE1 white
-# sampling; 0xD7 (the OS null stream) is reserved for the lane a later
-# slice ports
+# sampling, 0x77 BayesEphem sampling, 0xC6 CGW sampling; 0xD7 (the OS null
+# stream) is reserved for the lane a later slice ports
 _NOISE_TAG = 0x51
 _GWB_TAG = 0x6B
 _HYPER_TAG = 0x9C
 _HYPER_SUBTAG = {"red": 0, "dm": 1, "chrom": 2, "gwb": 3, "sys": 4}
 _WHITE_TAG = 0xE1
+_ROEMER_TAG = 0x77
+_CGW_TAG = 0xC6
 _NULL_TAG = 0xD7
+
+# RoemerSampling's draw order (one normal per parameter)
+_ROEMER_PARAMS = ("d_mass", "d_Om", "d_omega", "d_inc", "d_a", "d_e",
+                  "d_l0")
 
 # spectrum hyperparameters that are per-frequency-bin vectors; NoiseSampling
 # draws one independent value per bin for these
@@ -181,10 +196,63 @@ class WhiteSampling:
 
 
 @dataclasses.dataclass(frozen=True)
+class CGWConfig:
+    """A deterministic continuous-wave source, parameterized as the
+    facade's ``Pulsar.add_cgw`` (reference ``fake_pta.py:422-442``);
+    evaluated once at construction at float64 on the host
+    (:func:`..models.cgw.cw_delay_batched`)."""
+
+    costheta: float
+    phi: float
+    cosinc: float
+    log10_mc: float
+    log10_fgw: float
+    log10_h: Optional[float] = None
+    log10_dist: Optional[float] = None
+    phase0: float = 0.0
+    psi: float = 0.0
+    psrterm: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class RoemerConfig:
+    """A fixed BayesEphem-style ephemeris perturbation (units of
+    ``Ephemeris.roemer_delay``: degrees, AU, kg), evaluated once at
+    construction through the float32-stable difference form
+    (:func:`..models.roemer.roemer_delay_dev`)."""
+
+    planet: str
+    d_mass: float = 0.0
+    d_Om: float = 0.0
+    d_omega: float = 0.0
+    d_inc: float = 0.0
+    d_a: float = 0.0
+    d_e: float = 0.0
+    d_l0: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class CGWSampling:
-    """The JAX package's per-realization CGW source prior (its fields, for
-    :meth:`..scenarios.registry.Scenario.sim_kwargs`). The engine does not
-    run it yet: passing one raises ``NotImplementedError``."""
+    """Per-realization CGW source sampling.
+
+    Each realization draws one circular-SMBHB source, every parameter from
+    its ``(a, b)`` range (``dist='uniform'``: U(a, b); ``'normal'``:
+    N(mean=a, std=b); a mapping gives one per parameter), and adds its
+    evolving waveform, evaluated at float32 from the epochs relative to
+    ``tref`` (host-f64 subtraction). A ``log10_dist`` range samples the
+    distance in log10(Mpc) and takes precedence over ``log10_h``.
+
+    Keys fold the realization key with the 0xC6 tag and the config index
+    only, so one source is common to the array and the stream does not
+    depend on the mesh. ``psrterm=True`` adds the pulsar term at the
+    engine's ``pdist`` means; ``sample_pdist=True`` also draws each
+    pulsar's distance nuisance ``N(0, 1)`` (in units of its ``pdist``
+    sigma) per realization, folding the global pulsar index. The pulsar
+    term's retarded phase (~1e3-1e4 rad) is precomputed per (realization,
+    pulsar) at float64 on the host from the same draw chain
+    (:func:`..models.cgw.psrterm_phase_bulk`), so the device only evaluates
+    the O(10 rad) rest (:func:`..models.cgw.cw_delay_psrterm_split`).
+    """
 
     costheta: Tuple[float, float] = (-1.0, 1.0)
     phi: Tuple[float, float] = (0.0, 2.0 * np.pi)
@@ -203,9 +271,16 @@ class CGWSampling:
 
 @dataclasses.dataclass(frozen=True)
 class RoemerSampling:
-    """The JAX package's per-realization BayesEphem prior (its fields). The
-    engine does not run it yet: passing one raises
-    ``NotImplementedError``."""
+    """Per-realization BayesEphem nuisance sampling.
+
+    Each realization draws ``d_<param> ~ N(0, s_<param>)`` (units of
+    :class:`RoemerConfig`) and runs them through the float32-stable
+    difference form against the nominal orbit, propagated once on the host
+    in float64. Keys fold the realization key with the 0x77 tag and the
+    config index only: every psr shard perturbs the same solar system. A
+    sequence samples several bodies, independently; a config whose scales
+    are all zero is skipped.
+    """
 
     planet: str
     s_mass: float = 0.0
@@ -217,20 +292,20 @@ class RoemerSampling:
     s_l0: float = 0.0
 
 
-def _resolve_dists(dist, names):
-    """Normalize a NoiseSampling str-or-mapping ``dist`` to one value per
-    name."""
+def _resolve_dists(dist, names, label: str = "NoiseSampling"):
+    """Normalize a str-or-mapping ``dist`` (of :class:`NoiseSampling` or
+    :class:`CGWSampling`, named by ``label``) to one value per name."""
     if isinstance(dist, str):
         dmap = {n: dist for n in names}
     else:
         bad = [k for k in dist if k not in names]
         if bad:
-            raise ValueError(f"NoiseSampling dist mapping names {bad} are "
+            raise ValueError(f"{label} dist mapping names {bad} are "
                              f"not sampled parameters {list(names)}")
         dmap = {n: dist.get(n, "uniform") for n in names}
     for d in dmap.values():
         if d not in ("uniform", "normal"):
-            raise ValueError(f"NoiseSampling dist must be 'uniform' or "
+            raise ValueError(f"{label} dist must be 'uniform' or "
                              f"'normal', got {d!r}")
     return tuple(dmap[n] for n in names)
 
@@ -414,6 +489,200 @@ def _as_config_list(x):
     if isinstance(x, (list, tuple)):
         return list(x)
     return [x]
+
+
+@dataclasses.dataclass(frozen=True)
+class _Signals:
+    """Deterministic and sampled signal state on one shard's device: the
+    fixed delay block, per sampled body its nominal orbit, (7,) scales and
+    which of them are zero, per sampled source its static descriptor
+    ``(psrterm, mode, dists, sample_pdist)``, (8, 2) ranges and epochs
+    relative to its ``tref``, and the (P, 2) pulsar distances."""
+
+    det: Optional[torch.Tensor] = None                          # (P, T)
+    roemer: Tuple[Tuple[roemer_model.OrbitState, torch.Tensor, tuple],
+                  ...] = ()
+    cgw: Tuple[Tuple[tuple, torch.Tensor, torch.Tensor], ...] = ()
+    pdist: Optional[torch.Tensor] = None                        # (P, 2)
+
+    def rows(self, lo: int, n: int, dev: torch.device) -> "_Signals":
+        """A psr shard's rows on ``dev``."""
+        def take(x):
+            return None if x is None else \
+                x.narrow(0, lo, n).contiguous().to(dev)
+        return _Signals(
+            det=take(self.det),
+            roemer=tuple((st.rows(lo, n).to(dev), sc.to(dev), zero)
+                         for st, sc, zero in self.roemer),
+            cgw=tuple((stat, rg.to(dev), take(trel))
+                      for stat, rg, trel in self.cgw),
+            pdist=take(self.pdist))
+
+
+def _sampled_roemer(keys: torch.Tensor, state, scales: torch.Tensor,
+                    zero: tuple, pos: torch.Tensor, tag: int) -> torch.Tensor:
+    """(R, P, T) per-realization BayesEphem delays: ``N(0, 1) * scales``
+    under ``fold_in(fold_in(key, 0x77), tag)``, never the shard index.
+    A parameter whose scale is zero is passed as the number 0 (its draw
+    times zero), which lets a mass-only body skip the orbit deltas."""
+    kz = rng.fold_in(rng.fold_in(keys, _ROEMER_TAG), tag)          # (R, 2)
+    d = rng.normal(kz, 7) * scales                                 # (R, 7)
+    kw = {name: (0.0 if z else d[:, i].reshape(-1, 1, 1))
+          for i, (name, z) in enumerate(zip(_ROEMER_PARAMS, zero))}
+    with span("roemer"):
+        return roemer_model.roemer_delay_dev(state, pos, **kw)
+
+
+def _cgw_draws(keys: torch.Tensor, ranges: torch.Tensor, static: tuple,
+               tag: int, gidx: torch.Tensor):
+    """One source's parameters per realization, (R, 8) in CGWSampling's
+    field order (row 5 the amplitude), and with ``sample_pdist`` the
+    (R, P) distance nuisances of the pulsars ``gidx`` (else None): the JAX
+    engine's draw chain, on any device."""
+    _, _, dists, sample_pdist = static
+    kz = rng.fold_in(rng.fold_in(keys, _CGW_TAG), tag)
+    u = rng.uniform(kz, 8)
+    v = _affine(ranges[:, 0], u, ranges[:, 1] - ranges[:, 0])
+    normal = [d == "normal" for d in dists]
+    if any(normal):
+        g = rng.normal(rng.fold_in(kz, 1), 8)
+        v = torch.where(torch.tensor(normal, device=v.device),
+                        _affine(ranges[:, 0], g, ranges[:, 1]), v)
+    pd = None
+    if sample_pdist:
+        kpd = rng.fold_in(kz, 2)
+        pd = rng.normal(rng.fold_in(kpd[:, None, :], gidx), ())    # (R, P)
+    return v, pd
+
+
+def _sampled_cgw(keys: torch.Tensor, t_rel: torch.Tensor, pos: torch.Tensor,
+                 pdist: torch.Tensor, ranges: torch.Tensor, static: tuple,
+                 tag: int, gidx: torch.Tensor,
+                 bulk: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(R, P, T) per-realization CGW delays at this shard's epochs
+    ``t_rel`` (relative to the config's ``tref``). ``bulk`` (psrterm
+    configs) is this shard's (R, P) host-f64 retarded-phase bulk, mod
+    2pi."""
+    psrterm, mode, _, _ = static
+    v, pd = _cgw_draws(keys, ranges, static, tag, gidx)
+
+    def col(i):
+        return v[:, i:i + 1]                     # (R, 1) against (P, 3)
+
+    kw = dict(cos_gwtheta=col(0), gwphi=col(1), cos_inc=col(2),
+              log10_mc=col(3), log10_fgw=col(4), phase0=col(6), psi=col(7),
+              p_dist=0.0 if pd is None else pd)
+    kw["log10_h" if mode == "h" else "log10_dist"] = col(5)
+    pd_pair = (pdist[:, 0], pdist[:, 1])
+    with span("cgw"):
+        if bulk is not None:
+            return cgw_model.cw_delay_psrterm_split(t_rel, pos, pd_pair,
+                                                    bulk, **kw)
+        return cgw_model.cw_delay(t_rel, pos, pd_pair, psrTerm=psrterm,
+                                  evolve=True, **kw)
+
+
+def _validated_toas_abs(shape, toas_abs, what: str) -> np.ndarray:
+    """Absolute host-f64 epochs of the padded batch ``shape``."""
+    if toas_abs is None:
+        raise ValueError(
+            f"{what} needs toas_abs: the padded (npsr, max_toa) absolute "
+            f"MJD-second TOAs (float64 host array)")
+    toas_abs = np.asarray(toas_abs, dtype=np.float64)
+    if toas_abs.shape != tuple(shape):
+        raise ValueError(f"toas_abs shape {toas_abs.shape} != batch "
+                         f"{tuple(shape)}")
+    return toas_abs
+
+
+def _build_deterministic(batch: PulsarBatch, host: dict, cgw, roemer, ephem,
+                         toas_abs, pdist, waveform=None):
+    """(P, T) summed deterministic delay block on the batch's device, or
+    None if nothing is configured.
+
+    ``waveform`` is the engine counterpart of the facade's
+    ``add_deterministic`` hook (reference ``fake_pta.py:444-455``): a
+    padded (P, T) delay array, or a callable invoked ``fn(toas=...)`` on
+    one pulsar's real (unpadded) absolute epochs at host float64; a
+    sequence mixes both and sums. CGW sources sharing a (psrterm,
+    amplitude mode) signature are evaluated as one parameter batch at
+    float64 on the host (absolute epochs of ~4.6e9 s lose ~550 s at
+    float32); Roemer deltas go through the float32-stable difference form
+    on the device. The terms add in the JAX engine's order: waveforms,
+    CGW groups, Roemer configs.
+    """
+    cgw_list = _as_config_list(cgw)
+    roe_list = _as_config_list(roemer)
+    wf_list = _as_config_list(waveform)
+    if not cgw_list and not roe_list and not wf_list:
+        return None
+    shape = tuple(batch.t_own.shape)
+    if cgw_list or roe_list or any(callable(w) for w in wf_list):
+        toas_abs = _validated_toas_abs(
+            shape, toas_abs, "cgw/roemer/waveform deterministic signals")
+    dtype, dev = batch.dtype, batch.device
+
+    def put(arr):
+        return torch.from_numpy(np.asarray(arr, dtype=np.float64)).to(
+            dtype).to(dev)
+
+    det = torch.zeros(shape, dtype=dtype, device=dev)
+    for wf in wf_list:
+        if callable(wf):
+            arr = np.zeros(shape)
+            for i in range(batch.npsr):
+                n = int(host["mask"][i].sum())
+                row = np.asarray(wf(toas=toas_abs[i, :n]), dtype=np.float64)
+                if row.shape != (n,):
+                    raise ValueError(
+                        f"deterministic waveform returned shape {row.shape} "
+                        f"for pulsar {i} ({n} epochs); the callable contract "
+                        f"is fn(toas=...) -> delays per pulsar, as in the "
+                        f"facade's add_deterministic (pre-bind extra kwargs "
+                        f"with functools.partial)")
+                arr[i, :n] = row
+        else:
+            arr = np.asarray(wf, dtype=np.float64)
+            if arr.shape != shape:
+                raise ValueError(
+                    f"deterministic waveform array has shape {arr.shape}; "
+                    f"expected the padded batch shape {shape}")
+        det = det + put(arr)
+    if cgw_list:
+        if pdist is None:
+            pdist = np.zeros((batch.npsr, 2))
+        pdist = np.asarray(pdist, dtype=np.float64).reshape(batch.npsr, 2)
+        pos64 = np.asarray(host["pos"], dtype=np.float64)
+        groups = {}
+        for cfg in cgw_list:
+            mode = "h" if cfg.log10_h is not None else "dist"
+            groups.setdefault((bool(cfg.psrterm), mode), []).append(cfg)
+        for (psrterm, mode), cfgs in groups.items():
+            amp = np.array([c.log10_h if mode == "h" else c.log10_dist
+                            for c in cfgs])
+            kw = {("log10_h" if mode == "h" else "log10_dist"): amp}
+            delay = cgw_model.cw_delay_batched(
+                torch.from_numpy(toas_abs), torch.from_numpy(pos64),
+                torch.from_numpy(pdist),
+                cos_gwtheta=np.array([c.costheta for c in cfgs]),
+                gwphi=np.array([c.phi for c in cfgs]),
+                cos_inc=np.array([c.cosinc for c in cfgs]),
+                log10_mc=np.array([c.log10_mc for c in cfgs]),
+                log10_fgw=np.array([c.log10_fgw for c in cfgs]),
+                phase0=np.array([c.phase0 for c in cfgs]),
+                psi=np.array([c.psi for c in cfgs]),
+                psrTerm=psrterm, evolve=True, **kw)
+            det = det + delay.to(dtype).to(dev)
+    if roe_list:
+        ephem = Ephemeris() if ephem is None else ephem
+        for cfg in roe_list:
+            state = roemer_model.nominal_state(ephem, cfg.planet, toas_abs,
+                                               dtype=dtype, device=dev)
+            det = det + roemer_model.roemer_delay_dev(
+                state, batch.pos, d_mass=cfg.d_mass, d_Om=cfg.d_Om,
+                d_omega=cfg.d_omega, d_inc=cfg.d_inc, d_a=cfg.d_a,
+                d_e=cfg.d_e, d_l0=cfg.d_l0)
+    return torch.where(batch.mask, det, 0.0)
 
 
 def _lane_mode(offset) -> bool:
@@ -681,6 +950,7 @@ class _Shard:
     times_full: torch.Tensor            # (2, npsr, T)
     scales_full: torch.Tensor           # (S, npsr, T)
     hyper: _Hyper                       # sampling state, this shard's rows
+    signals: _Signals                   # CGW / Roemer state, its rows
 
     @property
     def device(self) -> torch.device:
@@ -719,13 +989,24 @@ class EnsembleSimulator:
     errors ``toaerr2`` and the per-TOA ``backend_id``, both (P, T)) turn
     on per-realization hyperparameter sampling, validated as the JAX
     engine validates it.
+
+    Signals (the JAX engine's options and semantics): ``cgw``
+    (:class:`CGWConfig`, one or a sequence), ``roemer``
+    (:class:`RoemerConfig`) and ``waveform`` (padded (P, T) arrays or
+    callables ``fn(toas=...)``) build the fixed ``"det"`` block once, only
+    when ``"det"`` is in ``include``; ``roemer_sample``
+    (:class:`RoemerSampling`) and ``cgw_sample`` (:class:`CGWSampling`)
+    draw per realization whatever ``include`` says. ``toas_abs`` are the
+    padded absolute MJD-second epochs (host float64) they need, ``pdist``
+    the (npsr, 2) pulsar distances (mean, sigma) in kpc, ``ephem`` a host
+    :class:`..ephemeris.Ephemeris` (default: the JPL table).
     """
 
     def __init__(self, batch: PulsarBatch,
                  gwb: Optional[Union[GWBConfig, Sequence[GWBConfig]]] = None,
                  mesh: Optional[Mesh] = None,
                  include: Sequence[str] = ("white", "ecorr", "red", "dm",
-                                           "chrom", "sys", "gwb"),
+                                           "chrom", "sys", "gwb", "det"),
                  nbins: int = 15, stat_path: Optional[str] = None,
                  pallas_precision: str = "bf16",
                  pallas_mxu_binning: bool = True,
@@ -735,18 +1016,8 @@ class EnsembleSimulator:
                  white_sample: Optional[WhiteSampling] = None,
                  toaerr2=None, backend_id=None,
                  cgw=None, roemer=None, roemer_sample=None, ephem=None,
-                 cgw_sample=None, toas_abs=None,
+                 cgw_sample=None, toas_abs=None, pdist=None, waveform=None,
                  device: DeviceLike = None):
-        # the JAX engine's arguments whose signals are not ported yet
-        unported = {"cgw": cgw, "roemer": roemer,
-                    "roemer_sample": roemer_sample, "ephem": ephem,
-                    "cgw_sample": cgw_sample, "toas_abs": toas_abs}
-        for name, value in unported.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet: the deterministic and "
-                    f"sampled CGW / Roemer signals (CGWSampling, "
-                    f"RoemerSampling) are ROADMAP Queue 1 item 4")
         if mesh is None:
             mesh = make_mesh(["cuda" if device is None else device])
         elif device is not None:
@@ -764,7 +1035,7 @@ class EnsembleSimulator:
                 f"axis ({n_toa}); pad the batch")
         if n_toa > 1:
             raise NotImplementedError(
-                "toa_shards > 1 is not ported yet (ROADMAP Queue 1 item 3)")
+                "toa_shards > 1 is not ported yet (ROADMAP Queue 1 item 2)")
         self.device = mesh.devices.flat[0]
         if batch.dtype != torch.float32:
             raise TypeError(f"the port runs float32 batches, got "
@@ -880,9 +1151,12 @@ class EnsembleSimulator:
         self._mega_tables = self._build_mega_tables()
         _, times, scales = self._mega_tables
         # the whole array as one shard: the single-device state
+        signals = self._resolve_signals(batch, host, include, cgw, roemer,
+                                        roemer_sample, ephem, cgw_sample,
+                                        toas_abs, pdist, waveform)
         self._full = _Shard(0, batch, self._chol, self._gwb_w, self._terms,
                             self._stat_weights, times, scales, times, scales,
-                            hyper)
+                            hyper, signals)
         self._shards = self._build_shards()
 
     @property
@@ -979,6 +1253,120 @@ class EnsembleSimulator:
             backend_id=torch.tensor(backend_id.astype(np.int64)).to(dev),
             white_nb=int(backend_id.max()) + 1)
 
+    def _resolve_signals(self, batch, host, include, cgw, roemer,
+                         roemer_sample, ephem, cgw_sample, toas_abs, pdist,
+                         waveform) -> _Signals:
+        """Validate the signal options with the JAX engine's rules and
+        messages and build the whole array's signal state."""
+        det = (_build_deterministic(batch, host, cgw, roemer, ephem,
+                                    toas_abs, pdist, waveform=waveform)
+               if "det" in include else None)
+        dtype, dev, shape = batch.dtype, self.device, batch.t_own.shape
+
+        def put(x):
+            return torch.tensor(np.asarray(x, dtype=np.float64)).to(
+                dtype).to(dev)
+
+        # a body whose scales are all zero has nothing to sample
+        active = [(cfg, [cfg.s_mass, cfg.s_Om, cfg.s_omega, cfg.s_inc,
+                         cfg.s_a, cfg.s_e, cfg.s_l0])
+                  for cfg in _as_config_list(roemer_sample)]
+        active = [(cfg, sc) for cfg, sc in active if any(x != 0.0
+                                                         for x in sc)]
+        roe = ()
+        if active:
+            toas64 = _validated_toas_abs(shape, toas_abs, "roemer_sample")
+            ephem = Ephemeris() if ephem is None else ephem
+            roe = tuple(
+                (roemer_model.nominal_state(ephem, cfg.planet, toas64,
+                                            dtype=dtype, device=dev),
+                 put(sc), tuple(x == 0.0 for x in sc))
+                for cfg, sc in active)
+
+        cgw_cfgs = _as_config_list(cgw_sample)
+        statics, ranges = [], []
+        for c in cgw_cfgs:
+            mode = "dist" if c.log10_dist is not None else "h"
+            amp = c.log10_dist if mode == "dist" else c.log10_h
+            if amp is None:
+                raise ValueError("CGWSampling needs a log10_h or log10_dist "
+                                 "amplitude range")
+            names = ("costheta", "phi", "cosinc", "log10_mc", "log10_fgw",
+                     "log10_dist" if mode == "dist" else "log10_h",
+                     "phase0", "psi")
+            dists = _resolve_dists(c.dist, names, "CGWSampling")
+            if c.sample_pdist and not c.psrterm:
+                raise ValueError("CGWSampling(sample_pdist=True) needs "
+                                 "psrterm=True (the distance nuisance only "
+                                 "enters through the pulsar term)")
+            if c.sample_pdist and (pdist is None
+                                   or not np.any(np.asarray(pdist)[..., -1])):
+                warnings.warn("CGWSampling(sample_pdist=True) with all-zero "
+                              "pdist sigmas draws a nuisance that cannot move "
+                              "anything; pass pdist=(mean, sigma) pairs",
+                              stacklevel=3)
+            statics.append((bool(c.psrterm), mode, dists,
+                            bool(c.sample_pdist)))
+            ranges.append([list(c.costheta), list(c.phi), list(c.cosinc),
+                           list(c.log10_mc), list(c.log10_fgw), list(amp),
+                           list(c.phase0), list(c.psi)])
+        cgw_state = ()
+        if cgw_cfgs:
+            toas64 = _validated_toas_abs(shape, toas_abs, "cgw_sample")
+            cgw_state = tuple((st, put(rg), put(toas64 - c.tref))
+                              for st, rg, c in zip(statics, ranges,
+                                                   cgw_cfgs))
+        # the psrterm configs' indices, and the distances and positions at
+        # host precision for their retarded-phase bulks
+        self._cgw_psrterm = tuple(j for j, st in enumerate(statics) if st[0])
+        self._pdist_host = np.asarray(
+            np.zeros((batch.npsr, 2)) if pdist is None else pdist,
+            dtype=np.float64).reshape(batch.npsr, 2)
+        self._pos64 = np.asarray(host["pos"], dtype=np.float64)
+        return _Signals(det=det, roemer=roe, cgw=cgw_state,
+                        pdist=put(self._pdist_host))
+
+    def _host_cgw_bulks(self, keys: torch.Tensor) -> tuple:
+        """Per-chunk host-f64 retarded-phase bulks of the psrterm CGW
+        configs: one (R, npsr) batch-dtype CPU tensor per config (an empty
+        tuple when there is none).
+
+        Replays the device draw chain (0xC6 tag, config index, global
+        pulsar folds) on the CPU with the same threefry, so the host sees
+        the sampled sky, frequency and distance nuisances the device will
+        draw, then evaluates each realization's pulsar-term phase
+        ``dph(-tau)`` at float64 and reduces it mod 2pi
+        (:func:`..models.cgw.psrterm_phase_bulk`).
+        """
+        if not self._cgw_psrterm:
+            return ()
+        keys = keys.cpu()
+        npsr = self.batch.npsr
+        gidx = torch.arange(npsr, dtype=torch.int64)
+        pos, pdist = self._pos64, self._pdist_host
+        out = []
+        for j in self._cgw_psrterm:
+            static, ranges, _ = self._full.signals.cgw[j]
+            v, pd = _cgw_draws(keys, ranges.cpu(), static, j, gidx)
+            v = v.double().numpy()
+            pd = (np.zeros((keys.shape[0], npsr)) if pd is None
+                  else pd.double().numpy())
+            # cos(mu) at f64 from the sampled sky (the geometry of
+            # models.cgw.antenna_pattern)
+            sin_t = np.sqrt(np.maximum(1.0 - v[:, 0] ** 2, 0.0))
+            cosmu = (sin_t[:, None] * np.cos(v[:, 1])[:, None]
+                     * pos[None, :, 0]
+                     + sin_t[:, None] * np.sin(v[:, 1])[:, None]
+                     * pos[None, :, 1]
+                     + v[:, 0][:, None] * pos[None, :, 2])
+            dist_sec = ((pdist[None, :, 0] + pdist[None, :, 1] * pd)
+                        * const.kpc / const.c)
+            tau = dist_sec * (1.0 - cosmu)
+            bulk = cgw_model.psrterm_phase_bulk(tau, v[:, 3][:, None],
+                                                v[:, 4][:, None])
+            out.append(torch.from_numpy(bulk).to(self.batch.dtype))
+        return tuple(out)
+
     def _build_shards(self):
         """(real, psr) grid of shard states; a (psr index, device) pair is
         built once however often the mesh repeats it."""
@@ -1017,7 +1405,8 @@ class EnsembleSimulator:
         return _Shard(lo, batch, chols, ws, terms, rows(full.weights, 1),
                       rows(full.times, 1), rows(full.scales, 1),
                       full.times.to(dev), full.scales.to(dev),
-                      full.hyper.rows(lo, p_local, dev))
+                      full.hyper.rows(lo, p_local, dev),
+                      full.signals.rows(lo, p_local, dev))
 
     def _build_mega_tables(self):
         """Stage descriptors + (2, P, T) time and (S, P, T) scale tables for
@@ -1079,24 +1468,61 @@ class EnsembleSimulator:
                              f"{precision!r}")
         return precision
 
-    def _residuals(self, keys, split_gp=False, shard: Optional[_Shard] = None):
+    def _residuals(self, keys, split_gp=False, shard: Optional[_Shard] = None,
+                   bulks: Optional[tuple] = None):
         """One shard's residual rows (default: the whole array on the
-        mesh's first device)."""
+        mesh's first device).
+
+        The terms add in the JAX engine's frozen order: the noise block,
+        the deterministic block, the sampled Roemer bodies, the sampled CGW
+        sources, each sampled term masked to the valid TOAs. Under
+        ``split_gp`` they go into the base, so the GP projection lands last
+        (in the megakernel). ``bulks``: the psrterm CGW configs' (R, npsr)
+        host bulks (:meth:`_host_cgw_bulks`; computed from ``keys`` when
+        not given).
+        """
         sh = self._full if shard is None else shard
-        return _simulate_block(keys, sh.batch, sh.chols, sh.gwb_ws,
-                               self._include, sh.terms, split_gp=split_gp,
-                               p_offset=sh.p_offset, hyper=sh.hyper)
+        out = _simulate_block(keys, sh.batch, sh.chols, sh.gwb_ws,
+                              self._include, sh.terms, split_gp=split_gp,
+                              p_offset=sh.p_offset, hyper=sh.hyper)
+        sig = sh.signals
+        if sig.det is None and not sig.roemer and not sig.cgw:
+            return out
+        res, coefs = out if split_gp else (out, None)
+        mask, pos = sh.batch.mask, sh.batch.pos
+        if sig.det is not None:
+            res = res + sig.det
+        for j, (state, scales, zero) in enumerate(sig.roemer):
+            term = _sampled_roemer(keys, state, scales, zero, pos, j)
+            res = res + torch.where(mask, term, 0.0)
+        if sig.cgw:
+            if bulks is None:
+                bulks = self._host_cgw_bulks(keys)
+            p, dev = sh.batch.npsr, keys.device
+            by_cfg = {j: b[:, sh.p_offset:sh.p_offset + p].to(dev)
+                      for j, b in zip(self._cgw_psrterm, bulks)}
+            gidx = torch.arange(sh.p_offset, sh.p_offset + p,
+                                dtype=torch.int64, device=dev)
+            for j, (static, ranges, t_rel) in enumerate(sig.cgw):
+                term = _sampled_cgw(keys, t_rel, pos, sig.pdist, ranges,
+                                    static, j, gidx, bulk=by_cfg.get(j))
+                res = res + torch.where(mask, term, 0.0)
+        return (res, coefs) if split_gp else res
 
     def _fused_kernel(self):
         return (binned_corr_ops.binned_correlation if self.pallas_mxu_binning
                 else binned_corr_ops.binned_correlation_vpu)
 
     def step(self, base_key: torch.Tensor, offset, nreal: int,
-             path: str, precision: str, with_corr: bool = False):
+             path: str, precision: str, with_corr: bool = False,
+             bulks: Optional[tuple] = None):
         """One chunk: (packed (nreal, nbins+1) statistics, corr or None),
         on the mesh's first device. ``nreal`` splits into one contiguous
         block of realizations per real shard. ``base_key``/``offset`` are a
-        key and an int, or lane vectors (:func:`_chunk_keys`)."""
+        key and an int, or lane vectors (:func:`_chunk_keys`). ``bulks``:
+        the chunk's psrterm CGW bulks, precomputed on the host
+        (:meth:`_host_cgw_bulks`; each shard computes its own when not
+        given)."""
         n_real = len(self._shards)
         if nreal % n_real != 0:
             raise ValueError(f"nreal per chunk ({nreal}) must be divisible "
@@ -1107,22 +1533,25 @@ class EnsembleSimulator:
         packed, corrs = [], []
         for r, shards in enumerate(self._shards):
             k = keys[r * r_local:(r + 1) * r_local]
+            b = None if bulks is None else tuple(
+                x[r * r_local:(r + 1) * r_local] for x in bulks)
             if len(shards) == 1:
                 p, c = self._step_shared(shards[0], k.to(shards[0].device),
-                                         path, precision, with_corr)
+                                         path, precision, with_corr, b)
             else:
                 p, c = self._step_sharded(shards, k, path, precision,
-                                          with_corr)
+                                          with_corr, b)
             packed.append(p.to(self.device))
             if with_corr:
                 corrs.append(c.to(self.device))
         return _cat(packed), (_cat(corrs) if with_corr else None)
 
     def _step_shared(self, sh: _Shard, keys, path: str, precision: str,
-                     with_corr: bool):
+                     with_corr: bool, bulks: Optional[tuple] = None):
         """One shard holding every pulsar: one operand set."""
         with span("residuals"):
-            res = self._residuals(keys, split_gp=path == "mega", shard=sh)
+            res = self._residuals(keys, split_gp=path == "mega", shard=sh,
+                                  bulks=bulks)
         with span("statistic"):
             if path == "einsum":
                 corr = _correlation_rows(res, stats_bf16=precision == "bf16")
@@ -1150,7 +1579,7 @@ class EnsembleSimulator:
             return pack_stats(curves, autos), None
 
     def _step_sharded(self, shards, keys, path: str, precision: str,
-                      with_corr: bool):
+                      with_corr: bool, bulks: Optional[tuple] = None):
         """Pulsar-sharded chunk block: each shard's rows against the
         all-gathered array with its rows of the weights, then the psum of
         the partial statistics in shard order."""
@@ -1159,7 +1588,8 @@ class EnsembleSimulator:
         split = path == "mega"
         with span("residuals"):
             local = [self._residuals(keys.to(sh.device), split_gp=split,
-                                     shard=sh) for sh in shards]
+                                     shard=sh, bulks=bulks)
+                     for sh in shards]
         with span("statistic"):
             return self._sharded_statistic(shards, local, path, precision,
                                            with_corr, dev0, bf16)
@@ -1332,6 +1762,11 @@ class EnsembleSimulator:
                     "run(lanes=...) cannot checkpoint: the resume identity "
                     "is keyed on one (seed, nreal, chunk) triple, not a "
                     "cohort of lanes")
+            if self._cgw_psrterm:
+                raise ValueError(
+                    "run(lanes=...) is incompatible with psrterm CGW "
+                    "sampling (its host-f64 bulk staging replays the scalar "
+                    "base-key chain; lane keys have no single base key)")
             seeds, within = _lane_arrays(lanes, nreal)
             # padding slots for the last chunk's overshoot; one upload
             # before the loop (an upload inside it would sync per chunk)
@@ -1480,6 +1915,22 @@ class EnsembleSimulator:
                 if job["drained"] is not None:
                     job["drained"].set()
 
+        # psrterm CGW sampling: each chunk's host-f64 retarded-phase bulks.
+        # Chunk 0's are the one precompute the first dispatch waits on;
+        # every later chunk's are computed right after the previous
+        # dispatch, while the device works
+        base_cpu = base.cpu() if self._cgw_psrterm else None
+
+        def stage_bulks(offset: int, name: str, idx: int):
+            if not self._cgw_psrterm:
+                return ()
+            t0 = now()
+            got = self._host_cgw_bulks(_chunk_keys(base_cpu, offset, chunk))
+            timeline.append({"name": name, "tid": "main", "t0": t0 - t_run0,
+                             "dur": now() - t0, "chunk": idx})
+            return got
+
+        bulks = stage_bulks(done, "stage_inputs", 0)
         writer = pipeline.make_writer(pipelined)
         try:
             with obs_metrics.collect(collector):
@@ -1517,7 +1968,8 @@ class EnsembleSimulator:
                             prec, with_corr=keep_corr)
                     else:
                         packed, corr = self.step(base, done, chunk, path,
-                                                 prec, with_corr=keep_corr)
+                                                 prec, with_corr=keep_corr,
+                                                 bulks=bulks)
                     if on_card:
                         events[1].record(compute)
                         exec_events[idx] = events
@@ -1540,6 +1992,9 @@ class EnsembleSimulator:
                         collector.count("pipeline.d2h_async")
                         drained = threading.Event()
                     done += chunk
+                    if done < nreal and self._cgw_psrterm:
+                        bulks = stage_bulks(done, "precompute", idx + 1)
+                        collector.count("pipeline.h2d_prefetch")
                     packed_out.append(None)
                     if keep_corr:
                         corr_out.append(None)

@@ -5,21 +5,19 @@ dataset: population size and geometry seed, timespan, a telescope-cadence
 arrival process (:mod:`.cadence`), the per-family noise menu (red, DM and
 chromatic GPs, per-backend ECORR and system-noise bands), the GWB
 (including the HEALPix anisotropic ORF) and per-realization population
-draws (noise and white hyperpriors; CGW source populations and BayesEphem
-nuisances are not ported yet). The field list, the named entries and
-therefore :meth:`Scenario.spec_hash` are the JAX package's, so a scenario
-has one identity in both packages.
+draws (noise and white hyperpriors, a CGW source population, BayesEphem
+nuisances). The field list, the named entries and therefore
+:meth:`Scenario.spec_hash` are the JAX package's, so a scenario has one
+identity in both packages.
 
 Materialization goes through the ordinary
 :class:`~fakepta_tpu_torch.parallel.montecarlo.EnsembleSimulator`
 constructor: :meth:`Scenario.build` takes ``mesh=`` or ``device=`` like the
 engine (``device`` defaults to ``"cuda"``) and forwards engine options
 such as ``stat_path``. ``SCENARIOS`` holds ``flagship_100``, ``ng15``,
-``ipta_dr3`` and ``ska_10k``; :func:`register` adds more. ``ipta_dr3``
-builds its batch, but its engine needs ``CGWSampling`` and
-``RoemerSampling``, so ``build()`` raises ``NotImplementedError``. Not
-ported yet: the golden-run harness, the scenarios CLI, ``serve_spec`` and
-the ``ska_10k`` memory lane.
+``ipta_dr3`` and ``ska_10k``; :func:`register` adds more. Not ported yet:
+the golden-run harness, the scenarios CLI, ``serve_spec`` and the
+``ska_10k`` memory lane.
 """
 
 from __future__ import annotations
@@ -246,12 +244,6 @@ class Scenario:
 
         if mesh is not None and device is not None:
             raise ValueError("pass mesh= or device=, not both")
-        if self.cgw_population or self.ephem_draws:
-            raise NotImplementedError(
-                f"scenario {self.name!r} needs CGWSampling and "
-                f"RoemerSampling (the CGW source population and BayesEphem "
-                f"draws), which the port does not carry yet (ROADMAP Queue "
-                f"1 item 4); its batch_parts() work")
         where = mesh.devices.flat[0] if mesh is not None else device
         parts = self.batch_parts(dtype=dtype, device=where)
         kw = self.sim_kwargs(*parts)

@@ -659,3 +659,83 @@ def test_bf16_bases_cost_no_memory_on_the_card(cuda):
     scale = np.abs(a["curves"]).max()
     np.testing.assert_allclose(b["curves"], a["curves"], rtol=0,
                                atol=2e-2 * scale)
+
+
+# -- CGW and BayesEphem signals on the card (ipta_dr3) --------------------
+
+def _ipta(device, **engine_kw):
+    """The registry's ipta_dr3 reduced to 16 pulsars x 128 TOAs (its CGW
+    source population and BayesEphem mass draws kept)."""
+    from fakepta_tpu_torch.scenarios import registry
+    return registry.get("ipta_dr3").reduced(max_psr=16, max_toa=128).build(
+        device=device, **engine_kw)
+
+
+def _sampled_bounds(got, want):
+    """The sampled-signal bound: rtol 1e-5 and 1e-4 of the curve scale."""
+    scale = np.abs(want["curves"]).max()
+    np.testing.assert_allclose(got["curves"], want["curves"], rtol=1e-5,
+                               atol=1e-4 * scale)
+    np.testing.assert_allclose(got["autos"], want["autos"], rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def ipta_cpu():
+    return _ipta("cpu", stat_path="einsum").run(64, seed=3, chunk=32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["einsum", "fused", "mega"])
+def test_ipta_dr3_reduced_on_the_card(cuda, ipta_cpu, path):
+    """ipta_dr3 (reduced) through every path on the card against the port
+    on the CPU; reruns bit-identical."""
+    sim = _ipta(cuda, stat_path=path)
+    got = sim.run(64, seed=3, chunk=32, precision="f32")
+    _sampled_bounds(got, ipta_cpu)
+    _same(got, sim.run(64, seed=3, chunk=32, precision="f32"))
+
+
+def _signal_sims(device):
+    """A small array with a sampled Jupiter (mass and orbit), a sampled
+    source without and one with the pulsar term (sampled distances)."""
+    from fakepta_tpu_torch.parallel.montecarlo import (CGWSampling,
+                                                       RoemerSampling)
+    batch = PulsarBatch.synthetic(npsr=8, ntoa=96, tspan_years=12.0,
+                                  n_red=4, n_dm=4, seed=2, device="cpu")
+    toas = 4.6e9 + np.tile(np.linspace(0.0, 12 * 3.15e7, 96), (8, 1))
+    pdist = np.column_stack([np.linspace(0.5, 2.0, 8), np.full(8, 0.2)])
+    return EnsembleSimulator(
+        batch, device=device, include=("white",), toas_abs=toas,
+        pdist=pdist, roemer_sample=RoemerSampling(
+            "jupiter", s_mass=1.5e23, s_Om=2e-4, s_e=3e-7),
+        cgw_sample=[CGWSampling(), CGWSampling(psrterm=True,
+                                               sample_pdist=True)])
+
+
+@pytest.mark.cuda
+def test_sampled_terms_on_the_card_match_the_cpu(cuda):
+    """Each sampled term (R, P, T) on the card within 2e-4 of its scale of
+    the CPU port's, the float32 waveform bound; a rerun bit-identical."""
+    from fakepta_tpu_torch.parallel import montecarlo as tmc
+    from fakepta_tpu_torch.utils import rng
+    sims = {d: _signal_sims(d) for d in ("cpu", cuda)}
+    keys = {d: tmc._chunk_keys(rng.key(9, device=d), 0, 64) for d in sims}
+    bulks = sims["cpu"]._host_cgw_bulks(keys["cpu"])
+    terms = {}
+    for d, sim in sims.items():
+        sig, pos = sim._full.signals, sim.batch.pos
+        gidx = torch.arange(8, device=d)
+        state, scales, zero = sig.roemer[0]
+        out = [tmc._sampled_roemer(keys[d], state, scales, zero, pos, 0)]
+        for j, (static, ranges, t_rel) in enumerate(sig.cgw):
+            bulk = bulks[0].to(d) if static[0] else None
+            out.append(tmc._sampled_cgw(keys[d], t_rel, pos, sig.pdist,
+                                        ranges, static, j, gidx, bulk=bulk))
+        terms[d] = [t.cpu().numpy() for t in out]
+    for got, want in zip(terms[cuda], terms["cpu"]):
+        assert got.shape == (64, 8, 96)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=2e-4 * np.abs(want).max())
+    a = sims[cuda].run(128, seed=5, chunk=64)
+    _same(a, sims[cuda].run(128, seed=5, chunk=64))
+    _sampled_bounds(a, sims["cpu"].run(128, seed=5, chunk=64))

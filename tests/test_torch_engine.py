@@ -178,7 +178,8 @@ def test_constructor_validates():
     with pytest.raises(ValueError, match="h_map"):
         EnsembleSimulator(tb, gwb=GWBConfig(psd=np.ones(4),
                                             orf="anisotropic"), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # a deterministic signal needs the absolute epochs, as in the JAX engine
+    with pytest.raises(ValueError, match="toas_abs"):
         EnsembleSimulator(tb, cgw=object(), device="cpu")
     sim = _port_sim(tb)
     assert sim.stat_path == "fused"

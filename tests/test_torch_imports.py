@@ -7,6 +7,7 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import pytest
 import torch
 
@@ -51,6 +52,21 @@ def test_run_loop_modules_are_checked(module):
     below import and read."""
     assert module in _port_modules()
     path = ROOT / (module.replace(".", "/") + ".py")
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.ops.kepler", "fakepta_tpu_torch.ephemeris",
+    "fakepta_tpu_torch.models", "fakepta_tpu_torch.models.roemer",
+    "fakepta_tpu_torch.models.cgw"])
+def test_signal_modules_are_checked(module):
+    """The CGW and BayesEphem modules (the ephemeris a copy of a numpy-only
+    module of the JAX package) are among the modules the checks below
+    import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
     assert not IMPORT_RE.findall(path.read_text())
 
 
@@ -120,6 +136,17 @@ def test_entry_points_raise_without_a_gpu():
     assert (again["curves"] == out["curves"]).all()
     lanes = sim.run(2, chunk=2, lanes=[(0, 2)])
     assert (lanes["curves"] == out["curves"]).all()
+    # the signal entry points: the orbit state and a scenario with CGW and
+    # BayesEphem draws default to the card as well
+    from fakepta_tpu_torch.ephemeris import Ephemeris
+    from fakepta_tpu_torch.models.roemer import nominal_state
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nominal_state(Ephemeris(), "jupiter", np.full((2, 4), 4.6e9))
+    ipta = registry.get("ipta_dr3").reduced(max_psr=8, max_toa=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ipta.build()
+    assert ipta.build(device="cpu").run(2, seed=0, chunk=2)[
+        "curves"].shape == (2, 15)
 
 
 def test_package_data_ships_the_cuda_sources():

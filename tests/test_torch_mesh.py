@@ -150,7 +150,7 @@ def test_engine_checks_the_mesh():
         _port_sim(tb, mesh=make_mesh(["cpu"] * 3, psr_shards=3))
     with pytest.raises(ValueError, match="divisible by the toa mesh axis"):
         _port_sim(tb, mesh=make_mesh(["cpu"] * 3, toa_shards=3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         _port_sim(tb, mesh=make_mesh(["cpu"] * 2, toa_shards=2))
     with pytest.raises(ValueError, match="mesh= or device="):
         EnsembleSimulator(tb, mesh=make_mesh(["cpu"]), device="cpu")

@@ -382,9 +382,40 @@ def test_toaerr2_warning_only_when_efac_or_equad_is_drawn(small):
             backend_id=BACKEND_ID)
 
 
+def _signal_arguments(module, name, shape):
+    """An invalid use of one signal argument (``name``) of the engine in
+    ``module`` (either package's montecarlo), with the error it raises."""
+    toas = np.full(shape, 4.6e9)
+    if name == "cgw":
+        return dict(cgw=module.CGWConfig(0.1, 1.0, 0.2, 9.0, -8.0,
+                                         log10_h=-14.0)), ValueError, "toas_abs"
+    if name == "roemer":
+        return dict(roemer=module.RoemerConfig("jupiter", d_mass=1e23)), \
+            ValueError, "toas_abs"
+    if name == "roemer_sample":
+        return dict(roemer_sample=module.RoemerSampling(
+            "jupiter", s_mass=1e23)), ValueError, "toas_abs"
+    if name == "ephem":
+        return dict(ephem=object(), toas_abs=toas,
+                    roemer=module.RoemerConfig("jupiter", d_mass=1e23)), \
+            AttributeError, "planets"
+    if name == "cgw_sample":
+        return dict(cgw_sample=module.CGWSampling(log10_h=None),
+                    toas_abs=toas), ValueError, "amplitude range"
+    return dict(toas_abs=toas[:, :3], cgw_sample=module.CGWSampling()), \
+        ValueError, "toas_abs shape"
+
+
 @pytest.mark.parametrize("name", ["cgw", "roemer", "roemer_sample", "ephem",
                                   "cgw_sample", "toas_abs"])
 def test_unported_signal_arguments_raise(name):
+    """The signal arguments (ported since the CGW / BayesEphem slice) raise
+    where the JAX engine raises, with its error types and messages."""
     batch = PulsarBatch.synthetic(**KW, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tmc.EnsembleSimulator(batch, device="cpu", **{name: object()})
+    kw, err, match = _signal_arguments(tmc, name, tuple(batch.t_own.shape))
+    with pytest.raises(err, match=match):
+        tmc.EnsembleSimulator(batch, device="cpu", **kw)
+    kw, err, match = _signal_arguments(jmc, name, tuple(batch.t_own.shape))
+    with pytest.raises(err, match=match):
+        jmc.EnsembleSimulator(JaxBatch.synthetic(**KW),
+                              mesh=jax_make_mesh(jax.devices()[:1]), **kw)

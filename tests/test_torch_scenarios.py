@@ -229,13 +229,46 @@ def test_sim_kwargs_equal_jax(name):
             assert dataclasses.asdict(a) == dataclasses.asdict(b), key
 
 
-def test_ipta_dr3_build_raises_not_implemented():
-    scn = treg.get("ipta_dr3").reduced()
-    with pytest.raises(NotImplementedError, match="CGWSampling"):
-        scn.build(device="cpu")
-    # its batch is ported
-    batch = scn.batch_parts(device="cpu")[0]
-    assert batch.npsr == 16
+IPTA_SMALL = dict(max_psr=16, max_toa=128)
+
+
+def test_ipta_dr3_reduced_builds_on_the_cpu():
+    """ipta_dr3's engine carries its CGW source population and BayesEphem
+    draws: one sampled source without the pulsar term, one sampled body."""
+    scn = treg.get("ipta_dr3").reduced(**IPTA_SMALL)
+    sim = scn.build(device="cpu", stat_path="einsum")
+    assert sim.batch.npsr == 16
+    sig = sim._full.signals
+    assert sig.det is None and len(sig.roemer) == 1 and len(sig.cgw) == 1
+    assert sim._cgw_psrterm == ()
+    # the nominal orbit rides the padded (P, T) slots, the source epochs too
+    assert sig.roemer[0][0].sinE.shape == tuple(sim.batch.t_own.shape)
+    assert sig.cgw[0][2].shape == tuple(sim.batch.t_own.shape)
+
+
+@pytest.fixture(scope="module")
+def ipta_jax():
+    from fakepta_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    import jax
+
+    scn = jreg.get("ipta_dr3").reduced(**IPTA_SMALL)
+    return scn.build(mesh=jax_make_mesh(jax.devices()[:1])).run(
+        8, seed=3, chunk=8)
+
+
+@pytest.mark.parametrize("path", ["einsum", "fused", "mega"])
+def test_ipta_dr3_reduced_matches_jax(ipta_jax, path):
+    """ipta_dr3 at 16 pulsars, built by each registry and run by each
+    engine: within rtol 1e-5 and 1e-4 of the curve scale, the bound of the
+    JAX package's sampled-signal tests."""
+    sim = treg.get("ipta_dr3").reduced(**IPTA_SMALL).build(
+        device="cpu", stat_path=path)
+    got = sim.run(8, seed=3, chunk=8, precision="f32")
+    assert got["curves"].shape == (8, 15)
+    scale = np.abs(ipta_jax["curves"]).max()
+    np.testing.assert_allclose(got["curves"], ipta_jax["curves"], rtol=1e-5,
+                               atol=1e-4 * scale)
+    np.testing.assert_allclose(got["autos"], ipta_jax["autos"], rtol=1e-5)
 
 
 def test_build_takes_mesh_or_device():
