@@ -43,7 +43,12 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    PL = 50) a depth-2 run must equal a depth-0 run bit for bit, and a
    1-shard run's checkpoint, cut after its first chunk, must resume there
    with the stored chunk unchanged and within the mesh bounds of the
-   unbroken 1-shard run.
+   unbroken 1-shard run. Then TOA sharding, on the einsum path (the only
+   one that takes it): the flagship at ``toa_shards`` 2 and 4 and on a
+   psr 2 x toa 2 mesh, ``ipta_dr3`` at ``toa_shards=2`` and the flagship's
+   OS lane with its null stream at ``toa_shards=2``, each at both
+   precisions within rtol 5e-5 of the 1-shard einsum run (the JAX
+   package's bound), rerun bit-identically, launching no kernel.
 5. ``scenarios``: the scenario registry's arrays. ``ng15``, uncut (68
    pulsars padded to 512 TOAs, four backend bands, white hyperprior
    draws), built by ``registry.get("ng15").build(device="cuda")``: each
@@ -80,7 +85,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    distances (the host's per-chunk bulk staging timed) on ``"fused"``.
 7. ``run``: the run loop at the flagship's full width, on ``"fused"``,
    ``"fused"`` with ``pallas_mxu_binning=False`` and ``"mega"`` at both
-   precisions: ``run(8192, chunk=1024, pipeline_depth=d)`` for d = 0..3,
+   precisions: ``run(4096, chunk=1024, pipeline_depth=d)`` for d = 0..3,
    bit-identical, each with its realizations/s and its allocator peak
    (which must stay under one bare step's peak plus the packed buffers the
    loop may hold, plus 2 MiB of allocator rounding per live large block);
@@ -93,7 +98,27 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    of its solo run. Then one pipelined cut-and-resume round of ``ng15`` on
    ``"mega"``. Every run's launches are counted (zeroed just before, read
    just after).
-8. ``profile`` (only when asked for): per statistic path, the device time
+8. ``detect``: the detection lane. Every kernel held against its plain
+   version and timed at the OS lane's shapes: the main launch (16 + 3 OS
+   weight slots, NB = 19; K = 320 for ``chunk_stats``), the null stream's
+   (NB = 4, the GWB-free stage set K = 260), on the shared set and a
+   2-shard mesh's rows, ``os="hd"``'s (NB = 17) and ``ipta_dr3``'s. Then
+   the flagship's ``run(4096, chunk=1024, os=OSSpec(orf=("hd",
+   "monopole", "dipole"), null=True))`` on ``"einsum"`` f32 (the
+   yardstick), ``"fused"``, ``"fused"`` with ``pallas_mxu_binning=False``
+   and ``"mega"`` at both precisions: amp2 and null amp2 within 1e-4 (f32)
+   / 1e-2 (bf16) of max|amp2| of the einsum run, the curves within the
+   engine's bounds, reruns bit-identical, each kernel launched twice per
+   chunk (the main launch and the null stream's); one traced step per path
+   split into keys, draws, statistic and the null stream; ``os="hd"``
+   without the null stream through every path; every path on a 2-shard
+   psr mesh; ``DetectionRun`` on the flagship batch (its launches counted,
+   its artifact loaded back) and ``python -m fakepta_tpu_torch.detect run
+   --npsr 100 --ntoa 780 --nreal 4096 --chunk 1024 --out build/detect.jsonl``
+   in a subprocess (exit 0, the artifact loads); ``ipta_dr3`` uncut on
+   ``"fused"`` with an HD and its own anisotropic template and the null
+   stream (``peak_hbm_bytes``).
+9. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -129,6 +154,13 @@ PEAK_TF32_FLOPS = 495e12
 NREAL = 4096
 CHUNK = 1024
 TOL = {"f32": 1e-5, "bf16": 1e-2}
+# the detection lane: amp2 and null amp2 within this share of max|amp2| of
+# the einsum run (the JAX package's bound, tests/test_detect.py), three ORF
+# templates with the paired null stream
+OS_TOL = {"f32": 1e-4, "bf16": 1e-2}
+DETECT_ORFS = ("hd", "monopole", "dipole")
+# the toa rows: the JAX package's toa-sharding bound
+TOA_RTOL = 5e-5
 # the mesh phase: psr shard counts on one card, a shorter run, and the JAX
 # package's own mesh-invariance bounds
 MESH_SHARDS = (2, 4)
@@ -138,7 +170,7 @@ MESH_TOL = {"f32": 1e-5, "bf16": 5e-3}
 SHARD_PL = (25, 50)
 # the run phase: realizations per run, pipeline depths, a 1024-slot lane
 # cohort
-RUN_NREAL = 8192
+RUN_NREAL = 4096
 RUN_DEPTHS = (0, 1, 2, 3)
 RUN_LANES = ((11, 300), (22, 500), (33, 224))
 # the most a live large-pool block of the caching allocator can exceed its
@@ -201,10 +233,16 @@ def stat_flops(R: int, PL: int, PF: int, T: int, NB: int, shared: bool):
     return 2.0 * R * pairs * T, 2.0 * R * NB * pairs
 
 
-def compare(got, want, prec: str, what: str, tol=None) -> dict:
+def compare(got, want, prec: str, what: str, tol=None, rtol=None,
+            ntoa: int = 128) -> dict:
     """Max abs/rel error of (curves, autos) against a reference; raises
     past the tolerance (``tol``, default TOL[prec], times max |reference
-    curve| for the curves, relative for the autos)."""
+    curve| for the curves, relative for the autos). ``rtol`` instead holds
+    each curve value within ``rtol`` of its reference plus 1e-7 of the
+    scale per 128 of the ``ntoa`` TOA slots summed, and the autos within
+    ``rtol``: the JAX package's toa-sharding bound (rtol 5e-5, 1e-7 of the
+    scale at its test's 128 TOAs), its absolute term grown with the sum
+    whose float32 rounding it bounds."""
     import torch
     gc, ga = (torch.as_tensor(x).double().cpu() for x in got)
     wc, wa = (torch.as_tensor(x).double().cpu() for x in want)
@@ -216,16 +254,49 @@ def compare(got, want, prec: str, what: str, tol=None) -> dict:
     scale = float(wc.abs().max())
     err_c = float((gc - wc).abs().max())
     err_a = float((ga - wa).abs().max())
-    rel_a = float(((ga - wa).abs() / wa.abs()).max())
+    # an auto slot of zero weights (the null stream's) must come out zero
+    rel_a = float(((ga - wa).abs() / wa.abs().clamp_min(1e-300)).max())
     tol = TOL[prec] if tol is None else tol
+    atol = 1e-7 * max(ntoa / 128, 1.0)
     row = {"what": what, "precision": prec, "max_abs_err": max(err_c, err_a),
            "curves_err_over_scale": err_c / scale, "autos_rel_err": rel_a,
-           "tolerance": tol}
+           "tolerance": tol if rtol is None
+           else f"rtol {rtol} + {atol:.3g} of scale"}
     print(f"  {what} [{prec}]: curves max|d|/scale {err_c / scale:.3e}, "
-          f"autos max rel {rel_a:.3e} (tolerance {tol:g})", flush=True)
-    if err_c > tol * scale or rel_a > tol:
+          f"autos max rel {rel_a:.3e} (tolerance {row['tolerance']})",
+          flush=True)
+    if rtol is None:
+        bad = err_c > tol * scale or rel_a > tol
+    else:
+        bad = bool(((gc - wc).abs() > rtol * wc.abs() + atol * scale).any()
+                   or rel_a > rtol)
+    if bad:
         raise AssertionError(f"{what} [{prec}] outside tolerance: {row}")
     return row
+
+
+def os_compare(got: dict, want: dict, prec: str, what: str) -> dict:
+    """Each ORF's amp2 (and null amp2 where the run has the null stream)
+    against the reference run's within OS_TOL[prec] of its max|amp2| (the
+    JAX package's bound for the fused OS lanes); raises past it."""
+    errs = {}
+    for orf in got["os"]["orfs"]:
+        g, w = got["os"]["stats"][orf], want["os"]["stats"][orf]
+        scale = float(np.abs(w["amp2"]).max())
+        for k in ("amp2", "null_amp2"):
+            if k not in g:
+                continue
+            if not np.isfinite(g[k]).all() or g[k].shape != w[k].shape:
+                raise AssertionError(f"{what} {orf}/{k}: shape "
+                                     f"{g[k].shape} or non-finite values")
+            errs[f"{orf}/{k}"] = float(np.abs(g[k] - w[k]).max()) / scale
+    worst = max(errs.values())
+    print(f"  {what} [{prec}]: OS lanes max|d|/max|amp2| {worst:.3e} "
+          f"(tolerance {OS_TOL[prec]:g})", flush=True)
+    if worst > OS_TOL[prec]:
+        raise AssertionError(f"{what} [{prec}] OS lanes outside tolerance: "
+                             f"{errs}")
+    return {"os_err_over_scale": errs, "os_tolerance": OS_TOL[prec]}
 
 
 def flagship_sim(stat_path: str, mesh=None, batch=None, **kw):
@@ -262,8 +333,29 @@ def counts() -> dict:
             "chunk_stats_sharded": mk.sharded_launches}
 
 
-def shape_tag(pl: int, pf: int, t: int) -> str:
-    return f"PL={pl} PF={pf} T={t}"
+def shape_tag(pl: int, pf: int, t: int, nb=None, k=None) -> str:
+    """A kernel launch's shape: rows, columns and TOAs, and where it is not
+    the plain run's (16 weight slots, the array's own K), its weight slots
+    ``nb`` and, for chunk_stats, its GP columns ``k``."""
+    tag = f"PL={pl} PF={pf} T={t}"
+    if nb is not None:
+        tag += f" NB={nb}"
+    if k is not None:
+        tag += f" K={k}"
+    return tag
+
+
+def lane_shapes(sim, path: str, shards: int, n_os: int) -> tuple:
+    """(the main launch's shape, the null stream's) of a run with ``n_os``
+    OS lanes on ``sim`` over ``shards`` psr shards: NB = nbins + n_os + 1
+    and n_os + 1; on the mega path K of the full and the GWB-free stage
+    sets."""
+    from fakepta_tpu_torch.ops import megakernel as mk
+    npsr, t = sim.batch.npsr, sim.batch.max_toa
+    k = (mk.stage_k(sim._mega_tables[0]), mk.stage_k(sim._mega_stages_null)
+         ) if path == "mega" else (None, None)
+    return (shape_tag(npsr // shards, npsr, t, sim.nbins + n_os + 1, k[0]),
+            shape_tag(npsr // shards, npsr, t, n_os + 1, k[1]))
 
 
 def add_launches(report: dict, shape: str, moved: dict) -> None:
@@ -460,29 +552,48 @@ def phase_kernels(report: dict) -> None:
     measure_kernels(report, flagship_sim("fused"), SHARD_PL, "kernels")
 
 
-def measure_kernels(report: dict, sim, shard_pls, what: str) -> None:
+def measure_kernels(report: dict, sim, shard_pls, what: str, spec=None,
+                    null: bool = False) -> None:
     """Hold each kernel against its plain version and time it, on one
     chunk of ``sim``'s own residuals: the shared operand set, and a psr
     shard's first PL rows for each PL in ``shard_pls``. Rows go to
-    ``report["kernels"]``; the launches made here are not counted."""
+    ``report["kernels"]``; the launches made here are not counted. With
+    ``spec`` (an OSSpec) the weights are its OS lane's: the main launch's
+    (bins, OS slots, auto), or with ``null`` the null stream's (OS slots
+    and a zero auto) on the 0xD7 stream's own residuals and, for
+    chunk_stats, its GWB-free stage set; the shape tags then carry NB and
+    K."""
     import torch
     from fakepta_tpu_torch.ops import binned_corr as bc
     from fakepta_tpu_torch.ops import megakernel as mk
-    from fakepta_tpu_torch.parallel.montecarlo import _chunk_keys
+    from fakepta_tpu_torch.parallel.montecarlo import _NULL_TAG, _chunk_keys
     from fakepta_tpu_torch.utils import rng
 
     keys = _chunk_keys(rng.key(7, device="cuda"), 0, CHUNK)
+    if null:
+        keys = rng.fold_in(keys, _NULL_TAG)
     with torch.no_grad():
-        res = sim._residuals(keys)
-        base, coefs = sim._residuals(keys, split_gp=True)
+        res = sim._residuals(keys, null=null)
+        base, coefs = sim._residuals(keys, split_gp=True, null=null)
     torch.cuda.synchronize()
     w = sim._stat_weights
     stages, times, scales = sim._mega_tables
-    nbins = sim.nbins
+    if spec is not None:
+        main, w_null = sim._prepare_lanes(spec).weights[id(sim._full)]
+        w = w_null if null else main
+        stages = sim._mega_stages_null if null else stages
+    nbins = w.shape[0] - 1
     R, P, T = res.shape
     NB = w.shape[0]
     K = mk.stage_k(stages)
     S = scales.shape[0]
+
+    def tag(pl, mega=False):
+        """This measurement's shape tag at pl rows."""
+        if spec is None:
+            return shape_tag(pl, P, T)
+        return shape_tag(pl, P, T, NB, K if mega else None)
+
     valid = float(sim.batch.mask.float().mean())
     print(f"{what}: R={R} P={P} T={T} K={K} NB={NB}, {valid:.4f} of the "
           f"TOA slots valid", flush=True)
@@ -506,7 +617,7 @@ def measure_kernels(report: dict, sim, shard_pls, what: str) -> None:
             nbytes = 4.0 * (R * (pl if shared else pl + P) * T
                             + NB * pl * P + R * NB)
             kernel_rows(
-                rows, name, shape_tag(pl, P, T),
+                rows, name, tag(pl),
                 lambda p, fn=fn, a=res_l, ww=w_l: fn(a, res, ww, nbins,
                                                      precision=p),
                 lambda p, a=res_l, ww=w_l: bc.binned_correlation_plain(
@@ -517,10 +628,9 @@ def measure_kernels(report: dict, sim, shard_pls, what: str) -> None:
                 lambda p, c=corr, b=binf: corr_flops_split(p, c, b),
                 iters=20)
             if name == "binned_correlation":
-                mma_details(rows, res_l, res, w_l, nbins,
-                            shape_tag(pl, P, T))
+                mma_details(rows, res_l, res, w_l, nbins, tag(pl))
             else:
-                vpu_details(rows, pl, P, NB, shape_tag(pl, P, T))
+                vpu_details(rows, pl, P, NB, tag(pl))
 
     # -- chunk_stats: shared set (#3), local+full set (#4) ----------------
     # two passes: the projection (3xTF32 tensor-core products, two passes
@@ -547,7 +657,7 @@ def measure_kernels(report: dict, sim, shard_pls, what: str) -> None:
         corr, binf = stat_flops(R, pl, P, T, NB, shared=shared)
         proj = 2.0 * R * rows_read * K * T
         kernel_rows(
-            rows, name, shape_tag(pl, P, T),
+            rows, name, tag(pl, mega=True),
             lambda p, kw=kw, ww=w_l: mk.chunk_stats(
                 *operands[p], times, scales, ww, stages=stages, nbins=nbins,
                 precision=p, **kw[p]),
@@ -560,7 +670,7 @@ def measure_kernels(report: dict, sim, shard_pls, what: str) -> None:
                 + 4.0 * ((2 + S) * n * T + NB * pl * P + R * NB)),
             lambda p, c=corr, b=binf, j=proj: mega_route_flops(p, c, b, j),
             iters=10, precs=("f32", "bf16"))
-        mega_details(rows, name, shape_tag(pl, P, T), operands, times,
+        mega_details(rows, name, tag(pl, mega=True), operands, times,
                      scales, w_l, kw, stages, nbins, rows_read)
     report.setdefault("kernels", {}).update(
         {"/".join(k): dict(v, valid_toa_share=valid)
@@ -576,22 +686,24 @@ PATH_KERNEL = {"fused": "binned_correlation",
 SHARDED_KERNEL = dict(PATH_KERNEL, mega="chunk_stats_sharded")
 
 
-def timed_run(sim, nreal: int, precision: str, seed: int = 1):
+def timed_run(sim, nreal: int, precision: str, seed: int = 1, **run_kw):
     """(output, wall seconds) of one ``run(nreal, chunk=CHUNK)``, between
     two synchronizations."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = sim.run(nreal, seed=seed, chunk=CHUNK, precision=precision)
+    out = sim.run(nreal, seed=seed, chunk=CHUNK, precision=precision,
+                  **run_kw)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
-def yardstick(label: str, sim, nreal: int = NREAL, seed: int = 1) -> tuple:
+def yardstick(label: str, sim, nreal: int = NREAL, seed: int = 1,
+              **run_kw) -> tuple:
     """The einsum path's f32 run after a one-chunk warm-up: the reference
     every kernel path is held to, and its realizations/s."""
-    sim.run(CHUNK, seed=99, chunk=CHUNK)
-    out, dt = timed_run(sim, nreal, "f32", seed)
+    sim.run(CHUNK, seed=99, chunk=CHUNK, **run_kw)
+    out, dt = timed_run(sim, nreal, "f32", seed, **run_kw)
     row = {"realizations_per_s": nreal / dt, "wall_s": dt}
     print(f"{label}: einsum [f32] {nreal / dt:.1f} realizations/s "
           f"({dt:.3f} s for {nreal})", flush=True)
@@ -600,13 +712,24 @@ def yardstick(label: str, sim, nreal: int = NREAL, seed: int = 1) -> tuple:
 
 def drive_paths(report: dict, label: str, sims: dict, ref, shape: str,
                 nreal: int = NREAL, seed: int = 1, tol=None, shards: int = 1,
-                warm: bool = True, precs=("f32", "bf16")) -> dict:
+                warm: bool = True, precs=("f32", "bf16"), os=None,
+                rtol=None) -> dict:
     """The main path: each ``sims[path]`` at each precision, with every
     kernel count zeroed just before and read just after. Each run (after a
     one-chunk warm-up when ``warm``) is timed, rerun and held to ``ref``
-    (default tolerance TOL[prec]); the rerun must be bit-identical and the
-    path's kernel launched ``shards`` times per chunk. Adds the launches to
-    ``report`` at ``shape`` and returns one row per path and precision."""
+    (default tolerance TOL[prec]; ``rtol``: :func:`compare`'s elementwise
+    bound); the rerun must be bit-identical and the path's kernel launched
+    ``shards`` times per chunk. Adds the launches to ``report`` at
+    ``shape`` and returns one row per path and precision.
+
+    ``os``: every run carries that OS lane (an ORF name or an OSSpec), its
+    amp2 lanes are held to ``ref``'s (:func:`os_compare`), and with the
+    null stream the kernel launches twice per chunk, at the two shapes of
+    :func:`lane_shapes` (``shape`` is then only the einsum rows' label)."""
+    from fakepta_tpu_torch.detect import as_spec
+    spec = None if os is None else as_spec(os)
+    run_kw = {} if os is None else {"os": os}
+    per_chunk = 2 if spec is not None and spec.null else 1
     nchunks = -(-nreal // CHUNK)
     reset_counts()
     runs = {}
@@ -614,27 +737,47 @@ def drive_paths(report: dict, label: str, sims: dict, ref, shape: str,
         for prec in precs:
             before = counts()
             if warm:
-                sim.run(CHUNK, seed=99, chunk=CHUNK, precision=prec)
-            out, dt = timed_run(sim, nreal, prec, seed)
-            again = sim.run(nreal, seed=seed, chunk=CHUNK, precision=prec)
+                sim.run(CHUNK, seed=99, chunk=CHUNK, precision=prec,
+                        **run_kw)
+            out, dt = timed_run(sim, nreal, prec, seed, **run_kw)
+            again = sim.run(nreal, seed=seed, chunk=CHUNK, precision=prec,
+                            **run_kw)
             moved = {k: v - before[k] for k, v in counts().items()
                      if v != before[k]}
             runs[(path, prec)] = (out, again, dt, moved)
-    add_launches(report, shape, counts())
+            if spec is None:
+                add_launches(report, shape, moved)
+            else:
+                main, null = lane_shapes(sim, path, shards, len(spec.orfs))
+                add_launches(report, main,
+                             {k: v // per_chunk for k, v in moved.items()})
+                if per_chunk == 2:
+                    add_launches(report, null,
+                                 {k: v // 2 for k, v in moved.items()})
     rows = {}
     kernels = PATH_KERNEL if shards == 1 else SHARDED_KERNEL
     for (path, prec), (out, again, dt, moved) in runs.items():
-        want = {kernels[path]: shards * (int(warm) + 2 * nchunks)} \
-            if path in kernels else {}
+        sim = sims[path]
+        want = {kernels[path]: shards * per_chunk * (int(warm) + 2 * nchunks)
+                } if path in kernels else {}
         if moved != want:
             raise AssertionError(f"{label} {path} [{prec}] launched "
                                  f"{moved}, expected {want}")
         row = compare((out["curves"], out["autos"]),
                       (ref["curves"], ref["autos"]), prec,
                       f"{label} {path} vs einsum",
-                      tol=None if tol is None else tol[prec])
+                      tol=None if tol is None else tol[prec], rtol=rtol,
+                      ntoa=sim.batch.max_toa)
         identical = (np.array_equal(out["curves"], again["curves"])
                      and np.array_equal(out["autos"], again["autos"]))
+        if spec is not None:
+            row.update(os_compare(out, ref, prec, f"{label} {path} vs "
+                                                   f"einsum"))
+            identical = identical and all(
+                np.array_equal(out["os"]["stats"][o][k],
+                               again["os"]["stats"][o][k])
+                for o in out["os"]["orfs"]
+                for k in ("amp2", "null_amp2") if k in out["os"]["stats"][o])
         if not identical:
             raise AssertionError(f"{label} {path} [{prec}] rerun is not "
                                  f"bit-identical")
@@ -818,6 +961,7 @@ def phase_mesh(report: dict, cards: int = 1) -> None:
         row["launches"] = n
         rows[f"mega/x2/{prec}/resumed_from_1_shard"] = row
     shutil.rmtree(ckdir, ignore_errors=True)
+    rows.update(toa_rows(report, ref_sim, refs, cards))
     report["mesh"] = rows
 
     # one pulsar per shard, against the CPU engine on the same mesh shape
@@ -837,6 +981,60 @@ def phase_mesh(report: dict, cards: int = 1) -> None:
         compare((gpu["curves"], gpu["autos"]),
                 (cpu["curves"], cpu["autos"]), "f32",
                 f"small array psr_shards=8: cuda {path} vs cpu einsum")
+
+
+def toa_rows(report: dict, ref_sim, refs: dict, cards: int) -> dict:
+    """TOA sharding (the einsum path only): the flagship at toa_shards 2
+    and 4 and on a psr 2 x toa 2 mesh, ipta_dr3 at toa_shards 2 (448 TOA
+    slots a window) and the flagship's OS lane with its null stream at
+    toa_shards 2, each at both precisions against the 1-shard einsum run at
+    the same precision (the JAX package's bound, rtol 5e-5; the OS lanes
+    within OS_TOL), rerun bit-identically, launching no kernel. Over one
+    card (cells in turn) or ``cards`` cards."""
+    from fakepta_tpu_torch.detect import OSSpec
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+
+    def mesh(psr, toa):
+        n = psr * toa
+        devices = (["cuda:0"] * n if cards == 1
+                   else [f"cuda:{i}" for i in range(cards)])
+        return make_mesh(devices, psr_shards=psr, toa_shards=toa)
+
+    spec = OSSpec(orf=DETECT_ORFS, null=True)
+    ipta_refs = {p: ipta_sim("einsum").run(MESH_NREAL, seed=5, chunk=CHUNK,
+                                           precision=p)
+                 for p in ("f32", "bf16")}
+    os_refs = {p: ref_sim.run(MESH_NREAL, seed=5, chunk=CHUNK, precision=p,
+                              os=spec) for p in ("f32", "bf16")}
+    cases = {
+        "flagship toa_shards=2": (lambda: flagship_sim("einsum",
+                                                       mesh=mesh(1, 2)),
+                                  refs, None),
+        "flagship toa_shards=4": (lambda: flagship_sim("einsum",
+                                                       mesh=mesh(1, 4)),
+                                  refs, None),
+        "flagship psr_shards=2 toa_shards=2": (
+            lambda: flagship_sim("einsum", mesh=mesh(2, 2)), refs, None),
+        "ipta_dr3 toa_shards=2": (lambda: ipta_sim("einsum", mesh=mesh(1, 2)),
+                                  ipta_refs, None),
+        "flagship os null toa_shards=2": (
+            lambda: flagship_sim("einsum", mesh=mesh(1, 2)), os_refs, spec),
+    }
+    out = {}
+    for label, (build, ref, os_spec) in cases.items():
+        sim = build()
+        npsr, t = sim.batch.npsr, sim.batch.max_toa
+        toa = sim.mesh.shape["toa"]
+        for prec in ("f32", "bf16"):
+            got = drive_paths(
+                report, f"mesh {label}", {"einsum": sim}, ref[prec],
+                shape_tag(npsr // sim.mesh.shape["psr"], npsr, t // toa),
+                nreal=MESH_NREAL, seed=5, warm=False, precs=(prec,),
+                os=os_spec, rtol=TOA_RTOL)
+            for k, v in got.items():
+                out[f"{label} {k}"] = v
+        del sim
+    return out
 
 
 def ng15_sim(path: str, mesh=None, **kw):
@@ -985,14 +1183,16 @@ def ipta_sim(path: str, mesh=None, **kw):
         pallas_mxu_binning=path != "fused-vpu", **kw)
 
 
-def chunk_split(sim, path: str) -> dict:
+def chunk_split(sim, path: str, label: str = "signals ipta_dr3",
+                lanes=None) -> dict:
     """Device ms of one chunk step by the engine's spans (keys; residuals,
     which hold the sampled Roemer and CGW terms; the statistic) in one
     ``torch.profiler``-traced step. Each span appears on the device
     timeline as an annotation from its first kernel to its last: its
     ``busy`` is the time of the kernels inside it, its ``extent`` the
     annotation's length (idle gaps included). Draws = residuals - roemer -
-    cgw."""
+    cgw. ``lanes`` (:meth:`EnsembleSimulator._prepare_lanes`): the step
+    carries that OS lane; its null stream is the span ``null``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1001,16 +1201,16 @@ def chunk_split(sim, path: str) -> dict:
     prec = sim._resolve_precision(path, None)
     base = rng.key(11, device="cuda")
     with torch.no_grad():
-        sim.step(base, 0, CHUNK, path, prec)                      # warm-up
+        sim.step(base, 0, CHUNK, path, prec, lanes=lanes)         # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as p:
-            sim.step(base, CHUNK, CHUNK, path, prec)
+            sim.step(base, CHUNK, CHUNK, path, prec, lanes=lanes)
             torch.cuda.synchronize()
         step_ms = time_ms(lambda: sim.step(base, 2 * CHUNK, CHUNK, path,
-                                           prec), 2, warmup=0)
+                                           prec, lanes=lanes), 2, warmup=0)
     reset_counts()
-    names = ("keys", "residuals", "roemer", "cgw", "statistic")
+    names = ("keys", "residuals", "roemer", "cgw", "statistic", "null")
     spans, kernels = {}, []
     for ev in p.events():
         if ev.device_type != DeviceType.CUDA:
@@ -1035,12 +1235,13 @@ def chunk_split(sim, path: str) -> dict:
     for key in ("ms", "launches", "extent_ms"):
         row[f"draws_{key}"] = row[f"residuals_{key}"] - sum(
             row.get(f"{n}_{key}", 0) for n in ("roemer", "cgw"))
-    print(f"signals ipta_dr3 chunk split [{path}, {prec}], kernel ms "
+    print(f"{label} chunk split [{path}, {prec}], kernel ms "
           f"(launches; span extent ms): " + ", ".join(
               f"{n} {row.get(n + '_ms', 0):.3f} "
               f"({row.get(n + '_launches', 0)}; "
               f"{row.get(n + '_extent_ms', 0):.3f})"
-              for n in ("keys", "draws", "roemer", "cgw", "statistic"))
+              for n in ("keys", "draws", "roemer", "cgw", "statistic",
+                        "null"))
           + f"; traced step device busy {row['device_busy_ms']:.3f} ms over "
           f"{len(kernels)} kernel launches; untraced step {step_ms:.3f} ms",
           flush=True)
@@ -1444,6 +1645,145 @@ def phase_run(report: dict) -> None:
     report["run"] = out
 
 
+def lane_launches(report: dict, sim, path: str, n_os: int,
+                  moved: dict) -> None:
+    """Add an OS-lane run's launches, half at the main launch's shape and
+    half at the null stream's (:func:`lane_shapes`, one shard)."""
+    main, null = lane_shapes(sim, path, 1, n_os)
+    add_launches(report, main, {k: v // 2 for k, v in moved.items()})
+    add_launches(report, null, {k: v // 2 for k, v in moved.items()})
+
+
+def phase_detect(report: dict) -> None:
+    """The detection lane on the card (module docstring, phase
+    ``detect``): every kernel at the OS lane's slot counts and the null
+    stream's stage set, the flagship through every path with three ORF
+    lanes and the null stream, ``os="hd"`` alone, a 2-shard mesh,
+    ``DetectionRun`` and the CLI, and ipta_dr3 uncut on ``"fused"``. Each
+    main-path run zeroes the kernel counts just before it and reads them
+    just after."""
+    import torch
+    from fakepta_tpu_torch.detect import DetectionRun, OSSpec
+    from fakepta_tpu_torch.obs.report import RunReport
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    from fakepta_tpu_torch.scenarios import registry
+    out = {}
+    spec = OSSpec(orf=DETECT_ORFS, null=True)
+    n_os = len(DETECT_ORFS)
+    paths = ("einsum", "fused", "fused-vpu", "mega")
+    sims = {p: flagship_sim(p.split("-")[0],
+                            pallas_mxu_binning=p != "fused-vpu")
+            for p in paths}
+
+    # -- the kernels at the lane's shapes: the main launch (NB = 19; K =
+    # 320 on chunk_stats) and the null stream's (NB = 4, K = 260), on the
+    # shared set and a 2-shard mesh's rows; os="hd"'s main launch (NB = 17)
+    for null in (False, True):
+        measure_kernels(report, sims["mega"], (50,),
+                        f"detect {'null' if null else 'main'} launch",
+                        spec=spec, null=null)
+    measure_kernels(report, sims["mega"], (), "detect os=hd launch",
+                    spec=OSSpec(orf="hd"))
+
+    # -- the flagship, three ORF lanes with the null stream, every path ---
+    yard = sims.pop("einsum")
+    ref, out["flagship os+null einsum/f32"] = yardstick(
+        "detect flagship os+null", yard, os=spec)
+    for k, v in drive_paths(report, "detect flagship os+null", sims, ref,
+                            shape_tag(100, 100, 780), os=spec).items():
+        out[f"flagship os+null {k}"] = v
+    out["flagship os+null chunk split"] = {
+        p: chunk_split(s, p, "detect flagship os+null",
+                       s._prepare_lanes(spec))
+        for p, s in (("einsum", yard), ("fused", sims["fused"]),
+                     ("mega", sims["mega"]))}
+    # os="hd" alone, without the null stream (the hd lane of the same
+    # keys is the reference run's)
+    for k, v in drive_paths(report, "detect flagship os=hd",
+                            {"einsum": yard, **sims}, ref,
+                            shape_tag(100, 100, 780), os="hd").items():
+        out[f"flagship os=hd {k}"] = v
+
+    # -- every path on a 2-shard psr mesh, shards in turn on the card -----
+    mref = yard.run(MESH_NREAL, seed=5, chunk=CHUNK, precision="f32",
+                    os=spec)
+    mesh = make_mesh(["cuda:0"] * 2, psr_shards=2)
+    msims = {p: flagship_sim(p.split("-")[0], mesh=mesh,
+                             pallas_mxu_binning=p != "fused-vpu")
+             for p in paths}
+    for k, v in drive_paths(report, "detect flagship os+null psr_shards=2",
+                            msims, mref, shape_tag(50, 100, 780),
+                            nreal=MESH_NREAL, seed=5, tol=MESH_TOL,
+                            shards=2, warm=False, os=spec).items():
+        out[f"flagship os+null psr_shards=2 {k}"] = v
+    del msims, sims, yard
+    torch.cuda.empty_cache()
+
+    # -- DetectionRun on the flagship batch (the engine's default path:
+    # "fused", bf16 operands), its artifact, and the CLI in a subprocess --
+    scn = registry.get("flagship_100")
+    parts = scn.batch_parts(device="cuda")
+    study = DetectionRun(parts[0], gwb=scn.sim_kwargs(*parts)["gwb"],
+                         os=DETECT_ORFS, device="cuda")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = study.run(NREAL, seed=2, chunk=CHUNK)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    moved = {k: v for k, v in counts().items() if v}
+    if moved != {"binned_correlation": 2 * (NREAL // CHUNK)}:
+        raise AssertionError(f"DetectionRun launched {moved}")
+    lane_launches(report, study.sim, "fused", n_os, moved)
+    art = study.save(os.path.join(HERE, "build", "detect_study.jsonl"))
+    loaded = RunReport.load(art).summary()
+    if any(loaded.get(k) != v for k, v in res["summary"].items()):
+        raise AssertionError("DetectionRun's artifact does not load with "
+                             "its summary")
+    out["DetectionRun flagship"] = dict(
+        res["summary"], realizations_per_s=NREAL / dt, launches=moved,
+        os_real_per_s_per_chip=loaded["os_real_per_s_per_chip"])
+    print(f"detect DetectionRun flagship: {NREAL / dt:.1f} realizations/s, "
+          f"launches {moved}, summary {json.dumps(res['summary'])}",
+          flush=True)
+    del study, res
+    cli_out = os.path.join(HERE, "build", "detect.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fakepta_tpu_torch.detect", "run", "--npsr",
+         "100", "--ntoa", "780", "--nreal", "4096", "--chunk", "1024",
+         "--out", cli_out], cwd=HERE, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the detection CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    rep = RunReport.load(cli_out)
+    if rep.meta.get("platform") != "gpu" or not rep.meta["os"]["null"]:
+        raise AssertionError(f"the CLI's artifact: {rep.meta}")
+    out["CLI"] = dict(row, wall_s=time.perf_counter() - t0,
+                      device_kind=rep.meta["device_kind"])
+    print(f"detect CLI: exit 0 in {out['CLI']['wall_s']:.1f} s, "
+          f"{json.dumps(row)}; artifact loads", flush=True)
+
+    # -- ipta_dr3 uncut on "fused", HD and its own anisotropic template ---
+    ipta = registry.get("ipta_dr3")
+    ispec = OSSpec(orf=("hd", "anisotropic"), h_map=ipta.gwb_h_map(),
+                   null=True)
+    iref, out["ipta_dr3 os+null einsum/f32"] = yardstick(
+        "detect ipta_dr3 os+null", ipta_sim("einsum"), os=ispec)
+    fused = ipta_sim("fused")
+    for null in (False, True):
+        measure_kernels(report, fused, (),
+                        f"detect ipta_dr3 {'null' if null else 'main'} "
+                        f"launch", spec=ispec, null=null)
+    for k, v in drive_paths(report, "detect ipta_dr3 os+null",
+                            {"fused": fused}, iref,
+                            shape_tag(120, 120, 896), os=ispec).items():
+        out[f"ipta_dr3 os+null {k}"] = v
+    report["detect"] = out
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -1586,9 +1926,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+",
                     default=["build", "kernels", "engine", "mesh",
-                             "scenarios", "signals", "run"],
+                             "scenarios", "signals", "run", "detect"],
                     choices=["build", "kernels", "engine", "mesh",
-                             "scenarios", "signals", "run", "profile"])
+                             "scenarios", "signals", "run", "detect",
+                             "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh and profile phases' flagship "
                          "meshes span (default 1: every shard on cuda:0)")
@@ -1608,30 +1949,29 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
-    report = {"card": card, "phases": args.phases}
-    if "build" in args.phases:
-        phase_build(report)
-    if "kernels" in args.phases:
-        phase_kernels(report)
-    if "engine" in args.phases:
-        phase_engine(report)
-    if "mesh" in args.phases:
-        phase_mesh(report, args.mesh_cards)
-    if "scenarios" in args.phases:
-        phase_scenarios(report)
-    if "signals" in args.phases:
-        phase_signals(report)
-    if "run" in args.phases:
-        phase_run(report)
-    if "profile" in args.phases:
-        phase_profile(report, args.mesh_cards)
+    report = {"card": card, "phases": args.phases, "phase_s": {}}
+    phases = {"build": phase_build, "kernels": phase_kernels,
+              "engine": phase_engine,
+              "mesh": lambda r: phase_mesh(r, args.mesh_cards),
+              "scenarios": phase_scenarios, "signals": phase_signals,
+              "run": phase_run, "detect": phase_detect,
+              "profile": lambda r: phase_profile(r, args.mesh_cards)}
+    for name, phase in phases.items():
+        if name in args.phases:
+            t0 = time.perf_counter()
+            phase(report)
+            report["phase_s"][name] = time.perf_counter() - t0
+            print(f"phase {name}: {report['phase_s'][name]:.1f} s",
+                  flush=True)
     report["total_s"] = time.perf_counter() - t_start
 
     # one entry per kernel and shape that the main path launched it at or
     # the phases measured it at (the flagship's shared operand set and its
     # 2- and 4-shard meshes' PL = 50 and 25; ng15's PL = 68 and its 2-shard
-    # mesh's PL = 34; ipta_dr3's PL = 120 and 60), each with the launches
-    # made at that shape in the main-path runs (0 where none was made)
+    # mesh's PL = 34; ipta_dr3's PL = 120 and 60; the detection lane's
+    # weight-slot counts NB and chunk_stats' K where they are not the plain
+    # run's), each with the launches made at that shape in the main-path
+    # runs (0 where none was made)
     table = []
     specs = (("binned_correlation", "bf16",
               "fakepta_tpu_torch/csrc/binned_corr.cu",

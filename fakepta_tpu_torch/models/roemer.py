@@ -69,6 +69,14 @@ class OrbitState:
                      else getattr(self, f.name).narrow(0, lo, n).contiguous())
             for f in dataclasses.fields(self)})
 
+    def toas(self, lo: int, n: int) -> "OrbitState":
+        """TOAs ``lo .. lo + n - 1`` of every per-TOA leaf of a (P, T)
+        state (a toa shard's window); the masses stay whole."""
+        return OrbitState(**{
+            f.name: (getattr(self, f.name) if f.name in ("mass", "mass_ss")
+                     else getattr(self, f.name).narrow(1, lo, n).contiguous())
+            for f in dataclasses.fields(self)})
+
     def to(self, device: DeviceLike) -> "OrbitState":
         """The same state on another device."""
         dev = resolve_device(device)

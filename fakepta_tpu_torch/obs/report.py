@@ -189,8 +189,9 @@ class RunReport:
                 sum(c.get("stall_s", 0.0) for c in self.chunks), 6)
             m["ckpt_wait_s"] = round(
                 sum(c.get("ckpt_wait_s", 0.0) for c in self.chunks), 6)
-        # the lanes below are the JAX package's (the port's engine does not
-        # run them yet); kept so a loaded JAX report summarizes alike
+        # the detection lane's rate; the lnlike and tuned lanes below are
+        # the JAX package's (the port's engine does not run them yet), kept
+        # so a loaded JAX report summarizes alike
         if self.meta.get("os"):
             m["os_real_per_s_per_chip"] = round(
                 self.steady_real_per_s_per_chip(), 3)

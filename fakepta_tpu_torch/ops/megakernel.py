@@ -212,10 +212,11 @@ def _check_precision(precision: str) -> None:
 
 
 @contextlib.contextmanager
-def _full_f32():
+def full_f32():
     """float32 matmuls at full precision inside, whatever the process-wide
-    setting (restored on exit; it is process-wide, so not for concurrent
-    threads)."""
+    setting, not TF32 (restored on exit; it is process-wide, so not for
+    concurrent threads). The plain versions here and the engine's einsum
+    binning run under it."""
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     try:
@@ -230,7 +231,7 @@ def project_plain(base, coef, times, scales, stages):
     res = base.float()
     if stages:
         basis = dense_basis(times.float(), scales.float(), stages)
-        with _full_f32():
+        with full_f32():
             res = res + torch.einsum("rpk,ptk->rpt", coef.float(), basis)
     return res
 
@@ -250,7 +251,7 @@ def project_3xtf32(base, coef, times, scales, stages):
     pairs = ((ch, bl), (ch, bh)) if coef.dtype == torch.bfloat16 else (
         (ch, bl), (cl, bh), (ch, bh))
     acc = torch.zeros_like(res)
-    with _full_f32():
+    with full_f32():
         for cols in kernel_columns(stages):
             live = [c for c in cols if c >= 0]
             d = torch.zeros_like(res)
@@ -268,7 +269,7 @@ def chunk_stats_plain(base, coef, times, scales, weights, *,
     """Plain torch version: dense-basis projection in f32, then einsums,
     every matmul at full float32 precision."""
     _check_precision(precision)
-    with _full_f32():
+    with full_f32():
         res = project_plain(base, coef, times, scales, stages)
         res_l = res if base_local is None else project_plain(
             base_local, coef_local, times_local, scales_local, stages)

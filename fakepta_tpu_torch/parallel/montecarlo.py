@@ -30,6 +30,26 @@ rows against the all-gathered array with its rows of the statistic
 weights, and the shards' partial statistics are psum'ed in shard order. On
 a one-shard mesh every step is the shared single-device code.
 
+The ``'toa'`` axis (``toa_shards > 1``, the einsum path only) makes a shard
+a (psr, toa) cell holding a window of every TOA-width field (the batch's,
+the orbit states, the CGW epochs, the sampled white levels' raw TOA errors
+and backend ids). A cell draws only its window's counters of each per-TOA
+draw (:func:`..utils.rng.normal`'s ``start``), so the values per global TOA
+are the unsharded stream's bit for bit; ECORR epoch normals index global
+epoch ids, so an epoch that straddles two windows gets one shared normal.
+Each cell correlates its window; the partial pair sums are added over the
+toa cells in a fixed order, then binned.
+
+The detection lane (``run(os=...)``, :mod:`..detect`): the optimal
+statistic's per-ORF weight matrices ride as extra weight slots between the
+angular bins and the auto trace, in the same contraction or kernel launch
+as the curve. ``OSSpec(null=True)`` adds the paired noise-only stream: the
+same noise stages and sampled noise nuisances (and sampled Roemer terms)
+under ``fold_in(key, 0xD7)``, without the GWB, the deterministic block and
+the sampled CGW sources, through a second contraction or launch per chunk
+with the OS slots and a zero auto slot (on the mega path with the GWB-free
+stage set).
+
 Statistic paths (``stat_path``):
 
 - ``"einsum"``: residuals, then torch einsums for the correlation and the
@@ -58,9 +78,9 @@ callables) are evaluated once at construction into one (P, T) delay block
 tag 0xC6) are drawn per realization and added after it, in the JAX
 engine's order. They need the padded absolute epochs ``toas_abs``.
 
-Not ported yet: multi-host meshes, TOA sharding, the OS / lnlike outputs,
-the tuner and the recovery policy: those ``run`` options raise
-``NotImplementedError`` when given.
+Not ported yet: multi-host meshes, the lnlike lane, the tuner and the
+recovery policy: those ``run`` options raise ``NotImplementedError`` when
+given.
 """
 
 from __future__ import annotations
@@ -106,8 +126,8 @@ STAGES = ("white", "ecorr", "red", "dm", "chrom", "sys", "gwb", "det")
 
 # key-domain tags, unchanged from the JAX engine: 0x51 noise, 0x6B GWB,
 # 0x9C hyperparameter sampling (one subtag per target), 0xE1 white
-# sampling, 0x77 BayesEphem sampling, 0xC6 CGW sampling; 0xD7 (the OS null
-# stream) is reserved for the lane a later slice ports
+# sampling, 0x77 BayesEphem sampling, 0xC6 CGW sampling, 0xD7 the OS
+# lane's paired null stream
 _NOISE_TAG = 0x51
 _GWB_TAG = 0x6B
 _HYPER_TAG = 0x9C
@@ -116,6 +136,11 @@ _WHITE_TAG = 0xE1
 _ROEMER_TAG = 0x77
 _CGW_TAG = 0xC6
 _NULL_TAG = 0xD7
+
+# PulsarBatch fields whose last axis is the TOA axis (a toa shard holds a
+# window of them); sys_mask carries it behind the band axis
+_BATCH_TOA_FIELDS = ("t_own", "t_common", "mask", "freqs", "sigma2",
+                     "epoch_idx", "ecorr_amp")
 
 # RoemerSampling's draw order (one normal per parameter)
 _ROEMER_PARAMS = ("d_mass", "d_Om", "d_omega", "d_inc", "d_a", "d_e",
@@ -361,16 +386,28 @@ class _Hyper:
     backend_id: Optional[torch.Tensor] = None       # (P, T) int64
     white_nb: int = 1
 
-    def rows(self, lo: int, n: int, dev: torch.device) -> "_Hyper":
-        """A psr shard's rows on ``dev``."""
+    def rows(self, lo: int, n: int, dev: torch.device, t_lo: int = 0,
+             t_n: Optional[int] = None) -> "_Hyper":
+        """A shard's rows on ``dev``, and of a toa shard its TOA window
+        ``t_lo .. t_lo + t_n - 1``."""
         def take(x):
-            return None if x is None else \
-                x.narrow(0, lo, n).contiguous().to(dev)
+            return None if x is None else _window(x, lo, n, t_lo, t_n, dev)
         return dataclasses.replace(
             self, noise=tuple((st, r.to(dev)) for st, r in self.noise),
             white_params=(None if self.white_params is None
                           else self.white_params.to(dev)),
             toaerr2=take(self.toaerr2), backend_id=take(self.backend_id))
+
+
+def _window(x: torch.Tensor, lo: int, n: int, t_lo: int,
+            t_n: Optional[int], dev: torch.device) -> torch.Tensor:
+    """Rows ``lo .. lo + n - 1`` of ``x`` and, when ``t_n`` is given, its
+    TOA window ``t_lo .. t_lo + t_n - 1`` along axis 1, contiguous on
+    ``dev``."""
+    x = x.narrow(0, lo, n)
+    if t_n is not None:
+        x = x.narrow(1, t_lo, t_n)
+    return x.contiguous().to(dev)
 
 
 def _affine(a, z, scale):
@@ -505,18 +542,25 @@ class _Signals:
     cgw: Tuple[Tuple[tuple, torch.Tensor, torch.Tensor], ...] = ()
     pdist: Optional[torch.Tensor] = None                        # (P, 2)
 
-    def rows(self, lo: int, n: int, dev: torch.device) -> "_Signals":
-        """A psr shard's rows on ``dev``."""
+    def rows(self, lo: int, n: int, dev: torch.device, t_lo: int = 0,
+             t_n: Optional[int] = None) -> "_Signals":
+        """A shard's rows on ``dev``, and of a toa shard its TOA window
+        ``t_lo .. t_lo + t_n - 1`` (the fixed block, the orbit states, the
+        CGW epochs)."""
         def take(x):
-            return None if x is None else \
-                x.narrow(0, lo, n).contiguous().to(dev)
+            return None if x is None else _window(x, lo, n, t_lo, t_n, dev)
+
+        def orbit(st):
+            st = st.rows(lo, n)
+            return (st if t_n is None else st.toas(t_lo, t_n)).to(dev)
         return _Signals(
             det=take(self.det),
-            roemer=tuple((st.rows(lo, n).to(dev), sc.to(dev), zero)
+            roemer=tuple((orbit(st), sc.to(dev), zero)
                          for st, sc, zero in self.roemer),
             cgw=tuple((stat, rg.to(dev), take(trel))
                       for stat, rg, trel in self.cgw),
-            pdist=take(self.pdist))
+            pdist=None if self.pdist is None else _window(
+                self.pdist, lo, n, 0, None, dev))
 
 
 def _sampled_roemer(keys: torch.Tensor, state, scales: torch.Tensor,
@@ -816,7 +860,9 @@ def _stage_terms(batch: PulsarBatch, gwb_ws, gwb_idxs, gwb_freqfs,
 
 def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
                     include, terms: _StageTerms, split_gp: bool = False,
-                    p_offset: int = 0, hyper: Optional[_Hyper] = None):
+                    p_offset: int = 0, hyper: Optional[_Hyper] = None,
+                    t_offset: int = 0,
+                    ecorr_window: Optional[Tuple[int, int]] = None):
     """Residual blocks for a chunk of realizations.
 
     keys: (R, 2) per-realization keys. ``batch`` holds this psr shard's
@@ -829,6 +875,13 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
     hyperparameter sampling (None: the batch's fixed spectra and white
     levels). Draw keys, shapes and order are the JAX engine's, so the two
     streams agree draw for draw on any mesh.
+
+    A toa shard's ``batch`` holds the TOA window starting at global slot
+    ``t_offset``: the white normals are that window's counters of the
+    full-width per-pulsar draw, and the ECORR epoch normals are drawn over
+    ``ecorr_window = (first epoch id, count)`` (default: every slot) and
+    gathered by the global epoch ids, so both equal the unsharded draws
+    bit for bit.
     """
     (inc_white, inc_ecorr, inc_red, inc_dm, inc_chrom, inc_sys,
      inc_gwb) = include
@@ -858,13 +911,17 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
 
     res = torch.zeros((R, p, T), dtype=batch.dtype, device=dev)
     if inc_white:
-        res = res + torch.sqrt(sigma2) * rng.normal(kw, T)
+        res = res + torch.sqrt(sigma2) * rng.normal(kw, T, start=t_offset)
     if inc_ecorr:
         # sigma^2 I + c^2 11^T per epoch == white plus ONE shared normal per
-        # epoch, indexed by the per-TOA epoch id
-        epoch_draws = rng.normal(ke, T)
-        shared = torch.gather(epoch_draws, 2,
-                              batch.epoch_idx.expand(R, p, T))
+        # epoch, indexed by the per-TOA (global) epoch id; a TOA outside the
+        # window has no ECORR (its amplitude is 0), so its clamped index
+        # adds 0
+        e_lo, e_n = (0, T) if ecorr_window is None else ecorr_window
+        epoch_draws = rng.normal(ke, e_n, start=e_lo)
+        idx = batch.epoch_idx if e_lo == 0 and e_n == T else \
+            (batch.epoch_idx - e_lo).clamp(0, e_n - 1)
+        shared = torch.gather(epoch_draws, 2, idx.expand(R, p, T))
         res = res + ecorr_amp * shared
     coeffs = []
     for inc, name, k in ((inc_red, "red", kr), (inc_dm, "dm", kd),
@@ -913,7 +970,10 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
             # once, in _stage_terms) times bf16 coefficients; their
             # products are exact in float32, and the sums run in float32
             c_all = binned_corr_ops.round_bf16(c_all)
-        res = res + torch.einsum("ptk,rpk->rpt", terms.gp_basis, c_all)
+        # the null stream's coefficients stop before the GWB groups, whose
+        # columns are the basis's last
+        basis = terms.gp_basis[..., :c_all.shape[-1]]
+        res = res + torch.einsum("ptk,rpk->rpt", basis, c_all)
     return torch.where(batch.mask, res, 0.0)
 
 
@@ -932,12 +992,44 @@ def _correlation_rows(res_local: torch.Tensor,
                         res_local if res_full is None else res_full)
 
 
+def _bin(corr: torch.Tensor, weights: torch.Tensor, nbins: int):
+    """(curves (R, nbins), autos (R,)) of raw pair sums against a weight
+    stack (nbins + 1 slots, the auto trace last), at full float32, not
+    TF32: the JAX engine bins at ``Precision.HIGHEST``."""
+    with mega_ops.full_f32():
+        out = torch.einsum("rpq,npq->rn", corr, weights)
+    return out[:, :nbins], out[:, nbins]
+
+
+@dataclasses.dataclass(frozen=True)
+class _OSLanes:
+    """A run's OS lane (``run(os=...)``): its spec, the host-f64 operators,
+    and per shard (keyed by ``id``) its rows of the two weight stacks: the
+    main launch's (nbins + n_os + 1, PL, P) (the bins, the OS slots, the
+    auto trace) and the null stream's (n_os + 1, PL, P) with a zero auto
+    slot (None without ``null``)."""
+
+    spec: object
+    ops: tuple
+    n_os: int
+    null: bool
+    weights: dict
+
+    @property
+    def n_extra(self) -> int:
+        """Packed lanes after the auto: the OS values, then the null's."""
+        return self.n_os * (2 if self.null else 1)
+
+
 @dataclasses.dataclass(frozen=True)
 class _Shard:
-    """One psr shard's static state on its device: its rows of the batch,
-    of the statistic weights and of the megakernel tables, plus what every
+    """One shard's static state on its device: its rows of the batch, of
+    the statistic weights and of the megakernel tables, plus what every
     shard holds whole (the ORF factors, the GWB weights and the gathered
-    megakernel tables, which are static and so gathered once here)."""
+    megakernel tables, which are static and so gathered once here). A toa
+    shard (a (psr, toa) cell) holds a TOA window of every TOA-width field,
+    starting at global slot ``t_offset``; ``ecorr_window`` is the (first
+    epoch id, count) its ECORR draws cover (None: every slot)."""
 
     p_offset: int                       # global index of the first row
     batch: PulsarBatch                  # (PL, ...) rows
@@ -951,6 +1043,8 @@ class _Shard:
     scales_full: torch.Tensor           # (S, npsr, T)
     hyper: _Hyper                       # sampling state, this shard's rows
     signals: _Signals                   # CGW / Roemer state, its rows
+    t_offset: int = 0                   # global index of the first TOA
+    ecorr_window: Optional[Tuple[int, int]] = None
 
     @property
     def device(self) -> torch.device:
@@ -1034,8 +1128,20 @@ class EnsembleSimulator:
                 f"max_toa={batch.max_toa} must be divisible by the toa mesh "
                 f"axis ({n_toa}); pad the batch")
         if n_toa > 1:
-            raise NotImplementedError(
-                "toa_shards > 1 is not ported yet (ROADMAP Queue 1 item 2)")
+            # every batch leaf whose last axis is the TOA width must be in
+            # the window list, else a toa shard would hold it at full width
+            # beside its windowed siblings
+            known = set(_BATCH_TOA_FIELDS) | {"sys_mask"}
+            for fld in dataclasses.fields(PulsarBatch):
+                arr = getattr(batch, fld.name)
+                if (arr.dim() >= 2 and arr.shape[-1] == batch.max_toa
+                        and fld.name not in known):
+                    raise AssertionError(
+                        f"PulsarBatch.{fld.name} has a TOA-width trailing "
+                        f"axis but is not listed in _BATCH_TOA_FIELDS; add "
+                        f"it (or, if the width match is coincidental, e.g. "
+                        f"a bin count equal to max_toa, rename this check's "
+                        f"exemptions)")
         self.device = mesh.devices.flat[0]
         if batch.dtype != torch.float32:
             raise TypeError(f"the port runs float32 batches, got "
@@ -1047,6 +1153,11 @@ class EnsembleSimulator:
         if stat_path not in STAT_PATHS:
             raise ValueError(f"stat_path must be one of {STAT_PATHS}, got "
                              f"{stat_path!r}")
+        if n_toa > 1 and stat_path != "einsum":
+            raise ValueError(
+                f"stat_path={stat_path!r} is incompatible with toa sharding "
+                f"(its kernels assume each shard holds the full TOA axis); "
+                f"use stat_path='einsum' or toa_shards=1")
         if pallas_precision not in ("bf16", "f32"):
             raise ValueError(f"pallas_precision must be 'bf16' or 'f32', "
                              f"got {pallas_precision!r}")
@@ -1148,8 +1259,9 @@ class EnsembleSimulator:
         stack = np.concatenate([np.moveaxis(w_bins, 2, 0), w_auto[None]])
         self._stat_weights = torch.tensor(stack).to(dtype).to(
             self.device).contiguous()
-        self._mega_tables = self._build_mega_tables()
-        _, times, scales = self._mega_tables
+        stages, self._mega_stages_null, times, scales = \
+            self._build_mega_tables()
+        self._mega_tables = (stages, times, scales)
         # the whole array as one shard: the single-device state
         signals = self._resolve_signals(batch, host, include, cgw, roemer,
                                         roemer_sample, ephem, cgw_sample,
@@ -1368,50 +1480,83 @@ class EnsembleSimulator:
         return tuple(out)
 
     def _build_shards(self):
-        """(real, psr) grid of shard states; a (psr index, device) pair is
-        built once however often the mesh repeats it."""
-        n_psr = self.mesh.shape[PSR_AXIS]
+        """Per real row, its shard states in (psr, toa) order (psr index
+        major: the psr shards of toa window t are ``row[t::n_toa]``); a
+        (psr index, toa index, device) cell is built once however often the
+        mesh repeats it."""
+        n_psr, n_toa = self.mesh.shape[PSR_AXIS], self.mesh.shape[TOA_AXIS]
         p_local = self.batch.npsr // n_psr
+        t_local = self.batch.max_toa // n_toa
         made, grid = {}, []
         for r in range(self.mesh.shape[REAL_AXIS]):
             row = []
             for s in range(n_psr):
-                dev = self.mesh.devices[r, s, 0]
-                if (s, dev) not in made:
-                    made[(s, dev)] = self._make_shard(s, p_local, dev)
-                row.append(made[(s, dev)])
+                for t in range(n_toa):
+                    dev = self.mesh.devices[r, s, t]
+                    if (s, t, dev) not in made:
+                        made[(s, t, dev)] = self._make_shard(
+                            s, t, p_local, t_local, dev)
+                    row.append(made[(s, t, dev)])
             grid.append(row)
         return grid
 
-    def _make_shard(self, s: int, p_local: int,
+    def _make_shard(self, s: int, t: int, p_local: int, t_local: int,
                     dev: torch.device) -> _Shard:
         full = self._full
-        if p_local == full.batch.npsr and dev == self.device:
+        T = full.batch.max_toa
+        if (p_local == full.batch.npsr and t_local == T
+                and dev == self.device):
             return full
-        lo, hi = s * p_local, (s + 1) * p_local
+        lo, t_lo = s * p_local, t * t_local
+        win = None if t_local == T else t_local
 
         def rows(x, dim=0):
             return x.narrow(dim, lo, p_local).contiguous().to(dev)
 
-        batch = PulsarBatch(**{
-            f.name: (getattr(full.batch, f.name).to(dev)
-                     if f.name == "tspan_common"
-                     else rows(getattr(full.batch, f.name)))
-            for f in dataclasses.fields(PulsarBatch)})
+        def field(name):
+            x = getattr(full.batch, name)
+            if name == "tspan_common":
+                return x.to(dev)
+            if win is not None and name in _BATCH_TOA_FIELDS:
+                return _window(x, lo, p_local, t_lo, win, dev)
+            if win is not None and name == "sys_mask":
+                return x.narrow(0, lo, p_local).narrow(
+                    2, t_lo, win).contiguous().to(dev)
+            return rows(x)
+
+        def tables(x):
+            """(n, P, T) megakernel tables: the shard's rows and window"""
+            x = x.narrow(2, t_lo, t_local)
+            return x.narrow(1, lo, p_local).contiguous().to(dev), \
+                x.contiguous().to(dev)
+
+        batch = PulsarBatch(**{f.name: field(f.name)
+                               for f in dataclasses.fields(PulsarBatch)})
         chols = tuple(c.to(dev) for c in full.chols)
         ws = tuple(w.to(dev) for w in full.gwb_ws)
         terms = _stage_terms(batch, ws, self._gwb_idx, self._gwb_freqf,
                              self._include, self._bases_bf16)
+        times, times_full = tables(full.times)
+        scales, scales_full = tables(full.scales)
+        ecorr_window = None
+        if win is not None:
+            # the global epoch ids this window's ECORR TOAs use
+            live = batch.ecorr_amp > 0.0
+            ids = batch.epoch_idx[live]
+            ecorr_window = ((int(ids.min()), int(ids.max() - ids.min()) + 1)
+                            if ids.numel() else (0, 1))
         return _Shard(lo, batch, chols, ws, terms, rows(full.weights, 1),
-                      rows(full.times, 1), rows(full.scales, 1),
-                      full.times.to(dev), full.scales.to(dev),
-                      full.hyper.rows(lo, p_local, dev),
-                      full.signals.rows(lo, p_local, dev))
+                      times, scales, times_full, scales_full,
+                      full.hyper.rows(lo, p_local, dev, t_lo, win),
+                      full.signals.rows(lo, p_local, dev, t_lo, win),
+                      t_offset=t_lo, ecorr_window=ecorr_window)
 
     def _build_mega_tables(self):
-        """Stage descriptors + (2, P, T) time and (S, P, T) scale tables for
-        the megakernel, in ``_simulate_block``'s GP stage order and GWB
-        basis-group dedup; scale rows carry the TOA mask."""
+        """``(stages, stages_null, times (2, P, T), scales (S, P, T))``
+        for the megakernel: stage descriptors in ``_simulate_block``'s GP
+        stage order and GWB basis-group dedup, the null stream's without the
+        GWB stages (its coefficients carry no common signal); scale rows
+        carry the TOA mask."""
         batch = self.batch
         rows, row_idx = [], {}
 
@@ -1440,6 +1585,7 @@ class EnsembleSimulator:
                 batch.chrom_psd.shape[1], T_OWN,
                 scale_row(("chrom", 4.0),
                           lambda: (1400.0 / batch.freqs) ** 4)))
+        stages_null = tuple(stages)     # the 0xD7 stream has no GWB stage
         if inc_gwb:
             seen = set()
             for idx_j, freqf_j, w_j in zip(self._gwb_idx, self._gwb_freqf,
@@ -1453,7 +1599,8 @@ class EnsembleSimulator:
                     lambda f=freqf_j, i=idx_j: (f / batch.freqs) ** i)
                 stages.append(mega_ops.MegaStage(sig[2], T_COMMON, scol))
         times = torch.stack([batch.t_own, batch.t_common]).contiguous()
-        return tuple(stages), times, torch.stack(rows).contiguous()
+        return (tuple(stages), stages_null, times,
+                torch.stack(rows).contiguous())
 
     def _resolve_precision(self, path: str, precision) -> str:
         """The run's statistic precision: ``precision``, or the path's
@@ -1469,7 +1616,7 @@ class EnsembleSimulator:
         return precision
 
     def _residuals(self, keys, split_gp=False, shard: Optional[_Shard] = None,
-                   bulks: Optional[tuple] = None):
+                   bulks: Optional[tuple] = None, null: bool = False):
         """One shard's residual rows (default: the whole array on the
         mesh's first device).
 
@@ -1479,23 +1626,31 @@ class EnsembleSimulator:
         ``split_gp`` they go into the base, so the GP projection lands last
         (in the megakernel). ``bulks``: the psrterm CGW configs' (R, npsr)
         host bulks (:meth:`_host_cgw_bulks`; computed from ``keys`` when
-        not given).
+        not given). ``null=True`` is the OS lane's paired noise-only stream
+        (``keys`` are then the 0xD7-folded ones): the same noise stages,
+        sampled noise and white nuisances and sampled Roemer terms, without
+        the GWB, the deterministic block and the sampled CGW sources.
         """
         sh = self._full if shard is None else shard
+        include = self._include[:6] + (False,) if null else self._include
         out = _simulate_block(keys, sh.batch, sh.chols, sh.gwb_ws,
-                              self._include, sh.terms, split_gp=split_gp,
-                              p_offset=sh.p_offset, hyper=sh.hyper)
+                              include, sh.terms, split_gp=split_gp,
+                              p_offset=sh.p_offset, hyper=sh.hyper,
+                              t_offset=sh.t_offset,
+                              ecorr_window=sh.ecorr_window)
         sig = sh.signals
-        if sig.det is None and not sig.roemer and not sig.cgw:
+        det = None if null else sig.det
+        cgw = () if null else sig.cgw
+        if det is None and not sig.roemer and not cgw:
             return out
         res, coefs = out if split_gp else (out, None)
         mask, pos = sh.batch.mask, sh.batch.pos
-        if sig.det is not None:
-            res = res + sig.det
+        if det is not None:
+            res = res + det
         for j, (state, scales, zero) in enumerate(sig.roemer):
             term = _sampled_roemer(keys, state, scales, zero, pos, j)
             res = res + torch.where(mask, term, 0.0)
-        if sig.cgw:
+        if cgw:
             if bulks is None:
                 bulks = self._host_cgw_bulks(keys)
             p, dev = sh.batch.npsr, keys.device
@@ -1503,7 +1658,7 @@ class EnsembleSimulator:
                       for j, b in zip(self._cgw_psrterm, bulks)}
             gidx = torch.arange(sh.p_offset, sh.p_offset + p,
                                 dtype=torch.int64, device=dev)
-            for j, (static, ranges, t_rel) in enumerate(sig.cgw):
+            for j, (static, ranges, t_rel) in enumerate(cgw):
                 term = _sampled_cgw(keys, t_rel, pos, sig.pdist, ranges,
                                     static, j, gidx, bulk=by_cfg.get(j))
                 res = res + torch.where(mask, term, 0.0)
@@ -1513,16 +1668,64 @@ class EnsembleSimulator:
         return (binned_corr_ops.binned_correlation if self.pallas_mxu_binning
                 else binned_corr_ops.binned_correlation_vpu)
 
+    def _prepare_lanes(self, os) -> Optional[_OSLanes]:
+        """The run's OS lane (``run(os=...)``), or None: the host-f64
+        operators (:func:`..detect.operators.build_operators` on the
+        batch's positions, mask, white variances and full pair counts) and
+        every shard's rows of the two weight stacks, staged once per run."""
+        if os is None:
+            return None
+        from ..detect import operators as detect_ops
+        spec = detect_ops.as_spec(os)
+        host = self.batch.numpy()
+        ops = detect_ops.build_operators(spec, self._pos64, host["mask"],
+                                         host["sigma2"],
+                                         pair_counts=self.pair_counts)
+        w_os = torch.tensor(np.stack([op.weights for op in ops])).to(
+            self.batch.dtype).to(self.device)
+        nb = self.nbins
+        main = torch.cat([self._stat_weights[:nb], w_os,
+                          self._stat_weights[nb:]])
+        null = (torch.cat([w_os, torch.zeros_like(w_os[:1])])
+                if spec.null else None)
+        weights = {}
+        for row in self._shards:
+            for sh in row:
+                weights[id(sh)] = tuple(
+                    None if w is None else w.narrow(
+                        1, sh.p_offset, sh.batch.npsr).contiguous().to(
+                            sh.device)
+                    for w in (main, null))
+        return _OSLanes(spec, ops, len(ops), bool(spec.null), weights)
+
+    def _lane_weights(self, sh: _Shard, lanes: Optional[_OSLanes]):
+        """(the main launch's weight rows, the null stream's or None) of a
+        shard: its statistic weights when the run has no OS lane."""
+        return (sh.weights, None) if lanes is None else lanes.weights[id(sh)]
+
+    def _pack(self, curves, autos, null=None):
+        """Packed lanes: the bins, the auto, the OS slots that ride after
+        the bins in ``curves`` (when any) and the null stream's (when
+        given)."""
+        nb = self.nbins
+        extras = [curves[:, nb:]] if curves.shape[1] > nb else []
+        if null is not None:
+            extras.append(null)
+        return pack_stats(curves[:, :nb], autos, *extras)
+
     def step(self, base_key: torch.Tensor, offset, nreal: int,
              path: str, precision: str, with_corr: bool = False,
-             bulks: Optional[tuple] = None):
-        """One chunk: (packed (nreal, nbins+1) statistics, corr or None),
-        on the mesh's first device. ``nreal`` splits into one contiguous
-        block of realizations per real shard. ``base_key``/``offset`` are a
-        key and an int, or lane vectors (:func:`_chunk_keys`). ``bulks``:
-        the chunk's psrterm CGW bulks, precomputed on the host
-        (:meth:`_host_cgw_bulks`; each shard computes its own when not
-        given)."""
+             bulks: Optional[tuple] = None,
+             lanes: Optional[_OSLanes] = None):
+        """One chunk: (packed (nreal, nbins + 1 + n_extra) statistics, corr
+        or None), on the mesh's first device. ``nreal`` splits into one
+        contiguous block of realizations per real shard. ``base_key`` /
+        ``offset`` are a key and an int, or lane vectors
+        (:func:`_chunk_keys`). ``bulks``: the chunk's psrterm CGW bulks,
+        precomputed on the host (:meth:`_host_cgw_bulks`; each shard
+        computes its own when not given). ``lanes``: the run's OS lane
+        (:meth:`_prepare_lanes`), whose amp2 values and then the null
+        stream's pack after the auto."""
         n_real = len(self._shards)
         if nreal % n_real != 0:
             raise ValueError(f"nreal per chunk ({nreal}) must be divisible "
@@ -1537,67 +1740,105 @@ class EnsembleSimulator:
                 x[r * r_local:(r + 1) * r_local] for x in bulks)
             if len(shards) == 1:
                 p, c = self._step_shared(shards[0], k.to(shards[0].device),
-                                         path, precision, with_corr, b)
+                                         path, precision, with_corr, b,
+                                         lanes)
             else:
                 p, c = self._step_sharded(shards, k, path, precision,
-                                          with_corr, b)
+                                          with_corr, b, lanes)
             packed.append(p.to(self.device))
             if with_corr:
                 corrs.append(c.to(self.device))
         return _cat(packed), (_cat(corrs) if with_corr else None)
 
     def _step_shared(self, sh: _Shard, keys, path: str, precision: str,
-                     with_corr: bool, bulks: Optional[tuple] = None):
+                     with_corr: bool, bulks: Optional[tuple] = None,
+                     lanes: Optional[_OSLanes] = None):
         """One shard holding every pulsar: one operand set."""
+        split = path == "mega"
+        w, w_null = self._lane_weights(sh, lanes)
         with span("residuals"):
-            res = self._residuals(keys, split_gp=path == "mega", shard=sh,
+            res = self._residuals(keys, split_gp=split, shard=sh,
                                   bulks=bulks)
         with span("statistic"):
-            if path == "einsum":
-                corr = _correlation_rows(res, stats_bf16=precision == "bf16")
-                # curve + auto lanes: one contraction against the combined
-                # weight stack, as the kernels bin
-                out = torch.einsum("rpq,npq->rn", corr, sh.weights)
-                curves, autos = unpack_stats(out, self.nbins)
-                return (pack_stats(curves, autos),
-                        corr / self._counts.to(corr.device) if with_corr
-                        else None)
-            if path == "fused":
-                curves, autos = self._fused_kernel()(
-                    res, res, sh.weights, self.nbins, precision=precision)
-                return pack_stats(curves, autos), None
-            base, coefs = res
-            if precision == "bf16":
-                # bf16 STORAGE of the kernel's two big reads; the projection
-                # and every accumulation stay f32 inside the kernel
-                base = base.to(torch.bfloat16)
-                coefs = coefs.to(torch.bfloat16)
-            curves, autos = mega_ops.chunk_stats(
-                base, coefs, sh.times, sh.scales, sh.weights,
-                stages=self._mega_tables[0], nbins=self.nbins,
-                precision=precision)
-            return pack_stats(curves, autos), None
+            curves, autos, corr = self._shared_statistic(
+                sh, res, path, precision, w, w.shape[0] - 1,
+                self._mega_tables[0])
+        del res     # the null stream's residuals may take its memory
+        null = None
+        if w_null is not None:
+            with span("null"):
+                res0 = self._residuals(rng.fold_in(keys, _NULL_TAG),
+                                       split_gp=split, shard=sh, null=True)
+                null, _, _ = self._shared_statistic(
+                    sh, res0, path, precision, w_null, lanes.n_os,
+                    self._mega_stages_null)
+        return (self._pack(curves, autos, null),
+                corr / self._counts.to(corr.device) if with_corr else None)
+
+    def _shared_statistic(self, sh: _Shard, res, path: str, precision: str,
+                          weights, nb: int, stages):
+        """(curves (R, nb), autos (R,), raw pair sums on the einsum path
+        else None) of one operand set against ``weights`` (nb + 1 slots,
+        the auto last), on ``stages`` on the mega path."""
+        if path == "einsum":
+            corr = _correlation_rows(res, stats_bf16=precision == "bf16")
+            return (*_bin(corr, weights, nb), corr)
+        if path == "fused":
+            curves, autos = self._fused_kernel()(res, res, weights, nb,
+                                                 precision=precision)
+            return curves, autos, None
+        base, coefs = res
+        if precision == "bf16":
+            # bf16 STORAGE of the kernel's two big reads; the projection
+            # and every accumulation stay f32 inside the kernel
+            base = base.to(torch.bfloat16)
+            coefs = coefs.to(torch.bfloat16)
+        curves, autos = mega_ops.chunk_stats(
+            base, coefs, sh.times, sh.scales, weights, stages=stages,
+            nbins=nb, precision=precision)
+        return curves, autos, None
 
     def _step_sharded(self, shards, keys, path: str, precision: str,
-                      with_corr: bool, bulks: Optional[tuple] = None):
-        """Pulsar-sharded chunk block: each shard's rows against the
-        all-gathered array with its rows of the weights, then the psum of
-        the partial statistics in shard order."""
+                      with_corr: bool, bulks: Optional[tuple] = None,
+                      lanes: Optional[_OSLanes] = None):
+        """Sharded chunk block: each shard's rows against the all-gathered
+        array with its rows of the weights, then the psum of the partial
+        statistics in shard order (toa cells: their window's pair sums,
+        added over the windows first)."""
         dev0 = shards[0].device
-        bf16 = precision == "bf16"
         split = path == "mega"
+        ws = [self._lane_weights(sh, lanes) for sh in shards]
+        nb = ws[0][0].shape[0] - 1
         with span("residuals"):
             local = [self._residuals(keys.to(sh.device), split_gp=split,
                                      shard=sh, bulks=bulks)
                      for sh in shards]
         with span("statistic"):
-            return self._sharded_statistic(shards, local, path, precision,
-                                           with_corr, dev0, bf16)
+            out, corr = self._sharded_statistic(
+                shards, local, path, precision, with_corr, dev0,
+                [w for w, _ in ws], nb, self._mega_tables[0])
+        del local   # the null stream's residuals may take its memory
+        null = None
+        if ws[0][1] is not None:
+            with span("null"):
+                nkeys = rng.fold_in(keys, _NULL_TAG)
+                local0 = [self._residuals(nkeys.to(sh.device),
+                                          split_gp=split, shard=sh,
+                                          null=True) for sh in shards]
+                null, _ = self._sharded_statistic(
+                    shards, local0, path, precision, False, dev0,
+                    [w0 for _, w0 in ws], lanes.n_os,
+                    self._mega_stages_null)
+                null = null[:, :lanes.n_os]
+        return self._pack(out[:, :nb], out[:, nb], null), corr
 
     def _sharded_statistic(self, shards, local, path: str, precision: str,
-                           with_corr: bool, dev0, bf16: bool):
-        """The psr shards' partial statistics from their residual rows
-        (``local``), psum'ed on ``dev0``."""
+                           with_corr: bool, dev0, weights, nb: int, stages):
+        """The shards' partial statistics from their residual rows
+        (``local``) against their rows of ``weights`` (nb + 1 slots, the
+        auto last), psum'ed on ``dev0``: ((R, nb + 1), the normalized pair
+        correlations or None)."""
+        bf16 = precision == "bf16"
         if path == "mega":
             if bf16:
                 # cast per shard BEFORE the gather, as the JAX engine does
@@ -1606,29 +1847,37 @@ class EnsembleSimulator:
             base_f = all_gather([b for b, _ in local])
             coef_f = all_gather([c for _, c in local])
             parts = [pack_stats(*mega_ops.chunk_stats(
-                bf, cf, sh.times_full, sh.scales_full, sh.weights,
-                stages=self._mega_tables[0], nbins=self.nbins,
-                precision=precision, base_local=b, coef_local=c,
+                bf, cf, sh.times_full, sh.scales_full, w, stages=stages,
+                nbins=nb, precision=precision, base_local=b, coef_local=c,
                 times_local=sh.times, scales_local=sh.scales))
-                for sh, (b, c), bf, cf in zip(shards, local, base_f, coef_f)]
+                for sh, (b, c), bf, cf, w in zip(shards, local, base_f,
+                                                 coef_f, weights)]
             return psum(parts, dev0), None
-        if path == "einsum":
+        if path == "fused":
             full = all_gather(local)
-            corrs = [_correlation_rows(x, f, stats_bf16=bf16)
-                     for x, f in zip(local, full)]
-            parts = [torch.einsum("rpq,npq->rn", c, sh.weights)
-                     for c, sh in zip(corrs, shards)]
-            corr = None
-            if with_corr:
-                corr = torch.cat([c.to(dev0) for c in corrs], dim=1) \
-                    / self._counts.to(dev0)
-            return psum(parts, dev0), corr
-        full = all_gather(local)
-        kernel = self._fused_kernel()
-        parts = [pack_stats(*kernel(x, f, sh.weights, self.nbins,
-                                    precision=precision))
-                 for x, f, sh in zip(local, full, shards)]
-        return psum(parts, dev0), None
+            kernel = self._fused_kernel()
+            parts = [pack_stats(*kernel(x, f, w, nb, precision=precision))
+                     for x, f, w in zip(local, full, weights)]
+            return psum(parts, dev0), None
+        # einsum: each toa window's psr shards gathered; a psr shard's pair
+        # sums are its cells' window sums, added in toa order
+        n_toa = self.mesh.shape[TOA_AXIS]
+        full = [None] * len(shards)
+        for t in range(n_toa):
+            idx = range(t, len(shards), n_toa)
+            for i, f in zip(idx, all_gather([local[i] for i in idx])):
+                full[i] = f
+        corrs = [_correlation_rows(x, f, stats_bf16=bf16)
+                 for x, f in zip(local, full)]
+        heads = range(0, len(shards), n_toa)
+        rows = [psum(corrs[i:i + n_toa], shards[i].device) for i in heads]
+        parts = [pack_stats(*_bin(c, weights[i], nb))
+                 for c, i in zip(rows, heads)]
+        corr = None
+        if with_corr:
+            corr = torch.cat([c.to(dev0) for c in rows], dim=1) \
+                / self._counts.to(dev0)
+        return psum(parts, dev0), corr
 
     def _normalize_chunk(self, chunk: int, nreal: int) -> int:
         """Clamp the chunk to ``nreal`` and round it down to a multiple of
@@ -1720,13 +1969,26 @@ class EnsembleSimulator:
         that raises dumps the flight recorder beside its checkpoint
         (:mod:`..obs.flightrec`).
 
-        Not ported yet, each ``NotImplementedError`` when given: ``os``
-        (ROADMAP Queue 1 item 5), ``lnlike`` (item 7), ``eventlog``,
-        ``tuned`` and ``recovery`` (item 11); ``recovery=False`` and
-        ``tuned=False`` are accepted (nothing to turn off).
+        ``os``: the on-device optimal-statistic lane, an ORF name
+        (``'hd'``, ``'monopole'``, ``'dipole'``, ``'anisotropic'``), a
+        sequence of them or a :class:`..detect.OSSpec` (noise weighting, a
+        per-pulsar ``sigma2`` override, ``null=True`` for the paired
+        noise-only stream under ``fold_in(key, 0xD7)``). Each realization's
+        amp2 per ORF is one more weight slot of the chunk's contraction or
+        kernel launch, packed beside the curves; the null stream is a second
+        one per chunk. Results land under ``out["os"]`` (schema
+        ``fakepta_tpu.detect/1``, :func:`..detect.operators.assemble`):
+        per ORF ``amp2``, ``sigma``, ``snr`` and with ``null`` the
+        ``null_amp2`` sample, its quantiles and per-realization
+        ``p_value``. Every statistic path and mesh takes it; a checkpoint
+        records the lane count, so a resume with other lanes is refused.
+
+        Not ported yet, each ``NotImplementedError`` when given: ``lnlike``
+        (ROADMAP Queue 1 item 7), ``eventlog``, ``tuned`` and ``recovery``
+        (item 11); ``recovery=False`` and ``tuned=False`` are accepted
+        (nothing to turn off).
         """
-        unported = (("os", os, "the detection lane (ROADMAP Queue 1 item 5)"),
-                    ("lnlike", lnlike,
+        unported = (("lnlike", lnlike,
                      "the likelihood lane (ROADMAP Queue 1 item 7)"),
                     ("eventlog", eventlog,
                      "the rest of obs/ (ROADMAP Queue 1 item 11)"),
@@ -1754,6 +2016,8 @@ class EnsembleSimulator:
         pipelined = depth > 0
         ring_size = max(depth, 1)
         nb = self.nbins
+        os_lanes = self._prepare_lanes(os)
+        n_extra = 0 if os_lanes is None else os_lanes.n_extra
 
         lane_seeds = lane_within = None
         if lanes is not None:
@@ -1786,13 +2050,15 @@ class EnsembleSimulator:
                 raise TypeError("checkpointing requires an integer seed (the "
                                 "checkpoint stores it to validate a resume)")
             ckpt = EnsembleCheckpoint(checkpoint)
-            state = ckpt.load(seed, nreal, chunk, keep_corr=keep_corr)
+            state = ckpt.load(seed, nreal, chunk, keep_corr=keep_corr,
+                              n_extra=n_extra)
             if state is not None:
                 done = int(state["done"])
                 if state["rolled_back"]:
                     collector.count("faults.rollbacks", state["rolled_back"])
                 packed_out.append(np.concatenate(
-                    [state["curves"], state["autos"][:, None]], axis=1))
+                    [state["curves"], state["autos"][:, None]]
+                    + ([state["extra"]] if n_extra else []), axis=1))
                 if keep_corr:
                     if "corr" not in state:
                         raise ValueError("checkpoint was written without "
@@ -1820,9 +2086,14 @@ class EnsembleSimulator:
         }
         if lanes is not None:
             meta["serve_lanes"] = len(list(lanes))
+        if os_lanes is not None:
+            meta["os"] = {"orfs": list(os_lanes.spec.orfs),
+                          "weighting": os_lanes.spec.weighting,
+                          "null": os_lanes.null}
 
         timeline: list = []
-        ledger = PackedLedger(chunk * (nb + 1) * self.batch.dtype.itemsize,
+        ledger = PackedLedger(chunk * (nb + 1 + n_extra)
+                              * self.batch.dtype.itemsize,
                               ring_size, pipelined)
         sampler = HbmSampler(self.mesh.devices.flat)
         sampler.start()
@@ -1888,7 +2159,8 @@ class EnsembleSimulator:
                     t_ck = now()
                     ckpt.save(int(seed), nreal, chunk, job["done"],
                               arr[:, :nb], arr[:, nb],
-                              corr_out[slot] if keep_corr else None)
+                              corr_out[slot] if keep_corr else None,
+                              extra=arr[:, nb + 1:] if n_extra else None)
                     t_now = now()
                     rec["ckpt_wait_s"] = t_now - t_ck
                     timeline.append({"name": "ckpt_append", "tid": "writer",
@@ -1965,11 +2237,11 @@ class EnsembleSimulator:
                         packed, corr = self.step(
                             lane_seeds[done:done + chunk],
                             lane_within[done:done + chunk], chunk, path,
-                            prec, with_corr=keep_corr)
+                            prec, with_corr=keep_corr, lanes=os_lanes)
                     else:
                         packed, corr = self.step(base, done, chunk, path,
                                                  prec, with_corr=keep_corr,
-                                                 bulks=bulks)
+                                                 bulks=bulks, lanes=os_lanes)
                     if on_card:
                         events[1].record(compute)
                         exec_events[idx] = events
@@ -2046,6 +2318,13 @@ class EnsembleSimulator:
         out = {"curves": curves, "autos": autos,
                "bin_centers": np.asarray(self.bin_centers),
                "statistic_path": path, "precision": prec}
+        if os_lanes is not None:
+            from ..detect import operators as detect_ops
+            n_os = os_lanes.n_os
+            out["os"] = detect_ops.assemble(
+                os_lanes.spec, os_lanes.ops, packed_h[:, nb + 1:nb + 1 + n_os],
+                packed_h[:, nb + 1 + n_os:nb + 1 + 2 * n_os]
+                if os_lanes.null else None)
         if keep_corr:
             out["corr"] = np.concatenate(corr_out)[:nreal]
         if ckpt is not None:

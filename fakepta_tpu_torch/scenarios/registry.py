@@ -192,6 +192,14 @@ class Scenario:
         backend_id = np.zeros((self.npsr, batch.max_toa), dtype=np.int32)
         return batch, toas_abs, backend_id, 1
 
+    def gwb_h_map(self) -> Optional[np.ndarray]:
+        """The anisotropic background's HEALPix map (None for another
+        ORF): the one :meth:`sim_kwargs` gives the engine, and the one an
+        anisotropic OS template of this array takes."""
+        if self.gwb_orf != "anisotropic":
+            return None
+        return _anis_h_map(self.gwb_nside or 4, self.gwb_anis_seed)
+
     def sim_kwargs(self, batch, toas_abs, backend_id, n_backends) -> dict:
         """The ``EnsembleSimulator`` constructor kwargs this scenario's
         menu implies (GWB config incl. anisotropic h_map, population draws,
@@ -205,11 +213,8 @@ class Scenario:
             tspan = float(batch.tspan_common)
             psd = _powlaw_psd(tspan, self.gwb_ncomp, self.gwb_log10_A,
                               self.gwb_gamma)
-            h_map = None
-            if self.gwb_orf == "anisotropic":
-                nside = self.gwb_nside or 4
-                h_map = _anis_h_map(nside, self.gwb_anis_seed)
-            kw["gwb"] = GWBConfig(psd=psd, orf=self.gwb_orf, h_map=h_map)
+            kw["gwb"] = GWBConfig(psd=psd, orf=self.gwb_orf,
+                                  h_map=self.gwb_h_map())
         noise_samples = []
         if self.red_draws is not None:
             noise_samples.append(NoiseSampling(

@@ -81,9 +81,12 @@ def key(seed: int, device: DeviceLike = None) -> torch.Tensor:
                         device=resolve_device(device))
 
 
-def _iota_2x32(shape: tuple, device) -> tuple:
-    """jax's ``iota_2x32_shape``: the row-major flat index, split in words."""
-    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+def _iota_2x32(shape: tuple, device, start: int = 0) -> tuple:
+    """jax's ``iota_2x32_shape``: the row-major flat index, split in words.
+
+    ``start`` shifts every index: the counters of a window of a longer
+    draw (a TOA shard's slots of a per-pulsar draw over every slot)."""
+    idx = torch.arange(start, start + math.prod(shape), dtype=torch.int64,
                        device=device).reshape(shape)
     return idx >> 32, idx & M32
 
@@ -117,24 +120,30 @@ def split(keys: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """32 random bits per element: (..., *shape) int64 in [0, 2**32)."""
+def random_bits(keys: torch.Tensor, shape: Shape,
+                start: int = 0) -> torch.Tensor:
+    """32 random bits per element: (..., *shape) int64 in [0, 2**32).
+
+    ``start``: the draw's first flat counter. For a 1-D ``shape`` of n,
+    ``random_bits(k, n, start=s)`` is ``random_bits(k, m)[..., s:s + n]``
+    of any longer draw m >= s + n, bit for bit, without drawing the rest."""
     shape = _shape(shape)
-    hi, lo = _iota_2x32(shape, keys.device)
+    hi, lo = _iota_2x32(shape, keys.device, start)
     k1, k2 = _key_words(keys, len(shape))
     y0, y1 = threefry2x32(k1, k2, hi, lo)
     return y0.bitwise_xor_(y1)
 
 
 def uniform(keys: torch.Tensor, shape: Shape, minval=0.0,
-            maxval=1.0) -> torch.Tensor:
+            maxval=1.0, start: int = 0) -> torch.Tensor:
     """``jax.random.uniform`` at float32: mantissa bits under exponent 0.
 
     The top 23 bits fill the mantissa of a float in [1, 2); subtracting 1
     gives [0, 1), which is then scaled into ``[minval, maxval)`` as jax
     does (``max(minval, u * (maxval - minval) + minval)`` in float32).
+    ``start`` as in :func:`random_bits`.
     """
-    bits = random_bits(keys, shape)
+    bits = random_bits(keys, shape, start)
     fbits = (bits >> 9).bitwise_or_(0x3F800000).to(torch.int32)
     one = torch.tensor(1.0, dtype=torch.float32, device=keys.device)
     floats = fbits.view(torch.float32) - one
@@ -181,7 +190,8 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
-def normal(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """``jax.random.normal`` at float32: sqrt(2) erfinv(U(nextafter(-1,0), 1))."""
-    u = uniform(keys, shape, _NORMAL_LO, 1.0)
+def normal(keys: torch.Tensor, shape: Shape, start: int = 0) -> torch.Tensor:
+    """``jax.random.normal`` at float32: sqrt(2) erfinv(U(nextafter(-1,0), 1));
+    ``start`` as in :func:`random_bits`."""
+    u = uniform(keys, shape, _NORMAL_LO, 1.0, start)
     return erfinv_f32(u).mul_(_SQRT2)

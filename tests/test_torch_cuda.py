@@ -739,3 +739,160 @@ def test_sampled_terms_on_the_card_match_the_cpu(cuda):
     a = sims[cuda].run(128, seed=5, chunk=64)
     _same(a, sims[cuda].run(128, seed=5, chunk=64))
     _sampled_bounds(a, sims["cpu"].run(128, seed=5, chunk=64))
+
+
+# -- the detection lane and TOA sharding on the card (new slot counts, the
+# -- null stream's stage set) -----------------------------------------------
+
+#: the OS lane's weight-slot counts at the flagship's 15 bins: the null
+#: stream's n_os + 1 with one and three ORFs, the main launch's
+#: 15 + n_os + 1 with one and three
+OS_NB = (2, 4, 17, 19)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vpu", [False, True])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("nb", OS_NB)
+@pytest.mark.parametrize("R,PL,PF,T", [(9, 100, 100, 780),
+                                       (5, 50, 100, 780),
+                                       (5, 25, 100, 780)])
+def test_binned_correlation_at_the_os_slot_counts(cuda, R, PL, PF, T, nb,
+                                                  prec, vpu):
+    """#1 and #2 at every weight-slot count the OS lane launches them at,
+    on the flagship's shared set and a 2- and 4-shard mesh's rows; for #2
+    rb comes from vpu_tiling at that count."""
+    res_l, res_f, _ = _sharded_residuals(cuda, R, PL, PF, T,
+                                         shared=PL == PF)
+    w = torch.randn(nb, PL, PF, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(nb))
+    _check_binned_correlation(res_l, res_f, w, nb - 1, prec, vpu=vpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("nb", OS_NB)
+@pytest.mark.parametrize("pl", [100, 50, 25])
+def test_chunk_stats_at_the_os_slot_counts(cuda, pl, nb, prec):
+    """#3 (pl = 100) and #4 (a shard's pl rows) on the flagship's own
+    residual base and coefficients (K = 320) at each slot count, and
+    bit-identical reruns."""
+    from fakepta_tpu_torch.parallel.montecarlo import _chunk_keys
+    from fakepta_tpu_torch.utils import rng
+    sim = _flagship(cuda, "mega")
+    keys = _chunk_keys(rng.key(4, device=cuda), 0, 16)
+    with torch.no_grad():
+        base, coef = sim._residuals(keys, split_gp=True)
+    stages, times, scales = sim._mega_tables
+    assert mk.stage_k(stages) == 320
+    dt = torch.float32 if prec == "f32" else torch.bfloat16
+    base, coef = base.to(dt), coef.to(dt)
+    w = torch.randn(nb, pl, 100, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(nb))
+    kw = {} if pl == 100 else dict(
+        base_local=base[:, :pl].contiguous(),
+        coef_local=coef[:, :pl].contiguous(),
+        times_local=times[:, :pl].contiguous(),
+        scales_local=scales[:, :pl].contiguous())
+    got = mk.chunk_stats(base, coef, times, scales, w, stages=stages,
+                         nbins=nb - 1, precision=prec, **kw)
+    want = mk.chunk_stats_plain(base, coef, times, scales, w, stages=stages,
+                                nbins=nb - 1, precision=prec, **kw)
+    _assert_close(got, want, prec)
+    again = mk.chunk_stats(base, coef, times, scales, w, stages=stages,
+                           nbins=nb - 1, precision=prec, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("pl", [100, 50])
+def test_chunk_stats_on_the_null_stage_set(cuda, pl, prec):
+    """#3 / #4 on the null stream's own operands: the 0xD7 residual base
+    and its GWB-free coefficients (K = 260) on the stage set without the
+    GWB, with the OS weights and a zero auto slot (NB = 4)."""
+    from fakepta_tpu_torch.detect import OSSpec
+    from fakepta_tpu_torch.parallel.montecarlo import _NULL_TAG, _chunk_keys
+    from fakepta_tpu_torch.utils import rng
+    sim = _flagship(cuda, "mega")
+    keys = rng.fold_in(_chunk_keys(rng.key(4, device=cuda), 0, 16),
+                       _NULL_TAG)
+    with torch.no_grad():
+        base, coef = sim._residuals(keys, split_gp=True, null=True)
+    stages = sim._mega_stages_null
+    _, times, scales = sim._mega_tables
+    assert mk.stage_k(stages) == coef.shape[2] == 260
+    lanes = sim._prepare_lanes(OSSpec(orf=("hd", "monopole", "dipole"),
+                                      null=True))
+    w = lanes.weights[id(sim._full)][1][:, :pl].contiguous()
+    assert w.shape == (4, pl, 100) and not w[3].any()
+    dt = torch.float32 if prec == "f32" else torch.bfloat16
+    base, coef = base.to(dt), coef.to(dt)
+    kw = {} if pl == 100 else dict(
+        base_local=base[:, :pl].contiguous(),
+        coef_local=coef[:, :pl].contiguous(),
+        times_local=times[:, :pl].contiguous(),
+        scales_local=scales[:, :pl].contiguous())
+    got = mk.chunk_stats(base, coef, times, scales, w, stages=stages,
+                         nbins=3, precision=prec, **kw)
+    want = mk.chunk_stats_plain(base, coef, times, scales, w, stages=stages,
+                                nbins=3, precision=prec, **kw)
+    _assert_close(got, want, prec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("path,mxu", [("einsum", True), ("fused", True),
+                                      ("fused", False), ("mega", True)])
+def test_os_lane_on_the_card_matches_the_cpu(cuda, path, mxu, shards):
+    """run(os=...) with the null stream on the card, every path on one and
+    two psr shards, against the CPU port's einsum run: amp2 and null amp2
+    within 1e-4 of max|amp2| (f32), reruns bit-identical."""
+    from fakepta_tpu_torch.detect import OSSpec
+    batch = PulsarBatch.synthetic(npsr=8, ntoa=64, tspan_years=10.0,
+                                  n_red=4, n_dm=4, seed=1, device="cpu")
+    f = np.arange(1, 5) / float(batch.tspan_common)
+    gwb = GWBConfig(psd=spectrum_lib.powerlaw(f, log10_A=-13.5,
+                                              gamma=13 / 3).numpy())
+    spec = OSSpec(orf=("hd", "monopole", "dipole"), null=True)
+    want = EnsembleSimulator(batch, gwb=gwb, stat_path="einsum",
+                             device="cpu").run(16, seed=3, chunk=8, os=spec)
+    mesh = make_mesh([cuda] * shards, psr_shards=shards)
+    sim = EnsembleSimulator(batch, gwb=gwb, stat_path=path,
+                            pallas_mxu_binning=mxu, mesh=mesh)
+    got = sim.run(16, seed=3, chunk=8, precision="f32", os=spec)
+    for orf in spec.orfs:
+        scale = np.abs(want["os"]["stats"][orf]["amp2"]).max()
+        for k in ("amp2", "null_amp2"):
+            np.testing.assert_allclose(got["os"]["stats"][orf][k],
+                                       want["os"]["stats"][orf][k], rtol=0,
+                                       atol=1e-4 * scale)
+    again = sim.run(16, seed=3, chunk=8, precision="f32", os=spec)
+    _same(got, again)
+    for orf in spec.orfs:
+        np.testing.assert_array_equal(got["os"]["stats"][orf]["null_amp2"],
+                                      again["os"]["stats"][orf]["null_amp2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("psr,toa", [(1, 2), (1, 4), (2, 2)])
+def test_toa_sharding_on_the_card_matches_the_cpu(cuda, psr, toa):
+    """toa_shards > 1 on one card (the cells in turn) against the CPU
+    port's unsharded einsum run at the JAX package's bound (rtol 5e-5),
+    and a bit-identical rerun."""
+    batch = PulsarBatch.synthetic(npsr=8, ntoa=128, tspan_years=10.0,
+                                  n_red=4, n_dm=4, seed=1, device="cpu")
+    f = np.arange(1, 5) / float(batch.tspan_common)
+    gwb = GWBConfig(psd=spectrum_lib.powerlaw(f, log10_A=-13.5,
+                                              gamma=13 / 3).numpy())
+    want = EnsembleSimulator(batch, gwb=gwb, stat_path="einsum",
+                             device="cpu").run(16, seed=3, chunk=8)
+    sim = EnsembleSimulator(batch, gwb=gwb, stat_path="einsum",
+                            mesh=make_mesh([cuda] * (psr * toa),
+                                           psr_shards=psr, toa_shards=toa))
+    got = sim.run(16, seed=3, chunk=8)
+    scale = np.abs(want["curves"]).max()
+    np.testing.assert_allclose(got["curves"], want["curves"], rtol=5e-5,
+                               atol=1e-7 * scale)
+    np.testing.assert_allclose(got["autos"], want["autos"], rtol=5e-5)
+    _same(got, sim.run(16, seed=3, chunk=8))

@@ -70,6 +70,42 @@ def test_signal_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.detect", "fakepta_tpu_torch.detect.operators",
+    "fakepta_tpu_torch.detect.run", "fakepta_tpu_torch.detect.cli",
+    "fakepta_tpu_torch.detect.__main__"])
+def test_detect_modules_are_checked(module):
+    """The detection lane's modules (the operators a copy of a numpy-only
+    module of the JAX package) are among the modules the checks below
+    import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_detect_entry_points_default_to_the_card():
+    """DetectionRun and the detection CLI run on the card unless the CPU
+    is asked for."""
+    from fakepta_tpu_torch import spectrum as spectrum_lib
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.detect import DetectionRun, cli
+    from fakepta_tpu_torch.parallel.montecarlo import GWBConfig
+
+    assert cli.build_parser().parse_args(["run"]).device == "cuda"
+    batch = PulsarBatch.synthetic(npsr=4, ntoa=16, n_red=2, n_dm=2,
+                                  device="cpu")
+    f = np.arange(1, 3) / float(batch.tspan_common)
+    gwb = GWBConfig(psd=spectrum_lib.powerlaw(f, -14.0, 13 / 3).numpy())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DetectionRun(batch, gwb=gwb)
+        assert cli.main(["run", "--npsr", "4", "--ntoa", "16"]) == 2
+    out = DetectionRun(batch, gwb=gwb, device="cpu").run(4, chunk=4)
+    assert out["report"].meta["platform"] == "cpu"
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, sys\n"

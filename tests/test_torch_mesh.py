@@ -150,8 +150,13 @@ def test_engine_checks_the_mesh():
         _port_sim(tb, mesh=make_mesh(["cpu"] * 3, psr_shards=3))
     with pytest.raises(ValueError, match="divisible by the toa mesh axis"):
         _port_sim(tb, mesh=make_mesh(["cpu"] * 3, toa_shards=3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        _port_sim(tb, mesh=make_mesh(["cpu"] * 2, toa_shards=2))
+    # toa sharding runs on the einsum path only; the kernel paths refuse it
+    for path in (("fused", True), ("mega", True)):
+        with pytest.raises(ValueError, match="toa sharding"):
+            _port_sim(tb, mesh=make_mesh(["cpu"] * 2, toa_shards=2),
+                      path=path)
+    _port_sim(tb, mesh=make_mesh(["cpu"] * 2, toa_shards=2),
+              path=("einsum", True))
     with pytest.raises(ValueError, match="mesh= or device="):
         EnsembleSimulator(tb, mesh=make_mesh(["cpu"]), device="cpu")
     sim = _port_sim(tb, mesh=make_mesh(CPU8, psr_shards=2))

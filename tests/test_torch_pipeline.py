@@ -285,7 +285,7 @@ def test_lanes_refuse_a_checkpoint_and_overflow(tb, tmp_path):
 
 def test_run_refuses_what_is_not_ported(tb):
     sim = _sim(tb)
-    for kw in (dict(os="hd"), dict(lnlike=object()),
+    for kw in (dict(lnlike=object()),
                dict(eventlog="/nonexistent"), dict(tuned=True),
                dict(recovery=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
