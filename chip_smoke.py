@@ -118,7 +118,25 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    in a subprocess (exit 0, the artifact loads); ``ipta_dr3`` uncut on
    ``"fused"`` with an HD and its own anisotropic template and the null
    stream (``peak_hbm_bytes``).
-9. ``profile`` (only when asked for): per statistic path, the device time
+9. ``facade``: the reference-compatible facade on the card. BASELINE
+   configs 1 (``Pulsar`` of 520 TOAs, ``add_white_noise(seed=1)``) and 2
+   (10 pulsars, ``add_noise_array`` red noise, seed 2) in injections/s
+   after a warm-up, between synchronizations; ``make_fake_array(npsrs=100,
+   Tobs=15, ntoas=780, isotropic=True, gaps=True, toaerr=1e-7, pdist=1,
+   backends=["NUPPI"])`` timed; its pickle round trip through
+   ``save_array`` / ``load_array(device="cuda")`` with the residuals equal;
+   the example's ``copy_array`` replay of the shipped noisedict and custom
+   models, on the card against the CPU within 1e-5 of scale. Then the
+   array packed by ``PulsarBatch.from_pulsars`` (ragged TOAs under a mask,
+   per-pulsar Tspan) with the flagship's HD background (K = 320 on mega):
+   ``run(2048, chunk=1024)`` on ``"einsum"`` f32 (the yardstick), ``"fused"``,
+   ``"fused"`` with ``pallas_mxu_binning=False`` and ``"mega"`` at both
+   precisions and on a 2-shard mega mesh, held as in the engine phase;
+   each kernel against its plain version and timed at the batch's shapes;
+   the same batch cut to a TOA width with ``T % 4 != 0`` (the kernels'
+   scalar staging) through every path at f32 and each kernel measured
+   there; the replayed array against the CPU engine.
+10. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -1784,6 +1802,263 @@ def phase_detect(report: dict) -> None:
     report["detect"] = out
 
 
+#: the facade phase: the flagship-width array's seed, realizations per run
+#: on its batch, and the per-TOA leaves of a batch (the TOA axis last)
+FACADE_SEED = 2024
+FACADE_NREAL = 2048
+TOA_LEAVES = ("t_own", "t_common", "mask", "freqs", "sigma2", "epoch_idx",
+              "ecorr_amp", "sys_mask")
+
+
+def injection_rate(fn, n_injections: int, iters: int) -> float:
+    """Injections per second of ``fn`` (``n_injections`` per call) over
+    ``iters`` calls after one warm-up call, between synchronizations."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return n_injections * iters / (time.perf_counter() - t0)
+
+
+def injection_trace(fn) -> dict:
+    """One traced call of ``fn``: its CUDA kernel launches, host-device
+    copies and device busy milliseconds (``torch.profiler``), beside the
+    call's wall milliseconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    row = {"kernels": 0, "copies": 0, "busy_ms": 0.0, "wall_ms": 1e3 * wall}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        row["copies" if "Memcpy" in ev.name else "kernels"] += 1
+        row["busy_ms"] += ev.time_range.elapsed_us() / 1e3
+    return row
+
+
+def trim_toas(batch, width: int):
+    """``batch`` cut to its first ``width`` TOA slots (every valid TOA must
+    fit them): a facade batch at a width that from_pulsars' 128-slot
+    padding never gives."""
+    from fakepta_tpu_torch.batch import PulsarBatch
+    leaves = batch.numpy()
+    if leaves["mask"][:, width:].any():
+        raise AssertionError(f"valid TOAs beyond slot {width}")
+    for k in TOA_LEAVES:
+        leaves[k] = leaves[k][..., :width]
+    return PulsarBatch.from_numpy(leaves, device=batch.device)
+
+
+def facade_gwb(batch):
+    """The flagship's HD background (2e-15, 13/3, 30 bins) on a batch's
+    own grid."""
+    from fakepta_tpu_torch import spectrum as spectrum_lib
+    from fakepta_tpu_torch.parallel.montecarlo import GWBConfig
+    f = np.arange(1, 31) / float(batch.tspan_common)
+    return GWBConfig(psd=spectrum_lib.powerlaw(f, float(np.log10(2e-15)),
+                                               13 / 3).numpy())
+
+
+def check_gp_consistent(psrs, signals, what: str, updates: int = 1) -> None:
+    """Each pulsar's residuals equal the sum of its stored signals'
+    reconstructions (finite, on the card) within 1e-5 of their scale times
+    the square root of the float32 residual ``updates`` made: each
+    re-injection adds its own rounding, as a random walk."""
+    for p in psrs:
+        if p._res_dev is not None and not p._res_dev.is_cuda:
+            raise AssertionError(f"{what}: {p.name}'s residuals left the "
+                                 f"card")
+        res = p.residuals
+        rec = p.reconstruct_signal(signals)
+        if not (np.isfinite(res).all() and np.abs(res).max() > 0):
+            raise AssertionError(f"{what}: {p.name} residuals not finite "
+                                 f"or zero")
+        err = np.abs(res - rec).max() / np.abs(rec).max()
+        if err > 1e-5 * updates ** 0.5:
+            raise AssertionError(f"{what}: {p.name} residuals differ from "
+                                 f"their signals by {err:.3e} of scale")
+
+
+def phase_facade(report: dict) -> None:
+    """The reference-compatible facade on the card (module docstring,
+    phase 9)."""
+    import torch
+    from fakepta_tpu_torch import constants as const
+    from fakepta_tpu_torch import fake_pta as fp
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+    from fakepta_tpu_torch.utils import io as fio
+
+    rows = {}
+    # BASELINE configs 1 and 2 (benchmarks/suite.py:162-190)
+    toas = np.linspace(0, 10 * const.yr, 520)
+    psr = fp.Pulsar(toas, 1e-6, 1.0, 1.0, seed=0, device="cuda")
+    rows["config1_injections_per_s"] = injection_rate(
+        lambda: psr.add_white_noise(seed=1), 1, 200)
+    if not np.isfinite(psr.residuals).all():
+        raise AssertionError("config 1: non-finite residuals")
+    psrs10 = [fp.Pulsar(toas, 1e-6, 1.0 + 0.1 * k, 0.3 * k, seed=k,
+                        device="cuda") for k in range(10)]
+    rows["config2_injections_per_s"] = injection_rate(
+        lambda: fp.add_noise_array(psrs10, signal="red_noise",
+                                   spectrum="powerlaw", log10_A=-14.0,
+                                   gamma=13 / 3, seed=2), 10, 50)
+    check_gp_consistent(psrs10, ["red_noise"], "config 2", updates=51)
+    for name, fn in (("config1", lambda: psr.add_white_noise(seed=1)),
+                     ("config2", lambda: fp.add_noise_array(
+                         psrs10, signal="red_noise", log10_A=-14.0,
+                         gamma=13 / 3, seed=2))):
+        rows[f"{name}_trace"] = injection_trace(fn)
+    print(f"facade: config 1 {rows['config1_injections_per_s']:.1f} "
+          f"white injections/s (1 pulsar, 520 TOAs); config 2 "
+          f"{rows['config2_injections_per_s']:.1f} red injections/s (10 "
+          f"pulsars, 30 bins, add_noise_array); one traced call each: "
+          f"{rows['config1_trace']} / {rows['config2_trace']}", flush=True)
+
+    # the flagship-width array, with the reference's gaps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psrs = fp.make_fake_array(npsrs=100, Tobs=15.0, ntoas=780,
+                              isotropic=True, gaps=True, toaerr=1e-7,
+                              pdist=1.0, backends=["NUPPI"], seed=FACADE_SEED,
+                              device="cuda")
+    torch.cuda.synchronize()
+    rows["make_fake_array_s"] = time.perf_counter() - t0
+    kept = np.array([len(p.toas) for p in psrs])
+    rows["kept_toas"] = {"min": int(kept.min()), "mean": float(kept.mean()),
+                         "max": int(kept.max())}
+    for p in psrs[:10]:
+        # what the red and DM signals leave is the white draw: its spread
+        # within 20% of the noisedict's sigma (efac 1, tnequad 1e-8 s)
+        white = p.residuals - p.reconstruct_signal(["red_noise", "dm_gp"])
+        sigma = np.sqrt(np.mean(p.toaerrs ** 2) + 1e-16)
+        if not (np.isfinite(white).all()
+                and abs(white.std() / sigma - 1) < 0.2):
+            raise AssertionError(f"make_fake_array: {p.name} white part "
+                                 f"{white.std():.3e} s, expected {sigma:.3e}")
+    print(f"facade: make_fake_array(npsrs=100, ntoas=780, gaps) "
+          f"{rows['make_fake_array_s']:.3f} s, kept TOAs {rows['kept_toas']}",
+          flush=True)
+
+    # the pickle round trip
+    path = os.path.join(HERE, "build", "facade", "psrs.pkl")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    t0 = time.perf_counter()
+    fio.save_array(psrs, path)
+    loaded = fio.load_array(path, device="cuda")
+    rows["pickle_roundtrip_s"] = time.perf_counter() - t0
+    for a, b in zip(loaded, psrs):
+        if a.name != b.name or not np.array_equal(
+                a.residuals, np.asarray(b.residuals, np.float64)):
+            raise AssertionError(f"pickle round trip: {b.name} changed")
+    loaded[0].add_red_noise(log10_A=-14.0, gamma=13 / 3, seed=3)
+    if not loaded[0]._res_dev.is_cuda:
+        raise AssertionError("a loaded pulsar injected off the card")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+    # the example's copy_array replay, on the card and on the CPU
+    data = os.path.join(HERE, "examples", "simulated_data")
+    nd = fio.load_noisedict(os.path.join(data, "noisedict_example.json"))
+    cm = fio.load_custom_models(os.path.join(data,
+                                             "custom_models_example.json"))
+    replays = {}
+    for dev in ("cuda", "cpu"):
+        src = fp.make_fake_array(npsrs=8, Tobs=10.0, ntoas=100,
+                                 isotropic=True, toaerr=1e-6, seed=1234,
+                                 device=dev)
+        if {p.name for p in src} != set(cm):
+            raise AssertionError("the shipped custom models name other "
+                                 "pulsars")
+        cp = fp.copy_array(src, nd, cm, seed=42, device=dev)
+        for p in cp:
+            p.make_ideal()
+            p.add_white_noise()
+            p.add_red_noise()
+            p.add_dm_noise()
+        replays[dev] = cp
+    worst = 0.0
+    for a, b in zip(replays["cuda"], replays["cpu"]):
+        ra, rb = a.residuals, b.residuals
+        worst = max(worst, float(np.abs(ra - rb).max() / np.abs(rb).max()))
+    if worst > 1e-5:
+        raise AssertionError(f"copy_array replay: card vs CPU {worst:.3e} "
+                             f"of scale")
+    rows["replay_card_vs_cpu_over_scale"] = worst
+    print(f"facade: pickle round trip {rows['pickle_roundtrip_s']:.3f} s "
+          f"(residuals equal); copy_array replay of the shipped JSONs, "
+          f"card vs CPU {worst:.3e} of scale", flush=True)
+
+    # the array through the engine: every path, both precisions, and a
+    # 2-shard mega mesh, held to the einsum run
+    batch = PulsarBatch.from_pulsars(psrs, device="cuda")
+    gwb = facade_gwb(batch)
+    P, T = batch.npsr, batch.max_toa
+    sims = {p: EnsembleSimulator(batch, gwb=gwb, stat_path=p.split("-")[0],
+                                 pallas_mxu_binning=p != "fused-vpu",
+                                 device="cuda")
+            for p in ("einsum", "fused", "fused-vpu", "mega")}
+    print(f"facade batch: P={P} T={T}, "
+          f"{float(batch.mask.float().mean()):.4f} of the TOA slots valid",
+          flush=True)
+    ref, row = yardstick("facade", sims.pop("einsum"), nreal=FACADE_NREAL)
+    rows["einsum/f32"] = row
+    rows.update(drive_paths(report, "facade", sims, ref,
+                            shape_tag(P, P, T), nreal=FACADE_NREAL))
+    mesh_sim = EnsembleSimulator(batch, gwb=gwb, stat_path="mega",
+                                 mesh=make_mesh(["cuda:0"] * 2,
+                                                psr_shards=2))
+    rows.update({f"x2/{k}": v for k, v in drive_paths(
+        report, "facade psr_shards=2", {"mega": mesh_sim}, ref,
+        shape_tag(P // 2, P, T), nreal=FACADE_NREAL, tol=MESH_TOL,
+        shards=2).items()})
+    measure_kernels(report, sims["fused"], (P // 2,), "facade kernels")
+
+    # the same batch at T % 4 != 0: the kernels at their scalar staging
+    n_max = int(batch.mask.sum(1).max())
+    width = n_max + 1 if n_max % 4 == 0 else n_max
+    odd = trim_toas(batch, width)
+    odd_sims = {p: EnsembleSimulator(odd, gwb=gwb, stat_path=p.split("-")[0],
+                                     pallas_mxu_binning=p != "fused-vpu",
+                                     device="cuda")
+                for p in ("einsum", "fused", "fused-vpu", "mega")}
+    odd_ref, row = yardstick(f"facade T={width}", odd_sims.pop("einsum"),
+                             nreal=CHUNK)
+    rows[f"T{width}/einsum/f32"] = row
+    rows.update({f"T{width}/{k}": v for k, v in drive_paths(
+        report, f"facade T={width}", odd_sims, odd_ref,
+        shape_tag(P, P, width), nreal=CHUNK, precs=("f32",)).items()})
+    measure_kernels(report, odd_sims["fused"], (P // 2,),
+                    f"facade kernels T={width}")
+
+    # a small facade array on the card against the CPU engine
+    small = PulsarBatch.from_pulsars(replays["cpu"], n_red=50, n_dm=110,
+                                     device="cpu")
+    sgwb = facade_gwb(small)
+    cpu = EnsembleSimulator(small, gwb=sgwb, stat_path="einsum",
+                            device="cpu").run(64, seed=3, chunk=32)
+    for path in ("fused", "fused-vpu", "mega"):
+        gpu = EnsembleSimulator(small.to("cuda"), gwb=sgwb,
+                                stat_path=path.split("-")[0],
+                                pallas_mxu_binning=path != "fused-vpu",
+                                device="cuda").run(64, seed=3, chunk=32,
+                                                   precision="f32")
+        compare((gpu["curves"], gpu["autos"]),
+                (cpu["curves"], cpu["autos"]), "f32",
+                f"replayed array: cuda {path} vs cpu einsum")
+    report["facade"] = rows
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -1926,10 +2201,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", nargs="+",
                     default=["build", "kernels", "engine", "mesh",
-                             "scenarios", "signals", "run", "detect"],
+                             "scenarios", "signals", "run", "detect",
+                             "facade"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
-                             "profile"])
+                             "facade", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh and profile phases' flagship "
                          "meshes span (default 1: every shard on cuda:0)")
@@ -1955,6 +2231,7 @@ def main(argv=None) -> int:
               "mesh": lambda r: phase_mesh(r, args.mesh_cards),
               "scenarios": phase_scenarios, "signals": phase_signals,
               "run": phase_run, "detect": phase_detect,
+              "facade": phase_facade,
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:
@@ -1970,8 +2247,9 @@ def main(argv=None) -> int:
     # 2- and 4-shard meshes' PL = 50 and 25; ng15's PL = 68 and its 2-shard
     # mesh's PL = 34; ipta_dr3's PL = 120 and 60; the detection lane's
     # weight-slot counts NB and chunk_stats' K where they are not the plain
-    # run's), each with the launches made at that shape in the main-path
-    # runs (0 where none was made)
+    # run's; the facade batch's PL = 100 and 50 at its own TOA width and
+    # at a width with T % 4 != 0), each with the launches made at that
+    # shape in the main-path runs (0 where none was made)
     table = []
     specs = (("binned_correlation", "bf16",
               "fakepta_tpu_torch/csrc/binned_corr.cu",

@@ -1,14 +1,80 @@
-"""White-noise epoch grouping (port of fakepta_tpu.ops.white, host part).
+"""White-noise kernels: EFAC/EQUAD variances, ECORR sampling and epoch
+grouping (port of fakepta_tpu.ops.white).
 
-Only :func:`quantise_epochs` is ported: the cadence scenarios group ECORR
-epochs with it. The JAX module's device draw helpers (``white_sigma2``,
-``draw_white``, ``draw_white_ecorr``, ``white_ecorr_covariance``) serve the
-reference-compatible facade and come with it.
+Per-backend TOA variance ``sigma^2 = efac^2 toaerr^2 + 10^(2
+log10_tnequad)``; ECORR adds a fully-correlated block within each observing
+epoch of one backend, with the ENTERPRISE block variance ``10^(2
+log10_ecorr)``. The rank-1-per-epoch covariance ``diag(sigma^2) + ecorr_var
+1 1^T`` is sampled exactly with one extra standard normal per epoch,
+gathered by epoch id: O(ntoa), no Cholesky. :func:`quantise_epochs` is the
+host-side grouping the cadence scenarios and the facade share.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..utils import rng
+
+
+def _t(x, like=None) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    if like is not None:
+        return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    return torch.as_tensor(x)
+
+
+def white_sigma2(toaerrs, efac, tnequad_log10) -> torch.Tensor:
+    """Per-TOA variance ``efac^2 toaerr^2 + 10^(2 q)`` from per-TOA
+    parameter arrays, at the dtype and device of ``toaerrs``."""
+    toaerrs = _t(toaerrs)
+    return (_t(efac, toaerrs) ** 2 * toaerrs ** 2
+            + 10.0 ** (2.0 * _t(tnequad_log10, toaerrs)))
+
+
+def draw_white(key, sigma2, mask=None) -> torch.Tensor:
+    """Normal residuals with per-TOA variance ``sigma2`` (float32), drawn
+    from ``key`` ((..., 2) keys broadcast over leading axes)."""
+    sigma2 = _t(sigma2)
+    r = rng.normal(key.to(sigma2.device), sigma2.shape[-1:]) \
+        * torch.sqrt(sigma2)
+    if mask is not None:
+        r = torch.where(_t(mask).to(r.device), r, r.new_zeros(()))
+    return r
+
+
+def draw_white_ecorr(key, sigma2, ecorr_var, epoch_idx, n_epochs: int,
+                     epoch_weight=None) -> torch.Tensor:
+    """White noise plus epoch-block ECORR in one shot:
+    ``sqrt(sigma2) z + sqrt(ecorr_var) u[epoch_idx]``, ``u ~ N(0,
+    I_{n_epochs})``, exact because the block part is rank 1 per epoch. The
+    two draws come from ``split(fold_in(key, 0x0E))``. ``epoch_weight``
+    (n_epochs,) 0/1 turns ECORR off on singleton epochs."""
+    sigma2 = _t(sigma2)
+    k = rng.split(rng.fold_in(key.to(sigma2.device), 0x0E), 2)
+    z = rng.normal(k[..., 0, :], sigma2.shape[-1:])
+    u = rng.normal(k[..., 1, :], int(n_epochs))
+    if epoch_weight is not None:
+        u = u * _t(epoch_weight, u)
+    idx = _t(epoch_idx).to(device=u.device, dtype=torch.int64)
+    return (torch.sqrt(sigma2) * z
+            + torch.sqrt(_t(ecorr_var, sigma2)) * u[..., idx])
+
+
+def white_ecorr_covariance(sigma2, ecorr_var, epoch_idx, epoch_weight=None
+                           ) -> torch.Tensor:
+    """Dense covariance of :func:`draw_white_ecorr`."""
+    sigma2 = _t(sigma2)
+    epoch_idx = _t(epoch_idx).to(sigma2.device)
+    same = epoch_idx[:, None] == epoch_idx[None, :]
+    amp = torch.sqrt(_t(ecorr_var, sigma2))
+    block = amp[:, None] * amp[None, :] * same
+    if epoch_weight is not None:
+        w = _t(epoch_weight, sigma2)[epoch_idx.long()]
+        block = block * (w[:, None] * w[None, :])
+    return torch.diag(sigma2) + block
 
 
 def quantise_epochs(times: np.ndarray, backend_codes: np.ndarray,

@@ -2150,8 +2150,10 @@ class EnsembleSimulator:
                         job["events"][1].synchronize()
                     corr_out[slot] = job["corr"].cpu().numpy()
                     t_ready = now()
-                if arr is not None and not np.isfinite(arr).all():
-                    # fail before the checkpoint can take the chunk in
+                if arr is not None and not np.isfinite(arr[:, :nb + 1]).all():
+                    # a non-finite curve or auto fails before the checkpoint
+                    # can take the chunk in; the extra (OS / null) lanes
+                    # are the caller's to read, as in the JAX engine
                     flightrec.note("poisoned_chunk", idx=idx)
                     raise FloatingPointError(
                         f"chunk {idx} produced non-finite packed statistics")
@@ -2295,7 +2297,7 @@ class EnsembleSimulator:
                 timeline.append({"name": "final_fetch", "tid": "main",
                                  "t0": t_f0 - t_run0,
                                  "dur": now() - t_f0})
-                if not np.isfinite(packed_h).all():
+                if not np.isfinite(packed_h[:, :nb + 1]).all():
                     flightrec.note("poisoned_output")
                     raise FloatingPointError(
                         "run produced non-finite statistics")

@@ -1,6 +1,7 @@
-"""Crash-safe files and resumable ensemble checkpoints (port of
-``fakepta_tpu.utils.io``: ``write_atomic``, ``npz_bytes`` and
-``EnsembleCheckpoint``).
+"""Persistence (port of ``fakepta_tpu.utils.io``): crash-safe files, the
+ENTERPRISE-layout pulsar-list pickles and config JSONs of the facade
+(``save_array``, ``load_array``, ``load_noisedict``,
+``load_custom_models``), and resumable ensemble checkpoints.
 
 The checkpoint layout is the JAX package's, file for file and key for
 key: a manifest at ``<path>`` (npz: ``seed``, ``nreal``, ``chunk``,
@@ -13,7 +14,9 @@ are ``fold_in(key(seed), absolute index)`` in both.
 from __future__ import annotations
 
 import io
+import json
 import os
+import pickle
 import zipfile
 import zlib
 from pathlib import Path
@@ -21,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..device import DeviceLike, resolve_device
 from ..obs import flightrec
 
 
@@ -54,6 +58,56 @@ def npz_bytes(**arrays) -> bytes:
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     return buf.getvalue()
+
+
+def save_array(psrs, path) -> Path:
+    """Pickle a pulsar list in the ENTERPRISE-compatible layout (host
+    float64 residuals, no key streams or device tensors)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as fh:
+        pickle.dump(list(psrs), fh)
+    return path
+
+
+def load_array(path, device: DeviceLike = None) -> list:
+    """Load a pulsar-list pickle (the facade's or ENTERPRISE objects).
+
+    Unpickling runs code from the file: load only pickles this program
+    wrote. The facade's pulsars come back with their host residuals
+    authoritative and ``device`` (the package rule: ``None`` is ``"cuda"``,
+    which raises without a GPU) as the device of their next injection.
+    """
+    from ..fake_pta import Pulsar
+
+    dev = resolve_device(device)
+    with open(path, "rb") as fh:
+        psrs = pickle.load(fh)
+    for p in psrs:
+        if isinstance(p, Pulsar):
+            p._device = dev
+    return psrs
+
+
+def load_noisedict(path) -> dict:
+    """Flat ``{parameter_name: float}`` JSON in ENTERPRISE naming."""
+    nd = json.loads(Path(path).read_text())
+    bad = {k: v for k, v in nd.items() if not isinstance(v, (int, float))}
+    if bad:
+        raise ValueError(f"noisedict values must be numbers; offending keys: "
+                         f"{sorted(bad)[:5]}")
+    return nd
+
+
+def load_custom_models(path) -> dict:
+    """``{psrname: {'RN': n|None, 'DM': n|None, 'Sv': n|None}}`` JSON."""
+    models = json.loads(Path(path).read_text())
+    for name, entry in models.items():
+        missing = {"RN", "DM", "Sv"} - set(entry)
+        if missing:
+            raise ValueError(f"custom_models[{name!r}] missing "
+                             f"{sorted(missing)}")
+    return models
 
 
 class EnsembleCheckpoint:

@@ -23,6 +23,7 @@ ULP of ``log1p``/``sqrt`` rounding.
 from __future__ import annotations
 
 import math
+import zlib
 from typing import Sequence, Union
 
 import numpy as np
@@ -195,3 +196,126 @@ def normal(keys: torch.Tensor, shape: Shape, start: int = 0) -> torch.Tensor:
     ``start`` as in :func:`random_bits`."""
     u = uniform(keys, shape, _NORMAL_LO, 1.0, start)
     return erfinv_f32(u).mul_(_SQRT2)
+
+
+# ---------------------------------------------------------------------------
+# Host key streams for the stateful facade (the JAX package's
+# ``utils/rng.py``: ``set_default_seed`` .. ``fold_key_in_kernel``).
+#
+# A facade key is the same (2,) int64 tensor as above, kept on the CPU: the
+# facade derives one key per injection, and a scalar fold is twenty rounds
+# of 32-bit integer arithmetic that Python does in microseconds, where the
+# tensor hash above would enqueue ~120 tiny kernels. The injector moves the
+# finished key to its device once.
+# ---------------------------------------------------------------------------
+
+_DEFAULT_SEED = 0
+_auto_streams = 0
+
+#: an empty fold-label array (``next_spec``'s "no folds")
+NO_FOLDS = np.zeros((0,), dtype=np.uint32)
+
+
+def set_default_seed(seed: int) -> None:
+    """Set the package-level seed used when an API call gets no seed/key."""
+    global _DEFAULT_SEED
+    _DEFAULT_SEED = int(seed)
+
+
+def get_default_seed() -> int:
+    return _DEFAULT_SEED
+
+
+def _threefry_words(k1: int, k2: int, x1: int, x2: int) -> tuple:
+    """:func:`threefry2x32` on one counter pair, in Python integers."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    y0, y1 = (x1 + k1) & M32, (x2 + k2) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            y0 = (y0 + y1) & M32
+            y1 = ((y1 << r) | (y1 >> (32 - r))) & M32
+            y1 ^= y0
+        y0 = (y0 + ks[(i + 1) % 3]) & M32
+        y1 = (y1 + ks[(i + 2) % 3] + i + 1) & M32
+    return y0, y1
+
+
+def as_key(seed_or_key=None) -> torch.Tensor:
+    """An int seed, a key tensor or None (the package default seed) as a
+    key; int seeds give a (2,) CPU key, key tensors pass through."""
+    if seed_or_key is None:
+        return key(_DEFAULT_SEED, device="cpu")
+    if isinstance(seed_or_key, (int, np.integer)):
+        return key(int(seed_or_key), device="cpu")
+    if not isinstance(seed_or_key, torch.Tensor) or \
+            seed_or_key.shape[-1:] != (2,):
+        raise TypeError(f"expected an int seed or a (..., 2) key tensor, "
+                        f"got {seed_or_key!r}")
+    return seed_or_key
+
+
+def _label_to_int(label) -> int:
+    """A fold label's 32-bit value: the CRC32 of a string, else the int."""
+    if isinstance(label, str):
+        return zlib.crc32(label.encode("utf-8"))
+    return int(label)
+
+
+def fold(k: torch.Tensor, *labels) -> torch.Tensor:
+    """Fold string/int labels into a key, left to right (``fold_in`` per
+    label); a single CPU key folds in Python, any other key batch on its
+    own device."""
+    if k.device.type == "cpu" and k.shape == (2,):
+        w = tuple(int(v) for v in k.tolist())
+        for label in labels:
+            w = _threefry_words(w[0], w[1], 0, _label_to_int(label) & M32)
+        return torch.tensor(w, dtype=torch.int64)
+    for label in labels:
+        k = fold_in(k, _label_to_int(label))
+    return k
+
+
+def fold_key_in_kernel(k: torch.Tensor, folds) -> torch.Tensor:
+    """Apply a :meth:`KeyStream.next_spec` fold-label array to ``k``: the
+    key :meth:`KeyStream.next` would have returned."""
+    return fold(k, *(int(f) for f in np.asarray(folds).ravel()))
+
+
+class KeyStream:
+    """A mutable counter-based key stream for the stateful facade.
+
+    ``next(label)`` returns ``fold(base, counter, label)`` and bumps the
+    counter. With ``seed_or_key=None`` the base is also folded with a
+    process-wide instance counter, so unseeded objects get distinct (but
+    run-to-run deterministic) streams. Key for key the JAX package's
+    ``KeyStream``.
+    """
+
+    def __init__(self, seed_or_key=None, *labels):
+        global _auto_streams
+        base = as_key(seed_or_key)
+        if seed_or_key is None:
+            base = fold(base, "auto_stream", _auto_streams)
+            _auto_streams += 1
+        self._base = fold(base, *labels) if labels else base
+        self._count = 0
+
+    def next(self, *labels) -> torch.Tensor:
+        k = fold(self._base, self._count, *labels)
+        self._count += 1
+        return k
+
+    def next_spec(self, *labels):
+        """(base key, uint32 fold labels): folding the labels into the base
+        left to right (:func:`fold_key_in_kernel`) gives the key
+        :meth:`next` would have returned, with the same counter bump."""
+        folds = np.array([self._count] + [_label_to_int(l) for l in labels],
+                         dtype=np.uint32)
+        self._count += 1
+        return self._base, folds
+
+    def host_rng(self, *labels) -> np.random.Generator:
+        """A numpy Generator seeded from the next key's two words, for host
+        configuration draws."""
+        return np.random.default_rng(
+            [int(v) for v in self.next(*labels).tolist()])

@@ -896,3 +896,179 @@ def test_toa_sharding_on_the_card_matches_the_cpu(cuda, psr, toa):
                                atol=1e-7 * scale)
     np.testing.assert_allclose(got["autos"], want["autos"], rtol=5e-5)
     _same(got, sim.run(16, seed=3, chunk=8))
+
+
+# -- a facade-built batch: ragged TOAs under a mask, per-pulsar Tspan and
+# -- df_own, drawn radio frequencies; and the same batch at T % 4 != 0 ------
+
+#: per-TOA leaves of a batch (the TOA axis last)
+TOA_LEAVES = ("t_own", "t_common", "mask", "freqs", "sigma2", "epoch_idx",
+              "ecorr_amp", "sys_mask")
+
+
+def _trim_toas(batch, t):
+    """``batch`` cut to its first ``t`` TOA slots (every valid TOA must fit
+    them): a facade batch at a width from_pulsars' 128-slot padding never
+    gives."""
+    leaves = batch.numpy()
+    assert leaves["mask"][:, t:].sum() == 0
+    for k in TOA_LEAVES:
+        leaves[k] = leaves[k][..., :t]
+    return PulsarBatch.from_numpy(leaves, device=batch.device)
+
+
+def _facade_sim(cuda, width=None, **engine_kw):
+    """20 pulsars of make_fake_array on the card (ragged after gaps,
+    drawn frequencies, 100 epochs over 10 yr) packed by from_pulsars, with
+    an HD background of 4 bins; ``width`` trims the TOA slots."""
+    from fakepta_tpu_torch.fake_pta import make_fake_array
+    psrs = make_fake_array(npsrs=20, Tobs=10.0, ntoas=100, isotropic=True,
+                           gaps=True, toaerr=1e-7, pdist=1.0,
+                           backends=["NUPPI"], seed=5, device=cuda)
+    batch = PulsarBatch.from_pulsars(psrs, n_red=10, n_dm=20, n_chrom=1,
+                                     device=cuda)
+    if width is not None:
+        batch = _trim_toas(batch, width)
+    f = np.arange(1, 5) / float(batch.tspan_common)
+    gwb = GWBConfig(psd=spectrum_lib.powerlaw(f, -13.5, 13 / 3).numpy())
+    if "mesh" not in engine_kw:
+        engine_kw["device"] = cuda
+    return EnsembleSimulator(batch, gwb=gwb, **engine_kw)
+
+
+@pytest.fixture(scope="module", params=[None, 101])
+def facade_residuals(request):
+    """32 realizations of the facade batch's residuals (projected, and
+    split into base and GP coefficients), at its own 128 TOA slots and cut
+    to 101 (T % 4 == 1); None without a card."""
+    if not torch.cuda.is_available():
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from fakepta_tpu_torch.parallel.montecarlo import _chunk_keys
+    from fakepta_tpu_torch.utils import rng
+    sim = _facade_sim(torch.device("cuda"), width=request.param)
+    keys = _chunk_keys(rng.key(23, device="cuda"), 0, 32)
+    with torch.no_grad():
+        res = sim._residuals(keys)
+        base, coef = sim._residuals(keys, split_gp=True)
+    return sim, res, base, coef
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pl", [20, 10])
+@pytest.mark.parametrize("vpu", [False, True])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_binned_correlation_at_a_facade_batch(cuda, facade_residuals, prec,
+                                              vpu, pl):
+    """#1 and #2 on a facade batch's residuals, the shared set (PL = 20)
+    and a 2-shard mesh's rows (PL = 10): ragged valid TOAs, padding zero,
+    T = 128 and T = 101 (the scalar staging of the mainloop)."""
+    sim, res, _, _ = facade_residuals
+    mask = sim.batch.mask
+    assert not mask.all() and not res[:, ~mask].any()
+    w = sim._stat_weights
+    res_l, w_l = (res, w) if pl == 20 else (res[:, :pl].contiguous(),
+                                             w[:, :pl].contiguous())
+    _check_binned_correlation(res_l, res, w_l, sim.nbins, prec, vpu=vpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pl", [20, 10])
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+def test_chunk_stats_at_a_facade_batch(cuda, facade_residuals, prec, pl):
+    """#3 (PL = 20) and #4 (a 2-shard mesh's PL = 10) on a facade batch:
+    t_own rows on each pulsar's own Tspan, masks in the scale rows, at T =
+    128 and 101; the projection equals the engine's residuals and leaves
+    the padding zero; a rerun is bit-identical."""
+    sim, res, base, coef = facade_residuals
+    stages, times, scales = sim._mega_tables
+    dt = torch.float32 if prec == "f32" else torch.bfloat16
+    full = [base.to(dt), coef.to(dt).contiguous(), times, scales]
+    w = sim._stat_weights
+    kw = dict(stages=stages, nbins=sim.nbins, precision=prec)
+    if pl < 20:
+        loc = [x[:, :pl].contiguous() for x in full]
+        kw.update(base_local=loc[0], coef_local=loc[1], times_local=loc[2],
+                  scales_local=loc[3])
+        w = w[:, :pl].contiguous()
+    else:
+        proj = mk._launch_project(*full, stages, (None,) * 4)[1]
+        assert not proj[:, ~sim.batch.mask].any()
+        if prec == "f32":
+            assert float((proj - res).abs().max()) <= 1e-5 * float(
+                res.abs().max())
+    before = (mk.launches, mk.sharded_launches)
+    got = mk.chunk_stats(*full, w, **kw)
+    torch.cuda.synchronize()
+    assert (mk.launches, mk.sharded_launches) == (
+        before[0] + (pl == 20), before[1] + (pl < 20))
+    want = mk.chunk_stats_plain(*full, w, **kw)
+    _assert_close(got, want, prec)
+    again = mk.chunk_stats(*full, w, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [None, 101])
+@pytest.mark.parametrize("path", ["fused", "fused-vpu", "mega"])
+def test_facade_batch_engine_on_the_card(cuda, path, width):
+    """The engine on the facade batch, each kernel path against the card's
+    einsum run within the f32 bound, reruns bit-identical; on the
+    2-shard mesh within the mesh bound."""
+    kw = dict(stat_path=path.split("-")[0],
+              pallas_mxu_binning=path != "fused-vpu")
+    want = _facade_sim(cuda, width, stat_path="einsum").run(
+        64, seed=2, chunk=32, precision="f32")
+    sim = _facade_sim(cuda, width, **kw)
+    out = sim.run(64, seed=2, chunk=32, precision="f32")
+    _assert_close((out["curves"], out["autos"]),
+                  (want["curves"], want["autos"]), "f32")
+    again = sim.run(64, seed=2, chunk=32, precision="f32")
+    assert np.array_equal(out["curves"], again["curves"])
+    mesh = _facade_sim(cuda, width, mesh=make_mesh(
+        ["cuda:0"] * 2, psr_shards=2), **kw).run(64, seed=2, chunk=32,
+                                                 precision="f32")
+    _assert_close((mesh["curves"], mesh["autos"]),
+                  (want["curves"], want["autos"]), "f32")
+
+
+@pytest.mark.cuda
+def test_facade_on_the_card_matches_the_cpu(cuda):
+    """make_fake_array and the array injectors on the card against the
+    same calls on the CPU: the same host draws, residuals within 1e-5 of
+    their scale (the card's float32 transcendentals)."""
+    from fakepta_tpu_torch import fake_pta as fp
+    kw = dict(npsrs=4, Tobs=8.0, ntoas=120, isotropic=True, toaerr=1e-7,
+              seed=9)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        psrs = fp.make_fake_array(**kw, device=dev)
+        fp.add_noise_array(psrs, signal="red_noise", log10_A=-14.0,
+                           gamma=3.0, seed=2)
+        fp.add_white_noise_array(psrs, seed=3)
+        psrs[0].add_system_noise(backend=psrs[0].backends[0], components=5,
+                                 log10_A=-14.0, gamma=2.0)
+        out[dev] = psrs
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.name == b.name and a.noisedict == b.noisedict
+        np.testing.assert_array_equal(a.toas, b.toas)
+        assert a._res_dev is not None and a._res_dev.is_cuda
+        r, want = a.residuals, b.residuals
+        np.testing.assert_allclose(r, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_facade_entry_points_default_to_the_card(cuda, tmp_path):
+    """Pulsar, make_fake_array, copy_array and load_array put their
+    residuals on the card when no device is given."""
+    from fakepta_tpu_torch.fake_pta import Pulsar, copy_array, make_fake_array
+    from fakepta_tpu_torch.utils.io import load_array, save_array
+    psr = Pulsar(np.linspace(0.0, 3e8, 32), 1e-6, 1.0, 1.0, seed=1)
+    psrs = make_fake_array(npsrs=2, Tobs=3.0, ntoas=20, seed=1)
+    copies = copy_array(psrs)
+    loaded = load_array(save_array(psrs, tmp_path / "a.pkl"))
+    for p in [psr] + psrs + copies + loaded:
+        assert p._device.type == "cuda"
+        p.add_white_noise(seed=2)
+        assert p._res_dev.is_cuda

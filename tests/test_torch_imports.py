@@ -85,6 +85,48 @@ def test_detect_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.fake_pta", "fakepta_tpu_torch.ops.fourier",
+    "fakepta_tpu_torch.ops.woodbury", "fakepta_tpu_torch.ops.white",
+    "fakepta_tpu_torch.utils.rng", "fakepta_tpu_torch.utils.io",
+    "fakepta_tpu_torch.batch"])
+def test_facade_modules_are_checked(module):
+    """The reference-compatible facade and the modules it added to (each a
+    port of a JAX package module) are among the modules the checks below
+    import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_facade_entry_points_default_to_the_card(tmp_path):
+    """Pulsar, make_fake_array, copy_array and load_array run on the card
+    unless the CPU is asked for; the package exposes the facade as the
+    JAX package does."""
+    import fakepta_tpu_torch
+    from fakepta_tpu_torch.fake_pta import Pulsar, copy_array, make_fake_array
+    from fakepta_tpu_torch.utils.io import load_array, save_array
+
+    assert fakepta_tpu_torch.fake_pta.Pulsar is Pulsar
+    toas = np.linspace(0.0, 3e8, 32)
+    psr = Pulsar(toas, 1e-6, 1.0, 1.0, seed=1, device="cpu")
+    psr.add_white_noise()
+    path = save_array([psr], tmp_path / "a.pkl")
+    if not torch.cuda.is_available():
+        for call in (lambda: Pulsar(toas, 1e-6, 1.0, 1.0, seed=1),
+                     lambda: make_fake_array(npsrs=2, Tobs=3.0, ntoas=20,
+                                             seed=1),
+                     lambda: copy_array([psr]),
+                     lambda: load_array(path)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+    psrs = make_fake_array(npsrs=2, Tobs=3.0, ntoas=20, seed=1,
+                           device="cpu")
+    assert all(p._device.type == "cpu" for p in psrs)
+    assert copy_array(psrs, device="cpu")[0]._device.type == "cpu"
+    assert load_array(path, device="cpu")[0]._device.type == "cpu"
+
+
 def test_detect_entry_points_default_to_the_card():
     """DetectionRun and the detection CLI run on the card unless the CPU
     is asked for."""

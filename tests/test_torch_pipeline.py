@@ -350,3 +350,36 @@ def test_model_bytes_per_chunk_is_the_jax_model(tb, jb):
         "model_bytes_per_chunk": sim.model_bytes_per_chunk(16)}
     assert sim.model_bytes_per_chunk(16, precision="bf16") < \
         sim.model_bytes_per_chunk(16)
+
+
+@pytest.mark.parametrize("ckpt", [False, True])
+@pytest.mark.parametrize("column,raises", [
+    ("curve", True), ("auto", True), ("extra", False)])
+def test_poisoned_output_checks_curves_and_autos(tb, tmp_path, column,
+                                                 raises, ckpt):
+    """As in the JAX engine, a non-finite curve or auto fails the run (per
+    chunk before the checkpoint, and at the final fetch), while a NaN in an
+    extra lane (an OS amp2 or the null stream's) reaches the caller."""
+    sim = mc.EnsembleSimulator(tb, gwb=mc.GWBConfig(
+        psd=_psd(float(tb.tspan_common))), stat_path="einsum", device="cpu")
+    nb = sim.nbins
+    col = {"curve": 3, "auto": nb, "extra": nb + 1}[column]
+    step = sim.step
+
+    def poisoned(*args, **kw):
+        packed, corr = step(*args, **kw)
+        packed = packed.clone()
+        packed[:, col] = float("nan")
+        return packed, corr
+
+    sim.step = poisoned
+    kw = dict(seed=3, chunk=4, os="hd", pipeline_depth=0)
+    if ckpt:
+        kw["checkpoint"] = tmp_path / "mc.npz"
+    if raises:
+        with pytest.raises(FloatingPointError):
+            sim.run(8, **kw)
+    else:
+        out = sim.run(8, **kw)
+        assert np.isnan(out["os"]["stats"]["hd"]["amp2"]).all()
+        assert np.isfinite(out["curves"]).all()
