@@ -136,7 +136,41 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    the same batch cut to a TOA width with ``T % 4 != 0`` (the kernels'
    scalar staging) through every path at f32 and each kernel measured
    there; the replayed array against the CPU engine.
-10. ``profile`` (only when asked for): per statistic path, the device time
+10. ``correlated``: the facade's correlated signals on the card. BASELINE
+   config 3 (45 pulsars of 780 TOAs, an HD background at A = 2e-15,
+   gamma = 13/3, 30 bins, through the batched whole-array path) in
+   injections/s, re-injected, after a warm-up, between synchronizations,
+   and the same draw replayed on the CPU within 1e-5 of each pulsar's
+   scale; a ragged ``make_fake_array(npsrs=45, gaps=True)`` through the
+   per-pulsar path; config 4 (100 pulsars with an ephemeris: DM noise, the
+   HD background and a Jupiter-mass Roemer delay) in injections/s;
+   ``add_common_correlated_noise_gp`` on 16 x 400 TOAs (a 6400 x 6400
+   host float64 Cholesky), bit-equal to the CPU's draw, then replaced by
+   the factorized draw; the example's flow (``examples/make_fake_array.py``:
+   noises, the background, a CGW) through ``save_array`` / ``load_array``
+   with the background re-injected on the card and on the CPU. Then config
+   3's array packed by ``PulsarBatch.from_pulsars`` through ``"fused"``
+   and ``"mega"`` at both precisions against the einsum run, and each
+   kernel against its plain version at its shapes (PL = 45).
+11. ``infer``: the likelihood lane (``run(lnlike=...)``) at the flagship's
+   full width: red and DM at the batch's PSDs and a 30-bin CURN with free
+   amplitude and slope (2M = 320 columns per pulsar) on a 5 x 5 grid.
+   ``run(4096, chunk=1024, lnlike=...)`` on ``"einsum"`` f32 (the
+   yardstick), then every path (einsum, fused, fused with
+   ``pallas_mxu_binning=False``, mega) at both precisions and a 2-shard
+   mega mesh (#4): curves and autos within the engine's bounds, the lanes
+   within ``LANE_ULPS`` float32 ULP of the magnitudes the lane's sums add
+   (its theta differences too), reruns bit-identical, each kernel
+   launched once per shard and chunk, and the same run without the lane
+   timed beside it; the einsum lane on a psr 2 x toa 2 mesh; one traced
+   chunk per path split into the statistic, ``lnlike_moments`` and
+   ``lnlike``; modes ``grad`` and ``fisher`` on ``"fused"`` at the full
+   chunk with their peak memory; a fixed float64 flagship-width residual
+   (``include=("det",)``) against a dense host float64 oracle per pulsar;
+   ``InferenceRun`` at ``examples/likelihood_grid.py``'s at-scale line and
+   ``python -m fakepta_tpu_torch.infer run --npsr 100 --ntoa 780 --nreal
+   4096 --chunk 1024`` in a subprocess (exit 0, the artifact loads).
+12. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -158,6 +192,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -1210,7 +1245,10 @@ def chunk_split(sim, path: str, label: str = "signals ipta_dr3",
     ``busy`` is the time of the kernels inside it, its ``extent`` the
     annotation's length (idle gaps included). Draws = residuals - roemer -
     cgw. ``lanes`` (:meth:`EnsembleSimulator._prepare_lanes`): the step
-    carries that OS lane; its null stream is the span ``null``."""
+    carries that OS lane, whose null stream is the span ``null``, or that
+    likelihood lane: its residual moments ``lnlike_moments``, its
+    factorizations and solves ``lnlike`` and, on the mega path, the
+    projection of the split coefficients it reads, ``gp_project``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1228,7 +1266,8 @@ def chunk_split(sim, path: str, label: str = "signals ipta_dr3",
         step_ms = time_ms(lambda: sim.step(base, 2 * CHUNK, CHUNK, path,
                                            prec, lanes=lanes), 2, warmup=0)
     reset_counts()
-    names = ("keys", "residuals", "roemer", "cgw", "statistic", "null")
+    names = ("keys", "residuals", "roemer", "cgw", "statistic", "null",
+             "gp_project", "lnlike_moments", "lnlike")
     spans, kernels = {}, []
     for ev in p.events():
         if ev.device_type != DeviceType.CUDA:
@@ -1259,7 +1298,8 @@ def chunk_split(sim, path: str, label: str = "signals ipta_dr3",
               f"({row.get(n + '_launches', 0)}; "
               f"{row.get(n + '_extent_ms', 0):.3f})"
               for n in ("keys", "draws", "roemer", "cgw", "statistic",
-                        "null"))
+                        "null", "gp_project", "lnlike_moments", "lnlike")
+              if n in spans or n in ("keys", "draws", "statistic"))
           + f"; traced step device busy {row['device_busy_ms']:.3f} ms over "
           f"{len(kernels)} kernel launches; untraced step {step_ms:.3f} ms",
           flush=True)
@@ -2059,6 +2099,598 @@ def phase_facade(report: dict) -> None:
     report["facade"] = rows
 
 
+#: the correlated phase: realizations per run on config 3's batch, and the
+#: joint-covariance draw's array (16 pulsars x 400 TOAs: a 6400 x 6400
+#: host float64 Cholesky)
+CORR_NREAL = 2048
+GP_ARRAY = (16, 400)
+
+
+def config3_array(device: str):
+    """BASELINE config 3's array (benchmarks/suite.py:193): 45 pulsars of
+    780 TOAs over 15 years, sigma 1e-7 s."""
+    from fakepta_tpu_torch import constants as const
+    from fakepta_tpu_torch import fake_pta as fp
+    return [fp.Pulsar(np.linspace(0, 15 * const.yr, 780), 1e-7,
+                      np.arccos(np.cos(0.07 * k * np.pi)),
+                      0.41 * k % (2 * np.pi), seed=k, device=device)
+            for k in range(45)]
+
+
+def config3_injection(psrs, seed: int = 3):
+    """Config 3's HD background (A = 2e-15, gamma = 13/3, 30 bins)."""
+    from fakepta_tpu_torch import correlated_noises as cn
+    return cn.add_common_correlated_noise(
+        psrs, orf="hd", log10_A=float(np.log10(2e-15)), gamma=13 / 3,
+        seed=seed)
+
+
+def worst_over_scale(a_psrs, b_psrs) -> float:
+    """Max over pulsars of max|res_a - res_b| over max|res_b|."""
+    worst = 0.0
+    for a, b in zip(a_psrs, b_psrs):
+        ra, rb = a.residuals, b.residuals
+        if not np.isfinite(ra).all():
+            raise AssertionError(f"{a.name}: non-finite residuals")
+        worst = max(worst, float(np.abs(ra - rb).max() / np.abs(rb).max()))
+    return worst
+
+
+def phase_correlated(report: dict) -> None:
+    """The facade's correlated signals on the card (module docstring,
+    phase 10)."""
+    import torch
+    from fakepta_tpu_torch import correlated_noises as cn
+    from fakepta_tpu_torch import fake_pta as fp
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.ephemeris import Ephemeris
+    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+    from fakepta_tpu_torch.utils import io as fio
+
+    rows = {}
+    # -- config 3: the batched whole-array path, re-injected --------------
+    psrs3 = config3_array("cuda")
+    rows["config3_injections_per_s"] = injection_rate(
+        lambda: config3_injection(psrs3), 1, 20)
+    check_gp_consistent(psrs3, ["gw_common"], "config 3", updates=21)
+    rows["config3_trace"] = injection_trace(lambda: config3_injection(psrs3))
+    # the same draw replayed on the CPU from the same seed
+    card, host = config3_array("cuda"), config3_array("cpu")
+    config3_injection(card)
+    config3_injection(host)
+    rows["config3_card_vs_cpu_over_scale"] = worst_over_scale(card, host)
+    coef = max(float(np.abs(a.signal_model["gw_common"]["fourier"]
+                            - b.signal_model["gw_common"]["fourier"]).max()
+                     / np.abs(b.signal_model["gw_common"]["fourier"]).max())
+               for a, b in zip(card, host))
+    rows["config3_coefficients_card_vs_cpu_rel"] = coef
+    if rows["config3_card_vs_cpu_over_scale"] > 1e-5 or coef > 1e-5:
+        raise AssertionError(f"config 3 card vs CPU: {rows}")
+    print(f"correlated: config 3 {rows['config3_injections_per_s']:.2f} HD "
+          f"GWB injections/s (45 pulsars x 780 TOAs, batched path, "
+          f"re-injected); traced call {rows['config3_trace']}; card vs CPU "
+          f"residuals {rows['config3_card_vs_cpu_over_scale']:.3e} of scale,"
+          f" coefficients {coef:.3e} relative", flush=True)
+
+    # -- a ragged make_fake_array of 45: the per-pulsar fallback ----------
+    ragged = fp.make_fake_array(npsrs=45, Tobs=15.0, ntoas=780,
+                                isotropic=True, gaps=True, toaerr=1e-7,
+                                seed=45, device="cuda")
+    for p in ragged:
+        p.make_ideal()
+    rows["ragged45_injections_per_s"] = injection_rate(
+        lambda: config3_injection(ragged), 1, 5)
+    check_gp_consistent(ragged, ["gw_common"], "ragged 45", updates=6)
+    print(f"correlated: make_fake_array(npsrs=45, gaps) "
+          f"{rows['ragged45_injections_per_s']:.2f} HD GWB injections/s "
+          f"(ragged TOAs, per-pulsar path, re-injected)", flush=True)
+
+    # -- config 4: 100 pulsars, DM + GWB + BayesEphem Roemer --------------
+    from fakepta_tpu_torch import constants as const
+    ephem = Ephemeris()
+    t0 = time.perf_counter()
+    psrs4 = [fp.Pulsar(np.linspace(0, 15 * const.yr, 780), 1e-7,
+                       np.arccos(1 - 2 * ((k + 0.5) / 100)),
+                       2.39996 * k % (2 * np.pi), seed=k, ephem=ephem,
+                       device="cuda") for k in range(100)]
+    rows["config4_array_s"] = time.perf_counter() - t0
+    jup = ephem.planets["jupiter"]["mass"]
+
+    def config4():
+        fp.add_noise_array(psrs4, signal="dm_gp", spectrum="powerlaw",
+                           log10_A=-13.8, gamma=3.0, seed=4)
+        cn.add_common_correlated_noise(psrs4, orf="hd",
+                                       log10_A=float(np.log10(2e-15)),
+                                       gamma=13 / 3, seed=5)
+        cn.add_roemer_delay(psrs4, "jupiter", d_mass=1e-4 * jup)
+
+    rows["config4_injections_per_s"] = injection_rate(config4, 1, 5)
+    rows["config4_trace"] = injection_trace(config4)
+    for p in psrs4:
+        if not np.isfinite(p.residuals).all():
+            raise AssertionError(f"config 4: {p.name} non-finite")
+    print(f"correlated: config 4 {rows['config4_injections_per_s']:.3f} "
+          f"full-array injections/s (100 pulsars x 780 TOAs: DM + HD GWB + "
+          f"Jupiter Roemer; the array with its ephemeris built in "
+          f"{rows['config4_array_s']:.2f} s); traced call "
+          f"{rows['config4_trace']}", flush=True)
+
+    # -- the joint-covariance draw, then its factorized replacement -------
+    npsr, ntoa = GP_ARRAY
+    gp = {}
+    for side, dev in (("card", "cuda"), ("host", "cpu")):
+        gp[side] = [fp.Pulsar(np.linspace(0, 10 * const.yr, ntoa), 1e-7,
+                             np.arccos(1 - 2 * ((k + 0.5) / npsr)),
+                             2.39996 * k % (2 * np.pi), seed=k, device=dev)
+                   for k in range(npsr)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cn.add_common_correlated_noise_gp(gp["card"], orf="hd", log10_A=-14.7,
+                                      gamma=13 / 3, seed=6)
+    torch.cuda.synchronize()
+    rows["gp_draw_s"] = time.perf_counter() - t0
+    cn.add_common_correlated_noise_gp(gp["host"], orf="hd", log10_A=-14.7,
+                                      gamma=13 / 3, seed=6)
+    for a, b in zip(*gp.values()):
+        if not np.array_equal(a.signal_model["gw_common"]["realization"],
+                              b.signal_model["gw_common"]["realization"]):
+            raise AssertionError("the joint-covariance draw differs "
+                                 "between card and CPU")
+    check_gp_consistent(gp["card"], ["gw_common"], "gp draw")
+    for psrs in gp.values():
+        config3_injection(psrs, seed=7)         # replaces the realization
+    check_gp_consistent(gp["card"], ["gw_common"], "gp replaced", updates=2)
+    rows["gp_card_vs_cpu_over_scale"] = worst_over_scale(gp["card"],
+                                                         gp["host"])
+    if rows["gp_card_vs_cpu_over_scale"] > 1e-5:
+        raise AssertionError(f"gp replacement card vs CPU: {rows}")
+    print(f"correlated: add_common_correlated_noise_gp on {npsr} x {ntoa} "
+          f"TOAs ({npsr * ntoa} x {npsr * ntoa} host float64 Cholesky) "
+          f"{rows['gp_draw_s']:.2f} s, bit-equal to the CPU's; replaced by "
+          f"the factorized draw, card vs CPU "
+          f"{rows['gp_card_vs_cpu_over_scale']:.3e} of scale", flush=True)
+
+    # -- the example's flow (examples/make_fake_array.py:84) and a pickle -
+    path = os.path.join(HERE, "build", "correlated", "psrs.pkl")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    ex = fp.make_fake_array(npsrs=25, Tobs=10.0, ntoas=400, isotropic=True,
+                            gaps=True, toaerr=1e-7, pdist=1.0,
+                            backends=["NUPPI"], seed=84, device="cuda")
+    for p in ex:
+        p.make_ideal()
+        p.add_white_noise()
+        for add in (p.add_red_noise, p.add_dm_noise, p.add_chromatic_noise):
+            add(log10_A=-14.0, gamma=3.0)
+    cn.add_common_correlated_noise(ex, log10_A=-15.0, gamma=13 / 3,
+                                   orf="hd", seed=84)
+    cgw = dict(costheta=0.12, phi=3.2, cosinc=0.3, log10_mc=9.2,
+               log10_fgw=-8.3, log10_h=-13.5, phase0=1.6, psi=1.2)
+    for p in ex:
+        p.add_cgw(psrterm=True, **cgw)
+    fio.save_array(ex, path)
+    loaded = {side: fio.load_array(path, device=dev)
+              for side, dev in (("card", "cuda"), ("host", "cpu"))}
+    for a, b in zip(loaded["card"], ex):
+        if not np.array_equal(a.residuals, np.asarray(b.residuals,
+                                                      np.float64)):
+            raise AssertionError(f"pickle round trip: {b.name} changed")
+    worst = 0.0
+    for psrs in loaded.values():
+        before = [p.residuals for p in psrs]
+        old = [p.reconstruct_signal(["gw_common"]) for p in psrs]
+        cn.add_common_correlated_noise(psrs, log10_A=-14.5, gamma=13 / 3,
+                                       orf="hd", seed=85)
+        for p, r0, o in zip(psrs, before, old):
+            new = p.reconstruct_signal(["gw_common"])
+            d = (p.residuals - r0) - (new - o)
+            worst = max(worst, float(np.abs(d).max() / np.abs(r0).max()))
+    rows["example_reinjection_over_scale"] = worst
+    rows["example_card_vs_cpu_over_scale"] = worst_over_scale(
+        loaded["card"], loaded["host"])
+    if worst > 1e-5 or rows["example_card_vs_cpu_over_scale"] > 1e-5:
+        raise AssertionError(f"the example's flow: {rows}")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    print(f"correlated: the example's flow (25 pulsars, noises, GWB, CGW) "
+          f"through save_array / load_array, the GWB re-injected on the "
+          f"loaded arrays: residual change = signal change within "
+          f"{worst:.3e} of scale, card vs CPU "
+          f"{rows['example_card_vs_cpu_over_scale']:.3e}", flush=True)
+
+    # -- config 3's array through the engine, fused and mega --------------
+    with warnings.catch_warnings():
+        # the engine draws the background from its GWBConfig, not from the
+        # pulsars' stored entries (from_pulsars says so per pulsar)
+        warnings.simplefilter("ignore", UserWarning)
+        batch = PulsarBatch.from_pulsars(psrs3, device="cuda")
+    gwb = facade_gwb(batch)
+    P, T = batch.npsr, batch.max_toa
+    sims = {p: EnsembleSimulator(batch, gwb=gwb, stat_path=p,
+                                 device="cuda")
+            for p in ("einsum", "fused", "mega")}
+    ref, rows["engine einsum/f32"] = yardstick(
+        "correlated config 3 batch", sims.pop("einsum"), nreal=CORR_NREAL)
+    rows.update({f"engine {k}": v for k, v in drive_paths(
+        report, "correlated config 3 batch", sims, ref, shape_tag(P, P, T),
+        nreal=CORR_NREAL).items()})
+    measure_kernels(report, sims["fused"], (), "correlated kernels")
+    report["correlated"] = rows
+
+
+#: the likelihood phase: the flagship model's grid (red and DM at the
+#: batch's own PSDs, a 30-bin CURN with free amplitude and slope: 2M = 320
+#: GP columns per pulsar) and the float32 lane bound: LANE_ULPS float32 ULP
+#: of U, the magnitudes the lane's float32 sums add
+#: (tests/test_torch_infer_engine.py derives it)
+INFER_GRID = (5, 5)
+LANE_ULPS = 4
+EPS32 = float(np.finfo(np.float32).eps)
+#: the float64 oracle: relative bound, and the theta points (pulsar p at
+#: point p % 3)
+ORACLE_RTOL = 1e-9
+ORACLE_POINTS = (0, 12, 24)
+
+
+def flagship_model():
+    from fakepta_tpu_torch.infer import (ComponentSpec, FreeParam,
+                                         LikelihoodSpec)
+    return LikelihoodSpec(components=(
+        ComponentSpec("red", spectrum="batch"),
+        ComponentSpec("dm", spectrum="batch"),
+        ComponentSpec("curn", nbin=30, free=(
+            FreeParam("log10_A", (-15.3, -14.1)),
+            FreeParam("gamma", (2.0, 6.0))))))
+
+
+def lane_unit(sim, spec, seed: int, nreal: int) -> float:
+    """eps32 times U for ``sim``'s run at ``seed``: the largest
+    white-weighted residual power of a realization in the run, plus
+    sum |ln sigma2|, plus the largest over theta of sum (|ln phi| + 2
+    |ln L_jj|), in float64 on the card."""
+    import torch
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.infer import build
+    from fakepta_tpu_torch.ops import woodbury
+    from fakepta_tpu_torch.parallel.montecarlo import _chunk_keys
+    from fakepta_tpu_torch.utils import rng
+    b64 = PulsarBatch.from_numpy(sim.batch.numpy(), device="cuda",
+                                 dtype=torch.float64)
+    w = woodbury._masked_weights(b64.sigma2, b64.mask)
+    power = 0.0
+    with torch.no_grad():
+        for c in range(0, nreal, CHUNK):
+            res = sim._residuals(_chunk_keys(rng.key(seed, device="cuda"),
+                                             c, CHUNK)).double()
+            power = max(power, float((w * res ** 2).sum((-1, -2)).max()))
+            del res
+    lndet_n = float(torch.where(b64.mask, b64.sigma2.log().abs(),
+                                torch.zeros_like(b64.sigma2)).sum())
+    compiled = build(spec.model, b64)
+    M = woodbury.finish_fixed(woodbury.fixed_parts(
+        compiled.basis(b64), b64.sigma2, b64.mask))[0]
+    norm = 0.0
+    for t in np.atleast_2d(spec.theta):
+        phi = compiled.phi(torch.as_tensor(t, device="cuda"), b64)
+        chol, _ = woodbury.lnlike_factors(M, phi)
+        diag = torch.diagonal(chol, dim1=-2, dim2=-1)
+        phi = torch.clamp(phi, min=woodbury._phi_floor(phi.dtype))
+        norm = max(norm, float(phi.log().abs().sum()
+                               + 2 * diag.log().abs().sum()))
+    return EPS32 * (power + lndet_n + norm)
+
+
+def lane_compare(got: dict, want: dict, unit: float, what: str,
+                 keys=("lnl",)) -> dict:
+    """The likelihood lanes against a reference's within LANE_ULPS * unit
+    (grad: times 2 ln 10), the theta differences lnl - lnl[:, :1] too;
+    raises past the bound."""
+    bound = LANE_ULPS * unit
+    row = {}
+    for k in keys:
+        g, w = got["lnlike"][k], want["lnlike"][k]
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError(f"{what} {k}: shape {g.shape} or "
+                                 f"non-finite values")
+        row[f"{k}_max_abs_err"] = float(np.abs(g - w).max())
+        scale = 2 * np.log(10.0) if k == "grad" else 1.0
+        if row[f"{k}_max_abs_err"] > bound * scale:
+            raise AssertionError(f"{what} {k}: {row} over {bound * scale}")
+    g, w = got["lnlike"]["lnl"], want["lnlike"]["lnl"]
+    row["theta_diff_max_abs_err"] = float(np.abs(
+        (g - g[:, :1]) - (w - w[:, :1])).max())
+    if row["theta_diff_max_abs_err"] > bound:
+        raise AssertionError(f"{what} theta differences: {row} over {bound}")
+    lnl_max = float(np.abs(w).max())
+    row.update(bound=bound, max_abs_lnl=lnl_max,
+               bound_over_max_lnl=bound / lnl_max)
+    print(f"  {what}: lnl max|d| {row['lnl_max_abs_err']:.4g}, theta diffs "
+          f"{row['theta_diff_max_abs_err']:.4g} (bound {bound:.4g} = "
+          f"{LANE_ULPS} ULP of U, {bound / lnl_max:.3e} of max|lnl| "
+          f"{lnl_max:.6g})", flush=True)
+    return row
+
+
+def lane_runs(report: dict, label: str, sims: dict, ref, spec, unit: float,
+              shape: str, nreal: int = NREAL, shards: int = 1,
+              precs=("f32", "bf16"), rtol=None) -> dict:
+    """The main path with the likelihood lane: each ``sims[path]`` at each
+    precision after a one-chunk warm-up, timed, rerun and held to ``ref``
+    (curves and autos at TOL[prec] of the einsum run, lanes within the
+    lane bound); the rerun bit-identical, lanes included; the path's
+    kernel launched ``shards`` times per chunk (counts zeroed just before,
+    read just after); then the same run without the lane, timed.
+    ``rtol``: :func:`compare`'s elementwise bound (the toa rows')."""
+    kernels = PATH_KERNEL if shards == 1 else SHARDED_KERNEL
+    nchunks = -(-nreal // CHUNK)
+    rows = {}
+    for path, sim in sims.items():
+        for prec in precs:
+            reset_counts()
+            sim.run(CHUNK, seed=99, chunk=CHUNK, precision=prec,
+                    lnlike=spec)
+            out, dt = timed_run(sim, nreal, prec, lnlike=spec)
+            again = sim.run(nreal, seed=1, chunk=CHUNK, precision=prec,
+                            lnlike=spec)
+            moved = {k: v for k, v in counts().items() if v}
+            want = ({kernels[path]: shards * (1 + 2 * nchunks)}
+                    if path in kernels else {})
+            if moved != want:
+                raise AssertionError(f"{label} {path} [{prec}] launched "
+                                     f"{moved}, expected {want}")
+            add_launches(report, shape, moved)
+            row = compare((out["curves"], out["autos"]),
+                          (ref["curves"], ref["autos"]), prec,
+                          f"{label} {path} vs einsum",
+                          tol=MESH_TOL[prec] if shards > 1 else None,
+                          rtol=rtol, ntoa=sim.batch.max_toa)
+            row.update(lane_compare(out, ref, unit,
+                                    f"{label} {path} [{prec}] lanes vs "
+                                    f"einsum f32"))
+            same = all(np.array_equal(out[k], again[k])
+                       for k in ("curves", "autos")) and np.array_equal(
+                out["lnlike"]["lnl"], again["lnlike"]["lnl"])
+            if not same:
+                raise AssertionError(f"{label} {path} [{prec}] rerun is not "
+                                     f"bit-identical")
+            sim.run(CHUNK, seed=99, chunk=CHUNK, precision=prec)
+            _, dt0 = timed_run(sim, nreal, prec)
+            reset_counts()
+            row.update(realizations_per_s=nreal / dt, wall_s=dt,
+                       without_lane_realizations_per_s=nreal / dt0,
+                       lane_s_per_chunk=(dt - dt0) / nchunks,
+                       kernel_launches=moved, rerun_identical=True,
+                       peak_hbm_bytes=again["report"].memory.get(
+                           "peak_hbm_bytes"))
+            rows[f"{path}/{prec}"] = row
+            print(f"{label}: {path} [{prec}] {nreal / dt:.1f} "
+                  f"realizations/s with the lane, {nreal / dt0:.1f} "
+                  f"without ({1e3 * (dt - dt0) / nchunks:.1f} ms of lane "
+                  f"per {CHUNK}-realization chunk), launches {moved}, "
+                  f"rerun bit-identical, peak_hbm_bytes "
+                  f"{row['peak_hbm_bytes']}", flush=True)
+    return rows
+
+
+def dense_oracle(batch64, W, compiled, theta) -> np.ndarray:
+    """(P,) host float64 lnL of the fixed residual ``W`` per pulsar, pulsar
+    p at theta point ``p % K``: the dense covariance N + T phi T^T over its
+    valid TOAs, Cholesky-factorized (one 780-square factorization a
+    pulsar)."""
+    import torch
+    from scipy.linalg import cho_factor, cho_solve
+    tmat = compiled.basis(batch64).cpu().numpy()
+    sigma2 = batch64.sigma2.cpu().numpy()
+    mask = batch64.mask.cpu().numpy()
+    phis = [compiled.phi(torch.as_tensor(t, device=batch64.device),
+                         batch64).cpu().numpy() for t in theta]
+    out = np.zeros(batch64.npsr)
+    for p in range(batch64.npsr):
+        v = mask[p]
+        T, r = tmat[p][v], W[p][v]
+        C = np.diag(sigma2[p][v]) + (T * phis[p % len(theta)][p]) @ T.T
+        c = cho_factor(C, lower=True)
+        out[p] = -0.5 * (r @ cho_solve(c, r)
+                         + 2 * np.log(np.diag(c[0])).sum()
+                         + v.sum() * np.log(2 * np.pi))
+    return out
+
+
+def phase_infer(report: dict) -> None:
+    """The likelihood lane on the card (module docstring, phase 11)."""
+    import torch
+    from fakepta_tpu_torch.infer import (InferenceRun, InferSpec, build,
+                                         lanes_per_point, theta_grid)
+    from fakepta_tpu_torch.obs.report import RunReport
+    from fakepta_tpu_torch.ops import woodbury
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
+                                                       GWBConfig)
+    from fakepta_tpu_torch.scenarios import registry
+
+    out = {}
+    t_phase = time.perf_counter()
+    steps = out.setdefault("step_s", {})
+
+    def stamp(what: str) -> None:
+        """The phase's elapsed seconds at the end of a step."""
+        steps[what] = time.perf_counter() - t_phase
+        print(f"infer: {what} done at {steps[what]:.1f} s", flush=True)
+
+    model = flagship_model()
+    theta = theta_grid(model, INFER_GRID)
+    spec = InferSpec(model=model, theta=theta)
+    paths = ("einsum", "fused", "fused-vpu", "mega")
+    sims = {p: flagship_sim(p.split("-")[0],
+                            pallas_mxu_binning=p != "fused-vpu")
+            for p in paths}
+    yard = sims.pop("einsum")
+    if "chunk_stats/f32/" + shape_tag(100, 100, 780) not in report.get(
+            "kernels", {}):
+        # the lane leaves the kernels' shapes as the kernels phase has
+        # them; measured here when that phase did not run
+        measure_kernels(report, sims["mega"], (50,), "infer kernels")
+    unit = lane_unit(yard, spec, 1, NREAL)
+    stamp("sims, kernels and the lane bound")
+    ref, out["flagship einsum/f32"] = yardstick("infer flagship", yard,
+                                                lnlike=spec)
+    shape = shape_tag(100, 100, 780)
+    out.update({f"flagship {k}": v for k, v in lane_runs(
+        report, "infer flagship", {"einsum": yard, **sims}, ref, spec, unit,
+        shape).items()})
+    stamp("every path")
+    mesh = make_mesh(["cuda:0"] * 2, psr_shards=2)
+    msim = flagship_sim("mega", mesh=mesh)
+    out.update({f"flagship psr_shards=2 {k}": v for k, v in lane_runs(
+        report, "infer flagship psr_shards=2", {"mega": msim}, ref, spec,
+        unit, shape_tag(50, 100, 780), shards=2).items()})
+    del msim
+    tsim = flagship_sim("einsum", mesh=make_mesh(["cuda:0"] * 4,
+                                                 psr_shards=2, toa_shards=2))
+    out.update({f"flagship psr2xtoa2 {k}": v for k, v in lane_runs(
+        report, "infer flagship psr_shards=2 toa_shards=2",
+        {"einsum": tsim}, ref, spec, unit, shape, shards=2,
+        precs=("f32",), rtol=TOA_RTOL).items()})
+    del tsim
+    stamp("meshes")
+    out["chunk split"] = {
+        p: chunk_split(s, p, "infer flagship", lanes=s._prepare_lanes(
+            None, spec)) for p, s in (("einsum", yard),
+                                      ("fused", sims["fused"]),
+                                      ("mega", sims["mega"]))}
+    stamp("chunk splits")
+
+    # -- grad and fisher on "fused" at the full chunk --------------------
+    fused = sims["fused"]
+    for mode in ("grad", "fisher"):
+        mspec = InferSpec(model=model, theta=theta, mode=mode)
+        got, dt, n = counted(report, shape, "binned_correlation",
+                             lambda: fused.run(2 * CHUNK, seed=1,
+                                               chunk=CHUNK, lnlike=mspec),
+                             want=2)
+        lanes_ = got["lnlike"]
+        if not all(np.isfinite(v).all() for k, v in lanes_.items()
+                   if k in ("lnl", "grad", "fisher")):
+            raise AssertionError(f"infer {mode}: non-finite lanes")
+        lane_compare({"lnlike": {"lnl": lanes_["lnl"]}},
+                     {"lnlike": {"lnl": ref["lnlike"]["lnl"][:2 * CHUNK]}},
+                     unit, f"infer flagship fused {mode}: lnl vs einsum")
+        row = {"realizations_per_s": 2 * CHUNK / dt, "wall_s": dt,
+               "launches": n, "chunk": CHUNK,
+               "lanes": lanes_per_point(mode, theta.shape[1]),
+               "peak_hbm_bytes": got["report"].memory.get("peak_hbm_bytes")}
+        if mode == "fisher":
+            H = lanes_["fisher"]
+            asym = float(np.abs(H - np.swapaxes(H, -1, -2)).max()
+                         / np.abs(H).max())
+            row["fisher_asymmetry_rel"] = asym
+            if asym > 1e-3:
+                raise AssertionError(f"infer fisher: asymmetric by {asym}")
+        out[f"flagship fused {mode}"] = row
+        print(f"infer flagship fused [{mode}]: {row['realizations_per_s']:.1f}"
+              f" realizations/s at chunk {CHUNK} (K = {len(theta)} points, "
+              f"{row['lanes']} lanes each), peak_hbm_bytes "
+              f"{row['peak_hbm_bytes']}", flush=True)
+    del sims, yard, fused, ref
+    stamp("grad and fisher")
+    torch.cuda.empty_cache()
+
+    # -- a fixed flagship-width residual in float64 against the oracle ----
+    scn = registry.get("flagship_100")
+    b64 = scn.batch_parts(dtype=torch.float64, device="cuda")[0]
+    W = np.random.default_rng(5).standard_normal(
+        tuple(b64.t_own.shape)) * 1e-7
+    sim64 = EnsembleSimulator(b64, include=("det",), waveform=W,
+                              stat_path="einsum", device="cuda")
+    pts = list(ORACLE_POINTS)
+    det = sim64.run(8, seed=0, chunk=8, lnlike=InferSpec(
+        model=model, theta=theta[pts]))["lnlike"]["lnl"]
+    compiled = build(model, b64)
+    want = dense_oracle(b64, W, compiled, theta[pts])
+    # the lane's own per-pulsar terms, in float64 on the card: each
+    # pulsar against the oracle at its point, their sums against the lane
+    tmat = compiled.basis(b64)
+    M, lndetN, nv, _ = woodbury.finish_fixed(woodbury.fixed_parts(
+        tmat, b64.sigma2, b64.mask))
+    d0, dT = woodbury.finish_res(woodbury.res_parts(
+        torch.as_tensor(W, device="cuda"), tmat, b64.sigma2, b64.mask))
+    per_psr = np.stack([woodbury.lnlike_from_moments(
+        d0, dT, M, lndetN, nv, compiled.phi(torch.as_tensor(
+            t, device="cuda"), b64)).cpu().numpy() for t in theta[pts]])
+    mine = per_psr[np.arange(b64.npsr) % len(pts), np.arange(b64.npsr)]
+    err_psr = float((np.abs(mine - want) / np.abs(want)).max())
+    err_sum = float((np.abs(det - per_psr.sum(1)) / np.abs(det)).max())
+    if err_psr > ORACLE_RTOL or err_sum > ORACLE_RTOL \
+            or not (det == det[:1]).all():
+        raise AssertionError(f"infer float64 oracle: per pulsar {err_psr}, "
+                             f"sum {err_sum}")
+    out["float64 oracle"] = {"per_pulsar_rel_err": err_psr,
+                             "sum_rel_err": err_sum, "rtol": ORACLE_RTOL,
+                             "points": pts}
+    print(f"infer flagship float64 det lane: each pulsar against the dense "
+          f"host oracle at theta point {pts}[p % {len(pts)}] "
+          f"{err_psr:.3e}, the lane's sums against its per-pulsar terms "
+          f"{err_sum:.3e} relative (bound {ORACLE_RTOL:g})", flush=True)
+    del sim64, b64
+    stamp("float64 oracle")
+
+    # -- InferenceRun at the example's at-scale line, and the CLI --------
+    from fakepta_tpu_torch import spectrum as spectrum_lib
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.infer import (ComponentSpec, FreeParam,
+                                         LikelihoodSpec)
+    batch = PulsarBatch.synthetic(npsr=100, ntoa=780, tspan_years=15.0,
+                                  toaerr=1e-7, n_red=10, n_dm=10,
+                                  red_log10_A=-14.5, dm_log10_A=-14.5,
+                                  seed=0, device="cuda")
+    f = np.arange(1, 11) / float(batch.tspan_common)
+    psd = spectrum_lib.powerlaw(f, log10_A=-13.2, gamma=13 / 3).numpy()
+    emodel = LikelihoodSpec(components=(
+        ComponentSpec("red", spectrum="batch"),
+        ComponentSpec("dm", spectrum="batch"),
+        ComponentSpec("curn", nbin=10, free=(
+            FreeParam("log10_A", (-13.8, -12.6)),
+            FreeParam("gamma", (2.0, 6.0))))))
+    study = InferenceRun(batch, emodel, gwb=GWBConfig(psd=psd, orf="curn"),
+                         grid_shape=INFER_GRID, truth=(-13.2, 13 / 3),
+                         include=("white", "red", "dm", "gwb"),
+                         device="cuda")
+    res, dt, n = counted(report, shape_tag(100, 100, 780),
+                         "binned_correlation",
+                         lambda: study.run(NREAL, seed=1, chunk=CHUNK),
+                         want=NREAL // CHUNK)
+    art = study.save(os.path.join(HERE, "build", "infer_study.jsonl"))
+    loaded = RunReport.load(art).summary()
+    if any(loaded.get(k) != v for k, v in res["summary"].items()):
+        raise AssertionError("InferenceRun's artifact does not load with "
+                             "its summary")
+    out["InferenceRun example"] = dict(
+        res["summary"], realizations_per_s=NREAL / dt, launches=n,
+        lnlike_evals_per_s_per_chip=loaded["lnlike_evals_per_s_per_chip"])
+    print(f"infer InferenceRun (examples/likelihood_grid.py --npsr 100 "
+          f"--ntoa 780 --nreal {NREAL}): {NREAL / dt:.1f} realizations/s, "
+          f"{n} launches, summary {json.dumps(res['summary'])}", flush=True)
+    del study, res
+    stamp("InferenceRun")
+    cli_out = os.path.join(HERE, "build", "infer.jsonl")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fakepta_tpu_torch.infer", "run", "--npsr",
+         "100", "--ntoa", "780", "--nreal", str(NREAL), "--chunk",
+         str(CHUNK), "--out", cli_out], cwd=HERE, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the likelihood CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    rep = RunReport.load(cli_out)
+    if rep.meta.get("platform") != "gpu" or rep.meta["lnlike"]["k"] != 25:
+        raise AssertionError(f"the CLI's artifact: {rep.meta}")
+    out["CLI"] = dict(row, wall_s=time.perf_counter() - t0)
+    print(f"infer CLI: exit 0 in {out['CLI']['wall_s']:.1f} s, "
+          f"{json.dumps(row)}; artifact loads", flush=True)
+    stamp("CLI")
+    report["infer"] = out
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -2202,10 +2834,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", nargs="+",
                     default=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
-                             "facade"],
+                             "facade", "correlated", "infer"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
-                             "facade", "profile"])
+                             "facade", "correlated", "infer", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh and profile phases' flagship "
                          "meshes span (default 1: every shard on cuda:0)")
@@ -2231,7 +2863,8 @@ def main(argv=None) -> int:
               "mesh": lambda r: phase_mesh(r, args.mesh_cards),
               "scenarios": phase_scenarios, "signals": phase_signals,
               "run": phase_run, "detect": phase_detect,
-              "facade": phase_facade,
+              "facade": phase_facade, "correlated": phase_correlated,
+              "infer": phase_infer,
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:

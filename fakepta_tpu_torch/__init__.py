@@ -12,5 +12,5 @@ falls back to the CPU on its own.
 
 __version__ = "0.1.0"
 
-from . import constants, fake_pta  # noqa: F401
+from . import constants, correlated_noises, fake_pta  # noqa: F401
 from .device import resolve_device  # noqa: F401

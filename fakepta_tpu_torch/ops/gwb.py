@@ -117,3 +117,31 @@ def orf_cholesky(orf, jitter: float = 1e-10) -> np.ndarray:
     n = orf64.shape[0]
     scaled = jitter * max(float(np.mean(np.diag(orf64))), 1.0)
     return np.linalg.cholesky(orf64 + scaled * np.eye(n))
+
+
+def draw_correlated_coeffs(key: torch.Tensor, chol, psd,
+                           shape_prefix=()) -> torch.Tensor:
+    """Raw GWB Fourier coefficients with exact cross-pulsar correlation.
+
+    ``key`` is one (2,) key; returns ``(*shape_prefix, 2, ncomp, npsr)``
+    float32 coefficients on ``key``'s device: standard normals ``z`` drawn
+    at that shape, coupled as ``z @ chol.T`` at full float32 (no TF32) and
+    scaled by ``sqrt(psd_c)`` per component, the JAX package's draw, op for
+    op, in its default float32 mode. ``chol`` (npsr, npsr) is the host
+    float64 factor of :func:`orf_cholesky` (cast here), ``psd`` (ncomp,).
+    """
+    from ..utils import rng
+    from .megakernel import full_f32
+
+    dev = key.device
+
+    def f32(x):
+        x = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x, dtype=np.float64))
+        return x.to(device=dev, dtype=torch.float32)
+
+    chol, psd = f32(chol), f32(psd)
+    z = rng.normal(key, (*shape_prefix, 2, psd.shape[0], chol.shape[0]))
+    with full_f32():
+        corr = z @ chol.T
+    return corr * torch.sqrt(psd)[:, None]

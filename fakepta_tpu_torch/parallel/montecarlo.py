@@ -78,9 +78,17 @@ callables) are evaluated once at construction into one (P, T) delay block
 tag 0xC6) are drawn per realization and added after it, in the JAX
 engine's order. They need the padded absolute epochs ``toas_abs``.
 
-Not ported yet: multi-host meshes, the lnlike lane, the tuner and the
-recovery policy: those ``run`` options raise ``NotImplementedError`` when
-given.
+The likelihood lane (``run(lnlike=...)``, :mod:`..infer`): per
+realization and per theta point the GP-marginalized Woodbury lnL (and its
+forward-mode gradient and Hessian) from the chunk's residual blocks, in
+the same chunk as the statistic: beside the correlation einsum, beside
+the fused kernel, or, on the mega path, from the same split coefficients
+projected through the dense basis outside the kernel. Its moment parts
+are TOA sums, added over a psr shard's toa cells before the ECORR
+downdate; the psr shards' partial lnL are added in shard order.
+
+Not ported yet: multi-host meshes, the tuner and the recovery policy:
+those ``run`` options raise ``NotImplementedError`` when given.
 """
 
 from __future__ import annotations
@@ -1022,6 +1030,31 @@ class _OSLanes:
 
 
 @dataclasses.dataclass(frozen=True)
+class _LnlLanes:
+    """A run's likelihood lane (``run(lnlike=...)``): its spec and compiled
+    model, the (K, D) host theta, the K*L packed lanes after the auto, and
+    per psr shard (keyed by ``id`` of the shard that heads its toa cells)
+    the residual-independent state staged once per run: each cell's basis
+    and epoch table, the theta on the shard's device, and the finished
+    fixed moments (M, lndetN, n_valid, ECORR corr) after the cells' parts
+    are added in toa order."""
+
+    spec: object
+    compiled: object
+    theta: np.ndarray
+    k: int
+    per_point: int
+    num_epochs: int
+    cells: dict          # id(cell shard) -> (basis (PL, Tw, 2M), onehot)
+    heads: dict          # id(head shard) -> (theta, (M, lndetN, nv, corr))
+
+    @property
+    def n_extra(self) -> int:
+        """Packed lanes after the auto: K points of L lanes each."""
+        return self.k * self.per_point
+
+
+@dataclasses.dataclass(frozen=True)
 class _Shard:
     """One shard's static state on its device: its rows of the batch, of
     the statistic weights and of the megakernel tables, plus what every
@@ -1053,6 +1086,45 @@ class _Shard:
 
 def _cat(parts, dim: int = 0):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def _sum_parts(parts, device) -> dict:
+    """Moment-part dicts (:mod:`..ops.woodbury`) of a psr shard's toa
+    cells, added key by key in toa order on ``device``."""
+    return {k: psum([p[k] for p in parts], device) for k in parts[0]}
+
+
+def _lnl_point(compiled, mode: str, theta, moments, batch,
+               psr_offset: int) -> torch.Tensor:
+    """(R, L) likelihood lanes of one theta point: lnL, then per mode its
+    gradient (D) and its Hessian (D*D, row-major). The derivatives are
+    forward mode (``torch.func.jacfwd``) over the D parameters, where the
+    JAX lane takes ``jacrev`` of its (R,)-valued function: reverse mode
+    would pull R cotangents back through the (P, 2M, R) triangular solve,
+    about (R, P, 2M, R) floats (~134 GB at R = 1024 on the flagship)."""
+    from torch.func import jacfwd
+
+    def f(t):
+        return compiled.lnl_local(t, moments, batch, psr_offset)
+
+    if mode == "lnlike":
+        return f(theta)[:, None]
+
+    def with_value(t):
+        v = f(t)
+        return v, v
+
+    if mode == "grad":
+        grad, val = jacfwd(with_value, has_aux=True)(theta)
+        return torch.cat([val[:, None], grad], dim=1)
+
+    def with_grad(t):
+        grad, val = jacfwd(with_value, has_aux=True)(t)
+        return grad, (grad, val)
+
+    hess, (grad, val) = jacfwd(with_grad, has_aux=True)(theta)
+    return torch.cat([val[:, None], grad, hess.reshape(val.shape[0], -1)],
+                     dim=1)
 
 
 class EnsembleSimulator:
@@ -1143,13 +1215,22 @@ class EnsembleSimulator:
                         f"a bin count equal to max_toa, rename this check's "
                         f"exemptions)")
         self.device = mesh.devices.flat[0]
-        if batch.dtype != torch.float32:
-            raise TypeError(f"the port runs float32 batches, got "
-                            f"{batch.dtype}")
         unknown = sorted(set(include) - set(STAGES))
         if unknown:
             raise ValueError(f"unknown stages {unknown}; known: {STAGES}")
         stat_path = "fused" if stat_path is None else stat_path
+        if batch.dtype != torch.float32:
+            # the draws are float32 (ROADMAP Queue 1 item 12): a float64
+            # batch runs only what draws nothing, the fixed "det" block, on
+            # the einsum path (the kernels take float32)
+            drawn = (set(include) - {"det"} or noise_sample or white_sample
+                     or roemer_sample or cgw_sample)
+            if batch.dtype != torch.float64 or drawn \
+                    or stat_path != "einsum":
+                raise TypeError(
+                    f"the port runs float32 batches (got {batch.dtype}); a "
+                    f"float64 batch runs only include=('det',) with no "
+                    f"sampling on stat_path='einsum'")
         if stat_path not in STAT_PATHS:
             raise ValueError(f"stat_path must be one of {STAT_PATHS}, got "
                              f"{stat_path!r}")
@@ -1183,6 +1264,7 @@ class EnsembleSimulator:
         self.pallas_precision = pallas_precision
         self.pallas_mxu_binning = bool(pallas_mxu_binning)
         self.last_report: Optional[RunReport] = None
+        self._lnl_compiled: dict = {}     # LikelihoodSpec -> compiled model
         self.batch = batch = batch.to(self.device)
         self.nbins = nbins
         dtype = batch.dtype
@@ -1668,11 +1750,21 @@ class EnsembleSimulator:
         return (binned_corr_ops.binned_correlation if self.pallas_mxu_binning
                 else binned_corr_ops.binned_correlation_vpu)
 
-    def _prepare_lanes(self, os) -> Optional[_OSLanes]:
-        """The run's OS lane (``run(os=...)``), or None: the host-f64
-        operators (:func:`..detect.operators.build_operators` on the
-        batch's positions, mask, white variances and full pair counts) and
-        every shard's rows of the two weight stacks, staged once per run."""
+    def _prepare_lanes(self, os, lnlike=None):
+        """The run's packed statistic lane, or None: the OS lane
+        (``run(os=...)``: the host-f64 operators of
+        :func:`..detect.operators.build_operators` on the batch's
+        positions, mask, white variances and full pair counts, and every
+        shard's rows of the two weight stacks) or the likelihood lane
+        (``run(lnlike=...)``, :meth:`_prepare_lnlike`), staged once per
+        run. A run carries one of the two."""
+        if lnlike is not None:
+            if os is not None:
+                raise ValueError(
+                    "run(os=..., lnlike=...) cannot combine the detection "
+                    "and likelihood lanes in one run (one packed-extras "
+                    "layout per run); run them separately")
+            return self._prepare_lnlike(lnlike)
         if os is None:
             return None
         from ..detect import operators as detect_ops
@@ -1698,34 +1790,127 @@ class EnsembleSimulator:
                     for w in (main, null))
         return _OSLanes(spec, ops, len(ops), bool(spec.null), weights)
 
-    def _lane_weights(self, sh: _Shard, lanes: Optional[_OSLanes]):
+    def _prepare_lnlike(self, lnlike) -> _LnlLanes:
+        """The likelihood lane's per-run state (:class:`_LnlLanes`): the
+        compiled model (cached per model), and per psr shard its cells'
+        bases and ECORR epoch tables and the finished fixed moments, whose
+        parts are plain TOA sums added over the shard's toa cells in toa
+        order before the (nonlinear) ECORR downdate, as the JAX lane adds
+        them over 'toa'. The ECORR blocks enter the model when the ECORR
+        stage is live."""
+        from ..infer import model as infer_model
+        from ..ops import woodbury
+
+        spec = infer_model.as_spec(lnlike)
+        compiled = self._lnl_compiled.get(spec.model)
+        if compiled is None:
+            compiled = infer_model.build(spec.model, self.batch)
+            self._lnl_compiled[spec.model] = compiled
+        theta = compiled.validate_theta(spec.theta)
+        num_ep = self.batch.max_toa if self._include[1] else 0
+        n_toa = self.mesh.shape[TOA_AXIS]
+        cells, heads = {}, {}
+        with span("lnlike_moments"):
+            for row in self._shards:
+                for i in range(0, len(row), n_toa):
+                    group = row[i:i + n_toa]
+                    if id(group[0]) in heads:
+                        continue
+                    parts = []
+                    for sh in group:
+                        b = sh.batch
+                        if id(sh) not in cells:
+                            cells[id(sh)] = (
+                                compiled.basis(b),
+                                woodbury.epoch_onehot(b.epoch_idx, num_ep,
+                                                      b.dtype)
+                                if num_ep else None)
+                        tmat, onehot = cells[id(sh)]
+                        parts.append(woodbury.fixed_parts(
+                            tmat, b.sigma2, b.mask, b.epoch_idx,
+                            b.ecorr_amp, num_epochs=num_ep, onehot=onehot))
+                    head = group[0]
+                    th = torch.from_numpy(theta).to(self.batch.dtype).to(
+                        head.device)
+                    heads[id(head)] = (th, woodbury.finish_fixed(
+                        _sum_parts(parts, head.device)))
+        return _LnlLanes(spec, compiled, theta, theta.shape[0],
+                         infer_model.lanes_per_point(spec.mode, compiled.D),
+                         num_ep, cells, heads)
+
+    def _lane_residuals(self, sh: _Shard, res, path: str):
+        """A shard's full residual rows for the likelihood lane. On the
+        mega path the statistic reads the split (base, coefficients); the
+        lane projects the same coefficients through the dense basis
+        (:func:`..ops.megakernel.dense_basis`, a plain product), so no draw
+        runs twice."""
+        if path != "mega":
+            return res
+        base, coefs = res
+        with span("gp_project"):
+            basis = mega_ops.dense_basis(sh.times, sh.scales,
+                                         self._mega_tables[0])
+            with mega_ops.full_f32():
+                proj = torch.einsum("ptk,rpk->rpt", basis, coefs)
+            return base + torch.where(sh.batch.mask, proj, 0.0)
+
+    def _lnlike_partial(self, lanes: _LnlLanes, group, res) -> torch.Tensor:
+        """(R, K*L) likelihood lanes of one psr shard's pulsars, on its
+        head cell's device: the residual moment parts of its toa cells
+        (``group``, with their residual windows ``res``), added in toa
+        order, then per theta point the rank-2M factorization and the
+        batched solves; ``grad`` and ``fisher`` lanes are forward-mode
+        derivatives over the D parameters (theta enters only through
+        phi, so the data-side moments are shared)."""
+        from ..ops import woodbury
+
+        head = group[0]
+        th, (M, lndetN, nv, corr) = lanes.heads[id(head)]
+        with span("lnlike_moments"):
+            parts = []
+            for sh, r in zip(group, res):
+                tmat, onehot = lanes.cells[id(sh)]
+                b = sh.batch
+                parts.append(woodbury.res_parts(
+                    r, tmat, b.sigma2, b.mask, b.epoch_idx, b.ecorr_amp,
+                    num_epochs=lanes.num_epochs, onehot=onehot))
+            d0, dT = woodbury.finish_res(_sum_parts(parts, head.device),
+                                         corr)
+        moments = (M, lndetN, nv, d0, dT)
+        with span("lnlike"):
+            points = [_lnl_point(lanes.compiled, lanes.spec.mode, t, moments,
+                                 head.batch, head.p_offset) for t in th]
+        return torch.stack(points, dim=1).reshape(d0.shape[0], -1)
+
+    def _lane_weights(self, sh: _Shard, lanes):
         """(the main launch's weight rows, the null stream's or None) of a
         shard: its statistic weights when the run has no OS lane."""
-        return (sh.weights, None) if lanes is None else lanes.weights[id(sh)]
+        if not isinstance(lanes, _OSLanes):
+            return sh.weights, None
+        return lanes.weights[id(sh)]
 
-    def _pack(self, curves, autos, null=None):
+    def _pack(self, curves, autos, *after):
         """Packed lanes: the bins, the auto, the OS slots that ride after
-        the bins in ``curves`` (when any) and the null stream's (when
-        given)."""
+        the bins in ``curves`` (when any), then the given lanes (the null
+        stream's or the likelihood's; None entries are skipped)."""
         nb = self.nbins
         extras = [curves[:, nb:]] if curves.shape[1] > nb else []
-        if null is not None:
-            extras.append(null)
+        extras += [a for a in after if a is not None]
         return pack_stats(curves[:, :nb], autos, *extras)
 
     def step(self, base_key: torch.Tensor, offset, nreal: int,
              path: str, precision: str, with_corr: bool = False,
-             bulks: Optional[tuple] = None,
-             lanes: Optional[_OSLanes] = None):
+             bulks: Optional[tuple] = None, lanes=None):
         """One chunk: (packed (nreal, nbins + 1 + n_extra) statistics, corr
         or None), on the mesh's first device. ``nreal`` splits into one
         contiguous block of realizations per real shard. ``base_key`` /
         ``offset`` are a key and an int, or lane vectors
         (:func:`_chunk_keys`). ``bulks``: the chunk's psrterm CGW bulks,
         precomputed on the host (:meth:`_host_cgw_bulks`; each shard
-        computes its own when not given). ``lanes``: the run's OS lane
-        (:meth:`_prepare_lanes`), whose amp2 values and then the null
-        stream's pack after the auto."""
+        computes its own when not given). ``lanes``: the run's packed lane
+        (:meth:`_prepare_lanes`): the OS lane, whose amp2 values and then
+        the null stream's pack after the auto, or the likelihood lane,
+        whose K*L values do."""
         n_real = len(self._shards)
         if nreal % n_real != 0:
             raise ValueError(f"nreal per chunk ({nreal}) must be divisible "
@@ -1752,7 +1937,7 @@ class EnsembleSimulator:
 
     def _step_shared(self, sh: _Shard, keys, path: str, precision: str,
                      with_corr: bool, bulks: Optional[tuple] = None,
-                     lanes: Optional[_OSLanes] = None):
+                     lanes=None):
         """One shard holding every pulsar: one operand set."""
         split = path == "mega"
         w, w_null = self._lane_weights(sh, lanes)
@@ -1763,6 +1948,10 @@ class EnsembleSimulator:
             curves, autos, corr = self._shared_statistic(
                 sh, res, path, precision, w, w.shape[0] - 1,
                 self._mega_tables[0])
+        lnl = None
+        if isinstance(lanes, _LnlLanes):
+            lnl = self._lnlike_partial(
+                lanes, [sh], [self._lane_residuals(sh, res, path)])
         del res     # the null stream's residuals may take its memory
         null = None
         if w_null is not None:
@@ -1772,7 +1961,7 @@ class EnsembleSimulator:
                 null, _, _ = self._shared_statistic(
                     sh, res0, path, precision, w_null, lanes.n_os,
                     self._mega_stages_null)
-        return (self._pack(curves, autos, null),
+        return (self._pack(curves, autos, null, lnl),
                 corr / self._counts.to(corr.device) if with_corr else None)
 
     def _shared_statistic(self, sh: _Shard, res, path: str, precision: str,
@@ -1800,11 +1989,13 @@ class EnsembleSimulator:
 
     def _step_sharded(self, shards, keys, path: str, precision: str,
                       with_corr: bool, bulks: Optional[tuple] = None,
-                      lanes: Optional[_OSLanes] = None):
+                      lanes=None):
         """Sharded chunk block: each shard's rows against the all-gathered
         array with its rows of the weights, then the psum of the partial
         statistics in shard order (toa cells: their window's pair sums,
-        added over the windows first)."""
+        added over the windows first). The likelihood lane's partials are
+        per psr shard (its cells' moment parts added over the windows
+        first) and are psum'ed in shard order too."""
         dev0 = shards[0].device
         split = path == "mega"
         ws = [self._lane_weights(sh, lanes) for sh in shards]
@@ -1817,6 +2008,14 @@ class EnsembleSimulator:
             out, corr = self._sharded_statistic(
                 shards, local, path, precision, with_corr, dev0,
                 [w for w, _ in ws], nb, self._mega_tables[0])
+        lnl = None
+        if isinstance(lanes, _LnlLanes):
+            n_toa = self.mesh.shape[TOA_AXIS]
+            lnl = psum([self._lnlike_partial(
+                lanes, shards[i:i + n_toa],
+                [self._lane_residuals(sh, r, path) for sh, r in
+                 zip(shards[i:i + n_toa], local[i:i + n_toa])])
+                for i in range(0, len(shards), n_toa)], dev0)
         del local   # the null stream's residuals may take its memory
         null = None
         if ws[0][1] is not None:
@@ -1830,7 +2029,7 @@ class EnsembleSimulator:
                     [w0 for _, w0 in ws], lanes.n_os,
                     self._mega_stages_null)
                 null = null[:, :lanes.n_os]
-        return self._pack(out[:, :nb], out[:, nb], null), corr
+        return self._pack(out[:, :nb], out[:, nb], null, lnl), corr
 
     def _sharded_statistic(self, shards, local, path: str, precision: str,
                            with_corr: bool, dev0, weights, nb: int, stages):
@@ -1983,14 +2182,24 @@ class EnsembleSimulator:
         ``p_value``. Every statistic path and mesh takes it; a checkpoint
         records the lane count, so a resume with other lanes is refused.
 
-        Not ported yet, each ``NotImplementedError`` when given: ``lnlike``
-        (ROADMAP Queue 1 item 7), ``eventlog``, ``tuned`` and ``recovery``
-        (item 11); ``recovery=False`` and ``tuned=False`` are accepted
-        (nothing to turn off).
+        ``lnlike``: the GP-marginalized likelihood lane, an
+        :class:`..infer.InferSpec` (a :class:`..infer.LikelihoodSpec`, a
+        (K, D) theta batch and a mode). Each realization's Woodbury lnL at
+        each theta point (and per mode its gradient, or gradient and
+        Hessian) is computed from the chunk's residual blocks, beside the
+        statistic kernel, and packed after the auto; results land under
+        ``out["lnlike"]`` (schema ``fakepta_tpu.infer/1``,
+        :func:`..infer.model.assemble`). Every statistic path, psr mesh and
+        toa cell takes it; not together with ``os`` (``ValueError``); a
+        checkpoint records the lane count, as for the OS lane. The lanes
+        are the caller's to read: a non-finite lnL is not a fault.
+
+        Not ported yet, each ``NotImplementedError`` when given:
+        ``eventlog``, ``tuned`` and ``recovery`` (ROADMAP Queue 1 item 11);
+        ``recovery=False`` and ``tuned=False`` are accepted (nothing to
+        turn off).
         """
-        unported = (("lnlike", lnlike,
-                     "the likelihood lane (ROADMAP Queue 1 item 7)"),
-                    ("eventlog", eventlog,
+        unported = (("eventlog", eventlog,
                      "the rest of obs/ (ROADMAP Queue 1 item 11)"),
                     ("tuned", tuned or None,
                      "the tuner, tune/ (ROADMAP Queue 1 item 11)"),
@@ -2016,8 +2225,10 @@ class EnsembleSimulator:
         pipelined = depth > 0
         ring_size = max(depth, 1)
         nb = self.nbins
-        os_lanes = self._prepare_lanes(os)
-        n_extra = 0 if os_lanes is None else os_lanes.n_extra
+        stat_lanes = self._prepare_lanes(os, lnlike)
+        n_extra = 0 if stat_lanes is None else stat_lanes.n_extra
+        os_lanes = stat_lanes if isinstance(stat_lanes, _OSLanes) else None
+        lnl_lanes = stat_lanes if isinstance(stat_lanes, _LnlLanes) else None
 
         lane_seeds = lane_within = None
         if lanes is not None:
@@ -2090,6 +2301,10 @@ class EnsembleSimulator:
             meta["os"] = {"orfs": list(os_lanes.spec.orfs),
                           "weighting": os_lanes.spec.weighting,
                           "null": os_lanes.null}
+        if lnl_lanes is not None:
+            meta["lnlike"] = {"k": lnl_lanes.k, "d": lnl_lanes.compiled.D,
+                              "mode": lnl_lanes.spec.mode,
+                              "params": list(lnl_lanes.compiled.param_names)}
 
         timeline: list = []
         ledger = PackedLedger(chunk * (nb + 1 + n_extra)
@@ -2152,8 +2367,9 @@ class EnsembleSimulator:
                     t_ready = now()
                 if arr is not None and not np.isfinite(arr[:, :nb + 1]).all():
                     # a non-finite curve or auto fails before the checkpoint
-                    # can take the chunk in; the extra (OS / null) lanes
-                    # are the caller's to read, as in the JAX engine
+                    # can take the chunk in; the extra (OS / null /
+                    # likelihood) lanes are the caller's to read, as in the
+                    # JAX engine
                     flightrec.note("poisoned_chunk", idx=idx)
                     raise FloatingPointError(
                         f"chunk {idx} produced non-finite packed statistics")
@@ -2239,11 +2455,12 @@ class EnsembleSimulator:
                         packed, corr = self.step(
                             lane_seeds[done:done + chunk],
                             lane_within[done:done + chunk], chunk, path,
-                            prec, with_corr=keep_corr, lanes=os_lanes)
+                            prec, with_corr=keep_corr, lanes=stat_lanes)
                     else:
                         packed, corr = self.step(base, done, chunk, path,
                                                  prec, with_corr=keep_corr,
-                                                 bulks=bulks, lanes=os_lanes)
+                                                 bulks=bulks,
+                                                 lanes=stat_lanes)
                     if on_card:
                         events[1].record(compute)
                         exec_events[idx] = events
@@ -2327,6 +2544,10 @@ class EnsembleSimulator:
                 os_lanes.spec, os_lanes.ops, packed_h[:, nb + 1:nb + 1 + n_os],
                 packed_h[:, nb + 1 + n_os:nb + 1 + 2 * n_os]
                 if os_lanes.null else None)
+        if lnl_lanes is not None:
+            from ..infer import model as infer_model
+            out["lnlike"] = infer_model.assemble(
+                lnl_lanes.spec, lnl_lanes.compiled, packed_h[:, nb + 1:])
         if keep_corr:
             out["corr"] = np.concatenate(corr_out)[:nreal]
         if ckpt is not None:

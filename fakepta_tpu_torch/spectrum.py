@@ -77,9 +77,11 @@ def t_process_adapt(f, log10_A=-15.0, gamma=4.33, alphas_adapt=None,
     elif nfreq is None:
         alpha_model = _t(alphas_adapt, f)
     else:
+        # functional (no in-place write), so torch.func transforms pass
         idx = torch.round(_t(nfreq, f)).to(torch.int64)
-        alpha_model = torch.ones_like(f)
-        alpha_model[idx] = _t(alphas_adapt, f)
+        bins = torch.arange(f.shape[-1], device=f.device)
+        alpha_model = torch.where(bins == idx, _t(alphas_adapt, f),
+                                  torch.ones_like(f))
     return powerlaw(f, log10_A=log10_A, gamma=gamma) * alpha_model
 
 
@@ -112,10 +114,12 @@ def broken_powerlaw(f, log10_A=-15.0, gamma=13 / 3, delta=0.1,
 def free_spectrum(f, log10_rho=None):
     """Free spectral model: ``psd_i = 10^(2 log10_rho_i) * Tspan`` on the
     standard grid ``f_i = i/Tspan`` (``Tspan`` inferred as ``1/f_1``); a
-    non-standard grid raises instead of rescaling every bin wrongly."""
+    non-standard grid raises instead of rescaling every bin wrongly. A
+    (..., N) stack of grids (one per pulsar) is checked and evaluated row
+    by row."""
     f = _t(f)
-    f_host = f.detach().cpu().double().numpy()
-    expect = np.arange(1, f_host.size + 1) * f_host[0]
+    f_host = f.detach().cpu().double().numpy().reshape(-1, f.shape[-1])
+    expect = np.arange(1, f_host.shape[1] + 1) * f_host[:, :1]
     if not np.allclose(f_host, expect, rtol=1e-5, atol=0.0):
         raise ValueError(
             "free_spectrum needs the standard grid f_i = i/Tspan (it infers "
@@ -124,7 +128,7 @@ def free_spectrum(f, log10_rho=None):
             "custom_psd instead")
     log10_rho = (torch.zeros_like(f) if log10_rho is None
                  else _t(log10_rho, f))
-    return torch.exp(2.0 * log10_rho * const.ln10 - torch.log(f[0]))
+    return torch.exp(2.0 * log10_rho * const.ln10 - torch.log(f[..., :1]))
 
 
 @dataclasses.dataclass(frozen=True)

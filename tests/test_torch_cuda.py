@@ -1072,3 +1072,137 @@ def test_facade_entry_points_default_to_the_card(cuda, tmp_path):
         assert p._device.type == "cuda"
         p.add_white_noise(seed=2)
         assert p._res_dev.is_cuda
+
+
+# -- the likelihood lane (run(lnlike=...)) beside each kernel ---------------
+
+def _lane_batch():
+    """8 pulsars of 64 TOAs with ECORR epochs of 4 TOAs (amplitude 1e-7)."""
+    batch = PulsarBatch.synthetic(npsr=8, ntoa=64, tspan_years=10.0,
+                                  n_red=4, n_dm=4, seed=1, device="cpu")
+    leaves = batch.numpy()
+    leaves["epoch_idx"] = np.tile(np.arange(64) // 4, (8, 1))
+    leaves["ecorr_amp"] = np.full((8, 64), 1e-7, np.float32)
+    return PulsarBatch.from_numpy(leaves, device="cpu")
+
+
+def _lane_spec():
+    from fakepta_tpu_torch import infer
+    model = infer.LikelihoodSpec(components=(
+        infer.ComponentSpec("red", spectrum="batch"),
+        infer.ComponentSpec("dm", spectrum="batch"),
+        infer.ComponentSpec("curn", nbin=4, free=(
+            infer.FreeParam("log10_A", (-14.5, -12.5)),
+            infer.FreeParam("gamma", (2.0, 6.0))))))
+    return infer.InferSpec(model=model, theta=infer.theta_grid(model, (2, 2)),
+                           mode="grad")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("path,mxu,kernel", [
+    ("fused", True, "binned_correlation"),
+    ("fused", False, "binned_correlation_vpu"),
+    ("mega", True, "chunk_stats")])
+def test_lnlike_lane_beside_each_kernel_matches_the_cpu(cuda, path, mxu,
+                                                        kernel, shards):
+    """run(lnlike=...) on the card beside each kernel (#1, #2, #3; #4 on the
+    2-shard mega mesh), with ECORR epochs: the kernel launched once per
+    shard and chunk, curves and autos within the f32 bound of the CPU
+    port's einsum run (the plain versions), the lanes within the lane
+    bound (tests/lane_bound.py), and a rerun bit for bit, lanes included."""
+    from lane_bound import assert_lanes, lane_unit
+    batch = _lane_batch()
+    f = np.arange(1, 5) / float(batch.tspan_common)
+    gwb = GWBConfig(psd=spectrum_lib.powerlaw(f, log10_A=-13.5,
+                                              gamma=13 / 3).numpy())
+    kw = dict(gwb=gwb, include=("white", "ecorr", "red", "dm", "gwb"))
+    spec = _lane_spec()
+    cpu = EnsembleSimulator(batch, stat_path="einsum", device="cpu", **kw)
+    want = cpu.run(16, seed=3, chunk=8, lnlike=spec)
+    sim = EnsembleSimulator(batch, stat_path=path, pallas_mxu_binning=mxu,
+                            mesh=make_mesh([cuda] * shards,
+                                           psr_shards=shards), **kw)
+    counts = {"binned_correlation": lambda: bc.launches,
+              "binned_correlation_vpu": lambda: bc.vpu_launches,
+              "chunk_stats": lambda: (mk.launches if shards == 1
+                                      else mk.sharded_launches)}[kernel]
+    before = counts()
+    got = sim.run(16, seed=3, chunk=8, precision="f32", lnlike=spec)
+    assert counts() - before == 2 * shards
+    _assert_close((got["curves"], got["autos"]),
+                  (want["curves"], want["autos"]), "f32")
+    assert_lanes(got["lnlike"], want["lnlike"],
+                 lane_unit(cpu, spec, 3, 8), ("lnl", "grad"), path)
+    again = sim.run(16, seed=3, chunk=8, precision="f32", lnlike=spec)
+    _same(got, again)
+    for k in ("lnl", "grad"):
+        np.testing.assert_array_equal(got["lnlike"][k], again["lnlike"][k])
+
+
+@pytest.mark.cuda
+def test_ecorr_epoch_sums_have_no_atomics(cuda):
+    """The lane's per-epoch ECORR sums (a one-hot contraction, no
+    scatter-add) give the same bits on every rerun on the card, and the
+    CPU's float64 sums within float32 rounding."""
+    from fakepta_tpu_torch.ops import woodbury
+    rng = np.random.default_rng(4)
+    P, T, K, R, E = 8, 512, 40, 64, 128
+    tmat = rng.standard_normal((P, T, K))
+    sigma2 = rng.uniform(0.5, 2.0, (P, T))
+    mask = rng.uniform(size=(P, T)) > 0.1
+    epoch = np.tile(np.arange(T) // 4, (P, 1))
+    amp = rng.uniform(0.1, 1.0, (P, T))
+    r = rng.standard_normal((R, P, T))
+
+    def parts(dev, dtype):
+        t = [torch.as_tensor(x, dtype=dtype, device=dev)
+             for x in (tmat, sigma2, amp, r)]
+        m = torch.as_tensor(mask, device=dev)
+        e = torch.as_tensor(epoch, device=dev)
+        fixed = woodbury.fixed_parts(t[0], t[1], m, e, t[2], num_epochs=E)
+        res = woodbury.res_parts(t[3], t[0], t[1], m, e, t[2], num_epochs=E)
+        M, lndetN, nv, corr = woodbury.finish_fixed(fixed)
+        return {**fixed, **res, "M_ds": M,
+                "d0_ds": woodbury.finish_res(res, corr)[0]}
+
+    first = parts(cuda, torch.float32)
+    for _ in range(3):
+        again = parts(cuda, torch.float32)
+        for k, v in first.items():
+            assert torch.equal(v, again[k]), k
+    want = parts("cpu", torch.float64)
+    for k, v in first.items():
+        w = want[k].numpy()
+        np.testing.assert_allclose(v.double().cpu().numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_infer_cli_runs_on_the_card_and_exits_2_without_one(cuda, tmp_path):
+    """``python -m fakepta_tpu_torch.infer run`` runs on the card by
+    default (its artifact says so) and exits 2 when no card is visible."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    from fakepta_tpu_torch.obs.report import RunReport
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    args = [sys.executable, "-m", "fakepta_tpu_torch.infer", "run",
+            "--npsr", "8", "--ntoa", "64", "--nreal", "16", "--chunk", "8"]
+    out = tmp_path / "infer.jsonl"
+    proc = subprocess.run(args + ["--out", str(out)], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert row["lnlike_grid_k"] == 25
+    assert RunReport.load(out).meta["platform"] == "gpu"
+    proc = subprocess.run(args, cwd=root, capture_output=True, text=True,
+                          env=dict(env, CUDA_VISIBLE_DEVICES=""),
+                          timeout=300)
+    assert proc.returncode == 2
+    assert "device='cpu'" in proc.stderr

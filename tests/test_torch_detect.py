@@ -152,8 +152,8 @@ def test_as_spec_and_validation_errors(noisy):
         sim.run(8, chunk=8, os=123)
     with pytest.raises(ValueError, match="at least one"):
         sim.run(8, chunk=8, os=())
-    # the likelihood lane is still refused first, as before
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # the detection and likelihood lanes do not share a run
+    with pytest.raises(ValueError, match="cannot combine"):
         sim.run(8, chunk=8, os="hd", lnlike=object())
 
 

@@ -99,6 +99,49 @@ def test_facade_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.correlated_noises", "fakepta_tpu_torch.ops.gwb",
+    "fakepta_tpu_torch.ops.woodbury", "fakepta_tpu_torch.infer",
+    "fakepta_tpu_torch.infer.model", "fakepta_tpu_torch.infer.schema",
+    "fakepta_tpu_torch.infer.reconstruct", "fakepta_tpu_torch.infer.run",
+    "fakepta_tpu_torch.infer.cli", "fakepta_tpu_torch.infer.__main__"])
+def test_correlated_and_infer_modules_are_checked(module):
+    """The correlated signals and the likelihood lane's modules (each a
+    port of a JAX package module) are among the modules the checks below
+    import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_infer_entry_points_default_to_the_card():
+    """InferenceRun and the likelihood CLI run on the card unless the CPU
+    is asked for; the package exposes the correlated signals as the JAX
+    package does."""
+    import fakepta_tpu_torch
+    from fakepta_tpu_torch import correlated_noises
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.infer import (ComponentSpec, FreeParam,
+                                         InferenceRun, LikelihoodSpec, cli)
+
+    assert fakepta_tpu_torch.correlated_noises is correlated_noises
+    assert cli.build_parser().parse_args(["run"]).device == "cuda"
+    batch = PulsarBatch.synthetic(npsr=4, ntoa=16, n_red=2, n_dm=2,
+                                  device="cpu")
+    model = LikelihoodSpec(components=(ComponentSpec("red", free=(
+        FreeParam("log10_A", (-15.0, -13.0)),), fixed={"gamma": 3.0}),))
+    kw = dict(theta=np.array([[-14.0]]), include=("white", "red"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            InferenceRun(batch, model, **kw)
+        assert cli.main(["run", "--npsr", "4", "--ntoa", "16"]) == 2
+    out = InferenceRun(batch, model, device="cpu", **kw).run(2, chunk=2)
+    assert out["report"].meta["platform"] == "cpu"
+    assert out["lnlike"]["lnl"].shape == (2, 1)
+
+
 def test_facade_entry_points_default_to_the_card(tmp_path):
     """Pulsar, make_fake_array, copy_array and load_array run on the card
     unless the CPU is asked for; the package exposes the facade as the

@@ -285,11 +285,13 @@ def test_lanes_refuse_a_checkpoint_and_overflow(tb, tmp_path):
 
 def test_run_refuses_what_is_not_ported(tb):
     sim = _sim(tb)
-    for kw in (dict(lnlike=object()),
-               dict(eventlog="/nonexistent"), dict(tuned=True),
+    for kw in (dict(eventlog="/nonexistent"), dict(tuned=True),
                dict(recovery=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sim.run(8, **kw)
+    # the likelihood lane is ported: what is not an InferSpec is refused
+    with pytest.raises(TypeError, match="InferSpec"):
+        sim.run(8, lnlike=object())
     # nothing to turn off
     sim.run(8, recovery=False, tuned=False)
 
