@@ -170,7 +170,48 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    ``InferenceRun`` at ``examples/likelihood_grid.py``'s at-scale line and
    ``python -m fakepta_tpu_torch.infer run --npsr 100 --ntoa 780 --nreal
    4096 --chunk 1024`` in a subprocess (exit 0, the artifact loads).
-12. ``profile`` (only when asked for): per statistic path, the device time
+12. ``faults``: the recovery policy on the flagship (``run(2048,
+   chunk=1024)``): a transient failure injected at ``mc.dispatch`` chunk 1
+   on ``"mega"`` is retried bit-identically, and so is a
+   ``torch.OutOfMemoryError`` raised at a dispatch by a stub; an injected
+   kernel failure steps ``mega -> fused`` (3072 realizations, chunk 0 on
+   mega and chunks 1-2 on fused, at f32 and bf16), each rung's chunks
+   within the path's bound of the unfaulted mega run (1e-5 / 1e-2 of the
+   curve scale), the rungs' kernels launched and counted,
+   ``faults.degradations`` and ``meta["degraded_path"]`` saying so, and a
+   second kernel failure, on the fused rung, raises (the port has no
+   fallback from a kernel to the plain einsum path); the port's own launch
+   error raised by a stub on a fused run propagates; a precision fault
+   steps the fused path's bf16 to f32, bit-identical to its f32 run; a
+   poisoned chunk fails with a flight-recorder dump; a torn checkpoint
+   append kills the run and the resume rolls back, bit-identical; a hung
+   writer meets
+   ``RecoveryPolicy(watchdog_s=0.25)``'s ``WatchdogTimeout``. Every other
+   phase's engine runs are held to zero degradations and the statistic
+   path they asked for (the default policy must stay quiet).
+13. ``sample``: the sampler at the flagship's full width (``flagship_100``,
+   100 pulsars x 780 TOAs, red and DM at the batch's PSDs, a 30-bin CURN
+   with free amplitude and slope: 2M = 320 columns per pulsar), float32,
+   16 chains x 2 temps, ``n_leapfrog`` 8, warmup 16, 32 post steps, thin 2,
+   segment 16 (the step counts are the only cuts): the Laplace fit's
+   seconds, steps/s, ms per gradient evaluation, launches per leapfrog step
+   and the device's idle share in one traced two-step segment, peak memory
+   and R-hat; at 8 steps (on the staged moments and fit): a rerun, a
+   checkpointed depth-0 run cut after one segment and resumed, and the
+   ``real=2`` and ``psr=2`` meshes on ``cuda:0``, each bit-identical to
+   the depth-2 one-shard run; the card against the CPU in the same process
+   (the CPU's Laplace mode within 1e-9; for the first 4 chains, the
+   initial lnL and the first
+   leapfrog proposal's lnL within 4 float32 ULP of the magnitudes its sums
+   add; the initial gradient and the first proposal's z, per tempering
+   rung, within 4 times the CPU's float32 distance from the float64
+   sampler's at the same state, the float32 floor of the same algorithm);
+   a
+   ``FactorizedRun`` of a 30-bin free-spectrum CURN (8 lanes of
+   ``FS_LANE_BINS`` = 4) at 8 post steps; ``python -m
+   fakepta_tpu_torch.sample run`` at its defaults (exit 0, the artifact
+   loads).
+14. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -2691,6 +2732,659 @@ def phase_infer(report: dict) -> None:
     report["infer"] = out
 
 
+# ---------------------------------------------------------------------------
+# the recovery default on every run, and the faults and sample phases
+# ---------------------------------------------------------------------------
+
+#: the faults phase's runs: the flagship at two chunks (three for the
+#: path ladder, one chunk per rung)
+FAULT_NREAL = 2048
+#: recovery outside the faults phase: every EnsembleSimulator.run of every
+#: phase is held to zero degradations and the statistic path it asked for
+GUARD = {"faults_allowed": False, "runs": 0}
+
+
+def guard_runs() -> None:
+    """Wrap ``EnsembleSimulator.run`` for this process: every run (the
+    phases', and those DetectionRun and InferenceRun make) must report no
+    ``faults.degradations``, no ``degraded_path`` and the statistic path it
+    asked for, so a broken kernel fails the smoke instead of passing on a
+    lower rung of the default recovery ladder. The faults phase, which
+    injects the degradations, lifts the check around its own runs."""
+    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+    real = EnsembleSimulator.run
+
+    def run(self, *args, **kw):
+        out = real(self, *args, **kw)
+        if not GUARD["faults_allowed"]:
+            asked = "einsum" if kw.get("keep_corr") else self.stat_path
+            rep = out["report"]
+            deg = rep.counters.get("faults.degradations", 0)
+            if deg or "degraded_path" in rep.meta \
+                    or out["statistic_path"] != asked:
+                raise AssertionError(
+                    f"a run degraded: asked for {asked}, ran "
+                    f"{out['statistic_path']}, {deg} degradation(s), meta "
+                    f"{rep.meta.get('degraded_path')}")
+            GUARD["runs"] += 1
+        return out
+
+    EnsembleSimulator.run = run
+
+
+def fault_run(sim, nreal: int, prec: str, plan=None, **kw):
+    """One flagship run under the chaos harness's ``plan`` (or none), with
+    every kernel count zeroed just before: (output, launches moved)."""
+    import torch
+    from fakepta_tpu_torch import faults
+    reset_counts()
+    GUARD["faults_allowed"] = True
+    try:
+        if plan is None:
+            out = sim.run(nreal, seed=1, chunk=CHUNK, precision=prec, **kw)
+        else:
+            with faults.inject(plan):
+                out = sim.run(nreal, seed=1, chunk=CHUNK, precision=prec,
+                              **kw)
+    finally:
+        GUARD["faults_allowed"] = False
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in counts().items() if v}
+
+
+def phase_faults(report: dict) -> None:
+    """The recovery policy on the card (module docstring, phase 12)."""
+    import torch
+    from fakepta_tpu_torch import faults
+
+    out = {}
+    t_phase = time.perf_counter()
+    steps = out.setdefault("step_s", {})
+
+    def stamp(what: str) -> None:
+        steps[what] = time.perf_counter() - t_phase
+        print(f"faults: {what} done at {steps[what]:.1f} s", flush=True)
+
+    fast = faults.RecoveryPolicy(backoff_s=0.001, max_backoff_s=0.01)
+    shape = shape_tag(100, 100, 780)
+    mega = flagship_sim("mega")
+    ref, moved = fault_run(mega, FAULT_NREAL, "f32")
+    add_launches(report, shape, moved)
+
+    # a transient failure at chunk 1's dispatch: the same keys again
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("mc.dispatch", "transient", at=(1,))])
+    got, moved = fault_run(mega, FAULT_NREAL, "f32", plan, recovery=fast)
+    add_launches(report, shape, moved)
+    assert_identical(got, ref, "faults: transient retry on mega")
+    if got["report"].counters.get("faults.retries") != 1 or \
+            moved != {"chunk_stats": FAULT_NREAL // CHUNK}:
+        raise AssertionError(f"faults: transient retry {moved}, "
+                             f"{got['report'].counters}")
+    out["transient"] = {"retries": 1, "launches": moved}
+    print(f"faults transient at mc.dispatch chunk 1 (mega f32): retried "
+          f"once, bit-identical, launches {moved}", flush=True)
+
+    # torch's out-of-memory error at a dispatch, from a stub
+    real_step, calls = mega.step, []
+
+    def oom_step(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise torch.OutOfMemoryError("CUDA out of memory. Tried to "
+                                         "allocate 1.00 GiB (stub)")
+        return real_step(*a, **kw)
+
+    mega.step = oom_step
+    try:
+        got, moved = fault_run(mega, FAULT_NREAL, "f32")
+    finally:
+        del mega.step
+    add_launches(report, shape, moved)
+    assert_identical(got, ref, "faults: out-of-memory retry")
+    if got["report"].counters.get("faults.retries") != 1:
+        raise AssertionError("faults: the out-of-memory error was not "
+                             "retried once")
+    out["oom"] = {"retries": 1, "launches": moved}
+    print("faults torch.OutOfMemoryError at mc.dispatch chunk 1: retried "
+          "once after empty_cache, bit-identical", flush=True)
+    stamp("retries")
+
+    # the path ladder mega -> fused: chunk 0 on mega, chunks 1-2 on fused;
+    # a second kernel failure, on the fused rung, ends the run, and so does
+    # the port's own launch error on a fused run (no fallback to einsum)
+    nl = 3 * CHUNK
+    for prec in ("f32", "bf16"):
+        want, moved = fault_run(mega, nl, prec)
+        add_launches(report, shape, moved)
+        plan = faults.FaultPlan(
+            [faults.FaultSpec("mc.dispatch", "degrade", at=(1,))])
+        got, moved = fault_run(mega, nl, prec, plan, recovery=fast)
+        add_launches(report, shape, moved)
+        rep = got["report"]
+        if (got["statistic_path"], got["precision"]) != ("fused", prec) \
+                or rep.counters.get("faults.degradations") != 1 \
+                or rep.meta.get("degraded_path") != "fused" \
+                or moved != {"chunk_stats": 1, "binned_correlation": 2}:
+            raise AssertionError(f"faults ladder [{prec}]: "
+                                 f"{got['statistic_path']}, {moved}, "
+                                 f"{rep.counters}")
+        scale = float(np.abs(want["curves"]).max())
+        errs = {}
+        for rung, (lo, hi) in (("mega", (0, CHUNK)),
+                               ("fused", (CHUNK, 3 * CHUNK))):
+            errs[rung] = float(np.abs(got["curves"][lo:hi]
+                                      - want["curves"][lo:hi]).max()
+                               / scale)
+            if errs[rung] > TOL[prec]:
+                raise AssertionError(f"faults ladder [{prec}] {rung}: "
+                                     f"{errs[rung]} of the curve scale")
+        if errs["mega"] != 0.0:
+            raise AssertionError("faults ladder: the undegraded chunk moved")
+        plan = faults.FaultPlan(
+            [faults.FaultSpec("mc.dispatch", "degrade", at=(1, 3))])
+        try:
+            fault_run(mega, nl, prec, plan, recovery=fast)
+            raise AssertionError(f"faults ladder [{prec}]: a kernel "
+                                 f"failure on the fused rung did not fail")
+        except faults.DegradeFault as exc:
+            del exc
+        out[f"ladder {prec}"] = {"launches": moved, "err_over_scale": errs,
+                                 "fused_failure": "raised"}
+        print(f"faults ladder [{prec}]: mega -> fused, 1 degradation, "
+              f"launches {moved}, each rung against the unfaulted mega run "
+              f"{errs} of the curve scale (bound {TOL[prec]:g}); a second "
+              f"kernel failure, on fused, raised DegradeFault", flush=True)
+    stamp("path ladder")
+
+    # bf16 -> f32 on the fused path
+    fused = flagship_sim("fused")
+    want, moved = fault_run(fused, FAULT_NREAL, "f32")
+    add_launches(report, shape, moved)
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("mc.dispatch", "precision", at=(0,))])
+    got, moved = fault_run(fused, FAULT_NREAL, "bf16", plan, recovery=fast)
+    add_launches(report, shape, moved)
+    assert_identical(got, want, "faults: bf16 -> f32")
+    if got["precision"] != "f32" or \
+            got["report"].meta.get("degraded_precision") != "f32":
+        raise AssertionError("faults: the precision ladder did not step")
+    out["precision"] = {"launches": moved}
+    print(f"faults precision (fused bf16): stepped to f32, bit-identical "
+          f"to the f32 run, launches {moved}", flush=True)
+
+    # the port's own launch error on a fused run, under the default policy:
+    # it propagates (a stub raises it; no fallback to the einsum path)
+    real_fused = fused.step
+
+    def bad_launch(*a, **kw):
+        if a[3] == "fused":
+            raise RuntimeError("binned_correlation failed to launch: CUDA "
+                               "error 9 (invalid configuration argument) "
+                               "(stub)")
+        return real_fused(*a, **kw)
+
+    fused.step = bad_launch
+    try:
+        fault_run(fused, FAULT_NREAL, "f32")
+        raise AssertionError("faults: a launch failure on fused did not "
+                             "fail")
+    except RuntimeError as exc:
+        if "failed to launch" not in str(exc):
+            raise
+    finally:
+        del fused.step
+    out["fused_launch_failure"] = "raised"
+    print("faults: the port's launch error on a fused run (stub) raised "
+          "under the default policy", flush=True)
+
+    # poison: loud, with a flight-recorder dump
+    dump_dir = os.path.join(HERE, "build", "flightrec_faults")
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    os.makedirs(dump_dir)
+    os.environ["FAKEPTA_TORCH_FLIGHTREC_DIR"] = dump_dir
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("mc.dispatch", "poison", at=(1,))])
+    try:
+        fault_run(fused, FAULT_NREAL, "f32", plan, recovery=fast)
+        raise AssertionError("faults: a poisoned chunk did not fail")
+    except FloatingPointError as exc:
+        del exc
+    finally:
+        del os.environ["FAKEPTA_TORCH_FLIGHTREC_DIR"]
+    dumps = [f for f in os.listdir(dump_dir) if f.startswith("flightrec-")]
+    if not dumps:
+        raise AssertionError("faults: the poisoned run left no dump")
+    out["poison"] = {"dump": dumps[0]}
+    print(f"faults poison at chunk 1: FloatingPointError, flight-recorder "
+          f"dump {dumps[0]}", flush=True)
+
+    # a torn checkpoint append, then the resume
+    ck = os.path.join(HERE, "build", "faults_ck.npz")
+    for f in ckpt_family(ck):
+        os.remove(os.path.join(HERE, "build", f))
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("ckpt.append", "torn", at=(1,))])
+    try:
+        fault_run(fused, FAULT_NREAL, "f32", plan, recovery=fast,
+                  checkpoint=ck)
+        raise AssertionError("faults: the torn write did not kill the run")
+    except faults.KillFault as exc:
+        del exc
+    got, moved = fault_run(fused, FAULT_NREAL, "f32", recovery=fast,
+                           checkpoint=ck)
+    assert_identical(got, want, "faults: torn checkpoint resume")
+    if got["report"].counters.get("faults.rollbacks") != 1 or \
+            ckpt_family(ck):
+        raise AssertionError("faults: the torn chunk was not rolled back")
+    out["torn"] = {"rollbacks": 1, "launches": moved}
+    print("faults torn ckpt.append at chunk 1: KillFault, resume rolled "
+          "back one chunk, bit-identical", flush=True)
+
+    # a hung writer under the watchdog
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("pipeline.writer", "hang", at=(0,), hang_s=2.0)])
+    t0 = time.perf_counter()
+    try:
+        fault_run(fused, FAULT_NREAL, "f32", plan,
+                  recovery=faults.RecoveryPolicy(watchdog_s=0.25))
+        raise AssertionError("faults: a hung drain did not time out")
+    except faults.WatchdogTimeout as exc:
+        del exc
+    out["watchdog"] = {"deadline_s": 0.25,
+                       "abort_s": time.perf_counter() - t0}
+    print(f"faults writer hang: WatchdogTimeout at the 0.25 s deadline "
+          f"({out['watchdog']['abort_s']:.2f} s with the hung thread's "
+          f"join)", flush=True)
+    stamp("precision, poison, torn, watchdog")
+    report["faults"] = out
+
+
+# the sample phase: the flagship likelihood model at full width, the step
+# counts cut (SAMPLE_SPEC, SAMPLE_POST, MESH_POST)
+SAMPLE_SPEC = dict(n_chains=16, n_temps=2, n_leapfrog=8, warmup=16, thin=2)
+SAMPLE_POST = 32
+SAMPLE_SEGMENT = 16
+SAMPLE_MESH_POST = 8
+FS_POST = 8
+#: chains of the card-against-CPU transition (each with both rungs)
+CARD_CPU_CHAINS = 4
+
+
+def sample_unit(study, theta) -> tuple:
+    """(U_lnl, U_grad): eps32 times the magnitudes a float32 lnL and its
+    whitened gradient add at ``theta``, from host float64 per-pulsar terms
+    (the lane bound of tests/lane_bound.py, for the sampler's sums)."""
+    import torch
+    from fakepta_tpu_torch.ops import woodbury
+    m, lndet, nv, d0, dt = (torch.as_tensor(x) for x in study._mom64)
+    phi = study.compiled.phi(torch.as_tensor(theta), study._nsb64)
+    chol, lnnorm = woodbury.lnlike_factors(m, phi)
+    y = torch.linalg.solve_triangular(chol, dt[..., None], upper=False)
+    quad = (y[..., 0] ** 2).sum(-1)
+    phi = torch.clamp(phi, min=woodbury._phi_floor(phi.dtype))
+    diag = torch.diagonal(chol, dim1=-2, dim2=-1)
+    mag = (d0.abs() + quad.abs() + lndet.abs() + phi.log().abs().sum(-1)
+           + 2 * diag.log().abs().sum(-1) + nv * woodbury.LN_2PI)
+    eps32 = float(np.finfo(np.float32).eps)
+    # phi_j d lnL / d phi_j = -1/2 (1 - S^-1_jj / phi_j - b_j^2 / phi_j),
+    # b = S^-1 dT: the magnitudes of its three terms, carried to the
+    # whitened z by |d ln phi / d theta| <= 2 ln 10, |d theta / d v| <=
+    # (hi - lo) / 4 and the largest column sum of C
+    sdiag = torch.diagonal(torch.cholesky_inverse(chol), dim1=-2, dim2=-1)
+    b = torch.cholesky_solve(dt[..., None], chol)[..., 0]
+    terms = 0.5 * (1.0 + sdiag / phi + b * b / phi)
+    bounds = np.asarray(study.compiled.bounds)
+    scale = (2 * np.log(10.0) * float((bounds[:, 1] - bounds[:, 0]).max())
+             / 4 * float(np.abs(study.chol_cov).sum(0).max()))
+    return eps32 * float(mag.sum()), eps32 * float(terms.sum()) * scale
+
+
+def phase_sample(report: dict) -> None:
+    """The sampler on the card (module docstring, phase 13)."""
+    import dataclasses
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.infer import (ComponentSpec, FreeParam,
+                                         LikelihoodSpec)
+    from fakepta_tpu_torch.obs.report import RunReport
+    from fakepta_tpu_torch.ops import mcmc
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    from fakepta_tpu_torch.sample import (FactorizedRun, FactorizedSpec,
+                                          SampleSpec, SamplingRun)
+    from fakepta_tpu_torch.scenarios import registry
+    from fakepta_tpu_torch.tune import defaults as tune_defaults
+    from fakepta_tpu_torch.utils import rng
+
+    out = {"cuts": {"post_steps": SAMPLE_POST, "warmup": 16,
+                    "segment": SAMPLE_SEGMENT, "mesh_post_steps":
+                    SAMPLE_MESH_POST, "factorized_post_steps": FS_POST,
+                    "widths": "flagship_100 uncut: 100 pulsars x 780 TOAs, "
+                              "2M = 320 columns"}}
+    t_phase = time.perf_counter()
+    steps = out.setdefault("step_s", {})
+
+    def stamp(what: str) -> None:
+        steps[what] = time.perf_counter() - t_phase
+        print(f"sample: {what} done at {steps[what]:.1f} s", flush=True)
+
+    print(f"sample cuts: {json.dumps(out['cuts'])}", flush=True)
+    batch = registry.get("flagship_100").batch_parts(device="cuda")[0]
+    spec = SampleSpec(model=flagship_model(), **SAMPLE_SPEC)
+    t0 = time.perf_counter()
+    study = SamplingRun(batch, spec, device="cuda", data_seed=1)
+    out["laplace_s"] = time.perf_counter() - t0
+    out["laplace_iters"] = study.laplace_iters
+    print(f"sample flagship: data, moments and Laplace fit in "
+          f"{out['laplace_s']:.2f} s ({study.laplace_iters} Newton steps, "
+          f"host float64), mode {study.mode_theta.tolist()}", flush=True)
+    stamp("staging and Laplace")
+
+    kw = dict(seed=1, segment=SAMPLE_SEGMENT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = study.run(SAMPLE_POST, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = a["report"].meta["sample"]["steps"]
+    if not np.isfinite(a["theta"]).all() or a["theta"].shape != (
+            SAMPLE_POST // 2, 16, 2):
+        raise AssertionError(f"sample: draws {a['theta'].shape}")
+    row = {"wall_s": wall, "steps": total, "steps_per_s": total / wall,
+           "chain_steps_per_s": total * 32 / wall,
+           "summary": a["summary"],
+           "peak_hbm_bytes": a["report"].memory.get("peak_hbm_bytes")}
+    stamp("run")
+
+    # one gradient evaluation, and one traced two-step segment
+    vg = study._vg(0)
+    state = study._init_state(1)
+    z = state["z"]
+    row["ms_per_grad_eval"] = time_ms(lambda: vg(z), 5, warmup=1)
+    base = rng.key(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        study._segment(state, base, 0, 2, 16)
+        torch.cuda.synchronize()
+    traced_wall = time.perf_counter() - t0
+    busy, launches = 0.0, 0
+    for ev in p.events():
+        if ev.device_type == DeviceType.CUDA:
+            busy += ev.time_range.elapsed_us() / 1e3
+            launches += 1
+    row["traced_segment"] = {
+        "steps": 2, "wall_ms": 1e3 * traced_wall, "device_busy_ms": busy,
+        "kernel_launches": launches,
+        "launches_per_leapfrog_step": launches / (2 * spec.n_leapfrog),
+        "device_idle_share": max(0.0, 1.0 - busy / (1e3 * traced_wall))}
+    out["flagship"] = row
+    print(f"sample flagship (float32, 16 chains x 2 temps, n_leapfrog "
+          f"{spec.n_leapfrog}, {total} steps): {row['steps_per_s']:.3f} "
+          f"steps/s "
+          f"({row['chain_steps_per_s']:.1f} chain steps/s), "
+          f"{row['ms_per_grad_eval']:.2f} ms per gradient evaluation, "
+          f"{row['traced_segment']['launches_per_leapfrog_step']:.0f} "
+          f"launches per leapfrog step, device idle "
+          f"{row['traced_segment']['device_idle_share']:.3f} of a traced "
+          f"segment, peak_hbm_bytes {row['peak_hbm_bytes']}, summary "
+          f"{json.dumps(a['summary'])}", flush=True)
+    stamp("gradient timing and traced segment")
+
+    # the CLI at its defaults, in a subprocess on the card while the
+    # invariances, the CPU comparison and the factorized run below go on
+    # (its timing shares the host and the card with them)
+    cli_out = os.path.join(HERE, "build", "sample.jsonl")
+    t_cli = time.perf_counter()
+    cli_proc = subprocess.Popen(
+        [sys.executable, "-m", "fakepta_tpu_torch.sample", "run", "--out",
+         cli_out], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+    try:
+        # the invariances at SAMPLE_MESH_POST steps (no warmup, segment of
+        # half of them), each study on the staged moments and the fit above:
+        # a rerun, a depth-0 checkpointed run cut after one segment and
+        # resumed, and the real=2 and psr=2 meshes on cuda:0, each
+        # bit-identical to the depth-2 one-shard run
+        mspec = dataclasses.replace(spec, warmup=0)
+        mkw = dict(seed=2, segment=SAMPLE_MESH_POST // 2)
+
+        def short(mesh=None):
+            return SamplingRun(batch, mspec, mesh=mesh,
+                               device=None if mesh else "cuda",
+                               moments=study._mom64,
+                               warm_from=study.laplace_state())
+
+        one = short()
+        ref = one.run(SAMPLE_MESH_POST, **mkw)
+        inv = {"rerun": one.run(SAMPLE_MESH_POST, **mkw)}
+        ck = os.path.join(HERE, "build", "sample_ck.json")
+        for f in ckpt_family(ck):
+            os.remove(os.path.join(HERE, "build", f))
+
+        def cut(done, total_):
+            if done >= SAMPLE_MESH_POST // 2:
+                raise Kill
+
+        try:
+            one.run(SAMPLE_MESH_POST, checkpoint=ck, pipeline_depth=0,
+                    progress=cut, **mkw)
+            raise AssertionError("sample: the cut did not cut")
+        except Kill as exc:
+            del exc
+        if not ckpt_family(ck):
+            raise AssertionError("sample: the cut run left no checkpoint")
+        inv["depth 0, cut and resumed"] = one.run(
+            SAMPLE_MESH_POST, checkpoint=ck, pipeline_depth=0, **mkw)
+        if ckpt_family(ck):
+            raise AssertionError("sample: the resumed run left its files")
+        for real, psr in ((2, 1), (1, 2)):
+            mesh = make_mesh(["cuda:0"] * (real * psr), psr_shards=psr)
+            inv[f"real={real} psr={psr}"] = short(mesh).run(SAMPLE_MESH_POST,
+                                                            **mkw)
+        same = {k: bool(np.array_equal(v["theta"], ref["theta"])
+                        and v["diag"]["accept_rate_by_temp"]
+                        == ref["diag"]["accept_rate_by_temp"])
+                for k, v in inv.items()}
+        out["bit_identical"] = same
+        if not all(same.values()):
+            raise AssertionError(f"sample: not bit-identical to the one-shard "
+                                 f"depth-2 run: {same}")
+        print(f"sample invariances ({SAMPLE_MESH_POST} steps, segment "
+              f"{SAMPLE_MESH_POST // 2}): {same}", flush=True)
+        del one, inv
+        stamp("rerun, depth 0 resume and meshes")
+
+        # the card against the CPU in this process: the Laplace mode (the CPU
+        # study's own fit of the staged moments), then the first transition's
+        # proposal from the same state and momenta
+        host = PulsarBatch.from_numpy(batch.numpy(), device="cpu")
+        t0 = time.perf_counter()
+        cpu = SamplingRun(host, spec, device="cpu", moments=study._mom64)
+        out["cpu_laplace_s"] = time.perf_counter() - t0
+        mode_err = float(np.abs(cpu.mode_v - study.mode_v).max())
+        if mode_err > 1e-9:
+            raise AssertionError(f"sample: Laplace mode {mode_err} off the "
+                                 f"CPU's")
+        keys = rng.fold_in(rng.fold_in(rng.fold_in(rng.fold_in(
+            base, 0xA5), 0)[None, :], torch.arange(16, device="cuda"))[
+                :, None, :], torch.arange(2, device="cuda"))
+        # the first CARD_CPU_CHAINS chains (both rungs): the CPU's float32
+        # factorizations take seconds an evaluation at the full 32 rows
+        nc = CARD_CPU_CHAINS
+        mom, _ = mcmc.transition_draws(keys, 2, torch.float32)
+        mom, z = mom[:nc], z[:nc]
+        betas, eps = study._rows[0]["betas"], study._rows[0]["eps"]
+        parts0 = tuple(state[k][:nc]
+                       for k in ("lnl", "glnl", "lnpri", "glnpri"))
+        z1, _, p1 = mcmc.leapfrog(vg, z, parts0, mom, eps[None, :, None],
+                                  spec.n_leapfrog, betas)
+        cvg = cpu._vg(0)
+        cz0 = z.cpu()
+        cparts = cvg(cz0)
+        cz1, _, cp1 = mcmc.leapfrog(cvg, cz0, cparts, mom.cpu(),
+                                    eps.cpu()[None, :, None],
+                                    spec.n_leapfrog, betas.cpu())
+        cstate = dict(zip(("lnl", "glnl", "lnpri", "glnpri"), cparts))
+
+        def err(a, b) -> float:
+            """max |a - b| where both are finite; the non-finite entries (a
+            trajectory that left float32's range) must be the same ones."""
+            a, b = a.cpu(), b
+            ok = torch.isfinite(a) & torch.isfinite(b)
+            if not torch.equal(ok, torch.isfinite(a)) or \
+                    not torch.equal(ok, torch.isfinite(b)):
+                raise AssertionError("sample card vs CPU: the non-finite "
+                                     "entries differ")
+            return float((a - b)[ok].abs().max()) if ok.any() else 0.0
+
+        lnl_err = err(p1[0], cp1[0])
+        l0_err = err(state["lnl"][:nc], cstate["lnl"])
+        u_lnl, u_g = sample_unit(cpu, cpu.mode_theta)
+        # the float64 reference at the same whitened state: the sampler on
+        # a float64 copy of the batch, on the staged moments (the host
+        # float64 fit warm from the study's mode: the same whitening to
+        # 1e-9, far below the float32 errors held), its gradient and its
+        # float64 trajectory from the same momenta. The card's float32
+        # gradient and proposal are held to it within LANE_ULPS times the
+        # float32 error the CPU's float32 run of the same algorithm shows
+        # there (A's conditioning enters both alike; U_grad does not see
+        # it): a wrong card gradient fails, the float32 floor does not
+        b64 = PulsarBatch.from_numpy(
+            {k: (v.astype(np.float64) if isinstance(v, np.ndarray)
+                 and np.issubdtype(v.dtype, np.floating) else v)
+             for k, v in batch.numpy().items()}, device="cuda")
+        s64 = SamplingRun(b64, spec, device="cuda", moments=study._mom64,
+                          warm_from=study.laplace_state())
+        white_err = max(float(np.abs(s64.mode_v - study.mode_v).max()),
+                        float(np.abs(s64.chol_cov - study.chol_cov).max()))
+        if white_err > 1e-9:
+            raise AssertionError(f"sample: the float64 study's whitening is "
+                                 f"{white_err} off the float32 study's")
+        vg64 = s64._vg(0)
+        z64 = z.double()
+        parts64 = vg64(z64)
+        z1_64, _, p1_64 = mcmc.leapfrog(
+            vg64, z64, parts64, mom.double(),
+            s64._rows[0]["eps"][None, :, None], spec.n_leapfrog,
+            s64._rows[0]["betas"])
+        torch.cuda.synchronize()
+        del s64, b64
+
+        def rung_err(a, b) -> list:
+            """max |a - b| per tempering rung (a, b (C, T, D)), on the
+            host in float64, over the entries finite in both (a trajectory
+            that left float32's range; err() below holds the card's and
+            the CPU's non-finite entries to be the same ones)."""
+            a = a.detach().cpu().double()
+            b = b.detach().cpu().double()
+            d = torch.where(torch.isfinite(a) & torch.isfinite(b),
+                            (a - b).abs(), torch.zeros_like(a))
+            return [float(x) for x in d.amax(dim=(0, 2))]
+
+        g64 = parts64[1]
+        g_card = rung_err(state["glnl"][:nc], g64)
+        g_cpu = rung_err(cstate["glnl"], g64)
+        g_mag = [float(x) for x in
+                 g64.detach().abs().amax(dim=(0, 2)).cpu()]
+        z_card = rung_err(z1, z1_64)
+        z_cpu = rung_err(cz1, z1_64)
+        g_bound = [LANE_ULPS * max(c, u_g) for c in g_cpu]
+        # the proposal's floor: the CPU's float32 distance from the
+        # float64 trajectory, at least one float32 rounding of z itself
+        z_mag = [float(x) for x in
+                 z1_64.detach().abs().amax(dim=(0, 2)).cpu()]
+        eps32 = float(np.finfo(np.float32).eps)
+        z_bound = [LANE_ULPS * max(c, eps32 * m)
+                   for c, m in zip(z_cpu, z_mag)]
+        z_err = err(z1, cz1)
+        out["card_vs_cpu"] = {
+            "laplace_mode_err": mode_err, "lnl0_err": l0_err,
+            "proposal_finite": int(torch.isfinite(cp1[0]).sum()),
+            "proposal_lnl_err": lnl_err, "proposal_z_err": z_err,
+            "U_lnl": u_lnl, "U_grad": u_g, "lnl_bound": LANE_ULPS * u_lnl,
+            "vs_float64_by_rung": {
+                "betas": [float(x) for x in betas.cpu()],
+                "glnl_max_abs": g_mag, "glnl_err_card": g_card,
+                "glnl_err_cpu": g_cpu, "glnl_bound": g_bound,
+                "proposal_z_err_card": z_card,
+                "proposal_z_err_cpu": z_cpu, "proposal_z_bound": z_bound}}
+        print(f"sample card vs CPU (same batch, float32, chains 0-"
+              f"{nc - 1}): Laplace mode "
+              f"{mode_err:.2e}; initial lnl {l0_err:.3g}, first proposal's "
+              f"lnl {lnl_err:.3g} (bound {LANE_ULPS} U = "
+              f"{LANE_ULPS * u_lnl:.3g}); proposal z card - CPU "
+              f"{z_err:.3g}", flush=True)
+        print(f"sample card vs float64 by rung (betas "
+              f"{out['card_vs_cpu']['vs_float64_by_rung']['betas']}): "
+              f"initial gradient (max |g| {g_mag}) card {g_card}, CPU "
+              f"{g_cpu}, bound {g_bound} (U_grad {u_g:.3g}); first "
+              f"proposal's z card {z_card}, CPU {z_cpu}, bound {z_bound}",
+              flush=True)
+        if max(l0_err, lnl_err) > LANE_ULPS * u_lnl \
+                or any(c > b for c, b in zip(g_card, g_bound)) \
+                or any(c > b for c, b in zip(z_card, z_bound)):
+            raise AssertionError(f"sample card vs CPU and float64: "
+                                 f"{out['card_vs_cpu']}")
+        del cpu, host
+        stamp("card against the CPU")
+
+        # a factorized free-spectrum CURN on the same batch
+        fs_model = LikelihoodSpec(components=(
+            ComponentSpec("red", spectrum="batch"),
+            ComponentSpec("dm", spectrum="batch"),
+            ComponentSpec("curn", nbin=30, spectrum="free_spectrum", free=(
+                FreeParam("log10_rho", (-9.0, -5.0), per_bin=True),))))
+        fs_spec = SampleSpec(model=fs_model, n_chains=16, n_temps=2,
+                             n_leapfrog=8, warmup=8, thin=2)
+        t0 = time.perf_counter()
+        fr = FactorizedRun(batch, FactorizedSpec(fs_spec,
+                                                 tune_defaults.FS_LANE_BINS),
+                           device="cuda", data_seed=1)
+        fs_build = time.perf_counter() - t0
+        res = fr.run(FS_POST, seed=1, segment=FS_POST)
+        if fr.lane_count != 8 or res["theta"].shape[2] != 30 or \
+                not np.isfinite(res["theta"]).all():
+            raise AssertionError(f"sample factorized: {fr.lane_count} lanes, "
+                                 f"{res['theta'].shape}")
+        out["factorized"] = dict(res["summary"], build_s=fs_build)
+        print(f"sample factorized 30-bin free spectrum: {fr.lane_count} lanes "
+              f"of FS_LANE_BINS = {tune_defaults.FS_LANE_BINS}, built in "
+              f"{fs_build:.2f} s, {json.dumps(res['summary'])}", flush=True)
+        del fr, res
+        stamp("factorized")
+    except BaseException:
+        cli_proc.kill()
+        cli_proc.wait()
+        raise
+
+    # the CLI started above
+    try:
+        stdout, stderr = cli_proc.communicate(timeout=600)
+    finally:
+        if cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.wait()
+    if cli_proc.returncode != 0:
+        raise AssertionError(f"the sampler CLI exited {cli_proc.returncode}"
+                             f": {stderr[-2000:]}")
+    cli_row = json.loads(stdout.strip().splitlines()[-1])
+    rep = RunReport.load(cli_out)
+    if rep.meta.get("platform") != "gpu" or not np.isfinite(
+            cli_row["rhat_max"]):
+        raise AssertionError(f"the sampler CLI's artifact: {rep.meta}")
+    out["CLI"] = dict(cli_row, wall_s=time.perf_counter() - t_cli)
+    print(f"sample CLI (defaults, beside the CPU comparison and the "
+          f"factorized run): exit 0 in {out['CLI']['wall_s']:.1f} s, "
+          f"{json.dumps(cli_row)}; artifact loads", flush=True)
+    stamp("CLI")
+    report["sample"] = out
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -2834,10 +3528,12 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", nargs="+",
                     default=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
-                             "facade", "correlated", "infer"],
+                             "facade", "correlated", "infer", "faults",
+                             "sample"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
-                             "facade", "correlated", "infer", "profile"])
+                             "facade", "correlated", "infer", "faults",
+                             "sample", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh and profile phases' flagship "
                          "meshes span (default 1: every shard on cuda:0)")
@@ -2852,6 +3548,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    guard_runs()
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
@@ -2864,7 +3562,8 @@ def main(argv=None) -> int:
               "scenarios": phase_scenarios, "signals": phase_signals,
               "run": phase_run, "detect": phase_detect,
               "facade": phase_facade, "correlated": phase_correlated,
-              "infer": phase_infer,
+              "infer": phase_infer, "faults": phase_faults,
+              "sample": phase_sample,
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:
@@ -2874,6 +3573,9 @@ def main(argv=None) -> int:
             print(f"phase {name}: {report['phase_s'][name]:.1f} s",
                   flush=True)
     report["total_s"] = time.perf_counter() - t_start
+    report["recovery_guard_runs"] = GUARD["runs"]
+    print(f"recovery default: {GUARD['runs']} engine runs, each with zero "
+          f"degradations on the statistic path it asked for", flush=True)
 
     # one entry per kernel and shape that the main path launched it at or
     # the phases measured it at (the flagship's shared operand set and its

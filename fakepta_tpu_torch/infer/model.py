@@ -189,8 +189,11 @@ def theta_grid(model: LikelihoodSpec, shape: Union[int, Sequence[int]]):
 # ---------------------------------------------------------------------------
 
 def _bounds(bounds, like: torch.Tensor):
-    b = torch.as_tensor(np.asarray(bounds, dtype=np.float64))
-    return b.to(dtype=like.dtype, device=like.device)
+    """(D, 2) bounds at ``like``'s dtype and device; a tensor already there
+    is used as it is (no host copy)."""
+    if not isinstance(bounds, torch.Tensor):
+        bounds = torch.as_tensor(np.asarray(bounds, dtype=np.float64))
+    return bounds.to(dtype=like.dtype, device=like.device)
 
 
 def _as_float(x) -> torch.Tensor:
@@ -227,10 +230,13 @@ def box_from_unconstrained(v, bounds):
 def box_unconstrained_log_prior(v):
     """ln density of the box prior in the unconstrained variable, up to
     the bounds-independent constant: ``sum [log sigmoid(v) + log
-    sigmoid(-v)]``."""
+    sigmoid(-v)]``, summed in a fixed pairwise order
+    (:func:`..ops.mcmc.fixed_sum`: a row's bits do not depend on how many
+    rows ``v`` holds, which keeps the sampler's chains mesh-invariant)."""
+    from ..ops.mcmc import fixed_sum
     v = _as_float(v)
-    return torch.sum(torch.nn.functional.logsigmoid(v)
-                     + torch.nn.functional.logsigmoid(-v), dim=-1)
+    return fixed_sum(torch.nn.functional.logsigmoid(v)
+                     + torch.nn.functional.logsigmoid(-v))
 
 
 def box_unconstrained_log_prior_grad(v):

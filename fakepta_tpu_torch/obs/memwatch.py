@@ -100,6 +100,8 @@ class PackedLedger:
         self.pipelined = bool(pipelined)
         self._refs: list = []
         self.live_peak = 0
+        self.degraded = False
+        self.reuse_misses = 0
 
     def track(self, packed: torch.Tensor) -> int:
         """Record a chunk's packed tensor; returns the tracked tensors
@@ -109,8 +111,25 @@ class PackedLedger:
         self.live_peak = max(self.live_peak, len(self._refs))
         return len(self._refs)
 
+    def disable(self) -> None:
+        """Recovery turned the ring's buffer reuse off mid-run: the
+        depth-bound claim is withdrawn for this run (:meth:`check` passes)
+        and the report's memory says so (``packed_ring_degraded``); the
+        engine counts and flight-records the degradation."""
+        self.degraded = True
+        self.pipelined = False
+
+    def miss(self) -> None:
+        """A ring reuse failed with recovery off: :meth:`check` raises."""
+        self.reuse_misses += 1
+
     def check(self) -> None:
-        """Assert the depth bound on the live packed tensors."""
+        """Assert the depth bound on the live packed tensors, and that the
+        ring's buffer reuse never failed."""
+        if self.pipelined and self.reuse_misses:
+            raise RuntimeError(
+                f"{self.reuse_misses} ring buffer reuse(s) failed with the "
+                f"recovery policy's degrade_pipeline off")
         if self.pipelined and self.live_peak > self.ring_size:
             raise RuntimeError(
                 f"pipeline depth bound violated: {self.live_peak} packed "
@@ -124,4 +143,6 @@ class PackedLedger:
         if self.pipelined:
             out["packed_depth_bound_bytes"] = (self.ring_size
                                                * self.buffer_bytes)
+        if self.degraded:
+            out["packed_ring_degraded"] = 1
         return out

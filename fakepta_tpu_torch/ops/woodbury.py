@@ -325,6 +325,58 @@ def lnlike_and_grad_phi(M, phi, d0, dT, lndetN, n_valid):
     return lnl, glnl
 
 
+def _a_factor(M, phi):
+    """``(phi, sqrt(phi), L)`` with ``L`` the lower Cholesky factor of
+    ``A = I + Phi^1/2 M Phi^1/2``: the same system as ``Sigma = M +
+    Phi^-1 = Phi^-1/2 A Phi^-1/2``, but with eigenvalues >= 1, where
+    Sigma's span the prior variances' ~1e-14..1e-40 range (float32
+    overflows its ``1/phi^2``)."""
+    phi = torch.clamp(phi, min=_phi_floor(phi.dtype))
+    s = torch.sqrt(phi)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    return phi, s, _cholesky(s[..., :, None] * M * s[..., None, :] + eye)
+
+
+def lnlike_lnphi(M, phi, d0, dT, lndetN, n_valid, order: int = 0):
+    """The Woodbury lnL in the well-conditioned form (:func:`_a_factor`),
+    with ``order`` 1 its gradient and ``order`` 2 also its Hessian with
+    respect to ``psi = ln phi`` (floored as :func:`_sigma` floors phi):
+
+        lnL = -1/2 [ d0 - |L^-1 Phi^1/2 dT|^2 + lndetN + ln det A
+                     + n ln 2 pi ]
+        d lnL / d psi_j = 1/2 (beta_j^2 - 1 + W_jj)
+        d2 lnL / d psi_i d psi_j = beta_i beta_j W_ij + W_ij^2 / 2
+                                   - delta_ij (1/2 + d lnL / d psi_j)
+
+    with ``W = A^-1`` and ``beta = W Phi^1/2 dT`` (``ln det A = ln det B +
+    ln det Sigma``, the lnL of :func:`lnlike_from_moments`). A zero-phi
+    (padding) column gives ``W_jj = 1``, ``beta_j = 0``: no gradient.
+    Returns ``lnl`` (...), with ``order`` >= 1 ``grad`` (..., 2M), with 2
+    ``hess`` (..., 2M, 2M)."""
+    phi, s, chol = _a_factor(M, phi)
+    y = _forward(chol, s * dT)
+    lnl = -0.5 * (d0 - torch.sum(y * y, -1) + lndetN + 2.0 * torch.sum(
+        torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), -1)
+        + n_valid * LN_2PI)
+    if order == 0:
+        return lnl
+    eye = torch.eye(chol.shape[-1], dtype=chol.dtype, device=chol.device)
+    with full_f32():
+        beta = _solve_columns(
+            lambda c, r: torch.linalg.solve_triangular(
+                c.transpose(-2, -1), r, upper=True), chol, y)
+        linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+                                             upper=False)
+    grad = 0.5 * (beta * beta - 1.0 + torch.sum(linv * linv, -2))
+    if order == 1:
+        return lnl, grad
+    with full_f32():
+        w = linv.transpose(-2, -1) @ linv
+    hess = (beta[..., :, None] * beta[..., None, :] * w + 0.5 * w * w
+            - torch.diag_embed(0.5 + grad))
+    return lnl, grad, hess
+
+
 def conditional_mean(M, phi, dT):
     """Posterior-mean GP coefficients ``b = Sigma^{-1} T^T N^{-1} r`` (the
     Woodbury form of the Wiener filter); ``dT`` may carry extra leading

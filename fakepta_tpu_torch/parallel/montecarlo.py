@@ -87,8 +87,16 @@ projected through the dense basis outside the kernel. Its moment parts
 are TOA sums, added over a psr shard's toa cells before the ECORR
 downdate; the psr shards' partial lnL are added in shard order.
 
-Not ported yet: multi-host meshes, the tuner and the recovery policy:
-those ``run`` options raise ``NotImplementedError`` when given.
+Recovery (``run(recovery=...)``, :mod:`..faults`): by default a transient
+chunk failure (an injected one, a CUDA out-of-memory error) is retried on
+the same keys, bit-identical; a hand-written kernel's launch failure on
+the mega path steps it down to ``fused`` (on the fused path it is fatal:
+no run falls back to the kernels' plain einsum version) and a bf16
+certification failure re-dispatches at f32, each step counted, recorded
+and reported as the run's ``statistic_path`` / ``precision``.
+
+Not ported yet: multi-host meshes, the tuner and the event log: those
+``run`` options raise ``NotImplementedError`` when given.
 """
 
 from __future__ import annotations
@@ -103,6 +111,7 @@ import numpy as np
 import torch
 
 from .. import constants as const
+from .. import faults
 from .. import spectrum as spectrum_lib
 from ..batch import PulsarBatch, fourier_basis_norm
 from ..device import DeviceLike
@@ -117,17 +126,18 @@ from ..obs.timing import now, span
 from ..ops import binned_corr as binned_corr_ops
 from ..ops import gwb as gwb_ops
 from ..ops import megakernel as mega_ops
+from ..tune import defaults as tune_defaults
 from ..utils import rng
 from ..utils.io import EnsembleCheckpoint
 from . import pipeline
 from .mesh import (PSR_AXIS, REAL_AXIS, TOA_AXIS, Mesh, all_gather,
                    make_mesh, psum)
 
-#: realizations per chunk (fakepta_tpu/tune/defaults.py DEFAULT_CHUNK)
-DEFAULT_CHUNK = 1024
+#: realizations per chunk (the knob table, ..tune.defaults)
+DEFAULT_CHUNK = tune_defaults.DEFAULT_CHUNK
 #: chunks in flight before the loop waits for the oldest one's drain
-#: (fakepta_tpu/tune/defaults.py DEFAULT_PIPELINE_DEPTH)
-DEFAULT_PIPELINE_DEPTH = 2
+#: (the knob table, ..tune.defaults)
+DEFAULT_PIPELINE_DEPTH = tune_defaults.DEFAULT_PIPELINE_DEPTH
 
 STAT_PATHS = ("einsum", "fused", "mega")
 STAGES = ("white", "ecorr", "red", "dm", "chrom", "sys", "gwb", "det")
@@ -2194,22 +2204,44 @@ class EnsembleSimulator:
         checkpoint records the lane count, as for the OS lane. The lanes
         are the caller's to read: a non-finite lnL is not a fault.
 
+        ``recovery``: the recovery policy (:class:`..faults.RecoveryPolicy`;
+        ``None``, the default, is the default policy, ``False`` disables
+        it and every failure propagates; anything else is a
+        ``TypeError``). A transient chunk failure (an injected
+        ``TransientFault``, a CUDA out-of-memory error, after which the
+        allocator's free blocks go back to the card) is retried with
+        bounded backoff on the same keys: bit-identical to the unfaulted
+        run. A hand-written kernel's launch failure steps the statistic
+        path down ``mega -> fused`` at the same precision (on ``fused`` it
+        propagates: the einsum path below is the kernels' plain version,
+        and a run does not fall back to it), a bf16
+        certification failure re-dispatches at ``'f32'``; each step is
+        counted (``faults.degradations``), flight-recorded, on the
+        timeline, in ``meta`` (``degraded_path`` / ``degraded_precision``)
+        and in ``out["statistic_path"]`` / ``out["precision"]``. A kernel
+        build failure and a sticky CUDA error (illegal address,
+        device-side assert) stay fatal. A failed ring reuse (the
+        ``mc.recycle`` site) stops the reuse for the rest of the run and
+        withdraws the ring's bound (``meta["degraded_donation"]``).
+        ``RecoveryPolicy(watchdog_s=...)`` bounds the wait for the oldest
+        in-flight drain and the final flush: a hung drain raises
+        :class:`..faults.WatchdogTimeout` with a flight-recorder dump. A
+        transient drain failure retries in place. Non-finite curves or
+        autos abort loudly before any checkpoint write.
+
         Not ported yet, each ``NotImplementedError`` when given:
-        ``eventlog``, ``tuned`` and ``recovery`` (ROADMAP Queue 1 item 11);
-        ``recovery=False`` and ``tuned=False`` are accepted (nothing to
-        turn off).
+        ``eventlog`` and ``tuned`` (ROADMAP Queue 1 item 11b);
+        ``tuned=False`` is accepted (nothing to turn off).
         """
         unported = (("eventlog", eventlog,
-                     "the rest of obs/ (ROADMAP Queue 1 item 11)"),
+                     "the rest of obs/ (ROADMAP Queue 1 item 11b)"),
                     ("tuned", tuned or None,
-                     "the tuner, tune/ (ROADMAP Queue 1 item 11)"),
-                    ("recovery", recovery or None,
-                     "the recovery policy, faults/ (ROADMAP Queue 1 item "
-                     "11)"))
+                     "the tuner, tune/ (ROADMAP Queue 1 item 11b)"))
         for name, value, what in unported:
             if value is not None:
                 raise NotImplementedError(f"run({name}=...) is not ported "
                                           f"yet: {what}")
+        policy = faults.as_policy(recovery)
         t_run0 = now()
         collector = obs_metrics.Collector()
         chunk_records: list = []
@@ -2340,13 +2372,20 @@ class EnsembleSimulator:
         def drain(job: dict) -> None:
             """One chunk's host work, in the serial loop's order: its
             outputs on the host, the checkpoint append, the progress call.
-            Sets the chunk's drained event even when it fails, so the
-            dispatch loop cannot wait forever."""
+            A transient failure retries in place (the drain is idempotent:
+            a fixed slot, the same checkpoint chunk file, the same progress
+            counts). Sets the chunk's drained event even when it fails, so
+            the dispatch loop cannot wait forever."""
             rec = job["rec"]
             idx, slot = rec["idx"], job["slot"]
             t_d0 = now()
             t_ready = None
-            try:
+
+            def body() -> None:
+                nonlocal t_ready
+                # chaos site: the writer-thread drain; a 'hang' here
+                # outlasts the dispatch loop's watchdog
+                faults.check("pipeline.writer", idx=idx)
                 arr = None
                 if pipelined:
                     arr = pipeline.materialize_copy(job["host"],
@@ -2391,6 +2430,11 @@ class EnsembleSimulator:
                         t_ready = now()
                     progress(min(job["done"], nreal), nreal)
                 flightrec.note("chunk_drained", idx=idx)
+
+            try:
+                pipeline.run_drain_with_retry(
+                    body, policy,
+                    on_retry=lambda a: collector.count("faults.retries"))
             finally:
                 # the chunk's device outputs are no longer the run's: the
                 # caching allocator may reuse them (record_stream keeps a
@@ -2420,8 +2464,87 @@ class EnsembleSimulator:
                              "dur": now() - t0, "chunk": idx})
             return got
 
+        # the statistic path and precision the chunks dispatch on: a cell,
+        # because the recovery ladders may step it down mid-run
+        exec_sel = {"path": path, "prec": prec}
+
+        def degrade_to(new_path: str, new_prec: str, idx: int,
+                       why: str) -> None:
+            """Step the dispatch down one ladder rung, loudly."""
+            frm = f"{exec_sel['path']}/{exec_sel['prec']}"
+            to = f"{new_path}/{new_prec}"
+            exec_sel.update(path=new_path, prec=new_prec)
+            collector.count("faults.degradations")
+            flightrec.note("degrade", idx=idx, frm=frm, to=to,
+                           error=why[:200])
+            timeline.append({"name": "degrade", "tid": "main",
+                             "t0": now() - t_run0, "dur": None,
+                             "chunk": idx, "from": frm, "to": to})
+            meta["degraded_path"] = new_path
+            meta["degraded_precision"] = new_prec
+
+        def dispatch_recover(idx: int, offset: int, bulks):
+            """One chunk's dispatch under the recovery policy: bounded
+            exponential-backoff retry of transient failures on the same
+            keys (bit-identical to the unfaulted run), the ladders on a
+            kernel or precision failure, and NaN poisoning of the packed
+            output when the chaos harness asks for it (the drain's finite
+            guard then aborts loudly)."""
+            attempts, delay = 0, policy.backoff_s
+            while True:
+                try:
+                    act = faults.check("mc.dispatch", idx=idx,
+                                       offset=int(offset))
+                    if lane_seeds is not None:
+                        packed, corr = self.step(
+                            lane_seeds[offset:offset + chunk],
+                            lane_within[offset:offset + chunk], chunk,
+                            exec_sel["path"], exec_sel["prec"],
+                            with_corr=keep_corr, lanes=stat_lanes)
+                    else:
+                        packed, corr = self.step(
+                            base, offset, chunk, exec_sel["path"],
+                            exec_sel["prec"], with_corr=keep_corr,
+                            bulks=bulks, lanes=stat_lanes)
+                    if act == "poison":
+                        packed = packed * float("nan")
+                    return packed, corr
+                except Exception as exc:  # noqa: BLE001 — triaged below;
+                    # unrecognized failures re-raise unchanged (KillFault is
+                    # a BaseException and never enters this clause)
+                    kind = faults.classify(exc)
+                    if kind == "transient" and attempts < policy.max_retries:
+                        attempts += 1
+                        if faults.is_oom(exc) and on_card:
+                            # give the caching allocator's free blocks
+                            # back before the same chunk asks again
+                            torch.cuda.empty_cache()
+                        collector.count("faults.retries")
+                        flightrec.note("chunk_retry", idx=idx,
+                                       attempt=attempts,
+                                       error=repr(exc)[:200])
+                        timeline.append({"name": "retry", "tid": "main",
+                                         "t0": now() - t_run0, "dur": delay,
+                                         "chunk": idx, "attempt": attempts})
+                        faults.sleep(delay)
+                        delay = policy.next_backoff(delay)
+                        continue
+                    if (kind == "pallas" and policy.degrade_paths
+                            and exec_sel["path"] in faults.PATH_LADDER):
+                        # one rung down at the SAME precision: degrading
+                        # the path must not change the precision too
+                        degrade_to(faults.PATH_LADDER[exec_sel["path"]],
+                                   exec_sel["prec"], idx, repr(exc))
+                        continue
+                    if (kind == "precision" and policy.degrade_precision
+                            and exec_sel["prec"] == "bf16"):
+                        degrade_to(exec_sel["path"], "f32", idx, repr(exc))
+                        continue
+                    raise
+
         bulks = stage_bulks(done, "stage_inputs", 0)
         writer = pipeline.make_writer(pipelined)
+        reuse_on = True
         try:
             with obs_metrics.collect(collector):
                 while done < nreal:
@@ -2436,10 +2559,20 @@ class EnsembleSimulator:
                     reuse = None
                     if len(ring) >= ring_size:
                         # the depth bound: wait for the oldest chunk's
-                        # drain, then reuse its pinned host buffer
+                        # drain, then reuse its pinned host buffer. The wait
+                        # is the watchdog's deadline when the policy arms
+                        # one: a drain that never completes aborts the run
+                        # with a flight-recorder dump
                         reuse = ring.popleft()
                         t_wait = now()
-                        reuse["drained"].wait()
+                        if not reuse["drained"].wait(policy.watchdog_s):
+                            late = reuse["rec"]["idx"]
+                            flightrec.note("watchdog_abort", idx=late,
+                                           deadline_s=policy.watchdog_s)
+                            raise faults.WatchdogTimeout(
+                                f"drain of chunk {late} exceeded the "
+                                f"watchdog deadline ({policy.watchdog_s}s); "
+                                f"aborting, see the flight-recorder dump")
                         t_now = now()
                         rec["stall_s"] += t_now - t_wait
                         timeline.append({"name": "stall", "tid": "main",
@@ -2451,16 +2584,7 @@ class EnsembleSimulator:
                         events = (torch.cuda.Event(enable_timing=True),
                                   torch.cuda.Event(enable_timing=True))
                         events[0].record(compute)
-                    if lane_seeds is not None:
-                        packed, corr = self.step(
-                            lane_seeds[done:done + chunk],
-                            lane_within[done:done + chunk], chunk, path,
-                            prec, with_corr=keep_corr, lanes=stat_lanes)
-                    else:
-                        packed, corr = self.step(base, done, chunk, path,
-                                                 prec, with_corr=keep_corr,
-                                                 bulks=bulks,
-                                                 lanes=stat_lanes)
+                    packed, corr = dispatch_recover(idx, done, bulks)
                     if on_card:
                         events[1].record(compute)
                         exec_events[idx] = events
@@ -2468,7 +2592,27 @@ class EnsembleSimulator:
                     rec["live_packed"] = ledger.track(packed)
                     host = copied = drained = None
                     if pipelined:
-                        if reuse is None:
+                        if reuse is not None and reuse_on:
+                            # the ring's buffer reuse; the chaos harness can
+                            # fake a failed one (the JAX engine's donation
+                            # miss), which stops the reuse for the rest of
+                            # the run and withdraws the ring's bound, loudly
+                            missed = faults.check("mc.recycle",
+                                                  idx=idx) == "donation"
+                            if missed and policy.degrade_pipeline:
+                                reuse_on = False
+                                ledger.disable()
+                                collector.count("faults.degradations")
+                                flightrec.note("degrade_donation", idx=idx)
+                                timeline.append(
+                                    {"name": "degrade", "tid": "main",
+                                     "t0": now() - t_run0, "dur": None,
+                                     "chunk": idx, "from": "ring-reuse",
+                                     "to": "no-reuse"})
+                                meta["degraded_donation"] = True
+                            elif missed:
+                                ledger.miss()
+                        if reuse is None or not reuse_on:
                             host = pipeline.host_buffer(packed)
                         else:
                             host = reuse["host"]
@@ -2504,7 +2648,10 @@ class EnsembleSimulator:
                                      "t0": rec["t0_s"], "dur": rec["wall_s"],
                                      "chunk": idx})
                     chunk_records.append(rec)
-                writer.close()
+                # the watchdog also bounds the final flush: a drain hung at
+                # close would otherwise block the join forever
+                writer.close(timeout=(policy.watchdog_s * (len(ring) + 2)
+                                      if policy.watchdog_s else None))
                 ring.clear()
                 ledger.check()
                 t_f0 = now()
@@ -2534,6 +2681,7 @@ class EnsembleSimulator:
             if "execute_s" not in rec:
                 execute_span(rec, None)     # every event is complete now
         curves, autos = unpack_stats(packed_h, nb)
+        path, prec = exec_sel["path"], exec_sel["prec"]
         out = {"curves": curves, "autos": autos,
                "bin_centers": np.asarray(self.bin_centers),
                "statistic_path": path, "precision": prec}

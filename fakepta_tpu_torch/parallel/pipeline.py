@@ -20,18 +20,21 @@ What :meth:`EnsembleSimulator.run` pipelines through:
 Exceptions raised by a drain (a checkpoint write failing, a progress
 callback aborting the run) reach the ``run()`` caller as in the serial
 loop: the writer records the first one, cancels the queued drains and
-re-raises it at the next ``submit``/``close``. The depth bound and the
-ring of reused buffers live in the run loop.
+re-raises it at the next ``submit``/``close``. A drain that fails with a
+*transient* error (:func:`..faults.classify`) is first retried in place
+with bounded backoff: the run loop wraps each drain in
+:func:`run_drain_with_retry` under its recovery policy.
+``ThreadWriter.close(timeout=...)`` is the watchdog's final flush: a
+drain still running at the deadline raises
+:class:`..faults.WatchdogTimeout`. The depth bound and the ring of reused
+buffers live in the run loop.
 
 Not ported, because they manage XLA state the port does not have: the JAX
 package's ``configure_compile_cache`` (XLA's persistent compilation cache;
 the port's kernels are built once per checkout and cached on disk by
 :mod:`..ops._build`) and ``donation_unsafe`` (a guard for XLA buffer
 donation; the port frees each packed device tensor once its copy has
-landed, and the caching allocator reuses the memory). Not ported yet: the
-JAX ``run_drain_with_retry`` and the writers' retry options, which retry
-the drains that the JAX ``faults/`` module classifies as transient; they
-come back with that module (ROADMAP Queue 1 item 11).
+landed, and the caching allocator reuses the memory).
 """
 
 from __future__ import annotations
@@ -43,9 +46,45 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..faults import recovery as _recovery
+from ..faults.plan import WatchdogTimeout
+from ..obs import flightrec
 from ..obs.timing import now as _now
 
 _STOP = object()
+
+
+def run_drain_with_retry(drain: Callable[[], None], policy,
+                         on_retry: Optional[Callable[[int], None]] = None
+                         ) -> None:
+    """Run one drain thunk, retrying *transient* failures under ``policy``
+    (a :class:`..faults.RecoveryPolicy`: ``max_retries`` attempts after the
+    first, ``backoff_s`` growing by its ``next_backoff``).
+
+    Drains are idempotent: they materialize into a fixed slot, overwrite
+    the same checkpoint chunk file and call the progress callback with the
+    same counts, so a transient failure (an injected ``pipeline.writer``
+    fault, a flaky filesystem) costs a bounded retry instead of the run.
+    Other failures propagate unchanged; a
+    :class:`..faults.KillFault` (simulated process death) is a
+    BaseException and never enters the except clause. ``on_retry`` is the
+    caller's counter hook, called with the attempt number.
+    """
+    delay = policy.backoff_s
+    for attempt in range(policy.max_retries + 1):
+        try:
+            drain()
+            return
+        except Exception as exc:   # noqa: BLE001 — triaged + bounded below
+            if (_recovery.classify(exc) != "transient"
+                    or attempt >= policy.max_retries):
+                raise
+            flightrec.note("drain_retry", attempt=attempt + 1,
+                           error=repr(exc)[:200])
+            if on_retry is not None:
+                on_retry(attempt + 1)
+            _recovery.sleep(delay)
+            delay = policy.next_backoff(delay)
 
 
 class InlineWriter:
@@ -58,7 +97,7 @@ class InlineWriter:
         drain()
         return 0.0
 
-    def close(self) -> None:
+    def close(self, timeout: Optional[float] = None) -> None:
         pass
 
     def abort(self) -> None:
@@ -130,11 +169,21 @@ class ThreadWriter:
                 # device tensors alive until the next gc pass
                 del exc
 
-    def close(self) -> None:
-        """Flush the queue, join the thread, re-raise a drain's
-        exception."""
+    def close(self, timeout: Optional[float] = None) -> None:
+        """Flush the queue, join the thread, re-raise a drain's exception.
+
+        ``timeout`` arms the watchdog's bound on the final flush: a writer
+        thread still draining after it (a hung drain, an injected hang)
+        raises :class:`..faults.WatchdogTimeout` instead of blocking
+        forever; the caller dumps the flight recorder.
+        """
         self._q.put(_STOP)
-        self._thread.join()
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            flightrec.note("watchdog_close_timeout", timeout_s=timeout)
+            raise WatchdogTimeout(
+                f"writer thread still draining after {timeout}s at close "
+                f"(hung drain); aborting, see the flight-recorder dump")
         self._raise_pending()
 
     def abort(self) -> None:

@@ -126,10 +126,11 @@ class EnsembleCheckpoint:
     dropped, manifest rewritten, the rollback noted in the flight
     recorder), and the resumed run recomputes the dropped chunks.
 
-    The JAX package's ``save`` also consults its fault-injection plan
-    (``faults.check("ckpt.append")``, which can tear a write on purpose);
-    the port has no ``faults/`` module yet (ROADMAP Queue 1 item 11), so a
-    torn file is made by hand in its tests.
+    :meth:`save` is the ``ckpt.append`` site of the chaos harness
+    (:mod:`..faults`): its ``"torn"`` action truncates the chunk file just
+    written (after the manifest names it) and raises
+    :class:`..faults.KillFault`, the torn write fsync cannot prevent on
+    failing storage followed by process death.
     """
 
     def __init__(self, path):
@@ -253,17 +254,27 @@ class EnsembleCheckpoint:
         and then the manifest, which carries the chunk CRCs, are both
         written atomically; a crash between the two leaves an unreferenced
         chunk file that the next save overwrites."""
+        from .. import faults
         self.path.parent.mkdir(parents=True, exist_ok=True)
+        act = faults.check("ckpt.append", done=int(done))
         payload = dict(curves=curves, autos=autos)
         if corr is not None:
             payload["corr"] = corr
         if extra is not None:
             payload["extra"] = extra
         k = done // chunk - 1
-        self._sums[k] = write_atomic(self._chunk_path(k),
-                                     npz_bytes(**payload))
+        cpath = self._chunk_path(k)
+        self._sums[k] = write_atomic(cpath, npz_bytes(**payload))
         self._write_manifest(seed, nreal, chunk, done,
                              0 if extra is None else np.shape(extra)[1])
+        if act == "torn":
+            # chaos harness: the torn write (storage dropping the pages
+            # after the rename became durable) and the process dying with
+            # it; a resume must see the bad CRC and roll back
+            data = cpath.read_bytes()
+            cpath.write_bytes(data[:max(len(data) // 2, 1)])
+            raise faults.KillFault(
+                f"injected torn checkpoint write at chunk {k}")
 
     def delete(self):
         for p in self.path.parent.glob(self.path.name + ".c*.npz"):

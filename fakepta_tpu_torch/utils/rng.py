@@ -18,6 +18,15 @@ every function here broadcasts over leading key axes like ``jax.vmap`` does.
 single-precision polynomial), not ``torch.erfinv``, which rounds differently
 by up to ~90 ULP in the tails. The remaining difference against jax is a few
 ULP of ``log1p``/``sqrt`` rounding.
+
+``uniform`` and ``normal`` also take ``dtype=torch.float64``: the draws of
+``jax.random`` under x64. Each element then takes 64 random bits from the
+two threefry words of its counter (``(y0 << 32) | y1``), whose top 52 fill
+the mantissa; the uniform is bit-exact, and the normal goes through XLA's
+float64 ``erf_inv`` (Giles' double-precision polynomial, three branches)
+over XLA's own float64 ``log1p`` (a Cephes rational below ``sqrt(2) - 1``,
+which XLA also uses down to ``-(sqrt(2) - 1)``, where it is ~100 ULP off
+the true value), to a few ULP of jax.
 """
 
 from __future__ import annotations
@@ -105,8 +114,13 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     ``data`` is an int or an integer tensor; it broadcasts against the key
     batch axes (``keys[..., 0]``), like a ``vmap`` over both.
     """
-    data = torch.as_tensor(data, dtype=torch.int64,
-                           device=keys.device) & M32
+    if isinstance(data, (int, np.integer)):
+        # a fill, not a copy from the host (no sync with the card)
+        data = torch.full((), int(data) & M32, dtype=torch.int64,
+                          device=keys.device)
+    else:
+        data = torch.as_tensor(data, dtype=torch.int64,
+                               device=keys.device) & M32
     y0, y1 = threefry2x32(keys[..., 0], keys[..., 1],
                           torch.zeros_like(data), data)
     return torch.stack([y0, y1], dim=-1)
@@ -135,21 +149,43 @@ def random_bits(keys: torch.Tensor, shape: Shape,
     return y0.bitwise_xor_(y1)
 
 
-def uniform(keys: torch.Tensor, shape: Shape, minval=0.0,
-            maxval=1.0, start: int = 0) -> torch.Tensor:
-    """``jax.random.uniform`` at float32: mantissa bits under exponent 0.
+def _uniform64(keys: torch.Tensor, shape: Shape, minval, maxval,
+               start: int) -> torch.Tensor:
+    """``jax.random.uniform`` at float64 (x64): 64 bits per element from
+    the counter's two threefry words, ``(y0 << 32) | y1``; the top 52 fill
+    the mantissa of a float in [1, 2)."""
+    shape = _shape(shape)
+    hi_w, lo_w = _iota_2x32(shape, keys.device, start)
+    k1, k2 = _key_words(keys, len(shape))
+    y0, y1 = threefry2x32(k1, k2, hi_w, lo_w)
+    mant = (y0 << 20).bitwise_or_(y1 >> 12)
+    floats = mant.bitwise_or_(0x3FF0000000000000).view(torch.float64) - 1.0
+    lo = torch.full((), minval, dtype=torch.float64, device=keys.device)
+    hi = torch.full((), maxval, dtype=torch.float64, device=keys.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
 
-    The top 23 bits fill the mantissa of a float in [1, 2); subtracting 1
-    gives [0, 1), which is then scaled into ``[minval, maxval)`` as jax
-    does (``max(minval, u * (maxval - minval) + minval)`` in float32).
-    ``start`` as in :func:`random_bits`.
+
+def uniform(keys: torch.Tensor, shape: Shape, minval=0.0,
+            maxval=1.0, start: int = 0,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.uniform``: mantissa bits under exponent 0.
+
+    At float32 the top 23 of 32 bits fill the mantissa of a float in
+    [1, 2); subtracting 1 gives [0, 1), which is then scaled into
+    ``[minval, maxval)`` as jax does (``max(minval, u * (maxval - minval)
+    + minval)`` in float32). ``dtype=torch.float64`` is jax's draw under
+    x64 (module docstring). ``start`` as in :func:`random_bits`.
     """
+    if dtype == torch.float64:
+        return _uniform64(keys, shape, minval, maxval, start)
+    if dtype != torch.float32:
+        raise TypeError(f"uniform draws float32 or float64, not {dtype}")
     bits = random_bits(keys, shape, start)
     fbits = (bits >> 9).bitwise_or_(0x3F800000).to(torch.int32)
-    one = torch.tensor(1.0, dtype=torch.float32, device=keys.device)
+    one = torch.full((), 1.0, dtype=torch.float32, device=keys.device)
     floats = fbits.view(torch.float32) - one
-    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=keys.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=keys.device)
     # XLA contracts u * (hi - lo) + lo into one fused multiply-add; the
     # float32 product is exact in float64, so one float64 add rounded to
     # float32 reproduces the fused result
@@ -177,8 +213,9 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
 
     def coef(i):
         return torch.where(
-            lt, torch.tensor(_ERFINV_LT5[i], dtype=torch.float32, device=dev),
-            torch.tensor(_ERFINV_GE5[i], dtype=torch.float32, device=dev))
+            lt, torch.full((), _ERFINV_LT5[i], dtype=torch.float32,
+                           device=dev),
+            torch.full((), _ERFINV_GE5[i], dtype=torch.float32, device=dev))
 
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
@@ -187,14 +224,97 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, out)
 
 
+# XLA's float64 ErfInv (Giles' double-precision polynomial): the
+# coefficients of the three branches (w < 6.25, w < 16, else), highest
+# power first
+_ERFINV64_LT625 = (
+    -3.6444120640178196996e-21, -1.685059138182016589e-19,
+    1.2858480715256400167e-18, 1.115787767802518096e-17,
+    -1.333171662854620906e-16, 2.0972767875968561637e-17,
+    6.6376381343583238325e-15, -4.0545662729752068639e-14,
+    -8.1519341976054721522e-14, 2.6335093153082322977e-12,
+    -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+    1.051212273321532285e-09, -4.1126339803469836976e-09,
+    -2.9070369957882005086e-08, 4.2347877827932403518e-07,
+    -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+    0.0001867342080340571352, -0.00074070253416626697512,
+    -0.0060336708714301490533, 0.24015818242558961693,
+    1.6536545626831027356)
+_ERFINV64_LT16 = (
+    2.2137376921775787049e-09, 9.0756561938885390979e-08,
+    -2.7517406297064545428e-07, 1.8239629214389227755e-08,
+    1.5027403968909827627e-06, -4.013867526981545969e-06,
+    2.9234449089955446044e-06, 1.2475304481671778723e-05,
+    -4.7318229009055733981e-05, 6.8284851459573175448e-05,
+    2.4031110387097893999e-05, -0.0003550375203628474796,
+    0.00095328937973738049703, -0.0016882755560235047313,
+    0.0024914420961078508066, -0.0037512085075692412107,
+    0.005370914553590063617, 1.0052589676941592334,
+    3.0838856104922207635)
+_ERFINV64_GE16 = (
+    -2.7109920616438573243e-11, -2.5556418169965252055e-10,
+    1.5076572693500548083e-09, -3.7894654401267369937e-09,
+    7.6157012080783393804e-09, -1.4960026627149240478e-08,
+    2.9147953450901080826e-08, -6.7711997758452339498e-08,
+    2.2900482228026654717e-07, -9.9298272942317002539e-07,
+    4.5260625972231537039e-06, -1.9681778105531670567e-05,
+    7.5995277030017761139e-05, -0.00021503011930044477347,
+    -0.00013871931833623122026, 1.0103004648645343977,
+    4.8499064014085844221)
+# XLA's float64 log1p below |x| < sqrt(2) - 1: Cephes' rational P/Q,
+# highest power first
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+
+
+def _horner(coefs, x: torch.Tensor) -> torch.Tensor:
+    p = torch.full_like(x, coefs[0])
+    for c in coefs[1:]:
+        p = p * x + c
+    return p
+
+
+def log1p_xla64(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float64 ``log1p``, operation for operation: ``log(1 + x)``
+    for ``|x| >= sqrt(2) - 1``, else ``x - x^2/2 + x^3 P(x)/Q(x)``."""
+    x2 = x * x
+    small = x + (-0.5 * x2 + (x * x2) * (_horner(_LOG1P_NUM, x)
+                                         / _horner(_LOG1P_DEN, x)))
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       torch.log(x + 1.0))
+
+
+def erfinv_f64(x: torch.Tensor) -> torch.Tensor:
+    """float64 inverse error function, XLA's polynomial operation for
+    operation (``w = -log1p(-x^2)`` through :func:`log1p_xla64`, three
+    Horner branches split at w = 6.25 and 16)."""
+    w = -log1p_xla64(x * -x)
+    sw = torch.sqrt(w)
+    p = torch.where(w < 6.25, _horner(_ERFINV64_LT625, w - 3.125),
+                    torch.where(w < 16.0, _horner(_ERFINV64_LT16, sw - 3.25),
+                                _horner(_ERFINV64_GE16, sw - 5.0)))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
+_NORMAL_LO64 = float(np.nextafter(-1.0, 0.0))
 
 
-def normal(keys: torch.Tensor, shape: Shape, start: int = 0) -> torch.Tensor:
-    """``jax.random.normal`` at float32: sqrt(2) erfinv(U(nextafter(-1,0), 1));
-    ``start`` as in :func:`random_bits`."""
-    u = uniform(keys, shape, _NORMAL_LO, 1.0, start)
+def normal(keys: torch.Tensor, shape: Shape, start: int = 0,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``jax.random.normal``: sqrt(2) erfinv(U(nextafter(-1,0), 1)) at
+    float32, or at ``dtype=torch.float64`` jax's draw under x64 (module
+    docstring); ``start`` as in :func:`random_bits`."""
+    if dtype == torch.float64:
+        u = _uniform64(keys, shape, _NORMAL_LO64, 1.0, start)
+        return erfinv_f64(u).mul_(math.sqrt(2.0))
+    u = uniform(keys, shape, _NORMAL_LO, 1.0, start, dtype=dtype)
     return erfinv_f32(u).mul_(_SQRT2)
 
 

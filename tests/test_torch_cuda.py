@@ -1206,3 +1206,132 @@ def test_infer_cli_runs_on_the_card_and_exits_2_without_one(cuda, tmp_path):
                           timeout=300)
     assert proc.returncode == 2
     assert "device='cpu'" in proc.stderr
+
+
+# ---------------------------------------------------------------- recovery
+
+def _ladder_sim(cuda, path="mega", mesh=None, **kw):
+    batch = PulsarBatch.synthetic(npsr=8, ntoa=64, tspan_years=10.0,
+                                  n_red=4, n_dm=4, seed=2, device=cuda)
+    f = np.arange(1, 5) / float(batch.tspan_common)
+    gwb = GWBConfig(psd=spectrum_lib.powerlaw(f, -13.5, 13 / 3).numpy())
+    if mesh is None:
+        kw["device"] = cuda
+    return EnsembleSimulator(batch, gwb=gwb, nbins=5, stat_path=path,
+                             pallas_precision="f32", mesh=mesh, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards,mxu", [(1, True), (1, False), (2, True)],
+                         ids=["shared", "fused-vpu", "psr2"])
+def test_recovery_ladder_through_the_kernels(cuda, shards, mxu):
+    """An injected kernel failure steps mega -> fused on the card: chunk 0
+    on #3 (#4 on a psr mesh), chunks 1-3 on #1 (#2 with
+    pallas_mxu_binning=False); each rung's kernel is launched (counted) and
+    the curves stay within 1e-5 of the unfaulted einsum run's scale; a
+    second kernel failure, on the fused rung, propagates (no fallback to
+    the plain einsum path); without a fault nothing degrades."""
+    from fakepta_tpu_torch import faults
+    mesh = (None if shards == 1
+            else make_mesh(["cuda:0"] * shards, psr_shards=shards))
+    sim = _ladder_sim(cuda, mesh=mesh, pallas_mxu_binning=mxu)
+    want = _ladder_sim(cuda, "einsum", mesh=mesh).run(32, seed=3, chunk=8)
+    clean = sim.run(32, seed=3, chunk=8)
+    assert clean["statistic_path"] == "mega"
+    assert not clean["report"].counters.get("faults.degradations")
+    before = (mk.launches, mk.sharded_launches, bc.launches,
+              bc.vpu_launches)
+    fast = faults.RecoveryPolicy(backoff_s=0.001)
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("mc.dispatch", "degrade", at=(1,))])
+    with faults.inject(plan):
+        out = sim.run(32, seed=3, chunk=8, recovery=fast)
+    torch.cuda.synchronize()
+    moved = np.subtract((mk.launches, mk.sharded_launches, bc.launches,
+                         bc.vpu_launches), before)
+    mega = [1, 0] if shards == 1 else [0, shards]
+    fused = [3 * shards, 0] if mxu else [0, 3 * shards]
+    assert moved.tolist() == mega + fused
+    assert out["statistic_path"] == "fused"
+    assert out["report"].counters["faults.degradations"] == 1
+    assert out["report"].meta["degraded_path"] == "fused"
+    scale = np.abs(want["curves"]).max()
+    np.testing.assert_allclose(out["curves"], want["curves"], rtol=0,
+                               atol=1e-5 * scale)
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("mc.dispatch", "degrade", at=(1, 3))])
+    with faults.inject(plan):
+        with pytest.raises(faults.DegradeFault):
+            sim.run(32, seed=3, chunk=8, recovery=fast)
+
+
+@pytest.mark.cuda
+def test_recovery_retry_bit_identical_on_the_card(cuda):
+    """A transient failure and a CUDA out-of-memory error at a chunk's
+    dispatch are retried on the same keys: bit-identical outputs."""
+    from fakepta_tpu_torch import faults
+    sim = _ladder_sim(cuda)
+    want = sim.run(32, seed=3, chunk=8)
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("mc.dispatch", "transient", at=(2,))])
+    with faults.inject(plan):
+        got = sim.run(32, seed=3, chunk=8)
+    assert np.array_equal(got["curves"], want["curves"])
+    real, calls = sim.step, []
+
+    def step(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise torch.OutOfMemoryError("CUDA out of memory. Tried to "
+                                         "allocate 1.00 GiB")
+        return real(*a, **kw)
+
+    sim.step = step
+    try:
+        got = sim.run(32, seed=3, chunk=8)
+    finally:
+        del sim.step
+    assert got["report"].counters["faults.retries"] == 1
+    assert np.array_equal(got["curves"], want["curves"])
+
+
+# ------------------------------------------------------------------ sampler
+
+def _sampler(cuda, mesh=None):
+    from fakepta_tpu_torch.infer import (ComponentSpec, FreeParam,
+                                         LikelihoodSpec)
+    from fakepta_tpu_torch.sample import SampleSpec, SamplingRun
+    batch = PulsarBatch.synthetic(npsr=4, ntoa=48, tspan_years=15.0,
+                                  toaerr=1e-7, n_red=3, n_dm=3,
+                                  red_log10_A=-14.5, dm_log10_A=-14.5,
+                                  seed=0, device=cuda)
+    model = LikelihoodSpec(components=(
+        ComponentSpec("red", spectrum="batch"),
+        ComponentSpec("dm", spectrum="batch"),
+        ComponentSpec("curn", nbin=3, free=(
+            FreeParam("log10_A", (-14.0, -12.4)),
+            FreeParam("gamma", (2.0, 6.0))))))
+    spec = SampleSpec(model=model, n_chains=8, n_temps=2, warmup=8, thin=2,
+                      n_leapfrog=3)
+    return SamplingRun(batch, spec, mesh=mesh,
+                       device=None if mesh is not None else cuda,
+                       data_seed=1, truth=np.array([-13.2, 13 / 3]))
+
+
+@pytest.mark.cuda
+def test_sampler_reruns_meshes_and_depths_bit_identical(cuda):
+    """float32 chains on the card: reruns, pipeline depths 0 and 2, and the
+    real-2 / psr-2 meshes on one card give the same thinned draws bit for
+    bit (the row groups of one fixed size and the fixed-order sums)."""
+    ref = _sampler(cuda).run(16, seed=3, segment=8, pipeline_depth=0)
+    assert ref["theta"].dtype == np.float32
+    assert np.isfinite(ref["theta"]).all()
+    assert ref["report"].meta["platform"] == "gpu"
+    runs = [_sampler(cuda).run(16, seed=3, segment=8, pipeline_depth=2)]
+    for real, psr in ((2, 1), (1, 2)):
+        mesh = make_mesh(["cuda:0"] * (real * psr), psr_shards=psr)
+        runs.append(_sampler(cuda, mesh).run(16, seed=3, segment=8))
+    for out in runs:
+        assert np.array_equal(out["theta"], ref["theta"])
+        assert out["diag"]["accept_rate_by_temp"] == \
+            ref["diag"]["accept_rate_by_temp"]

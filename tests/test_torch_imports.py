@@ -116,6 +116,53 @@ def test_correlated_and_infer_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.faults", "fakepta_tpu_torch.faults.plan",
+    "fakepta_tpu_torch.faults.recovery", "fakepta_tpu_torch.tune",
+    "fakepta_tpu_torch.tune.defaults", "fakepta_tpu_torch.ops.mcmc",
+    "fakepta_tpu_torch.sample", "fakepta_tpu_torch.sample.model",
+    "fakepta_tpu_torch.sample.run", "fakepta_tpu_torch.sample.factorized",
+    "fakepta_tpu_torch.sample.cli", "fakepta_tpu_torch.sample.__main__"])
+def test_faults_and_sample_modules_are_checked(module):
+    """The recovery policy, the knob table and the sampler's modules (the
+    plan and the knob table copies of pure-Python modules of the JAX
+    package) are among the modules the checks below import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_sample_entry_points_default_to_the_card():
+    """SamplingRun, FactorizedRun and the sampler CLI run on the card
+    unless the CPU is asked for."""
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.infer import (ComponentSpec, FreeParam,
+                                         LikelihoodSpec)
+    from fakepta_tpu_torch.sample import (FactorizedRun, SampleSpec,
+                                          SamplingRun, cli)
+
+    assert cli.build_parser().parse_args(["run"]).device == "cuda"
+    batch = PulsarBatch.synthetic(npsr=2, ntoa=16, n_red=2, n_dm=2,
+                                  device="cpu")
+    model = LikelihoodSpec(components=(ComponentSpec(
+        "curn", nbin=2, spectrum="free_spectrum", free=(
+            FreeParam("log10_rho", (-9.0, -5.0), per_bin=True),)),))
+    spec = SampleSpec(model=model, n_chains=2, warmup=0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SamplingRun(batch, spec)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FactorizedRun(batch, spec, lane_bins=1)
+        assert cli.main(["run", "--npsr", "4", "--ntoa", "16"]) == 2
+    with pytest.raises(ValueError, match="not both"):
+        SamplingRun(batch, spec, mesh=object(), device="cpu")
+    out = SamplingRun(batch, spec, device="cpu").run(2, segment=2)
+    assert out["report"].meta["platform"] == "cpu"
+    assert out["theta"].shape == (2, 2, 2)
+
+
 def test_infer_entry_points_default_to_the_card():
     """InferenceRun and the likelihood CLI run on the card unless the CPU
     is asked for; the package exposes the correlated signals as the JAX

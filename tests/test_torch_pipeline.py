@@ -285,15 +285,20 @@ def test_lanes_refuse_a_checkpoint_and_overflow(tb, tmp_path):
 
 def test_run_refuses_what_is_not_ported(tb):
     sim = _sim(tb)
-    for kw in (dict(eventlog="/nonexistent"), dict(tuned=True),
-               dict(recovery=object())):
+    for kw in (dict(eventlog="/nonexistent"), dict(tuned=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sim.run(8, **kw)
     # the likelihood lane is ported: what is not an InferSpec is refused
     with pytest.raises(TypeError, match="InferSpec"):
         sim.run(8, lnlike=object())
-    # nothing to turn off
-    sim.run(8, recovery=False, tuned=False)
+    # the recovery policy is ported: a RecoveryPolicy, None (the default
+    # policy) or False (disabled); anything else is the JAX TypeError
+    from fakepta_tpu_torch import faults
+    with pytest.raises(TypeError, match="recovery must be None, False or "
+                                        "a RecoveryPolicy, got object"):
+        sim.run(8, recovery=object())
+    for recovery in (None, False, faults.RecoveryPolicy(max_retries=1)):
+        sim.run(8, recovery=recovery, tuned=False)
 
 
 # ------------------------------------------------------------ dtype knobs
