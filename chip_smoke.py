@@ -211,7 +211,36 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    ``FS_LANE_BINS`` = 4) at 8 post steps; ``python -m
    fakepta_tpu_torch.sample run`` at its defaults (exit 0, the artifact
    loads).
-14. ``profile`` (only when asked for): per statistic path, the device time
+14. ``stream``: streaming ingestion at config 14's accelerator shape
+   (``benchmarks/suite.py:546-549``: a float64 template of 100 pulsars x
+   780 TOAs over 15 yr, red 30 and DM 100 bins, ``default_stream_model(
+   nbin=10)``: C = 280 columns; 780 TOAs a pulsar of history in two
+   blocks, then 8-TOA epochs, ECORR epochs of 15 yr / 64, ``watch="hd"``).
+   ``stream.bench.run_append_ab`` at config 14 (best-of-3 append against
+   restage, ``append_speedup_x``, rebuckets, and ``stream_recompiles``,
+   0 by construction in the port: a built kernel key is never built
+   again); the watched stream's appends with the rolling OS update (the
+   steady appends build no kernel and leave the bytes live on the card
+   flat), its moments against a restage within 1e-8 relative, against the CPU
+   port's on the same blocks within 1e-10 of each array's max
+   (amp2 and snr within 1e-9), a rerun bit-identical, a psr-2 mesh on
+   ``cuda:0`` within 1e-10 (bit identity reported); a checkpointed stream
+   whose ``torn`` append rolls back and resumes bit-identically; the OS
+   update's ms (CUDA events); ``PosteriorRefresher`` two cycles (float64,
+   8 chains x 2 temps, ``n_leapfrog`` 4, 16 steps after a warmup of 8,
+   segment 8: the step counts are the cut), the second warm-started with
+   no more Newton steps, promotion following the R-hat gate; and
+   ``FactorizedRefresher`` at config 18 part 2's shapes
+   (``benchmarks/suite.py:743-746, 795-836``: 16 pulsars x 96 TOAs, 16
+   free-spectrum bins, ``lane_bins=1``, 40-wide epochs, 96 steps, segment
+   32, cut to 32 steps and segment 16): the single-bin sinusoid epoch
+   touches exactly one lane, and ``fs_refresh_ms`` against
+   ``fs_full_refresh_ms`` (``fs_recompiles`` reads 0 by construction);
+   last, two traced steady appends (their launches, equal in number,
+   copies and the device's idle share). No
+   kernel of #1-#4 is on this path (the stream is library linear algebra,
+   as the JAX stream is XLA outside any Pallas kernel).
+15. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -3385,6 +3414,396 @@ def phase_sample(report: dict) -> None:
     report["sample"] = out
 
 
+# the stream phase: config 14's accelerator shape (benchmarks/suite.py:
+# 546-549) and config 18 part 2's (:743-746, :795-836)
+STREAM_YR = 365.25 * 86400.0
+STREAM_SHAPE = dict(npsr=100, ntoa=780, tspan_years=15.0, n_red=30,
+                    n_dm=100, nbin=10, history=780, epoch_width=8,
+                    ecorr_dt=15.0 * STREAM_YR / 64)
+#: epoch appends after the two history blocks (the first is a warm-up),
+#: as many as ``run_append_ab`` makes at its 3 repeats
+STREAM_EPOCHS = 4
+#: the append-against-restage oracle's bound (JAX tests/test_stream.py:113)
+STREAM_ORACLE_RTOL = 1e-8
+#: card against the CPU port, and a psr-2 mesh against one shard
+STREAM_CPU_RTOL = 1e-10
+STREAM_OS_RTOL = 1e-9
+#: PosteriorRefresher: float64, 8 chains x 2 temps, n_leapfrog 4; the
+#: step counts are the cut
+REFRESH_SPEC = dict(n_chains=8, n_temps=2, n_leapfrog=4, warmup=8)
+REFRESH_STEPS = 16
+REFRESH_SEGMENT = 8
+#: FactorizedRefresher at config 18 part 2: 16 pulsars x 96 TOAs, 16
+#: free-spectrum bins, lane_bins 1, 40-wide epochs; the suite's 96 steps
+#: and segment 32 cut to 32 and 16, which kept the phase under its 90 s
+#: (123.1 s uncut, NVIDIA H100 80GB HBM3, 700.00 W). A lane runs its
+#: warmup rounded up to whole segments, then the steps: 16 + 32 = 48
+#: steps a lane here, 32 + 96 = 128 uncut
+FS_STREAM = dict(npsr=16, ntoa=96, nbin=16, width=40, steps=32,
+                 segment=16)
+
+
+def stream_blocks(shape: dict, seed: int = 0) -> list:
+    """Config 14's blocks as ``stream.bench.run_append_ab`` appends them:
+    the history in two halves, a warm-up epoch, then STREAM_EPOCHS - 1
+    steady epochs of ``epoch_width`` TOAs (append keyword arguments)."""
+    from fakepta_tpu_torch.stream.bench import config_blocks
+    return config_blocks(npsr=shape["npsr"],
+                         tspan_years=shape["tspan_years"],
+                         history=shape["history"],
+                         epoch_width=shape["epoch_width"],
+                         epochs=STREAM_EPOCHS, seed=seed)
+
+
+def live_bytes() -> int:
+    """Bytes of the live tensors on the card as requested, not as the
+    caching allocator rounded them: a steady append may get its new ``M``
+    in a cached 60 MiB block or an exact 62.72 MB one, which moves
+    ``memory_allocated()`` with no change in what is live."""
+    import torch
+    return int(torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+
+def dispatched_ops(fn) -> list:
+    """The aten ops that ``fn()`` dispatches, in order, each with the
+    shape, dtype and device of its tensor arguments: the work the card is
+    asked to do, recorded on the host as it is asked for, so no event is
+    lost (the profiler's CUDA trace of one steady append counted 39, 45 or
+    74 kernels from run to run, NVIDIA H100 80GB HBM3, 700.00 W)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            flat, _ = tree_flatten((args, kwargs))
+            ops.append((str(func), tuple(
+                (tuple(a.shape), str(a.dtype), a.device.type)
+                for a in flat if isinstance(a, torch.Tensor))))
+            return func(*args, **kwargs)
+
+    with Record():
+        fn()
+    return ops
+
+
+def moments_rel_err(got, want) -> float:
+    """Max over the five moment arrays of max|got - want| over max|want|
+    (M entries scale like 1/sigma^2 ~ 1e14: absolute bounds mean
+    nothing)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = g.detach().cpu().double()
+        w = w.detach().cpu().double()
+        scale = max(float(w.abs().max()), 1e-300)
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def phase_stream(report: dict) -> None:
+    """Streaming ingestion on the card (module docstring, phase 14)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fakepta_tpu_torch import constants as const
+    from fakepta_tpu_torch import faults
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.infer import (ComponentSpec, FreeParam,
+                                         LikelihoodSpec)
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    from fakepta_tpu_torch.sample import SampleSpec
+    from fakepta_tpu_torch.stream import (FactorizedRefresher,
+                                          PosteriorRefresher,
+                                          StreamCheckpoint, StreamState,
+                                          default_stream_model)
+    from fakepta_tpu_torch.stream.bench import run_append_ab
+
+    card = card_line()
+    shape = dict(STREAM_SHAPE)
+    out = {"cuts": {"refresh": dict(REFRESH_SPEC, n_steps=REFRESH_STEPS,
+                                    segment=REFRESH_SEGMENT),
+                    "factorized": dict(FS_STREAM),
+                    "widths": "config 14 uncut: 100 pulsars, 780 TOAs of "
+                              "history, C = 280, float64"}}
+    t_phase = time.perf_counter()
+    steps = out.setdefault("step_s", {})
+
+    def stamp(what: str) -> None:
+        steps[what] = time.perf_counter() - t_phase
+        print(f"stream: {what} done at {steps[what]:.1f} s", flush=True)
+
+    print(f"stream cuts: {json.dumps(out['cuts'])}", flush=True)
+
+    # config 14's A/B row, as the JAX suite's config14 runs it
+    ab = run_append_ab(**shape, device="cuda", seed=0)
+    out["append_ab"] = ab
+    print(f"stream append A/B (config 14: 100 psr x 780 TOAs of history, "
+          f"8-TOA epochs, ECORR 64 epochs, float64) on {card}: best-of-3 "
+          f"append {ab['append_latency_ms']} ms, restage "
+          f"{ab['restage_ms']} ms, append_speedup_x "
+          f"{ab['append_speedup_x']}, rebuckets {ab['stream_rebuckets']}, "
+          f"stream_recompiles {ab['stream_recompiles']} (0 by construction: "
+          f"a built kernel key is never built again)", flush=True)
+    stamp("append A/B")
+
+    # the watched stream: history, then epochs, HD rolling statistic
+    template = PulsarBatch.synthetic(
+        npsr=shape["npsr"], ntoa=shape["ntoa"],
+        tspan_years=shape["tspan_years"], n_red=shape["n_red"],
+        n_dm=shape["n_dm"], seed=0, dtype=torch.float64, device="cpu")
+    model = default_stream_model(nbin=shape["nbin"])
+    kw = dict(ecorr_dt=shape["ecorr_dt"], watch="hd")
+    blocks = stream_blocks(shape)
+
+    def drive(stream, upto=None):
+        return [stream.append(**b) for b in blocks[:upto]]
+
+    stream = StreamState(template, model, device="cuda", **kw)
+    infos, built, alloc = [], [], []
+    for b in blocks:
+        infos.append(stream.append(**b))
+        built.append(stream.compiles)
+        alloc.append(live_bytes())
+    lat = [i["latency_ms"] for i in infos[3:]]
+    m_card = stream.moments()
+    # what an append at built rungs does: no kernel build after the
+    # warm-up epoch, and the bytes live on the card flat over the steady
+    # appends
+    steady = {"builds": built[-1] - built[2], "live_bytes": alloc[3:]}
+    if steady["builds"] or len(set(alloc[3:])) != 1 \
+            or not all(np.isfinite(i["snr"]) for i in infos):
+        raise AssertionError(f"stream steady appends: {steady}, "
+                             f"{infos[-1]}")
+    oracle = moments_rel_err(m_card, stream.restage_moments())
+    if oracle > STREAM_ORACLE_RTOL:
+        raise AssertionError(f"stream: append vs restage {oracle:.3e}")
+    out["watched"] = {"append_watch_ms_best": min(lat),
+                      "append_watch_ms": lat,
+                      "history_append_ms": [i["latency_ms"]
+                                            for i in infos[:2]],
+                      "n_toas": infos[-1]["n_toas"],
+                      "block_bucket": infos[-1]["block_bucket"],
+                      "epoch_capacity": infos[-1]["epoch_capacity"],
+                      "stats": stream.stats(), "oracle_rel_err": oracle,
+                      "steady": steady}
+    print(f"stream watched (hd): append with the OS update best "
+          f"{min(lat)} ms of {lat}, history blocks "
+          f"{out['watched']['history_append_ms']} ms; steady appends: "
+          f"{steady['builds']} kernel builds, live bytes "
+          f"{steady['live_bytes']}; append vs restage "
+          f"{oracle:.3e} relative (bound {STREAM_ORACLE_RTOL}); "
+          f"{json.dumps(stream.stats())}", flush=True)
+    stamp("watched stream")
+
+    # the CPU port on the same blocks, a rerun, a psr-2 mesh on cuda:0
+    cpu = StreamState(template, model, device="cpu", **kw)
+    cinfos = drive(cpu)
+    cpu_err = moments_rel_err(m_card, cpu.moments())
+    os_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-300)
+                 for a, b in zip(infos, cinfos) for k in ("amp2", "snr"))
+    again = StreamState(template, model, device="cuda", **kw)
+    drive(again)
+    rerun = all(torch.equal(a, b) for a, b in zip(again.moments(), m_card))
+    mesh = StreamState(template, model,
+                       mesh=make_mesh(["cuda:0"] * 2, psr_shards=2), **kw)
+    drive(mesh)
+    mesh_err = moments_rel_err(mesh.moments(), m_card)
+    mesh_bits = all(torch.equal(a, b)
+                    for a, b in zip(mesh.moments(), m_card))
+    out["card_vs_cpu_rel_err"] = cpu_err
+    out["os_card_vs_cpu_rel_err"] = os_err
+    out["rerun_bit_identical"] = rerun
+    out["mesh_psr2_rel_err"] = mesh_err
+    out["mesh_psr2_bit_identical"] = mesh_bits
+    print(f"stream card vs CPU moments {cpu_err:.3e} (bound "
+          f"{STREAM_CPU_RTOL}), OS amp2/snr {os_err:.3e} (bound "
+          f"{STREAM_OS_RTOL}); rerun bit-identical {rerun}; psr-2 mesh on "
+          f"cuda:0 {mesh_err:.3e} (bound {STREAM_CPU_RTOL}), bit-identical "
+          f"{mesh_bits}", flush=True)
+    if cpu_err > STREAM_CPU_RTOL or os_err > STREAM_OS_RTOL or not rerun \
+            or mesh_err > STREAM_CPU_RTOL:
+        raise AssertionError("stream: card vs CPU, rerun or mesh")
+    del cpu, again, mesh
+    stamp("CPU, rerun and mesh")
+
+    # checkpoint: resume bit-identical, a torn append rolled back
+    ck = os.path.join(HERE, "build", "stream.ckpt")
+    StreamCheckpoint(ck).delete()
+    first = StreamState(template, model, device="cuda", checkpoint=ck, **kw)
+    drive(first, 3)
+    want = first.moments()
+    plan = faults.FaultPlan([faults.FaultSpec("ingest.append", "torn",
+                                              at=(0,))])
+    with faults.inject(plan):
+        try:
+            first.append(**blocks[3])
+            raise AssertionError("stream: the torn append did not kill")
+        except faults.KillFault as exc:
+            del exc
+    resumed = StreamState(template, model, device="cuda", checkpoint=ck,
+                          **kw)
+    rolled = (resumed.appends, resumed.rolled_back)
+    resume_bits = all(torch.equal(a, b)
+                      for a, b in zip(resumed.moments(), want))
+    for b in blocks[3:]:
+        resumed.append(**b)
+    continued = all(torch.equal(a, b)
+                    for a, b in zip(resumed.moments(), m_card))
+    resumed._ckpt.delete()
+    out["checkpoint"] = {"appends_after_rollback": rolled[0],
+                         "rolled_back": rolled[1],
+                         "resume_bit_identical": resume_bits,
+                         "continued_bit_identical": continued}
+    print(f"stream checkpoint: torn append rolled back "
+          f"(appends {rolled[0]}, rolled_back {rolled[1]}), resume "
+          f"bit-identical {resume_bits}, continued to the end "
+          f"bit-identical {continued}", flush=True)
+    if rolled != (3, 1) or not resume_bits or not continued:
+        raise AssertionError(f"stream checkpoint: {out['checkpoint']}")
+    del first, resumed
+    stamp("checkpoint")
+
+    # the rolling OS: ms per update on the card
+    watcher = stream._watcher()
+    m_now = stream.moments()
+    os_ms = time_ms(lambda: watcher.statistic(m_now[0], m_now[4]), 10)
+    out["os_update_ms"] = os_ms
+    print(f"stream OS update (P = 100, C = 280, float64): {os_ms:.3f} ms "
+          f"on the card (CUDA events), last {json.dumps(watcher.last)}",
+          flush=True)
+    stamp("OS timing")
+
+    # PosteriorRefresher: two cycles, the second warm
+    spec = SampleSpec(model=model, **REFRESH_SPEC)
+    ref = PosteriorRefresher(stream, spec, device="cuda")
+    rkw = dict(segment=REFRESH_SEGMENT)
+    c1 = ref.refresh(REFRESH_STEPS, seed=1, **rkw)
+    # one more epoch (inside the built rungs), then the warm cycle
+    stream.append(**stream_blocks(shape, seed=9)[-1])
+    c2 = ref.refresh(REFRESH_STEPS, seed=2, **rkw)
+    gate = [bool(np.isfinite(c["rhat_max"]) and c["rhat_max"] <= ref.rhat_gate)
+            for c in (c1, c2)]
+    out["refresh"] = {"cycles": [c1, c2], "gate": ref.rhat_gate,
+                      "ms_per_cycle": [c1["latency_ms"], c2["latency_ms"]]}
+    print(f"stream PosteriorRefresher (float64, 8 chains x 2 temps, "
+          f"n_leapfrog 4, {REFRESH_STEPS} steps + warmup "
+          f"{REFRESH_SPEC['warmup']}): cycle 1 {json.dumps(c1)}; cycle 2 "
+          f"{json.dumps(c2)}", flush=True)
+    if not (c2["warm_started"] and c2["chains_warm_started"]) \
+            or c2["laplace_iters"] > c1["laplace_iters"] \
+            or [c1["promoted"], c2["promoted"]] != gate:
+        raise AssertionError(f"stream refresh: {out['refresh']}")
+    stamp("posterior refresher")
+
+    # FactorizedRefresher at config 18 part 2's shapes
+    fs = FS_STREAM
+    tspan_s = 10.0 * const.yr
+    fs_model = LikelihoodSpec(components=(
+        ComponentSpec(target="red", spectrum="batch"),
+        ComponentSpec(target="dm", spectrum="batch"),
+        ComponentSpec(target="curn", nbin=fs["nbin"],
+                      spectrum="free_spectrum",
+                      free=(FreeParam("log10_rho", (-9.0, -5.0),
+                                      per_bin=True),))))
+    ftpl = PulsarBatch.synthetic(npsr=fs["npsr"], ntoa=fs["ntoa"],
+                                 tspan_years=10.0, n_red=4, n_dm=4, seed=3,
+                                 device="cpu")
+    fstream = StreamState(ftpl, fs_model, device="cuda")
+    rng = np.random.default_rng(0)
+    p, w = fs["npsr"], fs["width"]
+    t0 = np.sort(rng.uniform(0, 0.9 * tspan_s, (p, w)), axis=1)
+    fstream.append(t0, rng.normal(0, 1e-7, (p, w)),
+                   sigma2=np.full((p, w), 1e-14))
+    s_spec = SampleSpec(model=fs_model, n_chains=2, warmup=16,
+                        n_leapfrog=3)
+    fref = FactorizedRefresher(fstream, s_spec, lane_bins=1, rhat_gate=1e9,
+                               device="cuda")
+    cold = fref.refresh(fs["steps"], seed=1, segment=fs["segment"])
+    te = np.tile((np.arange(w) / w * tspan_s)[None], (p, 1))
+    fstream.append(te, 1e-6 * np.sin(2 * np.pi * (2.0 / tspan_s) * te),
+                   sigma2=np.full((p, w), 1e-14))
+    incr = fref.refresh(fs["steps"], seed=2, segment=fs["segment"])
+    fstream.append(te, rng.normal(0, 1e-7, te.shape),
+                   sigma2=np.full((p, w), 1e-14))
+    full = fref.refresh(fs["steps"], seed=3, segment=fs["segment"],
+                        force_all=True)
+    out["factorized"] = {
+        "cold": cold, "incremental": incr, "full": full,
+        "fs_refresh_ms": incr["fs_refresh_ms"],
+        "fs_full_refresh_ms": full["fs_refresh_ms"],
+        "fs_refresh_speedup_x": round(full["fs_refresh_ms"]
+                                      / max(incr["fs_refresh_ms"], 1e-9), 2),
+        "fs_recompiles": incr["fs_recompiles"] + full["fs_recompiles"]}
+    print(f"stream FactorizedRefresher (config 18 part 2: 16 psr x 96 TOAs, "
+          f"16 bins, lane_bins 1, {fs['steps']} steps, segment "
+          f"{fs['segment']}) on {card}: cold {cold['fs_refresh_ms']} ms "
+          f"({cold['fs_lanes_touched']} lanes), the sinusoid epoch touched "
+          f"{incr['fs_lanes_touched']} lane(s) / {incr['fs_bins_touched']} "
+          f"bin(s) in {incr['fs_refresh_ms']} ms, full refresh "
+          f"{full['fs_refresh_ms']} ms, fs_recompiles "
+          f"{out['factorized']['fs_recompiles']} (0 by construction: a "
+          f"lane's SamplingRun has no trace to rebuild)", flush=True)
+    if incr["fs_lanes_touched"] != 1 or incr["fs_bins_touched"] != 1 \
+            or not (cold["promoted"] and incr["promoted"]) \
+            or not np.isfinite(fref.posterior["theta"]).all():
+        raise AssertionError(f"stream factorized: {out['factorized']}")
+    stamp("factorized refresher")
+
+    # a steady append runs the same work: two steady appends of the A/B's
+    # stream (no watch) dispatch the same aten ops at the same shapes,
+    # recorded on the host; then one traced steady append's kernel
+    # launches, copies and device busy time against wall time, as the
+    # profiler's CUDA trace reports them (reported, not held: the trace
+    # counted 39, 45 or 74 launches for the same append from run to run,
+    # once with its one host-to-device copy missing). Last, so that no
+    # timing above runs after a profiler run.
+    plain = StreamState(template, model, device="cuda",
+                        ecorr_dt=shape["ecorr_dt"])
+    drive(plain, 3)
+    ops = [dispatched_ops(lambda b=b: plain.append(**b))
+           for b in blocks[3:5]]
+    on_card = [sum(any(d == "cuda" for _, _, d in args) for _, args in o)
+               for o in ops]
+    out["steady_dispatch"] = {"ops": [len(o) for o in ops],
+                              "ops_on_card": on_card,
+                              "equal": ops[0] == ops[1]}
+    print(f"stream steady appends (8 TOAs, no watch): aten ops dispatched "
+          f"{out['steady_dispatch']['ops']} ({on_card} on the card), the "
+          f"same ops at the same shapes {ops[0] == ops[1]}", flush=True)
+    if ops[0] != ops[1] or not on_card[0]:
+        raise AssertionError(f"stream steady appends dispatched "
+                             f"{out['steady_dispatch']}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        plain.append(**blocks[5])
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, launches, copies = 0.0, 0, []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            busy += ev.time_range.elapsed_us() / 1e3
+            if "memcpy" in ev.name.lower():
+                copies.append(ev.name)
+            else:
+                launches += 1
+    traced = {"wall_ms": wall, "device_busy_ms": busy,
+              "kernel_launches": launches, "copies": len(copies),
+              "copy_kinds": sorted(set(copies)),
+              "device_idle_share": max(0.0, 1 - busy / wall)}
+    out["traced_append"] = traced
+    print(f"stream traced steady append (8 TOAs, no watch; the trace's "
+          f"counts are reported, not held): {json.dumps(traced)}",
+          flush=True)
+    del plain
+    stamp("traced append")
+    report["stream"] = out
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -3529,11 +3948,11 @@ def main(argv=None) -> int:
                     default=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
-                             "sample"],
+                             "sample", "stream"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
-                             "sample", "profile"])
+                             "sample", "stream", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh and profile phases' flagship "
                          "meshes span (default 1: every shard on cuda:0)")
@@ -3563,7 +3982,7 @@ def main(argv=None) -> int:
               "run": phase_run, "detect": phase_detect,
               "facade": phase_facade, "correlated": phase_correlated,
               "infer": phase_infer, "faults": phase_faults,
-              "sample": phase_sample,
+              "sample": phase_sample, "stream": phase_stream,
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:

@@ -13,19 +13,19 @@ and packed beside the curves, so a detection study never fetches an
   on-device null calibration (``OSSpec(null=True)``).
 - :class:`DetectionRun`: the host facade: one call runs a null-calibrated
   study and saves a schema-versioned summary artifact.
+- :class:`StreamingOS` (:mod:`streaming`): the rolling per-append
+  statistic over a stream's Woodbury moments (:mod:`..stream`).
 - CLI: ``python -m fakepta_tpu_torch.detect run ...``.
-
-Not ported yet: the JAX package's ``StreamingOS`` (the rolling per-append
-statistic over a stream's Woodbury moments), which waits for the stream
-and likelihood layers.
 """
 
 from .operators import (DETECT_SCHEMA, OSOperator, OSSpec, as_spec,
                         assemble, build_operators, pair_weighting,
                         pulsar_noise_levels)
 from .run import DetectionRun
+from .streaming import StreamingOS
 
 __all__ = [
-    "DETECT_SCHEMA", "DetectionRun", "OSOperator", "OSSpec", "as_spec",
-    "assemble", "build_operators", "pair_weighting", "pulsar_noise_levels",
+    "DETECT_SCHEMA", "DetectionRun", "OSOperator", "OSSpec", "StreamingOS",
+    "as_spec", "assemble", "build_operators", "pair_weighting",
+    "pulsar_noise_levels",
 ]

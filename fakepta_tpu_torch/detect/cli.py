@@ -6,8 +6,11 @@ card unless ``--device cpu`` is given, prints one JSON summary line and
 optionally saves the artifact (a loadable
 :class:`~fakepta_tpu_torch.obs.report.RunReport`). The flags and defaults
 are the JAX package's CLI's, with ``--device`` (default ``cuda``) in place
-of its ``--platform``. Exit 0 on success, 2 on a usage or configuration
-error.
+of its ``--platform``. As the JAX CLI meshes every device on the
+realization axis, the study runs on a mesh of every visible card
+(``--device cuda``; a numbered card such as ``cuda:1`` alone) or of the
+one CPU device (``--device cpu``). Exit 0 on success, 2 on a usage or
+configuration error.
 """
 
 from __future__ import annotations
@@ -48,16 +51,24 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     import numpy as np
+    import torch
 
     from .. import spectrum as spectrum_lib
     from ..batch import PulsarBatch
     from ..device import resolve_device
+    from ..parallel.mesh import make_mesh
     from ..parallel.montecarlo import GWBConfig
     from .operators import OSSpec
     from .run import DetectionRun
 
     try:
         device = resolve_device(args.device)
+        # every card on the realization axis, as the JAX CLI's
+        # make_mesh(jax.devices())
+        mesh = make_mesh(
+            [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+            if device.type == "cuda" and device.index is None
+            else [device])
     except (RuntimeError, ValueError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
@@ -73,7 +84,7 @@ def main(argv=None) -> int:
             batch, gwb=GWBConfig(psd=psd, orf="hd"),
             os=OSSpec(orf=tuple(args.orf), weighting=args.weighting,
                       null=True),
-            device=device)
+            mesh=mesh)
         out = study.run(args.nreal, seed=args.seed, chunk=args.chunk)
     except (ValueError, TypeError) as exc:
         print(f"error: {exc}", file=sys.stderr)

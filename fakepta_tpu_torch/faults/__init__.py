@@ -6,9 +6,10 @@ Two halves:
 - the **chaos harness** (:mod:`.plan`): a seeded :class:`FaultPlan` arms
   named sites threaded through the engine and the sampler (chunk dispatch
   and ring reuse, the pipeline writer, checkpoint appends, sampler
-  segments) and fires scripted faults (transient errors, NaN poisoning,
-  torn checkpoint writes, hung drains, simulated kills) at deterministic
-  hit indices, each mirrored into the crash flight recorder;
+  segments, stream appends) and fires scripted faults (transient errors,
+  NaN poisoning, torn checkpoint writes, hung drains, simulated kills) at
+  deterministic hit indices, each mirrored into the crash flight
+  recorder;
 - the **recovery policy** (:mod:`.recovery`): bounded exponential-backoff
   retry that re-dispatches the same RNG lanes (bit-identical), the
   degradation ladders (``mega -> fused`` on a kernel launch failure, the
@@ -24,9 +25,9 @@ with a flight-recorder dump. Silent corruption is never an outcome.
 
 The JAX package's ``cache.load`` site has no counterpart: it wires XLA's
 persistent compilation cache, and the port has none (its kernels are
-built once per checkout, :mod:`..ops._build`). The serve, fleet, gateway,
-ingest and telemetry sites come with their modules (ROADMAP Queue 1 items
-9 and 11b).
+built once per checkout, :mod:`..ops._build`). The serve, fleet, gateway
+and telemetry-scrape sites come with their modules (ROADMAP Queue 1 item
+11b).
 """
 
 from .plan import (FaultError, FaultPlan, FaultSpec, DegradeFault,

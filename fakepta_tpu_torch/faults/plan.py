@@ -24,15 +24,23 @@ site                      where it is checked
 ``pipeline.writer``       the per-chunk/segment drain (writer thread)
 ``ckpt.append``           EnsembleCheckpoint/SampleCheckpoint ``save``
 ``sample.segment``        SamplingRun.run, before each segment dispatch
+``ingest.append``         StreamState.append, at the top of each TOA block
 ========================  ====================================================
 
 The JAX package's ``cache.load`` site wires XLA's persistent compilation
 cache, which the port does not have (its kernels are built once per
 checkout by :mod:`..ops._build`), so it has no counterpart. The
-``serve.dispatch``, ``fleet.*``, ``ingest.append``, ``telemetry.scrape``
-and ``gateway.*`` sites come with their modules (ROADMAP Queue 1 items 9
-and 11b). ``match`` and the fleet context keys are kept so a plan reads
-the same in both packages.
+``serve.dispatch``, ``fleet.*``, ``telemetry.scrape`` and ``gateway.*``
+sites come with their modules (ROADMAP Queue 1 item 11b). ``match`` and
+the fleet context keys are kept so a plan reads the same in both
+packages.
+
+``ingest.append`` is checked BEFORE any state mutates, so a raising kind
+(``transient``/``fatal``) leaves the stream untouched and a retry of the
+same block is deterministic; the ``torn`` kind lets the block land and
+then corrupts its checkpoint file before simulated process death
+(:class:`KillFault`): resume must detect the bad CRC and roll back to the
+last consistent :class:`~..stream.StreamState`.
 
 Fault kinds: ``transient`` / ``fatal`` raise (:class:`TransientFault` /
 :class:`FatalFault`); ``degrade`` / ``precision`` raise the ladder triggers

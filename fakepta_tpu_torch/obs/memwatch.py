@@ -9,8 +9,9 @@ Two views of device memory, both feeding ``RunReport.memory``:
   allocator reports only its current use; PyTorch's caching allocator
   keeps the peak itself (``torch.cuda.reset_peak_memory_stats`` at
   ``start``, ``torch.cuda.max_memory_allocated`` at ``stop``), so no thread
-  is needed and nothing between two samples is missed. A mesh of host
-  devices reports nothing.
+  is needed and nothing between two samples is missed. ``stop`` publishes
+  the peak as the live ``obs.peak_hbm_bytes`` gauge of
+  :mod:`.telemetry`. A mesh of host devices reports nothing.
 - :class:`PackedLedger`: the run loop's packed device outputs. The loop
   hands each chunk's packed tensor to :meth:`PackedLedger.track` as the
   step returns it; the ledger keeps weak references only, so a tensor
@@ -27,6 +28,8 @@ import weakref
 from typing import Dict
 
 import torch
+
+from . import telemetry
 
 # allocator keys kept, max-aggregated over the mesh's devices (the JAX
 # package's names, so the reports compare)
@@ -79,6 +82,10 @@ class HbmSampler:
         out = local_device_stats(self.devices)
         if out:
             out["hbm_samples"] = len(self.devices)
+            # the live watermark for the telemetry plane (the hbm_watermark
+            # alert rule reads it)
+            telemetry.publish("obs.peak_hbm_bytes",
+                              int(out.get("peak_bytes_in_use", 0)))
         return out
 
 

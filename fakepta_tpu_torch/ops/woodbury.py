@@ -176,18 +176,20 @@ def pad_epoch_parts(parts: dict, num_epochs: int) -> dict:
         if num_epochs < have:
             raise ValueError(f"epoch capacity cannot shrink: parts[{key!r}] "
                              f"has {have} epochs, requested {num_epochs}")
-        pad = [0, 0] * (x.dim() - 1 - axis) + [0, num_epochs - have]
-        out[key] = torch.nn.functional.pad(x, pad)
+        if num_epochs > have:            # at capacity: no copy
+            pad = [0, 0] * (x.dim() - 1 - axis) + [0, num_epochs - have]
+            out[key] = torch.nn.functional.pad(x, pad)
     return out
 
 
 def append_parts(parts: dict, tmat, sigma2, mask, r=None, epoch_idx=None,
-                 ecorr_amp=None, num_epochs: int = 0) -> dict:
+                 ecorr_amp=None, num_epochs: int = 0, onehot=None) -> dict:
     """Additive update of summed moment parts with a block of new TOAs on
     the same frozen basis grid: the block's parts, added (the epoch arrays
     zero-padded to ``max(num_epochs, existing)`` first). A residual dict
-    (``"d0" in parts``) requires ``r``; a fixed dict forbids it. Returns a
-    new dict."""
+    (``"d0" in parts``) requires ``r``; a fixed dict forbids it.
+    ``onehot`` is the block's precomputed :func:`epoch_onehot` table
+    (shared by a fixed and a residual update). Returns a new dict."""
     is_res = "d0" in parts
     if is_res and r is None:
         raise ValueError("appending to a res_parts dict requires r")
@@ -200,10 +202,10 @@ def append_parts(parts: dict, tmat, sigma2, mask, r=None, epoch_idx=None,
             cap = max(cap, parts[key].shape[-1])
     if is_res:
         block = res_parts(r, tmat, sigma2, mask, epoch_idx, ecorr_amp,
-                          num_epochs=num_epochs)
+                          num_epochs=num_epochs, onehot=onehot)
     else:
         block = fixed_parts(tmat, sigma2, mask, epoch_idx, ecorr_amp,
-                            num_epochs=num_epochs)
+                            num_epochs=num_epochs, onehot=onehot)
     old = pad_epoch_parts(parts, cap) if cap else dict(parts)
     new = pad_epoch_parts(block, cap) if cap else block
     out = {k: old[k] + new[k] if k in new else old[k] for k in old}

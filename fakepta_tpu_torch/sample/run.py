@@ -42,8 +42,9 @@ carry.
 Not ported yet (ROADMAP Queue 1 item 11b): ``run(eventlog=...)`` and
 ``run(tuned=True)`` raise ``NotImplementedError``, as the engine's do;
 ``warm_start()`` (ahead-of-time compilation into XLA's cache, which the
-port has no counterpart of) raises as well; and the JAX run's telemetry
-publish of ``sample.segments_done`` waits for ``obs/telemetry``.
+port has no counterpart of) raises as well. Each drained segment
+publishes its count as the live ``sample.segments_done`` gauge of
+:mod:`..obs.telemetry`, as the JAX run does.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ from ..device import DeviceLike
 from ..infer import model as infer_model
 from ..obs import flightrec
 from ..obs import metrics as obs_metrics
+from ..obs import telemetry
 from ..obs.memwatch import HbmSampler, PackedLedger
 from ..obs.report import RunReport
 from ..obs.timing import now
@@ -1029,6 +1031,8 @@ class SamplingRun:
                              total_steps)
                 flightrec.note("segment_drained", idx=idx)
                 collector.count("sample.segments_done")
+                # live progress gauge for the telemetry plane
+                telemetry.publish("sample.segments_done", int(idx) + 1)
 
             try:
                 pipeline_mod.run_drain_with_retry(

@@ -5,10 +5,11 @@ code.
 The entries of the JAX package's stdlib-only table that the port's engine
 and sampler read, value for value; no imports beyond the stdlib. One name
 reads differently: :data:`DEFAULT_PATH` names the port's ``"einsum"``
-path, the counterpart of the JAX package's ``"xla"`` path. The serve,
-fleet, stream, telemetry, gateway and tuner knobs land with the modules
-that read them, and the rest of the tuner (fingerprint, search, store)
-with them (ROADMAP Queue 1 item 11b).
+path, the counterpart of the JAX package's ``"xla"`` path. The stream
+and telemetry knobs are here with the modules that read them
+(:mod:`..stream`, :mod:`..obs.telemetry`); the serve, fleet, gateway and
+tuner knobs land with their modules, and the rest of the tuner
+(fingerprint, search, store) with them (ROADMAP Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -29,6 +30,58 @@ DEFAULT_PIPELINE_DEPTH = 2
 #: EnsembleSimulator keeps "fused" as its constructor default (bf16
 #: operands), a divergence ROADMAP Queue 3 records.
 DEFAULT_PATH = "einsum"
+
+# --- streaming dispatch knobs (stream/) ------------------------------------
+
+#: append-block bucket ladder: an appended TOA block pads up to the
+#: smallest rung >= its width, so every single-epoch append of a P-pulsar
+#: array (a handful of TOAs per pulsar) builds ONE small-block kernel and
+#: reuses it forever. The same rungs size the ECORR epoch capacity and
+#: the host store
+STREAM_BLOCK_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)
+
+#: growth ratio past the top ladder rung AND for the stream's storage /
+#: ECORR-epoch capacity rungs: capacities only ever move to the next
+#: power-of-ratio rung, so a stream that doubles its data rebuilds
+#: O(log growth) times total, not O(appends)
+STREAM_GROWTH_RATIO = 2
+
+#: posterior-refresh scheduling (stream/refresh.py RefreshPolicy): a
+#: refresh is due after this many appended TOA blocks since the last one...
+REFRESH_EVERY_APPENDS = 4
+
+#: ...or earlier, when the rolling detection statistic moved this much in
+#: |SNR| since the last refresh (0 disables the SNR trigger; streams
+#: without a ``watch`` statistic fall back to the epoch-count trigger)
+REFRESH_MIN_SNR_GAIN = 0.5
+
+#: per-frequency incremental refresh (stream/refresh.py
+#: FactorizedRefresher): a lane counts as TOUCHED by an append when its
+#: data-moment block moved by more than this relative amount
+#: (``||dT_new - dT_old||_F / ||dT_old||_F`` over the lane's columns)
+FS_TOUCH_TOL = 1e-3
+
+# --- telemetry-plane knobs (obs/telemetry.py) -------------------------------
+
+#: bounded snapshot ring per replica publisher (and per replica inside the
+#: aggregator)
+TELEMETRY_RING_SIZE = 64
+
+#: rollup window (seconds of per-replica snapshot history) used for rates
+#: (qps) and the append-latency regression baseline
+TELEMETRY_WINDOW_S = 30.0
+
+#: alert thresholds: p99 request latency over SLO, consecutive heartbeat
+#: misses, append-latency regression multiple over the window baseline,
+#: and the peak device-memory watermark fraction of the per-device budget
+ALERT_P99_SLO_MS = 2000.0
+ALERT_HEARTBEAT_MISS_STREAK = 3
+ALERT_APPEND_REGRESSION_X = 3.0
+ALERT_HBM_WATERMARK_FRAC = 0.9
+
+#: per-device working-set budget when the backend exposes no memory limit
+#: (the hbm_watermark alert's default denominator)
+DEFAULT_BYTES_BUDGET = 2 << 30
 
 # --- sampler knobs (sample/) -----------------------------------------------
 

@@ -1335,3 +1335,136 @@ def test_sampler_reruns_meshes_and_depths_bit_identical(cuda):
         assert np.array_equal(out["theta"], ref["theta"])
         assert out["diag"]["accept_rate_by_temp"] == \
             ref["diag"]["accept_rate_by_temp"]
+
+
+def _stream_blocks(npsr, tspan, seed=5):
+    """Three ragged ECORR blocks of absolute-second TOAs (host float64)."""
+    rng = np.random.default_rng(seed)
+    t_all = np.sort(rng.uniform(0.0, 0.95 * tspan, (npsr, 30)), axis=1)
+    out = []
+    for lo, w in ((0, 12), (12, 10), (22, 8)):
+        out.append(dict(
+            toas=t_all[:, lo:lo + w],
+            residuals=rng.normal(0.0, 1e-7, (npsr, w)),
+            sigma2=(1e-7 + rng.uniform(0.0, 5e-8, (npsr, w))) ** 2,
+            ecorr_amp=np.abs(rng.normal(3e-7, 1e-7, (npsr, w))),
+            counts=rng.integers(w // 2, w + 1, npsr)))
+    return out
+
+
+@pytest.mark.cuda
+def test_stream_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A float64 stream on the card (its default device): moments within
+    1e-10 of the CPU port's on the same blocks (relative to each array's
+    max), the rolling OS within 1e-9, append against restage within 1e-8,
+    steady appends building nothing with flat live bytes, a rerun
+    and a checkpoint resume bit-identical, and the memory sampler
+    publishing its peak."""
+    from fakepta_tpu_torch import constants as const
+    from fakepta_tpu_torch.obs import memwatch, telemetry
+    from fakepta_tpu_torch.stream import StreamState, default_stream_model
+
+    tspan = 3.0 * const.yr
+    template = PulsarBatch.synthetic(npsr=8, ntoa=64, tspan_years=3.0,
+                                     n_red=6, n_dm=6, seed=0,
+                                     dtype=torch.float64, device="cpu")
+    model = default_stream_model(nbin=4)
+    blocks = _stream_blocks(8, tspan)
+    kw = dict(ecorr_dt=2.0e6, watch="hd")
+
+    def drive(stream, upto=None):
+        return [stream.append(**b) for b in blocks[:upto]]
+
+    card = StreamState(template, model, **kw)
+    assert card.device.type == "cuda"
+    infos = drive(card)
+    cpu = StreamState(template, model, device="cpu", **kw)
+    cinfos = drive(cpu)
+
+    def rel(a, b):
+        a, b = a.cpu(), b.cpu()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+    for a, b in zip(card.moments(), cpu.moments()):
+        assert a.device.type == "cuda" and rel(a, b) <= 1e-10
+    for a, b in zip(card.moments(), card.restage_moments()):
+        assert rel(a, b) <= 1e-8
+    for a, b in zip(infos, cinfos):
+        for key in ("amp2", "snr"):
+            assert abs(a[key] - b[key]) <= 1e-9 * abs(b[key])
+    # a steady append (the last block again, at rungs already built)
+    # builds no kernel and leaves the bytes live on the card flat (as
+    # requested: the allocator's rounded block sizes vary with its cache)
+    steady = StreamState(template, model, **kw)
+    drive(steady)
+    built, alloc = steady.compiles, []
+    for _ in range(3):
+        steady.append(**blocks[-1])
+        alloc.append(torch.cuda.memory_stats(cuda)[
+            "requested_bytes.all.current"])
+    assert steady.compiles == built and len(set(alloc)) == 1
+    again = StreamState(template, model, **kw)
+    drive(again)
+    assert all(torch.equal(a, b)
+               for a, b in zip(again.moments(), card.moments()))
+    path = tmp_path / "stream.ckpt"
+    first = StreamState(template, model, checkpoint=path, **kw)
+    drive(first, 2)
+    resumed = StreamState(template, model, checkpoint=path, **kw)
+    assert resumed.appends == 2
+    assert all(torch.equal(a, b)
+               for a, b in zip(resumed.moments(), first.moments()))
+    telemetry.clear_live_gauges()
+    try:
+        sampler = memwatch.HbmSampler([cuda])
+        sampler.start()
+        peak = sampler.stop()["peak_bytes_in_use"]
+        assert telemetry.live_gauges()["obs.peak_hbm_bytes"] == peak > 0
+    finally:
+        telemetry.clear_live_gauges()
+
+
+@pytest.mark.cuda
+def test_stream_refreshers_on_the_card(cuda):
+    """One PosteriorRefresher cycle (float64 chains) and one
+    FactorizedRefresher cycle on the card: finite, promoted through an
+    open gate, no rebuilds."""
+    from fakepta_tpu_torch import constants as const
+    from fakepta_tpu_torch.infer import (ComponentSpec, FreeParam,
+                                         LikelihoodSpec)
+    from fakepta_tpu_torch.sample import SampleSpec
+    from fakepta_tpu_torch.stream import (FactorizedRefresher,
+                                          PosteriorRefresher, StreamState,
+                                          default_stream_model)
+
+    tspan = 3.0 * const.yr
+    template = PulsarBatch.synthetic(npsr=4, ntoa=48, tspan_years=3.0,
+                                     n_red=3, n_dm=3, seed=3,
+                                     dtype=torch.float64, device="cpu")
+    model = default_stream_model(nbin=3)
+    stream = StreamState(template, model, ecorr_dt=2.0e6, watch="hd")
+    for b in _stream_blocks(4, tspan):
+        stream.append(**b)
+    ref = PosteriorRefresher(stream, SampleSpec(model=model, n_chains=2,
+                                                warmup=4, n_leapfrog=2),
+                             rhat_gate=1e9)
+    info = ref.refresh(8, seed=1, segment=4)
+    assert info["promoted"] and np.isfinite(ref.posterior["theta"]).all()
+    assert ref.posterior["report"].meta["platform"] == "gpu"
+    fs_model = LikelihoodSpec(components=(
+        ComponentSpec(target="red", spectrum="batch"),
+        ComponentSpec(target="curn", nbin=2, spectrum="free_spectrum",
+                      free=(FreeParam("log10_rho", (-9.0, -5.0),
+                                      per_bin=True),))))
+    fstream = StreamState(template, fs_model)
+    rng = np.random.default_rng(0)
+    t0 = np.sort(rng.uniform(0, 0.9 * tspan, (4, 12)), axis=1)
+    fstream.append(t0, rng.normal(0, 1e-7, (4, 12)),
+                   sigma2=np.full((4, 12), 1e-14))
+    fref = FactorizedRefresher(fstream, SampleSpec(
+        model=fs_model, n_chains=2, warmup=4, n_leapfrog=2), lane_bins=1,
+        rhat_gate=1e9)
+    out = fref.refresh(8, seed=1, segment=4)
+    assert out["promoted"] and out["fs_lanes_touched"] == 2
+    assert out["fs_recompiles"] == 0
+    assert np.isfinite(fref.posterior["theta"]).all()

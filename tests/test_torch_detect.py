@@ -403,3 +403,50 @@ def test_cli_configuration_errors_exit_2(capsys):
     with pytest.raises(SystemExit):
         port_cli.main(["run", "--orf", "curn"])
     assert port_cli.build_parser().parse_args(["run"]).device == "cuda"
+
+
+def test_cli_meshes_every_device(capsys, monkeypatch):
+    """The CLI runs on a mesh of every visible card (``--device cuda``),
+    as the JAX CLI meshes every device, or of the CPU (``--device cpu``);
+    its summary equals a one-device DetectionRun on the same seed (the
+    streams do not depend on the mesh shape)."""
+    from fakepta_tpu_torch import spectrum as spectrum_lib
+    from fakepta_tpu_torch.parallel import mesh as mesh_mod
+    from fakepta_tpu_torch.parallel.montecarlo import GWBConfig
+
+    args = ["run", "--npsr", "6", "--ntoa", "48", "--nreal", "8",
+            "--chunk", "4", "--orf", "hd", "monopole", "--seed", "3"]
+    seen = []
+    real_make_mesh = mesh_mod.make_mesh
+
+    def spy(devices=None, **kw):
+        seen.append([str(d) for d in devices])
+        return real_make_mesh(devices, **kw)
+
+    monkeypatch.setattr(mesh_mod, "make_mesh", spy)
+    assert port_cli.main(args + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert seen == [["cpu"]]
+    batch = PulsarBatch.synthetic(npsr=6, ntoa=48, tspan_years=15.0,
+                                  toaerr=1e-7, n_red=30, n_dm=30, seed=0,
+                                  device="cpu")
+    f = np.arange(1, 31) / float(batch.tspan_common)
+    psd = np.asarray(spectrum_lib.powerlaw(f, log10_A=-14.0, gamma=13 / 3))
+    study = DetectionRun(batch, gwb=GWBConfig(psd=psd, orf="hd"),
+                         os=OSSpec(orf=("hd", "monopole"), null=True),
+                         device="cpu")
+    want = study.run(8, seed=3, chunk=4)["summary"]
+    assert {k: got[k] for k in want} == want
+    # with cards, every one of them on the realization axis
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+
+    def stop(devices=None, **kw):
+        seen.append([str(d) for d in devices])
+        raise ValueError("stop before touching a card")
+
+    monkeypatch.setattr(mesh_mod, "make_mesh", stop)
+    assert port_cli.main(args) == 2
+    assert seen[-1] == ["cuda:0", "cuda:1", "cuda:2"]
+    assert port_cli.main(args + ["--device", "cuda:1"]) == 2
+    assert seen[-1] == ["cuda:1"]

@@ -207,12 +207,19 @@ def test_as_policy_matches_jax():
 
 
 def test_tune_defaults_equal_jax_value_for_value():
-    """Every constant of the port's knob table (the entries its engine and
-    sampler read) equals the JAX package's; the one mapped name:
-    DEFAULT_PATH, the JAX "xla" path being the port's "einsum" path."""
+    """Every constant of the port's knob table (the entries its engine,
+    sampler, stream and telemetry plane read) equals the JAX package's;
+    the one mapped name: DEFAULT_PATH, the JAX "xla" path being the port's
+    "einsum" path."""
     names = sorted(n for n in vars(defaults) if n.isupper())
-    assert names == ["DEFAULT_CHUNK", "DEFAULT_PATH",
-                     "DEFAULT_PIPELINE_DEPTH", "FS_LANE_BINS"]
+    assert names == [
+        "ALERT_APPEND_REGRESSION_X", "ALERT_HBM_WATERMARK_FRAC",
+        "ALERT_HEARTBEAT_MISS_STREAK", "ALERT_P99_SLO_MS",
+        "DEFAULT_BYTES_BUDGET", "DEFAULT_CHUNK", "DEFAULT_PATH",
+        "DEFAULT_PIPELINE_DEPTH", "FS_LANE_BINS", "FS_TOUCH_TOL",
+        "REFRESH_EVERY_APPENDS", "REFRESH_MIN_SNR_GAIN",
+        "STREAM_BLOCK_BUCKETS", "STREAM_GROWTH_RATIO",
+        "TELEMETRY_RING_SIZE", "TELEMETRY_WINDOW_S"]
     for n in names:
         want = getattr(jdefaults, n)
         if n == "DEFAULT_PATH":

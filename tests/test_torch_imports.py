@@ -134,6 +134,59 @@ def test_faults_and_sample_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.stream", "fakepta_tpu_torch.stream.state",
+    "fakepta_tpu_torch.stream.refresh", "fakepta_tpu_torch.stream.bench",
+    "fakepta_tpu_torch.detect.streaming", "fakepta_tpu_torch.obs.telemetry"])
+def test_stream_modules_are_checked(module):
+    """The streaming lane's modules and the telemetry plane (a copy of a
+    pure-Python module of the JAX package) are among the modules the
+    checks below import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_stream_entry_points_default_to_the_card():
+    """StreamState, run_append_ab and the refreshers' samplers run on the
+    card unless the CPU is asked for; the package exposes the JAX names."""
+    import fakepta_tpu_torch.stream as stream_pkg
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.detect import StreamingOS
+    from fakepta_tpu_torch.stream import (PosteriorRefresher, StreamState,
+                                          default_stream_model)
+    from fakepta_tpu_torch.stream.bench import run_append_ab
+
+    assert stream_pkg.__all__ == [
+        "STREAM_SCHEMA", "FactorizedRefresher", "PosteriorRefresher",
+        "RefreshPolicy", "StreamCheckpoint", "StreamState",
+        "default_stream_model"]
+    assert StreamingOS.__module__ == "fakepta_tpu_torch.detect.streaming"
+    tpl = PulsarBatch.synthetic(npsr=2, ntoa=16, n_red=2, n_dm=2,
+                                dtype=torch.float64, device="cpu")
+    model = default_stream_model(nbin=2)
+    t = np.array([[1e6, 2e6], [1.5e6, 2.5e6]])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            StreamState(tpl, model)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_append_ab(npsr=2, ntoa=16, n_red=2, n_dm=2, nbin=2,
+                          history=8)
+        cpu_stream = StreamState(tpl, model, device="cpu")
+        cpu_stream.append(t, np.zeros((2, 2)))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            PosteriorRefresher(cpu_stream).refresh(2)
+    stream = StreamState(tpl, model, device="cpu")
+    assert stream.device.type == "cpu"
+    info = stream.append(t, np.zeros((2, 2)))
+    assert info["n_toas"] == 4 and stream.moments()[0].device.type == "cpu"
+    row = run_append_ab(npsr=2, ntoa=16, n_red=2, n_dm=2, nbin=2,
+                        history=8, device="cpu", repeats=1)
+    assert row["stream_recompiles"] == 0 and row["stream_toas"] == 2 * 24
+
+
 def test_sample_entry_points_default_to_the_card():
     """SamplingRun, FactorizedRun and the sampler CLI run on the card
     unless the CPU is asked for."""
