@@ -240,7 +240,31 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    copies and the device's idle share). No
    kernel of #1-#4 is on this path (the stream is library linear algebra,
    as the JAX stream is XLA outside any Pallas kernel).
-15. ``profile`` (only when asked for): per statistic path, the device time
+15. ``multiproc``: the flagship on meshes that span processes
+   (:func:`fakepta_tpu_torch.parallel.mesh.initialize_multihost`, one rank
+   a subprocess of this script joined through a FileStore, each with a
+   deadline): two ranks on cuda:0 under gloo by default; with
+   ``--mesh-cards N`` >= 2, groups of 1, 2 and N ranks, one card each under
+   NCCL. On the real N x psr 1 and real 1 x psr N meshes, ``run(2048,
+   chunk=1024)`` on every path (einsum, fused, fused with
+   ``pallas_mxu_binning=False``, mega) at f32 and bf16 (the 1- and 2-rank
+   timing groups: fused f32 only): every rank's result bit-identical to
+   rank 0's and to the one-process mesh of the same shape (``["cuda:0"] *
+   N``, run by rank 0), each rank's kernel launched once per chunk
+   (counts zeroed just before, read just after) and the run's report
+   carrying its rank, the rank count and the backend; realizations/s per
+   rank count beside the one-process mesh's. Rank 0 holds #1-#4 at its
+   per-rank shapes against their plain versions. Then the OS lane with the
+   null stream and the likelihood lane on the psr mesh (the likelihood
+   lane on the real mesh too), bit-identical to the one-process mesh;
+   checkpoint files on rank 0 only, deleted at the end; the psr fused
+   run's event-log shards merged by ``obs.trace.build_trace`` into pid
+   lanes {0..N-1}, each with dispatch spans; a ``SamplingRun`` of the
+   flagship model (8 chains x 2 temps, 8 steps: the cut) on both meshes,
+   chains bit-identical to the one-process run's; and per rank one
+   einsum chunk on the psr mesh, its host enqueue against the time until
+   the card is done and the card's traced busy time.
+16. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -3804,6 +3828,502 @@ def phase_stream(report: dict) -> None:
     report["stream"] = out
 
 
+# -- multiproc: one rank per card (or per share of one card) ----------------
+
+#: realizations per multi-process run (two chunks), the deadline of a rank
+#: group, and the sampler's cut (the flagship's widths, fewer chains and
+#: steps)
+MP_NREAL = 2048
+MP_DEADLINE_S = 420
+MP_PATHS = ("einsum", "fused", "fused-vpu", "mega")
+MP_SAMPLE_SPEC = dict(n_chains=8, n_temps=2, n_leapfrog=4, warmup=0,
+                      thin=2)
+MP_SAMPLE_STEPS = 8
+MP_SENTINEL = "MULTIPROC_INIT_OK"
+
+
+def digest(*arrays) -> str:
+    """sha256 of the arrays' bytes: equal digests are equal bits."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(np.asarray(a))
+        h.update(str(a.dtype).encode() + str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def batch_digest(batch) -> str:
+    """:func:`digest` over every field of a PulsarBatch."""
+    host = batch.numpy()
+    return digest(*(host[k] for k in sorted(host)))
+
+
+def out_digest(out: dict) -> str:
+    parts = [out["curves"], out["autos"]]
+    if "os" in out:
+        for orf in out["os"]["orfs"]:
+            st = out["os"]["stats"][orf]
+            parts += [st[k] for k in ("amp2", "null_amp2") if k in st]
+    if "lnlike" in out:
+        parts.append(out["lnlike"]["lnl"])
+    return digest(*parts)
+
+
+def mp_rank(rank: int, n: int, run_dir: str, shared: bool,
+            full: bool) -> int:
+    """One rank of the multiproc phase (``chip_smoke.py --mp-rank R``): it
+    joins the group through a FileStore in ``run_dir``, drives the flagship
+    on its multi-process meshes (real n x psr 1 and real 1 x psr n) and
+    prints one JSON line; rank 0 also runs each one-process mesh of the
+    same shape on cuda:0 and, with ``full``, holds #1-#4 at its per-rank
+    shapes against their plain versions."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from fakepta_tpu_torch.detect import OSSpec
+    from fakepta_tpu_torch.infer import InferSpec, theta_grid
+    from fakepta_tpu_torch.ops import binned_corr as bc
+    from fakepta_tpu_torch.ops import megakernel as mk
+    from fakepta_tpu_torch.parallel import mesh as mesh_lib
+    from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
+                                                       _chunk_keys)
+    from fakepta_tpu_torch.scenarios import registry
+    from fakepta_tpu_torch.utils import rng
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    dev = torch.device("cuda", 0 if shared else rank)
+    torch.cuda.set_device(dev)
+    guard_runs()
+    mesh_lib.initialize_multihost(f"file://{run_dir}/store", n, rank,
+                                  local_devices=[dev], timeout_s=300.0)
+    print(MP_SENTINEL, file=sys.stderr, flush=True)
+    res = {"rank": rank, "ranks": n, "backend": mesh_lib.backend(),
+           "device": str(dev), "runs": {}, "ref": {}, "kernels": {}}
+    entries = mesh_lib.global_devices()
+    meshes = {"real": mesh_lib.make_mesh(entries),
+              "psr": mesh_lib.make_mesh(entries, psr_shards=n)}
+    ones = {"real": mesh_lib.make_mesh(["cuda:0"] * n),
+            "psr": mesh_lib.make_mesh(["cuda:0"] * n, psr_shards=n)}
+    scn = registry.get("flagship_100")
+    parts = scn.batch_parts(device=str(dev))
+    batch, P, T = parts[0], parts[0].npsr, parts[0].max_toa
+    res["batch_digest"] = batch_digest(batch)
+    paths = MP_PATHS if full else ("fused",)
+    precs = ("f32", "bf16") if full else ("f32",)
+
+    def sim_on(mesh, path):
+        return EnsembleSimulator(batch, stat_path=path.split("-")[0],
+                                 mesh=mesh,
+                                 pallas_mxu_binning=path != "fused-vpu",
+                                 **scn.sim_kwargs(*parts))
+
+    def sync_barrier():
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    if full and rank == 0:
+        # #1-#4 at this rank's shapes (its psr shard's rows against the
+        # gathered array; its real block of the whole array), against
+        # their plain versions; launches here are not counted
+        sim = sim_on(meshes["psr"], "mega")
+        sh = sim._shards[0][0]
+        keys = _chunk_keys(rng.key(7, device=dev), 0, CHUNK)
+        with torch.no_grad():
+            full_res = sim._residuals(keys)
+            loc = sim._residuals(keys, shard=sh)
+            base, coefs = sim._residuals(keys, split_gp=True)
+            lb, lc = sim._residuals(keys, split_gp=True, shard=sh)
+        w, nb = sim._stat_weights, sim.nbins
+        stages, times, scales = sim._mega_tables
+        r_real = CHUNK // n
+        for prec in ("f32", "bf16"):
+            cast = (lambda x: x) if prec == "f32" else (
+                lambda x: x.to(torch.bfloat16))
+            holds = {
+                f"binned_correlation/{shape_tag(P // n, P, T)}": (
+                    bc.binned_correlation, bc.binned_correlation_plain,
+                    (loc, full_res, sh.weights, nb), {}),
+                f"binned_correlation_vpu/{shape_tag(P // n, P, T)}": (
+                    bc.binned_correlation_vpu, bc.binned_correlation_plain,
+                    (loc, full_res, sh.weights, nb), {}),
+                f"chunk_stats/{shape_tag(P, P, T)} R={r_real}": (
+                    mk.chunk_stats, mk.chunk_stats_plain,
+                    (cast(base[:r_real]), cast(coefs[:r_real]), times,
+                     scales, w), dict(stages=stages, nbins=nb)),
+                f"chunk_stats_sharded/{shape_tag(P // n, P, T)}": (
+                    mk.chunk_stats, mk.chunk_stats_plain,
+                    (cast(base), cast(coefs), times, scales, sh.weights),
+                    dict(stages=stages, nbins=nb, base_local=cast(lb),
+                         coef_local=cast(lc), times_local=sh.times,
+                         scales_local=sh.scales))}
+            for what, (kern, plain, args, kw) in holds.items():
+                got = kern(*args, precision=prec, **kw)
+                want = plain(*args, precision=prec, **kw)
+                torch.cuda.synchronize(dev)
+                row = compare(got, want, prec, f"multiproc rank 0 {what} "
+                              f"vs plain")
+                res["kernels"][f"{what}/{prec}"] = row["max_abs_err"]
+        del full_res, loc, base, coefs, lb, lc, sim
+
+    # the main path: each mesh, path and precision; counts zeroed just
+    # before the timed run and read just after
+    nchunks = -(-MP_NREAL // CHUNK)
+    for mname, mesh in meshes.items():
+        for path in paths:
+            sim = sim_on(mesh, path)
+            for prec in precs:
+                sim.run(CHUNK, seed=99, chunk=CHUNK, precision=prec)
+                extra = {}
+                if mname == "psr" and path == "fused" and prec == "f32":
+                    extra = {"eventlog": os.path.join(run_dir, "shards")}
+                sync_barrier()
+                reset_counts()
+                t0 = time.perf_counter()
+                out = sim.run(MP_NREAL, seed=5, chunk=CHUNK, precision=prec,
+                              **extra)
+                sync_barrier()
+                dt = time.perf_counter() - t0
+                moved = {k: v for k, v in counts().items() if v}
+                kern = (PATH_KERNEL if mname == "real"
+                        else SHARDED_KERNEL).get(path)
+                want = {kern: nchunks} if kern else {}
+                if moved != want:
+                    raise AssertionError(f"multiproc rank {rank} {mname} "
+                                         f"{path} [{prec}] launched {moved},"
+                                         f" expected {want}")
+                if not np.isfinite(out["curves"]).all() or \
+                        out["curves"].shape != (MP_NREAL, 15):
+                    raise AssertionError(f"multiproc {mname} {path}: "
+                                         f"curves {out['curves'].shape}")
+                meta = out["report"].meta
+                res["runs"][f"{mname}/{path}/{prec}"] = {
+                    "digest": out_digest(out),
+                    "realizations_per_s": MP_NREAL / dt, "wall_s": dt,
+                    "launches": moved,
+                    "shape": (shape_tag(P, P, T) if mname == "real"
+                              else shape_tag(P // n, P, T)),
+                    "process_index": meta["process_index"],
+                    "process_count": meta["process_count"],
+                    "backend": meta["backend"]}
+                if rank == 0:
+                    ref_sim = sim_on(ones[mname], path)
+                    ref_sim.run(CHUNK, seed=99, chunk=CHUNK, precision=prec)
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    ref = ref_sim.run(MP_NREAL, seed=5, chunk=CHUNK,
+                                      precision=prec)
+                    torch.cuda.synchronize(dev)
+                    res["ref"][f"{mname}/{path}/{prec}"] = {
+                        "digest": out_digest(ref),
+                        "realizations_per_s": MP_NREAL / (
+                            time.perf_counter() - t0)}
+                    del ref_sim
+            del sim
+
+    if full:
+        # the OS lane with its null stream and the likelihood lane, on the
+        # psr mesh, where the pulsar gather crosses ranks
+        theta = theta_grid(flagship_model(), (2, 2))
+        lanes = {"os": dict(os=OSSpec(orf=("hd", "monopole"), null=True)),
+                 "lnlike": dict(lnlike=InferSpec(model=flagship_model(),
+                                                 theta=theta))}
+        for lname, kw in lanes.items():
+            for mname in ("psr",) if lname == "os" else ("psr", "real"):
+                sim = sim_on(meshes[mname], "fused")
+                reset_counts()
+                out = sim.run(MP_NREAL, seed=5, chunk=CHUNK,
+                              precision="f32", **kw)
+                moved = {k: v for k, v in counts().items() if v}
+                res["runs"][f"{mname}/{lname}/f32"] = {
+                    "digest": out_digest(out), "launches": moved,
+                    "shape": (shape_tag(P // n, P, T) if mname == "psr"
+                              else shape_tag(P, P, T))}
+                if rank == 0:
+                    ref = sim_on(ones[mname], "fused").run(
+                        MP_NREAL, seed=5, chunk=CHUNK, precision="f32", **kw)
+                    res["ref"][f"{mname}/{lname}/f32"] = {
+                        "digest": out_digest(ref)}
+                del sim
+                dist.barrier()
+
+        # checkpoints: rank 0 alone appends (each rank's own directory,
+        # listed after every chunk) and deletes
+        sim = sim_on(meshes["psr"], "fused")
+        mine = os.path.join(run_dir, f"ck{rank}")
+        os.makedirs(mine)
+        seen = []
+        sim.run(MP_NREAL, seed=5, chunk=CHUNK, precision="f32",
+                checkpoint=os.path.join(mine, "mc"),
+                progress=lambda d, t: seen.append(sorted(os.listdir(mine))))
+        res["ckpt_files_mid_run"] = seen
+        res["ckpt_files_after"] = sorted(os.listdir(mine))
+        del sim
+
+        # the sampler: chains over 'real' across ranks, then the pulsar
+        # rows over 'psr'; every study starts its Laplace fit from one
+        # single-card fit, so the one-process studies see the same fit
+        from fakepta_tpu_torch.sample import SampleSpec, SamplingRun
+        spec = SampleSpec(model=flagship_model(), **MP_SAMPLE_SPEC)
+        t0 = time.perf_counter()
+        warm = SamplingRun(batch, spec, device=str(dev),
+                           data_seed=1).laplace_state()
+        res["laplace_s"] = time.perf_counter() - t0
+        res["sample"], res["sample_ref"] = {}, {}
+        for mname, mesh in meshes.items():
+            study = SamplingRun(batch, spec, mesh=mesh, data_seed=1,
+                                warm_from=warm)
+            sync_barrier()
+            t0 = time.perf_counter()
+            got = study.run(MP_SAMPLE_STEPS, seed=1, segment=MP_SAMPLE_STEPS)
+            sync_barrier()
+            res["sample"][mname] = {"digest": digest(got["theta"]),
+                                    "wall_s": time.perf_counter() - t0,
+                                    "finite": bool(np.isfinite(
+                                        got["theta"]).all())}
+            if rank == 0:
+                ref = SamplingRun(batch, spec, mesh=ones[mname],
+                                  data_seed=1, warm_from=warm).run(
+                    MP_SAMPLE_STEPS, seed=1, segment=MP_SAMPLE_STEPS)
+                res["sample_ref"][mname] = {"digest": digest(ref["theta"])}
+            dist.barrier()
+
+    # one traced einsum chunk on the psr mesh: the host enqueue against
+    # the time until this rank's card is done, and its busy time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sim = sim_on(meshes["psr"], "einsum")
+    key = rng.key(13, device=dev)
+    with torch.no_grad():
+        sim.step(key, 0, CHUNK, "einsum", "f32")
+        enq, step = [], []
+        for i in range(3):
+            sync_barrier()
+            t0 = time.perf_counter()
+            sim.step(key, (i + 1) * CHUNK, CHUNK, "einsum", "f32")
+            enq.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize(dev)
+            step.append(1e3 * (time.perf_counter() - t0))
+        sync_barrier()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            sim.step(key, 0, CHUNK, "einsum", "f32")
+            torch.cuda.synchronize(dev)
+    # busy: the union of the card's kernel intervals (kernels on two
+    # streams, the collectives' beside the compute, overlap), with and
+    # without the collectives' own kernels, which wait on the other ranks
+    def union_ms(evs) -> float:
+        total, hi = 0.0, None
+        for lo, up in sorted((ev.time_range.start, ev.time_range.end)
+                             for ev in evs):
+            if hi is None or lo > hi:
+                total += up - lo
+                hi = up
+            elif up > hi:
+                total += up - hi
+                hi = up
+        return total / 1e3
+
+    on_card = [ev for ev in p.events() if ev.device_type == DeviceType.CUDA]
+    comm = [ev for ev in on_card if "nccl" in ev.name.lower()]
+    res["profile"] = {"enqueue_ms": sum(enq) / len(enq),
+                      "step_ms": sum(step) / len(step),
+                      "device_busy_ms": union_ms(on_card),
+                      "compute_busy_ms": union_ms(
+                          [ev for ev in on_card
+                           if "nccl" not in ev.name.lower()]),
+                      "collective_kernel_ms": sum(
+                          ev.time_range.elapsed_us() for ev in comm) / 1e3,
+                      "kernel_launches": len({
+                          (ev.name, ev.time_range.start)
+                          for ev in p.events()
+                          if ev.device_type == DeviceType.CUDA})}
+    dist.barrier()
+    print(json.dumps(res), flush=True)
+    mesh_lib.shutdown_multihost()
+    return 0
+
+
+def run_rank_group(n: int, shared: bool, full: bool, run_dir: str) -> list:
+    """Start ``n`` ranks of this script, wait for all of them within
+    MP_DEADLINE_S, and return their JSON results in rank order; a rank
+    that fails or passes the deadline fails the phase (every rank is
+    stopped)."""
+    os.makedirs(run_dir)
+    # every rank is on this host: the collectives' sockets use loopback
+    env = dict(os.environ)
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs, logs = [], []
+    for r in range(n):
+        out_p = os.path.join(run_dir, f"rank{r}.out")
+        err_p = os.path.join(run_dir, f"rank{r}.err")
+        logs.append((out_p, err_p))
+        with open(out_p, "w") as out_f, open(err_p, "w") as err_f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mp-rank",
+                 str(r), "--mp-ranks", str(n), "--mp-dir", run_dir]
+                + (["--mp-shared"] if shared else [])
+                + (["--mp-full"] if full else []),
+                stdout=out_f, stderr=err_f, cwd=HERE, env=env))
+    t_end = time.monotonic() + MP_DEADLINE_S
+    try:
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(t_end - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                with open(logs[r][1]) as fh:
+                    tail = "\n".join(fh.read().strip().splitlines()[-25:])
+                why = ("passed its deadline" if rc is None
+                       else f"exited {rc}")
+                raise AssertionError(f"multiproc: rank {r} of {n} {why}:\n"
+                                     f"{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for out_p, _ in logs:
+        with open(out_p) as fh:
+            results.append(json.loads(fh.read().strip().splitlines()[-1]))
+    return results
+
+
+def phase_multiproc(report: dict, cards: int = 1) -> None:
+    """The flagship on multi-process meshes (module docstring, phase 15):
+    two ranks on cuda:0 under gloo by default; with ``cards`` >= 2, groups
+    of 1, 2 and ``cards`` ranks, one card each (NCCL), the last with every
+    check."""
+    import torch
+    from fakepta_tpu_torch.obs.trace import (build_trace, load_reports,
+                                             validate_trace)
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+
+    if cards == 1:
+        groups = ((2, True, True),)
+    else:
+        groups = tuple((n, False, n == cards)
+                       for n in sorted({1, 2, cards}) if n <= cards)
+    root = os.path.join(HERE, "build", "multiproc",
+                        time.strftime("%Y%m%d-%H%M%S"))
+    from fakepta_tpu_torch.scenarios import registry
+    want_batch = batch_digest(
+        registry.get("flagship_100").batch_parts(device="cuda")[0])
+    rows = {}
+    for n, shared, full in groups:
+        run_dir = os.path.join(root, f"ranks{n}")
+        t0 = time.perf_counter()
+        got = run_rank_group(n, shared, full, run_dir)
+        wall = time.perf_counter() - t0
+        r0 = got[0]
+        if any(g["batch_digest"] != want_batch for g in got):
+            raise AssertionError(f"multiproc {n} ranks: a rank's flagship "
+                                 f"batch differs from the one-process one")
+        want_backend = "gloo" if shared else "nccl"
+        for r, g in enumerate(got):
+            for name, run in g["runs"].items():
+                if run["digest"] != r0["runs"][name]["digest"]:
+                    raise AssertionError(f"multiproc {n} ranks {name}: rank "
+                                         f"{r} differs from rank 0")
+                if "process_index" in run and (
+                        run["process_index"] != r
+                        or run["process_count"] != n
+                        or (n > 1 and run["backend"] != want_backend)):
+                    raise AssertionError(f"multiproc {name} rank {r}: meta "
+                                         f"{run}")
+                add_launches(report, run["shape"], run["launches"])
+        for name, ref in r0["ref"].items():
+            if r0["runs"][name]["digest"] != ref["digest"]:
+                raise AssertionError(f"multiproc {n} ranks {name}: not "
+                                     f"bit-identical to the one-process "
+                                     f"mesh of the same shape")
+        row = {"ranks": n, "backend": r0["backend"],
+               "cards": 1 if shared else n, "wall_s": wall,
+               "realizations_per_s": {
+                   k: [g["runs"][k].get("realizations_per_s")
+                       for g in got] for k in r0["runs"]
+                   if "realizations_per_s" in r0["runs"][k]},
+               "one_process_realizations_per_s": {
+                   k: v.get("realizations_per_s")
+                   for k, v in r0["ref"].items()},
+               "profile": [g["profile"] for g in got]}
+        for k, rate in row["realizations_per_s"].items():
+            one = row["one_process_realizations_per_s"].get(k)
+            print(f"multiproc {n} rank(s) ({row['backend']}, "
+                  f"{row['cards']} card(s)) {k}: {rate[0]:.1f} "
+                  f"realizations/s; one-process mesh of the same shape "
+                  f"{one if one is None else f'{one:.1f}'}", flush=True)
+        for r, prof in enumerate(row["profile"]):
+            print(f"multiproc {n} rank(s) rank {r}: einsum psr chunk host "
+                  f"enqueue {prof['enqueue_ms']:.3f} ms, step "
+                  f"{prof['step_ms']:.3f} ms, card busy (union of kernel "
+                  f"intervals) {prof['device_busy_ms']:.3f} ms, "
+                  f"{prof['compute_busy_ms']:.3f} ms without the "
+                  f"collectives' kernels ({prof['collective_kernel_ms']:.3f}"
+                  f" ms) over {prof['kernel_launches']} kernels",
+                  flush=True)
+        if full:
+            if not any(f for f in r0["ckpt_files_mid_run"]) or any(
+                    f for g in got[1:] for f in g["ckpt_files_mid_run"]):
+                raise AssertionError("multiproc: checkpoint files beyond "
+                                     "rank 0, or none on rank 0")
+            if any(g["ckpt_files_after"] for g in got):
+                raise AssertionError("multiproc: checkpoint not deleted")
+            shards = sorted(
+                os.path.join(run_dir, "shards", f)
+                for f in os.listdir(os.path.join(run_dir, "shards")))
+            trace = build_trace(load_reports(shards))
+            validate_trace(trace)
+            pids = {ev["pid"] for ev in trace["traceEvents"]}
+            if pids != set(range(n)):
+                raise AssertionError(f"multiproc trace pid lanes {pids}")
+            for pid in pids:
+                if not any(ev["pid"] == pid and ev["ph"] == "X"
+                           and ev["name"] == "dispatch"
+                           for ev in trace["traceEvents"]):
+                    raise AssertionError(f"multiproc trace: no dispatch "
+                                         f"span on pid {pid}")
+            for mname, s in r0["sample"].items():
+                if not s["finite"] or any(
+                        g["sample"][mname]["digest"] != s["digest"]
+                        for g in got) or \
+                        r0["sample_ref"][mname]["digest"] != s["digest"]:
+                    raise AssertionError(f"multiproc sampler {mname}: "
+                                         f"chains differ across ranks or "
+                                         f"from the one-process run")
+            row.update(kernels_max_abs_err=r0["kernels"],
+                       laplace_s=r0["laplace_s"],
+                       sample_wall_s={k: v["wall_s"]
+                                      for k, v in r0["sample"].items()},
+                       trace_pids=sorted(pids))
+            print(f"multiproc {n} ranks: every run bit-identical across "
+                  f"ranks and to the one-process mesh, checkpoint files on "
+                  f"rank 0 only, trace pid lanes {sorted(pids)}, sampler "
+                  f"chains bit-identical", flush=True)
+        rows[f"ranks{n}"] = row
+    if cards > 1:
+        # the same shapes on the one-process mesh over the same cards
+        for mname, shards in (("real", 1), ("psr", cards)):
+            sim = flagship_sim("fused", mesh=make_mesh(
+                [f"cuda:{i}" for i in range(cards)], psr_shards=shards))
+            sim.run(CHUNK, seed=99, chunk=CHUNK, precision="f32")
+            sync_all()
+            t0 = time.perf_counter()
+            sim.run(MP_NREAL, seed=5, chunk=CHUNK, precision="f32")
+            sync_all()
+            rate = MP_NREAL / (time.perf_counter() - t0)
+            rows[f"one_process_{cards}_cards/{mname}/fused/f32"] = rate
+            print(f"multiproc: one-process {cards}-card mesh {mname} fused "
+                  f"[f32] {rate:.1f} realizations/s", flush=True)
+            del sim
+        torch.cuda.empty_cache()
+    report["multiproc"] = rows
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -3948,14 +4468,25 @@ def main(argv=None) -> int:
                     default=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
-                             "sample", "stream"],
+                             "sample", "stream", "multiproc"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
-                             "sample", "stream", "profile"])
+                             "sample", "stream", "multiproc", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
-                    help="cards the mesh and profile phases' flagship "
-                         "meshes span (default 1: every shard on cuda:0)")
+                    help="cards the mesh, multiproc and profile phases' "
+                         "flagship meshes span (default 1: every shard, "
+                         "and both multiproc ranks, on cuda:0)")
+    # one rank of the multiproc phase (the phase starts them)
+    ap.add_argument("--mp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mp-ranks", type=int, default=2,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mp-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mp-shared", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mp-full", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -3964,6 +4495,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     import fakepta_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if args.mp_rank is not None:
+        return mp_rank(args.mp_rank, args.mp_ranks, args.mp_dir,
+                       args.mp_shared, args.mp_full)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3983,6 +4517,7 @@ def main(argv=None) -> int:
               "facade": phase_facade, "correlated": phase_correlated,
               "infer": phase_infer, "faults": phase_faults,
               "sample": phase_sample, "stream": phase_stream,
+              "multiproc": lambda r: phase_multiproc(r, args.mesh_cards),
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:

@@ -21,7 +21,10 @@ log10_ecorr) per pulsar and backend; the sampled weights and variances
 replace the batch's fixed ones, and every statistic path reads them the
 same way.
 
-Mesh (:mod:`.mesh`): one process drives every shard. The ``'real'`` axis
+Mesh (:mod:`.mesh`): one process drives every shard, or on a
+multi-process mesh (:func:`.mesh.initialize_multihost`) each rank drives
+the shards it owns, the gathers and psums cross ranks in shard order and
+each chunk's rows are gathered to every rank. The ``'real'`` axis
 splits each chunk's realizations into contiguous blocks; the ``'psr'`` axis
 gives each shard its rows of every per-pulsar field, built once at
 construction. A psr shard draws its own pulsars' noise, draws the full GWB
@@ -95,14 +98,16 @@ no run falls back to the kernels' plain einsum version) and a bf16
 certification failure re-dispatches at f32, each step counted, recorded
 and reported as the run's ``statistic_path`` / ``precision``.
 
-Not ported yet: multi-host meshes, the tuner and the event log: those
-``run`` options raise ``NotImplementedError`` when given.
+``run(eventlog=dir)`` writes each rank's report as an event-log shard
+(:mod:`..obs.trace` merges them). Not ported yet: the tuner, whose ``run``
+option raises ``NotImplementedError`` when given.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import pathlib
 import threading
 import warnings
 from typing import Callable, Optional, Sequence, Tuple, Union
@@ -130,8 +135,9 @@ from ..tune import defaults as tune_defaults
 from ..utils import rng
 from ..utils.io import EnsembleCheckpoint
 from . import pipeline
-from .mesh import (PSR_AXIS, REAL_AXIS, TOA_AXIS, Mesh, all_gather,
-                   make_mesh, psum)
+from .mesh import PSR_AXIS, REAL_AXIS, TOA_AXIS, Mesh
+from .mesh import backend as mesh_backend
+from .mesh import make_mesh, process_count, process_index
 
 #: realizations per chunk (the knob table, ..tune.defaults)
 DEFAULT_CHUNK = tune_defaults.DEFAULT_CHUNK
@@ -1094,14 +1100,41 @@ class _Shard:
         return self.batch.device
 
 
+class _RowComms:
+    """The collectives of one real row's entries (psr-major, as the row's
+    shard list): ``row`` over all of them, ``psr[t]`` over the psr shards
+    of toa window t, ``toa[s]`` over psr shard s's toa cells and ``heads``
+    over each psr shard's first cell."""
+
+    def __init__(self, mesh: Mesh, r: int):
+        n_psr, n_toa = mesh.shape[PSR_AXIS], mesh.shape[TOA_AXIS]
+        self.row = mesh.comm([(r, s, t) for s in range(n_psr)
+                              for t in range(n_toa)])
+        self.psr = [mesh.comm([(r, s, t) for s in range(n_psr)])
+                    for t in range(n_toa)]
+        self.toa = [mesh.comm([(r, s, t) for t in range(n_toa)])
+                    for s in range(n_psr)]
+        self.heads = self.psr[0]
+
+
+def _some(fn, *lists):
+    """``fn`` over the zipped entries whose first item is not None (a
+    rank's own shards), None elsewhere."""
+    return [None if xs[0] is None else fn(*xs) for xs in zip(*lists)]
+
+
 def _cat(parts, dim: int = 0):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
-def _sum_parts(parts, device) -> dict:
+def _sum_parts(parts, comm) -> dict:
     """Moment-part dicts (:mod:`..ops.woodbury`) of a psr shard's toa
-    cells, added key by key in toa order on ``device``."""
-    return {k: psum([p[k] for p in parts], device) for k in parts[0]}
+    cells (None where another rank owns the cell; this rank owns one at
+    least), added key by key in toa order over ``comm`` on this rank's
+    first cell's device."""
+    first = next(p for p in parts if p is not None)
+    return {k: comm.psum([None if p is None else p[k] for p in parts])
+            for k in first}
 
 
 def _lnl_point(compiled, mode: str, theta, moments, batch,
@@ -1224,7 +1257,8 @@ class EnsembleSimulator:
                         f"it (or, if the width match is coincidental, e.g. "
                         f"a bin count equal to max_toa, rename this check's "
                         f"exemptions)")
-        self.device = mesh.devices.flat[0]
+        # this rank's first entry: the whole-array state and the results
+        self.device = mesh.local_device
         unknown = sorted(set(include) - set(STAGES))
         if unknown:
             raise ValueError(f"unknown stages {unknown}; known: {STAGES}")
@@ -1573,23 +1607,30 @@ class EnsembleSimulator:
 
     def _build_shards(self):
         """Per real row, its shard states in (psr, toa) order (psr index
-        major: the psr shards of toa window t are ``row[t::n_toa]``); a
-        (psr index, toa index, device) cell is built once however often the
-        mesh repeats it."""
+        major: the psr shards of toa window t are ``row[t::n_toa]``) and
+        its collectives (:class:`_RowComms`); a (psr index, toa index,
+        device) cell is built once however often the mesh repeats it. On a
+        multi-process mesh a rank builds only the entries it owns (None
+        for the others)."""
         n_psr, n_toa = self.mesh.shape[PSR_AXIS], self.mesh.shape[TOA_AXIS]
         p_local = self.batch.npsr // n_psr
         t_local = self.batch.max_toa // n_toa
-        made, grid = {}, []
+        made, grid, comms = {}, [], []
         for r in range(self.mesh.shape[REAL_AXIS]):
             row = []
             for s in range(n_psr):
                 for t in range(n_toa):
                     dev = self.mesh.devices[r, s, t]
+                    if not self.mesh.owns((r, s, t)):
+                        row.append(None)
+                        continue
                     if (s, t, dev) not in made:
                         made[(s, t, dev)] = self._make_shard(
                             s, t, p_local, t_local, dev)
                     row.append(made[(s, t, dev)])
             grid.append(row)
+            comms.append(_RowComms(self.mesh, r))
+        self._comms = comms
         return grid
 
     def _make_shard(self, s: int, t: int, p_local: int, t_local: int,
@@ -1792,7 +1833,7 @@ class EnsembleSimulator:
                 if spec.null else None)
         weights = {}
         for row in self._shards:
-            for sh in row:
+            for sh in filter(None, row):
                 weights[id(sh)] = tuple(
                     None if w is None else w.narrow(
                         1, sh.p_offset, sh.batch.npsr).contiguous().to(
@@ -1819,15 +1860,26 @@ class EnsembleSimulator:
         theta = compiled.validate_theta(spec.theta)
         num_ep = self.batch.max_toa if self._include[1] else 0
         n_toa = self.mesh.shape[TOA_AXIS]
-        cells, heads = {}, {}
+        cells, heads, seen = {}, {}, set()
         with span("lnlike_moments"):
-            for row in self._shards:
+            for r, (row, comms) in enumerate(zip(self._shards,
+                                                 self._comms)):
                 for i in range(0, len(row), n_toa):
                     group = row[i:i + n_toa]
-                    if id(group[0]) in heads:
+                    head = group[0]
+                    # a group the mesh repeats (the same cells on the same
+                    # devices) is finished once, decided alike on every rank
+                    s = i // n_toa
+                    key = (s, tuple(zip(self.mesh.ranks[r, s],
+                                        self.mesh.devices[r, s])))
+                    if key in seen or not any(group):
                         continue
+                    seen.add(key)
                     parts = []
                     for sh in group:
+                        if sh is None:
+                            parts.append(None)
+                            continue
                         b = sh.batch
                         if id(sh) not in cells:
                             cells[id(sh)] = (
@@ -1839,11 +1891,13 @@ class EnsembleSimulator:
                         parts.append(woodbury.fixed_parts(
                             tmat, b.sigma2, b.mask, b.epoch_idx,
                             b.ecorr_amp, num_epochs=num_ep, onehot=onehot))
-                    head = group[0]
+                    total = _sum_parts(parts, comms.toa[i // n_toa])
+                    if head is None:
+                        continue    # another rank's head finishes them
                     th = torch.from_numpy(theta).to(self.batch.dtype).to(
                         head.device)
                     heads[id(head)] = (th, woodbury.finish_fixed(
-                        _sum_parts(parts, head.device)))
+                        {k: v.to(head.device) for k, v in total.items()}))
         return _LnlLanes(spec, compiled, theta, theta.shape[0],
                          infer_model.lanes_per_point(spec.mode, compiled.D),
                          num_ep, cells, heads)
@@ -1864,28 +1918,38 @@ class EnsembleSimulator:
                 proj = torch.einsum("ptk,rpk->rpt", basis, coefs)
             return base + torch.where(sh.batch.mask, proj, 0.0)
 
-    def _lnlike_partial(self, lanes: _LnlLanes, group, res) -> torch.Tensor:
+    def _lnlike_partial(self, lanes: _LnlLanes, group, res,
+                        comm) -> Optional[torch.Tensor]:
         """(R, K*L) likelihood lanes of one psr shard's pulsars, on its
         head cell's device: the residual moment parts of its toa cells
         (``group``, with their residual windows ``res``), added in toa
-        order, then per theta point the rank-2M factorization and the
-        batched solves; ``grad`` and ``fisher`` lanes are forward-mode
-        derivatives over the D parameters (theta enters only through
-        phi, so the data-side moments are shared)."""
+        order over ``comm``, then per theta point the rank-2M
+        factorization and the batched solves; ``grad`` and ``fisher``
+        lanes are forward-mode derivatives over the D parameters (theta
+        enters only through phi, so the data-side moments are shared).
+        None on a rank that owns no cell of the group, or not its head."""
         from ..ops import woodbury
 
-        head = group[0]
-        th, (M, lndetN, nv, corr) = lanes.heads[id(head)]
+        if not any(sh is not None for sh in group):
+            return None
         with span("lnlike_moments"):
             parts = []
             for sh, r in zip(group, res):
+                if sh is None:
+                    parts.append(None)
+                    continue
                 tmat, onehot = lanes.cells[id(sh)]
                 b = sh.batch
                 parts.append(woodbury.res_parts(
                     r, tmat, b.sigma2, b.mask, b.epoch_idx, b.ecorr_amp,
                     num_epochs=lanes.num_epochs, onehot=onehot))
-            d0, dT = woodbury.finish_res(_sum_parts(parts, head.device),
-                                         corr)
+            total = _sum_parts(parts, comm)
+            head = group[0]
+            if head is None:
+                return None
+            th, (M, lndetN, nv, corr) = lanes.heads[id(head)]
+            d0, dT = woodbury.finish_res(
+                {k: v.to(head.device) for k, v in total.items()}, corr)
         moments = (M, lndetN, nv, d0, dT)
         with span("lnlike"):
             points = [_lnl_point(lanes.compiled, lanes.spec.mode, t, moments,
@@ -1912,7 +1976,7 @@ class EnsembleSimulator:
              path: str, precision: str, with_corr: bool = False,
              bulks: Optional[tuple] = None, lanes=None):
         """One chunk: (packed (nreal, nbins + 1 + n_extra) statistics, corr
-        or None), on the mesh's first device. ``nreal`` splits into one
+        or None), on this rank's first device. ``nreal`` splits into one
         contiguous block of realizations per real shard. ``base_key`` /
         ``offset`` are a key and an int, or lane vectors
         (:func:`_chunk_keys`). ``bulks``: the chunk's psrterm CGW bulks,
@@ -1920,7 +1984,9 @@ class EnsembleSimulator:
         computes its own when not given). ``lanes``: the run's packed lane
         (:meth:`_prepare_lanes`): the OS lane, whose amp2 values and then
         the null stream's pack after the auto, or the likelihood lane,
-        whose K*L values do."""
+        whose K*L values do. On a multi-process mesh a rank steps only the
+        rows it has entries in, and the rows' results are gathered across
+        ranks, so every rank returns the whole chunk."""
         n_real = len(self._shards)
         if nreal % n_real != 0:
             raise ValueError(f"nreal per chunk ({nreal}) must be divisible "
@@ -1930,25 +1996,41 @@ class EnsembleSimulator:
         r_local = nreal // n_real
         packed, corrs = [], []
         for r, shards in enumerate(self._shards):
+            if not any(sh is not None for sh in shards):
+                packed.append(None)     # another rank's row
+                corrs.append(None)
+                continue
             k = keys[r * r_local:(r + 1) * r_local]
             b = None if bulks is None else tuple(
                 x[r * r_local:(r + 1) * r_local] for x in bulks)
             if len(shards) == 1:
-                p, c = self._step_shared(shards[0], k.to(shards[0].device),
-                                         path, precision, with_corr, b,
-                                         lanes)
+                p, c = self._step_shared(r, shards[0],
+                                         k.to(shards[0].device), path,
+                                         precision, with_corr, b, lanes)
             else:
-                p, c = self._step_sharded(shards, k, path, precision,
+                p, c = self._step_sharded(r, shards, k, path, precision,
                                           with_corr, b, lanes)
-            packed.append(p.to(self.device))
+            packed.append(None if p is None else p.to(self.device))
+            corrs.append(c.to(self.device) if with_corr and c is not None
+                         else None)
+        if not self.mesh.multiprocess:
+            return _cat(packed), (_cat(corrs) if with_corr else None)
+        with span("gather_real"):
+            width = self.nbins + 1 + (0 if lanes is None else lanes.n_extra)
+            out = self.mesh.gather_real(packed, (r_local, width),
+                                        self.batch.dtype, self.device)
+            corr = None
             if with_corr:
-                corrs.append(c.to(self.device))
-        return _cat(packed), (_cat(corrs) if with_corr else None)
+                P = self.batch.npsr
+                corr = self.mesh.gather_real(corrs, (r_local, P, P),
+                                             self.batch.dtype, self.device)
+        return out, corr
 
-    def _step_shared(self, sh: _Shard, keys, path: str, precision: str,
-                     with_corr: bool, bulks: Optional[tuple] = None,
-                     lanes=None):
-        """One shard holding every pulsar: one operand set."""
+    def _step_shared(self, r: int, sh: _Shard, keys, path: str,
+                     precision: str, with_corr: bool,
+                     bulks: Optional[tuple] = None, lanes=None):
+        """Real row ``r``'s one shard, holding every pulsar: one operand
+        set."""
         split = path == "mega"
         w, w_null = self._lane_weights(sh, lanes)
         with span("residuals"):
@@ -1961,7 +2043,8 @@ class EnsembleSimulator:
         lnl = None
         if isinstance(lanes, _LnlLanes):
             lnl = self._lnlike_partial(
-                lanes, [sh], [self._lane_residuals(sh, res, path)])
+                lanes, [sh], [self._lane_residuals(sh, res, path)],
+                self._comms[r].toa[0])
         del res     # the null stream's residuals may take its memory
         null = None
         if w_null is not None:
@@ -1997,96 +2080,120 @@ class EnsembleSimulator:
             nbins=nb, precision=precision)
         return curves, autos, None
 
-    def _step_sharded(self, shards, keys, path: str, precision: str,
+    def _step_sharded(self, r: int, shards, keys, path: str, precision: str,
                       with_corr: bool, bulks: Optional[tuple] = None,
                       lanes=None):
-        """Sharded chunk block: each shard's rows against the all-gathered
-        array with its rows of the weights, then the psum of the partial
-        statistics in shard order (toa cells: their window's pair sums,
-        added over the windows first). The likelihood lane's partials are
-        per psr shard (its cells' moment parts added over the windows
-        first) and are psum'ed in shard order too."""
-        dev0 = shards[0].device
+        """Sharded chunk block of real row ``r``: each shard's rows against
+        the all-gathered array with its rows of the weights, then the psum
+        of the partial statistics in shard order (toa cells: their window's
+        pair sums, added over the windows first). The likelihood lane's
+        partials are per psr shard (its cells' moment parts added over the
+        windows first) and are psum'ed in shard order too. ``shards``
+        holds None for another rank's entries; the packed result is None
+        on a rank that holds no psr shard's head."""
+        comms = self._comms[r]
+        n_toa = self.mesh.shape[TOA_AXIS]
         split = path == "mega"
-        ws = [self._lane_weights(sh, lanes) for sh in shards]
-        nb = ws[0][0].shape[0] - 1
+        ws = _some(lambda sh: self._lane_weights(sh, lanes), shards)
+        nb = next(w for w in ws if w is not None)[0].shape[0] - 1
         with span("residuals"):
-            local = [self._residuals(keys.to(sh.device), split_gp=split,
-                                     shard=sh, bulks=bulks)
-                     for sh in shards]
+            local = _some(lambda sh: self._residuals(
+                keys.to(sh.device), split_gp=split, shard=sh, bulks=bulks),
+                shards)
         with span("statistic"):
             out, corr = self._sharded_statistic(
-                shards, local, path, precision, with_corr, dev0,
-                [w for w, _ in ws], nb, self._mega_tables[0])
+                comms, shards, local, path, precision, with_corr,
+                [None if w is None else w[0] for w in ws], nb,
+                self._mega_tables[0])
         lnl = None
         if isinstance(lanes, _LnlLanes):
-            n_toa = self.mesh.shape[TOA_AXIS]
-            lnl = psum([self._lnlike_partial(
+            lnl = comms.heads.psum([self._lnlike_partial(
                 lanes, shards[i:i + n_toa],
-                [self._lane_residuals(sh, r, path) for sh, r in
-                 zip(shards[i:i + n_toa], local[i:i + n_toa])])
-                for i in range(0, len(shards), n_toa)], dev0)
+                _some(lambda sh, x: self._lane_residuals(sh, x, path),
+                      shards[i:i + n_toa], local[i:i + n_toa]),
+                comms.toa[i // n_toa])
+                for i in range(0, len(shards), n_toa)])
         del local   # the null stream's residuals may take its memory
         null = None
-        if ws[0][1] is not None:
+        if lanes is not None and getattr(lanes, "null", False):
             with span("null"):
                 nkeys = rng.fold_in(keys, _NULL_TAG)
-                local0 = [self._residuals(nkeys.to(sh.device),
-                                          split_gp=split, shard=sh,
-                                          null=True) for sh in shards]
+                local0 = _some(lambda sh: self._residuals(
+                    nkeys.to(sh.device), split_gp=split, shard=sh,
+                    null=True), shards)
                 null, _ = self._sharded_statistic(
-                    shards, local0, path, precision, False, dev0,
-                    [w0 for _, w0 in ws], lanes.n_os,
+                    comms, shards, local0, path, precision, False,
+                    [None if w is None else w[1] for w in ws], lanes.n_os,
                     self._mega_stages_null)
-                null = null[:, :lanes.n_os]
+                null = None if null is None else null[:, :lanes.n_os]
+        if out is None:
+            return None, None
         return self._pack(out[:, :nb], out[:, nb], null, lnl), corr
 
-    def _sharded_statistic(self, shards, local, path: str, precision: str,
-                           with_corr: bool, dev0, weights, nb: int, stages):
+    def _sharded_statistic(self, comms: _RowComms, shards, local, path: str,
+                           precision: str, with_corr: bool, weights,
+                           nb: int, stages):
         """The shards' partial statistics from their residual rows
         (``local``) against their rows of ``weights`` (nb + 1 slots, the
-        auto last), psum'ed on ``dev0``: ((R, nb + 1), the normalized pair
-        correlations or None)."""
+        auto last), psum'ed over the row (``comms``): ((R, nb + 1), the
+        normalized pair correlations or None), both None on a rank that
+        holds no psr shard's head."""
         bf16 = precision == "bf16"
         if path == "mega":
             if bf16:
                 # cast per shard BEFORE the gather, as the JAX engine does
-                local = [(b.to(torch.bfloat16), c.to(torch.bfloat16))
-                         for b, c in local]
-            base_f = all_gather([b for b, _ in local])
-            coef_f = all_gather([c for _, c in local])
-            parts = [pack_stats(*mega_ops.chunk_stats(
-                bf, cf, sh.times_full, sh.scales_full, w, stages=stages,
-                nbins=nb, precision=precision, base_local=b, coef_local=c,
-                times_local=sh.times, scales_local=sh.scales))
-                for sh, (b, c), bf, cf, w in zip(shards, local, base_f,
-                                                 coef_f, weights)]
-            return psum(parts, dev0), None
+                local = _some(lambda x: (x[0].to(torch.bfloat16),
+                                         x[1].to(torch.bfloat16)), local)
+            base_f = comms.row.all_gather(
+                [None if x is None else x[0] for x in local])
+            coef_f = comms.row.all_gather(
+                [None if x is None else x[1] for x in local])
+            parts = _some(lambda sh, x, bf, cf, w: pack_stats(
+                *mega_ops.chunk_stats(
+                    bf, cf, sh.times_full, sh.scales_full, w, stages=stages,
+                    nbins=nb, precision=precision, base_local=x[0],
+                    coef_local=x[1], times_local=sh.times,
+                    scales_local=sh.scales)),
+                shards, local, base_f, coef_f, weights)
+            return comms.row.psum(parts), None
         if path == "fused":
-            full = all_gather(local)
+            full = comms.row.all_gather(local)
             kernel = self._fused_kernel()
-            parts = [pack_stats(*kernel(x, f, w, nb, precision=precision))
-                     for x, f, w in zip(local, full, weights)]
-            return psum(parts, dev0), None
+            parts = _some(lambda x, f, w: pack_stats(
+                *kernel(x, f, w, nb, precision=precision)),
+                local, full, weights)
+            return comms.row.psum(parts), None
         # einsum: each toa window's psr shards gathered; a psr shard's pair
         # sums are its cells' window sums, added in toa order
         n_toa = self.mesh.shape[TOA_AXIS]
         full = [None] * len(shards)
         for t in range(n_toa):
             idx = range(t, len(shards), n_toa)
-            for i, f in zip(idx, all_gather([local[i] for i in idx])):
+            got = comms.psr[t].all_gather([local[i] for i in idx])
+            for i, f in zip(idx, got):
                 full[i] = f
-        corrs = [_correlation_rows(x, f, stats_bf16=bf16)
-                 for x, f in zip(local, full)]
+        corrs = _some(lambda x, f: _correlation_rows(x, f, stats_bf16=bf16),
+                      local, full)
         heads = range(0, len(shards), n_toa)
-        rows = [psum(corrs[i:i + n_toa], shards[i].device) for i in heads]
-        parts = [pack_stats(*_bin(c, weights[i], nb))
+        rows = [comms.toa[i // n_toa].psum(corrs[i:i + n_toa])
+                if any(c is not None for c in corrs[i:i + n_toa]) else None
+                for i in heads]
+        # a head's owner bins its psr shard's pair sums
+        parts = [None if shards[i] is None else
+                 pack_stats(*_bin(c.to(shards[i].device), weights[i], nb))
                  for c, i in zip(rows, heads)]
+        out = comms.heads.psum(parts)
+        if out is None:
+            return None, None
         corr = None
         if with_corr:
-            corr = torch.cat([c.to(dev0) for c in rows], dim=1) \
-                / self._counts.to(dev0)
-        return psum(parts, dev0), corr
+            dev0 = out.device
+            full_rows = comms.heads.all_gather(
+                [None if shards[i] is None else rows[k]
+                 for k, i in enumerate(heads)])
+            got = next(f for f in full_rows if f is not None)
+            corr = got.to(dev0) / self._counts.to(dev0)
+        return out, corr
 
     def _normalize_chunk(self, chunk: int, nreal: int) -> int:
         """Clamp the chunk to ``nreal`` and round it down to a multiple of
@@ -2229,19 +2336,35 @@ class EnsembleSimulator:
         transient drain failure retries in place. Non-finite curves or
         autos abort loudly before any checkpoint write.
 
-        Not ported yet, each ``NotImplementedError`` when given:
-        ``eventlog`` and ``tuned`` (ROADMAP Queue 1 item 11b);
-        ``tuned=False`` is accepted (nothing to turn off).
+        ``eventlog``: a directory; after the run each process writes its
+        report there as ``events-p<process_index:03d>.jsonl``. A
+        multi-process run gives one shard per rank; ``python -m
+        fakepta_tpu_torch.obs trace <dir>/events-p*.jsonl -o trace.json``
+        merges them into one Perfetto timeline with a pid lane per rank.
+
+        A multi-process mesh (:func:`.mesh.initialize_multihost`): every
+        rank steps only its own shards, the gathers and psums cross ranks,
+        and every rank returns the whole run. The drain is serial (no
+        writer thread) whenever more than one process runs; only rank 0
+        appends to and deletes the checkpoint (a resume reads the path each
+        rank is given: shared storage is the caller's contract, as in the
+        JAX engine). Recovery there: a dispatch failure cannot be retried
+        or stepped down on one rank alone (the others would wait inside a
+        collective), so it raises on the rank that sees it, and the other
+        ranks' next collective raises when its connections close or at the
+        group's timeout (``initialize_multihost(timeout_s=...)``).
+
+        Not ported yet: ``tuned`` (ROADMAP Queue 1 item 11b) raises
+        ``NotImplementedError``; ``tuned=False`` is accepted (nothing to
+        turn off).
         """
-        unported = (("eventlog", eventlog,
-                     "the rest of obs/ (ROADMAP Queue 1 item 11b)"),
-                    ("tuned", tuned or None,
-                     "the tuner, tune/ (ROADMAP Queue 1 item 11b)"))
-        for name, value, what in unported:
-            if value is not None:
-                raise NotImplementedError(f"run({name}=...) is not ported "
-                                          f"yet: {what}")
+        if tuned:
+            raise NotImplementedError("run(tuned=...) is not ported yet: "
+                                      "the tuner, tune/ (ROADMAP Queue 1 "
+                                      "item 11b)")
         policy = faults.as_policy(recovery)
+        multi = self.mesh.multiprocess
+        rank, n_proc = process_index(), process_count()
         t_run0 = now()
         collector = obs_metrics.Collector()
         chunk_records: list = []
@@ -2254,7 +2377,8 @@ class EnsembleSimulator:
             DEFAULT_CHUNK if chunk is None else chunk, nreal)
         depth = max(int(DEFAULT_PIPELINE_DEPTH if pipeline_depth is None
                         else pipeline_depth), 0)
-        pipelined = depth > 0
+        # a multi-process run drains serially, as the JAX engine does
+        pipelined = depth > 0 and n_proc == 1
         ring_size = max(depth, 1)
         nb = self.nbins
         stat_lanes = self._prepare_lanes(os, lnlike)
@@ -2320,12 +2444,14 @@ class EnsembleSimulator:
             "device_kind": (torch.cuda.get_device_name(self.device)
                             if on_card else "cpu"),
             # distinct devices: a mesh may list one card several times
-            "n_devices": len(set(self.mesh.devices.flat)),
+            "n_devices": len(set(zip(self.mesh.ranks.flat,
+                                     self.mesh.devices.flat))),
             "mesh_shape": {k: int(v) for k, v in self.mesh.shape.items()},
             "npsr": int(self.batch.npsr),
             "max_toa": int(self.batch.max_toa),
             "pipeline_depth": depth,
-            "process_index": 0, "process_count": 1, "seed": int(seed),
+            "process_index": rank, "process_count": n_proc,
+            "backend": mesh_backend(), "seed": int(seed),
         }
         if lanes is not None:
             meta["serve_lanes"] = len(list(lanes))
@@ -2342,7 +2468,7 @@ class EnsembleSimulator:
         ledger = PackedLedger(chunk * (nb + 1 + n_extra)
                               * self.batch.dtype.itemsize,
                               ring_size, pipelined)
-        sampler = HbmSampler(self.mesh.devices.flat)
+        sampler = HbmSampler(self.mesh.local_devices)
         sampler.start()
         flightrec.note("run_start", spec_hash=flightrec.spec_hash(meta),
                        nreal=nreal, chunk=int(chunk), path=path,
@@ -2412,7 +2538,10 @@ class EnsembleSimulator:
                     flightrec.note("poisoned_chunk", idx=idx)
                     raise FloatingPointError(
                         f"chunk {idx} produced non-finite packed statistics")
-                if ckpt is not None:
+                if ckpt is not None and rank == 0:
+                    # only rank 0 writes: every rank holds the whole chunk,
+                    # and N processes renaming the same files on shared
+                    # storage would race
                     t_ck = now()
                     ckpt.save(int(seed), nreal, chunk, job["done"],
                               arr[:, :nb], arr[:, nb],
@@ -2512,6 +2641,10 @@ class EnsembleSimulator:
                 except Exception as exc:  # noqa: BLE001 — triaged below;
                     # unrecognized failures re-raise unchanged (KillFault is
                     # a BaseException and never enters this clause)
+                    if multi:
+                        # a retry or a ladder step on this rank alone would
+                        # leave the others inside a collective
+                        raise
                     kind = faults.classify(exc)
                     if kind == "transient" and attempts < policy.max_retries:
                         attempts += 1
@@ -2673,7 +2806,7 @@ class EnsembleSimulator:
             rec_dir = flightrec.dump_dir(checkpoint)
             if rec_dir is not None:
                 flightrec.dump(rec_dir, meta, chunks=chunk_records,
-                               error=repr(exc)[:500])
+                               error=repr(exc)[:500], process_index=rank)
             raise
         total_s = now() - t_run0
         flightrec.note("run_end", total_s=round(total_s, 3))
@@ -2698,7 +2831,7 @@ class EnsembleSimulator:
                 lnl_lanes.spec, lnl_lanes.compiled, packed_h[:, nb + 1:])
         if keep_corr:
             out["corr"] = np.concatenate(corr_out)[:nreal]
-        if ckpt is not None:
+        if ckpt is not None and rank == 0:
             ckpt.delete()
 
         # the report: telemetry only, after every output is on the host
@@ -2718,4 +2851,10 @@ class EnsembleSimulator:
         report.timeline = sorted(timeline, key=lambda e: e.get("t0", 0.0))
         self.last_report = report
         out["report"] = report
+        if eventlog is not None:
+            # this rank's event-log shard; `obs trace <dir>/events-p*.jsonl`
+            # merges the shards into one timeline, a pid lane per rank
+            shard_dir = pathlib.Path(eventlog)
+            shard_dir.mkdir(parents=True, exist_ok=True)
+            report.save(shard_dir / f"events-p{rank:03d}.jsonl")
         return out

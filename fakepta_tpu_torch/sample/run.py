@@ -24,7 +24,12 @@ entries (the ``'toa'`` axis replicates). A real row's segment runs on its
 first device; each psr cell computes its pulsars' (lnL, gradient) rows on
 its own device, and the rows are concatenated over ``'psr'`` in pulsar
 order and summed in one fixed order. That gather is the chain loop's only
-collective, as in the JAX program.
+collective, as in the JAX program. On a multi-process mesh
+(:func:`..parallel.mesh.initialize_multihost`) a rank runs the real rows
+it has cells in, the psr gather crosses ranks where the cells do, and
+each segment's rows are gathered to every rank, so every rank holds the
+whole state; checkpoints are rank 0's to write, the drain is serial and
+a segment failure raises on every rank instead of retrying on one.
 
 Bitwise reproducibility: per-step draws fold the GLOBAL chain index, and
 every reduction whose inputs a mesh could reshape is either a fixed-order
@@ -39,8 +44,8 @@ so a snapshot the writer thread checkpoints cannot be overwritten by a
 later segment, the counterpart of the JAX program never donating its
 carry.
 
-Not ported yet (ROADMAP Queue 1 item 11b): ``run(eventlog=...)`` and
-``run(tuned=True)`` raise ``NotImplementedError``, as the engine's do;
+Not ported yet (ROADMAP Queue 1 item 11b): ``run(tuned=True)`` raises
+``NotImplementedError``, as the engine's does;
 ``warm_start()`` (ahead-of-time compilation into XLA's cache, which the
 port has no counterpart of) raises as well. Each drained segment
 publishes its count as the live ``sample.segments_done`` gauge of
@@ -72,7 +77,9 @@ from ..obs.report import RunReport
 from ..obs.timing import now
 from ..ops import mcmc, woodbury
 from ..parallel import pipeline as pipeline_mod
-from ..parallel.mesh import PSR_AXIS, REAL_AXIS, make_mesh
+from ..parallel.mesh import PSR_AXIS, REAL_AXIS, TOA_AXIS
+from ..parallel.mesh import backend as mesh_backend
+from ..parallel.mesh import make_mesh, process_count, process_index
 from ..tune import defaults as tune_defaults
 from ..utils import rng as rng_utils
 from .model import SAMPLE_SCHEMA, SAMPLE_TAG, SWAP_TAG, as_spec, diagnostics
@@ -311,7 +318,10 @@ class SamplingRun:
             raise ValueError(
                 f"npsr={batch.npsr} must be divisible by the psr mesh axis "
                 f"({n_psr_shards}); pad the batch")
-        self.device = mesh.devices.flat[0]
+        if mesh.multiprocess and mesh.shape[TOA_AXIS] > 1:
+            raise ValueError("the sampler's toa axis replicates; give a "
+                             "multi-process mesh toa_shards=1")
+        self.device = mesh.local_device
         self._dtype = batch.t_own.dtype
         if truth is None:
             truth = self.compiled.theta_from_unit(
@@ -490,11 +500,16 @@ class SamplingRun:
         dt = self._dtype
         n_psr = self.mesh.shape[PSR_AXIS]
         p_local = self.batch.npsr // n_psr
-        made, self._cells, self._rows = {}, [], []
+        made, self._cells, self._rows, self._comms = {}, [], [], []
         for r in range(self._n_real_shards):
             cells = []
+            self._comms.append(self.mesh.comm([(r, s, 0)
+                                               for s in range(n_psr)]))
             for s in range(n_psr):
                 dev = self.mesh.devices[r, s, 0]
+                if not self.mesh.owns((r, s, 0)):
+                    cells.append(None)      # another rank's cell
+                    continue
                 if (s, dev) not in made:
                     lo = s * p_local
                     batch = PulsarBatch(**{
@@ -507,7 +522,10 @@ class SamplingRun:
                     made[(s, dev)] = _Cell(dev, lo, batch, mom)
                 cells.append(made[(s, dev)])
             self._cells.append(cells)
-            dev = self.mesh.devices[r, 0, 0]
+            if not any(cells):
+                self._rows.append(None)     # another rank's row
+                continue
+            dev = next(c.device for c in cells if c is not None)
             self._rows.append({
                 "device": dev,
                 "mode_v": torch.as_tensor(self.mode_v).to(dt).to(dev),
@@ -617,6 +635,10 @@ class SamplingRun:
                 row["chol_cov"])[:x_count]
             lnl_rows, grad_rows = [], []
             for cell in cells:
+                if cell is None:
+                    lnl_rows.append(None)
+                    grad_rows.append(None)
+                    continue
                 lnl_c, grad_c = self._pulsar_rows(
                     cell, v.to(cell.device), row["bounds"].to(cell.device),
                     x_count)
@@ -624,10 +646,14 @@ class SamplingRun:
                 grad_rows.append(grad_c.to(dev))
             # the gather over 'psr' in pulsar order, then one fixed-order
             # sum: the chain loop's only collective
-            lnl = mcmc.fixed_sum(torch.cat(lnl_rows, dim=1), dim=1)
-            glnl = mcmc.fixed_matvec(
-                mcmc.fixed_sum(torch.cat(grad_rows, dim=1), dim=1),
-                row["chol_cov"])
+            comm = self._comms[r]
+            lnl_all = next(x for x in comm.all_gather(lnl_rows, dim=1)
+                           if x is not None)
+            grad_all = next(x for x in comm.all_gather(grad_rows, dim=1)
+                            if x is not None)
+            lnl = mcmc.fixed_sum(lnl_all, dim=1)
+            glnl = mcmc.fixed_matvec(mcmc.fixed_sum(grad_all, dim=1),
+                                     row["chol_cov"])
             return (lnl.reshape(zz.shape[:-1]), glnl.reshape(zz.shape),
                     lnpri.reshape(zz.shape[:-1]),
                     glnpri.reshape(zz.shape))
@@ -638,14 +664,29 @@ class SamplingRun:
         kl = self.spec.n_chains // self._n_real_shards
         return slice(r * kl, (r + 1) * kl)
 
+    def _gather(self, blocks, dim: int = 0) -> torch.Tensor:
+        """The real rows' blocks concatenated along ``dim`` in row order on
+        this rank's first device; across ranks (None for another rank's
+        row) through :meth:`..parallel.mesh.Mesh.gather_real`."""
+        if not self.mesh.multiprocess:
+            return torch.cat([x.to(self.device) for x in blocks], dim=dim)
+        like = next(x for x in blocks if x is not None).movedim(dim, 0)
+        got = self.mesh.gather_real(
+            [None if x is None else x.movedim(dim, 0) for x in blocks],
+            like.shape, like.dtype, self.device)
+        return got.movedim(0, dim).contiguous()
+
     def _refresh(self, z: torch.Tensor) -> dict:
         """The cached parts (lnl, glnl, lnpri, glnpri) of positions ``z``
-        (K, T, D), row by row, on the mesh's first device."""
+        (K, T, D), row by row, on this rank's first device."""
         parts = []
         for r in range(self._n_real_shards):
+            if self._rows[r] is None:
+                parts.append([None] * len(_PART_KEYS))
+                continue
             zr = z[self._row_chains(r)].to(self._rows[r]["device"])
             parts.append([p.to(self.device) for p in self._vg(r)(zr)])
-        return {k: torch.cat([p[i] for p in parts])
+        return {k: self._gather([p[i] for p in parts])
                 for i, k in enumerate(_PART_KEYS)}
 
     def _segment(self, state: dict, base_key: torch.Tensor, seg_start: int,
@@ -663,7 +704,8 @@ class SamplingRun:
         spec, d = self.spec, self.compiled.D
         t_count, thin, dt = spec.n_temps, spec.thin, self._dtype
         n_out = seg_steps // thin
-        dev0, row0 = self.device, self._rows[0]
+        dev0 = self.device
+        row0 = next(row for row in self._rows if row is not None)
         # every draw of the segment, from its keys, at its start
         steps = torch.arange(seg_start, seg_start + seg_steps, device=dev0)
         cg = torch.arange(spec.n_chains, device=dev0)
@@ -681,6 +723,11 @@ class SamplingRun:
 
         rows_out, inc, cold = [], [], []
         for r in range(self._n_real_shards):
+            if self._rows[r] is None:
+                rows_out.append(None)   # another rank's row
+                inc.append(None)
+                cold.append(None)
+                continue
             dev = self._rows[r]["device"]
             ch = self._row_chains(r)
             kl = ch.stop - ch.start
@@ -725,24 +772,26 @@ class SamplingRun:
             cold.append(torch.stack(z_cold).to(dev0))
             inc.append((accept, swap, swap_att, divergent, nonfinite))
 
-        def cat(xs, dim=0):
-            return torch.cat([x.to(dev0) for x in xs], dim=dim)
+        def field(get):
+            return [None if o is None else get(o) for o in rows_out]
 
-        new = {"z": cat([o[0] for o in rows_out])}
+        new = {"z": self._gather(field(lambda o: o[0]))}
         for i, k in enumerate(_PART_KEYS):
-            new[k] = cat([o[1][i] for o in rows_out])
+            new[k] = self._gather(field(lambda o, i=i: o[1][i]))
         # the counters' increments, added over the real rows in row order
         for i, k in enumerate(("accept", "swap", "swap_att", "divergent",
                                "nonfinite")):
             total = state[k]
-            for part in inc:
-                total = total + part[i].to(dev0)
+            parts = self._gather([None if p is None else p[i][None]
+                                  for p in inc])
+            for part in parts:
+                total = total + part
             new[k] = total
         # the thinned cold-chain draws and their accumulators, in emit
         # order (a warm-up emit adds nothing)
         thinned = infer_model.box_from_unconstrained(
             row0["mode_v"].to(dev0) + mcmc.fixed_matvec(
-                torch.cat(cold, dim=1), row0["chol_cov_t"].to(dev0)),
+                self._gather(cold, dim=1), row0["chol_cov_t"].to(dev0)),
             row0["bounds"].to(dev0))
         acc = {k: state[k] for k in ("n", "npair", "prev_valid", "s1", "s2",
                                      "s11", "prev")}
@@ -861,18 +910,20 @@ class SamplingRun:
         wins over it. ``progress(done_steps, total_steps)`` after each
         segment; an exception it raises ends the run.
 
-        ``eventlog`` and ``tuned=True`` raise ``NotImplementedError``
-        (ROADMAP Queue 1 item 11b).
+        ``eventlog``: a directory; after the run each process writes its
+        report there as ``events-p<process_index:03d>.jsonl`` (merge the
+        shards with ``python -m fakepta_tpu_torch.obs trace``).
+
+        ``tuned=True`` raises ``NotImplementedError`` (ROADMAP Queue 1
+        item 11b).
         """
-        if eventlog is not None:
-            raise NotImplementedError(
-                "SamplingRun.run(eventlog=...) is not ported yet: the rest "
-                "of obs/ (ROADMAP Queue 1 item 11b)")
         if tuned:
             raise NotImplementedError(
                 "SamplingRun.run(tuned=True) is not ported yet: the tuner, "
                 "tune/ (ROADMAP Queue 1 item 11b)")
         policy = faults_mod.as_policy(recovery)
+        multi = self.mesh.multiprocess
+        rank, n_proc = process_index(), process_count()
         t_run0 = now()
         collector = obs_metrics.Collector()
         if pipeline_depth is None:
@@ -915,7 +966,8 @@ class SamplingRun:
         state = self._init_state(seed, snapshot0)
 
         depth = max(int(pipeline_depth), 0)
-        pipelined = depth > 0
+        # a multi-process run drains serially, as the JAX sampler does
+        pipelined = depth > 0 and n_proc == 1
         ring_size = max(depth, 1)
         ring: collections.deque = collections.deque()
         on_card = self.device.type == "cuda"
@@ -931,11 +983,13 @@ class SamplingRun:
             "platform": "gpu" if on_card else "cpu",
             "device_kind": (torch.cuda.get_device_name(self.device)
                             if on_card else "cpu"),
-            "n_devices": len(set(self.mesh.devices.flat)),
+            "n_devices": len(set(zip(self.mesh.ranks.flat,
+                                     self.mesh.devices.flat))),
             "mesh_shape": {a: int(v) for a, v in self.mesh.shape.items()},
             "npsr": int(self.batch.npsr),
             "pipeline_depth": int(depth),
-            "process_index": 0, "process_count": 1,
+            "process_index": rank, "process_count": n_proc,
+            "backend": mesh_backend(),
             "sample": {"k": k, "t": t_count, "d": d,
                        "steps": int(total_steps), "warmup": int(warmup_n),
                        "thin": int(spec.thin), "segment": int(segment),
@@ -950,7 +1004,7 @@ class SamplingRun:
         seg_records: list = []
         ledger = PackedLedger(int(n_out) * k * d * self._np_dtype().itemsize,
                               ring_size, pipelined)
-        sampler = HbmSampler(self.mesh.devices.flat)
+        sampler = HbmSampler(self.mesh.local_devices)
         sampler.start()
         flightrec.note("run_start", spec_hash=flightrec.spec_hash(meta),
                        steps=int(total_steps), segment=int(segment),
@@ -972,8 +1026,9 @@ class SamplingRun:
                         thinned = thinned * float("nan")
                     return new, thinned
                 except Exception as exc:  # noqa: BLE001 — triaged below;
-                    # unrecognized failures re-raise unchanged
-                    if (faults_mod.classify(exc) != "transient"
+                    # unrecognized failures re-raise unchanged; across
+                    # ranks nothing is retried on one rank alone
+                    if (multi or faults_mod.classify(exc) != "transient"
                             or attempts >= policy.max_retries):
                         raise
                     attempts += 1
@@ -1016,7 +1071,8 @@ class SamplingRun:
                 out[job["slot"]] = arr if job["post"] else None
                 if on_segment is not None and job["post"]:
                     on_segment(idx, arr)
-                if ckpt is not None:
+                if ckpt is not None and rank == 0:
+                    # only rank 0 writes; every rank holds the whole state
                     t_ck = now()
                     snap_h = {k2: v.cpu().numpy()
                               for k2, v in job["snapshot"].items()}
@@ -1141,7 +1197,7 @@ class SamplingRun:
             rec_dir = flightrec.dump_dir(checkpoint)
             if rec_dir is not None:
                 flightrec.dump(rec_dir, meta, chunks=seg_records,
-                               error=repr(exc)[:500])
+                               error=repr(exc)[:500], process_index=rank)
             raise
         total_s = now() - t_run0
         flightrec.note("run_end", total_s=round(total_s, 3))
@@ -1155,7 +1211,8 @@ class SamplingRun:
         if diag["divergences"] > 0:
             flightrec.note("chain_divergences",
                            count=int(diag["divergences"]))
-        n_dev = max(len(set(self.mesh.devices.flat)), 1)
+        n_dev = max(len(set(zip(self.mesh.ranks.flat,
+                                self.mesh.devices.flat))), 1)
         summary = {
             "rhat_max": round(diag.get("rhat_max", float("nan")), 5),
             "ess_min": round(diag.get("ess_min", 0.0), 2),
@@ -1169,7 +1226,7 @@ class SamplingRun:
         }
         if "swap_rate" in diag:
             summary["swap_rate"] = round(diag["swap_rate"], 4)
-        if ckpt is not None:
+        if ckpt is not None and rank == 0:
             ckpt.delete()
 
         collector.count("obs.chunks", len(seg_records))
@@ -1200,6 +1257,10 @@ class SamplingRun:
             "report": report,
         }
         self.last_result = result
+        if eventlog is not None:
+            shard_dir = Path(eventlog)
+            shard_dir.mkdir(parents=True, exist_ok=True)
+            report.save(shard_dir / f"events-p{rank:03d}.jsonl")
         return result
 
     def save(self, path, result=None) -> str:

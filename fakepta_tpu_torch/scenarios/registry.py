@@ -249,7 +249,7 @@ class Scenario:
 
         if mesh is not None and device is not None:
             raise ValueError("pass mesh= or device=, not both")
-        where = mesh.devices.flat[0] if mesh is not None else device
+        where = mesh.local_device if mesh is not None else device
         parts = self.batch_parts(dtype=dtype, device=where)
         kw = self.sim_kwargs(*parts)
         return EnsembleSimulator(parts[0], mesh=mesh, device=device,

@@ -274,6 +274,10 @@ class StreamState:
                              "future data); model red/dm/chrom/curn only")
         self.npsr = int(template.npsr)
         self.ncols = int(self._compiled.ncols)
+        if mesh.multiprocess:
+            raise ValueError("a stream runs on one process's mesh (its "
+                             "host store and appends are not split across "
+                             "ranks)")
         self.mesh = mesh
         shards = int(mesh.shape[PSR_AXIS])
         if self.npsr % shards != 0:

@@ -1468,3 +1468,122 @@ def test_stream_refreshers_on_the_card(cuda):
     assert out["promoted"] and out["fs_lanes_touched"] == 2
     assert out["fs_recompiles"] == 0
     assert np.isfinite(fref.posterior["theta"]).all()
+
+
+# ---------------------------------------------------------------------------
+# multi-process meshes on the card
+# ---------------------------------------------------------------------------
+
+#: one rank of a card test: joins a group through a FileStore, runs the
+#: flagship on a real 1 x psr N mesh whose pulsar gather crosses ranks and
+#: prints the digest of its curves and autos (argv: dir rank ranks card
+#: backend, card -1 meaning cuda:<rank>)
+RANK_SCRIPT = r"""
+import hashlib, json, sys
+import numpy as np
+import torch
+from fakepta_tpu_torch.parallel import mesh as mesh_lib
+from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+from fakepta_tpu_torch.scenarios import registry
+d, rank, n, card, backend = sys.argv[1:6]
+rank, n, card = int(rank), int(n), int(card)
+dev = torch.device("cuda", rank if card < 0 else card)
+torch.cuda.set_device(dev)
+torch.backends.cuda.matmul.allow_tf32 = False
+try:
+    mesh_lib.initialize_multihost(
+        f"file://{d}/store", n, rank, local_devices=[dev],
+        backend=None if backend == "auto" else backend, timeout_s=120.0)
+except ValueError as exc:
+    print(json.dumps({"refused": str(exc)}), flush=True)
+    sys.exit(0)
+scn = registry.get("flagship_100")
+parts = scn.batch_parts(device=str(dev))
+mesh = mesh_lib.make_mesh(mesh_lib.global_devices(), psr_shards=n)
+sim = EnsembleSimulator(parts[0], stat_path=sys.argv[6], mesh=mesh,
+                        **scn.sim_kwargs(*parts))
+out = sim.run(2048, seed=5, chunk=1024, precision="f32")
+h = hashlib.sha256(np.ascontiguousarray(out["curves"]).tobytes()
+                   + np.ascontiguousarray(out["autos"]).tobytes())
+print(json.dumps({"digest": h.hexdigest(),
+                  "backend": out["report"].meta["backend"],
+                  "process_index": out["report"].meta["process_index"]}),
+      flush=True)
+mesh_lib.shutdown_multihost()
+"""
+
+
+def _run_ranks(tmp_path, n, card, backend, path="fused"):
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_SCRIPT, str(tmp_path), str(r), str(n),
+         str(card), backend, path], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=pathlib.Path(__file__).resolve().parents[1]) for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def _digest(out):
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(out["curves"]).tobytes()
+                          + np.ascontiguousarray(out["autos"]).tobytes()
+                          ).hexdigest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "mega"])
+def test_two_ranks_on_one_card_equal_the_one_process_mesh(cuda, tmp_path,
+                                                          path):
+    """Two gloo ranks sharing cuda:0, the pulsar gather crossing them, give
+    the one-process ["cuda:0"] * 2 mesh's bits on the flagship."""
+    outs = _run_ranks(tmp_path, 2, 0, "auto", path)
+    want = _digest(_flagship_on(cuda, path, make_mesh(
+        ["cuda:0"] * 2, psr_shards=2)).run(2048, seed=5, chunk=1024,
+                                           precision="f32"))
+    assert [o["digest"] for o in outs] == [want, want]
+    assert [o["backend"] for o in outs] == ["gloo", "gloo"]
+    assert [o["process_index"] for o in outs] == [0, 1]
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_two_cards_under_nccl(cuda, tmp_path):
+    """One rank per card picks NCCL and gives the one-process mesh's bits."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    outs = _run_ranks(tmp_path, 2, -1, "auto")
+    want = _digest(_flagship_on(cuda, "fused", make_mesh(
+        ["cuda:0"] * 2, psr_shards=2)).run(2048, seed=5, chunk=1024,
+                                           precision="f32"))
+    assert [o["digest"] for o in outs] == [want, want]
+    assert [o["backend"] for o in outs] == ["nccl", "nccl"]
+
+
+@pytest.mark.cuda
+def test_nccl_on_a_shared_card_raises(cuda, tmp_path):
+    """Asking for NCCL with two ranks on one card raises on both ranks
+    before the group starts (no gloo retry)."""
+    outs = _run_ranks(tmp_path, 2, 0, "nccl")
+    assert all("refuses two ranks on one card" in o.get("refused", "")
+               for o in outs), outs
+
+
+def _flagship_on(cuda, stat_path, mesh):
+    from fakepta_tpu_torch.scenarios import registry
+    scn = registry.get("flagship_100")
+    parts = scn.batch_parts(device=cuda)
+    return EnsembleSimulator(parts[0], stat_path=stat_path, mesh=mesh,
+                             **scn.sim_kwargs(*parts))

@@ -149,6 +149,45 @@ def test_stream_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.parallel.mesh", "fakepta_tpu_torch.obs.trace",
+    "fakepta_tpu_torch.obs.cli", "fakepta_tpu_torch.obs.__main__"])
+def test_multihost_and_trace_modules_are_checked(module):
+    """The multi-process mesh and the trace exporter and its CLI (ports of
+    JAX package modules) are among the modules the checks below import and
+    read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_multihost_defaults_to_the_card(monkeypatch):
+    """initialize_multihost joins on the card unless CPU devices are
+    listed, and NCCL is never picked for (or forced onto) CPU entries or a
+    shared card."""
+    from fakepta_tpu_torch.parallel import mesh
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="local_devices=\\['cpu'\\]"):
+            mesh.initialize_multihost("file:///nonexistent", 1, 0)
+    assert mesh.process_index() == 0 and mesh.process_count() == 1
+    cpu = [[{"device": "cpu", "card": None}]] * 2
+    own = [[{"device": "cuda:0", "card": "a"}],
+           [{"device": "cuda:1", "card": "b"}]]
+    shared = [[{"device": "cuda:0", "card": "a"}]] * 2
+    assert mesh.pick_backend(cpu) == "gloo"
+    assert mesh.pick_backend(own) == "nccl"
+    assert mesh.pick_backend(shared) == "gloo"
+    assert mesh.pick_backend(own, "gloo") == "gloo"
+    for layout in (cpu, shared):
+        with pytest.raises(ValueError, match="nccl"):
+            mesh.pick_backend(layout, "nccl")
+    with pytest.raises(ValueError, match="backend must be"):
+        mesh.pick_backend(own, "mpi")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
+        mesh.initialize_multihost(local_devices=["cpu"])
+
+
 def test_stream_entry_points_default_to_the_card():
     """StreamState, run_append_ab and the refreshers' samplers run on the
     card unless the CPU is asked for; the package exposes the JAX names."""

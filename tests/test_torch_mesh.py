@@ -99,6 +99,31 @@ def jax_fused_vpu(noisy):
 
 # -- the mesh ---------------------------------------------------------------
 
+def test_mesh_entries_know_their_rank():
+    """Without a process group every entry is rank 0's: a one-process mesh
+    with no process groups, whose collectives are the local ones; an entry
+    of another rank makes a mesh that this process owns none of refused."""
+    m = make_mesh(CPU8, psr_shards=2, toa_shards=2)
+    assert mesh_lib.process_index() == 0 and mesh_lib.process_count() == 1
+    assert mesh_lib.backend() is None
+    assert not m.multiprocess and (m.ranks == 0).all()
+    assert m.owns((1, 1, 1)) and m.local_device == torch.device("cpu")
+    assert len(m.local_devices) == 8
+    comm = m.comm([(0, s, 0) for s in range(2)])
+    assert comm.local and comm.member
+    blocks = [torch.ones(2, 3), 2 * torch.ones(2, 2)]
+    assert torch.equal(comm.all_gather(blocks)[1],
+                       torch.cat(blocks, dim=1))
+    parts = [torch.full((2,), 0.1), torch.full((2,), 0.2)]
+    assert torch.equal(comm.psum(parts), parts[0] + parts[1])
+    np.testing.assert_array_equal(mesh_lib.to_host(parts[0]),
+                                  parts[0].numpy())
+    with pytest.raises(ValueError, match="owns no entry"):
+        make_mesh([mesh_lib.MeshDevice(1, "cpu")])
+    mixed = make_mesh([mesh_lib.MeshDevice(0, "cpu"), "cpu"])
+    assert not mixed.multiprocess
+
+
 def test_make_mesh_shapes_and_errors():
     m = make_mesh(CPU8, psr_shards=2)
     assert m.shape == {"real": 4, "psr": 2, "toa": 1}

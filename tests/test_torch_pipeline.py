@@ -283,11 +283,15 @@ def test_lanes_refuse_a_checkpoint_and_overflow(tb, tmp_path):
         sim.run(6, lanes=LANES)
 
 
-def test_run_refuses_what_is_not_ported(tb):
+def test_run_refuses_what_is_not_ported(tb, tmp_path):
     sim = _sim(tb)
-    for kw in (dict(eventlog="/nonexistent"), dict(tuned=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sim.run(8, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sim.run(8, tuned=True)
+    # the event log is ported: one shard per process, the report it returns
+    sim.run(8, eventlog=tmp_path / "ev")
+    from fakepta_tpu_torch.obs.report import RunReport
+    shard = RunReport.load(tmp_path / "ev" / "events-p000.jsonl")
+    assert shard.meta == sim.last_report.meta
     # the likelihood lane is ported: what is not an InferSpec is refused
     with pytest.raises(TypeError, match="InferSpec"):
         sim.run(8, lnlike=object())

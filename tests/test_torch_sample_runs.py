@@ -81,10 +81,14 @@ def test_init_z_on_segment_and_artifact(tb, study, tmp_path):
         study.run(N_STEPS, init_z=np.zeros((3, 2, 2)), **RUN)
 
 
-def test_unported_options_raise(study):
-    for kw in (dict(eventlog="/nonexistent"), dict(tuned=True)):
-        with pytest.raises(NotImplementedError, match="11b"):
-            study.run(N_STEPS, **kw)
+def test_unported_options_raise(study, tmp_path):
+    with pytest.raises(NotImplementedError, match="11b"):
+        study.run(N_STEPS, tuned=True)
+    # the event log is ported: one shard per process
+    study.run(N_STEPS, eventlog=tmp_path / "ev", **RUN)
+    shard = RunReport.load(tmp_path / "ev" / "events-p000.jsonl")
+    assert shard.meta["process_index"] == 0
+    assert shard.meta["process_count"] == 1
     with pytest.raises(NotImplementedError, match="11b"):
         study.warm_start(N_STEPS)
     with pytest.raises(TypeError, match="RecoveryPolicy"):
