@@ -23,8 +23,10 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    for ``binned_correlation_vpu`` its tiling and realizations per block;
    for ``chunk_stats`` and ``chunk_stats_sharded`` the time of each of
    their two passes (projection, then ``binned_correlation``'s kernel)
-   beside the whole, and one full-f32 ``einsum`` of the projection against
-   a prebuilt dense basis as the projection's yardstick.
+   beside the whole, and pass 1's library time: one ``torch.einsum`` of
+   the projection against a prebuilt dense basis at the row's shape (R,
+   rows, K, T), at full fp32 for 'f32' (matmul precision set for the call)
+   and on bf16 operands for 'bf16'.
 3. ``engine``: run ``EnsembleSimulator`` on the flagship batch with an HD
    background for ``stat_path`` ``"fused"``, ``"fused"`` with
    ``pallas_mxu_binning=False`` (``"fused-vpu"``) and ``"mega"`` at
@@ -264,7 +266,29 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    chains bit-identical to the one-process run's; and per rank one
    einsum chunk on the psr mesh, its host enqueue against the time until
    the card is done and the card's traced busy time.
-16. ``profile`` (only when asked for): per statistic path, the device time
+16. ``tune``: the tuner on ``flagship_100`` uncut on one card, with a
+   fresh store under ``build/tune/``: the fingerprint of ``cuda:0`` (it
+   must read the card's memory), then ``tune.search(batch, gwb,
+   nreal_hint=4096, budget_s=60, max_candidates=8, force=True)`` with every
+   kernel count zeroed just before and read just after, each probe's
+   knobs, realizations/s, ``probe_s`` and peak bytes printed. It fails
+   unless the hand-set candidate (einsum, chunk 1024, depth 2) was probed
+   and the choice delivers at least its rate, a ``fused`` and a ``mega``
+   probe completed (launching #1 and #3 through ``run()``) with none
+   degraded, and the artifact reads as tuned; a second search must be
+   warm (zero probes in under 1 s); ``run(4096, tuned=True)`` from the
+   store must apply the stored knobs, bit-identical to the same knobs
+   given explicitly (its launches counted too), and it and one chunk of
+   each completed fused or mega probe's knobs must agree with the einsum
+   path at the same seed, chunk and precision (TOL); then, reported and
+   not gated, ``run(4096)`` at chunk 1024 against the tuned chunk, for the
+   hand-set and the chosen family, in turns; a run after
+   ``warm_start`` and after ``clear_executables`` must be bit-identical,
+   the first chunk's device time after ``warm_start`` reported beside a
+   steady chunk's; and a ``SamplingRun`` of the flagship model (8 chains x
+   2 temps, 8 steps: the cut) must take the stored pipeline depth with
+   ``tuned=True``, bit-identical to that depth given explicitly.
+17. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -653,10 +677,13 @@ def mega_details(rows: dict, name: str, tag: str, operands: dict,
                  proj_rows: int) -> None:
     """chunk_stats' two passes at this shape, timed alone in turns at both
     precisions (pass 1: the projection, ``megakernel._launch_project``;
-    pass 2: ``binned_correlation``'s kernel on its residuals), and the
-    projection's yardstick: one full-f32 einsum against a prebuilt dense
-    basis (its build not timed; chunk_stats never calls it); raises unless
-    a rerun of the whole function is bit-identical."""
+    pass 2: ``binned_correlation``'s kernel on its residuals), and pass 1's
+    library time: one ``torch.einsum`` of the projection against a
+    prebuilt dense basis over the pass's ``proj_rows`` rows (a psr shard's
+    local rows, then the full set), at full fp32 for 'f32' and on bf16
+    operands for 'bf16' (the basis build not timed; chunk_stats never
+    calls it); raises unless a rerun of the whole function is
+    bit-identical."""
     import torch
     from fakepta_tpu_torch.ops import binned_corr as bc
     from fakepta_tpu_torch.ops import megakernel as mk
@@ -675,7 +702,23 @@ def mega_details(rows: dict, name: str, tag: str, operands: dict,
     ms = in_turns(fns, 10)
     basis = mk.dense_basis(times, scales, stages)
     coef = operands["f32"][1]
-    yard = time_ms(lambda: torch.einsum("rpk,ptk->rpt", coef, basis), 10)
+    # pass 1's library call at the row's own shape: the rows the pass
+    # projects (the local rows, then the full set, on a psr shard)
+    pl = proj_rows - coef.shape[1] if proj_rows > coef.shape[1] else 0
+    lib_coef = (torch.cat([coef[:, :pl], coef], 1) if pl else coef)
+    lib_basis = (torch.cat([basis[:pl], basis], 0) if pl else basis)
+    lib_ops = {"f32": (lib_coef.contiguous(), lib_basis.contiguous()),
+               "bf16": (lib_coef.to(torch.bfloat16),
+                        lib_basis.to(torch.bfloat16))}
+
+    def library(p):
+        a, b = lib_ops[p]
+        if p == "f32":
+            with mk.full_f32():
+                return torch.einsum("rpk,ptk->rpt", a, b)
+        return torch.einsum("rpk,ptk->rpt", a, b)
+
+    lib_ms = in_turns({p: (lambda p=p: library(p)) for p in operands}, 10)
     for p in operands:
         runs = [mk.chunk_stats(*operands[p], times, scales, w_l,
                                stages=stages, nbins=nbins, precision=p,
@@ -685,12 +728,12 @@ def mega_details(rows: dict, name: str, tag: str, operands: dict,
                                  f"bit-identical")
         row = rows[(name, p, tag)]
         row.update(pass1_ms=ms[("pass1", p)], pass2_ms=ms[("pass2", p)],
-                   pass1_einsum_ms=yard, projection_tiling=t._asdict(),
-                   rerun_identical=True)
+                   pass1_library_ms=lib_ms[p],
+                   projection_tiling=t._asdict(), rerun_identical=True)
         print(f"  {name} {tag} [{p}]: pass 1 {row['pass1_ms']:.4f} ms, "
               f"pass 2 {row['pass2_ms']:.4f} ms, whole {row['ms']:.4f} ms; "
-              f"pass-1 yardstick (f32 einsum rpk,ptk->rpt, prebuilt "
-              f"basis) {yard:.4f} ms", flush=True)
+              f"pass-1 library (einsum rpk,ptk->rpt at {proj_rows} rows, "
+              f"prebuilt basis, {p}) {lib_ms[p]:.4f} ms", flush=True)
 
 
 def phase_kernels(report: dict) -> None:
@@ -2810,8 +2853,10 @@ def guard_runs() -> None:
     def run(self, *args, **kw):
         out = real(self, *args, **kw)
         if not GUARD["faults_allowed"]:
-            asked = "einsum" if kw.get("keep_corr") else self.stat_path
             rep = out["report"]
+            asked = "einsum" if kw.get("keep_corr") else (
+                rep.meta.get("tuned", {}).get("knobs", {}).get("path")
+                or self.stat_path)
             deg = rep.counters.get("faults.degradations", 0)
             if deg or "degraded_path" in rep.meta \
                     or out["statistic_path"] != asked:
@@ -4324,6 +4369,262 @@ def phase_multiproc(report: dict, cards: int = 1) -> None:
     report["multiproc"] = rows
 
 
+#: the tune phase: the workload scale the search tunes for, its probe
+#: budget and frontier cap, and the sampler check's chain steps
+TUNE_NREAL = 4096
+TUNE_BUDGET_S = 60.0
+TUNE_MAX_CANDIDATES = 8
+
+
+def hold_to_einsum(tuned: dict, records: list) -> dict:
+    """The kernels at the chunks the tuner ran them: ``tuned`` (the
+    ``run(TUNE_NREAL, seed=1, tuned=True)`` output) and one chunk of each
+    completed fused or mega probe's knobs, each held to the einsum path at
+    the same seed, chunk and precision with :func:`compare` at TOL[prec]
+    (the engine phase's bound). Launches here only compare, and are not
+    counted."""
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    ref_sim = flagship_sim("einsum")
+    refs = {}
+
+    def hold(got: dict, nreal: int, seed: int, chunk: int, what: str):
+        prec = got["precision"]
+        key = (nreal, seed, chunk, prec)
+        if key not in refs:
+            refs[key] = ref_sim.run(nreal, seed=seed, chunk=chunk,
+                                    precision=prec)
+        ref = refs[key]
+        return compare((got["curves"], got["autos"]),
+                       (ref["curves"], ref["autos"]), prec,
+                       f"tune: {what} {got['statistic_path']} at chunk "
+                       f"{chunk} vs einsum")
+
+    chunk = tuned["report"].meta["tuned"]["knobs"]["chunk"]
+    rows = {"run(tuned=True)": hold(tuned, TUNE_NREAL, 1, chunk,
+                                    "run(tuned=True)")}
+    for rec in records:
+        k = rec["knobs"]
+        tag = f"probe {k['path']}/{k['precision']}/chunk {k['chunk']}"
+        if k["path"] == "einsum" or tag in rows:
+            continue
+        s = k["psr_shards"]
+        sim = flagship_sim(k["path"], mesh=None if s == 1 else make_mesh(
+            ["cuda:0"] * s, psr_shards=s))
+        got = sim.run(k["chunk"], seed=3, chunk=k["chunk"],
+                      precision=k["precision"])
+        rows[tag] = hold(got, k["chunk"], 3, k["chunk"], tag)
+    return rows
+
+
+def chunk_ab(knobs: dict, prec: str) -> dict:
+    """The chunk alone, reported and not gated: ``run(TUNE_NREAL)`` at
+    chunk 1024 against the tuned chunk (4096 when the tuned one is 1024),
+    at equal realizations, for the hand-set family (einsum f32, depth 2)
+    and the chosen one (its path, precision and depth), each timed in turns
+    (one warm run each, then a, b, b, a; CUDA events)."""
+    chunks = (CHUNK, knobs["chunk"] if knobs["chunk"] != CHUNK
+              else TUNE_NREAL)
+    fams = {"hand-set einsum/f32 depth 2": ("einsum", "f32", 2),
+            f"chosen {knobs['path']}/{prec} depth "
+            f"{knobs['pipeline_depth']}": (knobs["path"], prec,
+                                           knobs["pipeline_depth"])}
+    rows = {}
+    for fam, (path, p, depth) in fams.items():
+        sim = flagship_sim(path)
+        fns = {c: (lambda c=c: sim.run(TUNE_NREAL, seed=5, chunk=c,
+                                       precision=p, pipeline_depth=depth))
+               for c in chunks}
+        for fn in fns.values():
+            fn()
+        got = {c: [] for c in chunks}
+        for c in chunks + chunks[::-1]:
+            got[c].append(time_ms(fns[c], 1, warmup=0))
+        ms = {c: sum(v) / len(v) for c, v in got.items()}
+        rate = {c: TUNE_NREAL / (ms[c] / 1e3) for c in chunks}
+        rows[fam] = {f"chunk {c}": {"ms": ms[c], "real_per_s": rate[c]}
+                     for c in chunks}
+        rows[fam]["ratio"] = rate[chunks[1]] / rate[chunks[0]]
+        print(f"tune: chunk A/B {fam}, run({TUNE_NREAL}): chunk "
+              f"{chunks[0]} {rate[chunks[0]]:.1f}/s, chunk {chunks[1]} "
+              f"{rate[chunks[1]]:.1f}/s (x{rows[fam]['ratio']:.4f})",
+              flush=True)
+    return rows
+
+
+def phase_tune(report: dict) -> None:
+    """The tuner on the flagship, uncut, on one card (module docstring,
+    phase 16)."""
+    import torch
+    from fakepta_tpu_torch import tune
+    from fakepta_tpu_torch.obs import flightrec
+    from fakepta_tpu_torch.obs.report import RunReport
+    from fakepta_tpu_torch.sample import SampleSpec, SamplingRun
+    from fakepta_tpu_torch.scenarios import registry
+    from fakepta_tpu_torch.tune import defaults as tune_defaults
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("tune", {})
+    store_dir = os.path.join(HERE, "build", "tune")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store = os.path.join(store_dir, "tuned.json")
+    devices = ["cuda:0"]
+    fp = tune.fingerprint(devices)
+    out["fingerprint"] = fp.as_dict()
+    print(f"tune: fingerprint {json.dumps(fp.as_dict())} ({fp.hash})",
+          flush=True)
+    if fp.platform != "gpu" or fp.hbm_bytes != \
+            torch.cuda.get_device_properties(0).total_memory:
+        raise AssertionError(f"tune: the fingerprint misreads the card: "
+                             f"{fp}")
+    scn = registry.get("flagship_100")
+    parts = scn.batch_parts(device="cuda")
+    batch, gwb = parts[0], scn.sim_kwargs(*parts)["gwb"]
+    npsr, ntoa = batch.npsr, batch.max_toa
+    shape = shape_tag(npsr, npsr, ntoa)
+
+    # the main path: the search, every count zeroed just before
+    flightrec.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    cfg, info = tune.search(batch, gwb=gwb, mesh_devices=devices,
+                            nreal_hint=TUNE_NREAL, budget_s=TUNE_BUDGET_S,
+                            max_candidates=TUNE_MAX_CANDIDATES, force=True,
+                            store=store, artifact=os.path.join(
+                                store_dir, "tune.jsonl"))
+    search_s = time.perf_counter() - t0
+    moved = {k: v for k, v in counts().items() if v}
+    add_launches(report, shape, moved)
+    notes = [e["name"] for e in flightrec.snapshot()]
+    for rec in info["records"]:
+        print(f"tune: probe {json.dumps(rec['knobs'])}: "
+              f"{rec['real_per_s_per_chip']:.1f} realizations/s, probe_s "
+              f"{rec['probe_s']:.3f}, peak_hbm_bytes "
+              f"{rec['peak_hbm_bytes']}", flush=True)
+    print(f"tune: search {search_s:.1f} s, {info['probes']} probes, chose "
+          f"{json.dumps(cfg.knobs)}, metrics {json.dumps(cfg.metrics)}, "
+          f"launches {moved}", flush=True)
+    out.update(search_s=search_s, probes=info["probes"],
+               records=info["records"], knobs=cfg.knobs,
+               metrics=cfg.metrics, search_launches=moved,
+               failed_probes=notes.count("tune_probe_failed"))
+    default = tune.default_candidate(TUNE_NREAL, len(devices)).knobs()
+    if not any(r["knobs"] == default for r in info["records"]):
+        raise AssertionError(f"tune: the hand-set candidate {default} was "
+                             f"not probed")
+    # holds by construction (the choice is the best of the probe records,
+    # the hand-set's among them): a check of search()'s bookkeeping, not
+    # an A/B; the chunk A/B below is the controlled reading
+    if cfg.metrics["real_per_s_per_chip"] < \
+            cfg.metrics["hand_set_real_per_s_per_chip"]:
+        raise AssertionError(f"tune: the choice delivers less than the "
+                             f"hand-set candidate: {cfg.metrics}")
+    paths = {r["knobs"]["path"] for r in info["records"]}
+    if not {"fused", "mega"} <= paths:
+        raise AssertionError(f"tune: no completed fused and mega probes: "
+                             f"{paths}")
+    if "tune_probe_degraded" in notes:
+        raise AssertionError("tune: a probe degraded off its candidate")
+    if not (moved.get("binned_correlation") and moved.get("chunk_stats")):
+        raise AssertionError(f"tune: the fused and mega probes did not "
+                             f"launch #1 and #3 through run(): {moved}")
+    if RunReport.load(os.path.join(store_dir, "tune.jsonl")).summary()[
+            "tuned"] != 1:
+        raise AssertionError("tune: the artifact does not read as tuned")
+
+    # a second search is warm: one store read, no probe
+    t0 = time.perf_counter()
+    cfg2, info2 = tune.search(batch, gwb=gwb, mesh_devices=devices,
+                              nreal_hint=TUNE_NREAL, store=store)
+    warm_s = time.perf_counter() - t0
+    out["warm_search_s"] = warm_s
+    print(f"tune: warm search {warm_s:.3f} s, {info2['probes']} probes",
+          flush=True)
+    if not info2["warm"] or info2["probes"] or warm_s >= 1.0 \
+            or cfg2.knobs != cfg.knobs:
+        raise AssertionError(f"tune: the second search was not warm: "
+                             f"{info2}, {warm_s:.3f} s")
+
+    # run(tuned=True) from the store against the same knobs given
+    # explicitly; their launches count
+    knobs = cfg.knobs
+    prec = knobs["precision"]
+    run_kw = dict(chunk=knobs["chunk"], pipeline_depth=knobs["pipeline_depth"],
+                  precision=prec)
+    old_env = os.environ.get(tune_defaults.TUNE_DIR_ENV)
+    os.environ[tune_defaults.TUNE_DIR_ENV] = store_dir
+    try:
+        reset_counts()
+        tuned = flagship_sim("fused").run(TUNE_NREAL, seed=1, tuned=True)
+        explicit = flagship_sim(knobs["path"]).run(TUNE_NREAL, seed=1,
+                                                   **run_kw)
+        moved = {k: v for k, v in counts().items() if v}
+        add_launches(report, shape, moved)
+        applied = tuned["report"].meta.get("tuned", {}).get("knobs", {})
+        want = {k: knobs[k] for k in ("chunk", "pipeline_depth", "path",
+                                      "precision") if knobs[k] is not None}
+        print(f"tune: run(tuned=True) applied {json.dumps(applied)} on "
+              f"{tuned['statistic_path']} [{tuned['precision']}], "
+              f"launches {moved}", flush=True)
+        if applied != want or tuned["report"].summary().get("tuned") != 1:
+            raise AssertionError(f"tune: run(tuned=True) applied {applied}, "
+                                 f"the store holds {want}")
+        assert_identical(tuned, explicit, "tune: run(tuned=True) vs the "
+                                          "explicit knobs")
+        out["vs_einsum"] = hold_to_einsum(tuned, info["records"])
+        out["chunk_ab"] = chunk_ab(knobs, tuned["precision"])
+
+        # warm_start, then clear_executables: each run bit-identical
+        sim = flagship_sim(knobs["path"])
+        t0 = time.perf_counter()
+        warm_start_s = sim.warm_start(knobs["chunk"], precision=prec)
+        first = sim.run(TUNE_NREAL, seed=1, **run_kw)
+        sim.clear_executables()
+        again = sim.run(TUNE_NREAL, seed=1, **run_kw)
+        for got, what in ((first, "after warm_start"),
+                          (again, "after clear_executables")):
+            assert_identical(got, explicit, f"tune: a run {what}")
+            if got["report"].compile_s:
+                raise AssertionError(f"tune: a run {what} built kernels")
+        lat = {"warm_start_s": warm_start_s,
+               "first_chunk_execute_s": first["report"].chunks[0].get(
+                   "execute_s"),
+               "steady_chunk_execute_s": again["report"].chunks[0].get(
+                   "execute_s"),
+               "first_run_total_s": first["report"].total_s,
+               "steady_run_total_s": again["report"].total_s}
+        out["warm_start"] = lat
+        print(f"tune: warm_start {warm_start_s:.3f} s; then the first "
+              f"chunk's device time {lat['first_chunk_execute_s']:.4f} s "
+              f"against a steady chunk's {lat['steady_chunk_execute_s']:.4f}"
+              f" s (runs {lat['first_run_total_s']:.3f} / "
+              f"{lat['steady_run_total_s']:.3f} s); reruns bit-identical",
+              flush=True)
+
+        # the sampler takes the store's pipeline depth
+        spec = SampleSpec(model=flagship_model(), **MP_SAMPLE_SPEC)
+        study = SamplingRun(batch, spec, device="cuda", data_seed=1)
+        kw = dict(seed=1, segment=MP_SAMPLE_STEPS)
+        s_tuned = study.run(MP_SAMPLE_STEPS, tuned=True, **kw)
+        study.warm_start(MP_SAMPLE_STEPS, segment=MP_SAMPLE_STEPS)
+        s_explicit = study.run(MP_SAMPLE_STEPS,
+                               pipeline_depth=knobs["pipeline_depth"], **kw)
+        got = s_tuned["report"].meta.get("tuned")
+        print(f"tune: SamplingRun.run(tuned=True) took {got} at depth "
+              f"{s_tuned['report'].meta['pipeline_depth']}", flush=True)
+        if got != {"knobs": {"pipeline_depth": knobs["pipeline_depth"]}} \
+                or not np.array_equal(s_tuned["theta"],
+                                      s_explicit["theta"]):
+            raise AssertionError(f"tune: the sampler did not take the "
+                                 f"stored depth bit-identically: {got}")
+    finally:
+        if old_env is None:
+            os.environ.pop(tune_defaults.TUNE_DIR_ENV, None)
+        else:
+            os.environ[tune_defaults.TUNE_DIR_ENV] = old_env
+    out["phase_s"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -4468,11 +4769,12 @@ def main(argv=None) -> int:
                     default=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
-                             "sample", "stream", "multiproc"],
+                             "sample", "stream", "multiproc", "tune"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
-                             "sample", "stream", "multiproc", "profile"])
+                             "sample", "stream", "multiproc", "tune",
+                             "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh, multiproc and profile phases' "
                          "flagship meshes span (default 1: every shard, "
@@ -4518,6 +4820,7 @@ def main(argv=None) -> int:
               "infer": phase_infer, "faults": phase_faults,
               "sample": phase_sample, "stream": phase_stream,
               "multiproc": lambda r: phase_multiproc(r, args.mesh_cards),
+              "tune": phase_tune,
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:

@@ -99,8 +99,13 @@ certification failure re-dispatches at f32, each step counted, recorded
 and reported as the run's ``statistic_path`` / ``precision``.
 
 ``run(eventlog=dir)`` writes each rank's report as an event-log shard
-(:mod:`..obs.trace` merges them). Not ported yet: the tuner, whose ``run``
-option raises ``NotImplementedError`` when given.
+(:mod:`..obs.trace` merges them).
+
+The tuner (:mod:`..tune`): ``run(tuned=True | knobs | TunedConfig)`` fills
+the dispatch knobs the caller left unset (chunk, depth, path, precision)
+from the store or the given config; ``dispatch_surface``,
+``chunk_cost``, ``warm_start`` and ``clear_executables`` are the hooks
+the tuner and the serve pool call.
 """
 
 from __future__ import annotations
@@ -1137,6 +1142,39 @@ def _sum_parts(parts, comm) -> dict:
             for k in first}
 
 
+_F64_ONLY = ("the port runs float32 batches (got {}); a float64 batch "
+             "runs only include=('det',) with no sampling on "
+             "stat_path='einsum'")
+
+
+def _check_path(path: str, *, toa_shards: int, dtype, stats_bf16: bool,
+                bases_bf16: bool) -> None:
+    """Raise when ``stat_path=path`` cannot run on a simulator with these
+    settings: the constructor's rules for its path, which a tuned path
+    meets too before a run takes it."""
+    if path == "einsum":
+        return
+    if dtype != torch.float32:
+        # the kernels take float32 (ROADMAP Queue 1 item 12)
+        raise TypeError(_F64_ONLY.format(dtype))
+    if toa_shards > 1:
+        raise ValueError(
+            f"stat_path={path!r} is incompatible with toa sharding (its "
+            f"kernels assume each shard holds the full TOA axis); use "
+            f"stat_path='einsum' or toa_shards=1")
+    if bases_bf16 and path == "mega":
+        raise ValueError(
+            "bases_dtype='bf16' is inert under stat_path='mega' (the "
+            "megakernel builds its bases on chip and never reads the dense "
+            "one); use run(precision='bf16') for the bf16-storage mode "
+            "instead")
+    if stats_bf16:
+        raise ValueError(
+            "stats_dtype='bf16' applies to the einsum statistic path only "
+            "(the kernels' precision is pallas_precision); drop one of the "
+            "two")
+
+
 def _lnl_point(compiled, mode: str, theta, moments, batch,
                psr_offset: int) -> torch.Tensor:
     """(R, L) likelihood lanes of one theta point: lnL, then per mode its
@@ -1269,20 +1307,11 @@ class EnsembleSimulator:
             # the einsum path (the kernels take float32)
             drawn = (set(include) - {"det"} or noise_sample or white_sample
                      or roemer_sample or cgw_sample)
-            if batch.dtype != torch.float64 or drawn \
-                    or stat_path != "einsum":
-                raise TypeError(
-                    f"the port runs float32 batches (got {batch.dtype}); a "
-                    f"float64 batch runs only include=('det',) with no "
-                    f"sampling on stat_path='einsum'")
+            if batch.dtype != torch.float64 or drawn:
+                raise TypeError(_F64_ONLY.format(batch.dtype))
         if stat_path not in STAT_PATHS:
             raise ValueError(f"stat_path must be one of {STAT_PATHS}, got "
                              f"{stat_path!r}")
-        if n_toa > 1 and stat_path != "einsum":
-            raise ValueError(
-                f"stat_path={stat_path!r} is incompatible with toa sharding "
-                f"(its kernels assume each shard holds the full TOA axis); "
-                f"use stat_path='einsum' or toa_shards=1")
         if pallas_precision not in ("bf16", "f32"):
             raise ValueError(f"pallas_precision must be 'bf16' or 'f32', "
                              f"got {pallas_precision!r}")
@@ -1292,23 +1321,15 @@ class EnsembleSimulator:
                 raise ValueError(f"{name} must be 'f32' or 'bf16', got "
                                  f"{value!r}")
         self._bases_bf16 = bases_dtype == "bf16"
-        if self._bases_bf16 and stat_path == "mega":
-            raise ValueError(
-                "bases_dtype='bf16' is inert under stat_path='mega' (the "
-                "megakernel builds its bases on chip and never reads the "
-                "dense one); use run(precision='bf16') for the bf16-storage "
-                "mode instead")
         self._stats_bf16 = stats_dtype == "bf16"
-        if self._stats_bf16 and stat_path != "einsum":
-            raise ValueError(
-                "stats_dtype='bf16' applies to the einsum statistic path "
-                "only (the kernels' precision is pallas_precision); drop "
-                "one of the two")
+        _check_path(stat_path, toa_shards=n_toa, dtype=batch.dtype,
+                    stats_bf16=self._stats_bf16, bases_bf16=self._bases_bf16)
         self.stat_path = stat_path
         self.pallas_precision = pallas_precision
         self.pallas_mxu_binning = bool(pallas_mxu_binning)
         self.last_report: Optional[RunReport] = None
         self._lnl_compiled: dict = {}     # LikelihoodSpec -> compiled model
+        self._chunk_costs: dict = {}      # chunk_cost's memo
         self.batch = batch = batch.to(self.device)
         self.nbins = nbins
         dtype = batch.dtype
@@ -2225,6 +2246,176 @@ class EnsembleSimulator:
             mode=mode, psr_shards=self.mesh.shape[PSR_AXIS],
             dtype_bytes=self.batch.dtype.itemsize)
 
+    def dispatch_surface(self) -> dict:
+        """The problem-shaped identity and model inputs of this
+        simulator's chunks: what the tuner (:mod:`..tune`) keys its store
+        on and feeds its models. Knob-free: pulsar/TOA/bin counts, the GP
+        coefficient width ``k_coef`` (the mega stage table's ``stage_k``,
+        the width ``chunk_bytes_model`` prices) and the batch dtype; the
+        JAX engine's dict for the same batch. Two simulators with equal
+        surfaces share one TunedConfig family whatever their mesh, path or
+        precision."""
+        return {"npsr": int(self.batch.npsr),
+                "max_toa": int(self.batch.max_toa),
+                "nbins": int(self.nbins),
+                "k_coef": int(mega_ops.stage_k(self._mega_tables[0])),
+                "dtype": str(self.batch.dtype).replace("torch.", ""),
+                "dtype_bytes": int(self.batch.dtype.itemsize)}
+
+    def _chunk_flops(self, chunk: int, path: str, n_os: int,
+                     null: bool) -> float:
+        """The projection's and the statistic's FLOPs of one chunk, counted
+        as ``chip_smoke.py::bound`` counts a kernel's: per psr shard the
+        correlation's pairs (the P (P + 1) / 2 distinct ones on the shared
+        set), their binning into the weight slots and the GP projection
+        2 R rows K T (on a psr-sharded mega mesh each shard projects its
+        local and full rows); the null stream adds its own pass at its
+        slots and the GWB-free K."""
+        P, T = self.batch.npsr, self.batch.max_toa
+        S = self.mesh.shape[PSR_AXIS]
+        pairs = P * (P + 1) / 2 if S == 1 else float(P * P)
+        rows = S * (P // S + P) if path == "mega" and S > 1 else P
+
+        def one(nb: int, k: int) -> float:
+            return 2.0 * chunk * (pairs * T + nb * pairs + rows * k * T)
+
+        flops = one(self.nbins + 1 + n_os,
+                    mega_ops.stage_k(self._mega_tables[0]))
+        if null:
+            flops += one(n_os + 1, mega_ops.stage_k(self._mega_stages_null))
+        return flops
+
+    def chunk_cost(self, chunk: int, *, os=None, lnlike=None,
+                   keep_corr: bool = False, precision=None) -> dict:
+        """The analytic cost of ONE chunk, without running it: torch has
+        no compiler cost analysis, so where the JAX engine reads XLA's,
+        this returns ``{"bytes_per_chunk": model_bytes_per_chunk(...),
+        "flops_per_chunk": ...}`` (:meth:`_chunk_flops`: the projection
+        and the statistic, with the OS lane's slots and its null stream;
+        the likelihood lane's factorizations are not counted). Memoized per
+        (chunk, path, precision, lane); :meth:`clear_executables` drops
+        the memo."""
+        chunk = self._normalize_chunk(chunk, chunk)
+        path = "einsum" if keep_corr else self.stat_path
+        prec = self._resolve_precision(path, precision)
+        lane, n_os, null = None, 0, False
+        if os is not None:
+            if lnlike is not None:
+                raise ValueError("chunk_cost(os=..., lnlike=...): a run "
+                                 "carries one of the two lanes")
+            from ..detect import operators as detect_ops
+            spec = detect_ops.as_spec(os)
+            n_os, null = len(spec.orfs), bool(spec.null)
+            lane = ("os", n_os, null)
+        elif lnlike is not None:
+            lane = ("lnlike",)
+        key = (chunk, path, prec, lane)
+        if key not in self._chunk_costs:
+            self._chunk_costs[key] = {
+                "bytes_per_chunk": self.model_bytes_per_chunk(chunk, path,
+                                                              prec),
+                "flops_per_chunk": self._chunk_flops(chunk, path, n_os,
+                                                     null)}
+        return dict(self._chunk_costs[key])
+
+    def warm_start(self, chunk: int, *, keep_corr: bool = False, os=None,
+                   lnlike=None, precision=None, lane_keys: bool = False,
+                   ) -> float:
+        """Make the first :meth:`run` of this shape start warm; returns the
+        seconds spent.
+
+        Builds and loads every kernel library the run will launch
+        (:func:`..ops._build.build` / ``load``; none off the card), then
+        runs one step at exactly the run's shape (this chunk, lane
+        configuration and precision; ``lane_keys=True`` the serve pool's
+        RNG-lane form) on a fixed key, synchronizes and discards it: that
+        primes the cuBLAS and cuSOLVER handles, the kernel modules' first
+        launch and the caching allocator. Its events go to a throwaway
+        collector, as the JAX engine's compile capture does, and it touches
+        no realization stream, so a later run is bit-identical to a cold
+        one. On a multi-process mesh every rank calls it (the step's
+        collectives cross ranks)."""
+        t0 = now()
+        chunk = self._normalize_chunk(chunk, chunk)
+        path = "einsum" if keep_corr else self.stat_path
+        prec = self._resolve_precision(path, precision)
+        with obs_metrics.collect(obs_metrics.Collector()):
+            lanes = self._prepare_lanes(os, lnlike)
+            cards = {d for d in self.mesh.local_devices if d.type == "cuda"}
+            libs = {"einsum": (), "fused": ("binned_corr",),
+                    "mega": ("megakernel", "binned_corr")}[path]
+            if cards and libs:
+                from ..ops import _build
+                _build.build(libs)
+                for name in libs:
+                    _build.load(name)
+            if lane_keys:
+                base = torch.zeros((chunk,), dtype=torch.int64,
+                                   device=self.device)
+                offset = torch.arange(chunk, dtype=torch.int64,
+                                      device=self.device)
+            else:
+                base, offset = self._base_key(0), 0
+            self.step(base, offset, chunk, path, prec, with_corr=keep_corr,
+                      lanes=lanes)
+            for dev in cards:
+                torch.cuda.synchronize(dev)
+        return now() - t0
+
+    def clear_executables(self) -> None:
+        """Drop every derived per-simulator memo: the likelihood lane's
+        compiled models and :meth:`chunk_cost`'s memo (the serve pool's
+        hook for a simulator whose outputs went non-finite). The kernel
+        libraries are process-wide and stay loaded; a sticky CUDA error
+        (an illegal address, a device-side assert) leaves the context
+        unusable and stays fatal. Host-staged data is input, not derived
+        state, and stays."""
+        self._lnl_compiled.clear()
+        self._chunk_costs.clear()
+        flightrec.note("executables_cleared")
+
+    def _path_refusal(self, path: str) -> Optional[str]:
+        """Why the constructor would refuse ``stat_path=path`` on this
+        simulator (None when it would take it): a tuned path meets the
+        constructor's own rules (:func:`_check_path`) before a run takes
+        it."""
+        try:
+            _check_path(path, toa_shards=self.mesh.shape[TOA_AXIS],
+                        dtype=self.batch.dtype, stats_bf16=self._stats_bf16,
+                        bases_bf16=self._bases_bf16)
+        except (TypeError, ValueError) as exc:
+            return str(exc)
+        return None
+
+    def _tuned_knobs(self, tuned, keep_corr: bool):
+        """``run(tuned=...)``'s knobs and the path it may take: ``(knobs
+        or None, tuned path or None)``. ``tuned`` is True (the store's
+        entry for this simulator's devices and family; a miss is noted,
+        not an error), a knob dict or a TunedConfig. A JAX-package path of
+        ``"xla"`` is the port's ``"einsum"``; a path this simulator's
+        constructor would refuse (a kernel path on a toa-sharded mesh, for
+        one) is ignored with a ``tune_path_illegal`` note."""
+        if isinstance(tuned, dict):
+            knobs = dict(tuned)
+        elif hasattr(tuned, "knobs"):
+            knobs = dict(tuned.knobs)
+        else:
+            from .. import tune as tune_mod
+            cfg = tune_mod.resolve_for_sim(self)
+            if cfg is None:
+                flightrec.note("tune_miss", npsr=int(self.batch.npsr))
+                return None, None
+            knobs = dict(cfg.knobs)
+        from ..tune.model import JAX_PATH
+        path = JAX_PATH.get(knobs.get("path"), knobs.get("path"))
+        if path not in STAT_PATHS or keep_corr:
+            return knobs, None
+        why = self._path_refusal(path)
+        if why is not None:
+            flightrec.note("tune_path_illegal", path=path, why=why)
+            return knobs, None
+        return knobs, path
+
     def run(self, nreal: int, seed=0, chunk: Optional[int] = None,
             keep_corr: bool = False, checkpoint=None,
             progress: Optional[Callable[[int, int], None]] = None,
@@ -2354,14 +2545,41 @@ class EnsembleSimulator:
         ranks' next collective raises when its connections close or at the
         group's timeout (``initialize_multihost(timeout_s=...)``).
 
-        Not ported yet: ``tuned`` (ROADMAP Queue 1 item 11b) raises
-        ``NotImplementedError``; ``tuned=False`` is accepted (nothing to
-        turn off).
+        ``tuned``: the tuner's knobs (:mod:`..tune`): ``True`` takes the
+        store's entry for this simulator's devices and spec family
+        (``tune.resolve_for_sim``; a miss runs the hand-set defaults with a
+        ``tune_miss`` note), a dict or a ``TunedConfig`` gives them. Only
+        the knobs the caller left unset are filled: ``chunk``,
+        ``pipeline_depth``, ``precision`` and the statistic path (a JAX
+        knob of ``"xla"`` is ``"einsum"``; a path this simulator's
+        constructor would refuse, such as a kernel path on a toa-sharded
+        mesh, is ignored with a ``tune_path_illegal`` note). A
+        ``psr_shards`` other than the mesh's is noted
+        (``tune_mesh_mismatch``): the mesh is built by the caller. The
+        applied knobs land in ``meta["tuned"]``, and the summary's
+        ``tuned`` reads 1.
         """
+        tuned_applied, tuned_path = None, None
         if tuned:
-            raise NotImplementedError("run(tuned=...) is not ported yet: "
-                                      "the tuner, tune/ (ROADMAP Queue 1 "
-                                      "item 11b)")
+            knobs, tuned_path = self._tuned_knobs(tuned, keep_corr)
+            if knobs:
+                tuned_applied = {}
+                if chunk is None and knobs.get("chunk"):
+                    chunk = int(knobs["chunk"])
+                    tuned_applied["chunk"] = chunk
+                if pipeline_depth is None \
+                        and knobs.get("pipeline_depth") is not None:
+                    pipeline_depth = int(knobs["pipeline_depth"])
+                    tuned_applied["pipeline_depth"] = pipeline_depth
+                if precision is None and knobs.get("precision"):
+                    precision = knobs["precision"]
+                    tuned_applied["precision"] = precision
+                if tuned_path is not None:
+                    tuned_applied["path"] = tuned_path
+                shards_t = knobs.get("psr_shards")
+                if shards_t and int(shards_t) != self.mesh.shape[PSR_AXIS]:
+                    flightrec.note("tune_mesh_mismatch", want=int(shards_t),
+                                   have=int(self.mesh.shape[PSR_AXIS]))
         policy = faults.as_policy(recovery)
         multi = self.mesh.multiprocess
         rank, n_proc = process_index(), process_count()
@@ -2371,7 +2589,7 @@ class EnsembleSimulator:
         nreal = int(nreal)
         if nreal <= 0:
             raise ValueError(f"nreal must be > 0, got {nreal}")
-        path = "einsum" if keep_corr else self.stat_path
+        path = "einsum" if keep_corr else (tuned_path or self.stat_path)
         prec = self._resolve_precision(path, precision)
         chunk = self._normalize_chunk(
             DEFAULT_CHUNK if chunk is None else chunk, nreal)
@@ -2453,6 +2671,9 @@ class EnsembleSimulator:
             "process_index": rank, "process_count": n_proc,
             "backend": mesh_backend(), "seed": int(seed),
         }
+        if tuned_applied is not None:
+            # which knobs the tuner set (the summary's `tuned` flag)
+            meta["tuned"] = {"knobs": dict(tuned_applied)}
         if lanes is not None:
             meta["serve_lanes"] = len(list(lanes))
         if os_lanes is not None:

@@ -44,10 +44,9 @@ so a snapshot the writer thread checkpoints cannot be overwritten by a
 later segment, the counterpart of the JAX program never donating its
 carry.
 
-Not ported yet (ROADMAP Queue 1 item 11b): ``run(tuned=True)`` raises
-``NotImplementedError``, as the engine's does;
-``warm_start()`` (ahead-of-time compilation into XLA's cache, which the
-port has no counterpart of) raises as well. Each drained segment
+``run(tuned=True)`` takes the tuner's pipeline depth (:mod:`..tune`);
+``warm_start()`` primes a segment's shapes on the device in place of the
+JAX method's compilation into XLA's cache. Each drained segment
 publishes its count as the live ``sample.segments_done`` gauge of
 :mod:`..obs.telemetry`, as the JAX run does.
 """
@@ -689,6 +688,21 @@ class SamplingRun:
         return {k: self._gather([p[i] for p in parts])
                 for i, k in enumerate(_PART_KEYS)}
 
+    def _transition_draws(self, base_key: torch.Tensor, seg_start: int,
+                          seg_steps: int):
+        """``(step keys (S, 2), momenta (S, K, T, D), ln u (S, K, T))`` of
+        a segment's steps for every chain and rung, on the first device."""
+        dev0 = self.device
+        steps = torch.arange(seg_start, seg_start + seg_steps, device=dev0)
+        cg = torch.arange(self.spec.n_chains, device=dev0)
+        t_idx = torch.arange(self.spec.n_temps, device=dev0)
+        sk = rng_utils.fold_in(rng_utils.fold_in(base_key.to(dev0),
+                                                 SAMPLE_TAG), steps)
+        keys = rng_utils.fold_in(
+            rng_utils.fold_in(sk[:, None, :], cg)[:, :, None, :], t_idx)
+        return (sk, *mcmc.transition_draws(keys, self.compiled.D,
+                                           self._dtype))
+
     def _segment(self, state: dict, base_key: torch.Tensor, seg_start: int,
                  seg_steps: int, warmup: int):
         """One segment of ``seg_steps`` steps from ``state`` (every field
@@ -701,20 +715,16 @@ class SamplingRun:
         (K-chain) tensors on the first device, the transitions per real
         row: so every op whose rounding could depend on a tensor's size
         sees one size on every mesh."""
-        spec, d = self.spec, self.compiled.D
+        spec = self.spec
         t_count, thin, dt = spec.n_temps, spec.thin, self._dtype
         n_out = seg_steps // thin
         dev0 = self.device
         row0 = next(row for row in self._rows if row is not None)
         # every draw of the segment, from its keys, at its start
-        steps = torch.arange(seg_start, seg_start + seg_steps, device=dev0)
         cg = torch.arange(spec.n_chains, device=dev0)
         t_idx0 = torch.arange(t_count, device=dev0)
-        sk = rng_utils.fold_in(rng_utils.fold_in(base_key.to(dev0),
-                                                 SAMPLE_TAG), steps)
-        keys = rng_utils.fold_in(
-            rng_utils.fold_in(sk[:, None, :], cg)[:, :, None, :], t_idx0)
-        mom_all, lnu_all = mcmc.transition_draws(keys, d, dt)
+        sk, mom_all, lnu_all = self._transition_draws(base_key, seg_start,
+                                                      seg_steps)
         us_all = None
         if t_count > 1:
             skeys = rng_utils.fold_in(
@@ -864,13 +874,29 @@ class SamplingRun:
         return segment, warmup_n, post_n
 
     def warm_start(self, n_steps: int = 256, segment=None) -> float:
-        """Not ported: the JAX method compiles the segment program ahead
-        of time into XLA's persistent cache, which the port has no
-        counterpart of (ROADMAP Queue 1 item 11b)."""
-        raise NotImplementedError(
-            "SamplingRun.warm_start() is not ported yet: it compiles into "
-            "XLA's persistent cache, which the port does not have (ROADMAP "
-            "Queue 1 item 11b)")
+        """Make the first :meth:`run` of this segment shape start warm;
+        returns the seconds spent. The JAX method compiles the segment
+        program into XLA's persistent cache; the port compiles nothing, so
+        this draws one segment's transition draws at the run's shapes from
+        a fixed key and runs one gradient evaluation of every chain at
+        them, synchronized and discarded: that primes the cuBLAS / cuSOLVER
+        handles and the caching allocator. Its events go to a throwaway
+        collector and it touches no chain stream, so a later run's draws
+        are bit-identical to a cold one's. On a multi-process mesh every
+        rank calls it (the evaluation gathers across ranks)."""
+        t0 = now()
+        segment, _, _ = self._normalize(n_steps, segment)
+        spec = self.spec
+        with obs_metrics.collect(obs_metrics.Collector()):
+            self._transition_draws(rng_utils.key(0, device=self.device), 0,
+                                   segment)
+            self._refresh(torch.zeros(
+                (spec.n_chains, spec.n_temps, self.compiled.D),
+                dtype=self._dtype, device=self.device))
+            for dev in {dv for dv in self.mesh.local_devices
+                        if dv.type == "cuda"}:
+                torch.cuda.synchronize(dev)
+        return now() - t0
 
     # ------------------------------------------------------------------
     # the run loop (mirrors EnsembleSimulator.run's pipeline structure)
@@ -914,18 +940,26 @@ class SamplingRun:
         report there as ``events-p<process_index:03d>.jsonl`` (merge the
         shards with ``python -m fakepta_tpu_torch.obs trace``).
 
-        ``tuned=True`` raises ``NotImplementedError`` (ROADMAP Queue 1
-        item 11b).
+        ``tuned=True`` takes the pipeline depth, a platform-shaped knob,
+        from the newest tuner store entry for this mesh's devices
+        (``tune.resolve_platform_knob``) when the caller gave none; an
+        explicit ``pipeline_depth`` always wins. The applied knob lands in
+        ``meta["tuned"]``.
         """
-        if tuned:
-            raise NotImplementedError(
-                "SamplingRun.run(tuned=True) is not ported yet: the tuner, "
-                "tune/ (ROADMAP Queue 1 item 11b)")
         policy = faults_mod.as_policy(recovery)
         multi = self.mesh.multiprocess
         rank, n_proc = process_index(), process_count()
         t_run0 = now()
         collector = obs_metrics.Collector()
+        tuned_applied = None
+        if tuned and pipeline_depth is None:
+            from .. import tune as tune_mod
+            from ..tune.search import mesh_entries
+            depth_t = tune_mod.resolve_platform_knob(
+                "pipeline_depth", devices=mesh_entries(self.mesh))
+            if depth_t is not None:
+                pipeline_depth = int(depth_t)
+                tuned_applied = {"pipeline_depth": pipeline_depth}
         if pipeline_depth is None:
             pipeline_depth = tune_defaults.DEFAULT_PIPELINE_DEPTH
         spec, compiled = self.spec, self.compiled
@@ -999,6 +1033,8 @@ class SamplingRun:
         }
         if isinstance(seed, (int, np.integer)):
             meta["seed"] = int(seed)
+        if tuned_applied is not None:
+            meta["tuned"] = {"knobs": dict(tuned_applied)}
 
         timeline: list = []
         seg_records: list = []

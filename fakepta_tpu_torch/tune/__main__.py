@@ -1,0 +1,8 @@
+"""``python -m fakepta_tpu_torch.tune`` entry point."""
+
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,9 +7,10 @@ and sampler read, value for value; no imports beyond the stdlib. One name
 reads differently: :data:`DEFAULT_PATH` names the port's ``"einsum"``
 path, the counterpart of the JAX package's ``"xla"`` path. The stream
 and telemetry knobs are here with the modules that read them
-(:mod:`..stream`, :mod:`..obs.telemetry`); the serve, fleet, gateway and
-tuner knobs land with their modules, and the rest of the tuner
-(fingerprint, search, store) with them (ROADMAP Queue 1 item 11b).
+(:mod:`..stream`, :mod:`..obs.telemetry`), the tuner's constants with
+the tuner (:mod:`.search`, :mod:`.store`, :mod:`.model`), and the serve
+bucket ladder with :mod:`..serve.spec`; the rest of the serve, fleet and
+gateway knobs land with their modules (ROADMAP Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -30,6 +31,16 @@ DEFAULT_PIPELINE_DEPTH = 2
 #: EnsembleSimulator keeps "fused" as its constructor default (bf16
 #: operands), a divergence ROADMAP Queue 3 records.
 DEFAULT_PATH = "einsum"
+
+# --- serve dispatch knobs (the tuner's bucket model reads them) ------------
+
+#: default microbatch bucket ladder: geometric with ratio 2, so padding a
+#: cohort up to the next bucket wastes < 50% of slots in the worst case
+DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
+
+#: the ladder ratio the bucket model assumes (mean pad waste ~
+#: (ratio-1)/(2*ratio) under uniform cohort sizes)
+BUCKET_RATIO = 2
 
 # --- streaming dispatch knobs (stream/) ------------------------------------
 
@@ -80,7 +91,8 @@ ALERT_APPEND_REGRESSION_X = 3.0
 ALERT_HBM_WATERMARK_FRAC = 0.9
 
 #: per-device working-set budget when the backend exposes no memory limit
-#: (the hbm_watermark alert's default denominator)
+#: (the CPU): the tuner's residency budget there and the hbm_watermark
+#: alert's default denominator
 DEFAULT_BYTES_BUDGET = 2 << 30
 
 # --- sampler knobs (sample/) -----------------------------------------------
@@ -91,3 +103,41 @@ DEFAULT_BYTES_BUDGET = 2 << 30
 #: The factorization itself is exact for any block width on a regular
 #: grid, so this is purely a throughput knob.
 FS_LANE_BINS = 4
+
+# --- tuner constants (tune/) ------------------------------------------------
+
+#: store schema tag + version; entries written by a different version are
+#: ignored (never silently reinterpreted) and the tuner re-searches. The
+#: JAX package's tag and version: the two stores share one file layout
+STORE_SCHEMA = "fakepta_tpu.tune/1"
+STORE_VERSION = 1
+
+#: environment variable naming the TunedConfig store directory; when unset
+#: the store falls back to ``~/.cache/fakepta_tpu_torch/`` so warm starts
+#: survive process boundaries by default
+TUNE_DIR_ENV = "FAKEPTA_TPU_TUNE_DIR"
+
+#: store file name (inside the tune directory)
+STORE_FILENAME = "tuned.json"
+
+#: measured-refinement budget: the search stops issuing probes past this
+#: wall-clock spend and keeps the best candidate probed so far (the
+#: hand-set default candidate is always probed first, so a budget-expired
+#: search still returns a well-defined "no worse than hand-set" choice)
+PROBE_BUDGET_S = 120.0
+
+#: per-probe watchdog deadline (a probe that hangs in a drain is aborted
+#: and scored as failed instead of killing the search)
+PROBE_TIMEOUT_S = 30.0
+
+#: measured chunks per probe (beyond the warm chunk); single digits by
+#: design: probes are throughput estimates, not runs
+PROBE_CHUNKS = 2
+
+#: pipeline depths the model-first frontier offers the prober (the same
+#: kernels at every depth, so extra depths cost no builds)
+DEPTH_CANDIDATES = (0, 2, 4)
+
+#: fraction of per-device memory the residency model may plan into
+#: (headroom for the caching allocator, collectives and host staging)
+HBM_FRACTION = 0.6

@@ -1587,3 +1587,124 @@ def _flagship_on(cuda, stat_path, mesh):
     parts = scn.batch_parts(device=cuda)
     return EnsembleSimulator(parts[0], stat_path=stat_path, mesh=mesh,
                              **scn.sim_kwargs(*parts))
+
+
+# ---------------------------------------------------------------------------
+# the tuner on the card (run alone with -k tune)
+# ---------------------------------------------------------------------------
+
+def _tune_gwb(batch):
+    """_ladder_sim's background."""
+    f = np.arange(1, 5) / float(batch.tspan_common)
+    return GWBConfig(psd=spectrum_lib.powerlaw(f, -13.5, 13 / 3).numpy())
+
+
+@pytest.mark.cuda
+def test_tune_fingerprint_reads_the_card(cuda):
+    from fakepta_tpu_torch import tune
+    fp = tune.fingerprint()
+    assert fp.platform == "gpu"
+    assert fp.device_kind == torch.cuda.get_device_name(0)
+    assert fp.hbm_bytes == torch.cuda.get_device_properties(0).total_memory
+    assert fp.n_devices == torch.cuda.device_count()
+    assert fp.cuda_version == torch.version.cuda
+    assert tune.fingerprint(["cuda:0"] * 4).n_devices == 1
+
+
+@pytest.mark.cuda
+def test_tune_search_probes_fused_and_mega_through_their_kernels(cuda,
+                                                                 tmp_path):
+    from fakepta_tpu_torch import tune
+    sim = _ladder_sim(cuda, "fused")
+    bc.launches = mk.launches = 0
+    cfg, info = tune.search(sim.batch, gwb=_tune_gwb(sim.batch), nbins=5,
+                            mesh_devices=["cuda:0"], nreal_hint=256,
+                            budget_s=120.0, max_candidates=8,
+                            store=tmp_path / "tuned.json")
+    paths = {r["knobs"]["path"] for r in info["records"]}
+    assert {"einsum", "fused", "mega"} <= paths
+    assert bc.launches > 0 and mk.launches > 0
+    assert cfg.metrics["real_per_s_per_chip"] >= \
+        cfg.metrics["hand_set_real_per_s_per_chip"]
+    assert cfg.fingerprint["platform"] == "gpu"
+
+
+@pytest.mark.cuda
+def test_tune_warm_start_builds_nothing_after_and_runs_bit_identical(
+        cuda, monkeypatch):
+    cold = _ladder_sim(cuda, "mega").run(256, seed=4, chunk=128)
+    sim = _ladder_sim(cuda, "mega")
+    built = []
+    real_build = _build.build
+    monkeypatch.setattr(_build, "build",
+                        lambda names=None: built.append(tuple(names))
+                        or real_build(names))
+    assert sim.warm_start(128) >= 0.0
+    assert built == [("megakernel", "binned_corr")]
+
+    def no_nvcc(*a, **kw):
+        raise AssertionError("a run after warm_start started nvcc")
+
+    monkeypatch.setattr(_build, "start_nvcc", no_nvcc)
+    before = mk.launches
+    warm = sim.run(256, seed=4, chunk=128)
+    assert warm["report"].compile_s == 0.0
+    assert mk.launches == before + 2
+    sim.clear_executables()
+    again = sim.run(256, seed=4, chunk=128)
+    for out in (warm, again):
+        for k in ("curves", "autos"):
+            assert np.array_equal(out[k], cold[k])
+
+
+@pytest.mark.cuda
+def test_tune_run_tuned_true_equals_the_explicit_knobs(cuda, tmp_path,
+                                                       monkeypatch):
+    from fakepta_tpu_torch import tune
+    from fakepta_tpu_torch.tune.store import TunedConfig, TuneStore
+    sim = _ladder_sim(cuda, "fused")
+    knobs = {"chunk": 128, "pipeline_depth": 0, "path": "mega",
+             "precision": "bf16", "psr_shards": 1}
+    fp = tune.fingerprint(["cuda:0"])
+    family = tune.family_for_surface(sim.dispatch_surface())
+    TuneStore(tmp_path / "tuned.json").put(TunedConfig(
+        fingerprint=fp.as_dict(), family=family, knobs=knobs))
+    monkeypatch.setenv("FAKEPTA_TPU_TUNE_DIR", str(tmp_path))
+    before = mk.launches
+    out = sim.run(256, seed=4, tuned=True)
+    assert mk.launches == before + 2
+    assert out["statistic_path"] == "mega" and out["precision"] == "bf16"
+    assert out["report"].meta["tuned"]["knobs"] == {
+        k: knobs[k] for k in ("chunk", "pipeline_depth", "path",
+                              "precision")}
+    explicit = _ladder_sim(cuda, "mega").run(256, seed=4, chunk=128,
+                                           pipeline_depth=0,
+                                           precision="bf16")
+    for k in ("curves", "autos"):
+        assert np.array_equal(out[k], explicit[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "mega"])
+def test_tune_a_broken_kernel_raises_out_of_search(cuda, tmp_path,
+                                                   monkeypatch, path):
+    """A launch failure in a fused or mega probe raises out of search():
+    the probes run with the recovery ladders off, so mega never steps down
+    to fused."""
+    from fakepta_tpu_torch import tune
+
+    def broken(*a, **kw):
+        raise RuntimeError(f"{path} kernel failed to launch: CUDA error 98 "
+                           f"(invalid device function)")
+
+    if path == "fused":
+        monkeypatch.setattr(bc, "binned_correlation", broken)
+    else:
+        monkeypatch.setattr(mk, "chunk_stats", broken)
+    sim = _ladder_sim(cuda, "fused")
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        tune.search(sim.batch, gwb=_tune_gwb(sim.batch), nbins=5,
+                    mesh_devices=["cuda:0"],
+                    nreal_hint=256, budget_s=120.0, max_candidates=8,
+                    store=tmp_path / "tuned.json")
+    assert not (tmp_path / "tuned.json").exists()

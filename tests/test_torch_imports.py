@@ -161,6 +161,36 @@ def test_multihost_and_trace_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.tune", "fakepta_tpu_torch.tune.fingerprint",
+    "fakepta_tpu_torch.tune.model", "fakepta_tpu_torch.tune.store",
+    "fakepta_tpu_torch.tune.probe", "fakepta_tpu_torch.tune.search",
+    "fakepta_tpu_torch.tune.cli", "fakepta_tpu_torch.tune.__main__",
+    "fakepta_tpu_torch.serve", "fakepta_tpu_torch.serve.spec"])
+def test_tune_and_serve_spec_modules_are_checked(module):
+    """The tuner's modules and serve's spec surface (ports of JAX package
+    modules) are among the modules the checks below import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_tuner_entry_points_default_to_the_card():
+    """The tuner fingerprints and searches every visible card unless CPU
+    devices are listed; without a GPU that is an error, not the CPU."""
+    from fakepta_tpu_torch import tune
+    from fakepta_tpu_torch.serve import ArraySpec
+    assert tune.fingerprint(["cpu"]).platform == "cpu"
+    if not torch.cuda.is_available():
+        for call in (tune.fingerprint,
+                     lambda: tune.resolve_platform_knob("pipeline_depth"),
+                     lambda: ArraySpec(npsr=4, ntoa=32).build()):
+            with pytest.raises(RuntimeError, match="cpu"):
+                call()
+
+
 def test_multihost_defaults_to_the_card(monkeypatch):
     """initialize_multihost joins on the card unless CPU devices are
     listed, and NCCL is never picked for (or forced onto) CPU entries or a

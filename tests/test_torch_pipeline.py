@@ -283,10 +283,17 @@ def test_lanes_refuse_a_checkpoint_and_overflow(tb, tmp_path):
         sim.run(6, lanes=LANES)
 
 
-def test_run_refuses_what_is_not_ported(tb, tmp_path):
+def test_run_refuses_what_is_not_ported(tb, tmp_path, monkeypatch):
     sim = _sim(tb)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.run(8, tuned=True)
+    # the tuner is ported: tuned=True against an empty store is a noted
+    # miss, and the run takes the hand-set knobs
+    from fakepta_tpu_torch.obs import flightrec
+    monkeypatch.setenv("FAKEPTA_TPU_TUNE_DIR", str(tmp_path / "tune"))
+    flightrec.clear()
+    out = sim.run(8, tuned=True)
+    assert "tuned" not in out["report"].meta
+    assert "tune_miss" in [e["name"] for e in flightrec.snapshot()]
+    np.testing.assert_array_equal(out["curves"], sim.run(8)["curves"])
     # the event log is ported: one shard per process, the report it returns
     sim.run(8, eventlog=tmp_path / "ev")
     from fakepta_tpu_torch.obs.report import RunReport

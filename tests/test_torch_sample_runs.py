@@ -81,16 +81,17 @@ def test_init_z_on_segment_and_artifact(tb, study, tmp_path):
         study.run(N_STEPS, init_z=np.zeros((3, 2, 2)), **RUN)
 
 
-def test_unported_options_raise(study, tmp_path):
-    with pytest.raises(NotImplementedError, match="11b"):
-        study.run(N_STEPS, tuned=True)
+def test_unported_options_raise(study, tmp_path, monkeypatch):
+    # the tuner is ported: tuned=True with an empty store keeps the
+    # caller's depth (tests/test_torch_tune.py holds the store's)
+    monkeypatch.setenv("FAKEPTA_TPU_TUNE_DIR", str(tmp_path / "tune"))
     # the event log is ported: one shard per process
-    study.run(N_STEPS, eventlog=tmp_path / "ev", **RUN)
+    study.run(N_STEPS, eventlog=tmp_path / "ev", tuned=True, **RUN)
     shard = RunReport.load(tmp_path / "ev" / "events-p000.jsonl")
     assert shard.meta["process_index"] == 0
     assert shard.meta["process_count"] == 1
-    with pytest.raises(NotImplementedError, match="11b"):
-        study.warm_start(N_STEPS)
+    assert "tuned" not in shard.meta
+    assert study.warm_start(N_STEPS) >= 0.0
     with pytest.raises(TypeError, match="RecoveryPolicy"):
         study.run(N_STEPS, recovery="always")
 
