@@ -288,7 +288,36 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    steady chunk's; and a ``SamplingRun`` of the flagship model (8 chains x
    2 temps, 8 steps: the cut) must take the stored pipeline depth with
    ``tuned=True``, bit-identical to that depth given explicitly.
-17. ``profile`` (only when asked for): per statistic path, the device time
+17. ``serve``: the serving layer on the card at the flagship's widths
+   (``ArraySpec(npsr=100, ntoa=780, n_red=30, n_dm=100, gwb_ncomp=30)``,
+   built by the warm pool on the port's default served path, ``fused``
+   bf16, the default ladder 16 ... 1024). ``serve.run_loadgen`` of 64
+   ``sim`` requests (sizes 4, 8, 16, 32) with the serial baseline and 3
+   verified responses, then of 16 ``os`` requests with 2 verified: every
+   request served, each verified response bit-identical to the request
+   alone at its bucket and within the bf16 bound of its solo run, no
+   steady kernel build (``serve_steady_compiles``), no failed, retried,
+   evicted or cancelled dispatch; p50 / p99, qps per card, coalescing,
+   pad waste, the serial rate and speedup and the warm-up seconds per
+   bucket printed. A coalesced cohort of three detection requests with
+   the null stream, each equal to itself alone and, with its curves, to
+   the einsum path on the same lanes (bf16 bounds). A ``python -m
+   fakepta_tpu_torch.serve replica --port 0`` subprocess: its banner, one
+   line each of ``sim`` (equal to the same request in process), ``os``
+   with the null stream, ``ping``, ``stats``, ``telemetry`` and
+   ``metrics``, then ``python -m fakepta_tpu_torch.obs top HOST:PORT
+   --iterations 1`` and ``obs alerts HOST:PORT`` (exit 0); the replica is
+   stopped. ``obs gate`` on the loadgen's saved report against the
+   committed ``BENCH_r*.json`` history: exit 0, the card's ``'gpu'`` row
+   banding against none of the JAX rounds' rows. No kernel may be built
+   in the phase. Then ``binned_correlation`` at bf16 on the served
+   simulator's residuals at R = 16 and R = 1024 against its plain version
+   and timed (plain, ``einsum("rpt,rqt,npq->rn")``, bound), and at any
+   shape the served path launched that no earlier phase measured. Every
+   served run passes the run guard (zero degradations); the launches of
+   the load generator, the cohort and the in-process request are counted
+   (zeroed just before each, read just after).
+18. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -4625,6 +4654,371 @@ def phase_tune(report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+#: the serve phase's spec: the flagship's widths (P = 100, T = 780, red
+#: 30 and DM 100 bins, a 30-bin HD background; K = 320 on mega), built
+#: by ``ArraySpec.build``: the port's default served path, fused bf16
+SERVE_SPEC = dict(npsr=100, ntoa=780, n_red=30, n_dm=100, gwb_ncomp=30)
+SERVE_REQUESTS = 64
+SERVE_OS_REQUESTS = 16
+#: a served cohort of detection requests with the null stream: (n, seed)
+SERVE_NULL_COHORT = ((5, 41), (9, 42), (7, 43))
+SERVE_DEADLINE_S = 300
+
+
+def served_kernel_rows(report: dict, sim, R: int, tag: str, spec=None,
+                       null: bool = False) -> dict:
+    """#1 (``binned_correlation``) at bf16 on ``R`` realizations of the
+    served simulator's own residuals, against its plain version (TOL), timed
+    beside its plain version, one ``einsum("rpt,rqt,npq->rn")`` library
+    call and the bound; with ``spec`` the OS lane's weights (the null
+    stream's with ``null``). Rows go to ``report["kernels"]`` under
+    ``tag``; the launches made here only compare and are not counted."""
+    import torch
+    from fakepta_tpu_torch.ops import binned_corr as bc
+    from fakepta_tpu_torch.parallel.montecarlo import _NULL_TAG, _chunk_keys
+    from fakepta_tpu_torch.utils import rng
+
+    keys = _chunk_keys(rng.key(7, device="cuda"), 0, R)
+    if null:
+        keys = rng.fold_in(keys, _NULL_TAG)
+    with torch.no_grad():
+        res = sim._residuals(keys, null=null)
+    w = sim._stat_weights
+    if spec is not None:
+        main, w_null = sim._prepare_lanes(spec).weights[id(sim._full)]
+        w = w_null if null else main
+    torch.cuda.synchronize()
+    _, P, T = res.shape
+    NB = w.shape[0]
+    corr, binf = stat_flops(R, P, P, T, NB, shared=True)
+    nbytes = 4.0 * (R * P * T + NB * P * P + R * NB)
+    rows = {}
+    kernel_rows(
+        rows, "binned_correlation", tag,
+        lambda p: bc.binned_correlation(res, res, w, NB - 1, precision=p),
+        lambda p: bc.binned_correlation_plain(res, res, w, NB - 1,
+                                              precision=p),
+        lambda: torch.einsum("rpt,rqt,npq->rn", res, res, w),
+        lambda p: nbytes, lambda p: corr_flops_split(p, corr, binf),
+        iters=20, precs=("bf16",))
+    report.setdefault("kernels", {}).update(
+        {"/".join(k): dict(v, realizations=R) for k, v in rows.items()})
+    reset_counts()
+    return rows[("binned_correlation", "bf16", tag)]
+
+
+def read_line(proc, timeout_s: float) -> str:
+    """One stdout line of ``proc`` within ``timeout_s``, else kill it and
+    raise."""
+    import threading
+    got = []
+    reader = threading.Thread(target=lambda: got.append(
+        proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(timeout_s)
+    if not got:
+        proc.kill()
+        raise AssertionError(f"no line from {proc.args[:4]} in "
+                             f"{timeout_s} s")
+    return got[0]
+
+
+def serve_protocol(out: dict, pool, spec) -> None:
+    """A ``replica --port 0`` subprocess on the card: its banner, one line
+    of each served and inline kind (the sim answer equal to the same
+    request through ``pool``, in process), then ``obs top`` and ``obs
+    alerts`` against its socket; the replica is stopped at the end."""
+    import socket
+    from fakepta_tpu_torch.serve import SimRequest
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    flags = [f"--{k.replace('_', '-')}={v}" for k, v in SERVE_SPEC.items()]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fakepta_tpu_torch.serve", "replica",
+         "--port", "0", *flags], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        banner = json.loads(read_line(proc, 180))
+        if banner.get("event") != "ready" or banner.get("n_devices") != 1:
+            raise AssertionError(f"serve: replica banner {banner}")
+        port = banner["port"]
+        out["replica_ready_s"] = time.perf_counter() - t0
+        lines = {
+            "sim": {"id": "sim", "kind": "sim", "n": 8, "seed": 7},
+            "os": {"id": "os", "kind": "os", "n": 4, "seed": 8,
+                   "null": True},
+            "ping": {"id": "ping", "kind": "ping"},
+            "stats": {"id": "stats", "kind": "stats"},
+            "telemetry": {"id": "telemetry", "kind": "telemetry"},
+            "metrics": {"id": "metrics", "kind": "metrics"}}
+        replies = {}
+        with socket.create_connection(("127.0.0.1", port),
+                                      timeout=SERVE_DEADLINE_S) as conn:
+            rfile = conn.makefile("rb")
+            for name, line in lines.items():
+                conn.sendall((json.dumps(line) + "\n").encode())
+                replies[name] = json.loads(rfile.readline())
+        for name, rep in replies.items():
+            if not rep.get("ok") or rep.get("id") != name:
+                raise AssertionError(f"serve: replica answered {name} with "
+                                     f"{str(rep)[:300]}")
+        sim = replies["sim"]
+        curves = np.asarray(sim["curves"], dtype=np.float32)
+        autos = np.asarray(sim["autos"], dtype=np.float32)
+        hd = replies["os"]["os"]["hd"]
+        if curves.shape != (8, spec.nbins) or autos.shape != (8,) \
+                or len(hd["amp2"]) != 4 or len(hd["null_amp2"]) != 4 \
+                or not np.isfinite(curves).all():
+            raise AssertionError(f"serve: replica answer shapes "
+                                 f"{curves.shape}, {autos.shape}, "
+                                 f"{sorted(hd)}")
+        want = pool.serve(SimRequest(spec=spec, n=8, seed=7),
+                          timeout=SERVE_DEADLINE_S)
+        if want.bucket != sim["bucket"] or not (
+                np.array_equal(curves, want.curves)
+                and np.array_equal(autos, want.autos)):
+            raise AssertionError("serve: the replica's sim answer differs "
+                                 "from the same request in process")
+        if replies["ping"] != {"id": "ping", "ok": True, "pong": True} \
+                or replies["stats"]["stats"]["serve_requests"] < 2 \
+                or replies["stats"]["health"]["state"] != "healthy" \
+                or "slo" not in replies["telemetry"]["telemetry"] \
+                or 'fakepta_up{replica="self"} 1' not in \
+                replies["metrics"]["metrics"]:
+            raise AssertionError(f"serve: inline kinds {replies['stats']}")
+        out["replica_stats"] = replies["stats"]["stats"]
+        for verb in (["top", f"127.0.0.1:{port}", "--iterations", "1"],
+                     ["alerts", f"127.0.0.1:{port}"]):
+            cli = subprocess.run(
+                [sys.executable, "-m", "fakepta_tpu_torch.obs", *verb],
+                cwd=HERE, env=env, capture_output=True, text=True,
+                timeout=180)
+            print(f"serve: obs {verb[0]} -> exit {cli.returncode}\n"
+                  + "\n".join("  " + ln for ln in
+                              cli.stdout.strip().splitlines()), flush=True)
+            if cli.returncode != 0 or not cli.stdout.strip():
+                raise AssertionError(f"serve: obs {verb[0]} failed: "
+                                     f"{cli.stderr[-2000:]}")
+            out[f"obs_{verb[0]}"] = cli.stdout
+        if not out["obs_top"].startswith("fleet: 1 replicas"):
+            raise AssertionError(f"serve: obs top printed {out['obs_top']}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+    out["protocol_s"] = time.perf_counter() - t0
+    print(f"serve: protocol against a replica subprocess (ready in "
+          f"{out['replica_ready_s']:.1f} s): sim, os+null, ping, stats, "
+          f"telemetry, metrics, obs top, obs alerts in "
+          f"{out['protocol_s']:.1f} s", flush=True)
+
+
+def serve_gate(out: dict, path: str) -> None:
+    """``obs gate`` on the loadgen's saved report against the committed
+    history: the card's 'gpu' row bands against no JAX round."""
+    from fakepta_tpu_torch.obs import gate
+    cli = subprocess.run(
+        [sys.executable, "-m", "fakepta_tpu_torch.obs", "gate", path,
+         "--fail-on-regression"], cwd=HERE, capture_output=True, text=True,
+        timeout=180, env=dict(os.environ, PYTHONPATH=HERE))
+    print("serve: obs gate -> exit "
+          f"{cli.returncode}: {cli.stdout.strip()}", flush=True)
+    if cli.returncode != 0 or "no comparable history" not in cli.stdout \
+            or "platform='gpu'" not in cli.stdout:
+        raise AssertionError(f"serve: obs gate: {cli.stdout} "
+                             f"{cli.stderr[-2000:]}")
+    row = gate.load_row(path)
+    history = gate.load_history(gate.resolve_history(
+        [os.path.join(HERE, gate.DEFAULT_HISTORY_GLOB)]),
+        warn=lambda m: print(f"serve: gate history: {m}", flush=True))
+    results = gate.gate_row(row, history)
+    if row["platform"] != "gpu" or not history or not results or any(
+            r.verdict != "info" or r.n_history for r in results):
+        raise AssertionError(f"serve: the card row banded against the "
+                             f"history: {row.get('platform')}, "
+                             f"{[vars(r) for r in results][:5]}")
+    out["gate"] = {"history_rows": len(history), "metrics": len(results)}
+
+
+def phase_serve(report: dict) -> None:
+    """Serving on the card (module docstring, phase ``serve``)."""
+    import torch
+    from fakepta_tpu_torch.detect import OSSpec
+    from fakepta_tpu_torch.ops import _build
+    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+    from fakepta_tpu_torch.serve import ArraySpec, OSRequest, ServePool
+    from fakepta_tpu_torch.serve.loadgen import DEFAULT_SIZES, run_loadgen
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("serve", {})
+    spec = ArraySpec(**SERVE_SPEC)
+    serve_dir = os.path.join(HERE, "build", "serve")
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    os.makedirs(serve_dir)
+    _build.build()
+    # a kernel built from here on fails the phase
+    nvcc = {"starts": 0}
+    real_start = _build.start_nvcc
+
+    def counted_start(*a, **kw):
+        nvcc["starts"] += 1
+        return real_start(*a, **kw)
+
+    _build.start_nvcc = counted_start
+    runs0 = GUARD["runs"]
+    plain = shape_tag(spec.npsr, spec.npsr, spec.ntoa)
+    gates = ("serve_failed", "serve_dispatch_retries", "serve_evictions",
+             "serve_steady_compiles", "serve_retraces",
+             "serve_deadline_cancelled")
+    try:
+        # 1. + 2.: the load generator, sim then os, each with its launches
+        rows = {}
+        for kind, n_req, verify, baseline in (
+                ("sim", SERVE_REQUESTS, 3, True),
+                ("os", SERVE_OS_REQUESTS, 2, False)):
+            reset_counts()
+            t0 = time.perf_counter()
+            row = run_loadgen(
+                spec, n_requests=n_req, sizes=DEFAULT_SIZES, kind=kind,
+                verify=verify, baseline=baseline,
+                report_path=(os.path.join(serve_dir, "serve.jsonl")
+                             if kind == "sim" else None))
+            torch.cuda.synchronize()
+            moved = {k: v for k, v in counts().items() if v}
+            tag = plain if kind == "sim" else shape_tag(
+                spec.npsr, spec.npsr, spec.ntoa, spec.nbins + 2)
+            add_launches(report, tag, moved)
+            row.update(loadgen_s=time.perf_counter() - t0, launches=moved)
+            rows[kind] = row
+            print(f"serve: loadgen {kind} x{n_req}: p50 "
+                  f"{row['serve_p50_ms']} ms, p99 {row['serve_p99_ms']} ms, "
+                  f"{row['serve_qps_per_chip']} qps/card, coalesce "
+                  f"{row['coalesce_factor']}, pad waste "
+                  f"{row['pad_waste_frac']}, serial "
+                  f"{row.get('serve_serial_qps_per_chip')} qps/card, "
+                  f"speedup x{row.get('serve_speedup_x')}; warm-up s by "
+                  f"bucket {row['serve_warm_s_by_bucket']}; verified "
+                  f"{row['serve_verified']} (solo distance "
+                  f"{row['serve_verify_err']}); launches {moved}; "
+                  f"{row['loadgen_s']:.1f} s", flush=True)
+            bad = {k: row[k] for k in gates if row[k]}
+            if bad or row["serve_requests"] != n_req \
+                    or row["serve_verified"] != verify \
+                    or not moved.get("binned_correlation"):
+                raise AssertionError(f"serve: loadgen {kind} gates: {bad}, "
+                                     f"{row['serve_requests']} served, "
+                                     f"{row['serve_verified']} verified, "
+                                     f"launches {moved}")
+        out["loadgen"] = rows
+
+        # a served cohort of detection requests with the null stream, each
+        # response equal to its request alone and, with the cohort's
+        # curves, to the einsum path on the same lanes (bf16 bounds)
+        pool = ServePool()
+        try:
+            reset_counts()
+            futs = [pool.submit(OSRequest(spec=spec, n=n, seed=s,
+                                          null=True))
+                    for n, s in SERVE_NULL_COHORT]
+            res = [f.result(timeout=SERVE_DEADLINE_S) for f in futs]
+            moved = {k: v for k, v in counts().items() if v}
+            n_bc = moved.get("binned_correlation", 0)
+            if not n_bc or n_bc % 2:
+                raise AssertionError(f"serve: the null cohort launched "
+                                     f"{moved}")
+            main_tag, null_tag = lane_shapes(
+                pool._pool.get(spec.spec_hash(), spec).sim, "fused", 1, 1)
+            add_launches(report, main_tag, {"binned_correlation": n_bc // 2})
+            add_launches(report, null_tag, {"binned_correlation": n_bc // 2})
+            sim = pool._pool.get(spec.spec_hash(), spec).sim
+            batch, gwb = spec.parts(device="cuda")
+            ref = EnsembleSimulator(batch, gwb=gwb, nbins=spec.nbins,
+                                    stat_path="einsum", device="cuda")
+            os_spec = OSSpec(orf="hd", null=True)
+            bucket = res[0].bucket
+            lanes = [(s, n) for n, s in SERVE_NULL_COHORT]
+            want = ref.run(bucket, chunk=bucket, lanes=lanes,
+                           pipeline_depth=0, os=os_spec)
+            pos, cohort = 0, {"bucket": bucket,
+                              "cohort": [r.cohort_requests for r in res]}
+            for (n, s), r in zip(SERVE_NULL_COHORT, res):
+                alone = sim.run(bucket, chunk=bucket, lanes=[(s, n)],
+                                pipeline_depth=0, os=os_spec)
+                got_os, alone_os = r.os["stats"]["hd"], \
+                    alone["os"]["stats"]["hd"]
+                if not (np.array_equal(r.curves, alone["curves"][:n])
+                        and all(np.array_equal(got_os[k], alone_os[k][:n])
+                                for k in ("amp2", "null_amp2"))):
+                    raise AssertionError(f"serve: OS request {s} differs "
+                                         f"from itself alone")
+                sl = slice(pos, pos + n)
+                pos += n
+                lane = {"os": {"orfs": ["hd"], "stats": {"hd": {
+                    k: got_os[k] for k in ("amp2", "null_amp2")}}}}
+                ref_lane = {"os": {"orfs": ["hd"], "stats": {"hd": {
+                    k: want["os"]["stats"]["hd"][k][sl]
+                    for k in ("amp2", "null_amp2")}}}}
+                cohort[f"seed {s}"] = dict(
+                    compare((r.curves, r.autos),
+                            (want["curves"][sl], want["autos"][sl]),
+                            "bf16", f"serve: cohort lane {s} vs einsum"),
+                    **os_compare(lane, ref_lane, "bf16",
+                                 f"serve: cohort lane {s} OS vs einsum"))
+            if {r.cohort_requests for r in res} != {len(res)}:
+                raise AssertionError(f"serve: the null cohort did not "
+                                     f"coalesce: {cohort['cohort']}")
+            out["null_cohort"] = cohort
+            slo = pool.slo_summary()
+            if any(slo[k] for k in gates):
+                raise AssertionError(f"serve: null cohort gates {slo}")
+
+            # 3. the protocol, against a replica subprocess
+            reset_counts()
+            serve_protocol(out, pool, spec)
+            add_launches(report, plain, {k: v for k, v in counts().items()
+                                         if v})
+        finally:
+            pool.close()
+    finally:
+        _build.start_nvcc = real_start
+    if nvcc["starts"]:
+        raise AssertionError(f"serve: {nvcc['starts']} kernel build(s) "
+                             f"after warm-up")
+
+    # 4. the gate on step 1's saved report
+    serve_gate(out, os.path.join(serve_dir, "serve.jsonl"))
+
+    # 5. #1 at served sizes: R = 16 and 1024 (bf16), and any shape the
+    # served path launched at that no earlier phase measured
+    kernels = report.setdefault("kernels", {})
+    out["kernels"] = {}
+    for R in (16, 1024):
+        out["kernels"][f"R={R}"] = served_kernel_rows(
+            report, sim, R, f"{plain} R={R}")
+    for tag, kw in ((plain, {}),
+                    (main_tag, {"spec": OSSpec(orf="hd")}),
+                    (null_tag, {"spec": os_spec, "null": True})):
+        if f"binned_correlation/bf16/{tag}" not in kernels:
+            out["kernels"][tag] = served_kernel_rows(report, sim, 1024, tag,
+                                                     **kw)
+
+    # 6. bookkeeping: every served run went through the run guard
+    out["guard_runs"] = GUARD["runs"] - runs0
+    if out["guard_runs"] <= 0:
+        raise AssertionError("serve: no engine run passed the run guard")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve: {out['guard_runs']} engine runs, none degraded; phase "
+          f"{out['phase_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -4769,12 +5163,13 @@ def main(argv=None) -> int:
                     default=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
-                             "sample", "stream", "multiproc", "tune"],
+                             "sample", "stream", "multiproc", "tune",
+                             "serve"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
                              "sample", "stream", "multiproc", "tune",
-                             "profile"])
+                             "serve", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh, multiproc and profile phases' "
                          "flagship meshes span (default 1: every shard, "
@@ -4820,7 +5215,7 @@ def main(argv=None) -> int:
               "infer": phase_infer, "faults": phase_faults,
               "sample": phase_sample, "stream": phase_stream,
               "multiproc": lambda r: phase_multiproc(r, args.mesh_cards),
-              "tune": phase_tune,
+              "tune": phase_tune, "serve": phase_serve,
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:
@@ -4840,8 +5235,9 @@ def main(argv=None) -> int:
     # mesh's PL = 34; ipta_dr3's PL = 120 and 60; the detection lane's
     # weight-slot counts NB and chunk_stats' K where they are not the plain
     # run's; the facade batch's PL = 100 and 50 at its own TOA width and
-    # at a width with T % 4 != 0), each with the launches made at that
-    # shape in the main-path runs (0 where none was made)
+    # at a width with T % 4 != 0; the serve phase's R = 16 and R = 1024,
+    # tagged with R), each with the launches made at that shape in the
+    # main-path runs (0 where none was made)
     table = []
     specs = (("binned_correlation", "bf16",
               "fakepta_tpu_torch/csrc/binned_corr.cu",

@@ -6,10 +6,11 @@ Two halves:
 - the **chaos harness** (:mod:`.plan`): a seeded :class:`FaultPlan` arms
   named sites threaded through the engine and the sampler (chunk dispatch
   and ring reuse, the pipeline writer, checkpoint appends, sampler
-  segments, stream appends) and fires scripted faults (transient errors,
-  NaN poisoning, torn checkpoint writes, hung drains, simulated kills) at
-  deterministic hit indices, each mirrored into the crash flight
-  recorder;
+  segments, stream appends, the serve dispatcher, the health monitor's
+  heartbeats and telemetry scrapes) and fires scripted faults (transient
+  errors, NaN poisoning, torn checkpoint writes, hung drains, simulated
+  kills) at deterministic hit indices, each mirrored into the crash
+  flight recorder;
 - the **recovery policy** (:mod:`.recovery`): bounded exponential-backoff
   retry that re-dispatches the same RNG lanes (bit-identical), the
   degradation ladders (``mega -> fused`` on a kernel launch failure, the
@@ -25,9 +26,9 @@ with a flight-recorder dump. Silent corruption is never an outcome.
 
 The JAX package's ``cache.load`` site has no counterpart: it wires XLA's
 persistent compilation cache, and the port has none (its kernels are
-built once per checkout, :mod:`..ops._build`). The serve, fleet, gateway
-and telemetry-scrape sites come with their modules (ROADMAP Queue 1 item
-11b).
+built once per checkout, :mod:`..ops._build`). The ``fleet.replica`` and
+``gateway.*`` sites come with their modules (ROADMAP Queue 1 item 11b
+slices 4 and 5).
 """
 
 from .plan import (FaultError, FaultPlan, FaultSpec, DegradeFault,

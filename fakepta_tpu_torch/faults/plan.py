@@ -25,15 +25,28 @@ site                      where it is checked
 ``ckpt.append``           EnsembleCheckpoint/SampleCheckpoint ``save``
 ``sample.segment``        SamplingRun.run, before each segment dispatch
 ``ingest.append``         StreamState.append, at the top of each TOA block
+``serve.dispatch``        ServePool's dispatcher thread, per cohort
+``fleet.heartbeat``       the health monitor, per replica probe
+``telemetry.scrape``      the health monitor, before each telemetry scrape
+                          riding a successful probe
 ========================  ====================================================
 
 The JAX package's ``cache.load`` site wires XLA's persistent compilation
 cache, which the port does not have (its kernels are built once per
 checkout by :mod:`..ops._build`), so it has no counterpart. The
-``serve.dispatch``, ``fleet.*``, ``telemetry.scrape`` and ``gateway.*``
-sites come with their modules (ROADMAP Queue 1 item 11b). ``match`` and
-the fleet context keys are kept so a plan reads the same in both
-packages.
+``fleet.replica`` site (the fleet router, ROADMAP Queue 1 item 11b slice
+4) and the ``gateway.*`` sites (slice 5) come with their modules.
+
+``fleet.heartbeat`` is checked inside the monitor's probe with
+``replica=<id>`` context, so a ``hang`` there (matched to one replica
+with ``match``) is a probe that misses its deadline (a wedged replica)
+and a ``transient`` one flaky probe. ``telemetry.scrape`` is checked,
+with the same context, after the probe's verdict is recorded: a raising
+kind loses one snapshot (counted ``telemetry.scrape_errors``) and never
+produces a heartbeat miss. At ``serve.dispatch`` a ``transient`` is
+retried, a ``poison`` NaNs the cohort's output (the entry is evicted and
+the cohort re-dispatched once), and ``degrade`` or ``fatal`` fail the
+cohort: the dispatcher never retries a kernel failure.
 
 ``ingest.append`` is checked BEFORE any state mutates, so a raising kind
 (``transient``/``fatal``) leaves the stream untouched and a retry of the

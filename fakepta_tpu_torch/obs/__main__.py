@@ -1,4 +1,5 @@
-"""Entry point: ``python -m fakepta_tpu_torch.obs summarize|compare|trace``."""
+"""Entry point: ``python -m fakepta_tpu_torch.obs
+summarize|compare|trace|gate|top|alerts``."""
 
 import sys
 

@@ -25,10 +25,12 @@ JAX module line for line. Its publish sites in the port are the sampler's
 segment drain (``sample.segments_done``), the device-memory sampler's
 stop (``obs.peak_hbm_bytes``) and the stream refreshers
 (``stream.refresh_gate_holds`` / ``_opens``, ``stream.fs_bins_touched``).
-The wire and the scrape cadence (the serve layer's ``telemetry`` protocol
-kinds and the fleet's heartbeat scraper) and the rollup's renderers
-(``promfmt``, ``topview``, the obs CLI) come with the serve layer
-(ROADMAP Queue 1 item 11b).
+The wire (the serve protocol's ``telemetry`` and ``metrics`` kinds,
+``ServePool.telemetry_rollup``), the scrape cadence (the health monitor's
+heartbeat scrape, :mod:`..serve.health`) and the rollup's renderers
+(:mod:`.promfmt`, :mod:`.topview`, the obs CLI's ``top`` and ``alerts``)
+are ported; the fleet that aggregates several replicas is ROADMAP Queue 1
+item 11b slice 4.
 """
 
 from __future__ import annotations

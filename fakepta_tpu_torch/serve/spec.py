@@ -1,20 +1,30 @@
-"""The spec surface of the serving layer, in part (port of
+"""Request and spec surface of the serving layer (port of
 ``fakepta_tpu.serve.spec``).
 
-A request names *what* to simulate (a spec), *how much* of it and *whose
-stream* it is; the scheduler owns executables, buckets and batching. This
-slice ports the declarative :class:`ArraySpec` (a synthetic array and GWB
-parameters, hashed structurally; :func:`..tune.search` and the tuner CLI
-take it) and the :class:`ServeError` family. The request dataclasses
-(``SimRequest``, ``OSRequest``, ``InferRequest``, ``AppendRequest``,
-``StreamRequest``), ``curn_grid_spec`` and ``resolve_spec_hash`` land with
-the pool and the fleet (ROADMAP Queue 1 items 11b.3 and 11b.4).
+A request names *what* to simulate (a spec), *how much* of it
+(``n`` realizations) and *whose stream* it is (``seed``): nothing about
+kernels, buckets or batching. The scheduler owns those: requests with the
+same ``(spec_hash, lane token)`` coalesce into one padded chunk dispatch,
+and each request's results come from its own RNG lane (``fold_in(key(seed),
+i)``), so a response equals ``EnsembleSimulator.run(n, seed=seed)``
+however it was batched.
+
+Specs come in two forms: a declarative :class:`ArraySpec` (a synthetic
+array and GWB parameters, hashed structurally, field for field the JAX
+package's, so one spec hashes alike in both), or a name registered on the
+pool with a prebuilt simulator. Both resolve to a stable ``spec_hash``
+through :func:`..obs.flightrec.spec_hash`.
+
+The stream-affine kinds (:class:`AppendRequest`, :class:`StreamRequest`)
+are defined here, field for field the JAX package's, so the protocol
+parses them; the pool that serves them (``StreamManager``) is ROADMAP
+Queue 1 item 11b slice 4.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -120,3 +130,160 @@ class ArraySpec:
         batch, gwb = self.parts(device=where)
         return EnsembleSimulator(batch, gwb=gwb, mesh=mesh, device=device,
                                  nbins=self.nbins)
+
+
+SpecLike = Union[str, ArraySpec]
+
+
+@dataclasses.dataclass(frozen=True)
+class SimRequest:
+    """One user's simulation request: ``n`` realizations of ``spec`` drawn
+    from the request's own RNG lane (``seed``). ``deadline_s`` is relative
+    to submission; an expired request is cancelled *before* dispatch with
+    :class:`ServeTimeout` (dispatched work always completes). ``trace_id``
+    is the request's trace identity, carried through coalescing and
+    dispatch (None: untraced)."""
+
+    spec: SpecLike
+    n: int
+    seed: int = 0
+    deadline_s: Optional[float] = None
+    trace_id: Optional[str] = None
+
+    kind = "sim"
+
+    def lane_token(self):
+        """Hashable lane identity: requests coalesce only when their
+        (spec, lane token) match (one packed-extras layout per cohort)."""
+        return ("sim",)
+
+    def run_kwargs(self) -> dict:
+        """The ``EnsembleSimulator.run`` / ``warm_start`` lane kwargs."""
+        return {}
+
+
+@dataclasses.dataclass(frozen=True)
+class OSRequest(SimRequest):
+    """A detection request: the optimal-statistic lane rides the cohort's
+    chunk; per-request ``amp2`` / ``snr`` (and, with ``null=True``, the
+    request's own paired-null calibration) come from the request's slice
+    alone, so results are cohort-independent."""
+
+    orf: Union[str, Sequence[str]] = "hd"
+    weighting: str = "noise"
+    null: bool = False
+
+    kind = "os"
+
+    def os_spec(self):
+        from ..detect import operators as detect_ops
+        orf = self.orf if isinstance(self.orf, str) else tuple(self.orf)
+        return detect_ops.as_spec(detect_ops.OSSpec(
+            orf=orf, weighting=self.weighting, null=bool(self.null)))
+
+    def lane_token(self):
+        spec = self.os_spec()
+        return ("os", spec.orfs, spec.weighting, bool(spec.null))
+
+    def run_kwargs(self) -> dict:
+        return {"os": self.os_spec()}
+
+
+@dataclasses.dataclass(frozen=True)
+class InferRequest(SimRequest):
+    """A likelihood request: the GP-marginalized Woodbury lnL lane
+    (:mod:`..infer`) at the request's theta grid for each of its
+    realizations. ``lnlike`` is an :class:`..infer.InferSpec`; requests
+    sharing (spec, model, mode, theta) coalesce."""
+
+    lnlike: object = None
+
+    kind = "infer"
+
+    def lane_token(self):
+        if self.lnlike is None:
+            raise ValueError("InferRequest needs an InferSpec (lnlike=...)")
+        theta = np.asarray(self.lnlike.theta)
+        return ("infer", self.lnlike.model, self.lnlike.mode,
+                theta.shape, theta.tobytes())
+
+    def run_kwargs(self) -> dict:
+        return {"lnlike": self.lnlike}
+
+
+@dataclasses.dataclass(frozen=True)
+class AppendRequest:
+    """Streaming ingestion: append a TOA block to the named stream. The
+    first touch of a ``stream`` name carries a ``spec`` (the stream's
+    frozen-grid template); ``ecorr_dt`` / ``watch`` / ``checkpoint`` are
+    open-time options. ``toas`` / ``residuals`` are (P, B) absolute
+    seconds / seconds; ``counts`` marks the valid prefix per pulsar.
+    Stream-affine: a fleet routes it by stream name. The pool that serves
+    it is ROADMAP Queue 1 item 11b slice 4."""
+
+    stream: str = ""
+    toas: object = None
+    residuals: object = None
+    spec: Optional[SpecLike] = None
+    sigma2: object = None
+    freqs: object = None
+    ecorr_amp: object = None
+    counts: object = None
+    ecorr_dt: Optional[float] = None
+    watch: Optional[str] = None
+    checkpoint: Optional[str] = None
+    deadline_s: Optional[float] = None
+    trace_id: Optional[str] = None
+
+    kind = "append"
+    stream_affine = True
+
+    def affinity_key(self) -> str:
+        """The fleet routing identity: the stream NAME."""
+        return f"stream:{self.stream}"
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamRequest:
+    """Read the named stream's rolling state (``StreamState.stats()``);
+    affine like :class:`AppendRequest`."""
+
+    stream: str = ""
+    deadline_s: Optional[float] = None
+    trace_id: Optional[str] = None
+
+    kind = "stream"
+    stream_affine = True
+
+    def affinity_key(self) -> str:
+        return f"stream:{self.stream}"
+
+
+def curn_grid_spec(k: int = 4, log10_A=(-15.2, -14.2), gamma=(3.0, 6.0),
+                   nbin: int = 10):
+    """A small CURN (log10_A, gamma) grid InferSpec: the JSON-expressible
+    likelihood request (the protocol's ``"grid"`` form)."""
+    from ..infer import (ComponentSpec, FreeParam, InferSpec, LikelihoodSpec,
+                         theta_grid)
+
+    model = LikelihoodSpec(components=(
+        ComponentSpec(target="red", spectrum="batch"),
+        ComponentSpec(target="dm", spectrum="batch"),
+        ComponentSpec(target="curn", nbin=nbin, free=(
+            FreeParam("log10_A", tuple(log10_A)),
+            FreeParam("gamma", tuple(gamma)))),
+    ))
+    return InferSpec(model=model, theta=theta_grid(model, k))
+
+
+def resolve_spec_hash(spec: SpecLike, named: dict) -> str:
+    """spec -> stable hash; named registrations resolve through ``named``."""
+    if isinstance(spec, str):
+        if spec not in named:
+            raise ServeError(f"unknown registered spec {spec!r}; "
+                             f"known: {sorted(named)}")
+        return named[spec]
+    if isinstance(spec, ArraySpec):
+        return spec.spec_hash()
+    raise TypeError(f"request spec must be a registered name or an "
+                    f"ArraySpec, got {type(spec).__name__}")

@@ -9,8 +9,9 @@ path, the counterpart of the JAX package's ``"xla"`` path. The stream
 and telemetry knobs are here with the modules that read them
 (:mod:`..stream`, :mod:`..obs.telemetry`), the tuner's constants with
 the tuner (:mod:`.search`, :mod:`.store`, :mod:`.model`), and the serve
-bucket ladder with :mod:`..serve.spec`; the rest of the serve, fleet and
-gateway knobs land with their modules (ROADMAP Queue 1 item 11b).
+ladders and the fleet lifecycle knobs (:mod:`..serve.spec`,
+:mod:`..serve.health`, :mod:`..serve.autoscale`); the gateway's knobs land
+with the gateway (ROADMAP Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -41,6 +42,52 @@ DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
 #: the ladder ratio the bucket model assumes (mean pad waste ~
 #: (ratio-1)/(2*ratio) under uniform cohort sizes)
 BUCKET_RATIO = 2
+
+#: default bucket ladder for the FLEET load benchmark: deliberately short,
+#: so the warmup bill is one kernel configuration per (spec, bucket) and
+#: small-request cohorts cap early (the solo loadgen covers ladder breadth)
+DEFAULT_FLEET_BUCKETS = (16, 32)
+
+# --- fleet lifecycle knobs (serve/health.py, serve/autoscale.py) -----------
+
+#: heartbeat probe period per replica (seconds); the monitor probes every
+#: live replica on this cadence while it is healthy
+HEARTBEAT_PERIOD_S = 1.0
+
+#: per-probe deadline: a probe that has not answered by now is a MISS;
+#: well under the period so misses accumulate quickly
+HEARTBEAT_DEADLINE_S = 0.25
+
+#: consecutive probe misses before a replica is SUSPECT (breaker opens:
+#: new routes drain away while probing continues with backoff)
+HEARTBEAT_SUSPECT_AFTER = 2
+
+#: consecutive probe misses before a suspect replica is WEDGED (still
+#: breakered, still probed: a wedged replica can come back)
+HEARTBEAT_WEDGED_AFTER = 4
+
+#: consecutive probe successes before the breaker closes again
+BREAKER_CLOSE_AFTER = 2
+
+#: suspect-probe exponential backoff: first retry delay and its cap
+BREAKER_BACKOFF_BASE_S = 0.5
+BREAKER_BACKOFF_CAP_S = 8.0
+
+#: autoscaler: per-replica throughput a healthy fleet should sustain;
+#: demand above ``alive * target`` asks for one more replica
+AUTOSCALE_TARGET_QPS_PER_REPLICA = 32.0
+
+#: autoscaler hysteresis band (fractional): scale DOWN only when demand
+#: sits below ``(1 - band)`` of the post-shrink capacity
+AUTOSCALE_HYSTERESIS = 0.25
+
+#: autoscaler p99 latency trip wires (milliseconds): above the high mark
+#: scale up regardless of qps; scale down only below the low mark
+AUTOSCALE_P99_HIGH_MS = 2000.0
+AUTOSCALE_P99_LOW_MS = 500.0
+
+#: cooldown between scale actions (seconds)
+AUTOSCALE_COOLDOWN_S = 30.0
 
 # --- streaming dispatch knobs (stream/) ------------------------------------
 
@@ -77,6 +124,11 @@ FS_TOUCH_TOL = 1e-3
 #: bounded snapshot ring per replica publisher (and per replica inside the
 #: aggregator)
 TELEMETRY_RING_SIZE = 64
+
+#: scrape every Nth successful heartbeat probe (1 = every probe); the
+#: scrape rides the heartbeat's connection, so this is the only
+#: telemetry-frequency control
+TELEMETRY_SCRAPE_EVERY = 1
 
 #: rollup window (seconds of per-replica snapshot history) used for rates
 #: (qps) and the append-latency regression baseline

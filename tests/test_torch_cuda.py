@@ -1708,3 +1708,43 @@ def test_tune_a_broken_kernel_raises_out_of_search(cuda, tmp_path,
                     nreal_hint=256, budget_s=120.0, max_candidates=8,
                     store=tmp_path / "tuned.json")
     assert not (tmp_path / "tuned.json").exists()
+
+
+@pytest.mark.cuda
+def test_serve_a_flagship_width_cohort_on_the_card(cuda):
+    """The pool on the card at the flagship's widths (100 pulsars x 780
+    TOAs, K = 320): a coalesced cohort launches #1 through run(lanes=...),
+    each response equals the request served alone at its bucket bit for
+    bit and the einsum path's run within the bf16 bound; after warm-up no
+    dispatch builds a kernel."""
+    from fakepta_tpu_torch.serve import (ArraySpec, ServeConfig, ServePool,
+                                         SimRequest)
+
+    spec = ArraySpec(npsr=100, ntoa=780, n_red=30, n_dm=100, gwb_ncomp=30)
+    pool = ServePool(config=ServeConfig(buckets=(16, 32),
+                                        coalesce_window_s=0.05))
+    try:
+        pool.serve(SimRequest(spec=spec, n=16, seed=0), timeout=600)
+        pool.serve(SimRequest(spec=spec, n=32, seed=0), timeout=600)
+        pool.reset_stats()
+        before = bc.launches
+        futs = [pool.submit(SimRequest(spec=spec, n=n, seed=s))
+                for n, s in ((5, 11), (9, 22), (7, 33))]
+        res = [f.result(timeout=600) for f in futs]
+        slo = pool.slo_summary()
+        assert bc.launches > before
+        assert slo["serve_steady_compiles"] == 0 and slo["serve_failed"] == 0
+        assert {r.bucket for r in res} == {32}
+        sim = pool._pool.get(spec.spec_hash(), spec).sim
+        batch, gwb = spec.parts(device="cuda")
+        ref = EnsembleSimulator(batch, gwb=gwb, nbins=spec.nbins,
+                                stat_path="einsum", device="cuda")
+        for (n, s), r in zip(((5, 11), (9, 22), (7, 33)), res):
+            alone = sim.run(32, chunk=32, lanes=[(s, n)], pipeline_depth=0)
+            assert np.array_equal(alone["curves"][:n], r.curves)
+            assert np.array_equal(alone["autos"][:n], r.autos)
+            want = ref.run(32, chunk=32, lanes=[(s, n)], pipeline_depth=0)
+            _assert_close((r.curves, r.autos),
+                          (want["curves"][:n], want["autos"][:n]), "bf16")
+    finally:
+        pool.close()

@@ -208,20 +208,27 @@ def test_as_policy_matches_jax():
 
 def test_tune_defaults_equal_jax_value_for_value():
     """Every constant of the port's knob table (the entries its engine,
-    sampler, stream, telemetry plane and tuner read) equals the JAX
-    package's; the one mapped name: DEFAULT_PATH, the JAX "xla" path being
-    the port's "einsum" path."""
+    sampler, stream, telemetry plane, tuner and serve layer read) equals
+    the JAX package's; the one mapped name: DEFAULT_PATH, the JAX "xla"
+    path being the port's "einsum" path."""
     names = sorted(n for n in vars(defaults) if n.isupper())
     assert names == [
         "ALERT_APPEND_REGRESSION_X", "ALERT_HBM_WATERMARK_FRAC",
-        "ALERT_HEARTBEAT_MISS_STREAK", "ALERT_P99_SLO_MS", "BUCKET_RATIO",
+        "ALERT_HEARTBEAT_MISS_STREAK", "ALERT_P99_SLO_MS",
+        "AUTOSCALE_COOLDOWN_S", "AUTOSCALE_HYSTERESIS",
+        "AUTOSCALE_P99_HIGH_MS", "AUTOSCALE_P99_LOW_MS",
+        "AUTOSCALE_TARGET_QPS_PER_REPLICA", "BREAKER_BACKOFF_BASE_S",
+        "BREAKER_BACKOFF_CAP_S", "BREAKER_CLOSE_AFTER", "BUCKET_RATIO",
         "DEFAULT_BUCKETS", "DEFAULT_BYTES_BUDGET", "DEFAULT_CHUNK",
-        "DEFAULT_PATH", "DEFAULT_PIPELINE_DEPTH", "DEPTH_CANDIDATES",
-        "FS_LANE_BINS", "FS_TOUCH_TOL", "HBM_FRACTION", "PROBE_BUDGET_S",
-        "PROBE_CHUNKS", "PROBE_TIMEOUT_S", "REFRESH_EVERY_APPENDS",
-        "REFRESH_MIN_SNR_GAIN", "STORE_FILENAME", "STORE_SCHEMA",
-        "STORE_VERSION", "STREAM_BLOCK_BUCKETS", "STREAM_GROWTH_RATIO",
-        "TELEMETRY_RING_SIZE", "TELEMETRY_WINDOW_S", "TUNE_DIR_ENV"]
+        "DEFAULT_FLEET_BUCKETS", "DEFAULT_PATH", "DEFAULT_PIPELINE_DEPTH",
+        "DEPTH_CANDIDATES", "FS_LANE_BINS", "FS_TOUCH_TOL", "HBM_FRACTION",
+        "HEARTBEAT_DEADLINE_S", "HEARTBEAT_PERIOD_S",
+        "HEARTBEAT_SUSPECT_AFTER", "HEARTBEAT_WEDGED_AFTER",
+        "PROBE_BUDGET_S", "PROBE_CHUNKS", "PROBE_TIMEOUT_S",
+        "REFRESH_EVERY_APPENDS", "REFRESH_MIN_SNR_GAIN", "STORE_FILENAME",
+        "STORE_SCHEMA", "STORE_VERSION", "STREAM_BLOCK_BUCKETS",
+        "STREAM_GROWTH_RATIO", "TELEMETRY_RING_SIZE",
+        "TELEMETRY_SCRAPE_EVERY", "TELEMETRY_WINDOW_S", "TUNE_DIR_ENV"]
     for n in names:
         want = getattr(jdefaults, n)
         if n == "DEFAULT_PATH":

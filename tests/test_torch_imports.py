@@ -177,6 +177,54 @@ def test_tune_and_serve_spec_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.obs.gate", "fakepta_tpu_torch.obs.promfmt",
+    "fakepta_tpu_torch.obs.topview", "fakepta_tpu_torch.serve.pool",
+    "fakepta_tpu_torch.serve.scheduler", "fakepta_tpu_torch.serve.router",
+    "fakepta_tpu_torch.serve.health", "fakepta_tpu_torch.serve.autoscale",
+    "fakepta_tpu_torch.serve.loadgen", "fakepta_tpu_torch.serve.cli",
+    "fakepta_tpu_torch.serve.__main__"])
+def test_serve_and_gate_modules_are_checked(module):
+    """The serving layer's first half and the rest of obs/ (ports of JAX
+    package modules; the router, promfmt and topview line for line) are
+    among the modules the checks below import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_serve_entry_points_default_to_the_card():
+    """ServePool, run_loadgen and the serve CLI serve on the card unless
+    the CPU is asked for; the package exposes the JAX names it ports."""
+    import fakepta_tpu_torch.serve as serve_pkg
+    from fakepta_tpu_torch.serve import (ArraySpec, ServeConfig, ServePool,
+                                         cli, run_loadgen)
+
+    assert set(serve_pkg.__all__) == {
+        "DEFAULT_BUCKETS", "AppendRequest", "ArraySpec", "AutoscaleConfig",
+        "Autoscaler", "HashRing", "HealthConfig", "HealthMonitor",
+        "InferRequest", "OSRequest", "PoolEntry", "ServeBusy",
+        "ServeClosed", "ServeConfig", "ServeError", "ServePool",
+        "ServeResult", "ServeTimeout", "SimRequest", "StreamRequest",
+        "WarmPool", "curn_grid_spec", "run_loadgen"}
+    assert cli.build_parser().parse_args(["loadgen"]).device == "cuda"
+    spec = ArraySpec(npsr=4, ntoa=16, n_red=2, n_dm=2, gwb_ncomp=2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServePool()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_loadgen(spec, n_requests=2)
+        assert cli.main(["loadgen", "--npsr", "4", "--ntoa", "16"]) == 2
+    with pytest.raises(ValueError, match="not both"):
+        ServePool(mesh=object(), device="cpu")
+    pool = ServePool(device="cpu", config=ServeConfig(buckets=(4,)))
+    try:
+        assert pool.mesh.local_device.type == "cpu"
+        assert pool.report().meta["platform"] == "cpu"
+    finally:
+        pool.close()
+
+
 def test_tuner_entry_points_default_to_the_card():
     """The tuner fingerprints and searches every visible card unless CPU
     devices are listed; without a GPU that is an error, not the CPU."""

@@ -206,5 +206,9 @@ def test_cli_usage_errors_exit_2(tmp_path, capsys):
     assert rc == 2 and "error" in err
     rc, _, _ = _run_cli(cli.main, ["compare", missing, missing], capsys)
     assert rc == 2
-    with pytest.raises(SystemExit):
-        cli.main(["gate", missing])       # not ported: an argparse error
+    # gate / top / alerts (ported since): a missing file is an I/O error,
+    # exit 2 as in the JAX CLI
+    for verb in ("gate", "top", "alerts"):
+        rc, _, err = _run_cli(cli.main, [verb, missing], capsys)
+        jrc, _, _ = _run_cli(jcli.main, [verb, missing], capsys)
+        assert rc == jrc == 2 and "error" in err
