@@ -168,10 +168,11 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    chunk per path split into the statistic, ``lnlike_moments`` and
    ``lnlike``; modes ``grad`` and ``fisher`` on ``"fused"`` at the full
    chunk with their peak memory; a fixed float64 flagship-width residual
-   (``include=("det",)``) against a dense host float64 oracle per pulsar;
-   ``InferenceRun`` at ``examples/likelihood_grid.py``'s at-scale line and
-   ``python -m fakepta_tpu_torch.infer run --npsr 100 --ntoa 780 --nreal
-   4096 --chunk 1024`` in a subprocess (exit 0, the artifact loads).
+   (``include=("det",)``) against a dense host float64 oracle per pulsar,
+   with ``python -m fakepta_tpu_torch.infer run --npsr 100 --ntoa 780
+   --nreal 4096 --chunk 1024`` in a subprocess beside it (exit 0, the
+   artifact loads); ``InferenceRun`` at ``examples/likelihood_grid.py``'s
+   at-scale line.
 12. ``faults``: the recovery policy on the flagship (``run(2048,
    chunk=1024)``): a transient failure injected at ``mc.dispatch`` chunk 1
    on ``"mega"`` is retried bit-identically, and so is a
@@ -317,7 +318,37 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    served run passes the run guard (zero degradations); the launches of
    the load generator, the cohort and the in-process request are counted
    (zeroed just before each, read just after).
-18. ``profile`` (only when asked for): per statistic path, the device time
+18. ``fleet``: the serve fleet at the serve phase's flagship widths
+   (``SERVE_SPEC``, K = 320, the default ladder 16 ... 1024, ``fused``
+   bf16). Two ``python -m fakepta_tpu_torch.serve replica`` subprocesses
+   share ``cuda:0`` (with ``--mesh-cards N``, N replicas, one a card)
+   behind the consistent-hash router (``SocketReplica``,
+   ``ServeFleet``). ``run_fleet_loadgen`` over 4 specs (distinct
+   ``data_seed``) serves 16 ``os`` (hd) requests, then 128 ``sim``
+   requests (sizes 4, 8, 16, 32) beside the one-pool baseline with no
+   kill, then the same 128 again, killing the first spec's owner at half
+   the submissions: every request served (no lost request, no timeout,
+   no failed dispatch, no steady build), the sampled and every
+   failed-over response bit for bit the same request served alone at its
+   bucket here, one replica death and at least one failover; each replica's
+   ready seconds, memory and #1 launches by bucket (read over the
+   protocol before and after each round, the killed replica's just
+   before its kill) printed. ``run_elastic_loadgen`` with 3 socket
+   replicas (2 specs, ladder 16 and 32): one wedged by a ``fleet.heartbeat``
+   hang (the breaker must open), one killed, one joined by the
+   autoscaler, which must start no nvcc and build nothing; nothing lost,
+   no timeout. On two in-process replicas: a ``SamplingSession`` of the
+   flagship's 30-bin free-spectrum CURN (4 chains, 4 warm-up and 8 post
+   steps in segments of 4: the step counts are the cut) whose owner is
+   killed at its third segment migrates once and ends, with its streamed
+   segments, bit for bit the uninterrupted run (run on its owner beside
+   the elastic round, whose fault plan arms no site it checks); three 8-TOA appends
+   through the fleet land on one replica, their moments within 1e-10 of a
+   direct ``StreamState``'s. No kernel is built in the phase (here or in
+   a replica). Then ``binned_correlation`` at bf16 at every cohort shape
+   the fleet launched (R = 16 ... 1024; NB = 17 for ``os``) that no
+   earlier phase measured, against its plain version and timed.
+19. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -333,6 +364,7 @@ Details go to ``build/chip_smoke.json`` too.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import shutil
@@ -2660,17 +2692,63 @@ def dense_oracle(batch64, W, compiled, theta) -> np.ndarray:
     return out
 
 
+def infer_oracle(out: dict, model, theta) -> None:
+    """A fixed flagship-width residual in float64: the det lane against
+    the dense host oracle, per pulsar at ORACLE_POINTS, and the lane's
+    sums against its per-pulsar terms, within ORACLE_RTOL."""
+    import torch
+    from fakepta_tpu_torch.infer import InferSpec
+    from fakepta_tpu_torch.infer import build
+    from fakepta_tpu_torch.ops import woodbury
+    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+    from fakepta_tpu_torch.scenarios import registry
+
+    scn = registry.get("flagship_100")
+    b64 = scn.batch_parts(dtype=torch.float64, device="cuda")[0]
+    W = np.random.default_rng(5).standard_normal(
+        tuple(b64.t_own.shape)) * 1e-7
+    sim64 = EnsembleSimulator(b64, include=("det",), waveform=W,
+                              stat_path="einsum", device="cuda")
+    pts = list(ORACLE_POINTS)
+    det = sim64.run(8, seed=0, chunk=8, lnlike=InferSpec(
+        model=model, theta=theta[pts]))["lnlike"]["lnl"]
+    compiled = build(model, b64)
+    want = dense_oracle(b64, W, compiled, theta[pts])
+    # the lane's own per-pulsar terms, in float64 on the card: each
+    # pulsar against the oracle at its point, their sums against the lane
+    tmat = compiled.basis(b64)
+    M, lndetN, nv, _ = woodbury.finish_fixed(woodbury.fixed_parts(
+        tmat, b64.sigma2, b64.mask))
+    d0, dT = woodbury.finish_res(woodbury.res_parts(
+        torch.as_tensor(W, device="cuda"), tmat, b64.sigma2, b64.mask))
+    per_psr = np.stack([woodbury.lnlike_from_moments(
+        d0, dT, M, lndetN, nv, compiled.phi(torch.as_tensor(
+            t, device="cuda"), b64)).cpu().numpy() for t in theta[pts]])
+    mine = per_psr[np.arange(b64.npsr) % len(pts), np.arange(b64.npsr)]
+    err_psr = float((np.abs(mine - want) / np.abs(want)).max())
+    err_sum = float((np.abs(det - per_psr.sum(1)) / np.abs(det)).max())
+    if err_psr > ORACLE_RTOL or err_sum > ORACLE_RTOL \
+            or not (det == det[:1]).all():
+        raise AssertionError(f"infer float64 oracle: per pulsar {err_psr}, "
+                             f"sum {err_sum}")
+    out["float64 oracle"] = {"per_pulsar_rel_err": err_psr,
+                             "sum_rel_err": err_sum, "rtol": ORACLE_RTOL,
+                             "points": pts}
+    print(f"infer flagship float64 det lane: each pulsar against the dense "
+          f"host oracle at theta point {pts}[p % {len(pts)}] "
+          f"{err_psr:.3e}, the lane's sums against its per-pulsar terms "
+          f"{err_sum:.3e} relative (bound {ORACLE_RTOL:g})", flush=True)
+    del sim64, b64
+
+
 def phase_infer(report: dict) -> None:
     """The likelihood lane on the card (module docstring, phase 11)."""
     import torch
-    from fakepta_tpu_torch.infer import (InferenceRun, InferSpec, build,
+    from fakepta_tpu_torch.infer import (InferenceRun, InferSpec,
                                          lanes_per_point, theta_grid)
     from fakepta_tpu_torch.obs.report import RunReport
-    from fakepta_tpu_torch.ops import woodbury
     from fakepta_tpu_torch.parallel.mesh import make_mesh
-    from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
-                                                       GWBConfig)
-    from fakepta_tpu_torch.scenarios import registry
+    from fakepta_tpu_torch.parallel.montecarlo import GWBConfig
 
     out = {}
     t_phase = time.perf_counter()
@@ -2759,44 +2837,34 @@ def phase_infer(report: dict) -> None:
     stamp("grad and fisher")
     torch.cuda.empty_cache()
 
-    # -- a fixed flagship-width residual in float64 against the oracle ----
-    scn = registry.get("flagship_100")
-    b64 = scn.batch_parts(dtype=torch.float64, device="cuda")[0]
-    W = np.random.default_rng(5).standard_normal(
-        tuple(b64.t_own.shape)) * 1e-7
-    sim64 = EnsembleSimulator(b64, include=("det",), waveform=W,
-                              stat_path="einsum", device="cuda")
-    pts = list(ORACLE_POINTS)
-    det = sim64.run(8, seed=0, chunk=8, lnlike=InferSpec(
-        model=model, theta=theta[pts]))["lnlike"]["lnl"]
-    compiled = build(model, b64)
-    want = dense_oracle(b64, W, compiled, theta[pts])
-    # the lane's own per-pulsar terms, in float64 on the card: each
-    # pulsar against the oracle at its point, their sums against the lane
-    tmat = compiled.basis(b64)
-    M, lndetN, nv, _ = woodbury.finish_fixed(woodbury.fixed_parts(
-        tmat, b64.sigma2, b64.mask))
-    d0, dT = woodbury.finish_res(woodbury.res_parts(
-        torch.as_tensor(W, device="cuda"), tmat, b64.sigma2, b64.mask))
-    per_psr = np.stack([woodbury.lnlike_from_moments(
-        d0, dT, M, lndetN, nv, compiled.phi(torch.as_tensor(
-            t, device="cuda"), b64)).cpu().numpy() for t in theta[pts]])
-    mine = per_psr[np.arange(b64.npsr) % len(pts), np.arange(b64.npsr)]
-    err_psr = float((np.abs(mine - want) / np.abs(want)).max())
-    err_sum = float((np.abs(det - per_psr.sum(1)) / np.abs(det)).max())
-    if err_psr > ORACLE_RTOL or err_sum > ORACLE_RTOL \
-            or not (det == det[:1]).all():
-        raise AssertionError(f"infer float64 oracle: per pulsar {err_psr}, "
-                             f"sum {err_sum}")
-    out["float64 oracle"] = {"per_pulsar_rel_err": err_psr,
-                             "sum_rel_err": err_sum, "rtol": ORACLE_RTOL,
-                             "points": pts}
-    print(f"infer flagship float64 det lane: each pulsar against the dense "
-          f"host oracle at theta point {pts}[p % {len(pts)}] "
-          f"{err_psr:.3e}, the lane's sums against its per-pulsar terms "
-          f"{err_sum:.3e} relative (bound {ORACLE_RTOL:g})", flush=True)
-    del sim64, b64
-    stamp("float64 oracle")
+    # -- the CLI in a subprocess, beside the float64 oracle below (neither
+    # is timed) ----------------------------------------------------------
+    cli_out = os.path.join(HERE, "build", "infer.jsonl")
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "fakepta_tpu_torch.infer", "run", "--npsr",
+         "100", "--ntoa", "780", "--nreal", str(NREAL), "--chunk",
+         str(CHUNK), "--out", cli_out], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        infer_oracle(out, model, theta)
+        stdout, stderr = cli.communicate(timeout=600)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    if cli.returncode != 0:
+        raise AssertionError(f"the likelihood CLI exited {cli.returncode}: "
+                             f"{stderr[-2000:]}")
+    row = json.loads(stdout.strip().splitlines()[-1])
+    rep = RunReport.load(cli_out)
+    if rep.meta.get("platform") != "gpu" or rep.meta["lnlike"]["k"] != 25:
+        raise AssertionError(f"the CLI's artifact: {rep.meta}")
+    out["CLI"] = dict(row, wall_s=time.perf_counter() - t_cli)
+    print(f"infer CLI (beside the float64 oracle): exit 0 in "
+          f"{out['CLI']['wall_s']:.1f} s, {json.dumps(row)}; artifact loads",
+          flush=True)
+    stamp("float64 oracle and CLI")
 
     # -- InferenceRun at the example's at-scale line, and the CLI --------
     from fakepta_tpu_torch import spectrum as spectrum_lib
@@ -2836,24 +2904,6 @@ def phase_infer(report: dict) -> None:
           f"{n} launches, summary {json.dumps(res['summary'])}", flush=True)
     del study, res
     stamp("InferenceRun")
-    cli_out = os.path.join(HERE, "build", "infer.jsonl")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "fakepta_tpu_torch.infer", "run", "--npsr",
-         "100", "--ntoa", "780", "--nreal", str(NREAL), "--chunk",
-         str(CHUNK), "--out", cli_out], cwd=HERE, capture_output=True,
-        text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"the likelihood CLI exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    row = json.loads(proc.stdout.strip().splitlines()[-1])
-    rep = RunReport.load(cli_out)
-    if rep.meta.get("platform") != "gpu" or rep.meta["lnlike"]["k"] != 25:
-        raise AssertionError(f"the CLI's artifact: {rep.meta}")
-    out["CLI"] = dict(row, wall_s=time.perf_counter() - t0)
-    print(f"infer CLI: exit 0 in {out['CLI']['wall_s']:.1f} s, "
-          f"{json.dumps(row)}; artifact loads", flush=True)
-    stamp("CLI")
     report["infer"] = out
 
 
@@ -5019,6 +5069,316 @@ def phase_serve(report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+FLEET_SPECS = 4
+FLEET_REQUESTS = 128
+FLEET_OS_REQUESTS = 16
+FLEET_KILL_AT = 0.5
+#: the elastic round: replicas, requests, sizes and specs (the flagship's
+#: widths; the counts are the cut)
+FLEET_ELASTIC = dict(n_replicas=3, n_requests=32, sizes=(1, 2, 4),
+                     n_specs=2)
+#: the sampling session: the flagship's 30-bin free-spectrum CURN, cut in
+#: steps (4 warm-up and 8 post steps in segments of 4)
+FLEET_SESSION = dict(n_steps=8, seed=3, segment=4, nbin=30, n_chains=4,
+                     warmup=4, n_leapfrog=4)
+FLEET_APPENDS = 3
+FLEET_APPEND_RTOL = 1e-10
+
+
+def fleet_kernel_counts(replicas) -> dict:
+    """{replica id: its process's kernel summary} of the live ones."""
+    return {rid: r.kernel_summary(timeout=120.0)
+            for rid, r in replicas.items() if r.alive}
+
+
+def fleet_launch_delta(before: dict, after: dict) -> dict:
+    """{kernel: {bucket: launches}} made between two readings (summed over
+    replicas; a replica absent from ``before`` counts from zero)."""
+    out: dict = {}
+    for rid, summ in after.items():
+        old = before.get(rid, {}).get("launches_by_bucket", {})
+        for k, by in summ.get("launches_by_bucket", {}).items():
+            for b, n in by.items():
+                d = n - old.get(k, {}).get(b, 0)
+                if d:
+                    out.setdefault(k, {})
+                    out[k][b] = out[k].get(b, 0) + d
+    return out
+
+
+def fleet_appends(out: dict, flt, spec, device: str) -> None:
+    """``FLEET_APPENDS`` 8-TOA epochs of the flagship array through the
+    fleet (stream affinity: one owner), their moments held to a direct
+    :class:`StreamState` on the same blocks within FLEET_APPEND_RTOL."""
+    from fakepta_tpu_torch.serve import AppendRequest, StreamRequest
+    from fakepta_tpu_torch.stream import StreamState
+
+    rng = np.random.default_rng(18)
+    span = 15.0 * STREAM_YR
+    blocks = []
+    for k in range(FLEET_APPENDS):
+        lo, hi = 0.2 * span + 0.1 * k * span, 0.2 * span + 0.1 * (k + 1) * span
+        t = np.sort(rng.uniform(lo, hi, (spec.npsr, 8)), axis=1)
+        blocks.append((t, rng.normal(0.0, 1e-7, (spec.npsr, 8))))
+    t0 = time.perf_counter()
+    infos = [flt.serve(AppendRequest(stream="fleet", toas=t, residuals=r,
+                                     spec=spec), timeout=SERVE_DEADLINE_S)
+             for t, r in blocks]
+    append_s = time.perf_counter() - t0
+    owners = {i["replica"] for i in infos}
+    stats = flt.serve(StreamRequest(stream="fleet"), timeout=SERVE_DEADLINE_S)
+    if len(owners) != 1 or stats["replica"] not in owners \
+            or stats["n_toas"] != FLEET_APPENDS * 8 * spec.npsr:
+        raise AssertionError(f"fleet: stream affinity {owners}, {stats}")
+    state = flt.replicas[stats["replica"]].pool._stream_mgr._streams[
+        "fleet"].state
+    direct = StreamState(spec.parts(device="cpu")[0], device=device)
+    for t, r in blocks:
+        direct.append(t, r)
+    err = moments_rel_err(state.moments(), direct.moments())
+    out["appends"] = {"n": FLEET_APPENDS, "toas": stats["n_toas"],
+                      "replica": stats["replica"], "rel_err": err,
+                      "append_ms": [i["latency_ms"] for i in infos],
+                      "total_s": append_s}
+    print(f"fleet: {FLEET_APPENDS} 8-TOA appends through the fleet on "
+          f"{stats['replica']} in {append_s:.2f} s; moments vs a direct "
+          f"StreamState {err:.3e} (bound {FLEET_APPEND_RTOL})", flush=True)
+    if not err <= FLEET_APPEND_RTOL:
+        raise AssertionError(f"fleet: appended moments off by {err}")
+
+
+def fleet_elastic(out: dict, spec, devices) -> None:
+    """The elastic round on socket replicas: wedge, kill and join; nothing
+    lost, no timeout, the breaker opened and the joined replica started no
+    nvcc and built nothing."""
+    from fakepta_tpu_torch.serve import HealthConfig, ServeConfig
+    from fakepta_tpu_torch.serve.loadgen import run_elastic_loadgen
+
+    t0 = time.perf_counter()
+    erow = run_elastic_loadgen(
+        spec, transport="process", config=ServeConfig(
+            buckets=(16, 32)), devices=devices, verify=2,
+        health_config=HealthConfig(
+            period_s=0.05, probe_deadline_s=0.5, suspect_after=2,
+            wedged_after=4, close_after=2, backoff_base_s=0.05,
+            backoff_cap_s=0.2), **FLEET_ELASTIC)
+    erow["loadgen_s"] = time.perf_counter() - t0
+    out["elastic"] = erow
+    print(f"fleet: elastic round ({FLEET_ELASTIC['n_replicas']} "
+          f"replicas, wedge {erow['fleet_wedged_replica']} -> "
+          f"{erow['fleet_wedge_state']}, kill "
+          f"{erow['fleet_killed_replica']}, join "
+          f"{erow.get('fleet_joined_replica')}): lost "
+          f"{erow['fleet_lost_requests']}, timeouts "
+          f"{erow['fleet_timeouts']}, failovers "
+          f"{erow['fleet_failovers']}, breaker opens "
+          f"{erow.get('fleet_breaker_opens')}, joined replica nvcc "
+          f"{erow.get('fleet_join_nvcc_starts')} / steady builds "
+          f"{erow.get('fleet_join_steady_compiles')}; "
+          f"{erow['loadgen_s']:.1f} s", flush=True)
+    if erow["fleet_lost_requests"] or erow["fleet_timeouts"] \
+            or erow["fleet_joins"] < 1 \
+            or erow.get("fleet_join_nvcc_starts") != 0 \
+            or erow.get("fleet_join_steady_compiles") != 0 \
+            or erow["fleet_wedge_state"] not in ("suspect", "wedged"):
+        raise AssertionError(f"fleet: elastic round {erow}")
+
+
+def fleet_session_reference(flt, spec) -> dict:
+    """The flagship CURN session's uninterrupted run on its ring owner (no
+    fault plan: it runs beside the elastic round, whose plan arms only the
+    ``fleet.heartbeat`` site), with its build and run seconds."""
+    from fakepta_tpu_torch.serve import SampleSessionSpec
+
+    sess = SampleSessionSpec(spec=spec, **FLEET_SESSION)
+    owner = flt.ring.owner(sess.session_hash())
+    t0 = time.perf_counter()
+    run = flt.replicas[owner].sampling_run(sess)
+    t1 = time.perf_counter()
+    ref = run.run(sess.n_steps, seed=sess.seed, segment=sess.segment,
+                  pipeline_depth=0)
+    return {"theta": ref["theta"], "build_s": t1 - t0,
+            "run_s": time.perf_counter() - t1}
+
+
+def fleet_session(out: dict, flt, spec, ck_dir: str, ref: dict) -> None:
+    """The flagship CURN session with replica affinity: the owner killed at
+    its third segment (``sample.segment`` kill), the session migrates to
+    the sibling, resumes at the segment-boundary checkpoint and ends bit
+    for bit the uninterrupted run ``ref`` (:func:`fleet_session_reference`;
+    and so do its streamed segments)."""
+    from fakepta_tpu_torch import faults
+    from fakepta_tpu_torch.serve import SampleSessionSpec
+
+    sess = SampleSessionSpec(spec=spec, **FLEET_SESSION)
+    owner = flt.ring.owner(sess.session_hash())
+    ref_s = ref["build_s"] + ref["run_s"]
+    streamed = {}
+    plan = faults.FaultPlan(
+        [faults.FaultSpec("sample.segment", "kill", at=(2,))])
+    t0 = time.perf_counter()
+    with faults.inject(plan):
+        got = flt.start_session(sess, os.path.join(ck_dir, "session")).run(
+            on_segment=lambda i, a: streamed.setdefault(i, np.array(a)))
+    sess_s = time.perf_counter() - t0
+    kept = np.concatenate([streamed[i] for i in sorted(streamed)])
+    info = dict(got["session"], owner=owner, draws=list(got["theta"].shape),
+                reference_s=ref_s, reference_build_s=ref["build_s"],
+                session_s=sess_s,
+                rhat_max=got["summary"].get("rhat_max"))
+    out["session"] = info
+    print(f"fleet: sample session {info['hash'][:10]} ({sess.nbin}-bin "
+          f"CURN, {sess.n_chains} chains, {sess.n_steps} steps): owner "
+          f"{owner} killed at segment 2, resumed on {info['replica']} "
+          f"({info['migrations']} migration) in {sess_s:.1f} s, the "
+          f"uninterrupted run {ref_s:.1f} s ({ref['build_s']:.1f} s of it "
+          f"the SamplingRun's build)", flush=True)
+    if info["migrations"] != 1 or info["replica"] == owner \
+            or not np.array_equal(got["theta"], ref["theta"]) \
+            or not np.array_equal(kept, ref["theta"]):
+        raise AssertionError(f"fleet: the migrated session is not the "
+                             f"uninterrupted run: {info}")
+
+
+def phase_fleet(report: dict, cards: int = 1) -> None:
+    """The serve fleet on the card (module docstring, phase ``fleet``)."""
+    import torch
+    from fakepta_tpu_torch.detect import OSSpec
+    from fakepta_tpu_torch.ops import _build
+    from fakepta_tpu_torch.serve import (ArraySpec, LocalReplica,
+                                         ServeConfig, ServeFleet, loadgen)
+    from fakepta_tpu_torch.serve.loadgen import (DEFAULT_SIZES,
+                                                 run_fleet_loadgen)
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("fleet", {})
+    spec = ArraySpec(**SERVE_SPEC)
+    fleet_dir = os.path.join(HERE, "build", "fleet")
+    shutil.rmtree(fleet_dir, ignore_errors=True)
+    os.makedirs(fleet_dir)
+    devices = [f"cuda:{i}" for i in range(cards)]
+    n_rep = max(2, cards)
+    _build.build()
+    nvcc0 = _build.nvcc_starts
+    plain = shape_tag(spec.npsr, spec.npsr, spec.ntoa)
+    os_tag = shape_tag(spec.npsr, spec.npsr, spec.ntoa, spec.nbins + 2)
+    gates = ("fleet_failed", "fleet_timeouts", "fleet_lost_requests",
+             "fleet_steady_compiles", "fleet_retraces")
+    launched = {}
+    # 1. + 2.: the load on socket replicas (one card shared, or a card
+    # each): os; sim beside the one-pool baseline, no kill; then the same
+    # sim list again, killing the first spec's owner at half of it
+    config = ServeConfig()
+    t0 = time.perf_counter()
+    flt = loadgen._build_fleet(n_rep, "process", spec, config, None,
+                               devices=devices)
+    out["spawn_s"] = time.perf_counter() - t0
+    rows = {}
+    try:
+        for name, kind, n_req, kw in (
+                ("os", "os", FLEET_OS_REQUESTS, dict(verify=2)),
+                ("sim", "sim", FLEET_REQUESTS, dict(verify=3,
+                                                    baseline=True)),
+                ("kill", "sim", FLEET_REQUESTS, dict(
+                    verify=3, kill_one_at=FLEET_KILL_AT))):
+            before = fleet_kernel_counts(flt.replicas)
+            t0 = time.perf_counter()
+            row = run_fleet_loadgen(
+                spec, fleet=flt, n_requests=n_req, sizes=DEFAULT_SIZES,
+                kind=kind, n_specs=FLEET_SPECS, config=config,
+                devices=devices, **kw)
+            after = fleet_kernel_counts(flt.replicas)
+            if "fleet_killed_kernels" in row:
+                # read just before the kill: the launches of the cohorts
+                # then in flight on it are not counted
+                after[row["fleet_killed_replica"]] = \
+                    row["fleet_killed_kernels"]
+            moved = fleet_launch_delta(before, after)
+            row.update(loadgen_s=time.perf_counter() - t0,
+                       launches_by_bucket=moved, replica_kernels=after)
+            tag = plain if kind == "sim" else os_tag
+            for k, by in moved.items():
+                for b, n in by.items():
+                    add_launches(report, f"{tag} R={b}", {k: n})
+                    launched[(tag, int(b))] = kind
+            rows[name] = row
+            print(f"fleet: {name} round, {kind} x{n_req} over {n_rep} "
+                  f"socket replicas on {devices}: "
+                  f"{row['fleet_qps_per_chip']} qps/card, p50 "
+                  f"{row['fleet_p50_ms']} ms, p99 {row['fleet_p99_ms']} "
+                  f"ms, warm hit {row['fleet_warm_hit_rate']}, failovers "
+                  f"{row['fleet_failovers']}, lost "
+                  f"{row['fleet_lost_requests']}, timeouts "
+                  f"{row['fleet_timeouts']}, speedup "
+                  f"x{row.get('fleet_speedup_x')} (one pool "
+                  f"{row.get('fleet_solo_qps')} qps); ready s "
+                  f"{row['fleet_ready_s']}; verified "
+                  f"{row.get('fleet_verified')} "
+                  f"({row.get('fleet_verified_failover')} failed over); "
+                  f"#1 launches by bucket {moved}; "
+                  f"{row['loadgen_s']:.1f} s", flush=True)
+            print("fleet: replica memory (bytes) " + json.dumps(
+                {rid: k.get("memory") for rid, k in after.items()}),
+                flush=True)
+            bad = {k: row[k] for k in gates if row.get(k)}
+            nb = sum(moved.get("binned_correlation", {}).values())
+            if bad or row["fleet_requests"] != n_req or not nb \
+                    or set(moved) != {"binned_correlation"}:
+                raise AssertionError(f"fleet: {name} gates {bad}, "
+                                     f"{row['fleet_requests']} served, "
+                                     f"launches {moved}")
+        # every failed-over response was verified bit for bit inside the
+        # load generator (it raises on a mismatch)
+        kill_row = rows["kill"]
+        if kill_row["fleet_replica_deaths"] != 1 \
+                or kill_row["fleet_failovers"] < 1:
+            raise AssertionError(f"fleet: the kill round {kill_row}")
+        nv = {rid: k["nvcc_starts"] for rid, k in
+              kill_row["replica_kernels"].items()}
+        if any(nv.values()):
+            raise AssertionError(f"fleet: replicas started nvcc {nv}")
+    finally:
+        flt.close()
+    out["load"] = rows
+
+    # 3. the elastic round: wedge, kill and join (socket replicas; the
+    # joined replica must start no nvcc), with the sampling session's
+    # uninterrupted run on two in-process replicas beside it
+    local = ServeFleet([LocalReplica(f"s{i}", device=devices[0],
+                                     index=i) for i in range(2)])
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            ref = ex.submit(fleet_session_reference, local, spec)
+            fleet_elastic(out, spec, devices)
+            ref = ref.result()
+
+        # 4. + 5.: the session, migrated once, and stream appends (their
+        # moments and chains are read here)
+        fleet_session(out, local, spec, fleet_dir, ref)
+        fleet_appends(out, local, spec, devices[0])
+    finally:
+        local.close()
+    built = _build.nvcc_starts - nvcc0
+    if built:
+        raise AssertionError(f"fleet: {built} kernel build(s) in the phase")
+
+    # 6. #1 at the cohort shapes the fleet launched (bf16), each held
+    # against its plain version and timed, unless an earlier phase did
+    kernels = report.setdefault("kernels", {})
+    sim = spec.build(device=devices[0])
+    out["kernels"] = {}
+    for (tag, b), kind in sorted(launched.items()):
+        full = f"{tag} R={b}"
+        if f"binned_correlation/bf16/{full}" in kernels:
+            continue
+        out["kernels"][full] = served_kernel_rows(
+            report, sim, b, full,
+            spec=OSSpec(orf="hd") if kind == "os" else None)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"fleet: phase {out['phase_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -5164,16 +5524,17 @@ def main(argv=None) -> int:
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
                              "sample", "stream", "multiproc", "tune",
-                             "serve"],
+                             "serve", "fleet"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
                              "sample", "stream", "multiproc", "tune",
-                             "serve", "profile"])
+                             "serve", "fleet", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh, multiproc and profile phases' "
-                         "flagship meshes span (default 1: every shard, "
-                         "and both multiproc ranks, on cuda:0)")
+                         "flagship meshes and the fleet phase's replicas "
+                         "span (default 1: every shard, both multiproc "
+                         "ranks and both fleet replicas on cuda:0)")
     # one rank of the multiproc phase (the phase starts them)
     ap.add_argument("--mp-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -5216,6 +5577,7 @@ def main(argv=None) -> int:
               "sample": phase_sample, "stream": phase_stream,
               "multiproc": lambda r: phase_multiproc(r, args.mesh_cards),
               "tune": phase_tune, "serve": phase_serve,
+              "fleet": lambda r: phase_fleet(r, args.mesh_cards),
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:
@@ -5235,9 +5597,10 @@ def main(argv=None) -> int:
     # mesh's PL = 34; ipta_dr3's PL = 120 and 60; the detection lane's
     # weight-slot counts NB and chunk_stats' K where they are not the plain
     # run's; the facade batch's PL = 100 and 50 at its own TOA width and
-    # at a width with T % 4 != 0; the serve phase's R = 16 and R = 1024,
-    # tagged with R), each with the launches made at that shape in the
-    # main-path runs (0 where none was made)
+    # at a width with T % 4 != 0; the serve phase's R = 16 and R = 1024
+    # and the fleet phase's cohort buckets, tagged with R), each with the
+    # launches made at that shape in the main-path runs (0 where none was
+    # made)
     table = []
     specs = (("binned_correlation", "bf16",
               "fakepta_tpu_torch/csrc/binned_corr.cu",

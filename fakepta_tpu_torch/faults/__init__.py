@@ -26,9 +26,8 @@ with a flight-recorder dump. Silent corruption is never an outcome.
 
 The JAX package's ``cache.load`` site has no counterpart: it wires XLA's
 persistent compilation cache, and the port has none (its kernels are
-built once per checkout, :mod:`..ops._build`). The ``fleet.replica`` and
-``gateway.*`` sites come with their modules (ROADMAP Queue 1 item 11b
-slices 4 and 5).
+built once per checkout, :mod:`..ops._build`). The ``gateway.*`` sites
+come with ``gateway/`` (ROADMAP Queue 1 item 11b slice 5).
 """
 
 from .plan import (FaultError, FaultPlan, FaultSpec, DegradeFault,

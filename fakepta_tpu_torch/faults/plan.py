@@ -26,6 +26,7 @@ site                      where it is checked
 ``sample.segment``        SamplingRun.run, before each segment dispatch
 ``ingest.append``         StreamState.append, at the top of each TOA block
 ``serve.dispatch``        ServePool's dispatcher thread, per cohort
+``fleet.replica``         ServeFleet's router, per dispatch to a replica
 ``fleet.heartbeat``       the health monitor, per replica probe
 ``telemetry.scrape``      the health monitor, before each telemetry scrape
                           riding a successful probe
@@ -34,8 +35,14 @@ site                      where it is checked
 The JAX package's ``cache.load`` site wires XLA's persistent compilation
 cache, which the port does not have (its kernels are built once per
 checkout by :mod:`..ops._build`), so it has no counterpart. The
-``fleet.replica`` site (the fleet router, ROADMAP Queue 1 item 11b slice
-4) and the ``gateway.*`` sites (slice 5) come with their modules.
+``gateway.*`` sites come with ``gateway/`` (ROADMAP Queue 1 item 11b
+slice 5); the stream cutover (``serve/streams.py``) already checks
+``gateway.cutover``.
+
+At ``fleet.replica`` (checked with ``replica=<id>`` context before the
+router hands a request to that replica) a ``kill`` takes the replica
+down mid-flight and the request fails over to a sibling; a
+``transient`` spills it to the next replica on the ring.
 
 ``fleet.heartbeat`` is checked inside the monitor's probe with
 ``replica=<id>`` context, so a ``hang`` there (matched to one replica

@@ -183,6 +183,23 @@ def classify_replica(exc: BaseException) -> str:
     return classify(exc)
 
 
+def poisons_process(exc: BaseException) -> bool:
+    """True when ``exc`` (or a link of its cause chain, at most eight)
+    leaves this process unable to serve: a sticky CUDA error (the context
+    is unusable) or a kernel that could not be built. A serve replica
+    that meets one exits, so its router fails the request over to a
+    sibling instead of receiving an error line."""
+    seen = 0
+    cur: Optional[BaseException] = exc
+    while cur is not None and seen < 8:
+        msg = f"{type(cur).__name__}: {cur}".lower()
+        if any(p in msg for p in _STICKY_CUDA_PATTERNS + _BUILD_PATTERNS):
+            return True
+        cur = cur.__cause__
+        seen += 1
+    return False
+
+
 def sleep(seconds: float) -> None:
     """Backoff sleep (bounded by the policy's ``max_backoff_s``)."""
     if seconds > 0:

@@ -29,8 +29,8 @@ The wire (the serve protocol's ``telemetry`` and ``metrics`` kinds,
 ``ServePool.telemetry_rollup``), the scrape cadence (the health monitor's
 heartbeat scrape, :mod:`..serve.health`) and the rollup's renderers
 (:mod:`.promfmt`, :mod:`.topview`, the obs CLI's ``top`` and ``alerts``)
-are ported; the fleet that aggregates several replicas is ROADMAP Queue 1
-item 11b slice 4.
+and the fleet that aggregates several replicas (:mod:`..serve.fleet`)
+are ported.
 """
 
 from __future__ import annotations

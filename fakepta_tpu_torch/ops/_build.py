@@ -40,6 +40,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
+#: nvcc processes this process has started (a replica that finds every
+#: library already built starts none)
+nvcc_starts = 0
+
 
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
@@ -69,8 +73,10 @@ def library_path(name: str) -> Path:
 def start_nvcc(src: Path, dst: Path) -> subprocess.Popen:
     """Start one nvcc process compiling ``src`` (headers from ``csrc/``)
     into the library ``dst``; its output is the compiler's log."""
+    global nvcc_starts
     cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(dst),
            str(src)]
+    nvcc_starts += 1
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 

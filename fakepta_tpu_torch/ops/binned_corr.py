@@ -23,12 +23,14 @@ plain version of both.
 
 Wrapper rules: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises (no fallback). ``launches`` and ``vpu_launches`` count
-each kernel's launches.
+each kernel's launches in the process; :func:`thread_launches` those made
+on the calling thread.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -39,6 +41,22 @@ from . import _build
 launches = 0
 #: number of times :func:`binned_correlation_vpu` launched its kernel
 vpu_launches = 0
+#: each thread's launches by kernel, beside the process counts
+_tally = threading.local()
+
+
+def _count(kernel: str, n: int) -> None:
+    """Add ``n`` launches of ``kernel`` to the calling thread's tally."""
+    if n:
+        counts = _tally.__dict__.setdefault("counts", {})
+        counts[kernel] = counts.get(kernel, 0) + n
+
+
+def thread_launches() -> dict:
+    """{kernel: launches} made on the calling thread, so a caller that
+    shares its process with other launching threads (several serve pools
+    in one process) reads only its own."""
+    return dict(_tally.__dict__.get("counts", {}))
 
 MMA_TILE = 128  # binned_correlation's pair tile is at most 128 x 128
 MMA_WARPS = 8   # warps per block, each owning fm x fn m16n8 fragments
@@ -318,6 +336,7 @@ def binned_correlation(res_local, res_full, weights, nbins: int,
     out, launched = _run("fpt_binned_corr", "binned_correlation", res_local,
                          res_full, weights, nbins, precision)
     launches += launched
+    _count("binned_correlation", launched)
     return out
 
 
@@ -333,4 +352,5 @@ def binned_correlation_vpu(res_local, res_full, weights, nbins: int,
     out, launched = _run("fpt_binned_corr_vpu", "binned_correlation_vpu",
                          res_local, res_full, weights, nbins, precision)
     vpu_launches += launched
+    _count("binned_correlation_vpu", launched)
     return out

@@ -48,7 +48,8 @@ import torch
 
 from . import _build
 from .binned_corr import (SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED,
-                          _launch as _correlate, round_bf16, split_tf32)
+                          _count, _launch as _correlate, round_bf16,
+                          split_tf32)
 
 #: number of times :func:`chunk_stats` launched its kernels on the shared
 #: operand set
@@ -414,6 +415,8 @@ def chunk_stats(base, coef, times, scales, weights, *,
                                weights, nbins, precision)
     if base_local is None:
         launches += launched
+        _count("chunk_stats", launched)
     else:
         sharded_launches += launched
+        _count("chunk_stats_sharded", launched)
     return out

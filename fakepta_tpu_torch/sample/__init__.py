@@ -16,16 +16,16 @@ drained through the pipeline's writer thread.
   the segment loop, emitting a ``fakepta_tpu.sample/1`` artifact; CLI:
   ``python -m fakepta_tpu_torch.sample run``;
 - :mod:`.factorized`: the per-frequency factorized free-spectrum driver
-  (:class:`FactorizedRun`, :func:`factorized_oracle`). The JAX package's
-  ``run_factorized_sessions`` routes lanes over its serve fleet and waits
-  for that module (ROADMAP Queue 1 item 11b).
+  (:class:`FactorizedRun`, :func:`factorized_oracle`) and
+  :func:`run_factorized_sessions`, its lanes routed over a serve fleet.
 """
 
 from .factorized import (FactorizedRun, FactorizedSpec, LanePlan,
                          factor_plan, factorized_oracle, lane_seed,
                          lane_spans, marginalize_for_lanes,
                          marginalize_nuisance_np, marginalized_window_moments,
-                         nuisance_phi_np, recombine_draws)
+                         nuisance_phi_np, recombine_draws,
+                         run_factorized_sessions)
 from .model import SAMPLE_SCHEMA, SampleSpec, as_spec, diagnostics
 from .run import SampleCheckpoint, SamplingRun
 
@@ -34,4 +34,4 @@ __all__ = ["FactorizedRun", "FactorizedSpec", "LanePlan", "SAMPLE_SCHEMA",
            "diagnostics", "factor_plan", "factorized_oracle", "lane_seed",
            "lane_spans", "marginalize_for_lanes", "marginalize_nuisance_np",
            "marginalized_window_moments", "nuisance_phi_np",
-           "recombine_draws"]
+           "recombine_draws", "run_factorized_sessions"]

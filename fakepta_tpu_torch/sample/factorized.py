@@ -27,9 +27,9 @@ lane index)`` (:func:`lane_seed`), so a lane's draws are those of the lane
 run alone. Recombination scatters lane draws into their parent theta
 slots; the joint diagnostics are lane aggregates (R-hat max, ESS min).
 
-The JAX module's ``run_factorized_sessions`` routes the lanes over its
-serve fleet's sampling sessions and waits for that module (ROADMAP Queue 1
-item 11b).
+:func:`run_factorized_sessions` routes the same lanes over a serve
+fleet instead: one :class:`..serve.fleet.SamplingSession` per lane, each
+with its own replica affinity and checkpoint, recombined here.
 """
 
 from __future__ import annotations
@@ -496,3 +496,57 @@ def factorized_oracle(batch, model, lane_bins=None, residuals=None,
         "deltas": deltas,
         "lane_count": len(plans),
     }
+
+
+def run_factorized_sessions(fleet, sess, checkpoint_dir, lane_bins=None,
+                            pipeline_depth: int = 0) -> dict:
+    """Fleet-wide factorized sampling: one
+    :class:`..serve.fleet.SamplingSession` per bin lane.
+
+    Each lane is an ordinary session spec with its ``bin_offset`` /
+    ``nbin`` window, ``data_nbin`` pinned to the parent bin count (so every
+    replica synthesizes the IDENTICAL parent-model data vector) and the
+    :func:`lane_seed` seed. Its spec hash differs per lane, so the
+    consistent-hash router spreads lanes across the fleet's replicas and
+    every session keeps the failover / checkpoint-migration story.
+    Returns the recombined result (parent theta slots) plus per-lane
+    session bookkeeping.
+    """
+    from pathlib import Path
+
+    from ..serve.fleet import SamplingSession
+
+    Path(checkpoint_dir).mkdir(parents=True, exist_ok=True)
+    nbin = int(sess.nbin)
+    spans = lane_spans(nbin, lane_bins)
+    t0 = now()
+    lane_results, lane_wall, sessions = [], [], []
+    for i, (lo, hi) in enumerate(spans):
+        lane_sess = dataclasses.replace(
+            sess, nbin=hi - lo, bin_offset=lo,
+            seed=lane_seed(sess.seed, i), data_nbin=nbin)
+        session = SamplingSession(
+            fleet, lane_sess,
+            checkpoint=Path(checkpoint_dir) / f"fs-lane{i:03d}.ckpt")
+        t_l = now()
+        lane_results.append(session.run(pipeline_depth=pipeline_depth))
+        lane_wall.append(now() - t_l)
+        sessions.append({"lane": i, "lo": lo, "hi": hi,
+                         "replica": lane_results[-1]["session"]["replica"],
+                         "hash": lane_results[-1]["session"]["hash"]})
+        obs_metrics.count("sample.lane_runs")
+    theta = recombine_draws(
+        [tuple(range(lo, hi)) for lo, hi in spans], lane_results, nbin)
+    total_s = now() - t0
+    ess_min = min(r["diag"].get("ess_min", 0.0) for r in lane_results)
+    summary = {
+        "rhat_max": round(max(r["diag"].get("rhat_max", float("nan"))
+                              for r in lane_results), 5),
+        "ess_min": round(ess_min, 2),
+        "fs_lane_count": len(spans),
+        "fs_ess_per_s_per_chip": round(ess_min / max(lane_wall), 3),
+        "fs_wall_s_total": round(total_s, 4),
+        "fs_wall_s_critical": round(max(lane_wall), 4),
+    }
+    return {"theta": theta, "summary": summary, "sessions": sessions,
+            "lanes": lane_results}

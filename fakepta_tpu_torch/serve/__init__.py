@@ -1,6 +1,6 @@
-"""fakepta_tpu_torch.serve: the warm-pool serving layer and its
-microbatch coalescing scheduler (port of ``fakepta_tpu.serve``, its first
-half).
+"""fakepta_tpu_torch.serve: the warm-pool serving layer, its microbatch
+coalescing scheduler and the fleet in front of it (port of
+``fakepta_tpu.serve``).
 
 The request-shaped front door to the ensemble engine: many small user
 requests coalesce into one padded chunk dispatch over a warm pool of
@@ -12,14 +12,26 @@ flight-recorder failure notes and SLO telemetry (``serve_p50_ms`` /
 ``pad_waste_frac``) are part of the lane. The pool serves on the card
 unless ``device="cpu"`` is given.
 
-Ported here: the request and spec surface (:mod:`.spec`), the warm pool
-(:mod:`.pool`), the scheduler (:mod:`.scheduler`), the consistent-hash
-router (:class:`HashRing`), the fleet health plane
-(:class:`HealthMonitor`) and autoscaler policy (:class:`Autoscaler`),
-the one-pool load generator (:func:`run_loadgen`) and the CLI. The fleet
-(``ServeFleet``, ``LocalReplica``, ``SocketReplica``, sampling sessions),
-the ``StreamManager`` and the fleet, elastic and gateway load generators
-are ROADMAP Queue 1 item 11b slices 4 and 5.
+Horizontal scale-out: :class:`ServeFleet` puts a spec-hash
+consistent-hash router (:class:`HashRing`) in front of N replicas
+(:class:`LocalReplica` in process, :class:`SocketReplica` a subprocess on
+its own card or sharing one): warm-pool affinity per spec shard,
+saturation spillover, fleet-wide 429 aggregation, mid-flight failover
+(bit-identical per RNG lane), a shared kernel build directory (a
+replica's cold start builds nothing), and :class:`SamplingSession`\\ s
+that migrate between replicas at segment-boundary checkpoints.
+
+Fleet lifecycle: the :class:`HealthMonitor` heartbeat plane classifies
+replicas healthy / suspect / wedged / dead with a circuit breaker;
+elastic membership (:meth:`ServeFleet.join` / :meth:`ServeFleet.retire`
+and the ``serve replica --register`` hello / adopt handshake); the
+:class:`Autoscaler` turns the fleet SLO rollups into a target replica
+count with hysteresis and cooldown.
+
+Streaming ingestion: :class:`AppendRequest` / :class:`StreamRequest` feed
+named :class:`..stream.StreamState` sessions through the pool's
+:class:`StreamManager`, routed by the fleet with stream affinity (by
+stream name, no saturation spillover) to the owning replica.
 
 Embeddable surface::
 
@@ -28,24 +40,38 @@ Embeddable surface::
     res = pool.serve(SimRequest(spec=ArraySpec(npsr=20), n=32, seed=7))
     pool.close()
 
-CLI: ``python -m fakepta_tpu_torch.serve loadgen|stdin|socket|replica``.
+    from fakepta_tpu_torch.serve import LocalReplica, ServeFleet
+    fleet = ServeFleet([LocalReplica("r0"), LocalReplica("r1")])
+    res = fleet.serve(SimRequest(spec=ArraySpec(npsr=20), n=32, seed=7))
+
+CLI: ``python -m fakepta_tpu_torch.serve
+loadgen|stdin|socket|replica|fleet``. The gateway load generator
+(``run_gateway_loadgen``) comes with ``gateway/`` (ROADMAP Queue 1 item
+11b slice 5).
 """
 
 from .autoscale import AutoscaleConfig, Autoscaler
+from .fleet import (FleetConfig, LocalReplica, ReplicaDead,
+                    SampleSessionSpec, SamplingSession, ServeFleet,
+                    SocketReplica)
 from .health import HealthConfig, HealthMonitor
-from .loadgen import run_loadgen
+from .loadgen import run_elastic_loadgen, run_fleet_loadgen, run_loadgen
 from .pool import PoolEntry, WarmPool
 from .router import HashRing
 from .scheduler import ServeConfig, ServePool, ServeResult
 from .spec import (DEFAULT_BUCKETS, AppendRequest, ArraySpec, InferRequest,
                    OSRequest, ServeBusy, ServeClosed, ServeError,
                    ServeTimeout, SimRequest, StreamRequest, curn_grid_spec)
+from .streams import StreamManager
 
 __all__ = [
     "DEFAULT_BUCKETS", "AppendRequest", "ArraySpec", "AutoscaleConfig",
-    "Autoscaler", "HashRing", "HealthConfig", "HealthMonitor",
-    "InferRequest", "OSRequest", "PoolEntry", "ServeBusy", "ServeClosed",
-    "ServeConfig", "ServeError", "ServePool", "ServeResult", "ServeTimeout",
-    "SimRequest", "StreamRequest", "WarmPool", "curn_grid_spec",
+    "Autoscaler", "FleetConfig", "HashRing", "HealthConfig",
+    "HealthMonitor", "InferRequest", "LocalReplica", "OSRequest",
+    "PoolEntry", "ReplicaDead", "SampleSessionSpec", "SamplingSession",
+    "ServeBusy", "ServeClosed", "ServeConfig", "ServeError", "ServeFleet",
+    "ServePool", "ServeResult", "ServeTimeout", "SimRequest",
+    "SocketReplica", "StreamManager", "StreamRequest", "WarmPool",
+    "curn_grid_spec", "run_elastic_loadgen", "run_fleet_loadgen",
     "run_loadgen",
 ]

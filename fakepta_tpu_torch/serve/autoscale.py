@@ -15,8 +15,8 @@ through the fleet's ``join`` / ``retire``, with three flap-killers:
 - **cooldown**: ``cooldown_s`` between actuations.
 
 The policy (:meth:`Autoscaler.target`) is a pure function of the SLO
-dict; the actuator (:meth:`Autoscaler.step`) is driven explicitly. The
-fleet it actuates is ROADMAP Queue 1 item 11b slice 4.
+dict; the actuator (:meth:`Autoscaler.step`) is driven explicitly, and
+actuates a :class:`.fleet.ServeFleet` through ``join`` / ``retire``.
 """
 
 from __future__ import annotations

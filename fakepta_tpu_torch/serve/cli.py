@@ -1,25 +1,38 @@
-"""CLI: ``python -m fakepta_tpu_torch.serve loadgen|stdin|socket|replica``
-(port of ``fakepta_tpu.serve.cli``).
+"""CLI: ``python -m fakepta_tpu_torch.serve
+loadgen|stdin|socket|replica|fleet`` (port of ``fakepta_tpu.serve.cli``).
 
-Four commands over the serving layer, on the card unless ``--device cpu``
-is given (the JAX CLI's ``--devices`` / ``--jax-platform`` / ``--x64``
-have no counterpart: the pool serves on one device):
+Five commands over the serving layer, on the card unless ``--device cpu``
+is given (the JAX CLI's ``--devices`` / ``--jax-platform`` / ``--x64`` /
+``--compile-cache`` have no counterpart: a pool serves on one device, the
+port has no global float mode, and replicas share the kernel build
+directory):
 
 - ``loadgen``: the built-in synthetic load generator / benchmark
   (:mod:`.loadgen`): prints ONE JSON row with the SLO metrics (and, with
   ``--baseline``, the serial-dispatch comparison and ``serve_speedup_x``);
+  ``--fleet N`` serves the row through N socket replicas instead
+  (``run_loadgen(fleet=N)``);
 - ``stdin``: JSON-lines request/response over stdin/stdout: each input
   line is a request object, each output line a response (responses
   stream in completion order; match them by ``id``);
 - ``socket``: the same JSON-lines protocol over TCP (one connection per
   client, threaded);
-- ``replica``: the socket server plus a one-line JSON ready banner on
-  stdout (``{"event": "ready", "port": ..., "n_devices": ..., "index":
-  ...}``, how a client learns the bound port with ``--port 0``) and
-  ``--index`` stamping the report's ``process_index``.
-
-``fleet``, ``replica --register`` and ``loadgen --fleet`` need the fleet
-(ROADMAP Queue 1 item 11b slice 4): they print that and exit 2.
+- ``replica``: the fleet endpoint: the socket server plus a one-line JSON
+  ready banner on stdout (``{"event": "ready", "port": ..., "n_devices":
+  ..., "devices": [...], "index": ...}``, how the router learns the bound
+  port with ``--port 0``), ``--index`` stamping the report's
+  ``process_index``, ``--threads`` setting its torch thread count (the
+  router passes its own, so CPU float sums agree bit for bit) and
+  ``--register HOST:PORT`` joining a running router's ring through the
+  hello / adopt handshake (``ServeFleet.listen``). A replica whose
+  dispatch meets a sticky CUDA error or a kernel build failure exits
+  (code 70) without answering, so its router fails the request over to
+  a sibling;
+- ``fleet``: the multi-replica load benchmark (``run_loadgen(fleet=N)``,
+  :mod:`.fleet`): N replica subprocesses (or in-process pools) behind the
+  consistent-hash router, one fleet row (``fleet_qps_per_chip``,
+  ``fleet_p50_ms`` / ``p99``, failovers, warm-pool hit rate); replica i
+  serves on ``--devices``' i-th entry (else ``--device``).
 
 Request line schema (shared by stdin / socket / replica)::
 
@@ -30,13 +43,35 @@ Request line schema (shared by stdin / socket / replica)::
      "grid": {"k": 4, "nbin": 10},                     # kind == "infer"
      "lnlike": {"schema": "fakepta_tpu.infer-spec/1", ...}}  # infer, exact
 
-plus the inline kinds ``ping`` (``{"id", "ok": true, "pong": true}``, the
-health plane's probe), ``stats`` (the pool's SLO summary with ``health``,
-``pool`` and ``streams``), ``telemetry`` (one publisher snapshot) and
-``metrics`` (Prometheus text exposition in the ``metrics`` field). The
-kinds ``append``, ``stream``, ``sample`` and ``cutover`` parse, and
-answer ``{"id", "ok": false, "code": "error", "error": ...}`` naming the
-ROADMAP slice that brings them.
+Streaming ingestion kinds (replica-affine: a fleet routes them by stream
+name, never spilling to a sibling)::
+
+    {"id": 2, "kind": "append", "stream": "ng20", "toas": [[...]],
+     "residuals": [[...]],                             # (P, B) seconds
+     "sigma2": [[...]], "freqs": [[...]],              # optional
+     "ecorr_amp": [[...]], "counts": [...],            # optional
+     "spec": {...}, "ecorr_dt": 2592000.0,             # open-time options
+     "watch": "hd", "checkpoint": "/shared/stream"}    # (first touch only)
+    {"id": 3, "kind": "stream", "stream": "ng20"}      # rolling stats
+    {"id": 4, "kind": "cutover", "stream": "ng20", "spec": {...},
+     "checkpoint": "/shared/stream2"}                  # frozen-grid migration
+
+``append`` and ``stream`` answer ``{"id", "ok": true, "stream": {...}}``,
+``cutover`` ``{"id", "ok": true, "cutover": {...}}`` once the swap landed
+(an aborted cutover answers an error and leaves the old state installed).
+
+Plus the inline kinds ``ping`` (``{"id", "ok": true, "pong": true}``,
+the health plane's probe), ``stats`` (the pool's SLO summary with
+``health``, ``pool``, ``streams`` and ``kernels``: this process's kernel
+launches, by bucket too, and its nvcc starts), ``telemetry`` (one
+publisher snapshot) and ``metrics`` (Prometheus text exposition in the
+``metrics`` field); and ``{"id", "kind": "sample", "steps": 64, "seed":
+7, "spec": {...}, "session": {"n_chains": 4, ...}, "checkpoint":
+"/shared/ck"}``, a posterior-as-a-service session that STREAMS one line
+per drained segment (``{"id", "ok": true, "seg": k, ...thinned
+draws...}``) and a final ``{"id", "ok": true, "done": true, "summary":
+{...}}``; with ``checkpoint`` on a shared filesystem a sibling replica
+resumes the session bit-exactly after a failover.
 
 Responses: ``{"id", "ok": true, "n", "latency_ms", "queued_ms", "bucket",
 "cohort_requests", ...results}`` with ``--emit summary`` (per-request
@@ -55,6 +90,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import threading
 
@@ -73,16 +109,10 @@ MAX_REQUEST_LINE = 1 * 1024 * 1024
 #: default per-connection idle timeout
 DEFAULT_IDLE_TIMEOUT_S = 300.0
 
-#: what the protocol kinds and commands that need a later slice answer
-NOT_PORTED = {
-    "sample": "the 'sample' kind needs fleet.build_session_run, which the "
-              "port does not have yet (ROADMAP Queue 1 item 11b slice 4)",
-    "cutover": "the 'cutover' kind needs the gateway's StreamManager "
-               "cutover, which the port does not have yet (ROADMAP Queue 1 "
-               "item 11b slice 5)",
-    "fleet": "the fleet needs serve/fleet.py, which the port does not have "
-             "yet (ROADMAP Queue 1 item 11b slice 4)",
-}
+#: the exit code of a replica whose process can no longer serve (a
+#: sticky CUDA error or a kernel build failure): its router sees the
+#: connection close and fails the request over
+POISONED_EXIT = 70
 
 
 def _spec_from_args(args) -> ArraySpec:
@@ -263,9 +293,62 @@ def error_json(req_id, exc) -> dict:
     return out
 
 
-def _serve_stream(pool, lines, write, default_spec, emit: str) -> int:
+def _serve_sample(pool, d: dict, req_id, emit_line, default_spec,
+                  emit: str) -> None:
+    """One posterior-as-a-service session (protocol kind ``sample``):
+    streams a line per drained segment, then the summary line. Runs
+    synchronously on the connection's handler thread: one connection is
+    one session."""
+    from .fleet import SampleSessionSpec, build_session_run
+
+    spec = d.get("spec")
+    spec = ArraySpec(**spec) if isinstance(spec, dict) else default_spec
+    knob_names = ("nbin", "n_chains", "n_temps", "warmup", "thin",
+                  "step_size", "n_leapfrog", "data_seed", "bin_offset",
+                  "data_nbin")
+    knobs = {k: v for k, v in (d.get("session") or {}).items()
+             if k in knob_names}
+    sess = SampleSessionSpec(spec=spec, n_steps=int(d.get("steps", 32)),
+                             seed=int(d.get("seed", 0)),
+                             segment=d.get("segment"), **knobs)
+    run = build_session_run(sess, pool.mesh)
+
+    def on_segment(idx, arr):
+        msg = {"id": req_id, "ok": True, "seg": int(idx),
+               "n": int(arr.shape[0])}
+        if emit == "full":
+            msg["theta"] = np.asarray(arr).tolist()
+        else:
+            msg["theta_mean"] = np.asarray(arr).mean(axis=(0, 1)).tolist()
+        emit_line(msg)
+
+    out = run.run(sess.n_steps, seed=sess.seed, segment=sess.segment,
+                  checkpoint=d.get("checkpoint"), pipeline_depth=0,
+                  on_segment=on_segment)
+    emit_line({"id": req_id, "ok": True, "done": True,
+               "summary": out["summary"],
+               "n_kept": int(out["theta"].shape[0]),
+               "param_names": list(out["param_names"])})
+
+
+def _die_poisoned(exc) -> None:
+    """Exit the process without answering: its CUDA context (or its
+    kernels) can serve nothing more, and the closed connection is what
+    makes the router fail the request over."""
+    flightrec.note("replica_poisoned_exit", error=repr(exc)[:300])
+    print(f"replica exiting: {exc!r}", file=sys.stderr, flush=True)
+    os._exit(POISONED_EXIT)
+
+
+def _serve_stream(pool, lines, write, default_spec, emit: str,
+                  exit_on_poison: bool = False) -> int:
     """Drive the pool from an iterator of request lines; responses stream
-    through ``write`` in completion order. Returns the served count."""
+    through ``write`` in completion order. Returns the served count.
+    ``exit_on_poison`` (replicas): a failure that poisons the process
+    (:func:`..faults.recovery.poisons_process`) exits it instead of
+    answering."""
+    from ..faults.recovery import poisons_process
+
     wlock = threading.Lock()
     futs = []
 
@@ -291,7 +374,8 @@ def _serve_stream(pool, lines, write, default_spec, emit: str) -> int:
                            "stats": pool.slo_summary(),
                            "health": pool.health_summary(),
                            "pool": pool.warm_summary(),
-                           "streams": pool.stream_summary()})
+                           "streams": pool.stream_summary(),
+                           "kernels": pool.kernel_summary()})
                 continue
             if kind == "telemetry":
                 emit_line({"id": req_id, "ok": True,
@@ -301,9 +385,32 @@ def _serve_stream(pool, lines, write, default_spec, emit: str) -> int:
                 emit_line({"id": req_id, "ok": True,
                            "metrics": pool.metrics_text()})
                 continue
-            if kind in ("sample", "cutover"):
-                emit_line(error_json(req_id,
-                                     NotImplementedError(NOT_PORTED[kind])))
+            if kind == "sample":
+                try:
+                    _serve_sample(pool, d, req_id, emit_line, default_spec,
+                                  emit)
+                except Exception as exc:   # noqa: BLE001 — answered
+                    if exit_on_poison and poisons_process(exc):
+                        _die_poisoned(exc)
+                    else:
+                        emit_line(error_json(req_id, exc))
+                continue
+            if kind == "cutover":
+                # frozen-grid migration: synchronous by design, the reply
+                # IS the fence release, so the caller knows the swap landed
+                spec = d.get("spec")
+                if not isinstance(spec, dict):
+                    raise ValueError("cutover needs a spec object (the "
+                                     "wider template)")
+                try:
+                    info = pool.cutover_stream(
+                        str(d["stream"]), ArraySpec(**spec),
+                        checkpoint=d.get("checkpoint"))
+                except Exception as exc:   # noqa: BLE001 — an abort is an
+                    # error line; the old state stays installed
+                    emit_line(error_json(req_id, exc))
+                else:
+                    emit_line({"id": req_id, "ok": True, "cutover": info})
                 continue
             req = request_from_json(d, default_spec)
         except (ValueError, KeyError, TypeError, AttributeError) as exc:
@@ -321,6 +428,9 @@ def _serve_stream(pool, lines, write, default_spec, emit: str) -> int:
         def _done(f, req_id=req_id,
                   trace_id=getattr(req, "trace_id", None)):
             exc = f.exception()
+            if exc is not None and exit_on_poison and poisons_process(exc):
+                _die_poisoned(exc)
+                return
             out = (error_json(req_id, exc) if exc is not None
                    else response_json(req_id, f.result(), emit))
             if trace_id:
@@ -346,15 +456,12 @@ def _make_pool(args) -> ServePool:
 def _cmd_loadgen(args) -> int:
     from .loadgen import run_loadgen
 
-    if args.fleet is not None:
-        print(f"error: {NOT_PORTED['fleet']}", file=sys.stderr)
-        return 2
     row = run_loadgen(
         spec=_spec_from_args(args), n_requests=args.requests,
         sizes=tuple(args.sizes), kind=args.kind, rate_hz=args.rate,
         seed=args.seed, baseline=args.baseline, verify=args.verify,
         config=_config_from_args(args), report_path=args.report,
-        device=args.device)
+        fleet=args.fleet, device=args.device)
     print(json.dumps(row))
     return 0
 
@@ -408,6 +515,8 @@ def _socket_server(pool, args, idle_timeout_s: float):
     default_spec = _spec_from_args(args)
     emit = args.emit
 
+    exit_on_poison = getattr(args, "command", None) == "replica"
+
     class Handler(socketserver.StreamRequestHandler):
         def handle(self):
             try:
@@ -416,7 +525,8 @@ def _socket_server(pool, args, idle_timeout_s: float):
                                              idle_timeout_s),
                               lambda s: (self.wfile.write(s.encode()),
                                          self.wfile.flush()),
-                              default_spec, emit)
+                              default_spec, emit,
+                              exit_on_poison=exit_on_poison)
             except OSError as exc:
                 # client went away mid-response: connection-scoped
                 flightrec.note("serve_socket_write_error",
@@ -429,33 +539,110 @@ def _socket_server(pool, args, idle_timeout_s: float):
     return Server((args.host, args.port), Handler)
 
 
+def _register_with_router(register: str, replica_id: str,
+                          serving_port: int, n_devices: int, index: int,
+                          timeout_s: float = 30.0) -> None:
+    """The replica side of the join handshake: dial the router's admin
+    port, send one JSON ``hello`` line advertising our serving port,
+    await the ``adopt`` reply. Bounded at every step: a dead router is a
+    start-up failure."""
+    import socket as socket_mod
+
+    host, _, port_s = register.rpartition(":")
+    conn = socket_mod.create_connection((host or "127.0.0.1", int(port_s)),
+                                        timeout=timeout_s)
+    try:
+        conn.settimeout(timeout_s)
+        conn.sendall((json.dumps(
+            {"event": "hello", "port": int(serving_port),
+             "replica_id": replica_id, "index": int(index),
+             "n_devices": int(n_devices)}) + "\n").encode())
+        line = conn.makefile("rb").readline(MAX_REQUEST_LINE + 1)
+        reply = json.loads(line.decode("utf-8", "replace")) if line else {}
+        if reply.get("event") != "adopt":
+            raise RuntimeError(f"router rejected the join: {reply!r}")
+        flightrec.note("replica_adopted", router=register,
+                       replicas=int(reply.get("replicas", 0)))
+    finally:
+        conn.close()
+
+
 def _cmd_socket(args, banner: bool = False) -> int:
-    if getattr(args, "register", None):
-        print(f"error: replica --register: {NOT_PORTED['fleet']}",
-              file=sys.stderr)
-        return 2
+    threads = getattr(args, "threads", None)
+    if threads:
+        import torch
+        torch.set_num_threads(int(threads))
     pool = _make_pool(args)
     with _socket_server(pool, args, args.idle_timeout) as server:
         if banner:
             # a client spawning the replica with --port 0 learns the bound
-            # port from this one-line JSON banner
+            # port (and the devices it serves on) from this one-line banner
+            devices = sorted({str(d) for d in pool.mesh.devices.flat})
             print(json.dumps({"event": "ready",
                               "port": server.server_address[1],
                               "n_devices": pool.n_devices,
+                              "devices": devices,
                               "index": getattr(args, "index", 0)}),
                   flush=True)
         else:
             print(f"serving on {args.host}:{server.server_address[1]} "
                   f"(JSON-lines; ^C to stop)", file=sys.stderr)
+        register = getattr(args, "register", None)
+        register_failed = []
+        if register:
+            # the handshake runs while the server is accepting: the
+            # router's _adopt prewarms the joiner over its serving port
+            # BEFORE it replies `adopt`, so registering from the main
+            # thread ahead of serve_forever() would deadlock (the router
+            # waits on a prewarm the replica cannot serve, the replica on
+            # an adopt the router cannot send). A failure shuts the
+            # server down.
+            rid = (getattr(args, "replica_id", None)
+                   or f"replica-{server.server_address[1]}")
+
+            def _register():
+                try:
+                    _register_with_router(register, rid,
+                                          server.server_address[1],
+                                          pool.n_devices,
+                                          getattr(args, "index", 0))
+                except (OSError, RuntimeError, ValueError) as exc:
+                    flightrec.note("replica_register_failed",
+                                   error=repr(exc)[:200])
+                    print(f"register with {register} failed: {exc!r}",
+                          file=sys.stderr)
+                    register_failed.append(exc)
+                    server.shutdown()
+
+            threading.Thread(target=_register, name="replica-register",
+                             daemon=True).start()
         try:
             server.serve_forever()
         except KeyboardInterrupt:
             pass
+        if register_failed:
+            pool.close()
+            return 2
     if args.report:
         rep = pool.report()
         rep.meta["process_index"] = int(getattr(args, "index", 0))
         rep.save(args.report)
     pool.close()
+    return 0
+
+
+def _cmd_fleet(args) -> int:
+    from .loadgen import run_fleet_loadgen
+
+    row = run_fleet_loadgen(
+        spec=_spec_from_args(args), fleet=args.replicas,
+        transport=args.transport, n_requests=args.requests,
+        sizes=tuple(args.sizes), kind=args.kind, seed=args.seed,
+        baseline=args.baseline, verify=args.verify, n_specs=args.specs,
+        kill_one_at=args.kill_one_at, config=_config_from_args(args),
+        report_path=args.report, device=args.device,
+        devices=args.devices or None)
+    print(json.dumps(row))
     return 0
 
 
@@ -504,8 +691,9 @@ def build_parser() -> argparse.ArgumentParser:
     lg.add_argument("--verify", type=int, default=3,
                     help="check this many served responses against the "
                          "same request alone and its solo run (0 disables)")
-    lg.add_argument("--fleet", type=int, default=None,
-                    help=argparse.SUPPRESS)
+    lg.add_argument("--fleet", type=int, default=None, metavar="N",
+                    help="serve the row through N socket replicas behind "
+                         "the fleet router (the fleet command's row)")
 
     st = sub.add_parser("stdin", help="JSON-lines request/response over "
                                       "stdin/stdout")
@@ -535,21 +723,48 @@ def build_parser() -> argparse.ArgumentParser:
     #                                  per-realization arrays
     rp.add_argument("--index", type=int, default=0,
                     help="replica index (the report's process_index)")
+    rp.add_argument("--threads", type=int, default=None,
+                    help="torch thread count (the router passes its own: "
+                         "CPU float sums depend on it)")
     rp.add_argument("--register", default=None, metavar="HOST:PORT",
-                    help="join a fleet router (not ported yet: exits 2)")
+                    help="dial a running router's admin port "
+                         "(ServeFleet.listen) and join its ring through "
+                         "the hello / adopt handshake")
     rp.add_argument("--replica-id", default=None,
-                    help="fleet identity to join as (with --register)")
+                    help="fleet identity to join as (default: "
+                         "replica-<port>)")
 
-    sub.add_parser("fleet", help="multi-replica load benchmark (not "
-                                 "ported yet: exits 2 whatever its flags)")
+    fl = sub.add_parser("fleet", help="multi-replica load benchmark: one "
+                                      "JSON row of fleet SLO metrics")
+    _add_common(fl)
+    fl.add_argument("--replicas", type=int, default=3)
+    fl.add_argument("--transport", choices=("process", "inproc"),
+                    default="process",
+                    help="replica transport: subprocess sockets or "
+                         "in-process pools")
+    fl.add_argument("--devices", nargs="*", default=None,
+                    help="replica i serves on the i-th device (cycled; "
+                         "e.g. cuda:0 cuda:1 for a card a replica; "
+                         "default: every replica on --device)")
+    fl.add_argument("--requests", type=int, default=96)
+    fl.add_argument("--sizes", type=int, nargs="*", default=[1, 2, 4])
+    fl.add_argument("--specs", type=int, default=6,
+                    help="distinct specs in the traffic (the spec-space "
+                         "working set the ring shards)")
+    fl.add_argument("--kind", choices=("sim", "os"), default="sim")
+    fl.add_argument("--seed", type=int, default=0)
+    fl.add_argument("--baseline", action="store_true",
+                    help="also serve the same traffic through ONE pool "
+                         "and report fleet_speedup_x")
+    fl.add_argument("--verify", type=int, default=3)
+    fl.add_argument("--kill-one-at", type=float, default=None,
+                    help="kill one replica after this fraction of "
+                         "requests is submitted (the failover A/B; "
+                         "responses stay bit-verified)")
     return parser
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] == ["fleet"]:
-        print(f"error: {NOT_PORTED['fleet']}", file=sys.stderr)
-        return 2
     args = build_parser().parse_args(argv)
     try:
         if args.command == "loadgen":
@@ -558,6 +773,8 @@ def main(argv=None) -> int:
             return _cmd_stdin(args)
         if args.command == "replica":
             return _cmd_socket(args, banner=True)
+        if args.command == "fleet":
+            return _cmd_fleet(args)
         return _cmd_socket(args)
     except RuntimeError as exc:
         if "device='cpu'" not in str(exc):

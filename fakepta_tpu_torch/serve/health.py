@@ -28,9 +28,9 @@ Chaos: every probe passes the ``fleet.heartbeat`` fault site with
 site, after the probe's verdict is recorded.
 
 The monitor is one daemon thread; it works on any object with a
-``replicas`` map and the ``_lock`` guarding it (the fleet itself is
-ROADMAP Queue 1 item 11b slice 4), holds no fleet lock while probing,
-and shuts down with a bounded join.
+``replicas`` map and the ``_lock`` guarding it (a
+:class:`.fleet.ServeFleet`), holds no fleet lock while probing, and
+shuts down with a bounded join.
 """
 
 from __future__ import annotations

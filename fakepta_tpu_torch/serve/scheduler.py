@@ -55,8 +55,9 @@ import numpy as np
 
 from .. import faults as faults_mod
 from ..device import DeviceLike
-from ..obs import flightrec
+from ..obs import flightrec, metrics
 from ..obs.timing import now
+from ..ops import binned_corr as bc
 from .pool import WarmPool
 from .spec import (DEFAULT_BUCKETS, ServeBusy, ServeClosed, ServeError,
                    ServeTimeout, SimRequest, resolve_spec_hash)
@@ -65,12 +66,6 @@ _STOP = object()
 
 #: shutdown join bound: generous against any legitimate drain, but finite
 _SHUTDOWN_JOIN_S = 60.0
-
-#: what the stream-affine kinds raise until the port has a StreamManager
-STREAMS_NOT_PORTED = (
-    "stream-affine requests (append / stream) need the StreamManager, "
-    "which the port does not have yet (ROADMAP Queue 1 item 11b slice 4)")
-
 
 class _PoisonedOutput(RuntimeError):
     """A dispatch returned non-finite statistics: recovery evicts the
@@ -196,6 +191,16 @@ class _Stats:
         self.t_last = None           # last completion
 
 
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process."""
+    from ..ops import megakernel as mk
+
+    return {"binned_correlation": bc.launches,
+            "binned_correlation_vpu": bc.vpu_launches,
+            "chunk_stats": mk.launches,
+            "chunk_stats_sharded": mk.sharded_launches}
+
+
 def _pool_mesh(mesh, device: DeviceLike):
     """The pool's mesh: the one given, else a one-entry mesh on
     ``device`` (default ``"cuda"``: without a GPU this raises)."""
@@ -288,6 +293,9 @@ class ServePool:
         self.telemetry.add_source("health", self.health_summary)
         # lazy single-replica aggregator behind metrics_text
         self._metrics_agg = None
+        self._stream_mgr = None          # lazy StreamManager (streams.py)
+        # kernel -> {bucket: launches} of this pool's dispatches
+        self._launches_by_bucket: dict = {}
 
     # -- registration / admission ------------------------------------------
     def register(self, name: str, sim, prewarm: bool = True) -> str:
@@ -306,10 +314,13 @@ class ServePool:
         """Admit one request; returns a Future resolving to a
         :class:`ServeResult`. Raises :class:`ServeBusy` past the configured
         queue depth, :class:`ServeClosed` after shutdown, ``ValueError``
-        for an unserveable shape, ``NotImplementedError`` for the
-        stream-affine kinds (ROADMAP Queue 1 item 11b slice 4)."""
+        for an unserveable shape. Stream-affine kinds bypass the
+        scheduler (:meth:`_submit_stream`)."""
         if getattr(req, "stream_affine", False):
-            raise NotImplementedError(STREAMS_NOT_PORTED)
+            # nothing to coalesce (an append mutates ONE stream, in
+            # order): executed synchronously under the StreamManager's
+            # per-stream lock
+            return self._submit_stream(req)
         n = int(req.n)
         if not 0 < n <= self._max_bucket:
             raise ValueError(
@@ -346,6 +357,30 @@ class ServePool:
             self._stats.queue_depth_max = max(self._stats.queue_depth_max,
                                               self._pending)
             self._cond.notify_all()
+        return fut
+
+    def _submit_stream(self, req) -> Future:
+        """Admit and execute one stream-affine request on the pool's
+        device. Synchronous, but future-shaped so the fleet transports
+        and ``serve()`` treat every kind alike. ServeError subclasses
+        raise at the submit site (admission semantics, like ``n``
+        validation); anything else resolves the future exceptionally."""
+        with self._lock:
+            if self._closed:
+                raise ServeClosed("pool is closed")
+            mgr = self._stream_mgr
+            if mgr is None:
+                from .streams import StreamManager
+                mgr = self._stream_mgr = StreamManager(
+                    device=self.mesh.local_device)
+        fut: Future = Future()
+        try:
+            fut.set_result(mgr.handle(req))
+        except ServeError:
+            raise                      # admission semantics: raise at submit
+        except Exception as exc:       # noqa: BLE001 — the future contract
+            fut.set_exception(exc)
+        metrics.count("serve.stream_requests")
         return fut
 
     def _retry_after_locked(self) -> float:
@@ -468,6 +503,7 @@ class ServePool:
         bucket = self.bucket_for(total)
         lanes = [(p.req.seed, p.req.n) for p in cohort]
         t_d0 = now()
+        launched0 = bc.thread_launches()
         attempts, evicted = 0, False
         delay = self.config.retry_backoff_s
         while True:
@@ -537,8 +573,16 @@ class ServePool:
                 return
         t_d1 = now()
         rep = out["report"]
+        # this thread's launches: a sibling pool in the process is not
+        # counted
+        launched = {k: n - launched0.get(k, 0)
+                    for k, n in bc.thread_launches().items()
+                    if n > launched0.get(k, 0)}
         with self._lock:
             st = self._stats
+            for k, n in launched.items():
+                by = self._launches_by_bucket.setdefault(k, {})
+                by[int(bucket)] = by.get(int(bucket), 0) + n
             st.dispatches += 1
             st.realizations += total
             st.coalesce.append(len(cohort))
@@ -713,9 +757,50 @@ class ServePool:
                 "specs": specs}
 
     def stream_summary(self) -> dict:
-        """Per-stream telemetry: empty, the port's pool opens no stream
-        (ROADMAP Queue 1 item 11b slice 4)."""
-        return {}
+        """Per-stream telemetry (append counts and latencies) from the
+        lazy StreamManager; empty when no stream was ever opened."""
+        with self._lock:
+            mgr = self._stream_mgr
+        return mgr.summary() if mgr is not None else {}
+
+    def cutover_stream(self, name: str, spec, checkpoint=None) -> dict:
+        """Frozen-grid migration cutover for one of this pool's streams
+        (the ``cutover`` protocol kind;
+        :meth:`.streams.StreamManager.cutover`)."""
+        with self._lock:
+            mgr = self._stream_mgr
+        if mgr is None:
+            raise ServeError(f"stream {name!r} is not open on this pool; "
+                             f"nothing to cut over")
+        return mgr.cutover(name, spec, checkpoint=checkpoint)
+
+    def kernel_summary(self) -> dict:
+        """Kernel facts (the ``stats`` reply's ``kernels``): this
+        process's launch count of each kernel wrapper, this pool's
+        dispatches' launches by bucket (counted on its dispatcher thread:
+        a sibling pool in the process adds none), the nvcc processes this process
+        started (a replica that starts after its siblings built the
+        kernels starts none) and, on a card, its memory: this process's
+        allocated and reserved bytes and the card's free and total
+        (``torch.cuda.mem_get_info``, every process on it together)."""
+        from ..ops import _build
+
+        with self._lock:
+            by_bucket = {k: {str(b): n for b, n in sorted(v.items())}
+                         for k, v in self._launches_by_bucket.items()}
+        out = {"launches": _launch_counts(),
+               "launches_by_bucket": by_bucket,
+               "nvcc_starts": _build.nvcc_starts}
+        dev = self.mesh.local_device
+        if dev.type == "cuda":
+            import torch
+
+            free, total = torch.cuda.mem_get_info(dev)
+            out["memory"] = {
+                "allocated": int(torch.cuda.memory_allocated(dev)),
+                "reserved": int(torch.cuda.memory_reserved(dev)),
+                "card_free": int(free), "card_total": int(total)}
+        return out
 
     def health_summary(self) -> dict:
         """The replica's own liveness facts (the ``stats`` / ``telemetry``
@@ -812,6 +897,8 @@ class ServePool:
         if self._demux_thread.is_alive():
             flightrec.note("serve_close_join_timeout", thread="demux",
                            timeout_s=_SHUTDOWN_JOIN_S)
+        if self._stream_mgr is not None:
+            self._stream_mgr.close()
 
     def __enter__(self):
         return self

@@ -16,9 +16,8 @@ pool with a prebuilt simulator. Both resolve to a stable ``spec_hash``
 through :func:`..obs.flightrec.spec_hash`.
 
 The stream-affine kinds (:class:`AppendRequest`, :class:`StreamRequest`)
-are defined here, field for field the JAX package's, so the protocol
-parses them; the pool that serves them (``StreamManager``) is ROADMAP
-Queue 1 item 11b slice 4.
+are defined here, field for field the JAX package's; the pool serves
+them through its :class:`.streams.StreamManager`.
 """
 
 from __future__ import annotations
@@ -121,15 +120,23 @@ class ArraySpec:
         raises."""
         from ..parallel.montecarlo import EnsembleSimulator
 
-        if compile_cache_dir is not None:
-            raise NotImplementedError(
-                "compile_cache_dir is XLA's persistent compilation cache, "
-                "which the port does not have (its kernels build once per "
-                "checkout, ops/_build.py); pass None")
+        no_compile_cache(compile_cache_dir)
         where = mesh.local_device if mesh is not None else device
         batch, gwb = self.parts(device=where)
         return EnsembleSimulator(batch, gwb=gwb, mesh=mesh, device=device,
                                  nbins=self.nbins)
+
+
+def no_compile_cache(compile_cache_dir) -> None:
+    """``compile_cache_dir`` is XLA's persistent compilation cache in the
+    JAX package; the port's counterpart is the kernel build directory
+    every process of a checkout shares, so only ``None`` is accepted."""
+    if compile_cache_dir is not None:
+        raise NotImplementedError(
+            "compile_cache_dir is XLA's persistent compilation cache, which "
+            "the port does not have: its kernels build once per checkout "
+            "into the build directory every process shares (ops/_build.py, "
+            "FAKEPTA_TORCH_BUILD_DIR); pass None")
 
 
 SpecLike = Union[str, ArraySpec]
@@ -218,8 +225,8 @@ class AppendRequest:
     frozen-grid template); ``ecorr_dt`` / ``watch`` / ``checkpoint`` are
     open-time options. ``toas`` / ``residuals`` are (P, B) absolute
     seconds / seconds; ``counts`` marks the valid prefix per pulsar.
-    Stream-affine: a fleet routes it by stream name. The pool that serves
-    it is ROADMAP Queue 1 item 11b slice 4."""
+    Stream-affine: a fleet routes it by stream name; the pool's
+    :class:`.streams.StreamManager` executes it."""
 
     stream: str = ""
     toas: object = None

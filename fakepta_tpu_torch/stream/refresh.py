@@ -44,9 +44,10 @@ The refreshers run their samplers on ``device`` (default ``"cuda"``,
 raising without a GPU unless ``device="cpu"``) or ``mesh``. The JAX
 refreshers' ``compile_cache_dir`` (XLA's persistent compilation cache) has
 no counterpart in the port, whose sampler compiles nothing at run time:
-``None`` is accepted and anything else raises ``NotImplementedError``
-(ROADMAP Queue 1 item 11b). ``fs_recompiles`` reads the lanes'
-``retraces``, which are 0 in the port by construction.
+``None`` is accepted and anything else raises ``NotImplementedError`` (a
+kept divergence since ROADMAP Queue 1 item 11b.4, listed in Queue 3; the
+serve fleet shares the kernel build directory instead). ``fs_recompiles``
+reads the lanes' ``retraces``, which are 0 in the port by construction.
 """
 
 from __future__ import annotations
@@ -73,7 +74,8 @@ def _no_compile_cache(compile_cache_dir) -> None:
         raise NotImplementedError(
             "compile_cache_dir is XLA's persistent compilation cache, which "
             "the port does not have (its sampler compiles nothing at run "
-            "time); pass None (ROADMAP Queue 1 item 11b)")
+            "time); pass None (a kept divergence since ROADMAP Queue 1 "
+            "item 11b.4, listed in Queue 3)")
 
 
 def _run_place(mesh, device) -> dict:

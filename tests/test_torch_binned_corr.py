@@ -247,3 +247,29 @@ def test_fused_vpu_engine_matches_jax_one_shard(vpu_batches,
     assert out["statistic_path"] == "fused" and out["precision"] == prec
     assert out["curves"].shape == (8, 15) and out["autos"].shape == (8,)
     _assert_stats(out, jax_fused_vpu_1shard[prec], prec)
+
+
+def test_thread_launches_count_only_the_calling_thread():
+    """Each thread reads its own launch tally: launches counted on one
+    thread (a serve pool's dispatcher) do not show on another's, and a
+    CPU call, which runs the plain version, counts none."""
+    import threading
+
+    seen = {}
+
+    def worker():
+        before = bc.thread_launches()
+        bc._count("binned_correlation", 2)
+        bc._count("chunk_stats", 0)
+        seen["worker"] = (before, bc.thread_launches())
+
+    before = bc.thread_launches()
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    assert seen["worker"] == ({}, {"binned_correlation": 2})
+    rng = np.random.default_rng(5)
+    res = torch.from_numpy(rng.standard_normal((3, 4, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((5, 4, 4)).astype(np.float32))
+    bc.binned_correlation(res, res, w, 4, precision="f32")
+    assert bc.thread_launches() == before

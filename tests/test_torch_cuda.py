@@ -65,11 +65,14 @@ def _check_binned_correlation(res_l, res_f, w, nbins, prec, vpu=False):
     the plain version, and a bit-identical rerun."""
     fn = bc.binned_correlation_vpu if vpu else bc.binned_correlation
     before = (bc.launches, bc.vpu_launches)
+    mine = bc.thread_launches()
     got = fn(res_l, res_f, w, nbins, precision=prec)
     torch.cuda.synchronize()
     n = int(res_l.shape[0] > 0)
     assert (bc.launches, bc.vpu_launches) == (before[0] + n * (not vpu),
                                               before[1] + n * vpu)
+    name = "binned_correlation_vpu" if vpu else "binned_correlation"
+    assert bc.thread_launches().get(name, 0) == mine.get(name, 0) + n
     assert got[0].shape == (res_l.shape[0], nbins)
     want = bc.binned_correlation_plain(res_l, res_f, w, nbins,
                                        precision=prec)
@@ -1748,3 +1751,72 @@ def test_serve_a_flagship_width_cohort_on_the_card(cuda):
                           (want["curves"][:n], want["autos"][:n]), "bf16")
     finally:
         pool.close()
+
+
+@pytest.mark.cuda
+def test_fleet_of_two_replicas_on_the_card(cuda):
+    """Two in-process replicas on the card behind the router: each spec
+    routes to its ring owner, launches #1 there, and every response equals
+    the same request served alone at its bucket on a fresh simulator bit
+    for bit; no dispatch builds a kernel after warm-up."""
+    import dataclasses
+
+    from fakepta_tpu_torch.serve import (ArraySpec, LocalReplica,
+                                         ServeConfig, ServeFleet, SimRequest)
+
+    spec0 = ArraySpec(npsr=16, ntoa=128, n_red=8, n_dm=8, gwb_ncomp=8,
+                      data_seed=100)
+    spec1 = dataclasses.replace(spec0, data_seed=101)
+    cfg = ServeConfig(buckets=(16,), coalesce_window_s=0.01)
+    flt = ServeFleet([LocalReplica(f"r{i}", config=cfg, index=i)
+                      for i in range(2)])
+    try:
+        before = bc.launches
+        res = {s.data_seed: flt.serve(SimRequest(spec=s, n=5, seed=11),
+                                      timeout=600) for s in (spec0, spec1)}
+        assert bc.launches > before
+        # each pool counts its own dispatches' launches, not its sibling's
+        by_pool = [sum(r.pool.kernel_summary()["launches_by_bucket"].get(
+            "binned_correlation", {}).values())
+            for r in flt.replicas.values()]
+        assert all(by_pool) and sum(by_pool) == bc.launches - before
+        for s in (spec0, spec1):
+            r = res[s.data_seed]
+            assert r.replica == flt.ring.owner(s.spec_hash())
+            alone = s.build().run(16, chunk=16, lanes=[(11, 5)],
+                                  pipeline_depth=0)
+            assert np.array_equal(alone["curves"][:5], r.curves)
+            assert np.array_equal(alone["autos"][:5], r.autos)
+        slo = flt.slo_summary()
+        assert slo["fleet_steady_compiles"] == 0 and slo["fleet_failed"] == 0
+        assert flt.n_chips == 1
+    finally:
+        flt.close()
+
+
+@pytest.mark.cuda
+def test_fleet_failover_is_bit_identical_on_the_card(cuda):
+    """A replica killed under its request (the serve.dispatch kill): the
+    router fails the request over to the sibling on the same card, whose
+    response equals the owner's first answer bit for bit."""
+    from fakepta_tpu_torch import faults
+    from fakepta_tpu_torch.serve import (ArraySpec, LocalReplica,
+                                         ServeConfig, ServeFleet, SimRequest)
+
+    spec = ArraySpec(npsr=16, ntoa=128, n_red=8, n_dm=8, gwb_ncomp=8)
+    cfg = ServeConfig(buckets=(16,), coalesce_window_s=0.01)
+    flt = ServeFleet([LocalReplica(f"r{i}", config=cfg, index=i)
+                      for i in range(2)])
+    try:
+        first = flt.serve(SimRequest(spec=spec, n=7, seed=5), timeout=600)
+        plan = faults.FaultPlan(
+            [faults.FaultSpec("serve.dispatch", "kill", at=(0,))])
+        with faults.inject(plan):
+            again = flt.serve(SimRequest(spec=spec, n=7, seed=5),
+                              timeout=600)
+        assert again.failovers == 1 and again.replica != first.replica
+        assert np.array_equal(again.curves, first.curves)
+        assert np.array_equal(again.autos, first.autos)
+        assert flt.slo_summary()["fleet_replica_deaths"] == 1
+    finally:
+        flt.close()

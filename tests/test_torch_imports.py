@@ -193,6 +193,45 @@ def test_serve_and_gate_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.serve.fleet", "fakepta_tpu_torch.serve.streams",
+    "fakepta_tpu_torch.serve.loadgen", "fakepta_tpu_torch.serve.cli",
+    "fakepta_tpu_torch.sample.factorized"])
+def test_fleet_modules_are_checked(module):
+    """The serve fleet, the served streams, the fleet load generators and
+    the factorized sessions (ports of JAX package modules) are among the
+    modules the checks below import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_fleet_entry_points_default_to_the_card(tmp_path):
+    """Replicas, the fleet load generators and the fleet CLI serve on the
+    card unless the CPU is asked for; without a card a replica fails to
+    start (a socket replica says why) and no CPU replica stands in."""
+    from fakepta_tpu_torch.serve import (ArraySpec, LocalReplica,
+                                         SocketReplica, cli,
+                                         run_fleet_loadgen)
+    from fakepta_tpu_torch.serve.fleet import ReplicaDead
+
+    assert cli.build_parser().parse_args(["fleet"]).device == "cuda"
+    assert cli.build_parser().parse_args(["replica"]).device == "cuda"
+    spec = ArraySpec(npsr=4, ntoa=16, n_red=2, n_dm=2, gwb_ncomp=2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LocalReplica("r0")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_fleet_loadgen(spec, fleet=1, transport="inproc")
+        with pytest.raises(ReplicaDead, match="device='cpu'"):
+            SocketReplica("p0", spec_defaults=spec)
+    r = LocalReplica("r1", device="cpu")
+    try:
+        assert r.pool.mesh.local_device.type == "cpu"
+    finally:
+        r.close()
+
+
 def test_serve_entry_points_default_to_the_card():
     """ServePool, run_loadgen and the serve CLI serve on the card unless
     the CPU is asked for; the package exposes the JAX names it ports."""
@@ -200,13 +239,17 @@ def test_serve_entry_points_default_to_the_card():
     from fakepta_tpu_torch.serve import (ArraySpec, ServeConfig, ServePool,
                                          cli, run_loadgen)
 
+    # the JAX package's names but the gateway's load generator
     assert set(serve_pkg.__all__) == {
         "DEFAULT_BUCKETS", "AppendRequest", "ArraySpec", "AutoscaleConfig",
-        "Autoscaler", "HashRing", "HealthConfig", "HealthMonitor",
-        "InferRequest", "OSRequest", "PoolEntry", "ServeBusy",
-        "ServeClosed", "ServeConfig", "ServeError", "ServePool",
-        "ServeResult", "ServeTimeout", "SimRequest", "StreamRequest",
-        "WarmPool", "curn_grid_spec", "run_loadgen"}
+        "Autoscaler", "FleetConfig", "HashRing", "HealthConfig",
+        "HealthMonitor", "InferRequest", "LocalReplica", "OSRequest",
+        "PoolEntry", "ReplicaDead", "SampleSessionSpec", "SamplingSession",
+        "ServeBusy", "ServeClosed", "ServeConfig", "ServeError",
+        "ServeFleet", "ServePool", "ServeResult", "ServeTimeout",
+        "SimRequest", "SocketReplica", "StreamManager", "StreamRequest",
+        "WarmPool", "curn_grid_spec", "run_elastic_loadgen",
+        "run_fleet_loadgen", "run_loadgen"}
     assert cli.build_parser().parse_args(["loadgen"]).device == "cuda"
     spec = ArraySpec(npsr=4, ntoa=16, n_red=2, n_dm=2, gwb_ncomp=2)
     if not torch.cuda.is_available():

@@ -263,12 +263,12 @@ def test_backpressure_deadline_and_validation():
                 pool.submit(SimRequest(spec=SPEC, n=64, seed=4))
             with pytest.raises(ServeError, match="unknown registered spec"):
                 pool.submit(SimRequest(spec="nope", n=2, seed=5))
-            for req in (AppendRequest(stream="s"),
-                        StreamRequest(stream="s")):
-                with pytest.raises(NotImplementedError,
-                                   match="11b slice 4"):
-                    pool.submit(req)
             time.sleep(max(3.5 - (time.monotonic() - t0), 0.0))
+        # the stream kinds bypass the queue (and take the pool's lock): a
+        # stream no append has opened is an admission error
+        for req in (AppendRequest(stream="s"), StreamRequest(stream="s")):
+            with pytest.raises(ServeError, match="not open"):
+                pool.submit(req)
         with pytest.raises(ServeTimeout):
             f1.result(timeout=60)
         with pytest.raises(ServeTimeout):
@@ -338,8 +338,19 @@ def test_run_loadgen_verifies_on_a_tiny_spec(served):
     assert row["serve_verified"] == 2
     assert row["serve_steady_compiles"] == 0
     assert set(row["serve_warm_s_by_bucket"]) == {"4", "8"}
-    with pytest.raises(NotImplementedError, match="11b slice 4"):
-        run_loadgen(spec, fleet=2, device="cpu")
+    # fleet= hands the same request list to a fleet (here a prebuilt one
+    # of one in-process replica)
+    from fakepta_tpu_torch.serve import LocalReplica, ServeFleet
+    flt = ServeFleet([LocalReplica("r0", device="cpu",
+                                   config=ServeConfig(buckets=(4, 8)))])
+    try:
+        frow = run_loadgen(spec, fleet=flt, n_requests=4, sizes=(1, 2),
+                           n_specs=1, verify=1, device="cpu",
+                           config=ServeConfig(buckets=(4, 8)))
+    finally:
+        flt.close()
+    assert frow["fleet_transport"] == "inproc"
+    assert frow["fleet_requests"] == 4 and frow["fleet_lost_requests"] == 0
 
 
 def test_make_requests_equals_jax():

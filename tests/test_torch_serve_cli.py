@@ -6,9 +6,11 @@ The codecs (``request_from_json``, ``response_json``,
 on the same dicts; a ``stdin`` session runs through ``io.StringIO``; a
 ``socket`` server on ``127.0.0.1:0`` answers ``ping``, ``stats``,
 ``telemetry``, ``metrics`` and ``sim`` and feeds ``obs top`` / ``obs
-alerts``; a ``replica`` subprocess prints its ready banner; the kinds and
-commands of the fleet slice answer their error. One module-scoped port
-pool (4 pulsars x 32 TOAs, bucket 8) serves every case.
+alerts``; a ``replica`` subprocess prints its ready banner; the stream,
+``sample`` and ``cutover`` kinds answer, and the fleet commands start
+(without a card and without ``--device cpu`` they exit 2, as every entry
+point does). One module-scoped port pool (4 pulsars x 32 TOAs, bucket 8)
+serves every case.
 """
 
 import argparse
@@ -146,8 +148,10 @@ def _session(pool, lines):
 def test_stdin_session(pool):
     """A JSON-lines session: served kinds answer their results (the sim
     reply equals the same request through the pool), the inline kinds
-    their payloads, a malformed line ``bad_request``, and the kinds of a
-    later slice their error, naming it."""
+    their payloads, a malformed line ``bad_request``, the stream kinds
+    (an append opening the stream, its stats, a cutover onto a wider
+    template) and a ``sample`` session their payloads, and a stream that
+    is not open an error."""
     lines = [
         {"id": 1, "kind": "sim", "n": 3, "seed": 5},
         {"id": 2, "kind": "os", "n": 2, "seed": 6, "null": True},
@@ -156,15 +160,25 @@ def test_stdin_session(pool):
         {"id": 5, "kind": "telemetry"},
         {"id": 6, "kind": "metrics"},
         "{not json",
-        {"id": 8, "kind": "append", "stream": "s0", "toas": [[1.0]],
-         "residuals": [[0.0]]},
+        {"id": 8, "kind": "append", "stream": "s0",
+         "toas": [[1e6, 2e6]] * 4, "residuals": [[1e-7, -1e-7]] * 4,
+         "spec": SPEC_KW},
         {"id": 9, "kind": "stream", "stream": "s0"},
-        {"id": 10, "kind": "sample", "steps": 2},
-        {"id": 11, "kind": "cutover", "stream": "s0", "spec": SPEC_KW},
+        {"id": 11, "kind": "cutover", "stream": "s0",
+         "spec": dict(SPEC_KW, tspan_years=20.0)},
         {"id": 12, "kind": "sim", "n": 3, "seed": 5, "trace_id": "abc"},
+        {"id": 13, "kind": "stream", "stream": "nope"},
     ]
-    n, rep = _session(pool, lines)
-    assert n == 3                    # the sim, os and traced sim futures
+    # the sampling session first, alone: its chains would share the CPU
+    # with the served requests' dispatches
+    n_sample, rep = _session(pool, [{"id": 10, "kind": "sample",
+                                     "steps": 2}])
+    assert n_sample == 0
+    n, served = _session(pool, lines)
+    rep.update(served)
+    # the sim, os and traced sim futures, and the append's and the
+    # stream's (resolved at submit)
+    assert n == 5
     want = pool.serve(SimRequest(spec=SPEC, n=3, seed=5), timeout=300)
     assert np.array_equal(np.asarray(rep[1]["curves"]), want.curves)
     assert rep[12]["trace_id"] == "abc"
@@ -175,10 +189,15 @@ def test_stdin_session(pool):
     assert rep[5]["telemetry"]["slo"]["serve_requests"] >= 0
     assert "# TYPE fakepta_up gauge" in rep[6]["metrics"]
     assert rep[None]["code"] == "bad_request"
-    for i, slice_no in ((8, 4), (9, 4), (10, 4), (11, 5)):
-        assert rep[i]["ok"] is False and rep[i]["code"] == "error"
-        assert f"ROADMAP Queue 1 item 11b slice {slice_no}" in \
-            rep[i]["error"]
+    assert rep[8]["ok"] and rep[8]["stream"]["n_toas"] == 8
+    assert rep[9]["ok"] and rep[9]["stream"]["appends"] == 1
+    assert rep[10]["ok"] and rep[10]["done"]
+    assert rep[10]["n_kept"] > 0 and "rhat_max" in rep[10]["summary"]
+    assert rep[11]["ok"] and rep[11]["cutover"]["toas"] == 8
+    assert rep[11]["cutover"]["new_tspan_s"] > \
+        rep[11]["cutover"]["old_tspan_s"]
+    assert rep[13]["ok"] is False and rep[13]["code"] == "error"
+    assert "not open" in rep[13]["error"]
 
 
 def _args(**kw):
@@ -258,12 +277,20 @@ def test_replica_subprocess_prints_its_ready_banner(tmp_path):
 
 
 def test_commands_of_the_fleet_slice_exit_2(capsys):
-    assert cli.main(["fleet", "--replicas", "2"]) == 2
-    assert cli.main(["loadgen", "--device", "cpu", "--fleet", "2"]) == 2
-    assert cli.main(["replica", "--device", "cpu", "--register",
-                     "127.0.0.1:1"]) == 2
-    err = capsys.readouterr().err
-    assert err.count("ROADMAP Queue 1 item 11b slice 4") == 3
+    """The fleet commands run: without a card (and without ``--device
+    cpu``) ``fleet`` and ``loadgen --fleet`` exit 2 naming
+    ``device='cpu'`` (their replicas cannot reach a card, and none falls
+    back to the CPU); ``replica --register`` to a router that is not
+    listening exits 2 naming the failed join."""
+    if not torch.cuda.is_available():
+        assert cli.main(["fleet", "--replicas", "2", "--transport",
+                         "inproc"]) == 2
+        assert cli.main(["loadgen", "--fleet", "2", "--npsr", "4",
+                         "--ntoa", "32"]) == 2
+        assert capsys.readouterr().err.count("device='cpu'") >= 2
+    assert cli.main(["replica", "--device", "cpu", "--npsr", "4", "--ntoa",
+                     "32", "--register", "127.0.0.1:1"]) == 2
+    assert "register with 127.0.0.1:1 failed" in capsys.readouterr().err
 
 
 def test_cli_loadgen_on_the_cpu_and_default_to_the_card(capsys):
