@@ -195,11 +195,11 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
 13. ``sample``: the sampler at the flagship's full width (``flagship_100``,
    100 pulsars x 780 TOAs, red and DM at the batch's PSDs, a 30-bin CURN
    with free amplitude and slope: 2M = 320 columns per pulsar), float32,
-   16 chains x 2 temps, ``n_leapfrog`` 8, warmup 16, 32 post steps, thin 2,
+   16 chains x 2 temps, ``n_leapfrog`` 8, warmup 16, 16 post steps, thin 2,
    segment 16 (the step counts are the only cuts): the Laplace fit's
    seconds, steps/s, ms per gradient evaluation, launches per leapfrog step
    and the device's idle share in one traced two-step segment, peak memory
-   and R-hat; at 8 steps (on the staged moments and fit): a rerun, a
+   and R-hat; at 4 steps (on the staged moments and fit): a rerun, a
    checkpointed depth-0 run cut after one segment and resumed, and the
    ``real=2`` and ``psr=2`` meshes on ``cuda:0``, each bit-identical to
    the depth-2 one-shard run; the card against the CPU in the same process
@@ -211,7 +211,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    sampler's at the same state, the float32 floor of the same algorithm);
    a
    ``FactorizedRun`` of a 30-bin free-spectrum CURN (8 lanes of
-   ``FS_LANE_BINS`` = 4) at 8 post steps; ``python -m
+   ``FS_LANE_BINS`` = 4) at 4 post steps; ``python -m
    fakepta_tpu_torch.sample run`` at its defaults (exit 0, the artifact
    loads).
 14. ``stream``: streaming ingestion at config 14's accelerator shape
@@ -230,13 +230,13 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    ``cuda:0`` within 1e-10 (bit identity reported); a checkpointed stream
    whose ``torn`` append rolls back and resumes bit-identically; the OS
    update's ms (CUDA events); ``PosteriorRefresher`` two cycles (float64,
-   8 chains x 2 temps, ``n_leapfrog`` 4, 16 steps after a warmup of 8,
+   8 chains x 2 temps, ``n_leapfrog`` 4, 8 steps after a warmup of 8,
    segment 8: the step counts are the cut), the second warm-started with
    no more Newton steps, promotion following the R-hat gate; and
    ``FactorizedRefresher`` at config 18 part 2's shapes
    (``benchmarks/suite.py:743-746, 795-836``: 16 pulsars x 96 TOAs, 16
    free-spectrum bins, ``lane_bins=1``, 40-wide epochs, 96 steps, segment
-   32, cut to 32 steps and segment 16): the single-bin sinusoid epoch
+   32, cut to 16 steps and segment 16): the single-bin sinusoid epoch
    touches exactly one lane, and ``fs_refresh_ms`` against
    ``fs_full_refresh_ms`` (``fs_recompiles`` reads 0 by construction);
    last, two traced steady appends (their launches, equal in number,
@@ -348,7 +348,27 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    a replica). Then ``binned_correlation`` at bf16 at every cohort shape
    the fleet launched (R = 16 ... 1024; NB = 17 for ``os``) that no
    earlier phase measured, against its plain version and timed.
-19. ``profile`` (only when asked for): per statistic path, the device time
+19. ``gateway``: the gateway on the card at the flagship's widths
+   (``registry.get("flagship_100").serve_spec()``, ``SERVE_SPEC``, the
+   fleet ladder 16 and 32, ``fused`` bf16). ``run_gateway_loadgen`` with
+   suite config 16's traffic (3 tenants, 96 requests of sizes 1, 2 and 4
+   over 3 specs and 12 Zipf identities, seed 11, ``max_inflight`` 6) in
+   front of two in-process replicas on ``cuda:0`` (with ``--mesh-cards
+   N``, N replicas, one a card), a background appender feeding a
+   gateway-opened stream that is cut over onto a 2x Tspan template at half
+   the submissions: it must lose nothing, conserve the stream's TOAs and
+   bit-verify every store hit against the request served alone; the row
+   must read ``gw_hit_rate`` >= 0.5 and ``gw_device_s_saved``,
+   ``gw_verified`` and ``gw_cutover_ms`` above 0, with #1's launches by
+   bucket read from each pool. #1 is held against its plain version and
+   timed at each cohort shape the round dispatched. A cold ``Gateway``
+   with a new ``ResultStore`` over the round's directory then serves each
+   identity once: every response a hit, bit for bit the request served
+   alone, and no launch of #1 while it runs. Last, ``ng15``'s cadence tail
+   (4 observing windows of ``append_schedule``, as ``as_append_requests``)
+   through ``Gateway.serve``: the stream must hold every TOA. No kernel is
+   built in the phase.
+20. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -3180,10 +3200,10 @@ def phase_faults(report: dict) -> None:
 # the sample phase: the flagship likelihood model at full width, the step
 # counts cut (SAMPLE_SPEC, SAMPLE_POST, MESH_POST)
 SAMPLE_SPEC = dict(n_chains=16, n_temps=2, n_leapfrog=8, warmup=16, thin=2)
-SAMPLE_POST = 32
+SAMPLE_POST = 16
 SAMPLE_SEGMENT = 16
-SAMPLE_MESH_POST = 8
-FS_POST = 8
+SAMPLE_MESH_POST = 4
+FS_POST = 4
 #: chains of the card-against-CPU transition (each with both rungs)
 CARD_CPU_CHAINS = 4
 
@@ -3579,15 +3599,14 @@ STREAM_OS_RTOL = 1e-9
 #: PosteriorRefresher: float64, 8 chains x 2 temps, n_leapfrog 4; the
 #: step counts are the cut
 REFRESH_SPEC = dict(n_chains=8, n_temps=2, n_leapfrog=4, warmup=8)
-REFRESH_STEPS = 16
+REFRESH_STEPS = 8
 REFRESH_SEGMENT = 8
 #: FactorizedRefresher at config 18 part 2: 16 pulsars x 96 TOAs, 16
 #: free-spectrum bins, lane_bins 1, 40-wide epochs; the suite's 96 steps
-#: and segment 32 cut to 32 and 16, which kept the phase under its 90 s
-#: (123.1 s uncut, NVIDIA H100 80GB HBM3, 700.00 W). A lane runs its
-#: warmup rounded up to whole segments, then the steps: 16 + 32 = 48
-#: steps a lane here, 32 + 96 = 128 uncut
-FS_STREAM = dict(npsr=16, ntoa=96, nbin=16, width=40, steps=32,
+#: and segment 32 cut to 16 and 16 (123.1 s uncut, NVIDIA H100 80GB
+#: HBM3, 700.00 W). A lane runs its warmup rounded up to whole segments,
+#: then the steps: 16 + 16 = 32 steps a lane here, 32 + 96 = 128 uncut
+FS_STREAM = dict(npsr=16, ntoa=96, nbin=16, width=40, steps=16,
                  segment=16)
 
 
@@ -5379,6 +5398,188 @@ def phase_fleet(report: dict, cards: int = 1) -> None:
     torch.cuda.empty_cache()
 
 
+#: the gateway round: suite config 16's traffic (3 tenants, 96 requests
+#: of sizes 1, 2 and 4 over 3 specs and 12 identities at Zipf s = 1.4,
+#: seed 11, max_inflight 6, a cutover at half) on in-process replicas
+GATEWAY_TRAFFIC = dict(n_tenants=3, n_requests=96, sizes=(1, 2, 4),
+                       seed=11, n_specs=3, n_identities=12, zipf_s=1.4,
+                       max_inflight=6, cutover_at=0.5)
+#: the ng15 cadence tail replayed through the gateway (observing windows)
+GATEWAY_NG15_BLOCKS = 4
+
+
+def gateway_identities(spec) -> dict:
+    """{(spec hash, seed, n): request} of every identity the gateway round
+    asks for (its own request list, :func:`make_tenant_requests`)."""
+    import dataclasses as dc
+    from fakepta_tpu_torch.serve.loadgen import make_tenant_requests
+
+    t = GATEWAY_TRAFFIC
+    specs = [dc.replace(spec, data_seed=100 + i)
+             for i in range(t["n_specs"])]
+    reqs, _ = make_tenant_requests(specs, t["n_requests"], t["sizes"],
+                                   n_identities=t["n_identities"],
+                                   seed=t["seed"], zipf_s=t["zipf_s"])
+    return {(r.spec.spec_hash(), r.seed, r.n): r for r in reqs}
+
+
+def phase_gateway(report: dict, cards: int = 1) -> None:
+    """The gateway on the card (module docstring, phase ``gateway``)."""
+    import torch
+    from fakepta_tpu_torch.gateway import Gateway, ResultStore, Tenant
+    from fakepta_tpu_torch.ops import _build
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+    from fakepta_tpu_torch.scenarios import cadence, registry
+    from fakepta_tpu_torch.serve import (ArraySpec, ServeConfig,
+                                         StreamRequest, loadgen)
+    from fakepta_tpu_torch.tune import defaults as tune_defaults
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("gateway", {})
+    spec = registry.get("flagship_100").serve_spec()
+    if spec != ArraySpec(**SERVE_SPEC):
+        raise AssertionError(f"gateway: flagship serve_spec {spec}")
+    store_dir = os.path.join(HERE, "build", "gateway")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    devices = [f"cuda:{i}" for i in range(cards)]
+    n_rep = max(2, cards)
+    config = ServeConfig(buckets=tune_defaults.DEFAULT_FLEET_BUCKETS)
+    plain = shape_tag(spec.npsr, spec.npsr, spec.ntoa)
+    _build.build()
+    nvcc0 = _build.nvcc_starts
+
+    # 1. run_gateway_loadgen at the flagship's widths; its fleet is kept
+    # (the wrapper below) so each pool's launches by bucket can be read
+    fleets = []
+    build_fleet = loadgen._build_fleet
+
+    def keep_fleet(*a, **kw):
+        fleets.append(build_fleet(*a, **kw))
+        return fleets[-1]
+
+    loadgen._build_fleet = keep_fleet
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        row = loadgen.run_gateway_loadgen(
+            spec, n_replicas=n_rep, store_dir=store_dir, config=config,
+            devices=devices, **GATEWAY_TRAFFIC)
+    finally:
+        loadgen._build_fleet = build_fleet
+    row["loadgen_s"] = time.perf_counter() - t0
+    moved = counts()
+    by_bucket: dict = {}
+    for r in fleets[0].replicas.values():
+        for k, by in r.kernel_summary()["launches_by_bucket"].items():
+            for b, n in by.items():
+                by_bucket.setdefault(k, {})
+                by_bucket[k][b] = by_bucket[k].get(b, 0) + n
+    pooled = sum(by_bucket.get("binned_correlation", {}).values())
+    for b, n in by_bucket.get("binned_correlation", {}).items():
+        add_launches(report, f"{plain} R={b}", {"binned_correlation": n})
+    row.update(launches=moved, launches_by_bucket=by_bucket)
+    out["row"] = row
+    gw_row = {k: v for k, v in row.items() if k.startswith("gw_")}
+    print(f"gateway: {GATEWAY_TRAFFIC['n_requests']} requests of "
+          f"{GATEWAY_TRAFFIC['n_tenants']} tenants over {n_rep} in-process "
+          f"replicas on {devices}: {json.dumps(gw_row)}; "
+          f"#1 launches {moved['binned_correlation']} ({pooled} in the "
+          f"pools' dispatches, by bucket {by_bucket}); "
+          f"{row['loadgen_s']:.1f} s", flush=True)
+    if row["gw_hit_rate"] < 0.5 or row["gw_device_s_saved"] <= 0.0 \
+            or row["gw_verified"] <= 0 or row["gw_cutover_ms"] <= 0.0 \
+            or not pooled or moved["binned_correlation"] < pooled \
+            or any(n for k, n in moved.items()
+                   if k != "binned_correlation"):
+        raise AssertionError(f"gateway: the round's gates {row}")
+
+    # 2. #1 at every cohort shape the round dispatched, against its plain
+    # version (bf16, the served precision) and timed
+    sim = spec.build(device=devices[0])
+    out["kernels"] = {}
+    for b in sorted(int(b) for b in by_bucket["binned_correlation"]):
+        full = f"{plain} R={b}"
+        out["kernels"][full] = served_kernel_rows(report, sim, b, full)
+    del sim
+
+    # 3. a cold gateway with a new ResultStore over the round's directory,
+    # in front of a new fleet on the same devices: every identity is a
+    # hit, equal bit for bit to the same request served alone at its
+    # bucket (the check the round held its hits to), and #1 never runs
+    tenants = [Tenant("cold", "tok-cold")]
+    flt = loadgen._build_fleet(n_rep, "inproc", spec, config, None,
+                               devices=devices)
+    gw = Gateway(flt, tenants, store=ResultStore(store_dir))
+    try:
+        idents = gateway_identities(spec)
+        reset_counts()
+        t0 = time.perf_counter()
+        cold = {k: gw.serve(r, token="tok-cold", timeout=SERVE_DEADLINE_S)
+                for k, r in sorted(idents.items())}
+        cold_s = time.perf_counter() - t0
+        cold_moved = counts()
+        summ = gw.gateway_summary()
+        sims: dict = {}
+        for (sh, seed, n), res in cold.items():
+            r = idents[(sh, seed, n)]
+            if sh not in sims:
+                # built the way a pool builds one (serve/pool.py)
+                sims[sh] = r.spec.build(mesh=make_mesh([devices[0]]))
+            alone = sims[sh].run(res.bucket, chunk=res.bucket,
+                                 lanes=[(seed, n)], pipeline_depth=0)
+            if res.replica != "gateway-cache" \
+                    or not np.array_equal(alone["curves"][:n], res.curves) \
+                    or not np.array_equal(alone["autos"][:n], res.autos):
+                raise AssertionError(f"gateway: the cold store's answer for "
+                                     f"{(sh, seed, n)} ({res.replica}) is "
+                                     f"not the request served alone")
+        del sims
+        out["cold"] = {"identities": len(cold), "hits": summ["hits"],
+                       "dispatched": summ["dispatched"],
+                       "launches": cold_moved, "s": cold_s}
+        print(f"gateway: cold gateway over the round's store: "
+              f"{summ['hits']} hits of {len(cold)} identities, "
+              f"{summ['dispatched']} dispatched, #1 launches "
+              f"{cold_moved['binned_correlation']}, each bit for bit the "
+              f"request served alone; {cold_s:.2f} s", flush=True)
+        if summ["hits"] != len(cold) or summ["dispatched"] \
+                or any(cold_moved.values()):
+            raise AssertionError(f"gateway: cold round {out['cold']}")
+
+        # 4. ng15's cadence tail through the gateway as served appends
+        ng15 = registry.get("ng15")
+        blocks = cadence.append_schedule(ng15,
+                                         max_blocks=GATEWAY_NG15_BLOCKS)
+        appends = cadence.as_append_requests(blocks, "gw-ng15",
+                                             spec=ng15.serve_spec())
+        t0 = time.perf_counter()
+        infos = [gw.serve(req, token="tok-cold", timeout=SERVE_DEADLINE_S)
+                 for _t, req in appends]
+        tail_s = time.perf_counter() - t0
+        st = gw.serve(StreamRequest(stream="gw-ng15"), token="tok-cold",
+                      timeout=SERVE_DEADLINE_S)
+        want = sum(int(b.counts.sum()) for b in blocks)
+        out["ng15_tail"] = {"blocks": len(blocks), "toas": int(st["n_toas"]),
+                            "want": want, "s": tail_s,
+                            "append_ms": [i["latency_ms"] for i in infos]}
+        print(f"gateway: ng15 cadence tail, {len(blocks)} observing windows "
+              f"as served appends ({[b.toas.shape[1] for b in blocks]} "
+              f"TOAs wide): the stream holds {st['n_toas']} TOAs of "
+              f"{want}; {tail_s:.2f} s", flush=True)
+        if int(st["n_toas"]) != want:
+            raise AssertionError(f"gateway: ng15 tail {out['ng15_tail']}")
+    finally:
+        gw.close()
+    built = _build.nvcc_starts - nvcc0
+    if built:
+        raise AssertionError(f"gateway: {built} kernel build(s) in the "
+                             f"phase")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"gateway: phase {out['phase_s']:.1f} s on {card_line()}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -5524,17 +5725,18 @@ def main(argv=None) -> int:
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
                              "sample", "stream", "multiproc", "tune",
-                             "serve", "fleet"],
+                             "serve", "fleet", "gateway"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
                              "sample", "stream", "multiproc", "tune",
-                             "serve", "fleet", "profile"])
+                             "serve", "fleet", "gateway", "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh, multiproc and profile phases' "
-                         "flagship meshes and the fleet phase's replicas "
-                         "span (default 1: every shard, both multiproc "
-                         "ranks and both fleet replicas on cuda:0)")
+                         "flagship meshes and the fleet and gateway "
+                         "phases' replicas span (default 1: every shard, "
+                         "both multiproc ranks and both fleet and gateway "
+                         "replicas on cuda:0)")
     # one rank of the multiproc phase (the phase starts them)
     ap.add_argument("--mp-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -5578,6 +5780,7 @@ def main(argv=None) -> int:
               "multiproc": lambda r: phase_multiproc(r, args.mesh_cards),
               "tune": phase_tune, "serve": phase_serve,
               "fleet": lambda r: phase_fleet(r, args.mesh_cards),
+              "gateway": lambda r: phase_gateway(r, args.mesh_cards),
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:
@@ -5598,9 +5801,9 @@ def main(argv=None) -> int:
     # weight-slot counts NB and chunk_stats' K where they are not the plain
     # run's; the facade batch's PL = 100 and 50 at its own TOA width and
     # at a width with T % 4 != 0; the serve phase's R = 16 and R = 1024
-    # and the fleet phase's cohort buckets, tagged with R), each with the
-    # launches made at that shape in the main-path runs (0 where none was
-    # made)
+    # and the fleet and gateway phases' cohort buckets, tagged with R),
+    # each with the launches made at that shape in the main-path runs (0
+    # where none was made)
     table = []
     specs = (("binned_correlation", "bf16",
               "fakepta_tpu_torch/csrc/binned_corr.cu",

@@ -7,7 +7,8 @@ Two halves:
   named sites threaded through the engine and the sampler (chunk dispatch
   and ring reuse, the pipeline writer, checkpoint appends, sampler
   segments, stream appends, the serve dispatcher, the health monitor's
-  heartbeats and telemetry scrapes) and fires scripted faults (transient
+  heartbeats and telemetry scrapes, the gateway's admission and stream
+  cutover) and fires scripted faults (transient
   errors, NaN poisoning, torn checkpoint writes, hung drains, simulated
   kills) at deterministic hit indices, each mirrored into the crash
   flight recorder;
@@ -26,8 +27,7 @@ with a flight-recorder dump. Silent corruption is never an outcome.
 
 The JAX package's ``cache.load`` site has no counterpart: it wires XLA's
 persistent compilation cache, and the port has none (its kernels are
-built once per checkout, :mod:`..ops._build`). The ``gateway.*`` sites
-come with ``gateway/`` (ROADMAP Queue 1 item 11b slice 5).
+built once per checkout, :mod:`..ops._build`).
 """
 
 from .plan import (FaultError, FaultPlan, FaultSpec, DegradeFault,

@@ -30,14 +30,16 @@ site                      where it is checked
 ``fleet.heartbeat``       the health monitor, per replica probe
 ``telemetry.scrape``      the health monitor, before each telemetry scrape
                           riding a successful probe
+``gateway.admit``         Gateway.submit, after auth and before any quota
+                          or cache state moves
+``gateway.cutover``       StreamManager.cutover, twice per operation: at
+                          the fence (``stage='restage'``) and again before
+                          the atomic swap (``stage='swap'``)
 ========================  ====================================================
 
 The JAX package's ``cache.load`` site wires XLA's persistent compilation
 cache, which the port does not have (its kernels are built once per
-checkout by :mod:`..ops._build`), so it has no counterpart. The
-``gateway.*`` sites come with ``gateway/`` (ROADMAP Queue 1 item 11b
-slice 5); the stream cutover (``serve/streams.py``) already checks
-``gateway.cutover``.
+checkout by :mod:`..ops._build`), so it has no counterpart.
 
 At ``fleet.replica`` (checked with ``replica=<id>`` context before the
 router hands a request to that replica) a ``kill`` takes the replica

@@ -10,16 +10,16 @@ white levels, ECORR epochs and per-backend system-noise bands.
 
 The epoch draws are host numpy, element for element the JAX package's
 (same generators, same call order), so a scenario's sky is a pure function
-of ``(cadence name, tspan, npsr, seed, thin)`` in both packages. Not ported
-yet: the stream lane's append schedule (``history_block``,
-``append_schedule``, ``as_append_requests``), which waits for the stream
-and serve layers.
+of ``(cadence name, tspan, npsr, seed, thin)`` in both packages. So is the
+stream lane's append schedule (:func:`history_block`,
+:func:`append_schedule`, :func:`as_append_requests`): the cadence tail as
+timed ``AppendRequest`` traffic for a served stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -310,3 +310,114 @@ def build_batch(scenario, dtype: torch.dtype = torch.float32,
         sys_mask=sys_mask, df_own=df_own,
         tspan_common=np.asarray(tspan_common)), device=device, dtype=dtype)
     return batch, toas_abs, backend_id, n_backends
+
+
+@dataclasses.dataclass(frozen=True)
+class AppendBlock:
+    """One observing window of the cadence tail, shaped for
+    ``StreamState.append``: ``toas`` is (P, B) seconds from the stream's
+    shared origin (the template's t=0) with the valid prefix per pulsar
+    marked by ``counts`` (a pulsar nobody observed that window has count
+    0), ``freqs`` the matching band frequencies, and ``t_start_s`` the
+    window's wall-clock offset from the schedule start; the replay timer
+    for timed append traffic."""
+
+    t_start_s: float
+    toas: np.ndarray
+    counts: np.ndarray
+    freqs: np.ndarray
+
+
+def history_block(scenario, history_frac: float = 0.85) -> AppendBlock:
+    """Everything observed BEFORE the ``history_frac`` cut, as one bulk
+    append block: the stream lane's staging load (bulk history first,
+    then :func:`append_schedule`'s timed tail)."""
+    cads = draw_cadence(scenario.cadence, scenario.tspan_years,
+                        scenario.npsr, scenario.data_seed,
+                        thin=scenario.cadence_thin)
+    t0 = history_frac * scenario.tspan_years * const.yr
+    rows = [(c.t[c.t < t0], c.freqs[c.t < t0]) for c in cads]
+    width = max(max((t.size for t, _ in rows), default=1), 1)
+    toas = np.zeros((scenario.npsr, width))
+    freqs = np.full((scenario.npsr, width), 1400.0)
+    counts = np.zeros(scenario.npsr, dtype=np.int64)
+    for i, (t, f) in enumerate(rows):
+        counts[i] = t.size
+        toas[i, :t.size] = t
+        freqs[i, :t.size] = f
+    return AppendBlock(t_start_s=0.0, toas=toas, counts=counts, freqs=freqs)
+
+
+def append_schedule(scenario, history_frac: float = 0.85,
+                    window_days: float = 30.0,
+                    max_blocks: Optional[int] = None) -> List[AppendBlock]:
+    """Split the cadence tail after ``history_frac`` into observing-window
+    append blocks.
+
+    The window walks the tail in fixed ``window_days`` steps; windows where
+    no telescope observed produce NO block (real silent weeks; the
+    zero-recompile contract has to hold across the resulting bucket
+    mix), and block widths vary with how many backends happened to
+    observe, exercising the bucket ladder the way uniform synthetic
+    appends cannot.
+    """
+    cads = draw_cadence(scenario.cadence, scenario.tspan_years,
+                        scenario.npsr, scenario.data_seed,
+                        thin=scenario.cadence_thin)
+    tspan_s = scenario.tspan_years * const.yr
+    t0 = history_frac * tspan_s
+    step = window_days * DAY_S
+    blocks: List[AppendBlock] = []
+    lo = t0
+    while lo < tspan_s:
+        hi = lo + step
+        rows = []
+        for c in cads:
+            sel = (c.t >= lo) & (c.t < hi)
+            rows.append((c.t[sel], c.freqs[sel]))
+        width = max((t.size for t, _ in rows), default=0)
+        if width:
+            toas = np.zeros((scenario.npsr, width))
+            freqs = np.full((scenario.npsr, width), 1400.0)
+            counts = np.zeros(scenario.npsr, dtype=np.int64)
+            for i, (t, f) in enumerate(rows):
+                counts[i] = t.size
+                # stream-origin seconds (StreamState's shared origin is the
+                # template's t=0, NOT MJD); padding slots replay the
+                # window start so normalization stays in range; counts
+                # masks them out
+                toas[i, :t.size] = t
+                toas[i, t.size:] = lo
+                freqs[i, :t.size] = f
+            blocks.append(AppendBlock(t_start_s=lo - t0, toas=toas,
+                                      counts=counts, freqs=freqs))
+        lo = hi
+        if max_blocks is not None and len(blocks) >= max_blocks:
+            break
+    return blocks
+
+
+def as_append_requests(blocks: Sequence[AppendBlock], stream: str,
+                       spec=None, *, toaerr: float = 1e-7,
+                       seed: int = 0, ecorr_dt: Optional[float] = None):
+    """Wrap an append schedule as served ``AppendRequest`` traffic.
+
+    The first request carries the stream-opening ``spec``/``ecorr_dt``;
+    residuals are white draws at the scenario's TOA error (the served
+    stream measures ingestion, not astrophysics). Returns
+    ``[(t_start_s, AppendRequest), ...]``; the caller replays them
+    against a pool/fleet on the schedule's clock (or as fast as it
+    wants; ``t_start_s`` preserves the arrival process either way).
+    """
+    from ..serve.spec import AppendRequest
+
+    rng = np.random.default_rng((seed, 0xA99))
+    out = []
+    for k, blk in enumerate(blocks):
+        res = rng.normal(0.0, toaerr, blk.toas.shape)
+        out.append((blk.t_start_s, AppendRequest(
+            stream=stream, toas=blk.toas, residuals=res,
+            counts=blk.counts, freqs=blk.freqs,
+            spec=spec if k == 0 else None,
+            ecorr_dt=ecorr_dt if k == 0 else None)))
+    return out

@@ -255,6 +255,24 @@ class Scenario:
         return EnsembleSimulator(parts[0], mesh=mesh, device=device,
                                  **kw, **engine_kw)
 
+    def serve_spec(self, reduced: bool = False):
+        """The closest :class:`..serve.spec.ArraySpec`: the JSON-routable
+        serve identity for this scenario's array family (richer menus
+        serve through ``ServePool.register`` with a prebuilt simulator;
+        the fleet and gateway lanes only need the spec family). Field for
+        field the JAX package's, so one scenario names one spec hash in
+        both."""
+        from ..serve.spec import ArraySpec
+
+        scn = self.reduced() if reduced else self
+        return ArraySpec(
+            npsr=scn.npsr, ntoa=scn.ntoa, tspan_years=scn.tspan_years,
+            toaerr=scn.toaerr, n_red=scn.n_red, n_dm=scn.n_dm,
+            data_seed=scn.data_seed, gwb_log10_A=scn.gwb_log10_A,
+            gwb_gamma=scn.gwb_gamma, gwb_ncomp=scn.gwb_ncomp,
+            gwb_orf=scn.gwb_orf if scn.gwb_orf in
+            ("", "hd", "curn", "monopole", "dipole") else "hd")
+
     def est_cost(self, chunk: int = 1024) -> dict:
         """Analytic per-chunk cost estimate (no device work): the memory
         traffic model (``ops/megakernel.chunk_bytes_model``) at this

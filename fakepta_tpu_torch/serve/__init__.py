@@ -45,9 +45,8 @@ Embeddable surface::
     res = fleet.serve(SimRequest(spec=ArraySpec(npsr=20), n=32, seed=7))
 
 CLI: ``python -m fakepta_tpu_torch.serve
-loadgen|stdin|socket|replica|fleet``. The gateway load generator
-(``run_gateway_loadgen``) comes with ``gateway/`` (ROADMAP Queue 1 item
-11b slice 5).
+loadgen|stdin|socket|replica|fleet``. :func:`run_gateway_loadgen` drives
+a :class:`..gateway.Gateway` in front of in-process replicas.
 """
 
 from .autoscale import AutoscaleConfig, Autoscaler
@@ -55,7 +54,8 @@ from .fleet import (FleetConfig, LocalReplica, ReplicaDead,
                     SampleSessionSpec, SamplingSession, ServeFleet,
                     SocketReplica)
 from .health import HealthConfig, HealthMonitor
-from .loadgen import run_elastic_loadgen, run_fleet_loadgen, run_loadgen
+from .loadgen import (run_elastic_loadgen, run_fleet_loadgen,
+                      run_gateway_loadgen, run_loadgen)
 from .pool import PoolEntry, WarmPool
 from .router import HashRing
 from .scheduler import ServeConfig, ServePool, ServeResult
@@ -73,5 +73,5 @@ __all__ = [
     "ServePool", "ServeResult", "ServeTimeout", "SimRequest",
     "SocketReplica", "StreamManager", "StreamRequest", "WarmPool",
     "curn_grid_spec", "run_elastic_loadgen", "run_fleet_loadgen",
-    "run_loadgen",
+    "run_gateway_loadgen", "run_loadgen",
 ]

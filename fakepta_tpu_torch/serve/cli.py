@@ -370,12 +370,18 @@ def _serve_stream(pool, lines, write, default_spec, emit: str,
                 emit_line({"id": req_id, "ok": True, "pong": True})
                 continue
             if kind == "stats":
-                emit_line({"id": req_id, "ok": True,
-                           "stats": pool.slo_summary(),
-                           "health": pool.health_summary(),
-                           "pool": pool.warm_summary(),
-                           "streams": pool.stream_summary(),
-                           "kernels": pool.kernel_summary()})
+                out = {"id": req_id, "ok": True,
+                       "stats": pool.slo_summary(),
+                       "health": pool.health_summary(),
+                       "pool": pool.warm_summary(),
+                       "streams": pool.stream_summary(),
+                       "kernels": pool.kernel_summary()}
+                # a gateway front (..gateway) adds its tenant table:
+                # per-tenant qps / 429s / queue share / hit-rate rows
+                tenants = getattr(pool, "tenant_summary", None)
+                if tenants is not None:
+                    out["tenants"] = tenants()
+                emit_line(out)
                 continue
             if kind == "telemetry":
                 emit_line({"id": req_id, "ok": True,

@@ -1,5 +1,5 @@
 """Synthetic load generators: the serving layer's built-in benchmarks
-(port of ``fakepta_tpu.serve.loadgen``, all but the gateway mode).
+(port of ``fakepta_tpu.serve.loadgen``).
 
 Drives a :class:`ServePool` with a reproducible stream of requests (sizes
 drawn from a small palette), optionally measures the **serial baseline**
@@ -14,8 +14,10 @@ The fleet modes (:func:`run_fleet_loadgen`, :func:`run_elastic_loadgen`,
 :func:`measure_telemetry_overhead`) drive a :class:`.fleet.ServeFleet` of
 in-process or subprocess replicas over a sharded-spec workload, with
 every failed-over response bit-verified against the same request served
-alone. The gateway mode (``run_gateway_loadgen``) comes with
-``gateway/`` (ROADMAP Queue 1 item 11b slice 5).
+alone. The gateway mode (:func:`make_tenant_requests`,
+:func:`run_gateway_loadgen`) drives a :class:`..gateway.Gateway` in front
+of in-process replicas with a Zipfian multi-tenant mix, a background
+appender and a mid-load stream cutover.
 
 Kept divergences from the JAX loadgen: the solo-run tolerance follows the
 precision the pool's path ran (``SOLO_RTOL``): the JAX pool serves XLA
@@ -37,8 +39,8 @@ from .. import faults as faults_mod
 from ..obs import flightrec
 from ..obs.timing import now
 from .scheduler import ServeConfig, ServePool
-from .spec import (ArraySpec, InferRequest, OSRequest, ServeBusy,
-                   SimRequest, no_compile_cache)
+from .spec import (AppendRequest, ArraySpec, InferRequest, OSRequest,
+                   ServeBusy, SimRequest, StreamRequest, no_compile_cache)
 
 #: default request-size palette: a few distinct sizes (not a continuum) so
 #: the serial baseline warms a bounded set of shapes and the coalesced
@@ -751,4 +753,263 @@ def run_elastic_loadgen(spec: Optional[ArraySpec] = None, *,
         if fault_cm is not None:
             fault_cm.__exit__(None, None, None)
         flt.close()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# multi-tenant gateway mode
+# ---------------------------------------------------------------------------
+
+def make_tenant_requests(specs: Sequence[ArraySpec], n_requests: int,
+                         sizes: Sequence[int], n_identities: int = 12,
+                         seed: int = 0, zipf_s: float = 1.4):
+    """The Zipfian hot-spec request stream: a fixed pool of request
+    *identities* (distinct ``(spec, seed, n)`` triples, each a distinct
+    content address) drawn with popularity ``1/rank^s``, so the traffic
+    keeps re-asking its hot identities. That is the regime the gateway's
+    content-addressed store and single-flight table exist for: the first
+    ask of an identity pays device time, every repeat is a hit (or rides
+    the in-flight leader), and the tail identities keep the store's LRU
+    honest. Returns ``(requests, identity_index_per_request)``."""
+    rng = np.random.default_rng(seed)
+    pool = []
+    for k in range(n_identities):
+        pool.append((specs[k % len(specs)], 1000 + k,
+                     int(sizes[k % len(sizes)])))
+    ranks = np.arange(1, n_identities + 1, dtype=float)
+    probs = ranks ** -float(zipf_s)
+    probs /= probs.sum()
+    picks = rng.choice(n_identities, size=n_requests, p=probs)
+    reqs = [SimRequest(spec=pool[k][0], n=pool[k][2], seed=pool[k][1])
+            for k in picks]
+    return reqs, [int(k) for k in picks]
+
+
+def run_gateway_loadgen(spec: Optional[ArraySpec] = None, *,
+                        n_tenants: int = 3, n_requests: int = 96,
+                        sizes: Sequence[int] = (1, 2, 4), seed: int = 0,
+                        n_specs: int = 3, n_identities: int = 12,
+                        zipf_s: float = 1.4, n_replicas: int = 2,
+                        max_inflight: int = 6, cutover_at: float = 0.5,
+                        store_dir=None, config=None,
+                        compile_cache_dir: Optional[str] = None,
+                        mesh=None, device=None, devices=None) -> dict:
+    """Drive a gateway-fronted fleet with a Zipfian multi-tenant mix;
+    one row (the ``gw_*`` fields).
+
+    ``n_replicas`` in-process replicas serve on ``device`` (default
+    ``"cuda"``), or replica i on ``devices[i]``, or all on ``mesh``.
+    Tenants get distinct auth tokens and a skewed traffic split (tenant 0
+    is hot), against a deliberately small ``max_inflight`` so the hot
+    tenant runs into its weighted fair share: every 429 must be a
+    :class:`..gateway.GatewayBusy` carrying a positive per-tenant
+    ``retry_after_s``; anything else refuses the row. A background
+    appender keeps a gateway-opened stream ingesting through the measured
+    window, and at ``cutover_at`` of submissions the stream is re-staged
+    onto a 2x-Tspan template as a gateway-managed cutover: the final
+    stream TOA count must equal exactly what the appender landed (zero
+    dropped or duplicated appends) or the row is refused.
+
+    Correctness is the gate, not a sample: EVERY response served from the
+    result store is bit-compared against the same request served alone at
+    its bucket (``run(bucket, lanes=[(seed, n)])`` on a simulator built
+    the way the pool builds one, on replica 0's device: the pool's own
+    path and precision), and every other response of the same identity
+    (leaders, coalesced followers) must be bit-identical to the verified
+    hit. Any mismatch raises: a hit-rate number can never ship from a
+    wrong-answer cache.
+    """
+    import dataclasses as dc
+    import tempfile
+    import threading
+
+    from ..gateway import Gateway, GatewayBusy, ResultStore, Tenant
+    from ..parallel.mesh import make_mesh
+
+    no_compile_cache(compile_cache_dir)
+    base = spec or ArraySpec(npsr=8, ntoa=64, n_red=4, n_dm=4, gwb_ncomp=4)
+    specs = [dc.replace(base, data_seed=100 + i) for i in range(n_specs)]
+    reqs, idents = make_tenant_requests(specs, n_requests, sizes,
+                                        n_identities=n_identities,
+                                        seed=seed, zipf_s=zipf_s)
+    # skewed tenant split: tenant 0 is hot (~half the traffic), the
+    # starvation scenario the weighted fair share must absorb
+    rng = np.random.default_rng(seed + 7)
+    tranks = np.arange(1, n_tenants + 1, dtype=float)
+    tprobs = tranks ** -1.5
+    tprobs /= tprobs.sum()
+    req_tenants = rng.choice(n_tenants, size=n_requests, p=tprobs)
+    tenants = [Tenant(f"t{i}", token=f"tok-{i}",
+                      weight=(2 if i == 0 else 1))
+               for i in range(n_tenants)]
+    tokens = {i: f"tok-{i}" for i in range(n_tenants)}
+
+    if config is None:
+        from ..tune import defaults as tune_defaults
+        config = ServeConfig(buckets=tune_defaults.DEFAULT_FLEET_BUCKETS)
+    warm_buckets = sorted({int(b) for b in config.buckets})
+    flt = _build_fleet(n_replicas, "inproc", base, config, mesh,
+                       device=device, devices=devices)
+    store = ResultStore(store_dir
+                        or tempfile.mkdtemp(prefix="fakepta-gw-loadgen-"))
+    gw = Gateway(flt, tenants, store=store, max_inflight=max_inflight)
+
+    stream_name = "gw-loadgen"
+    stream_spec = ArraySpec(npsr=4, ntoa=16, tspan_years=3.0, n_red=2,
+                            n_dm=2, gwb_ncomp=2)
+    span_s = 3.0 * 365.25 * 86400.0
+    appended = {"toas": 0, "blocks": 0}
+    stop = threading.Event()
+    app_errs: list = []
+
+    def _append_block(block_seed, spec_arg=None):
+        brng = np.random.default_rng(block_seed)
+        t = np.sort(brng.uniform(0.0, 0.9 * span_s, size=(4, 6)), axis=1)
+        r = brng.normal(0.0, 1e-7, size=(4, 6))
+        req = AppendRequest(stream=stream_name, toas=t, residuals=r,
+                            spec=spec_arg)
+        while True:
+            try:
+                gw.serve(req, token=tokens[n_tenants - 1], timeout=300.0)
+                appended["toas"] += t.size
+                appended["blocks"] += 1
+                return
+            except GatewayBusy as busy:
+                time.sleep(max(busy.retry_after_s, 0.002))
+
+    def _appender():
+        k = 0
+        while not stop.is_set():
+            try:
+                _append_block(10_000 + k)
+            except Exception as exc:   # noqa: BLE001 (surfaced below: an
+                # appender death must refuse the row, never pass as a
+                # quiet ingestion gap the TOA-conservation check would
+                # blame on the cutover)
+                app_errs.append(exc)
+                return
+            k += 1
+            time.sleep(0.005)
+
+    cut_info: dict = {}
+    try:
+        for s in specs:
+            for b in warm_buckets:
+                flt.serve(dc.replace(reqs[0], spec=s, n=b, seed=0),
+                          timeout=600.0)
+        _append_block(9_999, spec_arg=stream_spec)   # opens the stream
+        gw.reset_stats()
+        appender = threading.Thread(target=_appender, daemon=True)
+        appender.start()
+
+        cut_idx = int(cutover_at * len(reqs))
+        futs: list = []
+        for i, r in enumerate(reqs):
+            if i == cut_idx:
+                cut_info = gw.cutover(
+                    stream_name,
+                    dc.replace(stream_spec, tspan_years=6.0))
+            tok = tokens[int(req_tenants[i])]
+            while True:
+                try:
+                    futs.append(gw.submit(r, token=tok))
+                    break
+                except GatewayBusy as busy:
+                    # the per-tenant 429 contract IS the acceptance: a
+                    # throttle without an actionable hint refuses the row
+                    if busy.retry_after_s <= 0.0 or not busy.tenant:
+                        raise RuntimeError(
+                            f"gateway 429 without a per-tenant retry "
+                            f"hint: tenant={busy.tenant!r} "
+                            f"retry_after_s={busy.retry_after_s!r}")
+                    time.sleep(busy.retry_after_s)
+        results, lost = [], 0
+        for f in futs:
+            try:
+                results.append(f.result(timeout=600.0))
+            except Exception as exc:   # noqa: BLE001 (recorded + refused)
+                flightrec.note("gateway_request_lost",
+                               error=repr(exc)[:200])
+                results.append(None)
+                lost += 1
+        if lost:
+            raise RuntimeError(f"{lost} admitted request(s) lost: "
+                               f"refusing to record the row")
+
+        stop.set()
+        appender.join(60.0)
+        if appender.is_alive():
+            flightrec.note("gateway_loadgen_appender_join_timeout",
+                           timeout_s=60.0)
+        if app_errs:
+            raise RuntimeError(
+                f"stream appender died mid-load: {app_errs[0]!r}")
+        st = gw.serve(StreamRequest(stream=stream_name),
+                      token=tokens[0], timeout=300.0)
+        if int(st["n_toas"]) != appended["toas"]:
+            raise RuntimeError(
+                f"cutover dropped or duplicated appends: stream holds "
+                f"{st['n_toas']} TOAs, appender landed "
+                f"{appended['toas']}: refusing to record the row")
+
+        # bit-verify EVERY store hit against the same request served
+        # alone at its bucket, then pin every sibling response of the
+        # same identity to the verified hit
+        solo_mesh = mesh or make_mesh([_replica_device(0, device, devices)])
+        sims: dict = {}
+        by_ident: dict = {}
+        for i, res in enumerate(results):
+            by_ident.setdefault(idents[i], []).append(i)
+        verified = 0
+        for ident, idxs in sorted(by_ident.items()):
+            hit_idx = [i for i in idxs
+                       if results[i].replica == "gateway-cache"]
+            if not hit_idx:
+                continue
+            i0 = hit_idx[0]
+            r, res = reqs[i0], results[i0]
+            sh = r.spec.spec_hash()
+            if sh not in sims:
+                sims[sh] = r.spec.build(mesh=solo_mesh)
+            alone = sims[sh].run(res.bucket, chunk=res.bucket,
+                                 lanes=[(r.seed, r.n)], pipeline_depth=0,
+                                 **r.run_kwargs())
+            if not (np.array_equal(alone["curves"][:r.n], res.curves)
+                    and np.array_equal(alone["autos"][:r.n], res.autos)):
+                raise RuntimeError(
+                    f"cache hit for identity {ident} differs from its "
+                    f"solo run: refusing to record the row")
+            verified += 1
+            for j in idxs:
+                if j == i0:
+                    continue
+                if not (np.array_equal(results[j].curves, res.curves)
+                        and np.array_equal(results[j].autos, res.autos)):
+                    raise RuntimeError(
+                        f"responses for identity {ident} disagree across "
+                        f"the hit/leader/coalesced paths: refusing to "
+                        f"record the row")
+                verified += 1
+
+        summ = gw.gateway_summary()
+        trows = gw.tenant_summary()
+        row = {
+            "gw_requests": int(summ["requests"]),
+            "gw_tenants": int(n_tenants),
+            # the row's hit rate counts BOTH zero-device-work paths: the
+            # store and the single-flight fold
+            "gw_hit_rate": round(
+                (summ["hits"] + summ["coalesced"]) / n_requests, 4),
+            "gw_coalesced": int(summ["coalesced"]),
+            "gw_throttles": int(summ["throttles"]),
+            "gw_device_s_saved": float(summ["device_s_saved"]),
+            "gw_p99_ms_under_quota": round(
+                max((t["p99_ms"] for t in trows.values()), default=0.0),
+                3),
+            "gw_cutover_ms": float(cut_info.get("cutover_ms", 0.0)),
+            "gw_verified": int(verified),
+        }
+    finally:
+        stop.set()
+        gw.close()
     return row

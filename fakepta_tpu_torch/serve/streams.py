@@ -41,12 +41,6 @@ from .spec import ArraySpec, ServeError
 #: on-disk STREAM_SCHEMA: the wire payload is a serve-layer contract)
 STREAM_PAYLOAD_SCHEMA = "fakepta_tpu.serve-stream/1"
 
-#: the cutover oracle's tolerance: the largest relative drift between the
-#: restaged moments and a fresh restage of the NEW state before the swap
-#: aborts (the JAX package's ``tune.defaults.GATEWAY_CUTOVER_RTOL``; the
-#: port's knob table takes the gateway knobs with ``gateway/``)
-CUTOVER_RTOL = 1e-10
-
 
 class _StreamSlot:
     """One registered stream: its per-stream lock plus the CURRENT state.
@@ -196,7 +190,7 @@ class StreamManager:
             raise ServeError("cutover templates must be declarative "
                              "ArraySpecs")
         if rtol is None:
-            rtol = CUTOVER_RTOL
+            rtol = tune_defaults.GATEWAY_CUTOVER_RTOL
         from .. import stream as stream_pkg
 
         t0 = now()

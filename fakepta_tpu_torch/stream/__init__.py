@@ -29,9 +29,9 @@ Layers:
 - :func:`bench.run_append_ab`: the append-against-restage A/B, on the
   blocks of :func:`bench.config_blocks`.
 
-The served surface (the JAX package's ``AppendRequest`` /
-``StreamRequest``, its ``StreamManager`` and the fleet's stream affinity)
-comes with the serve layer (ROADMAP Queue 1 item 11b).
+The served surface (``AppendRequest`` / ``StreamRequest``, the pool's
+``StreamManager`` and the fleet's stream affinity) is in :mod:`..serve`,
+the managed cutover onto a wider template in :mod:`..gateway`.
 """
 
 from .refresh import FactorizedRefresher, PosteriorRefresher, RefreshPolicy

@@ -10,8 +10,9 @@ and telemetry knobs are here with the modules that read them
 (:mod:`..stream`, :mod:`..obs.telemetry`), the tuner's constants with
 the tuner (:mod:`.search`, :mod:`.store`, :mod:`.model`), and the serve
 ladders and the fleet lifecycle knobs (:mod:`..serve.spec`,
-:mod:`..serve.health`, :mod:`..serve.autoscale`); the gateway's knobs land
-with the gateway (ROADMAP Queue 1 item 11b).
+:mod:`..serve.health`, :mod:`..serve.autoscale`), and the gateway's knobs
+with the modules that read them (:mod:`..gateway`, the stream cutover of
+:mod:`..serve.streams`).
 """
 
 from __future__ import annotations
@@ -146,6 +147,59 @@ ALERT_HBM_WATERMARK_FRAC = 0.9
 #: (the CPU): the tuner's residency budget there and the hbm_watermark
 #: alert's default denominator
 DEFAULT_BYTES_BUDGET = 2 << 30
+
+# --- gateway knobs (gateway/) ----------------------------------------------
+
+#: total in-flight requests the gateway will hold across ALL tenants: the
+#: denominator of every tenant's weighted fair share; past it every
+#: admission is a per-tenant 429 with a retry hint
+GATEWAY_MAX_INFLIGHT = 128
+
+#: default tenant weight when a Tenant does not set one (fair shares are
+#: weight / sum(weights) of GATEWAY_MAX_INFLIGHT, floored at one slot)
+GATEWAY_DEFAULT_WEIGHT = 1
+
+#: floor for per-tenant retry_after_s hints (the hint scales with the
+#: tenant's own recent latency, never below this)
+GATEWAY_RETRY_MIN_S = 0.02
+
+#: ...and its cap (a cold tenant with no latency history gets the floor;
+#: a backed-up one never waits longer than this before re-probing)
+GATEWAY_RETRY_CAP_S = 5.0
+
+#: per-tenant completed-latency ring (the retry-hint / qps window)
+GATEWAY_LATENCY_RING = 128
+
+#: LRU bound on the single-flight table: when this many flights are
+#: already open, new keys bypass coalescing (dispatch directly, counted
+#: ``gateway.coalesce_bypass``) rather than grow the table without bound
+GATEWAY_SINGLEFLIGHT_CAP = 512
+
+#: LRU bound on the result store's in-memory payload cache (decoded npz
+#: payloads; the on-disk store is the durable plane)
+GATEWAY_RESULT_CACHE_CAP = 256
+
+#: bound on on-disk result-store entries: past it ``put`` evicts the
+#: oldest entries (index order) and unlinks their payload files
+GATEWAY_STORE_CAP = 4096
+
+#: result-store schema tag + version; entries written by a different
+#: version are ignored (loud miss-and-recompute, never reinterpreted).
+#: The JAX package's tag and version: an entry one package wrote is
+#: still refused by the other, through its fingerprint
+GATEWAY_STORE_SCHEMA = "fakepta_tpu.gateway/1"
+GATEWAY_STORE_VERSION = 1
+
+#: environment variable naming the gateway result-store directory; unset
+#: falls back to a ``gateway/`` dir beside the tune store
+GATEWAY_DIR_ENV = "FAKEPTA_TPU_GATEWAY_DIR"
+
+#: result-store index file name (inside the gateway directory)
+GATEWAY_INDEX_FILENAME = "results.json"
+
+#: cutover oracle tolerance: max relative drift between the restaged
+#: moments and a fresh restage of the NEW state before the swap aborts
+GATEWAY_CUTOVER_RTOL = 1e-10
 
 # --- sampler knobs (sample/) -----------------------------------------------
 

@@ -1820,3 +1820,41 @@ def test_fleet_failover_is_bit_identical_on_the_card(cuda):
         assert flt.slo_summary()["fleet_replica_deaths"] == 1
     finally:
         flt.close()
+
+
+@pytest.mark.cuda
+def test_gateway_hit_is_bit_identical_on_the_card(cuda, tmp_path):
+    """A gateway in front of two in-process replicas on the card: a miss
+    launches #1, its store hit and a cold gateway's hit over the same
+    store directory launch nothing, and all three equal the same request
+    served alone at its bucket on a fresh simulator bit for bit."""
+    from fakepta_tpu_torch.gateway import Gateway, ResultStore, Tenant
+    from fakepta_tpu_torch.serve import (ArraySpec, LocalReplica,
+                                         ServeConfig, ServeFleet, SimRequest)
+
+    spec = ArraySpec(npsr=16, ntoa=128, n_red=8, n_dm=8, gwb_ncomp=8)
+    cfg = ServeConfig(buckets=(16,), coalesce_window_s=0.01)
+    tenants = [Tenant("a", "tok-a")]
+    req = SimRequest(spec=spec, n=5, seed=11)
+    flt = ServeFleet([LocalReplica(f"r{i}", config=cfg, index=i)
+                      for i in range(2)])
+    try:
+        gw = Gateway(flt, tenants, store=ResultStore(tmp_path / "gw"))
+        assert gw.fp.platform == "gpu" and gw.fp.n_devices == 1
+        before = bc.launches
+        miss = gw.serve(req, token="tok-a", timeout=600)
+        assert bc.launches > before and miss.replica != "gateway-cache"
+        before = bc.launches
+        hit = gw.serve(req, token="tok-a", timeout=600)
+        cold_gw = Gateway(flt, tenants, store=ResultStore(tmp_path / "gw"))
+        cold = cold_gw.serve(req, token="tok-a", timeout=600)
+        assert bc.launches == before
+        assert hit.replica == cold.replica == "gateway-cache"
+        assert cold_gw.gateway_summary()["hits"] == 1
+        alone = spec.build().run(miss.bucket, chunk=miss.bucket,
+                                 lanes=[(11, 5)], pipeline_depth=0)
+        for res in (miss, hit, cold):
+            assert np.array_equal(alone["curves"][:5], res.curves)
+            assert np.array_equal(alone["autos"][:5], res.autos)
+    finally:
+        flt.close()

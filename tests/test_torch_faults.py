@@ -208,9 +208,9 @@ def test_as_policy_matches_jax():
 
 def test_tune_defaults_equal_jax_value_for_value():
     """Every constant of the port's knob table (the entries its engine,
-    sampler, stream, telemetry plane, tuner and serve layer read) equals
-    the JAX package's; the one mapped name: DEFAULT_PATH, the JAX "xla"
-    path being the port's "einsum" path."""
+    sampler, stream, telemetry plane, tuner, serve layer and gateway read)
+    equals the JAX package's; the one mapped name: DEFAULT_PATH, the JAX
+    "xla" path being the port's "einsum" path."""
     names = sorted(n for n in vars(defaults) if n.isupper())
     assert names == [
         "ALERT_APPEND_REGRESSION_X", "ALERT_HBM_WATERMARK_FRAC",
@@ -221,7 +221,13 @@ def test_tune_defaults_equal_jax_value_for_value():
         "BREAKER_BACKOFF_CAP_S", "BREAKER_CLOSE_AFTER", "BUCKET_RATIO",
         "DEFAULT_BUCKETS", "DEFAULT_BYTES_BUDGET", "DEFAULT_CHUNK",
         "DEFAULT_FLEET_BUCKETS", "DEFAULT_PATH", "DEFAULT_PIPELINE_DEPTH",
-        "DEPTH_CANDIDATES", "FS_LANE_BINS", "FS_TOUCH_TOL", "HBM_FRACTION",
+        "DEPTH_CANDIDATES", "FS_LANE_BINS", "FS_TOUCH_TOL",
+        "GATEWAY_CUTOVER_RTOL", "GATEWAY_DEFAULT_WEIGHT", "GATEWAY_DIR_ENV",
+        "GATEWAY_INDEX_FILENAME", "GATEWAY_LATENCY_RING",
+        "GATEWAY_MAX_INFLIGHT", "GATEWAY_RESULT_CACHE_CAP",
+        "GATEWAY_RETRY_CAP_S", "GATEWAY_RETRY_MIN_S",
+        "GATEWAY_SINGLEFLIGHT_CAP", "GATEWAY_STORE_CAP",
+        "GATEWAY_STORE_SCHEMA", "GATEWAY_STORE_VERSION", "HBM_FRACTION",
         "HEARTBEAT_DEADLINE_S", "HEARTBEAT_PERIOD_S",
         "HEARTBEAT_SUSPECT_AFTER", "HEARTBEAT_WEDGED_AFTER",
         "PROBE_BUDGET_S", "PROBE_CHUNKS", "PROBE_TIMEOUT_S",

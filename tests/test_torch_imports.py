@@ -206,6 +206,48 @@ def test_fleet_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.gateway", "fakepta_tpu_torch.gateway.core",
+    "fakepta_tpu_torch.gateway.store", "fakepta_tpu_torch.gateway.tenants",
+    "fakepta_tpu_torch.gateway.cutover", "fakepta_tpu_torch.serve.loadgen",
+    "fakepta_tpu_torch.scenarios.registry",
+    "fakepta_tpu_torch.scenarios.cadence"])
+def test_gateway_modules_are_checked(module):
+    """The gateway tier, its load generator and the scenarios' serve
+    identity and append schedule (ports of JAX package modules) are among
+    the modules the checks below import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_gateway_entry_points_default_to_the_card(tmp_path):
+    """A Gateway keys its store by the devices its fleet serves on, and
+    run_gateway_loadgen's replicas serve on the card unless the CPU is
+    asked for; without a card the load generator fails to start its
+    replicas and no CPU replica stands in."""
+    from fakepta_tpu_torch.gateway import Gateway, ResultStore, Tenant
+    from fakepta_tpu_torch.serve import (ArraySpec, LocalReplica,
+                                         ServeConfig, ServeFleet,
+                                         run_gateway_loadgen)
+
+    spec = ArraySpec(npsr=4, ntoa=16, n_red=2, n_dm=2, gwb_ncomp=2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_gateway_loadgen(spec, n_requests=4,
+                                store_dir=tmp_path / "gw")
+    flt = ServeFleet([LocalReplica("r0", device="cpu",
+                                   config=ServeConfig(buckets=(4,)))])
+    gw = Gateway(flt, [Tenant("a", "tok-a")],
+                 store=ResultStore(tmp_path / "gw"))
+    try:
+        assert gw.fp.platform == "cpu"
+    finally:
+        gw.close()
+
+
 def test_fleet_entry_points_default_to_the_card(tmp_path):
     """Replicas, the fleet load generators and the fleet CLI serve on the
     card unless the CPU is asked for; without a card a replica fails to
@@ -239,7 +281,7 @@ def test_serve_entry_points_default_to_the_card():
     from fakepta_tpu_torch.serve import (ArraySpec, ServeConfig, ServePool,
                                          cli, run_loadgen)
 
-    # the JAX package's names but the gateway's load generator
+    # the JAX package's names
     assert set(serve_pkg.__all__) == {
         "DEFAULT_BUCKETS", "AppendRequest", "ArraySpec", "AutoscaleConfig",
         "Autoscaler", "FleetConfig", "HashRing", "HealthConfig",
@@ -249,7 +291,7 @@ def test_serve_entry_points_default_to_the_card():
         "ServeFleet", "ServePool", "ServeResult", "ServeTimeout",
         "SimRequest", "SocketReplica", "StreamManager", "StreamRequest",
         "WarmPool", "curn_grid_spec", "run_elastic_loadgen",
-        "run_fleet_loadgen", "run_loadgen"}
+        "run_fleet_loadgen", "run_gateway_loadgen", "run_loadgen"}
     assert cli.build_parser().parse_args(["loadgen"]).device == "cuda"
     spec = ArraySpec(npsr=4, ntoa=16, n_red=2, n_dm=2, gwb_ncomp=2)
     if not torch.cuda.is_available():
