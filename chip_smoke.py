@@ -368,7 +368,32 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    (4 observing windows of ``append_schedule``, as ``as_append_requests``)
    through ``Gateway.serve``: the stream must hold every TOA. No kernel is
    built in the phase.
-20. ``profile`` (only when asked for): per statistic path, the device time
+20. ``golden``: the golden-run harness
+   (``fakepta_tpu_torch.scenarios.golden``) on ``cuda:0``. ``golden_run``
+   on ``flagship_100``, ``ng15`` and ``ipta_dr3`` at full spec with suite
+   config 17's knobs (``benchmarks/suite.py:700``: ``nreal=32``,
+   ``chunk=16``, ``serve_requests=16``, ``max_append_blocks=8``, 48
+   sampler steps after 24 warm-up steps on ``ng15``, 16 after 8 on the
+   others: the step counts are the cut): every lane runs (the ensemble on
+   the default ``fused`` bf16 path, the CURN free-spectrum sampler, the
+   serve pool with a verified answer, bit for bit alone, and the cadence
+   stream with its append-equals-restage oracle within 1e-7), each row is
+   printed as one JSON line, must carry the JAX row's keys with
+   ``platform`` 'gpu', an allocator peak, no recompile, no steady build and
+   no fault, is saved with ``save_row`` and loaded and gated by the port's
+   ``obs gate`` (no comparable history). Then ``memory_lane("ska_10k",
+   chunk=32)`` over 1,000, 2,500, 5,000 and 10,000 pulsars uncut (one call
+   a point, so each point's simulator serves its kernel row and is gone
+   before the next), on ``cuda:0`` (``--mesh-cards N``: N cards, one psr
+   shard each): each point's peak, chunk model, ratio, build seconds and
+   host peak against the machine's RAM printed; it fails unless every
+   point is within ``MEM_BOUND_FACTOR``. The launches of #1 are counted
+   (zeroed just before each run, read just after) and tallied by shape
+   (R, PL, PF, T); #1 is held against its plain version and timed at every
+   shared-set shape it was launched at: the ensemble lanes' R = 16 (PL =
+   100, 68, 120), the serve lanes' cohorts and solo checks, and the memory
+   lane's R = 32 up to PL = PF = 10,000.
+21. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -4078,7 +4103,8 @@ def mp_rank(rank: int, n: int, run_dir: str, shared: bool,
             loc = sim._residuals(keys, shard=sh)
             base, coefs = sim._residuals(keys, split_gp=True)
             lb, lc = sim._residuals(keys, split_gp=True, shard=sh)
-        w, nb = sim._stat_weights, sim.nbins
+        # the whole array's weights stay on the host on a psr mesh
+        w, nb = sim._stat_weights.to(dev), sim.nbins
         stages, times, scales = sim._mega_tables
         r_real = CHUNK // n
         for prec in ("f32", "bf16"):
@@ -5580,6 +5606,214 @@ def phase_gateway(report: dict, cards: int = 1) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# golden runs and the ska_10k memory lane
+# ---------------------------------------------------------------------------
+
+#: the golden rows: suite config 17's knobs (benchmarks/suite.py:700), its
+#: 48 post-warm-up sampler steps on ng15 only, 16 after 8 on the others
+GOLDEN_NAMES = ("flagship_100", "ng15", "ipta_dr3")
+GOLDEN_KNOBS = dict(nreal=32, chunk=16, serve_requests=16,
+                    max_append_blocks=8)
+GOLDEN_SAMPLE = {"ng15": (48, 24)}
+GOLDEN_SAMPLE_CUT = (16, 8)
+#: the memory lane: ska_10k uncut at chunk 32, up to 10,000 pulsars (each
+#: point a multiple of 1, 2 and 4 psr shards)
+MEM_CHUNK = 32
+MEM_SWEEP = (1000, 2500, 5000, 10000)
+#: the keys every golden row must carry (the JAX row's, all lanes on)
+GOLDEN_KEYS = ("metric", "value", "unit", "platform", "scenario",
+               "spec_hash", "steady_real_per_s_per_chip",
+               "scn_real_per_s_per_chip", "peak_hbm_bytes",
+               "scn_peak_hbm_bytes", "model_bytes_per_chunk",
+               "ess_per_s_per_chip", "scn_ess_per_s_per_chip",
+               "serve_p50_ms", "serve_p99_ms", "append_latency_ms",
+               "scn_append_p99_ms", "stream_appends", "stream_recompiles")
+
+
+def tally_launches(shapes: dict):
+    """Tally #1's launches by shape while the main path runs: wrap
+    ``binned_corr.binned_correlation`` (the engine and the serve scheduler
+    look it up at each call) so each launch its wrapper counted is also
+    added to ``shapes[(R, PL, PF, T)]``. Returns the function that
+    restores the wrapper."""
+    from fakepta_tpu_torch.ops import binned_corr as bc
+    real = bc.binned_correlation
+
+    def tally(res_local, res_full, weights, nbins, precision="bf16"):
+        n0 = bc.launches
+        out = real(res_local, res_full, weights, nbins, precision=precision)
+        if bc.launches != n0:
+            key = (int(res_local.shape[0]), int(res_local.shape[1]),
+                   int(res_full.shape[1]), int(res_local.shape[2]))
+            shapes[key] = shapes.get(key, 0) + bc.launches - n0
+        return out
+
+    bc.binned_correlation = tally
+    return lambda: setattr(bc, "binned_correlation", real)
+
+
+def keep_builds(sims: list):
+    """Keep every simulator ``Scenario.build`` makes in ``sims`` (the
+    golden run's ensemble lane, a memory-lane point) for the kernel rows.
+    Returns the function that restores ``build``."""
+    from fakepta_tpu_torch.scenarios import registry
+    real = registry.Scenario.build
+
+    def build(self, *a, **kw):
+        sims.append(real(self, *a, **kw))
+        return sims[-1]
+
+    registry.Scenario.build = build
+    return lambda: setattr(registry.Scenario, "build", real)
+
+
+def traced(fn, shapes: dict, sims: list):
+    """``fn()`` with every kernel count zeroed just before and read just
+    after, #1's launches tallied by shape and the scenario builds kept:
+    (result, launches moved). Fails unless #1 alone was launched, every
+    launch tallied."""
+    undo = [tally_launches(shapes), keep_builds(sims)]
+    reset_counts()
+    try:
+        got = fn()
+    finally:
+        for u in undo:
+            u()
+    moved = counts()
+    if not moved["binned_correlation"] or \
+            moved["binned_correlation"] != sum(shapes.values()) or \
+            any(n for k, n in moved.items() if k != "binned_correlation"):
+        raise AssertionError(f"golden: launches {moved}, #1 by shape "
+                             f"{shapes}")
+    return got, moved
+
+
+def golden_tag(key) -> str:
+    r, pl, pf, t = key
+    return f"{shape_tag(pl, pf, t)} R={r}"
+
+
+def golden_kernel_rows(report: dict, shapes: dict, sims: dict) -> None:
+    """#1 against its plain version and timed at every shape in
+    ``shapes`` that no earlier measurement covered, on the simulator of
+    ``sims`` whose (P, T) it is (the shared operand set)."""
+    for key in sorted(shapes):
+        r, pl, pf, t = key
+        tag = golden_tag(key)
+        if pl != pf or f"binned_correlation/bf16/{tag}" in \
+                report.get("kernels", {}):
+            continue
+        served_kernel_rows(report, sims[(pl, t)], r, tag)
+
+
+def phase_golden(report: dict, cards: int = 1) -> None:
+    """Golden runs and the ska_10k memory lane (module docstring, phase
+    ``golden``)."""
+    import gc
+
+    import torch
+    from fakepta_tpu_torch.obs import gate
+    from fakepta_tpu_torch.ops import _build
+    from fakepta_tpu_torch.scenarios import golden, registry
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("golden", {"rows": {}, "s": {}})
+    gdir = os.path.join(HERE, "build", "golden")
+    shutil.rmtree(gdir, ignore_errors=True)
+    os.makedirs(gdir)
+    _build.build()
+    history = gate.load_history(gate.resolve_history(
+        [os.path.join(HERE, gate.DEFAULT_HISTORY_GLOB)]),
+        warn=lambda m: print(f"golden: gate history: {m}", flush=True))
+
+    # 1. a golden row per scenario, full spec on cuda:0
+    for name in GOLDEN_NAMES:
+        steps, warmup = GOLDEN_SAMPLE.get(name, GOLDEN_SAMPLE_CUT)
+        shapes, built = {}, []
+        t0 = time.perf_counter()
+        row, _ = traced(lambda: golden.golden_run(
+            name, device="cuda:0", sample_steps=steps,
+            sample_warmup=warmup,
+            report_path=os.path.join(gdir, f"{name}.jsonl"),
+            **GOLDEN_KNOBS), shapes, built)
+        secs = time.perf_counter() - t0
+        print(json.dumps(row), flush=True)
+        missing = [k for k in GOLDEN_KEYS if k not in row]
+        if missing or row["platform"] != "gpu" \
+                or row["peak_hbm_bytes"] <= 0 or row["stream_recompiles"] \
+                or row.get("serve_steady_compiles") \
+                or any(row[k] for k in ("faults_retries",
+                                        "faults_degradations",
+                                        "faults_rollbacks")) \
+                or not np.isfinite(row["value"]) or row["value"] <= 0:
+            raise AssertionError(f"golden {name}: row {row}, missing "
+                                 f"{missing}")
+        path = os.path.join(gdir, f"{name}.json")
+        golden.save_row(row, path)
+        loaded = gate.load_row(path)
+        results = gate.gate_row(loaded, history)
+        if json.dumps(loaded) != json.dumps(row) or not results or any(
+                r.verdict != "info" or r.n_history for r in results):
+            raise AssertionError(f"golden {name}: obs gate on the saved row "
+                                 f"{[vars(r) for r in results][:5]}")
+        for key, n in shapes.items():
+            add_launches(report, golden_tag(key), {"binned_correlation": n})
+        sims = {(s.batch.npsr, s.batch.max_toa): s for s in built}
+        spec_sim = registry.get(name).serve_spec().build(device="cuda:0")
+        sims.setdefault((spec_sim.batch.npsr, spec_sim.batch.max_toa),
+                        spec_sim)
+        golden_kernel_rows(report, shapes, sims)
+        del built, sims, spec_sim
+        out["rows"][name] = row
+        out["s"][name] = secs
+        print(f"golden {name}: {secs:.1f} s, #1 launches by (R, PL, PF, T) "
+              f"{dict(sorted(shapes.items()))}; the row gates against no "
+              f"history ({len(results)} metrics)", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 2. the memory lane: ska_10k uncut, a point at a time so each point's
+    # simulator serves its kernel row and is gone before the next point
+    devices = [f"cuda:{i}" for i in range(cards)]
+    points = []
+    lane = None
+    for n in MEM_SWEEP:
+        shapes, built = {}, []
+        lane, _ = traced(lambda: golden.memory_lane(
+            "ska_10k", chunk=MEM_CHUNK, sweep=(n,), devices=devices),
+            shapes, built)
+        p = lane["points"][0]
+        points.append(p)
+        for key, k in shapes.items():
+            add_launches(report, golden_tag(key), {"binned_correlation": k})
+        # the shared set's shapes (one card); a psr shard's rows are not
+        # measured here
+        golden_kernel_rows(report, shapes, {
+            (s.batch.npsr, s.batch.max_toa): s for s in built})
+        del built
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"golden memory lane ska_10k npsr={n} on {devices} "
+              f"(psr_shards {lane['psr_shards']}): peak "
+              f"{p['peak_hbm_bytes'] / 1e9:.3f} GB, model "
+              f"{p['model_bytes_per_chunk'] / 1e9:.3f} GB (resident after "
+              f"the build {p['resident_bytes'] / 1e9:.3f} GB), ratio "
+              f"{p['ratio']} (bound {lane['bound_factor']}), ok {p['ok']}; "
+              f"build {p['build_s']:.1f} s, host peak "
+              f"{p['host_peak_bytes'] / 2**30:.1f} GiB of "
+              f"{lane['host_ram_bytes'] / 2**30:.1f} GiB RAM; #1 by "
+              f"(R, PL, PF, T) {shapes}", flush=True)
+    out["memory_lane"] = dict(lane, points=points,
+                              ok=all(p["ok"] for p in points))
+    if not out["memory_lane"]["ok"]:
+        raise AssertionError(f"golden: the memory lane broke its bound: "
+                             f"{points}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"golden: phase {out['phase_s']:.1f} s on {card_line()}",
+          flush=True)
+
+
 def phase_profile(report: dict, cards: int = 1) -> None:
     """Where one flagship chunk's device time goes, per statistic path:
     CUDA-event times of the key derivation, the draws + residual assembly
@@ -5725,12 +5959,13 @@ def main(argv=None) -> int:
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
                              "sample", "stream", "multiproc", "tune",
-                             "serve", "fleet", "gateway"],
+                             "serve", "fleet", "gateway", "golden"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
                              "sample", "stream", "multiproc", "tune",
-                             "serve", "fleet", "gateway", "profile"])
+                             "serve", "fleet", "gateway", "golden",
+                             "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh, multiproc and profile phases' "
                          "flagship meshes and the fleet and gateway "
@@ -5781,6 +6016,7 @@ def main(argv=None) -> int:
               "tune": phase_tune, "serve": phase_serve,
               "fleet": lambda r: phase_fleet(r, args.mesh_cards),
               "gateway": lambda r: phase_gateway(r, args.mesh_cards),
+              "golden": lambda r: phase_golden(r, args.mesh_cards),
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:

@@ -1021,6 +1021,36 @@ def _correlation_rows(res_local: torch.Tensor,
                         res_local if res_full is None else res_full)
 
 
+def stat_weight_stack(pos: np.ndarray, counts_full: np.ndarray, nbins: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The (nbins+1, P, P) statistic weights on the host, at ``dtype``:
+    slot n < nbins is the angular bin's one-hot over the off-diagonal pairs
+    divided by the pair counts and then by the bin's pair count (float64,
+    in that order, as the JAX engine forms them), slot nbins the auto
+    trace. Built one slot at a time, so the host holds the stack at
+    ``dtype`` and one float64 (P, P) slot, not the (P, P, nbins) one-hot."""
+    npsr = pos.shape[0]
+    ang = np.arccos(np.clip(pos @ pos.T, -1, 1))
+    edges = np.linspace(0.0, np.pi, nbins + 1)
+    bin_idx = np.clip(np.digitize(ang, edges) - 1, 0, nbins - 1)
+    del ang
+    np.fill_diagonal(bin_idx, -1)        # no self pair in any bin
+    # each bin's pair count (a sum of ones: exact in any order)
+    bc = np.maximum(np.bincount(bin_idx[bin_idx >= 0], minlength=nbins)
+                    .astype(np.float64), 1.0)
+    idx = torch.from_numpy(bin_idx)
+    counts = torch.from_numpy(np.ascontiguousarray(counts_full,
+                                                   dtype=np.float64))
+    stack = torch.empty((nbins + 1, npsr, npsr), dtype=dtype)
+    w = torch.empty((npsr, npsr), dtype=torch.float64)
+    for n in range(nbins):
+        torch.eq(idx, n, out=w)          # the slot's one-hot: 1.0 or 0.0
+        w.div_(counts).div_(float(bc[n]))
+        stack[n].copy_(w)
+    stack[nbins].copy_(torch.from_numpy(np.eye(npsr) / counts_full / npsr))
+    return stack
+
+
 def _bin(corr: torch.Tensor, weights: torch.Tensor, nbins: int):
     """(curves (R, nbins), autos (R,)) of raw pair sums against a weight
     stack (nbins + 1 slots, the auto trace last), at full float32, not
@@ -1383,29 +1413,16 @@ class EnsembleSimulator:
         # the FULL array (every shard's rows use the full pair and bin
         # counts), folded into static statistic weights
         pos = np.asarray(host["pos"], dtype=np.float64)
-        ang = np.arccos(np.clip(pos @ pos.T, -1, 1))
         edges = np.linspace(0.0, np.pi, nbins + 1)
-        bin_idx = np.clip(np.digitize(ang, edges) - 1, 0, nbins - 1)
-        offdiag = ~np.eye(batch.npsr, dtype=bool)
-        onehot = np.zeros((batch.npsr, batch.npsr, nbins))
-        onehot[np.arange(batch.npsr)[:, None], np.arange(batch.npsr)[None, :],
-               bin_idx] = 1.0
-        onehot *= offdiag[:, :, None]
         self.bin_centers = edges[:-1] + 0.5 * (edges[1] - edges[0])
         mask_np = np.asarray(host["mask"], dtype=np.float64)
         raw_counts = mask_np @ mask_np.T
         self.pair_counts = raw_counts
         counts_full = np.maximum(raw_counts, 1.0)
-        bc = np.maximum(onehot.sum((0, 1)), 1.0)
-        w_bins = onehot / counts_full[:, :, None] / bc
-        w_auto = np.eye(batch.npsr) / counts_full / batch.npsr
         self._counts = torch.as_tensor(counts_full).to(dtype) \
             .to(self.device)
-        # one (nbins+1, P, P) stack for every path: slot n < nbins is
-        # onehot/(pair counts * bin count), slot nbins the auto trace
-        stack = np.concatenate([np.moveaxis(w_bins, 2, 0), w_auto[None]])
-        self._stat_weights = torch.tensor(stack).to(dtype).to(
-            self.device).contiguous()
+        self._stat_weights = stat_weight_stack(pos, counts_full, nbins,
+                                               dtype).to(self.device)
         stages, self._mega_stages_null, times, scales = \
             self._build_mega_tables()
         self._mega_tables = (stages, times, scales)
@@ -1417,6 +1434,14 @@ class EnsembleSimulator:
                             self._stat_weights, times, scales, times, scales,
                             hyper, signals)
         self._shards = self._build_shards()
+        if not any(sh is self._full for row in self._shards for sh in row):
+            # no shard is the whole array, so no kernel reads its weights:
+            # they wait on the host for the lanes' per-shard slices (the
+            # (nbins+1, P, P) stack would otherwise sit on the first card
+            # beside that card's own rows: 6.4 GB at 10,000 pulsars)
+            self._stat_weights = self._stat_weights.cpu()
+            self._full = dataclasses.replace(self._full,
+                                             weights=self._stat_weights)
 
     @property
     def include(self) -> Tuple[bool, ...]:
@@ -1846,7 +1871,7 @@ class EnsembleSimulator:
                                          host["sigma2"],
                                          pair_counts=self.pair_counts)
         w_os = torch.tensor(np.stack([op.weights for op in ops])).to(
-            self.batch.dtype).to(self.device)
+            self.batch.dtype).to(self._stat_weights.device)
         nb = self.nbins
         main = torch.cat([self._stat_weights[:nb], w_os,
                           self._stat_weights[nb:]])

@@ -15,9 +15,9 @@ Materialization goes through the ordinary
 constructor: :meth:`Scenario.build` takes ``mesh=`` or ``device=`` like the
 engine (``device`` defaults to ``"cuda"``) and forwards engine options
 such as ``stat_path``. ``SCENARIOS`` holds ``flagship_100``, ``ng15``,
-``ipta_dr3`` and ``ska_10k``; :func:`register` adds more. Not ported yet:
-the golden-run harness, the scenarios CLI, ``serve_spec`` and the
-``ska_10k`` memory lane.
+``ipta_dr3`` and ``ska_10k``; :func:`register` adds more.
+:meth:`Scenario.serve_spec` names a scenario's serve identity; the
+golden-run harness and the ``ska_10k`` memory lane are :mod:`.golden`.
 """
 
 from __future__ import annotations
@@ -38,6 +38,9 @@ _KIND = "Scenario"
 #: CPU-stand-in reduction targets (:meth:`Scenario.reduced`)
 REDUCED_MAX_PSR = 16
 REDUCED_MAX_TOA = 160
+#: The memory-scaling lane's endpoint reduction keeps more pulsars (the
+#: sweep needs headroom over its smaller points) at a very sparse cadence.
+REDUCED_MAX_PSR_MEM = 64
 
 
 def _powlaw_psd(tspan_s: float, nbin: int, log10_A: float,

@@ -1858,3 +1858,45 @@ def test_gateway_hit_is_bit_identical_on_the_card(cuda, tmp_path):
             assert np.array_equal(alone["autos"][:5], res.autos)
     finally:
         flt.close()
+
+
+@pytest.mark.cuda
+def test_memory_lane_on_the_card(cuda):
+    """ska_10k's memory lane at smoke sizes on the card: every point's
+    allocator peak is a real watermark within the declared bound of the
+    engine's chunk model, and each point launched #1."""
+    from fakepta_tpu_torch.scenarios import golden
+
+    before = bc.launches
+    out = golden.memory_lane("ska_10k", chunk=8, sweep=(8, 16),
+                             devices=["cuda:0"])
+    assert bc.launches == before + 2
+    assert out["ok"] and out["platform"] == "gpu", out["points"]
+    assert out["psr_shards"] == 1
+    assert [p["npsr"] for p in out["points"]] == [8, 16]
+    for p in out["points"]:
+        assert p["ok"] and p["peak_hbm_bytes"] > 0
+        assert 0 < p["ratio"] <= golden.MEM_BOUND_FACTOR
+        assert p["model_bytes_per_chunk"] > 0 and p["build_s"] > 0
+
+
+@pytest.mark.cuda
+def test_golden_run_on_the_card(cuda):
+    """A small golden run on the card (the reduced ng15 with every lane):
+    the card's platform and allocator peak in the row, #1 launched, the
+    stream oracle and the verified serve answers held inside the run."""
+    from fakepta_tpu_torch.scenarios import golden
+
+    before = bc.launches
+    row = golden.golden_run("ng15", reduced=True, nreal=8, chunk=8,
+                            sample_steps=4, sample_warmup=2,
+                            sample_chains=4, serve_requests=4,
+                            max_append_blocks=2)
+    assert bc.launches > before
+    assert row["platform"] == "gpu"
+    assert row["peak_hbm_bytes"] > 0
+    assert row["scn_peak_hbm_bytes"] == row["peak_hbm_bytes"]
+    assert row["stream_recompiles"] == 0
+    assert row["serve_steady_compiles"] == 0
+    assert row["faults_degradations"] == 0
+    assert np.isfinite(row["value"]) and row["value"] > 0

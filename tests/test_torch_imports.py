@@ -223,6 +223,41 @@ def test_gateway_modules_are_checked(module):
     assert not IMPORT_RE.findall(path.read_text())
 
 
+@pytest.mark.parametrize("module", [
+    "fakepta_tpu_torch.scenarios", "fakepta_tpu_torch.scenarios.golden",
+    "fakepta_tpu_torch.scenarios.__main__"])
+def test_golden_modules_are_checked(module):
+    """The golden-run harness and the scenarios CLI (ports of JAX package
+    modules) are among the modules the checks below import and read."""
+    assert module in _port_modules()
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert not IMPORT_RE.findall(path.read_text())
+
+
+def test_golden_entry_points_default_to_the_card():
+    """golden_run meshes the card and the memory lane every visible card
+    unless the CPU is asked for; without a card both raise, and the CLI
+    exits 2; the memory lane refuses a host device outright (it has no
+    watermark there). The package exposes the JAX names."""
+    import fakepta_tpu_torch.scenarios as scn_pkg
+    from fakepta_tpu_torch.scenarios import __main__ as cli
+    from fakepta_tpu_torch.scenarios import golden
+
+    assert scn_pkg.__all__ == ["SCENARIOS", "Scenario", "get", "names",
+                               "register"]
+    assert cli.build_parser().parse_args(["run", "ng15"]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            golden.golden_run("ng15")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            golden.memory_lane("ska_10k", sweep=(8,))
+        assert cli.main(["run", "ng15", "--skip", "sample"]) == 2
+    with pytest.raises(ValueError, match="watermark"):
+        golden.memory_lane("ska_10k", sweep=(8,), devices=["cpu"])
+
+
 def test_gateway_entry_points_default_to_the_card(tmp_path):
     """A Gateway keys its store by the devices its fleet serves on, and
     run_gateway_loadgen's replicas serve on the card unless the CPU is
