@@ -212,7 +212,8 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    a
    ``FactorizedRun`` of a 30-bin free-spectrum CURN (8 lanes of
    ``FS_LANE_BINS`` = 4) at 4 post steps; ``python -m
-   fakepta_tpu_torch.sample run`` at its defaults (exit 0, the artifact
+   fakepta_tpu_torch.sample run`` at half its default steps and warm-up
+   (``SAMPLE_CLI_STEPS``; exit 0, the artifact
    loads).
 14. ``stream``: streaming ingestion at config 14's accelerator shape
    (``benchmarks/suite.py:546-549``: a float64 template of 100 pulsars x
@@ -387,13 +388,35 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    before the next), on ``cuda:0`` (``--mesh-cards N``: N cards, one psr
    shard each): each point's peak, chunk model, ratio, build seconds and
    host peak against the machine's RAM printed; it fails unless every
-   point is within ``MEM_BOUND_FACTOR``. The launches of #1 are counted
+   point is within ``MEM_BOUND_FACTOR``; then the JAX default sweep's
+   small points, 8 and 16 pulsars at ``chunk=8``, where the fixed term
+   (the cuBLAS / cuBLASLt workspaces the run reports as
+   ``static_reservation_bytes``) outweighs the chunk model: each point's
+   raw peak, model and fixed term printed, and it fails unless ``peak /
+   (model + static)`` is within the bound. The launches of #1 are counted
    (zeroed just before each run, read just after) and tallied by shape
    (R, PL, PF, T); #1 is held against its plain version and timed at every
    shared-set shape it was launched at: the ensemble lanes' R = 16 (PL =
    100, 68, 120), the serve lanes' cohorts and solo checks, and the memory
-   lane's R = 32 up to PL = PF = 10,000.
-21. ``profile`` (only when asked for): per statistic path, the device time
+   lane's R = 32 up to PL = PF = 10,000 and R = 8 at PL = 8 and 16.
+21. ``f64``: the float64 path on the card. The flagship
+   (``registry.get("flagship_100").build(dtype=torch.float64)``: 100
+   pulsars x 780 TOAs, K = 320, every stage) on its default path, which
+   must be ``"einsum"``: ``run(4096, chunk=1024)`` after a one-chunk
+   warm-up, timed in turns with the float32 einsum run at the same shape
+   and chunk (f32, f64, f64, f32), finite float64 curves whose mean auto
+   is within 5% of the float32 run's, and no kernel launched; the reduced
+   flagship at float64 on the card against the same run on the CPU within
+   1e-12 of the curve scale (the CPU tests' float64 bound), correlations
+   too; ``stat_path="fused"`` and ``"mega"`` refused with ``TypeError``.
+   Then the facade at float64: BASELINE config 2's ``add_noise_array``
+   (10 pulsars) in injections/s in turns with its float32 twin, and a
+   ``make_fake_array(npsrs=100, ntoas=780, gaps=True, dtype=
+   torch.float64)`` with the correlated HD background
+   (``add_common_correlated_noise``) timed beside the float32 array and
+   held against the same seeds on the CPU within 1e-12 of each pulsar's
+   residual scale.
+22. ``profile`` (only when asked for): per statistic path, the device time
    of one flagship chunk split into key derivation, draws + residual
    assembly and the statistic, plus torch.profiler's busiest kernels; then
    one 4-shard einsum chunk's host enqueue time against each card's busy
@@ -3229,6 +3252,9 @@ SAMPLE_POST = 16
 SAMPLE_SEGMENT = 16
 SAMPLE_MESH_POST = 4
 FS_POST = 4
+# the sampler CLI's (steps, warmup): half its defaults (400, 200), which
+# set the phase's end
+SAMPLE_CLI_STEPS = (200, 100)
 #: chains of the card-against-CPU transition (each with both rungs)
 CARD_CPU_CHAINS = 4
 
@@ -3356,15 +3382,16 @@ def phase_sample(report: dict) -> None:
           f"{json.dumps(a['summary'])}", flush=True)
     stamp("gradient timing and traced segment")
 
-    # the CLI at its defaults, in a subprocess on the card while the
-    # invariances, the CPU comparison and the factorized run below go on
-    # (its timing shares the host and the card with them)
+    # the CLI at half its default steps, in a subprocess on the card while
+    # the invariances, the CPU comparison and the factorized run below go
+    # on (its timing shares the host and the card with them)
     cli_out = os.path.join(HERE, "build", "sample.jsonl")
     t_cli = time.perf_counter()
     cli_proc = subprocess.Popen(
         [sys.executable, "-m", "fakepta_tpu_torch.sample", "run", "--out",
-         cli_out], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+         cli_out, "--steps", str(SAMPLE_CLI_STEPS[0]), "--warmup",
+         str(SAMPLE_CLI_STEPS[1])], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
 
     try:
         # the invariances at SAMPLE_MESH_POST steps (no warmup, segment of
@@ -3600,7 +3627,8 @@ def phase_sample(report: dict) -> None:
             cli_row["rhat_max"]):
         raise AssertionError(f"the sampler CLI's artifact: {rep.meta}")
     out["CLI"] = dict(cli_row, wall_s=time.perf_counter() - t_cli)
-    print(f"sample CLI (defaults, beside the CPU comparison and the "
+    print(f"sample CLI ({SAMPLE_CLI_STEPS[0]} steps after "
+          f"{SAMPLE_CLI_STEPS[1]} warm-up, beside the CPU comparison and the "
           f"factorized run): exit 0 in {out['CLI']['wall_s']:.1f} s, "
           f"{json.dumps(cli_row)}; artifact loads", flush=True)
     stamp("CLI")
@@ -5621,6 +5649,10 @@ GOLDEN_SAMPLE_CUT = (16, 8)
 #: point a multiple of 1, 2 and 4 psr shards)
 MEM_CHUNK = 32
 MEM_SWEEP = (1000, 2500, 5000, 10000)
+#: and the JAX default sweep's small points, where the fixed library
+#: workspaces outweigh the chunk model (the card test's sweep)
+MEM_SMALL_CHUNK = 8
+MEM_SMALL_SWEEP = (8, 16)
 #: the keys every golden row must carry (the JAX row's, all lanes on)
 GOLDEN_KEYS = ("metric", "value", "unit", "platform", "scenario",
                "spec_hash", "steady_real_per_s_per_chip",
@@ -5797,7 +5829,8 @@ def phase_golden(report: dict, cards: int = 1) -> None:
         print(f"golden memory lane ska_10k npsr={n} on {devices} "
               f"(psr_shards {lane['psr_shards']}): peak "
               f"{p['peak_hbm_bytes'] / 1e9:.3f} GB, model "
-              f"{p['model_bytes_per_chunk'] / 1e9:.3f} GB (resident after "
+              f"{p['model_bytes_per_chunk'] / 1e9:.3f} GB + fixed "
+              f"{p['static_reservation_bytes'] / 1e6:.3f} MB (resident after "
               f"the build {p['resident_bytes'] / 1e9:.3f} GB), ratio "
               f"{p['ratio']} (bound {lane['bound_factor']}), ok {p['ok']}; "
               f"build {p['build_s']:.1f} s, host peak "
@@ -5809,9 +5842,182 @@ def phase_golden(report: dict, cards: int = 1) -> None:
     if not out["memory_lane"]["ok"]:
         raise AssertionError(f"golden: the memory lane broke its bound: "
                              f"{points}")
+
+    # 3. the small points, where the fixed term outweighs the model
+    shapes, built = {}, []
+    small, _ = traced(lambda: golden.memory_lane(
+        "ska_10k", chunk=MEM_SMALL_CHUNK, sweep=MEM_SMALL_SWEEP,
+        devices=devices), shapes, built)
+    for key, k in shapes.items():
+        add_launches(report, golden_tag(key), {"binned_correlation": k})
+    golden_kernel_rows(report, shapes, {
+        (s.batch.npsr, s.batch.max_toa): s for s in built})
+    del built
+    for p in small["points"]:
+        print(f"golden memory lane ska_10k npsr={p['npsr']} chunk "
+              f"{p['chunk']}: peak {p['peak_hbm_bytes'] / 1e6:.3f} MB, "
+              f"model {p['model_bytes_per_chunk'] / 1e6:.3f} MB + fixed "
+              f"{p['static_reservation_bytes'] / 1e6:.3f} MB, ratio "
+              f"{p['ratio']} (bound {small['bound_factor']}), ok "
+              f"{p['ok']}", flush=True)
+    out["memory_lane_small"] = small
+    if not small["ok"]:
+        raise AssertionError(f"golden: the memory lane's small points broke "
+                             f"their bound: {small['points']}")
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"golden: phase {out['phase_s']:.1f} s on {card_line()}",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the float64 path
+# ---------------------------------------------------------------------------
+
+#: the f64 phase: the flagship's realizations in turns with float32, the
+#: reduced flagship's card-vs-CPU bound (the CPU tests' float64 bound),
+#: config 2's repeats and the facade array's width
+F64_NREAL = 4096
+F64_TOL = 1e-12
+F64_CPU_NREAL = 64
+F64_AUTO_RTOL = 0.05
+F64_CONFIG2_ITERS = 50
+F64_ARRAY = dict(npsrs=100, Tobs=15.0, ntoas=780, isotropic=True, gaps=True,
+                 toaerr=1e-7, pdist=1.0, backends=["NUPPI"], seed=FACADE_SEED)
+
+
+def f64_array(device: str, dtype):
+    """The flagship-width facade array with the correlated HD background:
+    (pulsars, seconds between synchronizations)."""
+    import torch
+    from fakepta_tpu_torch import correlated_noises as cn
+    from fakepta_tpu_torch import fake_pta as fp
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psrs = fp.make_fake_array(**F64_ARRAY, device=device, dtype=dtype)
+    cn.add_common_correlated_noise(psrs, orf="hd", log10_A=-14.5,
+                                   gamma=13 / 3, components=30, seed=7)
+    res = [p.residuals for p in psrs]
+    return psrs, res, time.perf_counter() - t0
+
+
+def phase_f64(report: dict) -> None:
+    """The float64 path on the card (module docstring, phase 21)."""
+    import torch
+    from fakepta_tpu_torch import fake_pta as fp
+    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
+    from fakepta_tpu_torch.scenarios import registry
+
+    f64 = torch.float64
+    t_phase = time.perf_counter()
+    out = report.setdefault("f64", {})
+    scn = registry.get("flagship_100")
+
+    # 1. the flagship: float64 on its default path, in turns with float32
+    sims = {"f32": scn.build(device="cuda", stat_path="einsum"),
+            "f64": scn.build(device="cuda", dtype=f64)}
+    if sims["f64"].stat_path != "einsum" or \
+            sims["f64"].batch.dtype != f64:
+        raise AssertionError(f"f64: the float64 flagship defaults to "
+                             f"{sims['f64'].stat_path}")
+    for sim in sims.values():
+        sim.run(CHUNK, seed=99, chunk=CHUNK)
+    reset_counts()
+    rates, outs = {"f32": [], "f64": []}, {}
+    for name in ("f32", "f64", "f64", "f32"):
+        got, dt = timed_run(sims[name], F64_NREAL, "f32", seed=1)
+        rates[name].append(F64_NREAL / dt)
+        outs[name] = got
+    moved = counts()
+    if any(moved.values()):
+        raise AssertionError(f"f64: the einsum runs launched {moved}")
+    c64, a32, a64 = (outs["f64"]["curves"], outs["f32"]["autos"],
+                     outs["f64"]["autos"])
+    drift = abs(a64.mean() / a32.mean() - 1)
+    if c64.dtype != np.float64 or not np.isfinite(c64).all() or \
+            outs["f64"]["statistic_path"] != "einsum" or \
+            drift > F64_AUTO_RTOL:
+        raise AssertionError(f"f64: flagship curves {c64.dtype}, finite "
+                             f"{np.isfinite(c64).all()}, mean auto off the "
+                             f"float32 run's by {drift:.3g}")
+    out["flagship"] = {"realizations_per_s": rates,
+                       "ratio_f64_f32": float(np.mean(rates["f64"])
+                                              / np.mean(rates["f32"])),
+                       "mean_auto_drift": float(drift),
+                       "peak_hbm_bytes": outs["f64"]["report"].memory.get(
+                           "peak_hbm_bytes")}
+    print(f"f64 flagship (100 x 780, K = 320) einsum, {F64_NREAL} "
+          f"realizations at chunk {CHUNK}, in turns: float32 "
+          f"{rates['f32'][0]:.1f} / {rates['f32'][1]:.1f}, float64 "
+          f"{rates['f64'][0]:.1f} / {rates['f64'][1]:.1f} realizations/s "
+          f"(x{out['flagship']['ratio_f64_f32']:.3f}); mean auto within "
+          f"{drift:.2e} of float32; no kernel launched", flush=True)
+    for path in ("fused", "mega"):
+        try:
+            EnsembleSimulator(sims["f64"].batch, stat_path=path,
+                              device="cuda")
+        except TypeError as exc:
+            del exc
+        else:
+            raise AssertionError(f"f64: stat_path={path!r} took a float64 "
+                                 f"batch")
+    del sims, outs
+    torch.cuda.empty_cache()
+
+    # 2. the reduced flagship at float64: the card against the CPU
+    small = scn.reduced()
+    got = {dev: small.build(device=dev, dtype=f64).run(
+        F64_CPU_NREAL, seed=3, chunk=F64_CPU_NREAL // 2, keep_corr=True)
+        for dev in ("cuda", "cpu")}
+    err = {k: float(np.abs(got["cuda"][k] - got["cpu"][k]).max()
+                    / np.abs(got["cpu"][k]).max())
+           for k in ("curves", "autos", "corr")}
+    if any(e > F64_TOL for e in err.values()):
+        raise AssertionError(f"f64: the card's reduced run against the "
+                             f"CPU's: {err}")
+    out["card_vs_cpu"] = dict(err, npsr=small.npsr, ntoa=small.ntoa)
+    print(f"f64 reduced flagship ({small.npsr} pulsars): card against CPU, "
+          f"max error over scale {err} (bound {F64_TOL})", flush=True)
+
+    # 3. the facade at float64: config 2 in turns, the array on the card
+    # against the CPU
+    toas = np.linspace(0, 10 * 365.25 * 86400.0, 520)
+    arrays = {dt: [fp.Pulsar(toas, 1e-6, 1.0 + 0.1 * k, 0.3 * k, seed=k,
+                             device="cuda", dtype=dt) for k in range(10)]
+              for dt in (torch.float32, f64)}
+    inj = {"float32": [], "float64": []}
+    for dt in (torch.float32, f64, f64, torch.float32):
+        inj[str(dt).split(".")[1]].append(injection_rate(
+            lambda dt=dt: fp.add_noise_array(
+                arrays[dt], signal="red_noise", log10_A=-14.0,
+                gamma=13 / 3, seed=2), 10, F64_CONFIG2_ITERS))
+    if any(p.residuals.dtype != np.float64 for p in arrays[f64]):
+        raise AssertionError("f64: config 2 left non-float64 residuals")
+    array_s = {}
+    _, _, array_s["float32"] = f64_array("cuda", torch.float32)
+    card, card_res, array_s["float64"] = f64_array("cuda", f64)
+    _, cpu_res, array_s["float64_cpu"] = f64_array("cpu", f64)
+    worst = max(float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(card_res, cpu_res))
+    if worst > F64_TOL or any(r.dtype != np.float64 for r in card_res):
+        raise AssertionError(f"f64: the card's array against the CPU's: "
+                             f"{worst:.3e} of scale")
+    n_inj = 3 * len(card) + 1    # white, red, DM a pulsar; the background
+    out["facade"] = {"config2_injections_per_s": inj,
+                     "array_s": array_s,
+                     "array_injections_per_s": {
+                         k: n_inj / v for k, v in array_s.items()},
+                     "card_vs_cpu": worst}
+    print(f"f64 facade: config 2 in turns float32 "
+          f"{inj['float32'][0]:.1f} / {inj['float32'][1]:.1f}, float64 "
+          f"{inj['float64'][0]:.1f} / {inj['float64'][1]:.1f} "
+          f"injections/s; make_fake_array(100 x 780, gaps) + HD background "
+          f"({n_inj} injections) float32 {array_s['float32']:.3f} s, "
+          f"float64 {array_s['float64']:.3f} s on the card "
+          f"({array_s['float64_cpu']:.3f} s on the CPU), card against CPU "
+          f"{worst:.2e} of scale (bound {F64_TOL})", flush=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"f64: phase {out['phase_s']:.1f} s on {card_line()}", flush=True)
 
 
 def phase_profile(report: dict, cards: int = 1) -> None:
@@ -5959,12 +6165,12 @@ def main(argv=None) -> int:
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
                              "sample", "stream", "multiproc", "tune",
-                             "serve", "fleet", "gateway", "golden"],
+                             "serve", "fleet", "gateway", "golden", "f64"],
                     choices=["build", "kernels", "engine", "mesh",
                              "scenarios", "signals", "run", "detect",
                              "facade", "correlated", "infer", "faults",
                              "sample", "stream", "multiproc", "tune",
-                             "serve", "fleet", "gateway", "golden",
+                             "serve", "fleet", "gateway", "golden", "f64",
                              "profile"])
     ap.add_argument("--mesh-cards", type=int, default=1,
                     help="cards the mesh, multiproc and profile phases' "
@@ -6017,6 +6223,7 @@ def main(argv=None) -> int:
               "fleet": lambda r: phase_fleet(r, args.mesh_cards),
               "gateway": lambda r: phase_gateway(r, args.mesh_cards),
               "golden": lambda r: phase_golden(r, args.mesh_cards),
+              "f64": phase_f64,
               "profile": lambda r: phase_profile(r, args.mesh_cards)}
     for name, phase in phases.items():
         if name in args.phases:

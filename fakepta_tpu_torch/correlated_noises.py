@@ -12,13 +12,18 @@ Public-API parity with the reference's ``correlated_noises.py``
   position block (:mod:`.ops.gwb`);
 - the GWB draw factorizes the ORF once and draws every (cos/sin, component)
   amplitude in one correlated block (:func:`.ops.gwb.draw_correlated_coeffs`,
-  float32, the JAX facade's keys and draw shape), then projects each
-  pulsar's column on its host-float64 phase table, on the device the
-  pulsars hold; a uniform array (one TOA count, one device, uniform
-  re-injection state) projects in one batch, any other pulsar by pulsar,
-  with the same draws;
+  at the pulsars' dtype, the JAX facade's keys and draw shape), then
+  projects each pulsar's column on its host-float64 phase table, on the
+  device the pulsars hold; a uniform array (one TOA count, one device and
+  dtype, uniform re-injection state) projects in one batch, any other
+  pulsar by pulsar, with the same draws;
 - :func:`add_common_correlated_noise_gp` draws the joint dense covariance
-  at the true TOAs on the host in float64.
+  at the true TOAs on the host in float64, from normals drawn at the
+  pulsars' dtype (the JAX facade's float32 draw, or its float64 one under
+  x64).
+
+Every injector follows the pulsars' dtype (``Pulsar(dtype=...)``): float32,
+or float64 for the JAX facade's x64 mode; an array of mixed dtypes raises.
 
 The diagnostics are host numpy.
 """
@@ -199,10 +204,20 @@ def _array_tspan(psrs):
             - min(psr.toas.min() for psr in psrs))
 
 
-def _resolve_common_psd(spectrum, f_psd, custom_psd, kwargs):
+def _array_dtype(psrs) -> torch.dtype:
+    """The one dtype of the array's pulsars (``TypeError`` when they
+    differ: the common draw has one dtype)."""
+    dtypes = {p._dtype for p in psrs}
+    if len(dtypes) != 1:
+        raise TypeError(f"a common signal needs one dtype across the array, "
+                        f"got {sorted(str(d) for d in dtypes)}")
+    return dtypes.pop()
+
+
+def _resolve_common_psd(spectrum, f_psd, custom_psd, kwargs, dtype):
     """(host PSD, kwargs to record): a named spectrum evaluates on the CPU
-    at float32 (the JAX facade's default precision), a custom one is taken
-    at float64."""
+    at the pulsars' ``dtype`` (the JAX facade's precision in its float32
+    or x64 mode), a custom one is taken at float64."""
     if spectrum == "custom":
         if custom_psd is None or len(custom_psd) != len(f_psd):
             raise ValueError('"custom_psd" and "f_psd" must be given with '
@@ -210,10 +225,11 @@ def _resolve_common_psd(spectrum, f_psd, custom_psd, kwargs):
         return np.asarray(custom_psd, dtype=np.float64), {}
     if spectrum not in spectrum_lib.SPECTRA:
         raise KeyError(f"unknown spectrum {spectrum!r}")
-    args = {k: np.asarray(v, dtype=np.float32) if np.ndim(v) else v
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    args = {k: np.asarray(v, dtype=np_dtype) if np.ndim(v) else v
             for k, v in kwargs.items()}
     psd = spectrum_lib.evaluate_host(
-        spectrum, np.asarray(f_psd, dtype=np.float32), **args)
+        spectrum, np.asarray(f_psd, dtype=np_dtype), **args)
     return psd, kwargs
 
 
@@ -226,10 +242,10 @@ def _common_grid(psrs, components, f_psd):
     return f_psd, np.diff(np.concatenate([[0.0], f_psd]))
 
 
-def _old_realization(psrs, old, device):
-    """(G, T) realizations of stored ``fourier`` entries ``old`` (one per
-    pulsar), each on its own entry's f / idx / freqf tables: what was
-    injected, whatever this call's scaling is."""
+def _old_realization(psrs, old, device, dtype):
+    """(G, T) realizations at ``dtype`` of stored ``fourier`` entries
+    ``old`` (one per pulsar), each on its own entry's f / idx / freqf
+    tables: what was injected, whatever this call's scaling is."""
     from .fake_pta import _gp_realization
 
     tabs = [p._phase_scale(np.asarray(o["f"], dtype=np.float64), o["idx"],
@@ -238,22 +254,24 @@ def _old_realization(psrs, old, device):
     return _gp_realization(np.stack([t[0] for t in tabs]),
                            np.stack([t[1] for t in tabs]),
                            np.stack([np.asarray(o["fourier"]) for o in old]),
-                           tabs[0][2], device)
+                           tabs[0][2], device, dtype)
 
 
 def _gwb_project(psrs, coeffs, f_psd, idx, freqf, inv_sqrt_df, device):
-    """(delta (G, T), stored coefficients (G, 2, ncomp)) of pulsars ``g``
-    whose columns of the correlated block are ``coeffs[..., g]``."""
-    from .fake_pta import _dev32
+    """(delta (G, T), stored coefficients (G, 2, ncomp)), at the dtype of
+    ``coeffs``, of pulsars ``g`` whose columns of the correlated block are
+    ``coeffs[..., g]``."""
+    from .fake_pta import _dev
 
+    dtype = coeffs.dtype
     tabs = [p._phase_scale(f_psd, idx, freqf, None) for p in psrs]
     cols = coeffs.to(device).permute(2, 0, 1)                # (G, 2, ncomp)
     basis = fourier_ops.basis_from_phase(
-        _dev32(np.stack([t[0] for t in tabs]), device),
-        _dev32(np.stack([t[1] for t in tabs]), device))
-    delta = fourier_ops.inject_from_coeffs(basis, cols,
-                                           _dev32(tabs[0][2], device))
-    return delta, cols * _dev32(inv_sqrt_df, device)[None, None, :]
+        _dev(np.stack([t[0] for t in tabs]), device, dtype),
+        _dev(np.stack([t[1] for t in tabs]), device, dtype))
+    delta = fourier_ops.inject_from_coeffs(
+        basis, cols, _dev(tabs[0][2], device, dtype))
+    return delta, cols * _dev(inv_sqrt_df, device, dtype)[None, None, :]
 
 
 def _gwb_apply_batched(psrs, signal_name, f_psd, idx, freqf, coeffs,
@@ -263,19 +281,20 @@ def _gwb_apply_batched(psrs, signal_name, f_psd, idx, freqf, coeffs,
     of one (f, idx, freqf, shape)): updates every pulsar's residuals and
     returns the per-pulsar stored coefficients, or None (the caller falls
     back to the per-pulsar path)."""
-    from .fake_pta import _batchable_olds, _one_device, _stack_current
+    from .fake_pta import _batchable_olds, _one_place, _stack_current
 
-    dev = _one_device(psrs)
-    if dev is None or len({len(p.toas) for p in psrs}) != 1:
+    place = _one_place(psrs)
+    if place is None or len({len(p.toas) for p in psrs}) != 1:
         return None
     olds = _batchable_olds(psrs, signal_name)
     if olds is None:
         return None
-    cur = _stack_current(psrs, dev)
+    dev, dtype = place
+    cur = _stack_current(psrs, dev, dtype)
     delta, four = _gwb_project(psrs, coeffs, f_psd, idx, freqf,
                                inv_sqrt_df, dev)
     if olds:
-        delta = delta - _old_realization(psrs, olds, dev)
+        delta = delta - _old_realization(psrs, olds, dev, dtype)
     new = cur + delta
     for g, p in enumerate(psrs):
         p.residuals = new[g]
@@ -293,16 +312,18 @@ def add_common_correlated_noise(psrs, orf="hd", spectrum="powerlaw",
     hmap / f / psd / fourier / nbin / idx / freqf); re-injection subtracts
     the previous realization (a joint-covariance entry is subtracted and
     replaced). The amplitudes are drawn with covariance ORF through one
-    Cholesky and one product (:func:`.ops.gwb.draw_correlated_coeffs`):
-    with ``seed`` from ``key(seed)``, else from the next key of the
-    package's ``"gwb"`` stream. Returns the ORF matrix.
+    Cholesky and one product (:func:`.ops.gwb.draw_correlated_coeffs`, at
+    the pulsars' dtype): with ``seed`` from ``key(seed)``, else from the
+    next key of the package's ``"gwb"`` stream. Returns the ORF matrix.
     """
     signal_name = f"{name}_common" if name is not None else "common"
+    psrs = list(psrs)
+    dtype = _array_dtype(psrs)
     f_psd, df = _common_grid(psrs, components, f_psd)
     components = len(f_psd)
 
     psd_gwb, resolved = _resolve_common_psd(spectrum, f_psd, custom_psd,
-                                            kwargs)
+                                            kwargs, dtype)
     if resolved:
         for psr in psrs:
             psr.update_noisedict(signal_name, resolved)
@@ -314,9 +335,8 @@ def add_common_correlated_noise(psrs, orf="hd", spectrum="powerlaw",
         key, folds = rng_utils.as_key(seed), rng_utils.NO_FOLDS
     else:
         key, folds = rng_utils.KeyStream(None, "gwb").next_spec()
-    psrs = list(psrs)
     key = rng_utils.fold_key_in_kernel(key.cpu(), folds).to(psrs[0]._dev())
-    coeffs = gwb_ops.draw_correlated_coeffs(key, chol, psd_gwb)
+    coeffs = gwb_ops.draw_correlated_coeffs(key, chol, psd_gwb, dtype=dtype)
     inv_sqrt_df = 1.0 / np.sqrt(df)
 
     four_vals = _gwb_apply_batched(psrs, signal_name, f_psd, idx, freqf,
@@ -335,7 +355,7 @@ def add_common_correlated_noise(psrs, orf="hd", spectrum="powerlaw",
             delta, four = _gwb_project([psr], coeffs[..., n:n + 1], f_psd,
                                        idx, freqf, inv_sqrt_df, dev)
             if old is not None:
-                delta = delta - _old_realization([psr], [old], dev)
+                delta = delta - _old_realization([psr], [old], dev, dtype)
             psr.residuals = psr._res_current() + delta[0]
             four_vals.append(four[0].cpu().numpy())
 
@@ -362,17 +382,20 @@ def add_common_correlated_noise_gp(psrs, orf="hd", spectrum="powerlaw",
 
     Builds ``C[(a,t),(b,u)] = orf_ab sum_k psd_k df_k [cos cos + sin sin]``
     (chromatic-scaled) on the host in float64, Cholesky-samples the whole
-    array in one shot from float32 standard normals (the JAX facade's
-    draws: ``key(seed)``, else the next key of the package's ``"gwb_gp"``
-    stream) and adds each pulsar's slice to its residuals. Exact but
+    array in one shot from standard normals drawn at the pulsars' dtype
+    (the JAX facade's draws, float32 or under x64 float64: ``key(seed)``,
+    else the next key of the package's ``"gwb_gp"`` stream) and adds each
+    pulsar's slice to its residuals. Exact but
     O((sum n_toa)^3): refused above 20000 TOAs in all. Records
     ``{'realization': ...}`` per pulsar so reconstruct / remove still work;
     a prior injection under the same name is subtracted first.
     """
     signal_name = f"{name}_common" if name is not None else "common"
+    psrs = list(psrs)
+    dtype = _array_dtype(psrs)
     f_psd, df = _common_grid(psrs, components, f_psd)
     psd_gwb, resolved = _resolve_common_psd(spectrum, f_psd, custom_psd,
-                                            kwargs)
+                                            kwargs, dtype)
     if resolved:
         for psr in psrs:
             psr.update_noisedict(signal_name, resolved)
@@ -408,7 +431,10 @@ def add_common_correlated_noise_gp(psrs, orf="hd", spectrum="powerlaw",
     # covariance's own scale before factorizing
     jitter = 1e-10 * np.mean(np.diag(cov))
     chol = np.linalg.cholesky(cov + jitter * np.eye(total))
-    z = rng_utils.normal(key.cpu(), (total,)).numpy().astype(np.float64)
+    # float32 is the draw's default dtype
+    z = (rng_utils.normal(key.cpu(), (total,)) if dtype == torch.float32
+         else rng_utils.normal(key.cpu(), (total,), dtype=dtype))
+    z = z.numpy().astype(np.float64)
     draw = chol @ z
 
     for a, psr in enumerate(psrs):
@@ -433,7 +459,7 @@ def add_roemer_delay(psrs, planet, d_mass=0.0, d_Om=0.0, d_omega=0.0,
                      d_inc=0.0, d_a=0.0, d_e=0.0, d_l0=0.0):
     """Accumulate a perturbed-ephemeris Roemer delay (host float64, the
     ephemeris' :meth:`~.ephemeris.Ephemeris.roemer_delay`) into every
-    pulsar; every pulsar needs an ``ephem``."""
+    pulsar, at each pulsar's dtype; every pulsar needs an ``ephem``."""
     for psr in psrs:
         if getattr(psr, "ephem", None) is None:
             raise ValueError(f'"ephem" not found in pulsar {psr.name}')

@@ -5,7 +5,9 @@ API parity with the reference's ``fakepta/fake_pta.py``: the same
 constructor signature, the same attribute set (the ENTERPRISE data contract
 that ``copy_array`` and the pickles round-trip), the same injectors and the
 ``signal_model`` provenance dict. Draw for draw with the JAX facade in its
-default float32 mode:
+default float32 mode, and with ``dtype=torch.float64`` draw for draw with
+the JAX facade under ``jax_enable_x64`` (the port has no global float mode:
+a pulsar's dtype is its own, and the array helpers take their pulsars'):
 
 - every stochastic draw goes through explicit threefry keys (``seed=``, or
   the pulsar's own :class:`~fakepta_tpu_torch.utils.rng.KeyStream`), with
@@ -16,15 +18,20 @@ default float32 mode:
   ``make_fake_array`` and ``copy_array``) come from numpy generators seeded
   with a key's two words, so they are bit-equal;
 - phases are host float64 (``np.outer(toas, f) % 1``; absolute TOAs in
-  seconds do not fit float32) and go to the device as float32 per
-  injection; residuals, draws and projections are float32 on the device;
-- CGW waveforms are evaluated at float64 on the CPU, whatever the device.
+  seconds do not fit float32) and go to the device at the pulsar's dtype
+  per injection; residuals, draws, named PSDs and projections are at the
+  pulsar's dtype (float32 by default, or float64) on the device;
+- CGW waveforms are evaluated at float64 on the CPU, whatever the device
+  and dtype; pickles store float64 residuals.
 
 Device rule: ``Pulsar``, ``make_fake_array`` and ``copy_array`` take
 ``device`` (``None`` is ``"cuda"``, which raises without a GPU; pass
-``device="cpu"`` for the CPU). Residuals stay on the device between
-injections; reading ``.residuals`` gives a writable host array. Host state
-stays numpy, so a pickle holds no tensor.
+``device="cpu"`` for the CPU) and ``dtype`` (``torch.float32`` or
+``torch.float64``; ``copy_array`` defaults to its sources'). Residuals stay
+on the device between injections; reading ``.residuals`` gives a writable
+host array. Host state stays numpy, so a pickle holds no tensor; an
+unpickled pulsar injects on the default device at float32, the
+constructor's defaults.
 """
 
 from __future__ import annotations
@@ -49,12 +56,21 @@ DAY_SECONDS = 86400.0
 F32 = torch.float32
 
 
-def _dev32(x, device) -> torch.Tensor:
-    """``x`` (host array, number or tensor) as a float32 tensor on
+def _check_dtype(dtype) -> torch.dtype:
+    """``dtype`` if the facade runs at it (the draws' dtypes: the JAX
+    facade's float32 default and its x64 mode), else ``TypeError``."""
+    if dtype not in rng_utils.DTYPES:
+        raise TypeError(f"the facade runs at float32 or float64, not "
+                        f"{dtype}")
+    return dtype
+
+
+def _dev(x, device, dtype) -> torch.Tensor:
+    """``x`` (host array, number or tensor) as a ``dtype`` tensor on
     ``device``; host arrays are copied (they may be read-only)."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=F32)
-    return torch.tensor(x, dtype=F32, device=device)
+        return x.to(device=device, dtype=dtype)
+    return torch.tensor(x, dtype=dtype, device=device)
 
 
 def _host_tree(obj):
@@ -66,27 +82,29 @@ def _host_tree(obj):
     return obj
 
 
-def _gp_draw(key, phase, scale, psd, df, nbin: int, device):
+def _gp_draw(key, phase, scale, psd, df, nbin: int, device, dtype):
     """(delta (..., ntoa), stored coefficients (..., 2, nbin)) of a fresh GP
-    draw: ``c ~ N(0, sqrt(psd))`` drawn at the bucketed bin count (the key
-    consumption of the JAX facade), projected on the cos/sin basis of the
-    host phase table."""
-    psd = _dev32(psd, device)
+    draw at ``dtype``: ``c ~ N(0, sqrt(psd))`` drawn at the bucketed bin
+    count (the key consumption of the JAX facade), projected on the cos/sin
+    basis of the host phase table."""
+    psd = _dev(psd, device, dtype)
     psd_pad = torch.nn.functional.pad(psd, (0, bucket_size(nbin, 8) - nbin))
     coeffs = fourier_ops.draw_coeffs(key, psd_pad)[..., :nbin]
-    df = _dev32(df, device)
-    basis = fourier_ops.basis_from_phase(_dev32(phase, device),
-                                         _dev32(scale, device))
+    df = _dev(df, device, dtype)
+    basis = fourier_ops.basis_from_phase(_dev(phase, device, dtype),
+                                         _dev(scale, device, dtype))
     delta = fourier_ops.inject_from_coeffs(basis, coeffs, df)
     return delta, coeffs / torch.sqrt(df)
 
 
-def _gp_realization(phase, scale, fourier, df, device) -> torch.Tensor:
-    """The time-domain realization of stored coefficients on a host table."""
-    basis = fourier_ops.basis_from_phase(_dev32(phase, device),
-                                         _dev32(scale, device))
+def _gp_realization(phase, scale, fourier, df, device,
+                    dtype) -> torch.Tensor:
+    """The time-domain realization at ``dtype`` of stored coefficients on a
+    host table."""
+    basis = fourier_ops.basis_from_phase(_dev(phase, device, dtype),
+                                         _dev(scale, device, dtype))
     return fourier_ops.reconstruct_from_fourier(
-        basis, _dev32(fourier, device), _dev32(df, device))
+        basis, _dev(fourier, device, dtype), _dev(df, device, dtype))
 
 
 def _batch_keys(psrs, label, seed, device) -> torch.Tensor:
@@ -101,11 +119,11 @@ def _batch_keys(psrs, label, seed, device) -> torch.Tensor:
     return torch.stack(keys).to(device)
 
 
-def _stack_current(psrs, device) -> torch.Tensor:
-    """(G, T) float32 current residuals on ``device``: one upload when every
-    pulsar's are on the host, else one stack of the device rows."""
+def _stack_current(psrs, device, dtype) -> torch.Tensor:
+    """(G, T) current residuals at ``dtype`` on ``device``: one upload when
+    every pulsar's are on the host, else one stack of the device rows."""
     if all(p._res_dev is None for p in psrs):
-        return _dev32(np.stack([p._res_host for p in psrs]), device)
+        return _dev(np.stack([p._res_host for p in psrs]), device, dtype)
     return torch.stack([p._res_current() for p in psrs])
 
 
@@ -134,11 +152,11 @@ def _batchable_olds(psrs, name):
     return None
 
 
-def _one_device(psrs):
-    """The device every pulsar of ``psrs`` injects on, or None when they
-    differ (the array helpers then loop the pulsars)."""
-    devs = {p._dev() for p in psrs}
-    return devs.pop() if len(devs) == 1 else None
+def _one_place(psrs):
+    """The (device, dtype) every pulsar of ``psrs`` injects at, or None when
+    they differ (the array helpers then loop the pulsars)."""
+    places = {(p._dev(), p._dtype) for p in psrs}
+    return places.pop() if len(places) == 1 else None
 
 
 class Pulsar:
@@ -148,13 +166,23 @@ class Pulsar:
     ``toas`` are epoch times in seconds, repeated once per backend. ``seed``
     makes every stochastic method reproducible; omit it to draw from the
     package default seed stream. ``device``: where the residuals live and
-    the injections run (``None`` is ``"cuda"``).
+    the injections run (``None`` is ``"cuda"``); ``dtype``: the residuals'
+    and the draws' (``torch.float32``, or ``torch.float64`` for the JAX
+    facade's x64 mode; anything else raises ``TypeError``).
     """
+
+    #: the residuals' and draws' dtype: this class default, or the
+    #: instance's own when it was built at float64 (the instance attribute
+    #: set stays the JAX facade's for the default)
+    _dtype = F32
 
     def __init__(self, toas, toaerr, theta, phi, pdist=(1.0, 0.2),
                  freqs=(1400,), custom_noisedict=None, custom_model=None,
                  tm_params=None, backends=("backend",), ephem=None,
-                 seed=None, device: DeviceLike = None):
+                 seed=None, device: DeviceLike = None,
+                 dtype: torch.dtype = F32):
+        if _check_dtype(dtype) != F32:
+            self._dtype = dtype
         self._device = resolve_device(device)
         backends = list(backends)
         self._keys = rng_utils.KeyStream(seed)
@@ -200,10 +228,10 @@ class Pulsar:
     # residual storage: on the device between injections
     # ------------------------------------------------------------------
     #
-    # Exactly one of two slots is authoritative: a float32 tensor on the
-    # device (after an injection) or a host array (after construction, a
-    # read or an assignment). Reading drops the device copy, so in-place
-    # numpy mutation of the returned array stays correct.
+    # Exactly one of two slots is authoritative: a tensor at the pulsar's
+    # dtype on the device (after an injection) or a host array (after
+    # construction, a read or an assignment). Reading drops the device copy,
+    # so in-place numpy mutation of the returned array stays correct.
 
     def _dev(self) -> torch.device:
         """The injection device; an unpickled pulsar resolves the default
@@ -214,8 +242,9 @@ class Pulsar:
 
     @property
     def residuals(self) -> np.ndarray:
-        """Timing residuals in seconds, as a writable host array (float32
-        once an injection ran on the device; pickles store float64)."""
+        """Timing residuals in seconds, as a writable host array (at the
+        pulsar's dtype once an injection ran on the device; pickles store
+        float64)."""
         if self._res_host is None:
             t = self._res_dev.detach()
             host = t.cpu().numpy()
@@ -234,15 +263,16 @@ class Pulsar:
             self._res_dev = None
 
     def _res_current(self) -> torch.Tensor:
-        """The residuals as a float32 tensor on the injection device."""
+        """The residuals as a tensor at the pulsar's dtype on the injection
+        device."""
         if self._res_dev is not None:
             return self._res_dev
-        return _dev32(self._res_host, self._dev())
+        return _dev(self._res_host, self._dev(), self._dtype)
 
     def _accumulate(self, delta):
         """residuals += delta, on the injection device."""
         cur = self._res_current()
-        self.residuals = cur + _dev32(delta, cur.device)
+        self.residuals = cur + _dev(delta, cur.device, cur.dtype)
 
     def _next_key(self, seed, label) -> torch.Tensor:
         """This draw's key: the pulsar's next stream key, or ``seed``'s."""
@@ -442,14 +472,15 @@ class Pulsar:
         key = self._next_key(seed, "white")
         efac, equad, ecorr = self._white_params(randomize, add_ecorr)
         cur = self._res_current()
-        par = _dev32(np.stack([self.toaerrs, efac, equad]), cur.device)
+        dev, dtype = cur.device, self._dtype
+        par = _dev(np.stack([self.toaerrs, efac, equad]), dev, dtype)
         sigma2 = white_ops.white_sigma2(par[0], par[1], par[2])
         if add_ecorr:
             epoch_idx, n_epochs, counts = self._epoch_segments()
             delta = white_ops.draw_white_ecorr(
-                key, sigma2, _dev32(10.0 ** (2.0 * ecorr), cur.device),
-                torch.as_tensor(epoch_idx, device=cur.device), n_epochs,
-                _dev32(counts >= 2, cur.device))
+                key, sigma2, _dev(10.0 ** (2.0 * ecorr), dev, dtype),
+                torch.as_tensor(epoch_idx, device=dev), n_epochs,
+                _dev(counts >= 2, dev, dtype))
         else:
             delta = white_ops.draw_white(key, sigma2)
         self.residuals = cur + delta
@@ -506,8 +537,8 @@ class Pulsar:
 
     def _resolve_psd(self, signal, spectrum, f_psd, kwargs):
         """(psd, resolved kwargs) of a GP injection. Named spectra evaluate
-        on the CPU at float32 (the JAX facade's default precision) from the
-        kwargs or the noisedict."""
+        on the CPU at the pulsar's dtype (the JAX facade's precision in its
+        float32 or x64 mode) from the kwargs or the noisedict."""
         if spectrum == "custom":
             custom = kwargs["custom_psd"]
             if isinstance(custom, torch.Tensor):
@@ -524,10 +555,11 @@ class Pulsar:
                     f"PSD parameters for {signal} must be in the noisedict "
                     f"or passed as keyword arguments (missing {exc})"
                 ) from exc
-        args = {k: np.asarray(v, dtype=np.float32) if np.ndim(v) else v
+        np_dtype = np.float32 if self._dtype == F32 else np.float64
+        args = {k: np.asarray(v, dtype=np_dtype) if np.ndim(v) else v
                 for k, v in kwargs.items()}
         psd = spectrum_lib.evaluate_host(
-            spectrum, np.asarray(f_psd, dtype=np.float32), **args)
+            spectrum, np.asarray(f_psd, dtype=np_dtype), **args)
         return psd, kwargs
 
     def add_red_noise(self, spectrum="powerlaw", f_psd=None, seed=None,
@@ -599,7 +631,8 @@ class Pulsar:
         Draws ``c ~ N(0, sqrt(psd))``, adds ``(freqf/nu)^idx sqrt(df)
         (c_cos cos + c_sin sin)`` to the residuals (of ``backend``'s TOAs
         only, when given) and records the ``signal_model`` entry, whose
-        stored coefficients are ``c/sqrt(df)`` (host float32).
+        stored coefficients are ``c/sqrt(df)`` (host, at the pulsar's
+        dtype).
         ``_subtract`` (internal): a stored entry whose realization is
         subtracted in the same update (re-injection).
         """
@@ -620,18 +653,19 @@ class Pulsar:
         phase, scale, df = self._phase_scale(f_psd, idx, freqf, mask)
         if _subtract is not None and "fourier" not in _subtract:
             # joint-covariance entries store the realization itself
-            self._accumulate(-_dev32(_subtract["realization"], self._dev()))
+            self._accumulate(-_dev(_subtract["realization"], self._dev(),
+                                   self._dtype))
             _subtract = None
         cur = self._res_current()
         delta, fourier = _gp_draw(key, phase, scale, psd, df, len(f_psd),
-                                  cur.device)
+                                  cur.device, self._dtype)
         if _subtract is not None:
             old = self._phase_scale(
                 np.asarray(_subtract["f"], dtype=np.float64),
                 _subtract["idx"], _subtract.get("freqf", 1400.0), mask)
             delta = delta - _gp_realization(old[0], old[1],
                                             _subtract["fourier"], old[2],
-                                            cur.device)
+                                            cur.device, self._dtype)
         if mask is None:
             self.residuals = cur + delta
         else:
@@ -723,8 +757,8 @@ class Pulsar:
     # ------------------------------------------------------------------
 
     def make_time_correlated_noise_cov(self, signal="", freqf=None):
-        """Dense (float32) covariance of one stored GP signal; ``freqf=None``
-        uses the signal's stored reference frequency."""
+        """Dense covariance (at the pulsar's dtype) of one stored GP signal;
+        ``freqf=None`` uses the signal's stored reference frequency."""
         if "system_noise" in signal:
             backend = signal.split("system_noise_")[1]
             stored = f"{backend}_system_noise_{backend}" \
@@ -740,11 +774,12 @@ class Pulsar:
         phase, scale, df = self._phase_scale(
             np.asarray(entry["f"], dtype=np.float64), entry["idx"], freqf,
             mask)
-        dev = self._dev()
-        basis = fourier_ops.basis_from_phase(_dev32(phase, dev),
-                                             _dev32(scale, dev))
-        return fourier_ops.gp_covariance(basis, _dev32(entry["psd"], dev),
-                                         _dev32(df, dev)).cpu().numpy()
+        dev, dtype = self._dev(), self._dtype
+        basis = fourier_ops.basis_from_phase(_dev(phase, dev, dtype),
+                                             _dev(scale, dev, dtype))
+        return fourier_ops.gp_covariance(
+            basis, _dev(entry["psd"], dev, dtype),
+            _dev(df, dev, dtype)).cpu().numpy()
 
     def make_noise_covariance_matrix(self):
         """(white variance vector, dense red covariance): the red part sums
@@ -757,7 +792,7 @@ class Pulsar:
             efac[sel] = self.noisedict[f"{self.name}_{backend}_efac"]
             equad[sel] = self.noisedict[f"{self.name}_{backend}_log10_tnequad"]
         par = torch.as_tensor(np.stack([self.toaerrs, efac, equad]),
-                              dtype=F32)
+                              dtype=self._dtype)
         white_cov = white_ops.white_sigma2(par[0], par[1], par[2]).numpy()
         red_cov = np.zeros((len(self.toas), len(self.toas)))
         for model_key, signal in (("RN", "red_noise"), ("DM", "dm_gp"),
@@ -768,25 +803,27 @@ class Pulsar:
         return white_cov, red_cov
 
     def draw_noise_model(self, residuals=None, seed=None):
-        """A float32 draw from the total noise covariance (Cholesky of ``cov
-        + 1e-24 I``), or with ``residuals`` the Wiener estimate ``red^T
-        cov^-1 r`` of the red process. A covariance that is not positive
-        definite at float32 gives NaN, as in the JAX facade."""
+        """A draw at the pulsar's dtype from the total noise covariance
+        (Cholesky of ``cov + 1e-24 I``), or with ``residuals`` the Wiener
+        estimate ``red^T cov^-1 r`` of the red process. A covariance that is
+        not positive definite at that dtype gives NaN, as in the JAX
+        facade."""
         white_cov, red_cov = self.make_noise_covariance_matrix()
-        dev = self._dev()
-        cov = _dev32(np.diag(white_cov) + red_cov, dev)
+        dev, dtype = self._dev(), self._dtype
+        cov = _dev(np.diag(white_cov) + red_cov, dev, dtype)
         if residuals is None:
             key = self._keys.next("noise_model") if seed is None \
                 else rng_utils.as_key(seed)
             n = cov.shape[0]
             chol, info = torch.linalg.cholesky_ex(
-                cov + 1e-24 * torch.eye(n, dtype=F32, device=dev))
+                cov + 1e-24 * torch.eye(n, dtype=dtype, device=dev))
             chol = torch.where(info == 0, chol,
                                torch.full_like(chol, math.nan))
-            return (chol @ rng_utils.normal(key.to(dev), n)).cpu().numpy()
-        red = _dev32(red_cov, dev)
+            return (chol @ rng_utils.normal(key.to(dev), n, dtype=dtype)
+                    ).cpu().numpy()
+        red = _dev(red_cov, dev, dtype)
         return (red.T @ woodbury_ops.cho_solve_psd(
-            cov, _dev32(np.asarray(residuals), dev))).cpu().numpy()
+            cov, _dev(np.asarray(residuals), dev, dtype))).cpu().numpy()
 
     def reconstruct_signal(self, signals=None, freqf=None):
         """The time-domain realization of stored signals (GP, system noise,
@@ -800,19 +837,20 @@ class Pulsar:
         return self._reconstruct_signal_dev(signals, freqf).cpu().numpy()
 
     def _reconstruct_signal_dev(self, signals, freqf=None) -> torch.Tensor:
-        dev = self._dev()
-        sig = torch.zeros(len(self.toas), dtype=F32, device=dev)
+        dev, dtype = self._dev(), self._dtype
+        sig = torch.zeros(len(self.toas), dtype=dtype, device=dev)
         for signal in signals:
             if signal == "cgw":
                 # the same host-f64 evaluation as add_cgw, so remove_signal
                 # subtracts exactly what was injected
                 for record in self.signal_model.get("cgw", {}).values():
-                    sig = sig + _dev32(self._cw_delay_host64(record), dev)
+                    sig = sig + _dev(self._cw_delay_host64(record), dev,
+                                     dtype)
             elif signal in self._waveforms:
                 for record in self.signal_model[signal].values():
-                    sig = sig + _dev32(
+                    sig = sig + _dev(
                         self._waveforms[signal](toas=self.toas, **record),
-                        dev)
+                        dev, dtype)
             elif "system_noise" in signal:
                 backend = signal.split("system_noise_")[1]
                 mask = self.backend_flags == backend
@@ -827,8 +865,8 @@ class Pulsar:
             elif signal in self.signal_model \
                     and "realization" in self.signal_model[signal]:
                 # joint-covariance common signals store the draw itself
-                sig = sig + _dev32(self.signal_model[signal]["realization"],
-                                   dev)
+                sig = sig + _dev(self.signal_model[signal]["realization"],
+                                 dev, dtype)
         return sig
 
     def _reconstruct_gp(self, entry, freqf, mask) -> torch.Tensor:
@@ -838,7 +876,7 @@ class Pulsar:
             np.asarray(entry["f"], dtype=np.float64), entry["idx"], freqf,
             mask)
         return _gp_realization(phase, scale, entry["fourier"], df,
-                               self._dev())
+                               self._dev(), self._dtype)
 
     def remove_signal(self, signals=None, freqf=None):
         """Subtract stored signals' realizations and forget them."""
@@ -857,11 +895,11 @@ class Pulsar:
 
     # pickling: host float64 residuals and host signal_model (the
     # ENTERPRISE contract); the key stream, waveform callables, phase
-    # tables and device are not stored
+    # tables, device and dtype are not stored
     def __getstate__(self):
         state = dict(self.__dict__)
         for k in ("_res_host", "_res_dev", "_phase_cache",
-                  "_phase_cache_bytes", "_device"):
+                  "_phase_cache_bytes", "_device", "_dtype"):
             state.pop(k, None)
         state["residuals"] = np.asarray(self.residuals, dtype=np.float64)
         state["signal_model"] = _host_tree(self.signal_model)
@@ -885,7 +923,8 @@ class Pulsar:
 def make_fake_array(npsrs=25, Tobs=None, ntoas=None, gaps=True, toaerr=None,
                     pdist=None, freqs=(1400,), isotropic=False, backends=None,
                     noisedict=None, custom_model=None, custom_models=None,
-                    ephem=None, seed=None, device: DeviceLike = None):
+                    ephem=None, seed=None, device: DeviceLike = None,
+                    dtype: torch.dtype = F32):
     """Fabricate a pulsar array with randomized observing configurations.
 
     Sky positions on a Fibonacci sphere when ``isotropic``, else uniform;
@@ -895,9 +934,11 @@ def make_fake_array(npsrs=25, Tobs=None, ntoas=None, gaps=True, toaerr=None,
     distributions. Red / DM / chromatic power laws are injected from the
     noisedict when present, else with random (log10_A ~ U(-17, -13), gamma
     ~ U(1, 5)) hyper-parameters. ``seed`` drives every draw;
-    ``custom_models`` maps pulsar names to custom_model dicts. ``device``:
-    every pulsar's (``None`` is ``"cuda"``).
+    ``custom_models`` maps pulsar names to custom_model dicts. ``device``
+    and ``dtype``: every pulsar's (``None`` is ``"cuda"``; float32, or
+    float64 for the JAX facade's x64 mode).
     """
+    dtype = _check_dtype(dtype)
     dev = resolve_device(device)
     stream = rng_utils.KeyStream(seed, "make_fake_array")
     host = stream.host_rng("config")
@@ -974,7 +1015,7 @@ def make_fake_array(npsrs=25, Tobs=None, ntoas=None, gaps=True, toaerr=None,
                      tm_params={"F0": (F0[i], host.uniform(1e-13, 1e-12))},
                      ephem=ephem,
                      seed=int(stream.host_rng("psr", i).integers(2**31)),
-                     device=dev)
+                     device=dev, dtype=dtype)
         if custom_models is not None and psr.name in custom_models:
             cm = custom_models[psr.name]
             if cm is not None:
@@ -1000,25 +1041,27 @@ def add_white_noise_array(psrs, add_ecorr=False, randomize=False, seed=None):
     """Inject EFAC/EQUAD white noise across a whole array in one batched
     draw. With ``seed=None`` each pulsar consumes its own key stream (the
     draws of a per-pulsar loop); an explicit ``seed`` folds in the array
-    index. ECORR, ragged TOA counts and mixed devices loop the pulsars
-    (with ``fold(as_key(seed), g)`` keys)."""
+    index. The draws are at the pulsars' dtype. ECORR, ragged TOA counts
+    and mixed devices or dtypes loop the pulsars (with ``fold(as_key(seed),
+    g)`` keys)."""
     psrs = list(psrs)
     if not psrs:
         return
-    dev = _one_device(psrs)
-    if add_ecorr or dev is None or len({len(p.toas) for p in psrs}) != 1:
+    place = _one_place(psrs)
+    if add_ecorr or place is None or len({len(p.toas) for p in psrs}) != 1:
         for g, p in enumerate(psrs):
             s = None if seed is None \
                 else rng_utils.fold(rng_utils.as_key(seed).cpu(), g)
             p.add_white_noise(add_ecorr=add_ecorr, randomize=randomize,
                               seed=s)
         return
+    dev, dtype = place
     keys = _batch_keys(psrs, "white", seed, dev)
     params = [p._white_params(randomize, False) for p in psrs]
-    par = _dev32(np.stack([np.stack([p.toaerrs for p in psrs]),
-                           np.stack([ef for ef, _, _ in params]),
-                           np.stack([eq for _, eq, _ in params])]), dev)
-    cur = _stack_current(psrs, dev)
+    par = _dev(np.stack([np.stack([p.toaerrs for p in psrs]),
+                         np.stack([ef for ef, _, _ in params]),
+                         np.stack([eq for _, eq, _ in params])]), dev, dtype)
+    cur = _stack_current(psrs, dev, dtype)
     new = cur + white_ops.draw_white(
         keys, white_ops.white_sigma2(par[0], par[1], par[2]))
     for g, p in enumerate(psrs):
@@ -1038,10 +1081,10 @@ def add_noise_array(psrs, signal="red_noise", spectrum="powerlaw", f_psd=None,
 
     Per-pulsar semantics of ``add_red_noise`` / ``add_dm_noise`` /
     ``add_chromatic_noise``: independent draws, noisedict resolution when no
-    kwargs are given, re-injection replaces the prior realization. A
-    uniform array (one TOA count, Tspan and bin count, one device) draws
-    and projects in one batch; any other falls back to the per-pulsar
-    path. With ``seed=None`` each pulsar consumes its own key stream (the
+    kwargs are given, re-injection replaces the prior realization; the
+    draws are at the pulsars' dtype. A uniform array (one TOA count, Tspan
+    and bin count, one device and dtype) draws and projects in one batch;
+    any other falls back to the per-pulsar path. With ``seed=None`` each pulsar consumes its own key stream (the
     coefficients of a per-pulsar loop); with an explicit ``seed`` pulsar
     ``g`` draws from ``fold_in(key(seed), g)``.
     """
@@ -1066,9 +1109,10 @@ def add_noise_array(psrs, signal="red_noise", spectrum="powerlaw", f_psd=None,
     ncomp = comps.pop()
     if ncomp is None:
         return          # disabled for the whole array
-    dev = _one_device(psrs)
-    if dev is None or len({len(p.toas) for p in psrs}) != 1:
+    place = _one_place(psrs)
+    if place is None or len({len(p.toas) for p in psrs}) != 1:
         return fallback()
+    dev, dtype = place
     if f_psd is None:
         if len({float(p.Tspan) for p in psrs}) != 1:
             return fallback()
@@ -1091,14 +1135,14 @@ def add_noise_array(psrs, signal="red_noise", spectrum="powerlaw", f_psd=None,
 
     tables = [p._phase_scale(f_shared, idx, 1400.0, None) for p in psrs]
     if any(isinstance(r, torch.Tensor) for r in psd_rows):
-        psd = torch.stack([_dev32(r, dev) for r in psd_rows])
+        psd = torch.stack([_dev(r, dev, dtype) for r in psd_rows])
     else:
-        psd = _dev32(np.stack(psd_rows), dev)
-    cur = _stack_current(psrs, dev)
+        psd = _dev(np.stack(psd_rows), dev, dtype)
+    cur = _stack_current(psrs, dev, dtype)
     keys = _batch_keys(psrs, signal, seed, dev)
     delta, four = _gp_draw(keys, np.stack([t[0] for t in tables]),
                            np.stack([t[1] for t in tables]), psd,
-                           tables[0][2], len(f_shared), dev)
+                           tables[0][2], len(f_shared), dev, dtype)
     if olds:
         o0 = olds[0]
         old_tabs = [p._phase_scale(np.asarray(o0["f"], dtype=np.float64),
@@ -1108,7 +1152,7 @@ def add_noise_array(psrs, signal="red_noise", spectrum="powerlaw", f_psd=None,
             np.stack([t[0] for t in old_tabs]),
             np.stack([t[1] for t in old_tabs]),
             np.stack([np.asarray(o["fourier"]) for o in olds]),
-            old_tabs[0][2], dev)
+            old_tabs[0][2], dev, dtype)
     new = cur + delta
     four = four.cpu().numpy()
     for g, p in enumerate(psrs):
@@ -1149,12 +1193,14 @@ def plot_pta(psrs, plot_name=True, show=True):
 
 
 def copy_array(psrs, custom_noisedict=None, custom_models=None, seed=None,
-               device: DeviceLike = None):
+               device: DeviceLike = None, dtype=None):
     """Clone an existing (ENTERPRISE- or facade-style, either package's)
     pulsar list: fresh :class:`Pulsar` objects whose observed attributes
     (toas, toaerrs, residuals, Mmat, fitpars, pdist, backend flags, freqs,
     planetssb, pos_t) are overwritten from the sources, with the noisedict
-    re-resolved; the bridge for replaying real datasets."""
+    re-resolved; the bridge for replaying real datasets. ``dtype=None``
+    gives each copy its source's dtype (this package's pulsars carry one;
+    float32, the constructor's default, for any other)."""
     dev = resolve_device(device)
     if custom_models is None:
         custom_models = {psr.name: None for psr in psrs}
@@ -1165,7 +1211,9 @@ def copy_array(psrs, custom_noisedict=None, custom_models=None, seed=None,
                       pdist=1.0, backends=list(np.unique(psr.backend_flags)),
                       custom_model=custom_models.get(psr.name),
                       seed=int(stream.host_rng(psr.name).integers(2**31)),
-                      device=dev)
+                      device=dev,
+                      dtype=(getattr(psr, "_dtype", F32) if dtype is None
+                             else dtype))
         fake.name = psr.name
         fake.toas = np.asarray(psr.toas, dtype=np.float64)
         fake.toaerrs = np.asarray(psr.toaerrs, dtype=np.float64)

@@ -20,10 +20,20 @@ Two views of device memory, both feeding ``RunReport.memory``:
   drain drops the run's reference when it ends. On the pipelined
   path at most ``depth`` of them may be live at a dispatch, and
   :meth:`PackedLedger.check` raises if more were.
+
+:func:`library_workspace_bytes` is the port's counterpart of the JAX
+engine's ``static_reservation_bytes``: the fixed device bytes a run's
+allocator peak holds outside its own tensors. On the card they are the
+cuBLAS and cuBLASLt workspaces that torch takes from the caching
+allocator for each (thread, stream) at its first product and keeps for
+the life of the process (32 MiB and 1 MiB on an H100 under torch 2.11),
+so the peak counts them whatever the run's size.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import threading
 import weakref
 from typing import Dict
 
@@ -60,6 +70,120 @@ def local_device_stats(devices) -> Dict[str, int]:
         for k in STAT_KEYS:
             out[k] = max(out.get(k, 0), int(stats[k]))
     return out
+
+
+# one measurement per process and card: the workspace sizes are a property
+# of the process's torch build, its environment and the card, not of a run;
+# a probe stream is kept with its workspaces (the count below includes them)
+_SIZES: Dict[torch.device, tuple] = {}
+_PROBE_STREAMS: list = []
+_SIZES_LOCK = threading.Lock()
+
+
+def _card(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _gemm_growth(dev: torch.device) -> tuple:
+    """Allocated bytes on ``dev`` that one cuBLAS product and one cuBLASLt
+    product (``addmm`` with a bias) on the current stream each leave
+    behind once their operands and results are freed: the workspace the
+    stream takes at its first product of each library, or 0 for a library
+    whose workspace it already held."""
+    torch.cuda.synchronize(dev)
+    a = torch.ones((8, 8), device=dev)
+    bias = torch.ones((8,), device=dev)
+    grown = []
+    for product in (lambda: a @ a, lambda: torch.addmm(bias, a, a)):
+        before = torch.cuda.memory_allocated(dev)
+        out = product()
+        torch.cuda.synchronize(dev)
+        del out
+        grown.append(torch.cuda.memory_allocated(dev) - before)
+    return tuple(grown)
+
+
+def workspace_sizes(device) -> tuple:
+    """(cuBLAS, cuBLASLt) workspace bytes a stream takes on ``device`` at
+    its first product of each library, measured once per process and card
+    as the allocated-bytes growth across one product of each: on the
+    current stream where it holds none yet (its workspaces then are the
+    ones its runs would take anyway), else on a new stream, which keeps
+    its workspaces (one more idle set, which :func:`library_workspace_bytes`
+    counts). Nothing is freed."""
+    dev = _card(device)
+    with _SIZES_LOCK:
+        got = _SIZES.get(dev)
+        if got is None:
+            with torch.cuda.device(dev):
+                got = _gemm_growth(dev)
+                if 0 in got:
+                    probe = torch.cuda.Stream(dev)
+                    _PROBE_STREAMS.append(probe)
+                    with torch.cuda.stream(probe):
+                        got = _gemm_growth(dev)
+            if 0 in got:
+                raise RuntimeError(
+                    f"no library workspace measured on {dev} ({got} bytes): "
+                    f"the fixed term of the memory accounting is unknown")
+            _SIZES[dev] = got
+        return got
+
+
+def device_tensor_ptrs(obj, out=None) -> set:
+    """The data pointers of the CUDA tensors reachable from ``obj`` through
+    dataclass fields, tuples, lists and dict values (a simulator's state)."""
+    out = set() if out is None else out
+    if isinstance(obj, torch.Tensor):
+        if obj.is_cuda:
+            out.add(obj.data_ptr())
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            device_tensor_ptrs(getattr(obj, f.name), out)
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            device_tensor_ptrs(x, out)
+    elif isinstance(obj, dict):
+        for x in obj.values():
+            device_tensor_ptrs(x, out)
+    return out
+
+
+def workspace_block_bytes(segments, sizes: dict, exclude=()) -> int:
+    """Bytes of the live blocks of an allocator snapshot's ``segments``
+    (``torch.cuda.memory_snapshot()``) whose size is one of ``sizes[device
+    index]``, less any block holding a pointer of ``exclude``."""
+    total = 0
+    for seg in segments:
+        want = sizes.get(seg["device"])
+        if not want:
+            continue
+        for blk in seg["blocks"]:
+            lo, size = blk["address"], blk["size"]
+            if blk["state"] == "active_allocated" and size in want and \
+                    not any(lo <= p < lo + size for p in exclude):
+                total += size
+    return total
+
+
+def library_workspace_bytes(devices, exclude=()) -> int:
+    """The cuBLAS and cuBLASLt workspaces present on the CUDA devices of
+    ``devices`` (0 for host devices): the caching allocator's live blocks
+    whose size is a workspace size measured on that card
+    (:func:`workspace_sizes`), less any block holding a pointer of
+    ``exclude`` (the caller's own tensors). torch keeps one set per
+    (thread, stream) that ran a product, for the life of the process, so
+    a process that ran products on several threads holds several; every
+    one of them is in the allocator's peak."""
+    cards = _cuda_devices(devices)
+    if not cards:
+        return 0
+    sizes = {d.index: set(workspace_sizes(d)) for d in cards}
+    return workspace_block_bytes(torch.cuda.memory_snapshot(), sizes,
+                                 exclude)
 
 
 class HbmSampler:

@@ -72,10 +72,11 @@ def basis_from_phase(phase, scale=None) -> torch.Tensor:
 
 def draw_coeffs(key, psd) -> torch.Tensor:
     """Raw Fourier coefficients ``c ~ N(0, sqrt(psd))``, shape (..., 2, N)
-    for a (..., 2) key batch and a (..., N) float32 PSD: both the cos and
-    the sin coefficient of bin n have standard deviation ``sqrt(psd_n)``."""
+    for a (..., 2) key batch and a (..., N) PSD, drawn at the PSD's dtype
+    (float32 or float64): both the cos and the sin coefficient of bin n
+    have standard deviation ``sqrt(psd_n)``."""
     psd = _t(psd)
-    z = rng.normal(key.to(psd.device), (2, psd.shape[-1]))
+    z = rng.normal(key.to(psd.device), (2, psd.shape[-1]), dtype=psd.dtype)
     return z * torch.sqrt(psd)[..., None, :]
 
 

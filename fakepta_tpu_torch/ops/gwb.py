@@ -119,29 +119,33 @@ def orf_cholesky(orf, jitter: float = 1e-10) -> np.ndarray:
     return np.linalg.cholesky(orf64 + scaled * np.eye(n))
 
 
-def draw_correlated_coeffs(key: torch.Tensor, chol, psd,
-                           shape_prefix=()) -> torch.Tensor:
+def draw_correlated_coeffs(key: torch.Tensor, chol, psd, shape_prefix=(),
+                           dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
     """Raw GWB Fourier coefficients with exact cross-pulsar correlation.
 
     ``key`` is one (2,) key; returns ``(*shape_prefix, 2, ncomp, npsr)``
-    float32 coefficients on ``key``'s device: standard normals ``z`` drawn
-    at that shape, coupled as ``z @ chol.T`` at full float32 (no TF32) and
-    scaled by ``sqrt(psd_c)`` per component, the JAX package's draw, op for
-    op, in its default float32 mode. ``chol`` (npsr, npsr) is the host
-    float64 factor of :func:`orf_cholesky` (cast here), ``psd`` (ncomp,).
+    coefficients at ``dtype`` (float32 or float64) on ``key``'s device:
+    standard normals ``z`` drawn at that shape and dtype, coupled as ``z @
+    chol.T`` (at full float32, no TF32, on a float32 draw) and scaled by
+    ``sqrt(psd_c)`` per component: the JAX package's draw, op for op, in
+    its float32 mode, or under x64 at ``dtype=torch.float64``. ``chol``
+    (npsr, npsr) is the host float64 factor of :func:`orf_cholesky` (cast
+    here), ``psd`` (ncomp,).
     """
     from ..utils import rng
     from .megakernel import full_f32
 
     dev = key.device
 
-    def f32(x):
+    def cast(x):
         x = x if isinstance(x, torch.Tensor) else torch.as_tensor(
             np.asarray(x, dtype=np.float64))
-        return x.to(device=dev, dtype=torch.float32)
+        return x.to(device=dev, dtype=dtype)
 
-    chol, psd = f32(chol), f32(psd)
-    z = rng.normal(key, (*shape_prefix, 2, psd.shape[0], chol.shape[0]))
+    chol, psd = cast(chol), cast(psd)
+    z = rng.normal(key, (*shape_prefix, 2, psd.shape[0], chol.shape[0]),
+                   dtype=dtype)
     with full_f32():
         corr = z @ chol.T
     return corr * torch.sqrt(psd)[:, None]

@@ -35,11 +35,12 @@ def white_sigma2(toaerrs, efac, tnequad_log10) -> torch.Tensor:
 
 
 def draw_white(key, sigma2, mask=None) -> torch.Tensor:
-    """Normal residuals with per-TOA variance ``sigma2`` (float32), drawn
-    from ``key`` ((..., 2) keys broadcast over leading axes)."""
+    """Normal residuals with per-TOA variance ``sigma2``, drawn at its dtype
+    (float32 or float64) from ``key`` ((..., 2) keys broadcast over leading
+    axes)."""
     sigma2 = _t(sigma2)
-    r = rng.normal(key.to(sigma2.device), sigma2.shape[-1:]) \
-        * torch.sqrt(sigma2)
+    r = rng.normal(key.to(sigma2.device), sigma2.shape[-1:],
+                   dtype=sigma2.dtype) * torch.sqrt(sigma2)
     if mask is not None:
         r = torch.where(_t(mask).to(r.device), r, r.new_zeros(()))
     return r
@@ -50,12 +51,13 @@ def draw_white_ecorr(key, sigma2, ecorr_var, epoch_idx, n_epochs: int,
     """White noise plus epoch-block ECORR in one shot:
     ``sqrt(sigma2) z + sqrt(ecorr_var) u[epoch_idx]``, ``u ~ N(0,
     I_{n_epochs})``, exact because the block part is rank 1 per epoch. The
-    two draws come from ``split(fold_in(key, 0x0E))``. ``epoch_weight``
-    (n_epochs,) 0/1 turns ECORR off on singleton epochs."""
+    two draws come from ``split(fold_in(key, 0x0E))``, at the dtype of
+    ``sigma2``. ``epoch_weight`` (n_epochs,) 0/1 turns ECORR off on
+    singleton epochs."""
     sigma2 = _t(sigma2)
     k = rng.split(rng.fold_in(key.to(sigma2.device), 0x0E), 2)
-    z = rng.normal(k[..., 0, :], sigma2.shape[-1:])
-    u = rng.normal(k[..., 1, :], int(n_epochs))
+    z = rng.normal(k[..., 0, :], sigma2.shape[-1:], dtype=sigma2.dtype)
+    u = rng.normal(k[..., 1, :], int(n_epochs), dtype=sigma2.dtype)
     if epoch_weight is not None:
         u = u * _t(epoch_weight, u)
     idx = _t(epoch_idx).to(device=u.device, dtype=torch.int64)

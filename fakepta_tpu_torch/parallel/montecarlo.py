@@ -9,9 +9,17 @@ threefry key tree of :mod:`fakepta_tpu_torch.utils.rng`, with the JAX
 package's domain tags (0x51 noise, 0x6B GWB, 0x9C noise-hyperparameter
 sampling, 0xE1 white sampling, 0x77 BayesEphem sampling, 0xC6 CGW
 sampling) and global pulsar-index folds, so every
-draw equals the JAX engine's to a few float32 ULP, a rerun is
+draw equals the JAX engine's to a few ULP of the batch's dtype, a rerun is
 bit-identical and a realization's draws depend neither on the chunk size
 nor on the mesh shape.
+
+Precision: the draws, the residuals and the sums run at the batch's dtype,
+as the JAX engine's do (``dtype = batch.t_own.dtype``). A float32 batch
+runs every path; a float64 batch (the JAX engine's under ``jax_enable_x64``)
+runs the einsum path, its default, on every mesh and with every stage,
+sampler and lane, and the kernel paths refuse it (their kernels take
+float32). The correlation's pair sums are float32 on either, as the JAX
+contraction's ``preferred_element_type`` makes them.
 
 Per-realization hyperparameter sampling: :class:`NoiseSampling` draws a
 registered spectrum's hyperparameters per realization (per pulsar for
@@ -130,6 +138,7 @@ from ..models import cgw as cgw_model
 from ..models import roemer as roemer_model
 from ..obs import flightrec
 from ..obs import metrics as obs_metrics
+from ..obs import memwatch
 from ..obs.memwatch import HbmSampler, PackedLedger
 from ..obs.report import RunReport
 from ..obs.timing import now, span
@@ -440,8 +449,12 @@ def _window(x: torch.Tensor, lo: int, n: int, t_lo: int,
 
 
 def _affine(a, z, scale):
-    """``a + z * scale`` in float32 with the product and sum fused (one
-    rounding), as XLA contracts the JAX engine's ``a + z * (b - a)``."""
+    """``a + z * scale`` with the product and sum fused (one rounding), as
+    XLA contracts the JAX engine's ``a + z * (b - a)``: at float32 through
+    the exact float64 product and sum, rounded once; at float64 through
+    ``torch.addcmul`` (a fused multiply-add)."""
+    if z.dtype == torch.float64:
+        return torch.addcmul(a, z, scale)
     return (z.double() * scale.double() + a.double()).float()
 
 
@@ -459,18 +472,21 @@ def _draw_hyper(k: torch.Tensor, names, per_bin, dists, ranges,
     (...,), per-bin parameters (..., nbin). The scalar uniforms ride one
     vector in declaration order, the scalar normals one vector under
     ``fold_in(k, 1)``, each per-bin parameter its own ``fold_in(k, 16 +
-    i)`` key: the JAX engine's layout."""
+    i)`` key: the JAX engine's layout. The draws are at the dtype of
+    ``ranges``, the batch's."""
+    dt = ranges.dtype
     n_scalar = sum(1 for pb in per_bin if not pb)
     any_norm = any(d == "normal" for pb, d in zip(per_bin, dists) if not pb)
-    u = rng.uniform(k, n_scalar) if n_scalar else None
-    g = rng.normal(rng.fold_in(k, 1), n_scalar) if any_norm else None
+    u = rng.uniform(k, n_scalar, dtype=dt) if n_scalar else None
+    g = (rng.normal(rng.fold_in(k, 1), n_scalar, dtype=dt) if any_norm
+         else None)
     out, zi = {}, 0
     for i, (name, pb, d) in enumerate(zip(names, per_bin, dists)):
         a, b = ranges[i, 0], ranges[i, 1]
         if pb:
             kb = rng.fold_in(k, 16 + i)
-            z = rng.uniform(kb, nbin) if d == "uniform" \
-                else rng.normal(kb, nbin)
+            z = rng.uniform(kb, nbin, dtype=dt) if d == "uniform" \
+                else rng.normal(kb, nbin, dtype=dt)
         else:
             z = (u if d == "uniform" else g)[..., zi]
             zi += 1
@@ -520,9 +536,9 @@ def _sampled_white(keys: torch.Tensor, batch: PulsarBatch, hyper: _Hyper,
     s_efac, s_equad, s_ecorr, dist = hyper.white
     kp = rng.fold_in(rng.fold_in(keys, _WHITE_TAG)[:, None, :], gidx)
     shape = (hyper.white_nb, 3)
-    zw = rng.uniform(kp, shape) if dist == "uniform" \
-        else rng.normal(kp, shape)                             # (R, P, B, 3)
     prm = hyper.white_params
+    zw = rng.uniform(kp, shape, dtype=prm.dtype) if dist == "uniform" \
+        else rng.normal(kp, shape, dtype=prm.dtype)            # (R, P, B, 3)
     scale = prm[:, 1] - prm[:, 0] if dist == "uniform" else prm[:, 1]
     vals = _affine(prm[:, 0], zw, scale)
     bid = hyper.backend_id.expand(keys.shape[0], *hyper.backend_id.shape)
@@ -599,7 +615,7 @@ def _sampled_roemer(keys: torch.Tensor, state, scales: torch.Tensor,
     A parameter whose scale is zero is passed as the number 0 (its draw
     times zero), which lets a mass-only body skip the orbit deltas."""
     kz = rng.fold_in(rng.fold_in(keys, _ROEMER_TAG), tag)          # (R, 2)
-    d = rng.normal(kz, 7) * scales                                 # (R, 7)
+    d = rng.normal(kz, 7, dtype=scales.dtype) * scales             # (R, 7)
     kw = {name: (0.0 if z else d[:, i].reshape(-1, 1, 1))
           for i, (name, z) in enumerate(zip(_ROEMER_PARAMS, zero))}
     with span("roemer"):
@@ -611,20 +627,22 @@ def _cgw_draws(keys: torch.Tensor, ranges: torch.Tensor, static: tuple,
     """One source's parameters per realization, (R, 8) in CGWSampling's
     field order (row 5 the amplitude), and with ``sample_pdist`` the
     (R, P) distance nuisances of the pulsars ``gidx`` (else None): the JAX
-    engine's draw chain, on any device."""
+    engine's draw chain, on any device, at the dtype of ``ranges``."""
     _, _, dists, sample_pdist = static
+    dt = ranges.dtype
     kz = rng.fold_in(rng.fold_in(keys, _CGW_TAG), tag)
-    u = rng.uniform(kz, 8)
+    u = rng.uniform(kz, 8, dtype=dt)
     v = _affine(ranges[:, 0], u, ranges[:, 1] - ranges[:, 0])
     normal = [d == "normal" for d in dists]
     if any(normal):
-        g = rng.normal(rng.fold_in(kz, 1), 8)
+        g = rng.normal(rng.fold_in(kz, 1), 8, dtype=dt)
         v = torch.where(torch.tensor(normal, device=v.device),
                         _affine(ranges[:, 0], g, ranges[:, 1]), v)
     pd = None
     if sample_pdist:
         kpd = rng.fold_in(kz, 2)
-        pd = rng.normal(rng.fold_in(kpd[:, None, :], gidx), ())    # (R, P)
+        pd = rng.normal(rng.fold_in(kpd[:, None, :], gidx), (),
+                        dtype=dt)                                  # (R, P)
     return v, pd
 
 
@@ -833,8 +851,8 @@ class _StageTerms:
     chrom_w: Optional[torch.Tensor]       # (P, NC)
     sys_w: Optional[torch.Tensor]         # (P, B, NS)
     sys_basis: Optional[torch.Tensor]     # (P, T, 2, NS)
-    # (P, T, K) concatenated GP basis, float32 (rounded to bfloat16
-    # values under bases_dtype='bf16')
+    # (P, T, K) concatenated GP basis at the batch dtype (rounded to
+    # bfloat16 values under bases_dtype='bf16')
     gp_basis: Optional[torch.Tensor]
     gwb_group: Tuple[int, ...]            # config -> basis group
     n_groups: int
@@ -847,8 +865,8 @@ def _stage_terms(batch: PulsarBatch, gwb_ws, gwb_idxs, gwb_freqfs,
     red, dm, chrom, then one basis group per distinct GWB
     ``(idx, freqf, ncomp)`` signature (configs sharing a group sum their
     coefficients: the projection is linear). ``bases_bf16`` rounds the
-    concatenated GP basis to bfloat16 values once, here, and keeps it in
-    float32."""
+    concatenated GP basis to bfloat16 values once, here, and keeps it at
+    the batch dtype."""
     (_, _, inc_red, inc_dm, inc_chrom, inc_sys, inc_gwb) = include
     p, t = batch.t_own.shape
     df = batch.df_own
@@ -910,13 +928,13 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
     full-width per-pulsar draw, and the ECORR epoch normals are drawn over
     ``ecorr_window = (first epoch id, count)`` (default: every slot) and
     gathered by the global epoch ids, so both equal the unsharded draws
-    bit for bit.
+    bit for bit. Every draw is at the batch's dtype.
     """
     (inc_white, inc_ecorr, inc_red, inc_dm, inc_chrom, inc_sys,
      inc_gwb) = include
     R = keys.shape[0]
     p, T = batch.t_own.shape
-    dev = keys.device
+    dev, dt = keys.device, batch.dtype
 
     # noise keys fold the 0x51 tag, then the GLOBAL pulsar index, then
     # split six ways: (white, red, dm, chrom, ecorr, sys)
@@ -940,14 +958,15 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
 
     res = torch.zeros((R, p, T), dtype=batch.dtype, device=dev)
     if inc_white:
-        res = res + torch.sqrt(sigma2) * rng.normal(kw, T, start=t_offset)
+        res = res + torch.sqrt(sigma2) * rng.normal(kw, T, start=t_offset,
+                                                    dtype=dt)
     if inc_ecorr:
         # sigma^2 I + c^2 11^T per epoch == white plus ONE shared normal per
         # epoch, indexed by the per-TOA (global) epoch id; a TOA outside the
         # window has no ECORR (its amplitude is 0), so its clamped index
         # adds 0
         e_lo, e_n = (0, T) if ecorr_window is None else ecorr_window
-        epoch_draws = rng.normal(ke, e_n, start=e_lo)
+        epoch_draws = rng.normal(ke, e_n, start=e_lo, dtype=dt)
         idx = batch.epoch_idx if e_lo == 0 and e_n == T else \
             (batch.epoch_idx - e_lo).clamp(0, e_n - 1)
         shared = torch.gather(epoch_draws, 2, idx.expand(R, p, T))
@@ -957,12 +976,12 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
                          (inc_chrom, "chrom", kc)):
         if inc:
             w = w_samp.get(name, getattr(terms, f"{name}_w"))
-            c = rng.normal(k, (2, w.shape[-1])) * w.unsqueeze(-2)
+            c = rng.normal(k, (2, w.shape[-1]), dtype=dt) * w.unsqueeze(-2)
             coeffs.append(c.reshape(R, p, -1))
     if inc_sys:
         # per-(pulsar, band) GP on the shared basis, masked to the band
         n_bands, n_sys = terms.sys_w.shape[1:]
-        c = rng.normal(ks, (n_bands, 2, n_sys)) \
+        c = rng.normal(ks, (n_bands, 2, n_sys), dtype=dt) \
             * w_samp.get("sys", terms.sys_w).unsqueeze(-2)    # (R,P,B,2,NS)
         for b in range(n_bands):
             contrib = torch.einsum("ptkn,rpkn->rpt", terms.sys_basis,
@@ -977,7 +996,7 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
         gwb_c = [None] * terms.n_groups
         for j, (chol_j, w_j) in enumerate(zip(chols, gwb_ws)):
             kg = tag if j == 0 else rng.fold_in(tag, j)
-            zg = rng.normal(kg, (2, w_j.shape[0], chol_j.shape[0]))
+            zg = rng.normal(kg, (2, w_j.shape[0], chol_j.shape[0]), dtype=dt)
             corr = torch.matmul(zg, chol_j.T)                    # (R,2,C,P)
             if corr.shape[-1] != p:
                 corr = corr[..., p_offset:p_offset + p]
@@ -997,7 +1016,8 @@ def _simulate_block(keys: torch.Tensor, batch: PulsarBatch, chols, gwb_ws,
         if terms.bases_bf16:
             # the JAX engine's bases_dtype='bf16': bf16 basis (rounded
             # once, in _stage_terms) times bf16 coefficients; their
-            # products are exact in float32, and the sums run in float32
+            # products are exact in float32, and the sums run at the
+            # batch dtype
             c_all = binned_corr_ops.round_bf16(c_all)
         # the null stream's coefficients stop before the GWB groups, whose
         # columns are the basis's last
@@ -1010,15 +1030,18 @@ def _correlation_rows(res_local: torch.Tensor,
                       res_full: Optional[torch.Tensor] = None,
                       stats_bf16: bool = False):
     """(R, PL, PF) raw pair-product sums of local rows against the full
-    array (``res_full=None``: the rows against themselves), f32
-    accumulation; ``stats_bf16`` rounds the operands to bf16 first (the
-    einsum path's bf16 mode)."""
+    array (``res_full=None``: the rows against themselves), float32, as
+    the JAX contraction's ``preferred_element_type=float32`` returns them:
+    a float64 batch's sums run at float64 and are rounded once to float32
+    (what the JAX XLA path gives under x64; ROADMAP Queue 3). ``stats_bf16``
+    rounds the operands to bf16 first (the einsum path's bf16 mode)."""
     if stats_bf16:
         res_local = binned_corr_ops.round_bf16(res_local)
         if res_full is not None:
             res_full = binned_corr_ops.round_bf16(res_full)
     return torch.einsum("rpt,rqt->rpq", res_local,
-                        res_local if res_full is None else res_full)
+                        res_local if res_full is None else res_full
+                        ).to(torch.float32)
 
 
 def stat_weight_stack(pos: np.ndarray, counts_full: np.ndarray, nbins: int,
@@ -1053,10 +1076,11 @@ def stat_weight_stack(pos: np.ndarray, counts_full: np.ndarray, nbins: int,
 
 def _bin(corr: torch.Tensor, weights: torch.Tensor, nbins: int):
     """(curves (R, nbins), autos (R,)) of raw pair sums against a weight
-    stack (nbins + 1 slots, the auto trace last), at full float32, not
-    TF32: the JAX engine bins at ``Precision.HIGHEST``."""
+    stack (nbins + 1 slots, the auto trace last), at the weights' dtype
+    (full float32, not TF32, on a float32 batch: the JAX engine bins at
+    ``Precision.HIGHEST``)."""
     with mega_ops.full_f32():
-        out = torch.einsum("rpq,npq->rn", corr, weights)
+        out = torch.einsum("rpq,npq->rn", corr.to(weights.dtype), weights)
     return out[:, :nbins], out[:, nbins]
 
 
@@ -1172,9 +1196,9 @@ def _sum_parts(parts, comm) -> dict:
             for k in first}
 
 
-_F64_ONLY = ("the port runs float32 batches (got {}); a float64 batch "
-             "runs only include=('det',) with no sampling on "
-             "stat_path='einsum'")
+_F64_ONLY = ("stat_path={!r} runs float32 batches (its kernels take "
+             "float32; got {}); a float64 batch runs on stat_path='einsum', "
+             "the JAX package's XLA path and the default for it")
 
 
 def _check_path(path: str, *, toa_shards: int, dtype, stats_bf16: bool,
@@ -1185,8 +1209,8 @@ def _check_path(path: str, *, toa_shards: int, dtype, stats_bf16: bool,
     if path == "einsum":
         return
     if dtype != torch.float32:
-        # the kernels take float32 (ROADMAP Queue 1 item 12)
-        raise TypeError(_F64_ONLY.format(dtype))
+        # the kernels take float32; the float64 path is the einsum one
+        raise TypeError(_F64_ONLY.format(path, dtype))
     if toa_shards > 1:
         raise ValueError(
             f"stat_path={path!r} is incompatible with toa sharding (its "
@@ -1244,10 +1268,12 @@ class EnsembleSimulator:
     ``mesh`` (:func:`.mesh.make_mesh`) defaults to a 1x1x1 mesh on
     ``device``, which defaults to ``"cuda"`` and raises without a GPU
     unless ``device="cpu"``; pass one of the two. ``stat_path``:
-    ``"einsum"``, ``"fused"`` (default) or ``"mega"`` (see the module
-    docstring). ``pallas_precision`` is the fused path's default statistic
-    precision (``'bf16'``: bf16 operands, f32 accumulation; ``'f32'``: full
-    f32); the mega and einsum paths default to ``'f32'``, and
+    ``"einsum"``, ``"fused"`` (the default on a float32 batch) or
+    ``"mega"`` (see the module docstring); a float64 batch defaults to
+    ``"einsum"``, and ``"fused"`` / ``"mega"`` refuse it (``TypeError``).
+    ``pallas_precision`` is the fused path's default statistic precision
+    (``'bf16'``: bf16 operands, f32 accumulation; ``'f32'``: full f32);
+    the mega and einsum paths default to ``'f32'``, and
     ``run(precision=...)`` overrides per run. ``pallas_mxu_binning=False``
     sends the fused path through the per-slot-reduction kernel.
 
@@ -1330,15 +1356,13 @@ class EnsembleSimulator:
         unknown = sorted(set(include) - set(STAGES))
         if unknown:
             raise ValueError(f"unknown stages {unknown}; known: {STAGES}")
-        stat_path = "fused" if stat_path is None else stat_path
-        if batch.dtype != torch.float32:
-            # the draws are float32 (ROADMAP Queue 1 item 12): a float64
-            # batch runs only what draws nothing, the fixed "det" block, on
-            # the einsum path (the kernels take float32)
-            drawn = (set(include) - {"det"} or noise_sample or white_sample
-                     or roemer_sample or cgw_sample)
-            if batch.dtype != torch.float64 or drawn:
-                raise TypeError(_F64_ONLY.format(batch.dtype))
+        if batch.dtype not in rng.DTYPES:
+            raise TypeError(f"the engine runs float32 or float64 batches, "
+                            f"got {batch.dtype}")
+        if stat_path is None:
+            # a float64 batch's default is the JAX default path (XLA, the
+            # port's einsum): the kernel paths take float32
+            stat_path = "fused" if batch.dtype == torch.float32 else "einsum"
         if stat_path not in STAT_PATHS:
             raise ValueError(f"stat_path must be one of {STAT_PATHS}, got "
                              f"{stat_path!r}")
@@ -1360,6 +1384,13 @@ class EnsembleSimulator:
         self.last_report: Optional[RunReport] = None
         self._lnl_compiled: dict = {}     # LikelihoodSpec -> compiled model
         self._chunk_costs: dict = {}      # chunk_cost's memo
+        # the cards whose library workspaces are the fixed term beside the
+        # chunk model (none on a host mesh, which has no device allocator);
+        # their workspace sizes are measured here, on the constructing
+        # thread, once per process
+        self._cards = [d for d in mesh.local_devices if d.type == "cuda"]
+        for d in self._cards:
+            memwatch.workspace_sizes(d)
         self.batch = batch = batch.to(self.device)
         self.nbins = nbins
         dtype = batch.dtype
@@ -1446,6 +1477,26 @@ class EnsembleSimulator:
     @property
     def include(self) -> Tuple[bool, ...]:
         return self._include
+
+    @property
+    def static_reservation_bytes(self) -> Optional[int]:
+        """The fixed device bytes beside the chunk model, now: the cuBLAS
+        and cuBLASLt workspaces present on this simulator's cards
+        (:func:`..obs.memwatch.library_workspace_bytes`; one set per
+        (thread, stream) that ran a product in this process, this
+        simulator's own tensors excluded), where the JAX engine reads its
+        compiled program's reservation; None on a host mesh."""
+        return self._static_reservation()
+
+    def _static_reservation(self, *extra) -> Optional[int]:
+        """:attr:`static_reservation_bytes`, also excluding the tensors
+        reachable from ``extra`` (a run's lanes and outputs)."""
+        if not self._cards:
+            return None
+        own = memwatch.device_tensor_ptrs(
+            (self.batch, self._full, self._shards, self._stat_weights,
+             self._counts, self._mega_tables, extra))
+        return memwatch.library_workspace_bytes(self._cards, exclude=own)
 
     def _resolve_sampling(self, batch, host, include, gwb_cfgs,
                           noise_sample, white_sample, toaerr2,
@@ -2317,9 +2368,10 @@ class EnsembleSimulator:
         this returns ``{"bytes_per_chunk": model_bytes_per_chunk(...),
         "flops_per_chunk": ...}`` (:meth:`_chunk_flops`: the projection
         and the statistic, with the OS lane's slots and its null stream;
-        the likelihood lane's factorizations are not counted). Memoized per
-        (chunk, path, precision, lane); :meth:`clear_executables` drops
-        the memo."""
+        the likelihood lane's factorizations are not counted), memoized
+        per (chunk, path, precision, lane) (:meth:`clear_executables` drops
+        the memo), and on a card :attr:`static_reservation_bytes`, read at
+        the call."""
         chunk = self._normalize_chunk(chunk, chunk)
         path = "einsum" if keep_corr else self.stat_path
         prec = self._resolve_precision(path, precision)
@@ -2341,7 +2393,11 @@ class EnsembleSimulator:
                                                               prec),
                 "flops_per_chunk": self._chunk_flops(chunk, path, n_os,
                                                      null)}
-        return dict(self._chunk_costs[key])
+        cost = dict(self._chunk_costs[key])
+        static = self.static_reservation_bytes
+        if static is not None:
+            cost["static_reservation_bytes"] = static
+        return cost
 
     def warm_start(self, chunk: int, *, keep_corr: bool = False, os=None,
                    lnlike=None, precision=None, lane_keys: bool = False,
@@ -2496,7 +2552,9 @@ class EnsembleSimulator:
         dispatch, read once the chunk's output has landed), the run
         timeline, ``model_bytes_per_chunk``, the allocator's peak over the
         mesh's CUDA devices (``memory["peak_hbm_bytes"]``; the run resets
-        each device's peak counter when it starts) and the ring
+        each device's peak counter when it starts), the fixed library
+        workspaces inside it (``memory["static_reservation_bytes"]``, on
+        a card) and the ring
         accounting, whose bound the run asserts before it returns. A run
         that raises dumps the flight recorder beside its checkpoint
         (:mod:`..obs.flightrec`).
@@ -3087,6 +3145,12 @@ class EnsembleSimulator:
         if memory.get("peak_bytes_in_use"):
             memory["peak_hbm_bytes"] = memory["peak_bytes_in_use"]
             memory["peak_hbm_source"] = "allocator"
+        static = self._static_reservation(stat_lanes, packed_out, corr_out)
+        if static is not None:
+            # the fixed term inside that peak: the library workspaces
+            # present at the run's end (a run's thread takes its own at its
+            # first product, and none is ever freed)
+            memory["static_reservation_bytes"] = static
         report = RunReport.from_collector(
             collector, meta, retraces=0, total_s=total_s,
             cost={"model_bytes_per_chunk": self.model_bytes_per_chunk(

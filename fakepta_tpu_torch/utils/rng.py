@@ -41,6 +41,8 @@ import torch
 from ..device import DeviceLike, resolve_device
 
 M32 = 0xFFFFFFFF
+#: the draws' dtypes: jax.random's float32 default and its x64 mode
+DTYPES = (torch.float32, torch.float64)
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 

@@ -1900,3 +1900,123 @@ def test_golden_run_on_the_card(cuda):
     assert row["serve_steady_compiles"] == 0
     assert row["faults_degradations"] == 0
     assert np.isfinite(row["value"]) and row["value"] > 0
+
+
+def _f64_engine(device, npsr=8, ntoa=64):
+    """A float64 simulator with every noise stage, the noise and white
+    samplers, the HD GWB and the sampled Roemer and CGW terms (the
+    float64 path's whole program), on ``device``."""
+    from fakepta_tpu_torch.parallel import montecarlo as tmc
+
+    base = PulsarBatch.synthetic(npsr=npsr, ntoa=ntoa, tspan_years=10.0,
+                                 n_red=4, n_dm=4, n_chrom=3,
+                                 chrom_log10_A=-14.0, seed=1,
+                                 dtype=torch.float64, device="cpu")
+    leaves = base.numpy()
+    p, t = leaves["t_own"].shape
+    leaves["epoch_idx"] = np.tile(np.arange(t) // 2, (p, 1))
+    leaves["ecorr_amp"] = np.full((p, t), 3e-7)
+    sys_mask = np.zeros((p, 2, t), bool)
+    sys_mask[:, 0, : t // 2] = True
+    sys_mask[:, 1, t // 2:] = True
+    leaves["sys_mask"] = sys_mask
+    tspan = float(leaves["tspan_common"])
+    band = spectrum_lib.powerlaw(np.arange(1, 4) / tspan, -14.5, 2.5).numpy()
+    leaves["sys_psd"] = np.stack([band, 0.5 * band])[None].repeat(p, 0)
+    batch = PulsarBatch.from_numpy(leaves, device=device)
+    f = np.arange(1, 5) / tspan
+    toas_abs = 53000 * 86400.0 + np.linspace(0.0, tspan, t)[None].repeat(
+        p, 0)
+    return tmc.EnsembleSimulator(
+        batch, gwb=GWBConfig(psd=spectrum_lib.powerlaw(f, -13.5,
+                                                       13 / 3).numpy()),
+        noise_sample=[tmc.NoiseSampling("red", log10_A=(-15.0, -13.0),
+                                        gamma=(2.0, 5.0)),
+                      tmc.NoiseSampling("gwb", log10_A=(-15.0, -14.0),
+                                        gamma=(4.0, 5.0))],
+        white_sample=tmc.WhiteSampling(efac=(0.5, 2.5),
+                                       log10_tnequad=(-8.0, -6.0),
+                                       log10_ecorr=(-7.5, -6.5)),
+        toaerr2=leaves["sigma2"],
+        roemer_sample=tmc.RoemerSampling("jupiter", s_mass=1.5e23,
+                                         s_Om=2e-4),
+        cgw_sample=tmc.CGWSampling(psrterm=True, sample_pdist=True,
+                                   tref=53000 * 86400.0),
+        toas_abs=toas_abs,
+        pdist=np.column_stack([np.linspace(0.6, 1.8, p), np.full(p, 0.1)]),
+        device=device)
+
+
+@pytest.mark.cuda
+def test_float64_einsum_on_the_card_matches_the_cpu(cuda):
+    """The float64 path on the card: its default einsum path, every stage
+    and sampler, within 1e-12 of the CPU run's curve scale (float64
+    residuals whose pair sums both round to float32), correlations too;
+    the kernel paths refuse the batch."""
+    card, host = _f64_engine("cuda"), _f64_engine("cpu")
+    assert card.stat_path == "einsum" and card.include == (True,) * 7
+    got = card.run(16, seed=5, chunk=8, keep_corr=True)
+    want = host.run(16, seed=5, chunk=8, keep_corr=True)
+    assert got["curves"].dtype == np.float64
+    for key in ("curves", "corr"):
+        np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                   atol=1e-12 * np.abs(want[key]).max())
+    np.testing.assert_allclose(got["autos"], want["autos"], rtol=1e-12)
+    for path in ("fused", "mega"):
+        with pytest.raises(TypeError, match="runs float32 batches"):
+            EnsembleSimulator(card.batch, stat_path=path, device="cuda")
+
+
+@pytest.mark.cuda
+def test_float64_facade_array_on_the_card_matches_the_cpu(cuda):
+    """A float64 array fabricated on the card (white, red, DM, the
+    correlated GWB) against the same seeds on the CPU, within 1e-12 of
+    each pulsar's residual scale."""
+    from fakepta_tpu_torch import correlated_noises as cn
+    from fakepta_tpu_torch import fake_pta
+
+    kw = dict(npsrs=6, Tobs=10, ntoas=120, gaps=False, toaerr=1e-6,
+              pdist=1.0, backends="NUPPI", seed=21, dtype=torch.float64,
+              custom_model={"RN": 10, "DM": 20, "Sv": None})
+    arrays = {}
+    for dev in ("cuda", "cpu"):
+        psrs = fake_pta.make_fake_array(**kw, device=dev)
+        cn.add_common_correlated_noise(psrs, orf="hd", log10_A=-14.0,
+                                       gamma=13 / 3, components=8, seed=3)
+        arrays[dev] = [p.residuals for p in psrs]
+    for got, want in zip(arrays["cuda"], arrays["cpu"]):
+        assert got.dtype == want.dtype == np.float64
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_static_reservation_reported_on_the_card(cuda):
+    """The engine's fixed term on the card: the library workspaces present
+    (at least the set this thread's stream holds), in chunk_cost and in
+    the run's memory fields, and inside the run's allocator peak; a run
+    on a new thread adds at most that thread's workspaces."""
+    import threading
+
+    from fakepta_tpu_torch.obs.memwatch import workspace_sizes
+
+    sim = EnsembleSimulator(
+        PulsarBatch.synthetic(npsr=8, ntoa=64, n_red=4, n_dm=4, seed=2,
+                              device="cuda"), stat_path="einsum",
+        device="cuda")
+    sizes = workspace_sizes("cuda")            # (cuBLAS, cuBLASLt)
+    assert min(sizes) > 0
+    static = sim.static_reservation_bytes
+    assert static >= sum(sizes)
+    assert sim.chunk_cost(8)["static_reservation_bytes"] == static
+    rep = sim.run(8, seed=1, chunk=8)["report"]
+    assert rep.memory["static_reservation_bytes"] == static
+    assert rep.memory["peak_hbm_bytes"] >= static
+    worker = threading.Thread(target=lambda: sim.run(8, seed=1, chunk=8))
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive()
+    # a new thread's handle takes its own cuBLAS workspace (unless it
+    # reuses a finished thread's handle, whose workspace it then reuses)
+    assert sim.static_reservation_bytes - static in (0, sizes[0],
+                                                     sum(sizes))
