@@ -225,12 +225,8 @@ def _resolve_common_psd(spectrum, f_psd, custom_psd, kwargs, dtype):
         return np.asarray(custom_psd, dtype=np.float64), {}
     if spectrum not in spectrum_lib.SPECTRA:
         raise KeyError(f"unknown spectrum {spectrum!r}")
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    args = {k: np.asarray(v, dtype=np_dtype) if np.ndim(v) else v
-            for k, v in kwargs.items()}
-    psd = spectrum_lib.evaluate_host(
-        spectrum, np.asarray(f_psd, dtype=np_dtype), **args)
-    return psd, kwargs
+    return spectrum_lib.evaluate_host_at(spectrum, f_psd, dtype,
+                                         **kwargs), kwargs
 
 
 def _common_grid(psrs, components, f_psd):
@@ -431,7 +427,8 @@ def add_common_correlated_noise_gp(psrs, orf="hd", spectrum="powerlaw",
     # covariance's own scale before factorizing
     jitter = 1e-10 * np.mean(np.diag(cov))
     chol = np.linalg.cholesky(cov + jitter * np.eye(total))
-    # float32 is the draw's default dtype
+    # at float32 the draw stays the two-argument call it has always been
+    # (the float32 tests stub it with that signature)
     z = (rng_utils.normal(key.cpu(), (total,)) if dtype == torch.float32
          else rng_utils.normal(key.cpu(), (total,), dtype=dtype))
     z = z.numpy().astype(np.float64)

@@ -30,8 +30,8 @@ Device rule: ``Pulsar``, ``make_fake_array`` and ``copy_array`` take
 ``torch.float64``; ``copy_array`` defaults to its sources'). Residuals stay
 on the device between injections; reading ``.residuals`` gives a writable
 host array. Host state stays numpy, so a pickle holds no tensor; an
-unpickled pulsar injects on the default device at float32, the
-constructor's defaults.
+unpickled pulsar injects on the default device (or ``load_array``'s) at
+the dtype it was built at.
 """
 
 from __future__ import annotations
@@ -173,7 +173,7 @@ class Pulsar:
 
     #: the residuals' and draws' dtype: this class default, or the
     #: instance's own when it was built at float64 (the instance attribute
-    #: set stays the JAX facade's for the default)
+    #: set, and so the pickled one, stays the JAX facade's for the default)
     _dtype = F32
 
     def __init__(self, toas, toaerr, theta, phi, pdist=(1.0, 0.2),
@@ -555,11 +555,8 @@ class Pulsar:
                     f"PSD parameters for {signal} must be in the noisedict "
                     f"or passed as keyword arguments (missing {exc})"
                 ) from exc
-        np_dtype = np.float32 if self._dtype == F32 else np.float64
-        args = {k: np.asarray(v, dtype=np_dtype) if np.ndim(v) else v
-                for k, v in kwargs.items()}
-        psd = spectrum_lib.evaluate_host(
-            spectrum, np.asarray(f_psd, dtype=np_dtype), **args)
+        psd = spectrum_lib.evaluate_host_at(spectrum, f_psd, self._dtype,
+                                            **kwargs)
         return psd, kwargs
 
     def add_red_noise(self, spectrum="powerlaw", f_psd=None, seed=None,
@@ -895,11 +892,13 @@ class Pulsar:
 
     # pickling: host float64 residuals and host signal_model (the
     # ENTERPRISE contract); the key stream, waveform callables, phase
-    # tables, device and dtype are not stored
+    # tables and device are not stored. A float64 pulsar keeps its dtype
+    # (its instance attribute), so it injects at float64 after a reload;
+    # at float32 the stored attributes are the JAX facade's
     def __getstate__(self):
         state = dict(self.__dict__)
         for k in ("_res_host", "_res_dev", "_phase_cache",
-                  "_phase_cache_bytes", "_device", "_dtype"):
+                  "_phase_cache_bytes", "_device"):
             state.pop(k, None)
         state["residuals"] = np.asarray(self.residuals, dtype=np.float64)
         state["signal_model"] = _host_tree(self.signal_model)

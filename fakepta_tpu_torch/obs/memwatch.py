@@ -27,15 +27,18 @@ allocator peak holds outside its own tensors. On the card they are the
 cuBLAS and cuBLASLt workspaces that torch takes from the caching
 allocator for each (thread, stream) at its first product and keeps for
 the life of the process (32 MiB and 1 MiB on an H100 under torch 2.11),
-so the peak counts them whatever the run's size.
+so the peak counts them whatever the run's size. It is per card, to pair
+with that card's peak; :class:`WorkspaceTerm` keeps it between reads, so
+a run takes an allocator snapshot only when the term may have grown.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import threading
 import weakref
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -58,25 +61,36 @@ def _cuda_devices(devices):
     return seen
 
 
+def device_stats(devices) -> Dict[int, Dict[str, int]]:
+    """Allocator stats of each CUDA device in ``devices``, by card index
+    (empty for host devices): one ``torch.cuda.memory_stats`` read each,
+    with the cumulative count of the allocator's device allocations
+    (``device_allocs``: ``cudaMalloc`` calls) beside :data:`STAT_KEYS`."""
+    out: Dict[int, Dict[str, int]] = {}
+    for d in _cuda_devices(devices):
+        st = torch.cuda.memory_stats(d)
+        out[d.index] = {
+            "bytes_in_use": int(st.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(st.get("allocated_bytes.all.peak", 0)),
+            "bytes_limit": int(torch.cuda.get_device_properties(
+                d).total_memory),
+            "device_allocs": int(st.get("num_device_alloc", 0))}
+    return out
+
+
 def local_device_stats(devices) -> Dict[str, int]:
     """Max-over-devices allocator stats of the CUDA devices in ``devices``
     (empty for host devices)."""
     out: Dict[str, int] = {}
-    for d in _cuda_devices(devices):
-        stats = {"bytes_in_use": torch.cuda.memory_allocated(d),
-                 "peak_bytes_in_use": torch.cuda.max_memory_allocated(d),
-                 "bytes_limit": torch.cuda.get_device_properties(
-                     d).total_memory}
+    for stats in device_stats(devices).values():
         for k in STAT_KEYS:
-            out[k] = max(out.get(k, 0), int(stats[k]))
+            out[k] = max(out.get(k, 0), stats[k])
     return out
 
 
-# one measurement per process and card: the workspace sizes are a property
-# of the process's torch build, its environment and the card, not of a run;
-# a probe stream is kept with its workspaces (the count below includes them)
-_SIZES: Dict[torch.device, tuple] = {}
-_PROBE_STREAMS: list = []
+# one probe per process and card: the workspace sizes are a property of the
+# process's torch build, its environment and the card, not of a run
+_SIZES: Dict[torch.device, Optional[frozenset]] = {}
 _SIZES_LOCK = threading.Lock()
 
 
@@ -87,50 +101,48 @@ def _card(device) -> torch.device:
     return dev
 
 
-def _gemm_growth(dev: torch.device) -> tuple:
-    """Allocated bytes on ``dev`` that one cuBLAS product and one cuBLASLt
-    product (``addmm`` with a bias) on the current stream each leave
-    behind once their operands and results are freed: the workspace the
-    stream takes at its first product of each library, or 0 for a library
-    whose workspace it already held."""
-    torch.cuda.synchronize(dev)
-    a = torch.ones((8, 8), device=dev)
-    bias = torch.ones((8,), device=dev)
-    grown = []
-    for product in (lambda: a @ a, lambda: torch.addmm(bias, a, a)):
-        before = torch.cuda.memory_allocated(dev)
-        out = product()
+def _probe_sizes(dev: torch.device) -> Optional[frozenset]:
+    """One cuBLAS product and one cuBLASLt product (``addmm`` with a bias)
+    on a stream created for the probe (``cudaStreamCreate``, not one of
+    torch's pooled streams, so no handle has a workspace for it yet); the
+    blocks still allocated on that stream's segments once the operands and
+    results are freed are the workspaces torch took for it. Other threads
+    allocate on their own streams' segments, so they do not enter. None
+    when the stream cannot be made."""
+    handle = ctypes.c_void_p()
+    with torch.cuda.device(dev):
         torch.cuda.synchronize(dev)
-        del out
-        grown.append(torch.cuda.memory_allocated(dev) - before)
-    return tuple(grown)
+        cudart = torch.cuda.cudart()
+        err = cudart.cudaStreamCreate(ctypes.addressof(handle))
+        if err != cudart.cudaError.success:
+            return None
+        probe = torch.cuda.ExternalStream(handle.value, device=dev)
+        with torch.cuda.stream(probe):
+            a = torch.ones((8, 8), device=dev)
+            bias = torch.ones((8,), device=dev)
+            out = [a @ a, torch.addmm(bias, a, a)]
+            probe.synchronize()
+            del a, bias, out
+    return frozenset(
+        blk["size"] for seg in torch.cuda.memory_snapshot()
+        if seg["device"] == dev.index and seg["stream"] == handle.value
+        for blk in seg["blocks"] if blk["state"] == "active_allocated")
 
 
-def workspace_sizes(device) -> tuple:
-    """(cuBLAS, cuBLASLt) workspace bytes a stream takes on ``device`` at
-    its first product of each library, measured once per process and card
-    as the allocated-bytes growth across one product of each: on the
-    current stream where it holds none yet (its workspaces then are the
-    ones its runs would take anyway), else on a new stream, which keeps
-    its workspaces (one more idle set, which :func:`library_workspace_bytes`
-    counts). Nothing is freed."""
+def workspace_sizes(device) -> Optional[frozenset]:
+    """The block sizes of the library workspaces torch takes for a (thread,
+    stream) on ``device`` at its first cuBLAS and cuBLASLt product (32 MiB
+    and 1 MiB on an H100 under torch 2.11; empty under a zero workspace
+    configuration), measured once per process and card by
+    :func:`_probe_sizes`, or None when it could not be. The probe's stream
+    and its workspaces stay for the life of the process (torch frees no
+    workspace): one idle set, which :func:`library_workspace_bytes`
+    counts."""
     dev = _card(device)
     with _SIZES_LOCK:
-        got = _SIZES.get(dev)
-        if got is None:
-            with torch.cuda.device(dev):
-                got = _gemm_growth(dev)
-                if 0 in got:
-                    probe = torch.cuda.Stream(dev)
-                    _PROBE_STREAMS.append(probe)
-                    with torch.cuda.stream(probe):
-                        got = _gemm_growth(dev)
-            if 0 in got:
-                raise RuntimeError(
-                    f"no library workspace measured on {dev} ({got} bytes): "
-                    f"the fixed term of the memory accounting is unknown")
-            _SIZES[dev] = got
-        return got
+        if dev not in _SIZES:
+            _SIZES[dev] = _probe_sizes(dev)
+        return _SIZES[dev]
 
 
 def device_tensor_ptrs(obj, out=None) -> set:
@@ -152,11 +164,13 @@ def device_tensor_ptrs(obj, out=None) -> set:
     return out
 
 
-def workspace_block_bytes(segments, sizes: dict, exclude=()) -> int:
-    """Bytes of the live blocks of an allocator snapshot's ``segments``
-    (``torch.cuda.memory_snapshot()``) whose size is one of ``sizes[device
-    index]``, less any block holding a pointer of ``exclude``."""
-    total = 0
+def workspace_block_bytes(segments, sizes: dict,
+                          exclude=()) -> Dict[int, int]:
+    """Bytes, by card index, of the live blocks of an allocator snapshot's
+    ``segments`` (``torch.cuda.memory_snapshot()``) whose size is one of
+    ``sizes[card index]``, less any block holding a pointer of
+    ``exclude``; every card of ``sizes`` has an entry."""
+    total = {i: 0 for i in sizes}
     for seg in segments:
         want = sizes.get(seg["device"])
         if not want:
@@ -165,25 +179,73 @@ def workspace_block_bytes(segments, sizes: dict, exclude=()) -> int:
             lo, size = blk["address"], blk["size"]
             if blk["state"] == "active_allocated" and size in want and \
                     not any(lo <= p < lo + size for p in exclude):
-                total += size
+                total[seg["device"]] += size
     return total
 
 
-def library_workspace_bytes(devices, exclude=()) -> int:
-    """The cuBLAS and cuBLASLt workspaces present on the CUDA devices of
-    ``devices`` (0 for host devices): the caching allocator's live blocks
-    whose size is a workspace size measured on that card
-    (:func:`workspace_sizes`), less any block holding a pointer of
-    ``exclude`` (the caller's own tensors). torch keeps one set per
-    (thread, stream) that ran a product, for the life of the process, so
-    a process that ran products on several threads holds several; every
-    one of them is in the allocator's peak."""
+def library_workspace_bytes(devices, exclude=()) -> Dict[int, Optional[int]]:
+    """The cuBLAS and cuBLASLt workspaces present on each CUDA device of
+    ``devices``, by card index (empty for host devices): the caching
+    allocator's live blocks whose size is a workspace size measured on
+    that card (:func:`workspace_sizes`; None for a card where it could not
+    be), less any block holding a pointer of ``exclude`` (the caller's own
+    tensors). torch keeps one set per (thread, stream) that ran a product,
+    for the life of the process, so a process that ran products on
+    several threads holds several; every one of them is in that card's
+    allocator peak."""
     cards = _cuda_devices(devices)
-    if not cards:
-        return 0
-    sizes = {d.index: set(workspace_sizes(d)) for d in cards}
-    return workspace_block_bytes(torch.cuda.memory_snapshot(), sizes,
-                                 exclude)
+    sizes = {d.index: workspace_sizes(d) for d in cards}
+    known = {i: s for i, s in sizes.items() if s is not None}
+    got = (workspace_block_bytes(torch.cuda.memory_snapshot(), known,
+                                 exclude) if known else {})
+    return {i: got.get(i) for i in sizes}
+
+
+class WorkspaceTerm:
+    """:func:`library_workspace_bytes` of a set of cards, kept between
+    reads.
+
+    A workspace set appears only when a (thread, stream) runs its first
+    product, so :meth:`read` takes a new allocator snapshot only when the
+    calling thread, its current streams or the cards' count of device
+    allocations (``device_allocs``) changed since the last one, and
+    otherwise returns the last value. A set that another thread took from
+    a block the allocator already held shows at the next snapshot; until
+    then the term reads low, which makes a bound on ``peak / (model +
+    term)`` stricter, never looser.
+    """
+
+    def __init__(self, devices):
+        self.cards = _cuda_devices(devices)
+        self._key = None
+        self._value: Dict[int, Optional[int]] = {}
+
+    def measure(self) -> None:
+        """Measure the cards' workspace sizes now (:func:`workspace_sizes`;
+        a no-op once they are known): a caller that resets an allocator
+        peak calls this first, so the probe's set is inside that peak."""
+        for d in self.cards:
+            workspace_sizes(d)
+
+    def read(self, exclude: Callable[[], set],
+             device_allocs: Optional[Dict[int, int]] = None,
+             ) -> Dict[int, Optional[int]]:
+        """The term by card index; ``exclude()`` gives the caller's own
+        tensors' pointers, and ``device_allocs`` (by card index) the
+        allocation counts where the caller has just read them."""
+        if not self.cards:
+            return {}
+        if device_allocs is None:
+            device_allocs = {i: s["device_allocs"]
+                             for i, s in device_stats(self.cards).items()}
+        key = (threading.get_ident(),
+               tuple(torch.cuda.current_stream(d).cuda_stream
+                     for d in self.cards),
+               tuple(device_allocs[d.index] for d in self.cards))
+        if key != self._key:
+            self._value = library_workspace_bytes(self.cards, exclude())
+            self._key = key
+        return dict(self._value)
 
 
 class HbmSampler:
@@ -191,11 +253,15 @@ class HbmSampler:
 
     ``start()`` resets each device's peak counter (returns False, and does
     nothing, on a mesh of host devices); ``stop()`` returns the
-    max-aggregated stats (``hbm_samples`` counts the devices read).
+    max-aggregated stats (``hbm_samples`` counts the devices read) and
+    keeps each card's (``per_device``, :func:`device_stats`) and the index
+    of the card whose peak is the reported one (``peak_device``).
     """
 
     def __init__(self, devices):
         self.devices = _cuda_devices(devices)
+        self.per_device: Dict[int, Dict[str, int]] = {}
+        self.peak_device: Optional[int] = None
 
     def start(self) -> bool:
         for d in self.devices:
@@ -204,6 +270,9 @@ class HbmSampler:
 
     def stop(self) -> Dict[str, int]:
         out = local_device_stats(self.devices)
+        self.per_device = per = device_stats(self.devices)
+        self.peak_device = (max(per, key=lambda i: per[i]["peak_bytes_in_use"])
+                            if per else None)
         if out:
             out["hbm_samples"] = len(self.devices)
             # the live watermark for the telemetry plane (the hbm_watermark

@@ -1384,13 +1384,10 @@ class EnsembleSimulator:
         self.last_report: Optional[RunReport] = None
         self._lnl_compiled: dict = {}     # LikelihoodSpec -> compiled model
         self._chunk_costs: dict = {}      # chunk_cost's memo
-        # the cards whose library workspaces are the fixed term beside the
-        # chunk model (none on a host mesh, which has no device allocator);
-        # their workspace sizes are measured here, on the constructing
-        # thread, once per process
-        self._cards = [d for d in mesh.local_devices if d.type == "cuda"]
-        for d in self._cards:
-            memwatch.workspace_sizes(d)
+        # the library workspaces on the mesh's cards, the fixed term beside
+        # the chunk model (none on a host mesh, which has no device
+        # allocator); measured at its first read
+        self._workspaces = memwatch.WorkspaceTerm(mesh.local_devices)
         self.batch = batch = batch.to(self.device)
         self.nbins = nbins
         dtype = batch.dtype
@@ -1480,23 +1477,29 @@ class EnsembleSimulator:
 
     @property
     def static_reservation_bytes(self) -> Optional[int]:
-        """The fixed device bytes beside the chunk model, now: the cuBLAS
-        and cuBLASLt workspaces present on this simulator's cards
+        """The fixed device bytes beside the per-device chunk model, now:
+        the cuBLAS and cuBLASLt workspaces present on the card of this
+        simulator's mesh that holds the most
         (:func:`..obs.memwatch.library_workspace_bytes`; one set per
         (thread, stream) that ran a product in this process, this
         simulator's own tensors excluded), where the JAX engine reads its
-        compiled program's reservation; None on a host mesh."""
-        return self._static_reservation()
-
-    def _static_reservation(self, *extra) -> Optional[int]:
-        """:attr:`static_reservation_bytes`, also excluding the tensors
-        reachable from ``extra`` (a run's lanes and outputs)."""
-        if not self._cards:
+        compiled program's reservation; None on a host mesh, or where the
+        workspace sizes could not be measured."""
+        terms = self._workspace_terms()
+        if not terms or None in terms.values():
             return None
-        own = memwatch.device_tensor_ptrs(
-            (self.batch, self._full, self._shards, self._stat_weights,
-             self._counts, self._mega_tables, extra))
-        return memwatch.library_workspace_bytes(self._cards, exclude=own)
+        return max(terms.values())
+
+    def _workspace_terms(self, *extra, device_allocs=None) -> dict:
+        """The library workspaces by card index
+        (:class:`..obs.memwatch.WorkspaceTerm`), excluding this simulator's
+        tensors and those reachable from ``extra`` (a run's lanes and
+        outputs); empty on a host mesh."""
+        return self._workspaces.read(
+            lambda: memwatch.device_tensor_ptrs(
+                (self.batch, self._full, self._shards, self._stat_weights,
+                 self._counts, self._mega_tables, extra)),
+            device_allocs)
 
     def _resolve_sampling(self, batch, host, include, gwb_cfgs,
                           noise_sample, white_sample, toaerr2,
@@ -2370,8 +2373,8 @@ class EnsembleSimulator:
         and the statistic, with the OS lane's slots and its null stream;
         the likelihood lane's factorizations are not counted), memoized
         per (chunk, path, precision, lane) (:meth:`clear_executables` drops
-        the memo), and on a card :attr:`static_reservation_bytes`, read at
-        the call."""
+        the memo), and on a card :attr:`static_reservation_bytes` as it
+        stands at the call."""
         chunk = self._normalize_chunk(chunk, chunk)
         path = "einsum" if keep_corr else self.stat_path
         prec = self._resolve_precision(path, precision)
@@ -2554,7 +2557,7 @@ class EnsembleSimulator:
         mesh's CUDA devices (``memory["peak_hbm_bytes"]``; the run resets
         each device's peak counter when it starts), the fixed library
         workspaces inside it (``memory["static_reservation_bytes"]``, on
-        a card) and the ring
+        the peak's card) and the ring
         accounting, whose bound the run asserts before it returns. A run
         that raises dumps the flight recorder beside its checkpoint
         (:mod:`..obs.flightrec`).
@@ -2772,6 +2775,9 @@ class EnsembleSimulator:
         ledger = PackedLedger(chunk * (nb + 1 + n_extra)
                               * self.batch.dtype.itemsize,
                               ring_size, pipelined)
+        # the workspace probe (the first run's in this process) goes before
+        # the peak's reset, so its idle set is in the peak it is counted in
+        self._workspaces.measure()
         sampler = HbmSampler(self.mesh.local_devices)
         sampler.start()
         flightrec.note("run_start", spec_hash=flightrec.spec_hash(meta),
@@ -3145,11 +3151,15 @@ class EnsembleSimulator:
         if memory.get("peak_bytes_in_use"):
             memory["peak_hbm_bytes"] = memory["peak_bytes_in_use"]
             memory["peak_hbm_source"] = "allocator"
-        static = self._static_reservation(stat_lanes, packed_out, corr_out)
+        static = self._workspace_terms(
+            stat_lanes, packed_out, corr_out, device_allocs={
+                i: st["device_allocs"]
+                for i, st in sampler.per_device.items()}).get(
+            sampler.peak_device)
         if static is not None:
-            # the fixed term inside that peak: the library workspaces
-            # present at the run's end (a run's thread takes its own at its
-            # first product, and none is ever freed)
+            # the fixed term inside that peak, on the peak's card: the
+            # library workspaces present at the run's end (a run's thread
+            # takes its own at its first product, and none is ever freed)
             memory["static_reservation_bytes"] = static
         report = RunReport.from_collector(
             collector, meta, retraces=0, total_s=total_s,

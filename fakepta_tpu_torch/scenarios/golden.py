@@ -359,11 +359,12 @@ def memory_lane(name: str = "ska_10k", *, chunk: int = 32,
     path and compares the run's allocator peak (``peak_hbm_bytes``, the
     max over the mesh's cards) with the engine's analytic per-device
     ``model_bytes_per_chunk`` plus the fixed library workspaces the run
-    reports (``static_reservation_bytes``: cuBLAS's and cuBLASLt's, one set
-    per (thread, stream) that ran a product in the process, which the peak
-    counts whatever the run's size; the JAX lane's stat-less watermark is
-    its static reservation plus the model's extra bytes). The
-    contract: ``ratio = peak / (model + static) <= bound_factor`` and
+    reports on that peak's card (``static_reservation_bytes``: cuBLAS's
+    and cuBLASLt's, one set per (thread, stream) that ran a product in the
+    process, which the peak counts whatever the run's size; the JAX lane's
+    stat-less watermark is its static reservation plus the model's extra
+    bytes). A run that could not measure the term reports none, and the
+    lane then raises. The contract: ``ratio = peak / (model + static) <= bound_factor`` and
     ``ratio > 0`` at every point through the scenario's endpoint; each
     point keeps the raw peak and the fixed term beside the ratio. Each
     point also carries the bytes allocated on the cards once the simulator
@@ -392,6 +393,11 @@ def memory_lane(name: str = "ska_10k", *, chunk: int = 32,
         build_s = time.perf_counter() - t0
         resident = max(torch.cuda.memory_allocated(d) for d in cards)
         out = sim.run(chunk, seed=seed, chunk=chunk)
+        if "static_reservation_bytes" not in out["report"].memory:
+            raise RuntimeError(
+                f"the {n}-pulsar run reported no fixed term (the library "
+                f"workspace sizes could not be measured on {cards}): its "
+                f"peak cannot be held to the model")
         points.append(lane_point(out["report"], n, chunk, bound_factor))
         points[-1].update({
             "resident_bytes": float(resident),

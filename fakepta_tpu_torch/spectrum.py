@@ -189,3 +189,17 @@ def evaluate_host(spectrum: str, f, **kwargs) -> np.ndarray:
     """:func:`evaluate` on the CPU, returned as a numpy array."""
     f = _t(f).cpu()
     return evaluate(spectrum, f, **kwargs).numpy()
+
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def evaluate_host_at(spectrum: str, f, dtype: torch.dtype,
+                     **kwargs) -> np.ndarray:
+    """:func:`evaluate_host` at ``dtype`` (float32 or float64): ``f`` and
+    the array-valued ``kwargs`` are cast to it first, scalars stay Python
+    numbers."""
+    np_dtype = _NP_DTYPES[dtype]
+    args = {k: np.asarray(v, dtype=np_dtype) if np.ndim(v) else v
+            for k, v in kwargs.items()}
+    return evaluate_host(spectrum, np.asarray(f, dtype=np_dtype), **args)

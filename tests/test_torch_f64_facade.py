@@ -290,24 +290,32 @@ def test_joint_covariance_draw_matches_jax_x64():
 
 
 def test_float64_pickle_round_trip(tmp_path):
-    """A float64 pulsar pickles the JAX attribute set with float64
-    residuals and coefficients, bit for bit; the loaded pulsar injects at
-    the constructor's float32 default, and ``copy_array(dtype=...)``
-    replays it at float64, draw for draw with the JAX replay."""
+    """A float64 pulsar pickles the JAX attribute set and its dtype, with
+    float64 residuals and coefficients, bit for bit; the loaded pulsar
+    (through ``save_array`` / ``load_array`` too) injects at float64, and
+    ``copy_array`` replays it at its float64, draw for draw with the JAX
+    replay."""
+    from fakepta_tpu_torch.utils.io import load_array, save_array
+
     jp, tp = _pair(_toas(n=50), 1e-6, 0.9, 0.3, seed=4, custom_model=CM)
     for p in (jp, tp):
         p.add_white_noise()
         p.add_dm_noise(log10_A=-13.9, gamma=2.2)
-    assert set(tp.__getstate__()) == set(jp.__getstate__())
+    assert set(tp.__getstate__()) == set(jp.__getstate__()) | {"_dtype"}
     res, four = tp.residuals.copy(), tp.signal_model["dm_gp"]["fourier"]
     back = pickle.loads(pickle.dumps([tp]))[0]
     assert back.residuals.dtype == np.float64
     np.testing.assert_array_equal(back.residuals, res)
     np.testing.assert_array_equal(back.signal_model["dm_gp"]["fourier"],
                                   four)
-    assert back._dtype == torch.float32
+    assert back._dtype == F64
+    loaded = load_array(save_array([tp], tmp_path / "psrs.pkl"),
+                        device="cpu")[0]
+    assert loaded._dtype == F64
+    loaded.add_white_noise(seed=2)
+    assert loaded._res_current().dtype == F64
     jback = pickle.loads(pickle.dumps([jp]))[0]
-    again_t = tfp.copy_array([back], seed=1, device="cpu", dtype=F64)[0]
+    again_t = tfp.copy_array([back], seed=1, device="cpu")[0]
     again_j = jfp.copy_array([jback], seed=1)[0]
     for p in (again_t, again_j):
         p.add_red_noise(log10_A=-13.5, gamma=3.0)
