@@ -41,6 +41,54 @@ SCHEMA_V2 = "fakepta_tpu.obs/2"
 
 ACCEPTED_SCHEMAS = (SCHEMA, SCHEMA_V2)
 
+#: regex every library-emitted metric name must match (lowercase dotted
+#: words); the ``metric-name-discipline`` analysis rule enforces it
+METRIC_NAME_RE = r"^[a-z][a-z0-9_.]*$"
+
+#: Declared metric-name registry. Library calls to ``count``/``gauge``/
+#: ``observe`` and ``telemetry.publish`` pass a literal name from this table
+#: (audited by the ``metric-name-discipline`` analysis rule,
+#: docs/TORCH_INVARIANTS.md), so renaming a metric is a schema change made
+#: here. The JAX package's ``jax.*`` compile-event names have no
+#: counterpart; ``kernels.build_s`` is the port's own.
+METRIC_NAMES = frozenset({
+    # fleet lifecycle (serve/health.py, serve/fleet.py, serve/autoscale.py)
+    "fleet.scale_events", "fleet.heartbeat_misses", "fleet.breaker_opens",
+    "fleet.joins", "fleet.drains",
+    # serving plane (serve/scheduler.py)
+    "serve.stream_requests",
+    # streaming ingestion (stream/state.py, stream/refresh.py,
+    # detect/streaming.py)
+    "stream.detections", "stream.promotions", "stream.refreshes",
+    "stream.refresh_skips", "stream.recompiles", "stream.compiles",
+    "stream.rebuckets", "stream.appends", "stream.replays",
+    # factorized free-spectrum lanes (sample/factorized.py,
+    # stream/refresh.py)
+    "sample.lane_runs", "stream.fs_refreshes", "stream.fs_lanes_refreshed",
+    "stream.fs_bins_touched",
+    # engine chunk accounting + pipeline overlap counters
+    # (parallel/montecarlo.py, sample/run.py)
+    "obs.chunks", "pipeline.d2h_async", "pipeline.h2d_prefetch",
+    # recovery ladder (stream/state.py, parallel/montecarlo.py,
+    # faults/plan.py)
+    "faults.rollbacks", "faults.injected", "faults.degradations",
+    "faults.retries",
+    # device-memory watermark live gauge (obs/memwatch.py)
+    "obs.peak_hbm_bytes",
+    # kernel builds (ops/_build.py)
+    "kernels.build_s",
+    # telemetry plane (obs/telemetry.py, serve/streams.py, stream/refresh.py,
+    # sample/run.py)
+    "telemetry.scrapes", "telemetry.scrape_errors", "telemetry.alerts",
+    "serve.append_latency_s", "stream.refresh_gate_opens",
+    "stream.refresh_gate_holds", "sample.segments_done",
+    # gateway tier (gateway/core.py, gateway/store.py, gateway/cutover.py)
+    "gateway.requests", "gateway.hits", "gateway.coalesced",
+    "gateway.throttles", "gateway.auth_failures", "gateway.cache_rejects",
+    "gateway.store_puts", "gateway.store_evictions",
+    "gateway.coalesce_bypass", "gateway.cutovers", "gateway.cutover_aborts",
+})
+
 
 @dataclass
 class Collector:

@@ -11,7 +11,9 @@ covers the source, every shared ``csrc/*.cuh`` header and the flags, so a
 stale library is never loaded. No ``--use_fast_math``: the megakernel's
 Fourier bases need accurate ``sincosf``. Several kernels build in parallel,
 one ``nvcc`` process each; ptxas' register and spill report comes back with
-every build.
+every build. A build that outlasts ``NVCC_TIMEOUT_S`` raises with what the
+compiler printed: :func:`load` builds under a lock, so a hung ``nvcc``
+would otherwise stall every kernel load of the process.
 """
 
 from __future__ import annotations
@@ -22,11 +24,10 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-from ..obs import metrics
+from ..obs import metrics, timing
 
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
@@ -36,6 +37,9 @@ KERNELS = ("binned_corr", "megakernel")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-split-compile=0")
+#: seconds one build() may wait for all its nvcc processes (a build of
+#: both sources takes well under a minute on an H100 host)
+NVCC_TIMEOUT_S = 600.0
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -87,10 +91,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
 
     Returns ``{name: compiler output}`` (ptxas' register and spill report)
     for the sources it compiled. Raises with the compiler's output if any
-    build fails. The seconds spent go to the active metrics collector as
+    build fails or outlasts ``NVCC_TIMEOUT_S`` (the timed-out processes are
+    killed). The seconds spent go to the active metrics collector as
     ``kernels.build_s`` (a run's report reads them as its ``compile_s``).
     """
-    t0 = time.perf_counter()
+    t0 = timing.now()
     names = tuple(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -102,7 +107,16 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         procs[name] = (start_nvcc(CSRC / f"{name}.cu", tmp), tmp, dst)
     logs, failed = {}, []
     for name, (proc, tmp, dst) in procs.items():
-        log, _ = proc.communicate()
+        try:
+            log, _ = proc.communicate(
+                timeout=max(t0 + NVCC_TIMEOUT_S - timing.now(), 0.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate(timeout=60.0)
+            logs[name] = log
+            failed.append(f"--- {name} (nvcc still running after "
+                          f"{NVCC_TIMEOUT_S:g} s, killed) ---\n{log}")
+            continue
         logs[name] = log
         if proc.returncode != 0:
             failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
@@ -110,7 +124,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
             continue
         os.replace(tmp, dst)
     if procs:
-        metrics.observe("kernels.build_s", time.perf_counter() - t0)
+        metrics.observe("kernels.build_s", timing.now() - t0)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs

@@ -2786,7 +2786,10 @@ class EnsembleSimulator:
         compute = torch.cuda.current_stream(self.device) if on_card else None
         copy_stream = (torch.cuda.Stream(self.device)
                        if on_card and pipelined else None)
-        ring: collections.deque = collections.deque()
+        # in-flight pipelined chunks; maxlen pins the depth bound (the loop
+        # pops the oldest before every append at capacity, so the cap is
+        # never exercised: it is the invariant)
+        ring: collections.deque = collections.deque(maxlen=ring_size)
         exec_events: dict = {}          # chunk idx -> (start, end) events
 
         def execute_span(rec: dict, t_ready: Optional[float]) -> None:

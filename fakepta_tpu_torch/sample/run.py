@@ -1003,7 +1003,9 @@ class SamplingRun:
         # a multi-process run drains serially, as the JAX sampler does
         pipelined = depth > 0 and n_proc == 1
         ring_size = max(depth, 1)
-        ring: collections.deque = collections.deque()
+        # maxlen pins the depth bound (the loop pops the oldest before
+        # every append at capacity, so the cap is never exercised)
+        ring: collections.deque = collections.deque(maxlen=ring_size)
         on_card = self.device.type == "cuda"
         compute = torch.cuda.current_stream(self.device) if on_card else None
         copy_stream = (torch.cuda.Stream(self.device)

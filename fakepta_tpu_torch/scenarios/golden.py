@@ -38,13 +38,13 @@ import json
 import math
 import os
 import resource
-import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike
+from ..obs.timing import now
 from . import cadence as cadence_mod
 from . import registry
 
@@ -388,9 +388,9 @@ def memory_lane(name: str = "ska_10k", *, chunk: int = 32,
     points = []
     for n in sweep:
         scn_n = dataclasses.replace(base, npsr=int(n))
-        t0 = time.perf_counter()
+        t0 = now()
         sim = scn_n.build(mesh=mesh)
-        build_s = time.perf_counter() - t0
+        build_s = now() - t0
         resident = max(torch.cuda.memory_allocated(d) for d in cards)
         out = sim.run(chunk, seed=seed, chunk=chunk)
         if "static_reservation_bytes" not in out["report"].memory:

@@ -446,12 +446,10 @@ def _serve_stream(pool, lines, write, default_spec, emit: str,
         fut.add_done_callback(_done)
         futs.append(fut)
     for f in futs:
-        try:
-            f.result(timeout=600.0)
-        # every failure was already emitted as an error line by the
-        # future's done callback above
-        except Exception:   # noqa: BLE001
-            pass
+        # a failed request was emitted as an error line by its done
+        # callback above: exception() returns the failure instead of
+        # raising it, and raises only if the request is still unanswered
+        f.exception(timeout=600.0)
     return len(futs)
 
 

@@ -366,13 +366,17 @@ class SocketReplica:
         return banner
 
     def _drop_stderr(self) -> None:
-        if self._stderr is not None:
-            self._stderr.close()
+        # close() may come from the caller and from the fleet's admin
+        # thread at once: the lock hands the file to exactly one of them
+        with self._lock:
+            log = self._stderr
+            self._stderr = None
+        if log is not None:
+            log.close()
             try:
-                os.unlink(self._stderr.name)
+                os.unlink(log.name)
             except OSError:
                 pass
-            self._stderr = None
 
     def device_ids(self) -> Tuple[str, ...]:
         return self._devices
