@@ -1,8 +1,9 @@
 """Rule engine: file walking, pragma suppression, baseline, reporting (port
 of ``fakepta_tpu.analysis.engine``).
 
-The analyzer is a correctness tool for the port's *invariants* — clock,
-queue and cache discipline, metric names, lock order — so it holds itself
+The analyzer is a correctness tool for the port's *invariants* — stream
+discipline, dtype policy, host syncs in the device step, clock, queue and
+cache discipline, metric names, lock order — so it holds itself
 to the same standard: pure stdlib, no import of the code under analysis,
 deterministic output ordering, and an explicit suppression trail
 (every ``# fakepta: allow[rule]`` must carry a one-line justification, and
@@ -64,6 +65,7 @@ class ModuleContext:
     tree: ast.AST
     source: str
     is_library: bool
+    dtype_policy: str         # policy.DTYPE_* value for this module
 
     def finding(self, rule: str, node: ast.AST, message: str) -> Finding:
         return Finding(self.path, getattr(node, "lineno", 1),
@@ -172,7 +174,8 @@ def _parse_context(path: str, source: str):
                              "syntax-error",
                              f"file does not parse: {e.msg}")
     return ModuleContext(path=rel, tree=tree, source=source,
-                         is_library=policy.is_library(rel)), None
+                         is_library=policy.is_library(rel),
+                         dtype_policy=policy.dtype_policy_for(rel)), None
 
 
 def check_source(path: str, source: str,

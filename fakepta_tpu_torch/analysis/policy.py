@@ -2,16 +2,136 @@
 ``fakepta_tpu.analysis.policy``).
 
 The port's contracts written down as data rather than prose: which modules
-own a raw clock, which queues are bounded by an outside invariant, which
-metric names exist, where dispatch knobs and scenario literals may live,
-and the lock order of the serving stack. Every table is derived from the
-port's own modules, not renamed from the JAX package's.
+are sanctioned host-float64 stages and which may store bfloat16, which
+mesh axis names exist, which functions make up the sampler's device step,
+which modules own a raw clock, which queues are bounded by an outside
+invariant, which metric names exist, where dispatch knobs and scenario
+literals may live, and the lock order of the serving stack. Every table is
+derived from the port's own modules, not renamed from the JAX package's.
 
 Keep this file boring: plain dicts and tuples, no imports from the rest of
 the package, so rules and tests can read it without importing torch.
 """
 
 from __future__ import annotations
+
+# Mesh axis names: a copy of fakepta_tpu_torch/parallel/mesh.py's AXES
+# (REAL_AXIS, PSR_AXIS, TOA_AXIS), because the analyzer never imports the
+# package under analysis; the tests pin the two equal. The port's
+# collectives take no axis name: its axes are read as ``mesh.shape[...]``
+# keys, which the mesh-axis-contract rule checks against these.
+MESH_AXES = ("real", "psr", "toa")
+
+# Module-level constant names that resolve to a declared axis.
+MESH_AXIS_CONSTANTS = ("REAL_AXIS", "PSR_AXIS", "TOA_AXIS")
+
+# dtype policy: repo-relative posix paths -> "host-f64" for modules whose
+# float64 use is sanctioned by design. Everything else under the library
+# prefix defaults to "device-f32", where a float64 marker is a finding
+# unless its line carries a pragma with the reason; paths outside the
+# library (tests, examples, benchmarks, chip_smoke.py) are exempt, their
+# float64 oracles are the point. parallel/montecarlo.py has NO entry: it
+# is the device path, and each of its host-f64 stages carries its own
+# pragma.
+DTYPE_POLICY = {
+    # one-off host staging: ephemeris element propagation, CGW phase
+    # references, pixel geometry, Kepler solves, the facade's f64 tables
+    "fakepta_tpu_torch/ephemeris.py": "host-f64",
+    "fakepta_tpu_torch/models/cgw.py": "host-f64",
+    "fakepta_tpu_torch/ops/healpix.py": "host-f64",
+    "fakepta_tpu_torch/ops/kepler.py": "host-f64",
+    "fakepta_tpu_torch/utils/io.py": "host-f64",
+    # the ORF templates and their Cholesky factors are host f64; on the
+    # float64 path the GWB draws run at float64 on the device as well
+    "fakepta_tpu_torch/ops/gwb.py": "host-f64",
+    # the facade and the batch builder are the host-f64 staging layer
+    # (absolute TOAs, noisedict variances), and a float64 pulsar keeps
+    # float64 device tensors end to end (the float64 path)
+    "fakepta_tpu_torch/fake_pta.py": "host-f64",
+    "fakepta_tpu_torch/batch.py": "host-f64",
+    # the statistics layer: host numpy analysis (optimal statistic, ORF
+    # fits) around small torch helpers whose dtype follows the inputs,
+    # float64 on the float64 path
+    "fakepta_tpu_torch/correlated_noises.py": "host-f64",
+    # the Fourier bases and white-noise draws take the batch dtype, float64
+    # on the float64 path; their phase arguments are staged at float64
+    "fakepta_tpu_torch/ops/fourier.py": "host-f64",
+    "fakepta_tpu_torch/ops/white.py": "host-f64",
+    # the key tree draws float64 normals and uniforms bit for bit as
+    # jax.random does under x64 (erfinv_f64, _uniform64)
+    "fakepta_tpu_torch/utils/rng.py": "host-f64",
+    # the observability layer is host telemetry: wall-clock floats and
+    # JSON serialization, never device tensors
+    "fakepta_tpu_torch/obs/__init__.py": "host-f64",
+    "fakepta_tpu_torch/obs/metrics.py": "host-f64",
+    "fakepta_tpu_torch/obs/timing.py": "host-f64",
+    "fakepta_tpu_torch/obs/report.py": "host-f64",
+    "fakepta_tpu_torch/obs/cli.py": "host-f64",
+    "fakepta_tpu_torch/obs/__main__.py": "host-f64",
+    "fakepta_tpu_torch/obs/trace.py": "host-f64",
+    "fakepta_tpu_torch/obs/memwatch.py": "host-f64",
+    "fakepta_tpu_torch/obs/flightrec.py": "host-f64",
+    "fakepta_tpu_torch/obs/gate.py": "host-f64",
+    # the detection statistics' host layers: operator precompute (ORF
+    # templates, pair counts, noise weighting) is one-off f64 staging, and
+    # the facade and CLI reduce packed lanes with host numpy
+    "fakepta_tpu_torch/detect/operators.py": "host-f64",
+    "fakepta_tpu_torch/detect/run.py": "host-f64",
+    "fakepta_tpu_torch/detect/cli.py": "host-f64",
+    # inference: the facade and CLI reduce packed likelihood lanes on the
+    # host and stage theta grids at f64
+    "fakepta_tpu_torch/infer/run.py": "host-f64",
+    "fakepta_tpu_torch/infer/cli.py": "host-f64",
+    # sampling: the float64 warm start (data -> Woodbury moments ->
+    # Newton / Laplace on the host CPU) and the host diagnostics finishers;
+    # the chain's device step (ops/mcmc.py) runs at the batch dtype
+    "fakepta_tpu_torch/sample/run.py": "host-f64",
+    "fakepta_tpu_torch/sample/model.py": "host-f64",
+    "fakepta_tpu_torch/sample/cli.py": "host-f64",
+    "fakepta_tpu_torch/sample/factorized.py": "host-f64",
+    # the serve protocol codec stages JSON TOA blocks and theta grids as
+    # host f64 arrays
+    "fakepta_tpu_torch/serve/cli.py": "host-f64",
+    # streaming: append-vs-restage is certified as an f64 oracle, so the
+    # stream's device moments, the rolling OS and the refresher's warm
+    # start run at float64 when the stream dtype is (the default)
+    "fakepta_tpu_torch/stream/state.py": "host-f64",
+    "fakepta_tpu_torch/stream/refresh.py": "host-f64",
+    "fakepta_tpu_torch/stream/bench.py": "host-f64",
+    "fakepta_tpu_torch/detect/streaming.py": "host-f64",
+}
+DTYPE_DEFAULT_LIBRARY = "device-f32"
+DTYPE_EXEMPT = "exempt"
+
+# bf16-storage policy (mixed-precision-cast): library modules sanctioned
+# to store float32 tensors as bfloat16, the storage-halving /
+# f32-accumulate precision modes: the binned-correlation kernels' bf16
+# operands, the megakernel's bf16 bases and coefficients, the engine's
+# bases/stats casts. A bfloat16 cast anywhere else in the library changes
+# realization streams without a tolerance certification.
+BF16_STORAGE_MODULES = (
+    "fakepta_tpu_torch/ops/binned_corr.py",
+    "fakepta_tpu_torch/ops/megakernel.py",
+    "fakepta_tpu_torch/parallel/montecarlo.py",
+)
+
+# The sampler's device step (host-sync-in-jit's chain-loop clause), the
+# port's form of the JAX sampler's lax.scan bodies: module path ->
+# qualified names (``Class.method``, ``outer.inner``) of the functions a
+# segment runs once per MCMC step or per leapfrog step. A segment enqueues
+# all of their work without one host sync (ops/mcmc.py docstring), so any
+# sync inside them re-serializes every step behind a device round trip.
+DEVICE_STEP_FUNCTIONS = {
+    "fakepta_tpu_torch/ops/mcmc.py": (
+        "fixed_sum", "fixed_matvec", "tempered", "leapfrog",
+        "transition_draws", "hmc_step", "hmc_transition",
+        "swap_from_uniforms", "swap_permutation", "apply_permutation",
+    ),
+    "fakepta_tpu_torch/sample/run.py": (
+        "SamplingRun._pulsar_rows", "SamplingRun._vg",
+        "SamplingRun._transition_draws", "SamplingRun._segment",
+    ),
+}
 
 # timing-discipline allowlist: library modules sanctioned to read raw
 # clocks. obs/timing.py IS the sanctioned clock (now/Timer/span route
@@ -168,6 +288,7 @@ BLOCKING_CONSTRUCTORS = ("StreamState", "SocketReplica", "ServePool")
 # with its justification).
 BLOCKING_UNDER_LOCK_MODULES = ()
 SHARED_STATE_MODULES = ()
+COLLECTIVE_DIVERGENCE_MODULES = ()
 
 # Method names too generic for class-hierarchy call resolution: an
 # untyped ``x.get()`` must not resolve to every class defining ``get``.
@@ -188,6 +309,15 @@ LIBRARY_PREFIXES = ("fakepta_tpu_torch/",)
 # Directory names skipped when *walking* directories (explicit file
 # arguments always win): fixture corpora are dirty on purpose.
 EXCLUDE_DIR_NAMES = ("__pycache__", "fixtures_analysis", ".git")
+
+
+def dtype_policy_for(rel: str) -> str:
+    """Resolve the dtype policy for a repo-relative posix path."""
+    if rel in DTYPE_POLICY:
+        return DTYPE_POLICY[rel]
+    if is_library(rel):
+        return DTYPE_DEFAULT_LIBRARY
+    return DTYPE_EXEMPT
 
 
 def is_library(rel: str) -> bool:

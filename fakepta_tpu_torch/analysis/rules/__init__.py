@@ -1,4 +1,5 @@
-"""Rule registry: one module per rule, registered here in report order.
+"""Rule registry: one module per rule, registered here in report order
+(the JAX package's order, so reports line up rule for rule).
 
 Adding a per-file rule = add a module with ``RULE_ID`` and ``check(ctx)``,
 append it below, give it a fixture pair (one seeded true positive, one
@@ -8,12 +9,15 @@ take ``check(index)`` over the
 register in ``PROJECT_RULES``.
 """
 
-from . import (caches, excepts, joins, knobs, metric_names, queues,
-               scenarios, socketio, timing)
+from . import (caches, collectives, donation, dtype, excepts, hostsync,
+               joins, knobs, meshaxis, metric_names, precision, queues, rng,
+               scenarios, socketio, timing, tracer)
 
 ALL_RULES = tuple((mod.RULE_ID, mod.check)
-                  for mod in (timing, queues, caches, excepts, knobs,
-                              socketio, joins, metric_names, scenarios))
+                  for mod in (rng, hostsync, tracer, dtype, meshaxis,
+                              donation, precision, timing, queues, caches,
+                              excepts, knobs, socketio, joins, metric_names,
+                              scenarios))
 
 RULE_IDS = tuple(rid for rid, _ in ALL_RULES)
 
@@ -21,7 +25,8 @@ RULE_IDS = tuple(rid for rid, _ in ALL_RULES)
 def _project_rules():
     from .. import concurrency
 
-    return concurrency.PROJECT_RULES
+    return concurrency.PROJECT_RULES + (
+        (collectives.RULE_ID, collectives.check_project),)
 
 
 PROJECT_RULES = _project_rules()

@@ -353,7 +353,10 @@ def add_common_correlated_noise(psrs, orf="hd", spectrum="powerlaw",
             if old is not None:
                 delta = delta - _old_realization([psr], [old], dev, dtype)
             psr.residuals = psr._res_current() + delta[0]
-            four_vals.append(four[0].cpu().numpy())
+            four_vals.append(four[0])
+        # read back after the loop: a copy per pulsar would wait for that
+        # pulsar's work before the next one is enqueued
+        four_vals = [f.cpu().numpy() for f in four_vals]
 
     for n, psr in enumerate(psrs):
         psr.signal_model[signal_name] = {

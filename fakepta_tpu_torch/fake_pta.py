@@ -1048,9 +1048,9 @@ def add_white_noise_array(psrs, add_ecorr=False, randomize=False, seed=None):
         return
     place = _one_place(psrs)
     if add_ecorr or place is None or len({len(p.toas) for p in psrs}) != 1:
+        base = None if seed is None else rng_utils.as_key(seed).cpu()
         for g, p in enumerate(psrs):
-            s = None if seed is None \
-                else rng_utils.fold(rng_utils.as_key(seed).cpu(), g)
+            s = None if base is None else rng_utils.fold(base, g)
             p.add_white_noise(add_ecorr=add_ecorr, randomize=randomize,
                               seed=s)
         return
@@ -1096,9 +1096,9 @@ def add_noise_array(psrs, signal="red_noise", spectrum="powerlaw", f_psd=None,
         return
 
     def fallback():
+        base = None if seed is None else rng_utils.as_key(seed).cpu()
         for g, p in enumerate(psrs):
-            s = None if seed is None \
-                else rng_utils.fold(rng_utils.as_key(seed).cpu(), g)
+            s = None if base is None else rng_utils.fold(base, g)
             getattr(p, method)(spectrum=spectrum, f_psd=f_psd, seed=s,
                                **kwargs)
 

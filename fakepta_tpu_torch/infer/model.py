@@ -192,12 +192,15 @@ def _bounds(bounds, like: torch.Tensor):
     """(D, 2) bounds at ``like``'s dtype and device; a tensor already there
     is used as it is (no host copy)."""
     if not isinstance(bounds, torch.Tensor):
+        # fakepta: allow[dtype-policy] host bounds, cast to theta's dtype
         bounds = torch.as_tensor(np.asarray(bounds, dtype=np.float64))
     return bounds.to(dtype=like.dtype, device=like.device)
 
 
 def _as_float(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        # a tensor keeps its own dtype and device
+        # fakepta: allow[dtype-policy] a host theta runs at f64 on the CPU
         np.asarray(x, dtype=np.float64))
 
 
@@ -436,9 +439,12 @@ class CompiledLikelihood:
         """
         p_local = batch.t_own.shape[0]
         dtype, dev = batch.t_own.dtype, batch.t_own.device
-        theta = (theta.to(dtype) if isinstance(theta, torch.Tensor)
-                 else torch.as_tensor(np.asarray(theta, dtype=np.float64)
-                                      ).to(dtype=dtype, device=dev))
+        if isinstance(theta, torch.Tensor):
+            theta = theta.to(dtype)
+        else:
+            # fakepta: allow[dtype-policy] a host theta, cast to dtype below
+            theta = torch.as_tensor(np.asarray(theta, dtype=np.float64))
+            theta = theta.to(dtype=dtype, device=dev)
         cols = []
         for c in self._comps:
             n, off = c["nbin"], c["bin_offset"]

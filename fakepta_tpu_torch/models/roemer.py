@@ -94,6 +94,7 @@ def nominal_state(ephem, planet: str, toas, dtype=torch.float32,
     """
     dev = resolve_device(device)
     el = ephem.planets[planet]
+    # fakepta: allow[dtype-policy] the nominal orbit propagates at host f64
     toas64 = np.asarray(toas, dtype=np.float64)
     E, a_t, e_t, Om_t, varpi_t, inc_t = ephem._propagate_elements(
         toas64, el["T"], el["Om"], el["omega"], el["inc"], el["a"], el["e"],
@@ -105,6 +106,7 @@ def nominal_state(ephem, planet: str, toas, dtype=torch.float32,
     pos = ephem.get_orbit_planet(toas64, planet)
 
     def put(arr):
+        # fakepta: allow[dtype-policy] host orbit tables, cast to dtype
         return torch.from_numpy(np.array(arr, dtype=np.float64)).to(
             dtype).to(dev)
 
@@ -117,7 +119,9 @@ def nominal_state(ephem, planet: str, toas, dtype=torch.float32,
         sin_argp=leaf(np.sin(argp_t)), cos_argp=leaf(np.cos(argp_t)),
         sin_inc=leaf(np.sin(inc_t)), cos_inc=leaf(np.cos(inc_t)),
         sin_Om=leaf(np.sin(Om_t)), cos_Om=leaf(np.cos(Om_t)),
+        # fakepta: allow[dtype-policy] the planet's mass, cast by put()
         pos=put(pos), mass=put(np.float64(el["mass"])),
+        # fakepta: allow[dtype-policy] the solar-system mass, cast by put()
         mass_ss=put(np.float64(ephem.mass_ss)))
 
 

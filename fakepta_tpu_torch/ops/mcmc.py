@@ -88,7 +88,7 @@ def leapfrog(vg, z, parts, p, eps, n_steps: int, betas):
     """
     _, g = tempered(parts, betas)
     p = p + 0.5 * eps * g
-    for _ in range(int(n_steps)):
+    for _ in range(n_steps):
         z = z + eps * p
         parts = vg(z)
         _, g = tempered(parts, betas)
@@ -200,6 +200,7 @@ def geometric_betas(n_temps: int, max_temp: float,
     computed in float64 on the host and rounded once to ``dtype``."""
     if n_temps == 1:
         return torch.ones((1,), dtype=dtype, device=device)
+    # fakepta: allow[dtype-policy] the ladder at host f64, rounded once
     expo = np.arange(n_temps, dtype=np.float64) / (n_temps - 1)
     return torch.as_tensor(float(max_temp) ** (-expo)).to(dtype=dtype,
                                                           device=device)

@@ -455,6 +455,7 @@ def _affine(a, z, scale):
     ``torch.addcmul`` (a fused multiply-add)."""
     if z.dtype == torch.float64:
         return torch.addcmul(a, z, scale)
+    # fakepta: allow[dtype-policy] XLA's fused f32 multiply-add, bit for bit
     return (z.double() * scale.double() + a.double()).float()
 
 
@@ -463,6 +464,7 @@ def _pow10(x: torch.Tensor) -> torch.Tensor:
     at every tensor shape (torch's CPU ``pow`` rounds its vector lanes and
     its scalar tail differently, which would tie a realization's value to
     the chunk size)."""
+    # fakepta: allow[dtype-policy] 10**x at f64, the same bits at any shape
     return torch.pow(10.0, x.double()).to(x.dtype)
 
 
@@ -679,6 +681,7 @@ def _validated_toas_abs(shape, toas_abs, what: str) -> np.ndarray:
         raise ValueError(
             f"{what} needs toas_abs: the padded (npsr, max_toa) absolute "
             f"MJD-second TOAs (float64 host array)")
+    # fakepta: allow[dtype-policy] absolute MJD-second TOAs need host f64
     toas_abs = np.asarray(toas_abs, dtype=np.float64)
     if toas_abs.shape != tuple(shape):
         raise ValueError(f"toas_abs shape {toas_abs.shape} != batch "
@@ -714,6 +717,7 @@ def _build_deterministic(batch: PulsarBatch, host: dict, cgw, roemer, ephem,
     dtype, dev = batch.dtype, batch.device
 
     def put(arr):
+        # fakepta: allow[dtype-policy] host f64 staging, cast to dtype here
         return torch.from_numpy(np.asarray(arr, dtype=np.float64)).to(
             dtype).to(dev)
 
@@ -723,6 +727,7 @@ def _build_deterministic(batch: PulsarBatch, host: dict, cgw, roemer, ephem,
             arr = np.zeros(shape)
             for i in range(batch.npsr):
                 n = int(host["mask"][i].sum())
+                # fakepta: allow[dtype-policy] a user waveform at host f64
                 row = np.asarray(wf(toas=toas_abs[i, :n]), dtype=np.float64)
                 if row.shape != (n,):
                     raise ValueError(
@@ -733,6 +738,7 @@ def _build_deterministic(batch: PulsarBatch, host: dict, cgw, roemer, ephem,
                         f"with functools.partial)")
                 arr[i, :n] = row
         else:
+            # fakepta: allow[dtype-policy] a host waveform, cast by put()
             arr = np.asarray(wf, dtype=np.float64)
             if arr.shape != shape:
                 raise ValueError(
@@ -742,7 +748,9 @@ def _build_deterministic(batch: PulsarBatch, host: dict, cgw, roemer, ephem,
     if cgw_list:
         if pdist is None:
             pdist = np.zeros((batch.npsr, 2))
+        # fakepta: allow[dtype-policy] pulsar distances: host-f64 staging
         pdist = np.asarray(pdist, dtype=np.float64).reshape(batch.npsr, 2)
+        # fakepta: allow[dtype-policy] pulsar positions: host-f64 staging
         pos64 = np.asarray(host["pos"], dtype=np.float64)
         groups = {}
         for cfg in cgw_list:
@@ -1060,11 +1068,14 @@ def stat_weight_stack(pos: np.ndarray, counts_full: np.ndarray, nbins: int,
     np.fill_diagonal(bin_idx, -1)        # no self pair in any bin
     # each bin's pair count (a sum of ones: exact in any order)
     bc = np.maximum(np.bincount(bin_idx[bin_idx >= 0], minlength=nbins)
+                    # fakepta: allow[dtype-policy] exact pair counts
                     .astype(np.float64), 1.0)
     idx = torch.from_numpy(bin_idx)
-    counts = torch.from_numpy(np.ascontiguousarray(counts_full,
-                                                   dtype=np.float64))
+    counts = torch.from_numpy(np.ascontiguousarray(
+        # fakepta: allow[dtype-policy] host-f64 pair counts for the weights
+        counts_full, dtype=np.float64))
     stack = torch.empty((nbins + 1, npsr, npsr), dtype=dtype)
+    # fakepta: allow[dtype-policy] host-f64 bin weights, cast per slot
     w = torch.empty((npsr, npsr), dtype=torch.float64)
     for n in range(nbins):
         torch.eq(idx, n, out=w)          # the slot's one-hot: 1.0 or 0.0
@@ -1402,6 +1413,7 @@ class EnsembleSimulator:
                 orf = gwb_ops.build_orf(cfg.orf, host["pos"], cfg.h_map)
                 chols.append(torch.as_tensor(gwb_ops.orf_cholesky(orf))
                              .to(dtype).to(self.device))
+                # fakepta: allow[dtype-policy] a custom PSD staged at host f64
                 psd = torch.tensor(np.asarray(cfg.psd, dtype=np.float64)).to(dtype)
                 ws.append(torch.sqrt(psd.to(self.device) * df_common))
             self._chol = tuple(chols)
@@ -1440,9 +1452,11 @@ class EnsembleSimulator:
         # angular bins and pair-count normalization: host float64 setup on
         # the FULL array (every shard's rows use the full pair and bin
         # counts), folded into static statistic weights
+        # fakepta: allow[dtype-policy] host-f64 angle and bin setup, once
         pos = np.asarray(host["pos"], dtype=np.float64)
         edges = np.linspace(0.0, np.pi, nbins + 1)
         self.bin_centers = edges[:-1] + 0.5 * (edges[1] - edges[0])
+        # fakepta: allow[dtype-policy] exact integer pair counts at host f64
         mask_np = np.asarray(host["mask"], dtype=np.float64)
         raw_counts = mask_np @ mask_np.T
         self.pair_counts = raw_counts
@@ -1530,6 +1544,7 @@ class EnsembleSimulator:
                                  "orf/idx and psd length set the program; the "
                                  "psd values are replaced by the draws)")
             static, rows = _resolve_noise_sampling(cfg)
+            # fakepta: allow[dtype-policy] host ranges, cast to dtype below
             noise.append((static, torch.tensor(rows, dtype=torch.float64)
                           .to(dtype).to(dev)))
         if white_sample is None:
@@ -1567,6 +1582,7 @@ class EnsembleSimulator:
                     "into sigma2 — pass the raw squared TOA errors as "
                     "toaerr2)", stacklevel=3)
             toaerr2 = host["sigma2"]
+        # fakepta: allow[dtype-policy] TOA errors at host f64, cast below
         toaerr2 = np.asarray(toaerr2, dtype=np.float64)
         shape = tuple(batch.t_own.shape)
         if toaerr2.shape != shape:
@@ -1585,6 +1601,7 @@ class EnsembleSimulator:
             noise=tuple(noise),
             white=(ws.efac is not None, ws.log10_tnequad is not None,
                    ws.log10_ecorr is not None, ws.dist),
+            # fakepta: allow[dtype-policy] host ranges, cast to dtype here
             white_params=torch.tensor(rows, dtype=torch.float64).to(dtype)
             .to(dev),
             toaerr2=torch.tensor(toaerr2).to(dtype).to(dev),
@@ -1602,6 +1619,7 @@ class EnsembleSimulator:
         dtype, dev, shape = batch.dtype, self.device, batch.t_own.shape
 
         def put(x):
+            # fakepta: allow[dtype-policy] host ranges, cast to dtype here
             return torch.tensor(np.asarray(x, dtype=np.float64)).to(
                 dtype).to(dev)
 
@@ -1654,12 +1672,21 @@ class EnsembleSimulator:
             cgw_state = tuple((st, put(rg), put(toas64 - c.tref))
                               for st, rg, c in zip(statics, ranges,
                                                    cgw_cfgs))
-        # the psrterm configs' indices, and the distances and positions at
-        # host precision for their retarded-phase bulks
+        # the psrterm configs' indices, their ranges on the host, and the
+        # distances and positions at host precision for their
+        # retarded-phase bulks (a chunk's bulks are computed while the
+        # device runs the previous chunk: reading the device copy of the
+        # ranges there would wait for that chunk)
         self._cgw_psrterm = tuple(j for j, st in enumerate(statics) if st[0])
+        self._cgw_ranges_host = {
+            # fakepta: allow[dtype-policy] the host copy put() would build
+            j: torch.tensor(np.asarray(ranges[j], dtype=np.float64)).to(dtype)
+            for j in self._cgw_psrterm}
         self._pdist_host = np.asarray(
             np.zeros((batch.npsr, 2)) if pdist is None else pdist,
+            # fakepta: allow[dtype-policy] distances for the psrterm bulks
             dtype=np.float64).reshape(batch.npsr, 2)
+        # fakepta: allow[dtype-policy] positions for the psrterm bulks
         self._pos64 = np.asarray(host["pos"], dtype=np.float64)
         return _Signals(det=det, roemer=roe, cgw=cgw_state,
                         pdist=put(self._pdist_host))
@@ -1684,10 +1711,13 @@ class EnsembleSimulator:
         pos, pdist = self._pos64, self._pdist_host
         out = []
         for j in self._cgw_psrterm:
-            static, ranges, _ = self._full.signals.cgw[j]
-            v, pd = _cgw_draws(keys, ranges.cpu(), static, j, gidx)
+            static = self._full.signals.cgw[j][0]
+            v, pd = _cgw_draws(keys, self._cgw_ranges_host[j], static, j,
+                               gidx)
+            # fakepta: allow[dtype-policy] the CPU replay of the draws at f64
             v = v.double().numpy()
             pd = (np.zeros((keys.shape[0], npsr)) if pd is None
+                  # fakepta: allow[dtype-policy] the CPU replay at f64
                   else pd.double().numpy())
             # cos(mu) at f64 from the sampled sky (the geometry of
             # models.cgw.antenna_pattern)
@@ -2275,8 +2305,9 @@ class EnsembleSimulator:
         corrs = _some(lambda x, f: _correlation_rows(x, f, stats_bf16=bf16),
                       local, full)
         heads = range(0, len(shards), n_toa)
+        # every rank issues each head's psum: a rank owning no cell of
+        # the head's toa group is no member and gets None back
         rows = [comms.toa[i // n_toa].psum(corrs[i:i + n_toa])
-                if any(c is not None for c in corrs[i:i + n_toa]) else None
                 for i in heads]
         # a head's owner bins its psr shard's pair sums
         parts = [None if shards[i] is None else
@@ -2443,6 +2474,8 @@ class EnsembleSimulator:
             self.step(base, offset, chunk, path, prec, with_corr=keep_corr,
                       lanes=lanes)
             for dev in cards:
+                # the timed warm-up includes the card's work
+                # fakepta: allow[host-sync-in-jit] one barrier per card
                 torch.cuda.synchronize(dev)
         return now() - t0
 

@@ -888,6 +888,8 @@ class SamplingRun:
         segment, _, _ = self._normalize(n_steps, segment)
         spec = self.spec
         with obs_metrics.collect(obs_metrics.Collector()):
+            # a fixed key: the warm-up's draws are discarded, its kernels kept
+            # fakepta: allow[rng-discipline] warm-up draws, discarded
             self._transition_draws(rng_utils.key(0, device=self.device), 0,
                                    segment)
             self._refresh(torch.zeros(
@@ -895,6 +897,8 @@ class SamplingRun:
                 dtype=self._dtype, device=self.device))
             for dev in {dv for dv in self.mesh.local_devices
                         if dv.type == "cuda"}:
+                # the timed warm-up includes the card's work
+                # fakepta: allow[host-sync-in-jit] one barrier per card
                 torch.cuda.synchronize(dev)
         return now() - t0
 

@@ -79,6 +79,7 @@ def _platform(mesh) -> str:
 
 
 def _percentile(vals: Sequence[float], q: float) -> float:
+    # fakepta: allow[dtype-policy] host latency percentiles
     return float(np.percentile(np.asarray(vals, dtype=np.float64), q)) \
         if len(vals) else 0.0
 
@@ -109,6 +110,7 @@ def cadence_stream_lane(scn, *, mesh=None, device: DeviceLike = None,
     """
     from ..stream.state import StreamState, default_stream_model
 
+    # fakepta: allow[dtype-policy] the stream's f64 template stays on the host
     template = scn.batch_parts(dtype=torch.float64, device="cpu")[0]
     ecorr_dt = (scn.ecorr_dt_days * cadence_mod.DAY_S
                 if scn.ecorr else None)

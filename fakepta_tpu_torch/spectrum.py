@@ -123,6 +123,7 @@ def free_spectrum(f, log10_rho=None):
     if torch._C._functorch.is_functorch_wrapped_tensor(f):
         f_host = None
     else:
+        # fakepta: allow[dtype-policy] the host copy of the grid check
         f_host = f.detach().cpu().double().numpy().reshape(-1, f.shape[-1])
     expect = (None if f_host is None
               else np.arange(1, f_host.shape[1] + 1) * f_host[:, :1])
@@ -191,6 +192,7 @@ def evaluate_host(spectrum: str, f, **kwargs) -> np.ndarray:
     return evaluate(spectrum, f, **kwargs).numpy()
 
 
+# fakepta: allow[dtype-policy] the dtype table of evaluate_host_at, no cast
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 

@@ -373,6 +373,8 @@ class StreamState:
 
     def _sync(self) -> None:
         for dev in {c.device for c in self._cells if c.device.type == "cuda"}:
+            # staging returns once every cell's copy is done
+            # fakepta: allow[host-sync-in-jit] one barrier per card
             torch.cuda.synchronize(dev)
 
     def _stage(self, rows, nb: int):

@@ -114,10 +114,21 @@ def test_corpus_matches_the_jax_analyzer(stem, spelling, jax_reference):
         f"JAX {sorted(jax_reference[stem])}")
 
 
+# the JAX fixtures of the rules that read JAX APIs: the port's torch twins
+# of them (tests/test_torch_analysis_rules.py) seed the same lines
+RULE_TWIN_CASES = ["rng_key_reuse", "rng_global_state", "dtype_leak",
+                   "precision_cast", "meshaxis_bad", "collective_divergent",
+                   "hostsync_in_jit", "hostsync_loop", "hostsync_scan",
+                   "tracer_leak", "donated_reuse"]
+
+
 def test_every_rule_is_seeded_and_clean_stays_clean(jax_reference):
     seeded = set()
     for stem in FILE_CASES + PROJECT_CASES:
         seeded |= {rule for rule, _ in jax_reference[stem]}
+    for stem in RULE_TWIN_CASES:
+        seeded |= {f.rule for f in jax_analysis.check_source_project(
+            JAX_LIB.format(stem), (CORPUS / f"{stem}.py").read_text())}
     assert set(analysis.RULE_IDS) | set(analysis.PROJECT_RULE_IDS) <= seeded
     assert jax_reference["clean"] == set()
     assert jax_reference["pragma_suppressed"] == set()
@@ -149,7 +160,9 @@ MODULE_TABLES = ("TIMING_MODULES", "UNBOUNDED_QUEUE_MODULES",
                  "SOCKET_IO_MODULES", "SWALLOWED_EXCEPT_MODULES",
                  "METRIC_NAME_MODULES", "DISPATCH_KNOB_MODULES",
                  "SCENARIO_SPEC_MODULES", "BLOCKING_UNDER_LOCK_MODULES",
-                 "SHARED_STATE_MODULES")
+                 "SHARED_STATE_MODULES", "DTYPE_POLICY",
+                 "BF16_STORAGE_MODULES", "DEVICE_STEP_FUNCTIONS",
+                 "COLLECTIVE_DIVERGENCE_MODULES")
 
 
 @pytest.mark.parametrize("table", MODULE_TABLES)
@@ -230,10 +243,15 @@ def test_syntax_error_is_reported_not_raised():
 
 
 def test_cli_rules_lists_this_slices_rules(capsys):
+    """All 16 per-file and 4 project rules of the JAX analyzer, in its
+    report order."""
     assert main(["rules"]) == 0
     listed = capsys.readouterr().out.split()
     assert listed == list(analysis.RULE_IDS + analysis.PROJECT_RULE_IDS
                           + (engine.PRAGMA_RULE, engine.UNUSED_PRAGMA_RULE))
+    assert analysis.RULE_IDS == jax_analysis.RULE_IDS
+    assert analysis.PROJECT_RULE_IDS == jax_analysis.PROJECT_RULE_IDS
+    assert (len(analysis.RULE_IDS), len(analysis.PROJECT_RULE_IDS)) == (16, 4)
     assert "timing-discipline" in listed
     assert "lock-order-inversion" in listed
 

@@ -12,6 +12,8 @@ that draws (its batch, cases, tolerances and ``jax_runs`` fixture).
   to.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,6 +131,27 @@ def test_host_bulks_replay_the_device_draws():
         want = psrterm_phase_bulk(tau, v[:, 3:4], v[:, 4:5])
         assert bulk.shape == (R, NPSR) and bulk.dtype == torch.float32
         np.testing.assert_allclose(bulk.numpy(), want, rtol=1e-6)
+
+
+def test_host_bulks_read_the_host_copy_of_the_ranges():
+    """The bulks of chunk i + 1 are computed while the card runs chunk i:
+    they read a host copy of each psrterm config's ranges, bit for bit the
+    device copy, never the device copy (whose read would wait for the
+    running chunk)."""
+    sim = _port_sim("cgw_psrterm")
+    assert sorted(sim._cgw_ranges_host) == list(sim._cgw_psrterm)
+    for j, host in sim._cgw_ranges_host.items():
+        dev = sim._full.signals.cgw[j][1]
+        assert host.device.type == "cpu" and host.dtype == dev.dtype
+        assert torch.equal(host, dev.cpu())
+    keys = tmc._chunk_keys(rng.key(SEED, device="cpu"), 5, R)
+    want = sim._host_cgw_bulks(keys)
+    sim._full = dataclasses.replace(sim._full, signals=dataclasses.replace(
+        sim._full.signals,
+        cgw=tuple((st, None, t) for st, _, t in sim._full.signals.cgw)))
+    got = sim._host_cgw_bulks(keys)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------ sampled statistics
