@@ -237,7 +237,8 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    ``FactorizedRefresher`` at config 18 part 2's shapes
    (``benchmarks/suite.py:743-746, 795-836``: 16 pulsars x 96 TOAs, 16
    free-spectrum bins, ``lane_bins=1``, 40-wide epochs, 96 steps, segment
-   32, cut to 16 steps and segment 16): the single-bin sinusoid epoch
+   32, cut to 8 steps after an 8-step warm-up, segment 8): the
+   single-bin sinusoid epoch
    touches exactly one lane, and ``fs_refresh_ms`` against
    ``fs_full_refresh_ms`` (``fs_recompiles`` reads 0 by construction);
    last, two traced steady appends (their launches, equal in number,
@@ -264,10 +265,23 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    checkpoint files on rank 0 only, deleted at the end; the psr fused
    run's event-log shards merged by ``obs.trace.build_trace`` into pid
    lanes {0..N-1}, each with dispatch spans; a ``SamplingRun`` of the
-   flagship model (8 chains x 2 temps, 8 steps: the cut) on both meshes,
-   chains bit-identical to the one-process run's; and per rank one
-   einsum chunk on the psr mesh, its host enqueue against the time until
-   the card is done and the card's traced busy time.
+   flagship model (8 chains x 2 temps, 4 steps: the cut) on both meshes,
+   chains bit-identical to the one-process run's; config 14's watched
+   stream (100 pulsars x 780 TOAs of history in two blocks, then 8-TOA
+   epochs, float64, HD) on the real 1 x psr N mesh with a checkpoint per
+   rank: moments, lnL and every append's OS amp2 and snr bit-identical on
+   every rank and to the one-process psr N mesh, checkpoint files on rank
+   0 only, the append ms per rank beside the one-process mesh's;
+   ``tune.search`` over every rank's entry (the flagship, 3 candidates,
+   one probe chunk each, ``force=True``), each probe's launches of #1-#4
+   counted on every rank (zeroed just before it) and held to its path's
+   kernel, one TunedConfig on every rank, one store file, rank 0's
+   artifact alone, and a warm second search with 0 probes; the sampler
+   on the cross layout (real 2 x psr 2 x toa 2, entry (r, s, t) on rank
+   (2r + s + t) mod N), chains bit-identical to the one-process run's;
+   and per rank one einsum chunk on the psr mesh, its host enqueue
+   against the time until the card is done and the card's traced busy
+   time.
 16. ``tune``: the tuner on ``flagship_100`` uncut on one card, with a
    fresh store under ``build/tune/``: the fingerprint of ``cuda:0`` (it
    must read the card's memory), then ``tune.search(batch, gwb,
@@ -288,7 +302,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    ``warm_start`` and after ``clear_executables`` must be bit-identical,
    the first chunk's device time after ``warm_start`` reported beside a
    steady chunk's; and a ``SamplingRun`` of the flagship model (8 chains x
-   2 temps, 8 steps: the cut) must take the stored pipeline depth with
+   2 temps, 4 steps: the cut) must take the stored pipeline depth with
    ``tuned=True``, bit-identical to that depth given explicitly.
 17. ``serve``: the serving layer on the card at the flagship's widths
    (``ArraySpec(npsr=100, ntoa=780, n_red=30, n_dm=100, gwb_ncomp=30)``,
@@ -3655,12 +3669,13 @@ REFRESH_SPEC = dict(n_chains=8, n_temps=2, n_leapfrog=4, warmup=8)
 REFRESH_STEPS = 8
 REFRESH_SEGMENT = 8
 #: FactorizedRefresher at config 18 part 2: 16 pulsars x 96 TOAs, 16
-#: free-spectrum bins, lane_bins 1, 40-wide epochs; the suite's 96 steps
-#: and segment 32 cut to 16 and 16 (123.1 s uncut, NVIDIA H100 80GB
-#: HBM3, 700.00 W). A lane runs its warmup rounded up to whole segments,
-#: then the steps: 16 + 16 = 32 steps a lane here, 32 + 96 = 128 uncut
-FS_STREAM = dict(npsr=16, ntoa=96, nbin=16, width=40, steps=16,
-                 segment=16)
+#: free-spectrum bins, lane_bins 1, 40-wide epochs; the suite's warm-up
+#: 32, 96 steps and segment 32 cut to 8, 8 and 8 (123.1 s uncut, NVIDIA
+#: H100 80GB HBM3, 700.00 W). A lane runs its warmup rounded up to whole
+#: segments, then the steps: 8 + 8 = 16 steps a lane here, 32 + 96 = 128
+#: uncut
+FS_STREAM = dict(npsr=16, ntoa=96, nbin=16, width=40, warmup=8, steps=8,
+                 segment=8)
 
 
 def stream_blocks(shape: dict, seed: int = 0) -> list:
@@ -3937,7 +3952,7 @@ def phase_stream(report: dict) -> None:
     t0 = np.sort(rng.uniform(0, 0.9 * tspan_s, (p, w)), axis=1)
     fstream.append(t0, rng.normal(0, 1e-7, (p, w)),
                    sigma2=np.full((p, w), 1e-14))
-    s_spec = SampleSpec(model=fs_model, n_chains=2, warmup=16,
+    s_spec = SampleSpec(model=fs_model, n_chains=2, warmup=fs["warmup"],
                         n_leapfrog=3)
     fref = FactorizedRefresher(fstream, s_spec, lane_bins=1, rhat_gate=1e9,
                                device="cuda")
@@ -4034,8 +4049,25 @@ MP_DEADLINE_S = 420
 MP_PATHS = ("einsum", "fused", "fused-vpu", "mega")
 MP_SAMPLE_SPEC = dict(n_chains=8, n_temps=2, n_leapfrog=4, warmup=0,
                       thin=2)
-MP_SAMPLE_STEPS = 8
+MP_SAMPLE_STEPS = 4
 MP_SENTINEL = "MULTIPROC_INIT_OK"
+#: the tuner across ranks: a small frontier, one probe chunk each
+MP_TUNE = dict(nreal_hint=4096, budget_s=60.0, max_candidates=3,
+               probe_chunks=1)
+
+
+def cross_entries(entries, n_real: int = 2, n_psr: int = 2,
+                  n_toa: int = 2) -> list:
+    """A (real, psr, toa) grid of ``entries``' ranks (one device each)
+    with entry (r, s, t) on rank (r * n_psr + s + t) % ranks: on two ranks
+    the psr gather of every toa window and each toa cell cross ranks; on
+    four, ranks 1 and 3 own toa 1 entries only in one row."""
+    from fakepta_tpu_torch.parallel.mesh import MeshDevice
+    n = len(entries)
+    return [MeshDevice((r * n_psr + s + t) % n, entries[(r * n_psr + s + t)
+                                                        % n].device)
+            for r in range(n_real) for s in range(n_psr)
+            for t in range(n_toa)]
 
 
 def digest(*arrays) -> str:
@@ -4096,7 +4128,8 @@ def mp_rank(rank: int, n: int, run_dir: str, shared: bool,
                                   local_devices=[dev], timeout_s=300.0)
     print(MP_SENTINEL, file=sys.stderr, flush=True)
     res = {"rank": rank, "ranks": n, "backend": mesh_lib.backend(),
-           "device": str(dev), "runs": {}, "ref": {}, "kernels": {}}
+           "device": str(dev), "runs": {}, "ref": {}, "kernels": {},
+           "case_s": {}}
     entries = mesh_lib.global_devices()
     meshes = {"real": mesh_lib.make_mesh(entries),
               "psr": mesh_lib.make_mesh(entries, psr_shards=n)}
@@ -4142,6 +4175,11 @@ def mp_rank(rank: int, n: int, run_dir: str, shared: bool,
                 f"binned_correlation/{shape_tag(P // n, P, T)}": (
                     bc.binned_correlation, bc.binned_correlation_plain,
                     (loc, full_res, sh.weights, nb), {}),
+                # the tuner's fused probes: the whole array, this rank's
+                # real block
+                f"binned_correlation/{shape_tag(P, P, T)} R={r_real}": (
+                    bc.binned_correlation, bc.binned_correlation_plain,
+                    (full_res[:r_real], full_res[:r_real], w, nb), {}),
                 f"binned_correlation_vpu/{shape_tag(P // n, P, T)}": (
                     bc.binned_correlation_vpu, bc.binned_correlation_plain,
                     (loc, full_res, sh.weights, nb), {}),
@@ -4285,6 +4323,8 @@ def mp_rank(rank: int, n: int, run_dir: str, shared: bool,
                     MP_SAMPLE_STEPS, seed=1, segment=MP_SAMPLE_STEPS)
                 res["sample_ref"][mname] = {"digest": digest(ref["theta"])}
             dist.barrier()
+        mp_stream_search_sampler(res, rank, n, run_dir, dev, entries,
+                                 meshes, ones, batch, parts, scn, warm)
 
     # one traced einsum chunk on the psr mesh: the host enqueue against
     # the time until this rank's card is done, and its busy time
@@ -4340,6 +4380,265 @@ def mp_rank(rank: int, n: int, run_dir: str, shared: bool,
     print(json.dumps(res), flush=True)
     mesh_lib.shutdown_multihost()
     return 0
+
+
+def mp_stream_search_sampler(res: dict, rank: int, n: int, run_dir: str,
+                             dev, entries, meshes, ones, batch, parts, scn,
+                             warm) -> None:
+    """The multiproc phase's stream, tuner and toa-sampler cases on one
+    rank (``res`` gains ``stream``, ``search`` and ``sample_toa``; rank 0
+    also the one-process references)."""
+    import torch
+    import torch.distributed as dist
+    from fakepta_tpu_torch import tune
+    from fakepta_tpu_torch.batch import PulsarBatch
+    from fakepta_tpu_torch.parallel import mesh as mesh_lib
+    from fakepta_tpu_torch.sample import SampleSpec, SamplingRun
+    from fakepta_tpu_torch.stream import StreamState, default_stream_model
+    search_mod = sys.modules["fakepta_tpu_torch.tune.search"]
+    P, T = batch.npsr, batch.max_toa
+
+    def sync_barrier():
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+
+    # the stream at config 14's widths on the real 1 x psr n mesh: the
+    # history, a warm-up epoch and the steady 8-TOA epochs, watched (HD)
+    t_case = time.perf_counter()
+    shape = dict(STREAM_SHAPE)
+    template = PulsarBatch.synthetic(
+        npsr=shape["npsr"], ntoa=shape["ntoa"],
+        tspan_years=shape["tspan_years"], n_red=shape["n_red"],
+        n_dm=shape["n_dm"], seed=0, dtype=torch.float64, device="cpu")
+    model = default_stream_model(nbin=shape["nbin"])
+    blocks = stream_blocks(shape)
+
+    def streamed(mesh, **kw):
+        st = StreamState(template, model, mesh=mesh,
+                         ecorr_dt=shape["ecorr_dt"], watch="hd", **kw)
+        infos = [st.append(**b) for b in blocks]
+        mom = st.moments()
+        return {"digest": digest(*(m.cpu().numpy() for m in mom)),
+                "lnl": st.lnlike(st.theta_ref),
+                "os": [[i["amp2"], i["snr"]] for i in infos],
+                "append_ms": [i["latency_ms"] for i in infos],
+                "finite": bool(all(np.isfinite(i["snr"]) for i in infos))}
+
+    ck = os.path.join(run_dir, f"sck{rank}")
+    os.makedirs(ck)
+    sync_barrier()
+    got = streamed(meshes["psr"], checkpoint=os.path.join(ck, "s.ckpt"))
+    got["ckpt_files"] = sorted(os.listdir(ck))
+    res["stream"] = got
+    if rank == 0:
+        res["stream_ref"] = streamed(ones["psr"])
+    sync_barrier()
+    res["case_s"]["stream"] = time.perf_counter() - t_case
+
+    # tune.search over every rank's entry: the flagship, a small frontier;
+    # each probe's launches counted on this rank, zeroed just before it
+    t_case = time.perf_counter()
+    gwb = scn.sim_kwargs(*parts)["gwb"]
+    store_dir = os.path.join(run_dir, "tune")
+    store = os.path.join(store_dir, "tuned.json")
+    probes = []
+    inner = search_mod.run_probe
+
+    def counted_probe(sim, cand, **kw):
+        reset_counts()
+        rec = inner(sim, cand, **kw)
+        moved = {k: v for k, v in counts().items() if v}
+        probes.append({"knobs": cand.knobs(), "launches": moved,
+                       "shape": shape_tag(P // cand.psr_shards, P, T)})
+        return rec
+
+    search_mod.run_probe = counted_probe
+    try:
+        sync_barrier()
+        t0 = time.perf_counter()
+        cfg, info = tune.search(batch, gwb=gwb, mesh_devices=entries,
+                                force=True, store=store,
+                                artifact=os.path.join(
+                                    run_dir, f"tune{rank}.jsonl"),
+                                **MP_TUNE)
+        search_s = time.perf_counter() - t0
+    finally:
+        search_mod.run_probe = inner
+    sync_barrier()
+    t0 = time.perf_counter()
+    cfg2, info2 = tune.search(batch, gwb=gwb, mesh_devices=entries,
+                              store=store, **MP_TUNE)
+    if rank == 0:
+        res["search_holds"] = hold_probe_kernels(probes, n, dev, batch,
+                                                 parts, scn)
+    res["search"] = {
+        "cfg": cfg.to_json(), "probes": info["probes"], "search_s": search_s,
+        "probe_launches": probes,
+        "rates": [r["real_per_s_per_chip"] for r in info["records"]],
+        "store_files": sorted(os.listdir(store_dir)),
+        "artifact": os.path.exists(os.path.join(run_dir,
+                                                f"tune{rank}.jsonl")),
+        "warm": {"cfg": cfg2.to_json(), "probes": info2["probes"],
+                 "warm": info2["warm"], "s": time.perf_counter() - t0}}
+    sync_barrier()
+    res["case_s"]["search"] = time.perf_counter() - t_case
+
+    # the sampler with psr 2 x toa 2 on the cross layout (real 2)
+    t_case = time.perf_counter()
+    spec = SampleSpec(model=flagship_model(), **MP_SAMPLE_SPEC)
+    cross = mesh_lib.make_mesh(cross_entries(entries), psr_shards=2,
+                               toa_shards=2)
+    study = SamplingRun(batch, spec, mesh=cross, data_seed=1,
+                        warm_from=warm)
+    sync_barrier()
+    t0 = time.perf_counter()
+    got = study.run(MP_SAMPLE_STEPS, seed=1, segment=MP_SAMPLE_STEPS)
+    sync_barrier()
+    res["sample_toa"] = {"digest": digest(got["theta"]),
+                         "wall_s": time.perf_counter() - t0,
+                         "finite": bool(np.isfinite(got["theta"]).all())}
+    if rank == 0:
+        ref = SamplingRun(batch, spec, mesh=mesh_lib.make_mesh(
+            [str(dev)] * 8, psr_shards=2, toa_shards=2), data_seed=1,
+            warm_from=warm).run(MP_SAMPLE_STEPS, seed=1,
+                                segment=MP_SAMPLE_STEPS)
+        res["sample_toa_ref"] = {"digest": digest(ref["theta"])}
+    del study
+    dist.barrier()
+    res["case_s"]["sample_toa"] = time.perf_counter() - t_case
+
+
+def hold_probe_kernels(probes: list, n: int, dev, batch, parts,
+                       scn) -> dict:
+    """Each kernel the search's probes launched, at a probe's per-rank
+    shape (its chunk's real block of the whole array: the probes ran on
+    real n x psr 1 meshes) and precision, against its plain version on the
+    same inputs; these launches only compare and are not counted."""
+    import torch
+    from fakepta_tpu_torch.ops import binned_corr as bc
+    from fakepta_tpu_torch.ops import megakernel as mk
+    from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
+                                                       _chunk_keys)
+    from fakepta_tpu_torch.utils import rng
+    P, T = batch.npsr, batch.max_toa
+    held, sims = {}, {}
+    for p in probes:
+        knobs = p["knobs"]
+        if not p["launches"]:
+            continue
+        if knobs["psr_shards"] != 1:
+            raise AssertionError(f"multiproc search: a psr-sharded probe "
+                                 f"{knobs} (held only at psr 1 here)")
+        path = knobs["path"]
+        if path not in sims:
+            sims[path] = EnsembleSimulator(batch, stat_path=path,
+                                           device=str(dev),
+                                           **scn.sim_kwargs(*parts))
+        sim = sims[path]
+        prec = sim._resolve_precision(path, knobs["precision"])
+        r_rank = knobs["chunk"] // n
+        what = f"{PATH_KERNEL[path]}/{shape_tag(P, P, T)} R={r_rank}/{prec}"
+        if what in held:
+            continue
+        keys = _chunk_keys(rng.key(7, device=dev), 0, r_rank)
+        w, nb = sim._stat_weights.to(dev), sim.nbins
+        with torch.no_grad():
+            if path == "mega":
+                base, coefs = sim._residuals(keys, split_gp=True)
+                cast = (lambda x: x) if prec == "f32" else (
+                    lambda x: x.to(torch.bfloat16))
+                stages, times, scales = sim._mega_tables
+                args = (cast(base), cast(coefs), times, scales, w)
+                kw = dict(stages=stages, nbins=nb)
+                kern, plain = mk.chunk_stats, mk.chunk_stats_plain
+            else:
+                res = sim._residuals(keys)
+                args, kw = (res, res, w, nb), {}
+                kern, plain = ((bc.binned_correlation_vpu
+                                if path == "fused-vpu" else
+                                bc.binned_correlation),
+                               bc.binned_correlation_plain)
+            got = kern(*args, precision=prec, **kw)
+            want = plain(*args, precision=prec, **kw)
+        torch.cuda.synchronize(dev)
+        held[what] = compare(got, want, prec, f"multiproc rank 0 probe "
+                             f"{what} vs plain")["max_abs_err"]
+        del args, got, want
+    reset_counts()
+    return held
+
+
+def check_stream_search_sampler(report: dict, got: list, n: int) -> dict:
+    """The phase's checks of :func:`mp_stream_search_sampler`'s results
+    (``got`` in rank order); returns the row's additions."""
+    r0 = got[0]
+    st = r0["stream"]
+    if not st["finite"] or any(
+            g["stream"][k] != st[k] for g in got for k in ("digest", "lnl",
+                                                           "os")) or any(
+            r0["stream_ref"][k] != st[k] for k in ("digest", "lnl", "os")):
+        raise AssertionError("multiproc stream: moments, lnL or OS differ "
+                             "across ranks or from the one-process mesh")
+    if not st["ckpt_files"] or any(g["stream"]["ckpt_files"]
+                                   for g in got[1:]):
+        raise AssertionError("multiproc stream: checkpoint files beyond "
+                             "rank 0, or none on rank 0")
+    for r, g in enumerate(got):
+        print(f"multiproc {n} ranks stream (config 14, psr {n}) rank {r}: "
+              f"append ms {g['stream']['append_ms']}", flush=True)
+    print(f"multiproc {n} ranks stream: one-process psr {n} mesh append "
+          f"ms {r0['stream_ref']['append_ms']}; moments, lnL and OS "
+          f"bit-identical on every rank, checkpoint files on rank 0 only",
+          flush=True)
+    sr = r0["search"]
+    for r, g in enumerate(got):
+        s = g["search"]
+        if s["cfg"] != sr["cfg"] or s["warm"]["cfg"] != sr["cfg"] or \
+                not s["warm"]["warm"] or s["warm"]["probes"] or \
+                s["store_files"] != ["tuned.json"] or \
+                s["artifact"] != (r == 0) or s["probes"] != sr["probes"]:
+            raise AssertionError(f"multiproc search rank {r}: {s}")
+        launched = {}
+        for p in s["probe_launches"]:
+            add_launches(report, p["shape"], p["launches"])
+            for k, v in p["launches"].items():
+                launched[k] = launched.get(k, 0) + v
+        print(f"multiproc {n} ranks tune.search rank {r}: {s['probes']} "
+              f"probes in {s['search_s']:.2f} s, rates {s['rates']}, "
+              f"launches during the probes {launched}; warm search "
+              f"{s['warm']['s']:.3f} s, 0 probes", flush=True)
+    paths = {p["knobs"]["path"] for p in sr["probe_launches"]}
+    for p in sr["probe_launches"]:
+        kern = (PATH_KERNEL if p["knobs"]["psr_shards"] == 1
+                else SHARDED_KERNEL).get(p["knobs"]["path"])
+        if kern and not p["launches"].get(kern):
+            raise AssertionError(f"multiproc search: probe {p['knobs']} "
+                                 f"launched {p['launches']}")
+    print(f"multiproc {n} ranks tune.search: one TunedConfig on every rank "
+          f"({json.dumps(sr['cfg']['knobs'])}), one store file, probed "
+          f"paths {sorted(paths)}; rank 0 held the probes' kernels against "
+          f"their plain versions, max abs err "
+          f"{json.dumps(r0['search_holds'])}", flush=True)
+    sa = r0["sample_toa"]
+    if not sa["finite"] or any(g["sample_toa"]["digest"] != sa["digest"]
+                               for g in got) or \
+            r0["sample_toa_ref"]["digest"] != sa["digest"]:
+        raise AssertionError("multiproc sampler psr 2 x toa 2: chains differ "
+                             "across ranks or from the one-process mesh")
+    print(f"multiproc {n} ranks sampler (cross, real 2 x psr 2 x toa 2): "
+          f"chains bit-identical, {sa['wall_s']:.2f} s for "
+          f"{MP_SAMPLE_STEPS} steps; case seconds "
+          f"{json.dumps(r0['case_s'])}", flush=True)
+    return {"case_s": r0["case_s"],
+            "stream_append_ms": [g["stream"]["append_ms"] for g in got],
+            "stream_one_process_append_ms": r0["stream_ref"]["append_ms"],
+            "search": [{"probes": g["search"]["probes"],
+                        "search_s": g["search"]["search_s"],
+                        "probe_launches": g["search"]["probe_launches"]}
+                       for g in got],
+            "tuned_knobs": sr["cfg"]["knobs"],
+            "search_holds_max_abs_err": r0["search_holds"],
+            "sample_toa_wall_s": sa["wall_s"]}
 
 
 def run_rank_group(n: int, shared: bool, full: bool, run_dir: str) -> list:
@@ -4492,6 +4791,7 @@ def phase_multiproc(report: dict, cards: int = 1) -> None:
                     raise AssertionError(f"multiproc sampler {mname}: "
                                          f"chains differ across ranks or "
                                          f"from the one-process run")
+            row.update(check_stream_search_sampler(report, got, n))
             row.update(kernels_max_abs_err=r0["kernels"],
                        laplace_s=r0["laplace_s"],
                        sample_wall_s={k: v["wall_s"]

@@ -3,7 +3,8 @@
 
 On a multi-process mesh the port's collectives are rendezvous points:
 ``Comm.all_gather`` / ``Comm.psum`` / ``Comm._broadcast`` and
-``Mesh.gather_real`` (``parallel/mesh.py``) and the ``torch.distributed``
+``Mesh.gather_real`` / ``broadcast_tensors`` / ``exchange_objects``
+(``parallel/mesh.py``) and the ``torch.distributed``
 collectives under them. Every rank of the group must issue the SAME
 sequence, or the ranks that did wait in the collective until its timeout
 (no error before that — the fast ranks sit waiting for the rank that
@@ -43,7 +44,8 @@ RULE_ID = "collective-divergence"
 
 #: the port's rendezvous points: the Comm / Mesh collectives
 #: (parallel/mesh.py) by method name, and torch.distributed's collectives
-COLLECTIVES = frozenset({"all_gather", "psum", "_broadcast", "gather_real"})
+COLLECTIVES = frozenset({"all_gather", "psum", "_broadcast", "gather_real",
+                         "broadcast_tensors", "exchange_objects"})
 DIST_COLLECTIVES = frozenset({
     "all_reduce", "all_gather", "all_gather_into_tensor",
     "all_gather_object", "all_to_all", "all_to_all_single", "barrier",

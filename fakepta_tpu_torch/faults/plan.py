@@ -25,6 +25,8 @@ site                      where it is checked
 ``ckpt.append``           EnsembleCheckpoint/SampleCheckpoint ``save``
 ``sample.segment``        SamplingRun.run, before each segment dispatch
 ``ingest.append``         StreamState.append, at the top of each TOA block
+``tune.probe``            tune.search, before each probe (inside the
+                          ranks' decision exchange)
 ``serve.dispatch``        ServePool's dispatcher thread, per cohort
 ``fleet.replica``         ServeFleet's router, per dispatch to a replica
 ``fleet.heartbeat``       the health monitor, per replica probe

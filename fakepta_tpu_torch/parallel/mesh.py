@@ -33,6 +33,14 @@ concatenated or added in shard order on every member, never through
 The backend follows the layout, chosen before the group starts: ``nccl``
 when every rank owns its own card(s), ``gloo`` for CPU entries and when
 ranks share a card (NCCL refuses two ranks on one GPU).
+
+Host decisions (a probe's budget stop, an append's bucket rungs, a
+failure on one rank) travel on the group's CPU transport: a gloo group
+over the mesh's ranks (the mesh's own group under gloo, a second group
+beside NCCL's). :meth:`Mesh.agreement` wraps a step every rank takes
+together and ends it with one exchange there, so a failure inside it on
+one rank raises on every rank at once instead of leaving the others in
+the next collective until the timeout.
 """
 
 from __future__ import annotations
@@ -257,6 +265,51 @@ def _collective_timeout_s() -> float:
     return float(_LAYOUT.get("timeout_s", DEFAULT_TIMEOUT_S))
 
 
+class RankFailure(RuntimeError):
+    """Raised on the other ranks when a step every rank of a multi-process
+    mesh takes together (:meth:`Mesh.agreement`) failed on one rank; that
+    rank raises its own exception."""
+
+
+class Agreement:
+    """A step every rank of a mesh takes together, ended by one exchange
+    on the host transport (:meth:`Mesh.exchange_objects`).
+
+    ``value`` is what this rank proposes (set it inside the block; any
+    picklable object); after the block ``values`` holds every rank's, in
+    the mesh's rank order, and ``lead_value`` the lead rank's (the owner
+    of entry (0, 0, 0), whose decisions every rank takes). When the block
+    raised on any rank, the exchange still happens: the failed rank
+    re-raises its own exception and every other rank raises
+    :class:`RankFailure` naming it. One process: no exchange, ``values``
+    is ``[value]``.
+    """
+
+    def __init__(self, mesh: "Mesh", what: str):
+        self.mesh, self.what = mesh, what
+        self.value = None
+        self.values: list = []
+
+    def __enter__(self) -> "Agreement":
+        return self
+
+    def __exit__(self, typ, exc, tb) -> bool:
+        error = None if exc is None else f"{typ.__name__}: {exc}"[:500]
+        self.values = [self.value]
+        got = self.mesh.exchange_objects((error, self.value))
+        self.values = [v for _, v in got]
+        failed = [(r, e) for r, (e, _) in zip(self.mesh.members, got)
+                  if e is not None]
+        if failed and exc is None:
+            rank, err = failed[0]
+            raise RankFailure(f"{self.what} failed on rank {rank}: {err}")
+        return False            # this rank's own exception propagates
+
+    @property
+    def lead_value(self):
+        return self.values[self.mesh.members.index(self.mesh.lead)]
+
+
 class Comm:
     """The collectives of a set of mesh entries, in shard order.
 
@@ -370,7 +423,11 @@ class Mesh:
         if not (self.ranks == self.rank).any():
             raise ValueError(f"rank {self.rank} owns no entry of this mesh")
         self.multiprocess = len(set(self.ranks.flat)) > 1
+        #: the mesh's ranks in order, and the lead (entry (0, 0, 0)'s)
+        self.members = sorted({int(r) for r in self.ranks.flat})
+        self.lead = int(self.ranks[0, 0, 0])
         self._groups: Dict[tuple, object] = {}
+        self._host_group = None
         if self.multiprocess:
             self._make_groups()
 
@@ -416,6 +473,20 @@ class Mesh:
             # every rank calls new_group for every set, in one order
             self._groups[members] = (None if members == world
                                      else dist.new_group(list(members)))
+        mine = tuple(self.members)
+        if backend() == "gloo":
+            self._host_group = self._groups[mine]
+            return
+        # beside NCCL, one gloo group per rank set carries host decisions;
+        # every rank builds the same meshes in one order, so the cache
+        # misses alike on every rank
+        host = _LAYOUT.setdefault("host_groups", {})
+        if mine not in host:
+            # fakepta: allow[collective-divergence] one backend, one cache
+            host[mine] = dist.new_group(
+                list(mine), backend="gloo", timeout=datetime.timedelta(
+                    seconds=_collective_timeout_s()))
+        self._host_group = host[mine]
 
     def comm(self, entries: Sequence[tuple]) -> Comm:
         """The collectives over ``entries`` ((real, psr, toa) indices, in
@@ -424,6 +495,54 @@ class Mesh:
         members = tuple(sorted(set(ranks)))
         return Comm(ranks, self.rank, self._groups.get(members),
                     _collective_timeout_s())
+
+    def _mesh_comm(self) -> Comm:
+        """The collectives over every entry of the mesh."""
+        return Comm(list(self.ranks.flat), self.rank,
+                    self._groups.get(tuple(self.members)),
+                    _collective_timeout_s())
+
+    def exchange_objects(self, value) -> list:
+        """Every rank's ``value`` (picklable), in :attr:`members` order, on
+        every rank of the mesh, over the host transport; ``[value]`` on a
+        one-process mesh."""
+        if not self.multiprocess:
+            return [value]
+        import torch.distributed as dist
+        out = [None] * len(self.members)
+        dist.all_gather_object(out, value, group=self._host_group)
+        return out
+
+    def agreement(self, what: str) -> Agreement:
+        """A step every rank takes together (:class:`Agreement`)."""
+        return Agreement(self, what)
+
+    def broadcast_tensors(self, xs: Optional[Sequence[torch.Tensor]],
+                          src: int, likes: Sequence[torch.Tensor]
+                          ) -> List[torch.Tensor]:
+        """Rank ``src``'s tensors ``xs`` on every rank of the mesh, in one
+        broadcast of their bytes, at ``likes``' shapes, dtypes and devices
+        (``xs`` is read on ``src`` only). One process: ``xs`` moved to the
+        likes' devices."""
+        if not self.multiprocess:
+            return [x.to(like.device) for x, like in zip(xs, likes)]
+        sizes = [like.numel() * like.element_size() for like in likes]
+        like_buf = torch.empty(sum(sizes), dtype=torch.uint8,
+                               device=likes[0].device)
+        packed = None
+        if src == self.rank:
+            packed = torch.cat([
+                x.detach().contiguous().reshape(-1).view(torch.uint8).to(
+                    like_buf.device) for x in xs])
+        buf = self._mesh_comm()._broadcast(packed, src, like_buf)
+        out, off = [], 0
+        for like, n in zip(likes, sizes):
+            # a copy of the slice starts its own storage, so any dtype's
+            # alignment holds
+            out.append(buf[off:off + n].clone().view(like.dtype).reshape(
+                like.shape).to(like.device))
+            off += n
+        return out
 
     def gather_real(self, blocks: Sequence[Optional[torch.Tensor]],
                     shape: Sequence[int], dtype: torch.dtype,
@@ -436,9 +555,7 @@ class Mesh:
         if not self.multiprocess:
             return torch.cat([b.to(device) for b in blocks])
         leads = [int(self.ranks[r, 0, 0]) for r in range(len(blocks))]
-        comm = Comm(list(self.ranks.flat), self.rank,
-                    self._groups.get(tuple(sorted(set(self.ranks.flat)))),
-                    _collective_timeout_s())
+        comm = self._mesh_comm()
         like = torch.empty(tuple(shape), dtype=dtype, device=device)
         return torch.cat([
             comm._broadcast(b if lead == self.rank else None, lead, like)

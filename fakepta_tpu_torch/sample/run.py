@@ -29,7 +29,11 @@ collective, as in the JAX program. On a multi-process mesh
 it has cells in, the psr gather crosses ranks where the cells do, and
 each segment's rows are gathered to every rank, so every rank holds the
 whole state; checkpoints are rank 0's to write, the drain is serial and
-a segment failure raises on every rank instead of retrying on one.
+a segment failure raises on every rank instead of retrying on one. The
+``'toa'`` axis replicates there too: a psr cell is the ``toa = 0``
+entry's, whose owner computes it and whose row lead broadcasts the row
+(a rank that owns only ``toa > 0`` entries computes nothing and receives
+every row), so each row's work is the one-process mesh's, bit for bit.
 
 Bitwise reproducibility: per-step draws fold the GLOBAL chain index, and
 every reduction whose inputs a mesh could reshape is either a fixed-order
@@ -76,7 +80,7 @@ from ..obs.report import RunReport
 from ..obs.timing import now
 from ..ops import mcmc, woodbury
 from ..parallel import pipeline as pipeline_mod
-from ..parallel.mesh import PSR_AXIS, REAL_AXIS, TOA_AXIS
+from ..parallel.mesh import PSR_AXIS, REAL_AXIS
 from ..parallel.mesh import backend as mesh_backend
 from ..parallel.mesh import make_mesh, process_count, process_index
 from ..tune import defaults as tune_defaults
@@ -317,9 +321,6 @@ class SamplingRun:
             raise ValueError(
                 f"npsr={batch.npsr} must be divisible by the psr mesh axis "
                 f"({n_psr_shards}); pad the batch")
-        if mesh.multiprocess and mesh.shape[TOA_AXIS] > 1:
-            raise ValueError("the sampler's toa axis replicates; give a "
-                             "multi-process mesh toa_shards=1")
         self.device = mesh.local_device
         self._dtype = batch.t_own.dtype
         if truth is None:
@@ -540,6 +541,14 @@ class SamplingRun:
                 self.spec.n_temps, self.spec.max_temp, dt, dev)
             row["eps"] = torch.full((), self.spec.step_size, dtype=dt,
                                     device=dev) / torch.sqrt(row["betas"])
+        # the whole run's preconditioner on this rank's first device (the
+        # thinned draws' map; a rank may hold no row)
+        self._head = {
+            "mode_v": torch.as_tensor(self.mode_v).to(dt).to(self.device),
+            "chol_cov_t": torch.as_tensor(
+                self.chol_cov.T.copy()).to(dt).to(self.device),
+            "bounds": torch.as_tensor(np.asarray(
+                self.compiled.bounds)).to(dt).to(self.device)}
         spec = self.spec
         rows = spec.n_chains * spec.n_temps * self.batch.npsr
         self._group = min(ROW_GROUP, rows + (-rows) % _CPU_ROWS)
@@ -663,13 +672,16 @@ class SamplingRun:
         kl = self.spec.n_chains // self._n_real_shards
         return slice(r * kl, (r + 1) * kl)
 
-    def _gather(self, blocks, dim: int = 0) -> torch.Tensor:
+    def _gather(self, blocks, like: torch.Tensor,
+                dim: int = 0) -> torch.Tensor:
         """The real rows' blocks concatenated along ``dim`` in row order on
         this rank's first device; across ranks (None for another rank's
-        row) through :meth:`..parallel.mesh.Mesh.gather_real`."""
+        row) through :meth:`..parallel.mesh.Mesh.gather_real`, at
+        ``like``'s shape and dtype (one row's block, which a rank that
+        holds no row cannot take from its own)."""
         if not self.mesh.multiprocess:
             return torch.cat([x.to(self.device) for x in blocks], dim=dim)
-        like = next(x for x in blocks if x is not None).movedim(dim, 0)
+        like = like.movedim(dim, 0)
         got = self.mesh.gather_real(
             [None if x is None else x.movedim(dim, 0) for x in blocks],
             like.shape, like.dtype, self.device)
@@ -685,7 +697,10 @@ class SamplingRun:
                 continue
             zr = z[self._row_chains(r)].to(self._rows[r]["device"])
             parts.append([p.to(self.device) for p in self._vg(r)(zr)])
-        return {k: self._gather([p[i] for p in parts])
+        # lnl / lnpri per (chain, rung); their gradients per coordinate
+        z0 = z[self._row_chains(0)]
+        likes = (z0[..., 0], z0, z0[..., 0], z0)
+        return {k: self._gather([p[i] for p in parts], likes[i])
                 for i, k in enumerate(_PART_KEYS)}
 
     def _transition_draws(self, base_key: torch.Tensor, seg_start: int,
@@ -719,7 +734,7 @@ class SamplingRun:
         t_count, thin, dt = spec.n_temps, spec.thin, self._dtype
         n_out = seg_steps // thin
         dev0 = self.device
-        row0 = next(row for row in self._rows if row is not None)
+        head = self._head
         # every draw of the segment, from its keys, at its start
         cg = torch.arange(spec.n_chains, device=dev0)
         t_idx0 = torch.arange(t_count, device=dev0)
@@ -785,24 +800,27 @@ class SamplingRun:
         def field(get):
             return [None if o is None else get(o) for o in rows_out]
 
-        new = {"z": self._gather(field(lambda o: o[0]))}
+        ch0 = self._row_chains(0)
+        new = {"z": self._gather(field(lambda o: o[0]), state["z"][ch0])}
         for i, k in enumerate(_PART_KEYS):
-            new[k] = self._gather(field(lambda o, i=i: o[1][i]))
+            new[k] = self._gather(field(lambda o, i=i: o[1][i]),
+                                  state[k][ch0])
         # the counters' increments, added over the real rows in row order
         for i, k in enumerate(("accept", "swap", "swap_att", "divergent",
                                "nonfinite")):
             total = state[k]
             parts = self._gather([None if p is None else p[i][None]
-                                  for p in inc])
+                                  for p in inc], state[k][None])
             for part in parts:
                 total = total + part
             new[k] = total
         # the thinned cold-chain draws and their accumulators, in emit
         # order (a warm-up emit adds nothing)
+        cold_like = state["z"][ch0][:, 0, :].expand(n_out, -1, -1)
         thinned = infer_model.box_from_unconstrained(
-            row0["mode_v"].to(dev0) + mcmc.fixed_matvec(
-                self._gather(cold, dim=1), row0["chol_cov_t"].to(dev0)),
-            row0["bounds"].to(dev0))
+            head["mode_v"] + mcmc.fixed_matvec(
+                self._gather(cold, cold_like, dim=1), head["chol_cov_t"]),
+            head["bounds"])
         acc = {k: state[k] for k in ("n", "npair", "prev_valid", "s1", "s2",
                                      "s11", "prev")}
         for j in range(n_out):

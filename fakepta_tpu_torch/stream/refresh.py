@@ -41,7 +41,10 @@ draws. Later refreshes inject freshly restricted moments into the lanes
 (:meth:`..sample.SamplingRun.restage`).
 
 The refreshers run their samplers on ``device`` (default ``"cuda"``,
-raising without a GPU unless ``device="cpu"``) or ``mesh``. The JAX
+raising without a GPU unless ``device="cpu"``) or ``mesh``; a stream
+whose mesh spans processes lends its mesh when neither is given, so
+every rank's refresh is one collective sampler run (every rank calls the
+refresher alike, as it appends alike). The JAX
 refreshers' ``compile_cache_dir`` (XLA's persistent compilation cache) has
 no counterpart in the port, whose sampler compiles nothing at run time:
 ``None`` is accepted and anything else raises ``NotImplementedError`` (a
@@ -78,11 +81,16 @@ def _no_compile_cache(compile_cache_dir) -> None:
             "item 11b.4, listed in Queue 3)")
 
 
-def _run_place(mesh, device) -> dict:
+def _run_place(stream, mesh, device) -> dict:
     """The sampler placement keywords: ``mesh`` or ``device`` (default
-    ``"cuda"``), as :class:`..sample.SamplingRun` takes them."""
+    ``"cuda"``, or the stream's mesh when it spans processes), as
+    :class:`..sample.SamplingRun` takes them."""
     if mesh is not None and device is not None:
         raise ValueError("pass mesh= or device=, not both")
+    lent = getattr(stream, "mesh", None)
+    if mesh is None and device is None and lent is not None \
+            and lent.multiprocess:
+        mesh = lent
     return {"mesh": mesh} if mesh is not None else {"device": device}
 
 
@@ -122,7 +130,7 @@ class PosteriorRefresher:
             raise ValueError("PosteriorRefresher spec.model must be the "
                              "stream's model (same basis, same moments)")
         self.rhat_gate = float(rhat_gate)
-        self._place = _run_place(mesh, device)
+        self._place = _run_place(stream, mesh, device)
         self.policy = policy or RefreshPolicy()
         self.posterior: Optional[dict] = None
         self.refreshes = 0
@@ -266,7 +274,7 @@ class FactorizedRefresher:
         self.touch_tol = float(knobs.FS_TOUCH_TOL if touch_tol is None
                                else touch_tol)
         self.lane_bins = lane_bins
-        self._place = _run_place(mesh, device)
+        self._place = _run_place(stream, mesh, device)
         self.posterior: Optional[dict] = None
         self.refreshes = 0
         self.promotions = 0

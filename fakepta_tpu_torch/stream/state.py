@@ -38,10 +38,25 @@ and copies it to each device in one transfer; the append's latency runs to
 a synchronize, as the JAX append's to ``block_until_ready``. The raw store
 the restage and the refreshers read stays host numpy.
 
-**Mesh.** With ``mesh=``, the pulsars split into contiguous blocks over the
-mesh's ``'psr'`` entries (the first ``'real'`` row, the ``'toa'`` axis
-replicated); each block's parts live on its entry's device and the
-finished moments are gathered in pulsar order onto the first entry's.
+**Mesh.** With ``mesh=``, the pulsars split into contiguous blocks (cells)
+over the mesh's ``'psr'`` axis, replicated over ``'real'`` and ``'toa'``
+as the JAX stream's ``_put`` shards over ``psr`` alone: a cell's parts
+live on the device of the first entry of its psr column, and the
+finished moments are gathered in pulsar order onto this process's first
+entry's device. On a mesh that spans processes
+(:func:`..parallel.mesh.initialize_multihost`) every rank makes the same
+calls with the same arguments (one program, many processes): it builds
+the cells of the psr columns it owns an entry of, appends every block
+(each rank keeps the whole host raw store, as each JAX process keeps its
+``_store``) but stages and ingests only its own cells' rows, and the
+gathers broadcast each column no rank set holds whole from the owner of
+its first entry, in column order, so every rank holds the one-process
+mesh's moments bit for bit. An append opens with one exchange of the
+block's bucket rungs and checksum on the host transport
+(:meth:`..parallel.mesh.Mesh.agreement`): ranks whose rungs or blocks
+differ raise together, and so does every rank when the append's fault
+site fired on one. Checkpoint files are the lead rank's to write; every
+rank resumes from the shared directory.
 
 **Torn-append recovery.** With a checkpoint attached, every appended block
 lands as its own ``.b<k>.npz`` via :func:`..utils.io.write_atomic` with a
@@ -151,18 +166,21 @@ class StreamCheckpoint:
         data = p.read_bytes()
         p.write_bytes(data[:max(len(data) // 2, 1)])
 
-    def load_blocks(self, ident: dict):
+    def load_blocks(self, ident: dict, repair: bool = True):
         """``(blocks, rolled_back)``: verified raw append blocks in order,
-        after rolling back past the first torn or corrupt one."""
+        after rolling back past the first torn or corrupt one. With
+        ``repair=False`` (a rank that does not write) the files are left
+        as they are and nothing is counted."""
         if not self.path.exists():
             return [], 0
         try:
             with np.load(self.path, allow_pickle=False) as z:
                 manifest = {k: z[k] for k in z.files}
         except (OSError, ValueError, zipfile.BadZipFile) as exc:
-            flightrec.note("stream_manifest_corrupt",
-                           path=str(self.path), error=repr(exc)[:200])
-            self.delete()
+            if repair:
+                flightrec.note("stream_manifest_corrupt",
+                               path=str(self.path), error=repr(exc)[:200])
+                self.delete()
             return [], 0
         for key in ("npsr", "ncols"):
             if int(manifest[key]) != int(ident[key]):
@@ -194,12 +212,13 @@ class StreamCheckpoint:
                 self._sums[k] = crc
             except (OSError, ValueError, KeyError,
                     zipfile.BadZipFile) as exc:
-                flightrec.note("stream_rollback", block=k,
-                               error=repr(exc)[:200])
+                if repair:
+                    flightrec.note("stream_rollback", block=k,
+                                   error=repr(exc)[:200])
                 good = k
                 blocks = blocks[:good]
                 break
-        if good < total:
+        if good < total and repair:
             # drop the bad tail and rewrite the manifest: the on-disk
             # checkpoint is the last CONSISTENT StreamState again
             for k in range(good, total):
@@ -220,12 +239,14 @@ class StreamCheckpoint:
 
 
 class _Cell:
-    """One psr block of the stream: its pulsars, device and pinned grid."""
+    """One psr block of the stream: its column, pulsars, device and pinned
+    grid."""
 
-    __slots__ = ("device", "lo", "n", "df_own", "tspan", "fixed", "res")
+    __slots__ = ("s", "device", "lo", "n", "df_own", "tspan", "fixed",
+                 "res")
 
-    def __init__(self, device, lo, n, df_own, tspan):
-        self.device, self.lo, self.n = device, lo, n
+    def __init__(self, s, device, lo, n, df_own, tspan):
+        self.s, self.device, self.lo, self.n = s, device, lo, n
         self.df_own, self.tspan = df_own, tspan
         self.fixed: dict = {}
         self.res: dict = {}
@@ -251,9 +272,10 @@ class StreamState:
     1/sigma^2 ~ 1e14; a float32 stream is legal on request).
 
     The stream runs on ``device`` (default ``"cuda"``, raising without a
-    GPU unless ``device="cpu"``) or on ``mesh``'s psr entries; pass one of
-    the two. Appended absolute TOAs are seconds from the stream's shared
-    origin (the template's own origin: its synthetic arrays start at 0).
+    GPU unless ``device="cpu"``) or on ``mesh``'s psr entries, on one
+    process or across ranks (module docstring); pass one of the two.
+    Appended absolute TOAs are seconds from the stream's shared origin
+    (the template's own origin: its synthetic arrays start at 0).
     """
 
     def __init__(self, template, model=None, *, theta_ref=None, mesh=None,
@@ -274,16 +296,14 @@ class StreamState:
                              "future data); model red/dm/chrom/curn only")
         self.npsr = int(template.npsr)
         self.ncols = int(self._compiled.ncols)
-        if mesh.multiprocess:
-            raise ValueError("a stream runs on one process's mesh (its "
-                             "host store and appends are not split across "
-                             "ranks)")
         self.mesh = mesh
         shards = int(mesh.shape[PSR_AXIS])
         if self.npsr % shards != 0:
             raise ValueError(f"npsr={self.npsr} must be divisible by "
                              f"the psr mesh axis ({shards})")
-        self.device = mesh.devices[0, 0, 0]
+        self.device = mesh.local_device
+        # checkpoint files are the lead rank's to write
+        self._writer = mesh.rank == mesh.lead
         self._dtype = dtype
         self.ecorr_dt = None if ecorr_dt is None else float(ecorr_dt)
         if theta_ref is None:
@@ -304,13 +324,22 @@ class StreamState:
                                 / np.maximum(np.sum(tmask, axis=1), 1.0))
         self._nsb = self._template_views()
         per = self.npsr // shards
+        # this rank's cells: the psr columns it owns an entry of, each on
+        # its first owned entry's device; a column some rank lacks is
+        # broadcast from the owner of its first entry (_gather)
         self._cells = []
+        self._shares = []
         for s in range(shards):
-            dev = mesh.devices[0, s, 0]
+            owned = [mesh.devices[i] for i in np.ndindex(mesh.devices.shape)
+                     if i[1] == s and mesh.owns(i)]
+            if set(mesh.ranks[:, s, :].flat) != set(mesh.members):
+                self._shares.append((s, int(mesh.ranks[0, s, 0])))
+            if not owned:
+                continue
             self._cells.append(_Cell(
-                dev, s * per, per,
-                self._cast(self._df_own[s * per:(s + 1) * per], dev),
-                self._cast(np.float64(self._tspan), dev)))
+                s, owned[0], s * per, per,
+                self._cast(self._df_own[s * per:(s + 1) * per], owned[0]),
+                self._cast(np.float64(self._tspan), owned[0])))
         self._pinned = any(c.device.type == "cuda" for c in self._cells)
         self._staging: dict = {}
 
@@ -470,12 +499,22 @@ class StreamState:
         return fn
 
     def _gather(self, per_cell):
-        """Per-cell tuples of pulsar-leading tensors, concatenated in
-        pulsar order on the gather device."""
-        if len(per_cell) == 1:
-            return tuple(per_cell[0])
+        """Per-cell tuples of pulsar-leading tensors (one per cell of this
+        rank), concatenated in pulsar order on the gather device; across
+        ranks each shared column's tensors are broadcast from its first
+        entry's owner in one transfer, in column order (every cell has
+        the same shapes, so this rank's first cell's are the likes)."""
+        by_col = {c.s: tuple(xs) for c, xs in zip(self._cells, per_cell)}
+        likes = per_cell[0]
+        for s, src in self._shares:
+            got = self.mesh.broadcast_tensors(by_col.get(s), src, likes)
+            if src != self.mesh.rank:
+                by_col[s] = tuple(got)
+        cols = [by_col[s] for s in sorted(by_col)]
+        if len(cols) == 1:
+            return cols[0]
         return tuple(torch.cat([x.to(self.device) for x in xs], dim=0)
-                     for xs in zip(*per_cell))
+                     for xs in zip(*cols))
 
     def _gather_parts(self, per_cell) -> dict:
         """Per-cell part dicts gathered key by key (:meth:`_gather`)."""
@@ -550,8 +589,37 @@ class StreamState:
         only with ``ecorr_dt`` set) to zero. Returns the append stats dict
         (latency, bucket, totals, and, with ``watch`` armed, the rolling
         detection statistic).
+
+        Across ranks every rank appends the same block; the append's
+        checks end in one exchange (module docstring), so a failure of
+        them on one rank raises on every rank before any state moves.
         """
-        act = faults.check("ingest.append", seq=int(self.appends))
+        t0 = now()
+        with self.mesh.agreement("stream append") as agreed:
+            act = faults.check("ingest.append", seq=int(self.appends))
+            block = self._block(toas, residuals, sigma2, freqs, ecorr_amp,
+                                counts)
+            agreed.value = self._rungs(block)
+        if any(v != agreed.lead_value for v in agreed.values):
+            raise ValueError(
+                f"stream append {self.appends}: the ranks' bucket rungs "
+                f"and block checksums (nb, epoch capacity, store capacity, "
+                f"crc32) differ: {agreed.values} in rank order; every rank "
+                f"must append the same block")
+        info = self._ingest(block, record=True, t0=t0)
+        if act == "torn":
+            # chaos harness: the block landed and the manifest references
+            # it, then failing storage tore its pages and the process died;
+            # resume must roll back to the last consistent StreamState
+            if self._ckpt is not None and self._writer:
+                self._ckpt.corrupt_block(self.appends - 1)
+            raise faults.KillFault(
+                f"injected torn stream append at block {self.appends - 1}")
+        return info
+
+    def _block(self, toas, residuals, sigma2, freqs, ecorr_amp,
+               counts) -> dict:
+        """The validated host block of one append."""
         toas = np.asarray(toas, dtype=np.float64)
         residuals = np.asarray(residuals, dtype=np.float64)
         if toas.ndim != 2 or toas.shape[0] != self.npsr:
@@ -579,25 +647,49 @@ class StreamState:
             return np.broadcast_to(np.asarray(x, dtype=np.float64),
                                    toas.shape).copy()
 
-        block = {
+        return {
             "t": toas, "r": residuals, "counts": counts,
             "sigma2": full(sigma2, self._sigma2_default[:, None]),
             "freqs": full(freqs, 1400.0),
             "ecorr": full(ecorr_amp, 0.0),
         }
-        info = self._ingest(block, record=True)
-        if act == "torn":
-            # chaos harness: the block landed and the manifest references
-            # it, then failing storage tore its pages and the process died;
-            # resume must roll back to the last consistent StreamState
-            if self._ckpt is not None:
-                self._ckpt.corrupt_block(self.appends - 1)
-            raise faults.KillFault(
-                f"injected torn stream append at block {self.appends - 1}")
-        return info
 
-    def _ingest(self, block: dict, record: bool) -> dict:
-        t0 = now()
+    def _epoch_ids(self, block: dict, valid: np.ndarray):
+        """Global ECORR epoch ids of a block's valid TOAs (0 elsewhere) and
+        the epoch capacity they need."""
+        eidx = np.floor_divide(block["t"], self.ecorr_dt).astype(np.int64)
+        eidx = np.where(valid, eidx, 0)
+        if np.any(eidx < 0):
+            raise ValueError("TOAs before the stream origin are not "
+                             "appendable (negative epoch id)")
+        need = int(eidx.max(initial=-1)) + 1 if np.any(valid) else 0
+        return eidx, need
+
+    def _rungs(self, block: dict) -> tuple:
+        """``(block bucket, epoch capacity, store capacity, crc32)`` after
+        ``block``: what every rank's append must agree on (on one process
+        nothing reads it)."""
+        if not self.mesh.multiprocess:
+            return None
+        counts = block["counts"]
+        b0 = block["t"].shape[1]
+        ecap = self._ecap
+        if self.ecorr_dt is not None:
+            valid = np.arange(b0)[None, :] < counts[:, None]
+            need = self._epoch_ids(block, valid)[1]
+            if need > ecap:
+                ecap = _snap(need, self._buckets, self._ratio)
+        cap = self._cap
+        need_cap = int((self._n + counts).max())
+        if need_cap > cap:
+            cap = _snap(need_cap, self._buckets, self._ratio)
+        crc = 0
+        for key in ("t", "r", "counts", "sigma2", "freqs", "ecorr"):
+            crc = zlib.crc32(np.ascontiguousarray(block[key]).tobytes(), crc)
+        return (_snap(b0, self._buckets, self._ratio), ecap, cap, crc)
+
+    def _ingest(self, block: dict, record: bool, t0=None) -> dict:
+        t0 = now() if t0 is None else t0
         toas, counts = block["t"], block["counts"]
         b0 = toas.shape[1]
         nb = _snap(b0, self._buckets, self._ratio)
@@ -611,12 +703,7 @@ class StreamState:
         rebucketed = False
         ei_pad = np.zeros((self.npsr, nb), dtype=np.int64)
         if self.ecorr_dt is not None:
-            eidx = np.floor_divide(toas, self.ecorr_dt).astype(np.int64)
-            eidx = np.where(valid, eidx, 0)
-            if np.any(eidx < 0):
-                raise ValueError("TOAs before the stream origin are not "
-                                 "appendable (negative epoch id)")
-            need = int(eidx.max(initial=-1)) + 1 if np.any(valid) else 0
+            eidx, need = self._epoch_ids(block, valid)
             if need > self._ecap:
                 grew = self._ecap > 0
                 self._grow_epochs(need)
@@ -657,7 +744,7 @@ class StreamState:
         k = self.appends
         self.appends += 1
 
-        if record and self._ckpt is not None:
+        if record and self._ckpt is not None and self._writer:
             self._ckpt.save_block(self._ident(), k, {
                 "t": toas, "r": block["r"], "counts": counts,
                 "sigma2": block["sigma2"], "freqs": block["freqs"],
@@ -681,7 +768,28 @@ class StreamState:
         return info
 
     def _resume(self) -> None:
-        blocks, rolled_back = self._ckpt.load_blocks(self._ident())
+        """Replay the checkpoint's consistent blocks. Across ranks the
+        lead loads first (rolling a torn tail back on disk), then the
+        others read what it left, and all must count the same blocks (a
+        checkpoint directory the ranks do not share raises on every
+        rank)."""
+        ident = self._ident()
+        blocks = []
+        with self.mesh.agreement("stream resume") as agreed:
+            if self._writer:
+                blocks, rolled_back = self._ckpt.load_blocks(ident)
+                agreed.value = (len(blocks), int(rolled_back))
+        n_blocks, rolled_back = agreed.lead_value
+        with self.mesh.agreement("stream resume") as agreed:
+            if not self._writer:
+                blocks, _ = self._ckpt.load_blocks(ident, repair=False)
+            agreed.value = len(blocks)
+        if any(n != n_blocks for n in agreed.values):
+            raise ValueError(
+                f"stream checkpoint {self._ckpt.path}: the ranks read "
+                f"{agreed.values} consistent blocks (rank order), the lead "
+                f"{n_blocks}; every rank must resume from one shared "
+                f"directory")
         self.rolled_back = int(rolled_back)
         for blk in blocks:
             self._ingest({k: np.asarray(v) for k, v in blk.items()},

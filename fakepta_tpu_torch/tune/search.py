@@ -8,6 +8,20 @@
 (:mod:`.store`), and emit an obs-readable artifact. A warm store returns
 in one file read with zero probes.
 
+Across ranks (a mesh that spans processes) every rank calls
+:func:`search` with the same arguments, as every rank calls ``run()``:
+the frontier comes from the global fingerprint, every probe is a
+collective ``run()`` of the same candidate in the same order, and the
+lead rank (the owner of the probe mesh's first entry) makes every
+timing decision (the warm-store hit, the predictive budget stop, the
+winner) and sends it on the group's host transport before the next
+probe (:meth:`..parallel.mesh.Mesh.agreement`), so no rank's own clock
+can split the ranks. The lead alone writes the store entry and the
+artifact; every rank returns the lead's :class:`.store.TunedConfig`. A
+probe's ``tune.probe`` chaos site (:mod:`..faults`) fires inside that
+exchange, so a fault on one rank raises on every rank before the probe
+runs.
+
 The ``resolve_*`` helpers are the consumption surface:
 ``EnsembleSimulator.run(tuned=True)`` resolves per spec family, and
 ``SamplingRun.run(tuned=True)`` resolves the platform-shaped pipeline
@@ -42,6 +56,19 @@ def mesh_entries(mesh) -> list:
                                                    mesh.ranks.flat)]
 
 
+def _shared_lookup(tstore: TuneStore, mesh, fp: Fingerprint,
+                   family: str) -> Optional[TunedConfig]:
+    """The store entry for ``fp`` x ``family`` as the lead rank of
+    ``mesh`` reads it, on every rank (one process: a plain lookup), so
+    ranks whose store files differ still take one decision."""
+    with mesh.agreement("tune store lookup") as agreed:
+        if mesh.rank == mesh.lead:
+            hit = tstore.lookup(fp, family)
+            agreed.value = None if hit is None else hit.to_json()
+    got = agreed.lead_value
+    return None if got is None else TunedConfig.from_json(got)
+
+
 def family_for_surface(surf: dict) -> str:
     """The spec-family hash of an engine dispatch surface
     (:meth:`..parallel.montecarlo.EnsembleSimulator.dispatch_surface`)."""
@@ -69,11 +96,12 @@ def search(batch=None, *, gwb=None, include=None, nbins: int = 15,
     physical devices. Returns ``(TunedConfig, info)``, ``info`` carrying
     ``probes`` / ``probe_s`` / ``warm`` / the per-candidate records. With
     a warm store (same fingerprint x family, not ``force``) the search
-    performs zero probes. A multi-process mesh raises
-    ``NotImplementedError``; ``run(tuned=...)`` works on every mesh.
+    performs zero probes. On a mesh that spans processes every rank
+    calls it alike and gets the same result (module docstring); ``info``
+    then holds this rank's own probe records and times.
     """
-    from ..parallel.mesh import (MeshDevice, global_devices, make_mesh,
-                                 process_index)
+    from .. import faults
+    from ..parallel.mesh import global_devices, make_mesh
     from ..parallel.montecarlo import EnsembleSimulator
 
     t0 = now()
@@ -87,12 +115,6 @@ def search(batch=None, *, gwb=None, include=None, nbins: int = 15,
                          "serve ArraySpec (spec=...)")
     devices = list(mesh_devices if mesh_devices is not None
                    else global_devices())
-    me = process_index()
-    if any(isinstance(d, MeshDevice) and d.rank != me for d in devices):
-        raise NotImplementedError(
-            "tune.search() probes on one process; a multi-process mesh is "
-            "not tuned yet (ROADMAP Queue 1 item 11b.1); run(tuned=...) "
-            "takes a TunedConfig on every mesh")
     fp = fingerprint(devices)
     budget_s = defaults.PROBE_BUDGET_S if budget_s is None else budget_s
     tstore = _as_store(store)
@@ -111,15 +133,17 @@ def search(batch=None, *, gwb=None, include=None, nbins: int = 15,
     # ONE family source: the base simulator's dispatch surface (the method
     # run(tuned=True) resolves through)
     base_sim = sim_for(1)
+    mesh = base_sim.mesh
+    lead = mesh.rank == mesh.lead
     surf = base_sim.dispatch_surface()
     family = family_for_surface(surf)
     if not force:
-        hit = tstore.lookup(fp, family)
+        hit = _shared_lookup(tstore, mesh, fp, family)
         if hit is not None:
             flightrec.note("tune_warm_hit", family=family, fp=fp.hash)
             info = {"probes": 0, "probe_s": 0.0, "warm": True,
                     "records": []}
-            if artifact:
+            if artifact and lead:
                 _write_artifact(artifact, fp, family, [], hit, info)
             return hit, info
 
@@ -134,8 +158,11 @@ def search(batch=None, *, gwb=None, include=None, nbins: int = 15,
     for i, cand in enumerate(frontier):
         # predictive budget stop: if the last probe's cost would push this
         # one past the budget, stop now (the hand-set default candidate,
-        # frontier[0], is always probed)
-        if i > 0 and now() - t0 + last_probe_s > budget_s:
+        # frontier[0], is always probed); the lead's clock decides
+        with mesh.agreement(f"tune probe {i}") as agreed:
+            faults.check("tune.probe", idx=i)
+            agreed.value = i > 0 and now() - t0 + last_probe_s > budget_s
+        if agreed.lead_value:
             flightrec.note("tune_budget_exhausted", probed=attempted,
                            frontier=len(frontier))
             break
@@ -146,13 +173,35 @@ def search(batch=None, *, gwb=None, include=None, nbins: int = 15,
         if rec is not None:
             last_probe_s = rec["probe_s"]
             records.append((cand, rec))
+    # the lead's records choose the winner and write the store; every
+    # rank returns what it chose
+    with mesh.agreement("tune choice") as agreed:
+        if lead:
+            cfg = _choose(records, attempted, fp, family, surf, nreal_hint,
+                          len(devices), t0)
+            store_path = tstore.put(cfg)
+            agreed.value = (cfg.to_json(), store_path)
+    got, store_path = agreed.lead_value
+    cfg = TunedConfig.from_json(got)
+    info = {"probes": attempted, "probe_s": now() - t0, "warm": False,
+            "records": [dict(r, knobs=c.knobs()) for c, r in records],
+            "store_path": store_path}
+    if artifact and lead:
+        _write_artifact(artifact, fp, family, records, cfg, info)
+    return cfg, info
+
+
+def _choose(records, attempted: int, fp: Fingerprint, family: str,
+            surf: dict, nreal_hint: int, n_devices: int,
+            t0: float) -> TunedConfig:
+    """The winner of the probe ``records`` as a :class:`TunedConfig`."""
     if not records:
         raise RuntimeError(
             f"tune search probed {attempted} candidate(s) and none "
             f"completed; refusing to persist a guess (see the flight "
             f"recorder's tune_probe_failed / tune_probe_degraded notes)")
 
-    default = default_candidate(nreal_hint, len(devices))
+    default = default_candidate(nreal_hint, n_devices)
 
     # selection is on DELIVERED throughput at the workload scale: a chunk
     # that does not divide nreal_hint computes a truncated tail
@@ -167,7 +216,7 @@ def search(batch=None, *, gwb=None, include=None, nbins: int = 15,
     knobs = best_cand.knobs()
     knobs["buckets"] = list(bucket_ladder(
         fp, surf["npsr"], surf["max_toa"], surf["k_coef"],
-        n_real_shards=len(devices), dtype_bytes=surf["dtype_bytes"]))
+        n_real_shards=n_devices, dtype_bytes=surf["dtype_bytes"]))
     metrics = {
         "real_per_s_per_chip": round(delivered(best_cand, best_rec), 3),
         "probes": attempted,
@@ -180,15 +229,8 @@ def search(batch=None, *, gwb=None, include=None, nbins: int = 15,
         if hand > 0:
             metrics["speedup_x"] = round(
                 delivered(best_cand, best_rec) / hand, 3)
-    cfg = TunedConfig(fingerprint=fp.as_dict(), family=family,
-                      knobs=knobs, metrics=metrics)
-    store_path = tstore.put(cfg)
-    info = {"probes": attempted, "probe_s": probe_s, "warm": False,
-            "records": [dict(r, knobs=c.knobs()) for c, r in records],
-            "store_path": store_path}
-    if artifact:
-        _write_artifact(artifact, fp, family, records, cfg, info)
-    return cfg, info
+    return TunedConfig(fingerprint=fp.as_dict(), family=family,
+                       knobs=knobs, metrics=metrics)
 
 
 def _write_artifact(path, fp: Fingerprint, family: str, records,
@@ -231,10 +273,11 @@ def _write_artifact(path, fp: Fingerprint, family: str, records,
 def resolve_for_sim(sim, store=None) -> Optional[TunedConfig]:
     """The TunedConfig matching one simulator's platform (its mesh's
     devices) x family, or None: ``run(tuned=True)``'s store hook, one file
-    read and zero probes."""
+    read and zero probes (on a mesh that spans processes, the lead rank's
+    read, sent to every rank, so every rank runs the same knobs)."""
     fp = fingerprint(mesh_entries(sim.mesh))
     family = family_for_surface(sim.dispatch_surface())
-    return _as_store(store).lookup(fp, family)
+    return _shared_lookup(_as_store(store), sim.mesh, fp, family)
 
 
 def resolve_platform_knob(name: str, store=None, default=None,

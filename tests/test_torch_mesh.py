@@ -392,3 +392,23 @@ def test_chunk_stats_wrapper_local_set_on_cpu():
     with pytest.raises(ValueError, match="all four local operands"):
         mk.chunk_stats(base, coef, times, scales, w, stages=STAGES, nbins=5,
                        base_local=base[:, 2:5])
+
+
+def test_agreement_on_one_process_is_the_block_itself():
+    """On a one-process mesh an agreement exchanges nothing: its values
+    are this process's, and an exception inside it propagates as it
+    was."""
+    mesh = make_mesh(["cpu"] * 4, psr_shards=2)
+    assert (mesh.members, mesh.lead) == ([0], 0)
+    with mesh.agreement("step") as agreed:
+        agreed.value = (8, 16)
+    assert agreed.values == [(8, 16)] and agreed.lead_value == (8, 16)
+    err = ValueError("only here")
+    with pytest.raises(ValueError) as got:
+        with mesh.agreement("step"):
+            raise err
+    assert got.value is err
+    assert mesh.exchange_objects({"a": 1}) == [{"a": 1}]
+    x = torch.arange(6.0).reshape(2, 3)
+    out = mesh.broadcast_tensors([x], 0, [x])
+    assert out[0] is x or torch.equal(out[0], x)

@@ -14,9 +14,23 @@ modes at the port's 1e-2 bf16 bound, the OS lanes at the detection lane's
 bound, against the JAX lane on one device: its gradient over a psr mesh is
 wrong, ROADMAP Queue 3). Only rank 0 writes checkpoint files, a cut run resumes from a
 shared directory to the uninterrupted one, the event-log shards merge
-into one trace with pid lanes {0, 1}, the 2-rank sampler's chains equal
-the one-process run bit for bit and the JAX sampler's at 1e-9 (float64),
-and a fault on one rank raises on both instead of hanging.
+into one trace with pid lanes {0, 1}, the 2-rank sampler's chains (over
+'real', 'psr' and a replicated 'toa' axis) equal the one-process run bit
+for bit and the JAX sampler's at 1e-9 (float64), and a fault on one rank
+raises on both instead of hanging.
+
+The stream (tests/test_stream.py's template and blocks) on the ``psr``
+and ``cross`` layouts equals the one-process mesh's bit for bit on both
+ranks (moments, lnL, restage, the rolling OS and a detection sequence),
+and the JAX stream's within test_torch_stream.py's bounds (1e-10 relative
+for the moments and lnL, 1e-9 for the OS, the same detection count); its
+checkpoint files are rank 0's alone, a stream cut after two appends
+resumes from a shared directory bit-identically, and both refreshers run
+on it as on the one-process mesh. ``tune.search`` over both ranks'
+entries returns one TunedConfig on both, leaves one store file, probes
+``candidate_frontier``'s list for the global fingerprint and is warm the
+second time. A fault on rank 1 in an append or before a probe raises on
+both ranks within a second, and both go on.
 
 The test skips only when the group fails to come up before the workers'
 sentinel line, as tests/test_multihost.py does; any failure after it fails.
@@ -38,16 +52,21 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 import _multihost_worker as cfg
 import _torch_multiproc_worker as wcfg
 from fakepta_tpu import infer as jinfer
+from fakepta_tpu import obs as jobs
 from fakepta_tpu.batch import PulsarBatch as JaxBatch
 from fakepta_tpu.detect import OSSpec as JaxOSSpec
+from fakepta_tpu.detect.streaming import StreamingOS as JaxOS
 from fakepta_tpu.parallel.mesh import make_mesh as jax_mesh
 from fakepta_tpu.sample import SampleSpec as JSpec
 from fakepta_tpu.sample import SamplingRun as JRun
-from fakepta_tpu_torch import infer
+from fakepta_tpu.stream import StreamState as JaxStream
+from fakepta_tpu.stream import default_stream_model as jax_stream_model
+from fakepta_tpu_torch import infer, tune
 from fakepta_tpu_torch import spectrum as spectrum_lib
 from fakepta_tpu_torch.batch import PulsarBatch
 from fakepta_tpu_torch.obs.report import RunReport
@@ -246,11 +265,6 @@ def test_to_host_gathers_the_real_blocks_in_shard_order(ranks):
         assert got["psr"] == [[0.0] * 3] * 2
 
 
-def test_stream_refuses_a_multi_process_mesh(ranks):
-    for r in range(wcfg.NRANKS):
-        assert "one process's mesh" in (ranks[r]["stream_refused"] or "")
-
-
 def test_checkpoint_files_on_rank_0_only_and_resume(ranks):
     r0, r1 = ranks[0], ranks[1]
     assert any(files for files in r0["ckpt_files_mid_run"])
@@ -297,11 +311,17 @@ def jax_sampler():
     return study.run(wcfg.SAMPLE_STEPS, pipeline_depth=0, **wcfg.SAMPLE_RUN)
 
 
-@pytest.mark.parametrize("name", ["real2", "psr2"])
+@pytest.mark.parametrize("name", ["real2", "psr2", "toa_cross",
+                                  "toa_only"])
 def test_sampler_chains_bit_identical_and_match_jax(ranks, jax_sampler,
                                                     name):
+    """``toa_cross``: real 2 x psr 2 x toa 2 on the cross layout;
+    ``toa_only``: real 1 x toa 2, rank 1 owning only the toa 1 entry,
+    held to the toa_cross one-process run (the chains do not depend on the
+    mesh)."""
     got = [ranks[r]["sample"][name] for r in range(wcfg.NRANKS)]
-    ref = ranks[0]["sample_ref"][name]["theta"]
+    ref = ranks[0]["sample_ref"][
+        "toa_cross" if name == "toa_only" else name]["theta"]
     for r, g in enumerate(got):
         assert json.dumps(g["theta"]) == json.dumps(ref), (name, r)
         assert g["meta"]["process_index"] == r
@@ -314,6 +334,157 @@ def test_sampler_chains_bit_identical_and_match_jax(ranks, jax_sampler,
     for k in ("accept_rate_by_temp", "swap_rate", "divergences",
               "nonfinite_lnl", "n_kept"):
         assert got[0]["diag"][k] == jax_sampler["diag"][k], k
+
+
+# -- the stream ---------------------------------------------------------------
+
+STREAM_CASES = tuple(wcfg.STREAM_CASES)
+STREAM_KEYS = ("moments", "lnl", "restaged", "os", "detections",
+               "os_sequence_snr")
+
+
+def _rel_err(got, want) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.max(np.abs(got - want))
+                 / max(float(np.max(np.abs(want))), 1e-300))
+
+
+@pytest.fixture(scope="module")
+def jax_stream():
+    """The JAX stream over the workers' template (crossed as numpy) and
+    blocks, with its OS per append."""
+    tb = PulsarBatch.synthetic(**wcfg.STREAM_TEMPLATE,
+                               dtype=torch.float64,
+                               device="cpu")
+    jt = JaxBatch(**{k: jax.numpy.asarray(v) for k, v in tb.numpy().items()})
+    st = JaxStream(jt, jax_stream_model(nbin=wcfg.STREAM_NBIN),
+                   ecorr_dt=wcfg.STREAM_ECORR_DT, watch="hd")
+    infos = [st.append(b["t"], b["r"], sigma2=b["s2"], ecorr_amp=b["ec"],
+                       counts=b["counts"]) for b in wcfg.stream_blocks()]
+    return {"stream": st, "infos": infos,
+            "moments": [np.asarray(x) for x in st.moments()],
+            "lnl": st.lnlike(st.theta_ref), "pos": np.asarray(jt.pos)}
+
+
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_stream_bit_identical_to_the_one_process_mesh(ranks, case):
+    ref = ranks[0]["stream_ref"][case]
+    for r in range(wcfg.NRANKS):
+        got = ranks[r]["stream"][case]
+        for key in STREAM_KEYS:
+            assert json.dumps(got[key]) == json.dumps(ref[key]), (case, r,
+                                                                  key)
+
+
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_stream_matches_the_jax_stream(ranks, jax_stream, case):
+    got = ranks[1]["stream"][case]
+    for g, w in zip(got["moments"], jax_stream["moments"]):
+        assert _rel_err(g, w) <= 1e-10
+    assert abs(got["lnl"] - jax_stream["lnl"]) <= \
+        1e-10 * abs(jax_stream["lnl"])
+    for g, w in zip(got["os"], jax_stream["infos"]):
+        for key in ("amp2", "snr"):
+            assert np.isfinite(g[key])
+            assert abs(g[key] - w[key]) <= 1e-9 * abs(w[key]), key
+    # the detection sequence at the workers' threshold
+    js = jax_stream["stream"]
+    watcher = JaxOS(js._compiled, js._nsb, jax_stream["pos"],
+                    theta_ref=js.theta_ref,
+                    threshold_sigma=4.0 * got["os"][-1]["snr"])
+    mom = js.moments()
+    with jobs.collect() as col:
+        for k in wcfg.OS_SCALES:
+            watcher.update(mom[:4] + (mom[4] * k,))
+    assert got["detections"] == col.counters.get("stream.detections", 0) \
+        >= 1
+    assert got["os_sequence_snr"] == pytest.approx(watcher.last["snr"],
+                                                   rel=1e-9)
+
+
+def test_stream_checkpoint_on_rank_0_only_and_resume(ranks):
+    assert ranks[0]["stream_ckpt_files"] == [
+        "s.ckpt", "s.ckpt.b000000.npz", "s.ckpt.b000001.npz",
+        "s.ckpt.b000002.npz"]
+    assert ranks[1]["stream_ckpt_files"] == []
+    want = json.dumps(ranks[0]["stream"]["psr"]["moments"])
+    for r in range(wcfg.NRANKS):
+        got = ranks[r]["stream_resume"]
+        assert got["replayed"] == 2
+        assert json.dumps(got["moments"]) == want, r
+
+
+def test_stream_refreshers_bit_identical_to_the_one_process_mesh(ranks):
+    ref = ranks[0]["refresh_ref"]
+    assert ref["promoted"] and ref["fs_lanes"] == wcfg.FS_NBIN
+    for r in range(wcfg.NRANKS):
+        assert json.dumps(ranks[r]["refresh"]) == json.dumps(ref), r
+
+
+# -- the tuner's search ------------------------------------------------------
+
+def _global_fingerprint():
+    return tune.Fingerprint(platform="cpu", device_kind="cpu",
+                            n_devices=wcfg.NRANKS,
+                            n_processes=wcfg.NRANKS, hbm_bytes=0,
+                            torch_version=str(torch.__version__),
+                            cuda_version=str(torch.version.cuda or ""))
+
+
+def test_search_one_config_on_every_rank_and_warm(ranks):
+    got = [ranks[r]["search"] for r in range(wcfg.NRANKS)]
+    for r, g in enumerate(got):
+        assert g["cfg"] == got[0]["cfg"], r
+        assert g["probes"] == len(g["probed"]) >= 1
+        assert g["store_files"] == ["tuned.json"]
+        assert g["store_path"] == got[0]["store_path"]
+        # a second search on the same store: warm, no probe, same config
+        assert g["warm"]["warm"] and g["warm"]["probes"] == 0
+        assert g["warm"]["cfg"] == got[0]["cfg"]
+    # the lead alone wrote the artifact
+    assert [g["artifact"] for g in got] == [True, False]
+    stored = json.loads(pathlib.Path(got[0]["store_path"]).read_text())
+    assert list(stored["entries"].values()) == [got[0]["cfg"]]
+
+
+def test_search_probes_the_global_fingerprints_frontier(ranks):
+    fp = _global_fingerprint()
+    tb = PulsarBatch.synthetic(**cfg.SIM, device="cpu")
+    f = np.arange(1, cfg.GWB["ncomp"] + 1) / float(tb.tspan_common)
+    psd = spectrum_lib.powerlaw(f, log10_A=cfg.GWB["log10_A"],
+                                gamma=cfg.GWB["gamma"]).numpy()
+    surf = EnsembleSimulator(tb, gwb=GWBConfig(psd=psd, orf="hd"),
+                             device="cpu").dispatch_surface()
+    kw = dict(wcfg.SEARCH)
+    frontier = tune.candidate_frontier(
+        fp, surf["npsr"], surf["max_toa"], surf["k_coef"],
+        nreal_hint=kw["nreal_hint"], n_devices=wcfg.NRANKS * wcfg.LOCAL,
+        dtype_bytes=surf["dtype_bytes"],
+        max_candidates=kw["max_candidates"])
+    for r in range(wcfg.NRANKS):
+        got = ranks[r]["search"]
+        assert got["fingerprint"] == fp.as_dict()
+        assert got["cfg"]["fingerprint"] == fp.as_dict()
+        assert got["probed"] == [c.knobs() for c in frontier], r
+
+
+# -- faults on one rank --------------------------------------------------------
+
+@pytest.mark.parametrize("what,own", [("stream_fault", "TransientFault"),
+                                      ("search_fault", "FatalFault")])
+def test_a_fault_on_one_rank_raises_on_every_rank(ranks, what, own):
+    """A fault injected on rank 1 alone, at its stream append's or its
+    first probe's site, raises there and raises RankFailure on rank 0,
+    both within a second (the group's timeout is 60 s); neither rank's
+    stream moved, so the retried appends land as if nothing failed."""
+    r0, r1 = ranks[0][what], ranks[1][what]
+    assert r1["raised"] == own, r1
+    assert r0["raised"] == "RankFailure" and "rank 1" in r0["error"], r0
+    assert max(r0["after_s"], r1["after_s"]) < 1.0
+    if what == "stream_fault":
+        want = json.dumps(ranks[0]["stream"]["psr"]["moments"])
+        for r in (r0, r1):
+            assert json.dumps(r["moments"]) == want
 
 
 def test_a_rank_failure_raises_on_every_rank(ranks):

@@ -333,6 +333,31 @@ def test_torn_append_rolls_back_to_last_consistent_state(jax_run, port,
         np.testing.assert_array_equal(got, ref)
 
 
+def test_checkpoint_read_without_repair_leaves_a_torn_tail(jax_run, port,
+                                                            tmp_path):
+    """What a rank that does not write reads of a torn checkpoint: the
+    consistent prefix, with the files, the counters and the flight
+    recorder left alone; the writer's read then rolls the tail back."""
+    path = tmp_path / "reader.ckpt"
+    stream = _ckpt(port, path)
+    for b in jax_run["blocks"]:
+        _append(stream, b)
+    ckpt = StreamCheckpoint(path)
+    ckpt.corrupt_block(2)
+    files = sorted(p.name for p in tmp_path.iterdir())
+    ident = stream._ident()
+    with metrics.collect() as col:
+        blocks, rolled = StreamCheckpoint(path).load_blocks(ident,
+                                                            repair=False)
+    assert (len(blocks), rolled) == (2, 1)
+    assert "faults.rollbacks" not in col.counters
+    assert sorted(p.name for p in tmp_path.iterdir()) == files
+    blocks, rolled = StreamCheckpoint(path).load_blocks(ident)
+    assert (len(blocks), rolled) == (2, 1)
+    assert "reader.ckpt.b000002.npz" not in {p.name
+                                             for p in tmp_path.iterdir()}
+
+
 def test_transient_fault_leaves_stream_untouched(jax_run, port):
     stream = _stream(port)
     blocks = jax_run["blocks"]

@@ -40,7 +40,7 @@ from fakepta_tpu_torch.obs.report import RunReport
 from fakepta_tpu_torch.ops import binned_corr as binned_corr_ops
 from fakepta_tpu_torch.ops import megakernel as megakernel_ops
 from fakepta_tpu_torch.ops.megakernel import chunk_bytes_model
-from fakepta_tpu_torch.parallel.mesh import MeshDevice, make_mesh
+from fakepta_tpu_torch.parallel.mesh import make_mesh
 from fakepta_tpu_torch.parallel.montecarlo import (EnsembleSimulator,
                                                    GWBConfig)
 from fakepta_tpu_torch.tune import defaults
@@ -362,12 +362,6 @@ def test_warm_store_zero_probes_and_artifact(batches, searched, capsys):
     from fakepta_tpu_torch.obs.cli import main as obs_main
     assert obs_main(["summarize", str(searched["artifact"])]) == 0
     assert "tune_probe_s" in capsys.readouterr().out
-
-
-def test_search_refuses_a_multi_process_mesh(batches):
-    with pytest.raises(NotImplementedError, match="11b"):
-        tune.search(batches[1], mesh_devices=[MeshDevice(0, "cpu"),
-                                              MeshDevice(1, "cpu")])
 
 
 # -- consumption: run(tuned=...) ---------------------------------------------
