@@ -12,7 +12,10 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    number of ``HMMA`` (tensor-core) instructions in each kernel's SASS
    (``cuobjdump -sass``); it fails if the kernels of
    ``binned_correlation``, ``binned_correlation_vpu`` or ``chunk_stats``'
-   projection pass have none.
+   projection pass have none, or if the float64 kernels
+   (``binned_correlation_f64``'s ``corr_f64_kernel`` and
+   ``chunk_stats_f64``'s ``project_f64_kernel``) have no ``DMMA`` (FP64
+   tensor-core) instruction.
 2. ``kernels``: at the flagship shapes (R = 1024 realizations, 100 pulsars,
    780 TOAs), hold each kernel against its plain torch version on the same
    inputs, at both precisions, and time kernel, plain version, the
@@ -26,7 +29,17 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    beside the whole, and pass 1's library time: one ``torch.einsum`` of
    the projection against a prebuilt dense basis at the row's shape (R,
    rows, K, T), at full fp32 for 'f32' (matmul precision set for the call)
-   and on bf16 operands for 'bf16'.
+   and on bf16 operands for 'bf16'. Then the float64 kernels on one chunk
+   of the float64 flagship: ``binned_correlation_f64`` (PL = 100 and 50)
+   within 1e-6 of the scale at 'f32' and 1e-5 at 'bf16' (float32 outputs),
+   ``chunk_stats_f64`` (PL = 100) and ``chunk_stats_sharded_f64`` (PL = 50)
+   within 1e-12 at 'f32' (float64 throughout) and the bf16 bound under
+   bf16 storage, each against its plain version on the card, with a
+   bit-identical rerun, its bound (FP64 tensor cores at 67 TFLOP/s) and
+   its plain version's time; ``binned_correlation_f64``'s library time is
+   a ``torch.einsum`` at float64, and ``chunk_stats_f64`` has none (one
+   ``torch.einsum`` at float64 of its projection against a prebuilt basis
+   is timed beside its pass-1 time).
 3. ``engine``: run ``EnsembleSimulator`` on the flagship batch with an HD
    background for ``stat_path`` ``"fused"``, ``"fused"`` with
    ``pallas_mxu_binning=False`` (``"fused-vpu"``) and ``"mega"`` at
@@ -419,10 +432,20 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    must be ``"einsum"``: ``run(4096, chunk=1024)`` after a one-chunk
    warm-up, timed in turns with the float32 einsum run at the same shape
    and chunk (f32, f64, f64, f32), finite float64 curves whose mean auto
-   is within 5% of the float32 run's, and no kernel launched; the reduced
-   flagship at float64 on the card against the same run on the CPU within
-   1e-12 of the curve scale (the CPU tests' float64 bound), correlations
-   too; ``stat_path="fused"`` and ``"mega"`` refused with ``TypeError``.
+   is within 5% of the float32 run's, and no kernel launched. Then the
+   float64 flagship on the kernel paths, ``"fused"`` and ``"mega"`` at
+   'f32' and 'bf16', ``run(2048, chunk=1024)`` each after a warm-up, in
+   turns with the float64 einsum run (einsum, the four, the four
+   reversed, einsum), each held to the einsum run's curves within 1e-6 of
+   the scale ('f32') or 1e-2 ('bf16'), with the float64 kernel launches
+   counted (zeroed just before each run, read just after): one
+   ``binned_correlation_f64`` a chunk on fused, one ``chunk_stats_f64``
+   (``fpt_project_f64`` then ``fpt_binned_corr_f64``) on mega, none on
+   einsum; and one ``"mega"`` run at 'f32' on a psr-2 mesh on the card
+   (#4's local+full set, ``chunk_stats_sharded_f64`` twice a chunk). The
+   reduced flagship at float64 on the card against the same run on the CPU
+   within 1e-12 of the curve scale (the CPU tests' float64 bound),
+   correlations too.
    Then the facade at float64: BASELINE config 2's ``add_noise_array``
    (10 pulsars) in injections/s in turns with its float32 twin, and a
    ``make_fake_array(npsrs=100, ntoas=780, gaps=True, dtype=
@@ -464,6 +487,7 @@ PEAK_HBM_BPS = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_FP64_TC_FLOPS = 67e12
 
 NREAL = 4096
 CHUNK = 1024
@@ -528,12 +552,14 @@ def in_turns(fns: dict, iters: int) -> dict:
 
 
 def bound(bytes_moved: float, fp32_flops: float, bf16_flops: float,
-          tf32_flops: float = 0.0):
+          tf32_flops: float = 0.0, fp64_flops: float = 0.0):
     """(bound ms, 'bytes' | 'operations'): the larger of the byte time and
-    the operation time at the card's published peaks."""
+    the operation time at the card's published peaks (float64 operations
+    at the FP64 tensor cores' rate, the fastest the card runs them)."""
     t_bytes = bytes_moved / PEAK_HBM_BPS
     t_ops = (fp32_flops / PEAK_FP32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
-             + tf32_flops / PEAK_TF32_FLOPS)
+             + tf32_flops / PEAK_TF32_FLOPS
+             + fp64_flops / PEAK_FP64_TC_FLOPS)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -644,7 +670,10 @@ def counts() -> dict:
     return {"binned_correlation": bc.launches,
             "binned_correlation_vpu": bc.vpu_launches,
             "chunk_stats": mk.launches,
-            "chunk_stats_sharded": mk.sharded_launches}
+            "chunk_stats_sharded": mk.sharded_launches,
+            "binned_correlation_f64": bc.f64_launches,
+            "chunk_stats_f64": mk.f64_launches,
+            "chunk_stats_sharded_f64": mk.f64_sharded_launches}
 
 
 def shape_tag(pl: int, pf: int, t: int, nb=None, k=None) -> str:
@@ -685,25 +714,29 @@ def add_launches(report: dict, shape: str, moved: dict) -> None:
 def reset_counts() -> None:
     from fakepta_tpu_torch.ops import binned_corr as bc
     from fakepta_tpu_torch.ops import megakernel as mk
-    bc.launches = bc.vpu_launches = 0
+    bc.launches = bc.vpu_launches = bc.f64_launches = 0
     mk.launches = mk.sharded_launches = 0
+    mk.f64_launches = mk.f64_sharded_launches = 0
 
 
-def sass_counts(path, opcode: str = "HMMA") -> dict:
-    """{kernel: number of ``opcode`` instructions} in a built library's
-    SASS (``cuobjdump -sass``, from the toolkit beside nvcc)."""
+def sass_counts(path, opcodes=("HMMA", "DMMA")) -> dict:
+    """{opcode: {kernel: number of its instructions}} in a built library's
+    SASS (``cuobjdump -sass``, from the toolkit beside nvcc, read once)."""
     from fakepta_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    got, fn = {}, None
+    got, fn = {op: {} for op in opcodes}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            got[fn] = 0
-        elif fn is not None and opcode in line:
-            got[fn] += 1
+            for op in opcodes:
+                got[op][fn] = 0
+        elif fn is not None:
+            for op in opcodes:
+                if op in line:
+                    got[op][fn] += 1
     return got
 
 
@@ -719,11 +752,11 @@ def phase_build(report: dict) -> None:
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    report["hmma"] = {}
+    report["hmma"], sass = {}, {}
     for name in _build.KERNELS:
         _build.load(name)
-        counts = sass_counts(_build.library_path(name))
-        report["hmma"][name] = counts
+        sass[name] = sass_counts(_build.library_path(name))
+        report["hmma"][name] = counts = sass[name]["HMMA"]
         for fn, n in counts.items():
             print(f"  {name}: {n:5d} HMMA in {fn}")
     for name, lib, kernel in (
@@ -735,14 +768,28 @@ def phase_build(report: dict) -> None:
         if not mma or min(mma.values()) == 0:
             raise AssertionError(f"{name}'s kernels run no tensor-core "
                                  f"instruction: {mma}")
+    report["dmma"] = {}
+    for name, lib, kernel in (
+            ("binned_correlation_f64", "binned_corr", "corr_f64_kernel"),
+            ("chunk_stats_f64", "megakernel", "project_f64_kernel")):
+        dmma = {fn: n for fn, n in sass[lib]["DMMA"].items()
+                if kernel in fn}
+        report["dmma"][name] = dmma
+        for fn, n in dmma.items():
+            print(f"  {lib}: {n:5d} DMMA in {fn}")
+        if not dmma or min(dmma.values()) == 0:
+            raise AssertionError(f"{name}'s kernels run no FP64 "
+                                 f"tensor-core instruction: {dmma}")
 
 
 def kernel_rows(rows: dict, name: str, tag: str, kernel, plain, library,
-                nbytes, flops, iters: int, precs=("bf16", "f32")) -> None:
+                nbytes, flops, iters: int, precs=("bf16", "f32"),
+                tol=None) -> None:
     """Hold ``kernel(prec)`` against ``plain(prec)`` at each precision and
     time kernel, plain version and ``library`` (one PyTorch call, or None)
     beside the bound from ``nbytes(prec)`` and ``flops(prec)`` ((fp32,
-    bf16[, tf32]) FLOPs, each at that type's peak). Rows go to
+    bf16[, tf32[, fp64]]) FLOPs, each at that type's peak). ``tol``: the
+    bound per precision (default TOL). Rows go to
     ``rows[(name, prec, tag)]``."""
     import torch
     kernel_ms = in_turns({p: (lambda p=p: kernel(p)) for p in precs}, iters)
@@ -753,7 +800,8 @@ def kernel_rows(rows: dict, name: str, tag: str, kernel, plain, library,
         got = kernel(prec)
         want = plain(prec)
         torch.cuda.synchronize()
-        row = compare(got, want, prec, f"{name} {tag} vs plain")
+        row = compare(got, want, prec, f"{name} {tag} vs plain",
+                      tol=None if tol is None else tol[prec])
         row.update(ms=kernel_ms[prec], plain_ms=plain_ms[prec],
                    library_ms=library_ms, shape=tag)
         row["bound_ms"], row["bound_by"] = bound(nbytes(prec),
@@ -881,8 +929,153 @@ def mega_details(rows: dict, name: str, tag: str, operands: dict,
 
 def phase_kernels(report: dict) -> None:
     """Every kernel at the flagship's shapes (the shared set, and a 2- and
-    4-shard mesh's rows)."""
+    4-shard mesh's rows), then the float64 kernels on the float64
+    flagship's."""
     measure_kernels(report, flagship_sim("fused"), SHARD_PL, "kernels")
+    measure_f64_kernels(report)
+
+
+#: the float64 kernels' bounds against their plain versions: float64
+#: outputs at the CPU tests' float64 bound, the fused kernel's float32 ones
+#: at 'f32' (pair sums and slots each rounded once to float32) and 'bf16'
+#: (float32 sums of the same bf16 products in another order); chunk_stats'
+#: bf16 storage at TOL's
+F64_KERNEL_TOL = {"binned_correlation_f64": {"f32": 1e-6, "bf16": 1e-5},
+                  "chunk_stats_f64": {"f32": 1e-12, "bf16": TOL["bf16"]}}
+#: a psr shard's rows in the float64 rows (the f64 phase's 2-shard mesh)
+F64_SHARD_PL = 50
+
+
+def rerun_identical(fn, what: str) -> bool:
+    """Raise unless two calls of ``fn`` return bit-identical tensors."""
+    import torch
+    a, b = fn(), fn()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what} rerun is not bit-identical")
+    return True
+
+
+def measure_f64_kernels(report: dict) -> None:
+    """The float64 kernels held against their plain versions and timed on
+    one chunk of the float64 flagship's own residuals (module docstring,
+    phase 2): binned_correlation_f64 on the shared set and a 2-shard
+    mesh's rows, chunk_stats_f64 on the shared set and
+    chunk_stats_sharded_f64 on the shard's local+full set. The launches
+    made here are not counted."""
+    import torch
+    from fakepta_tpu_torch.ops import binned_corr as bc
+    from fakepta_tpu_torch.ops import megakernel as mk
+    from fakepta_tpu_torch.parallel.montecarlo import _chunk_keys
+    from fakepta_tpu_torch.scenarios import registry
+    from fakepta_tpu_torch.utils import rng
+
+    sim = registry.get("flagship_100").build(device="cuda",
+                                              dtype=torch.float64)
+    keys = _chunk_keys(rng.key(7, device="cuda"), 0, CHUNK)
+    with torch.no_grad():
+        res = sim._residuals(keys)
+        base, coefs = sim._residuals(keys, split_gp=True)
+    torch.cuda.synchronize()
+    w = sim._stat_weights
+    stages, times, scales = sim._mega_tables
+    nbins = sim.nbins
+    R, P, T = res.shape
+    NB, K, S = w.shape[0], mk.stage_k(stages), scales.shape[0]
+    print(f"kernels f64: R={R} P={P} T={T} K={K} NB={NB}", flush=True)
+    rows = {}
+
+    def local(x, pl):
+        return x[:, :pl].contiguous()
+
+    name = "binned_correlation_f64"
+    for pl in (P, F64_SHARD_PL):
+        shared = pl == P
+        res_l, w_l = (res, w) if shared else (local(res, pl), local(w, pl))
+        corr, binf = stat_flops(R, pl, P, T, NB, shared=shared)
+        nbytes = (8.0 * (R * (pl if shared else pl + P) * T + NB * pl * P)
+                  + 4.0 * R * NB)
+        kernel_rows(
+            rows, name, shape_tag(pl, P, T),
+            lambda p, a=res_l, ww=w_l: bc.binned_correlation(
+                a, res, ww, nbins, precision=p),
+            lambda p, a=res_l, ww=w_l: bc.binned_correlation_plain(
+                a, res, ww, nbins, precision=p),
+            lambda a=res_l, ww=w_l: torch.einsum("rpt,rqt,npq->rn", a, res,
+                                                 ww),
+            lambda p, n=nbytes: n,
+            lambda p, c=corr, b=binf: ((0.0, 0.0, 0.0, c + b) if p == "f32"
+                                       else (0.0, c, 0.0, b)),
+            iters=20, tol=F64_KERNEL_TOL[name])
+        for p in ("f32", "bf16"):
+            rows[(name, p, shape_tag(pl, P, T))]["rerun_identical"] = \
+                rerun_identical(lambda a=res_l, ww=w_l, p=p:
+                                bc.binned_correlation(a, res, ww, nbins,
+                                                      precision=p),
+                                f"{name} PL={pl} [{p}]")
+
+    # chunk_stats at float64: 'f32' stores base and coef at float64, 'bf16'
+    # in bfloat16 (as the engine does), the tables and weights float64
+    operands = {"f32": (base, coefs),
+                "bf16": (base.to(torch.bfloat16), coefs.to(torch.bfloat16))}
+    basis = mk.dense_basis(times, scales, stages)
+    for pl in (P, F64_SHARD_PL):
+        shared = pl == P
+        name = "chunk_stats_f64" if shared else "chunk_stats_sharded_f64"
+        tag = shape_tag(pl, P, T)
+        kw = {p: {} if shared else dict(
+            base_local=local(operands[p][0], pl),
+            coef_local=local(operands[p][1], pl),
+            times_local=local(times, pl), scales_local=local(scales, pl))
+            for p in operands}
+        w_l = w if shared else local(w, pl)
+        rows_read = pl if shared else pl + P
+        corr, binf = stat_flops(R, pl, P, T, NB, shared=shared)
+        proj = 2.0 * R * rows_read * K * T
+        kernel_rows(
+            rows, name, tag,
+            lambda p, kw=kw, ww=w_l: mk.chunk_stats(
+                *operands[p], times, scales, ww, stages=stages, nbins=nbins,
+                precision=p, **kw[p]),
+            lambda p, kw=kw, ww=w_l: mk.chunk_stats_plain(
+                *operands[p], times, scales, ww, stages=stages, nbins=nbins,
+                precision=p, **kw[p]),
+            None,
+            lambda p, n=rows_read, pl=pl: (
+                (8 if p == "f32" else 2) * R * n * (T + K)
+                + 8.0 * ((2 + S) * n * T + NB * pl * P)
+                + (8 if p == "f32" else 4) * R * NB),
+            lambda p, c=corr, b=binf, j=proj: (
+                (0.0, 0.0, 0.0, j + c + b) if p == "f32"
+                else mega_route_flops(p, c, b, j)),
+            iters=10, precs=("f32", "bf16"), tol=F64_KERNEL_TOL[
+                "chunk_stats_f64"])
+        local_ops = {p: tuple(kw[p].values()) or (None,) * 4
+                     for p in operands}
+        lib_coef = torch.cat([coefs[:, :pl], coefs], 1) if not shared \
+            else coefs
+        lib_basis = torch.cat([basis[:pl], basis], 0) if not shared \
+            else basis
+        ms = in_turns({p: (lambda p=p: mk._launch_project(
+            *operands[p], times, scales, stages, local_ops[p]))
+            for p in operands}, 10)
+        lib_ms = time_ms(lambda: torch.einsum("rpk,ptk->rpt", lib_coef,
+                                              lib_basis), 10)
+        for p in operands:
+            row = rows[(name, p, tag)]
+            row.update(pass1_ms=ms[p], pass1_library_ms=lib_ms,
+                       rerun_identical=rerun_identical(
+                           lambda p=p, kw=kw, ww=w_l: mk.chunk_stats(
+                               *operands[p], times, scales, ww,
+                               stages=stages, nbins=nbins, precision=p,
+                               **kw[p]), f"{name} [{p}]"))
+            print(f"  {name} {tag} [{p}]: pass 1 {ms[p]:.4f} ms of "
+                  f"{row['ms']:.4f} ms; pass-1 library (einsum rpk,ptk->rpt "
+                  f"at float64, {rows_read} rows, prebuilt basis) "
+                  f"{lib_ms:.4f} ms", flush=True)
+    report.setdefault("kernels", {}).update(
+        {"/".join(k): v for k, v in rows.items()})
+    # launches made to compare with the plain versions do not count
+    reset_counts()
 
 
 def measure_kernels(report: dict, sim, shard_pls, what: str, spec=None,
@@ -6201,11 +6394,101 @@ def f64_array(device: str, dtype):
     return psrs, res, time.perf_counter() - t0
 
 
+#: the kernel paths at float64 against the float64 einsum run: 'f32' at the
+#: fused kernel's float32 pair sums, 'bf16' at TOL's; realizations a timed
+#: run (two chunks: the phase's budget)
+F64_PATH_TOL = {"f32": 1e-6, "bf16": TOL["bf16"]}
+F64_PATH_NREAL = 2048
+
+
+def f64_kernel_paths(report: dict, scn, ein) -> dict:
+    """The float64 flagship on the kernel paths (module docstring, phase
+    21), in turns with ``ein``, the float64 einsum simulator; the launches
+    go to ``report`` at their shapes. Returns the rows."""
+    import torch
+    from fakepta_tpu_torch.parallel.mesh import make_mesh
+
+    f64 = torch.float64
+    P, T = ein.batch.npsr, ein.batch.max_toa
+    nchunks = -(-F64_PATH_NREAL // CHUNK)
+    sims = {path: scn.build(device="cuda", dtype=f64, stat_path=path)
+            for path in ("fused", "mega")}
+    variants = [("fused", "f32"), ("fused", "bf16"), ("mega", "f32"),
+                ("mega", "bf16")]
+    for path, prec in variants:
+        sims[path].run(CHUNK, seed=99, chunk=CHUNK, precision=prec)
+    want = {"einsum": {}, "fused": {"binned_correlation_f64": nchunks},
+            "mega": {"chunk_stats_f64": nchunks}}
+    rates, outs = {}, {}
+    for v in ["einsum"] + variants + variants[::-1] + ["einsum"]:
+        sim, prec = (ein, "f32") if v == "einsum" else (sims[v[0]], v[1])
+        key = v if v == "einsum" else "/".join(v)
+        reset_counts()
+        got, dt = timed_run(sim, F64_PATH_NREAL, prec, seed=1)
+        moved = {k: n for k, n in counts().items() if n}
+        if moved != want[key.split("/")[0]]:
+            raise AssertionError(f"f64: {key} launched {moved}")
+        add_launches(report, shape_tag(P, P, T), moved)
+        rates.setdefault(key, []).append(F64_PATH_NREAL / dt)
+        if key not in outs:
+            outs[key] = (got, moved)
+        elif not (np.array_equal(got["curves"], outs[key][0]["curves"])
+                  and np.array_equal(got["autos"], outs[key][0]["autos"])):
+            raise AssertionError(f"f64: {key} rerun is not bit-identical")
+    ref = outs["einsum"][0]
+    rows = {"einsum": {"realizations_per_s": rates["einsum"]}}
+    for path, prec in variants:
+        key = f"{path}/{prec}"
+        got, moved = outs[key]
+        kind = np.float32 if path == "fused" else np.float64
+        if got["curves"].dtype != kind or got["statistic_path"] != path:
+            raise AssertionError(f"f64: {key} returned "
+                                 f"{got['curves'].dtype} curves on "
+                                 f"{got['statistic_path']}")
+        row = compare((got["curves"], got["autos"]),
+                      (ref["curves"], ref["autos"]), prec,
+                      f"f64 {key} vs einsum float64",
+                      tol=F64_PATH_TOL[prec])
+        row.update(realizations_per_s=rates[key], kernel_launches=moved,
+                   rerun_identical=True,
+                   ratio_to_einsum=float(np.mean(rates[key])
+                                         / np.mean(rates["einsum"])))
+        rows[key] = row
+    # #4 at float64: the mega path on a psr-2 mesh on the card
+    mesh_sim = scn.build(mesh=make_mesh(["cuda:0"] * 2, psr_shards=2),
+                         dtype=f64, stat_path="mega")
+    mesh_sim.run(CHUNK, seed=99, chunk=CHUNK, precision="f32")
+    reset_counts()
+    got, dt = timed_run(mesh_sim, F64_PATH_NREAL, "f32", seed=1)
+    moved = {k: n for k, n in counts().items() if n}
+    if moved != {"chunk_stats_sharded_f64": 2 * nchunks}:
+        raise AssertionError(f"f64: the psr-2 mega run launched {moved}")
+    add_launches(report, shape_tag(P // 2, P, T), moved)
+    row = compare((got["curves"], got["autos"]),
+                  (ref["curves"], ref["autos"]), "f32",
+                  "f64 mega psr-2 vs einsum float64", tol=F64_PATH_TOL["f32"])
+    row.update(realizations_per_s=F64_PATH_NREAL / dt,
+               kernel_launches=moved)
+    rows["mega_psr2/f32"] = row
+    reset_counts()
+    line = ", ".join(
+        f"{k} {' / '.join(f'{r:.1f}' for r in v['realizations_per_s'])}"
+        if isinstance(v["realizations_per_s"], list)
+        else f"{k} {v['realizations_per_s']:.1f}" for k, v in rows.items())
+    print(f"f64 flagship kernel paths, {F64_PATH_NREAL} realizations at "
+          f"chunk {CHUNK}, in turns (realizations/s): {line}; float64 kernel "
+          f"launches per run: fused {rows['fused/f32']['kernel_launches']}, "
+          f"mega {rows['mega/f32']['kernel_launches']} (each one "
+          f"fpt_project_f64 and one fpt_binned_corr_f64), psr-2 mega "
+          f"{rows['mega_psr2/f32']['kernel_launches']}, einsum none",
+          flush=True)
+    return rows
+
+
 def phase_f64(report: dict) -> None:
     """The float64 path on the card (module docstring, phase 21)."""
     import torch
     from fakepta_tpu_torch import fake_pta as fp
-    from fakepta_tpu_torch.parallel.montecarlo import EnsembleSimulator
     from fakepta_tpu_torch.scenarios import registry
 
     f64 = torch.float64
@@ -6252,15 +6535,7 @@ def phase_f64(report: dict) -> None:
           f"{rates['f64'][0]:.1f} / {rates['f64'][1]:.1f} realizations/s "
           f"(x{out['flagship']['ratio_f64_f32']:.3f}); mean auto within "
           f"{drift:.2e} of float32; no kernel launched", flush=True)
-    for path in ("fused", "mega"):
-        try:
-            EnsembleSimulator(sims["f64"].batch, stat_path=path,
-                              device="cuda")
-        except TypeError as exc:
-            del exc
-        else:
-            raise AssertionError(f"f64: stat_path={path!r} took a float64 "
-                                 f"batch")
+    out["kernel_paths"] = f64_kernel_paths(report, scn, sims["f64"])
     del sims, outs
     torch.cuda.empty_cache()
 
@@ -6558,6 +6833,15 @@ def main(argv=None) -> int:
               "fakepta_tpu_torch/csrc/megakernel.cu",
               "fakepta_tpu/ops/megakernel.py:281"),
              ("chunk_stats_sharded", "f32",
+              "fakepta_tpu_torch/csrc/megakernel.cu",
+              "fakepta_tpu/ops/megakernel.py:384"),
+             ("binned_correlation_f64", "f32",
+              "fakepta_tpu_torch/csrc/binned_corr.cu",
+              "fakepta_tpu/ops/pallas_kernels.py:160"),
+             ("chunk_stats_f64", "f32",
+              "fakepta_tpu_torch/csrc/megakernel.cu",
+              "fakepta_tpu/ops/megakernel.py:281"),
+             ("chunk_stats_sharded_f64", "f32",
               "fakepta_tpu_torch/csrc/megakernel.cu",
               "fakepta_tpu/ops/megakernel.py:384"))
     kernels = report.get("kernels", {})

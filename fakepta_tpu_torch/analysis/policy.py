@@ -57,6 +57,11 @@ DTYPE_POLICY = {
     # on the float64 path; their phase arguments are staged at float64
     "fakepta_tpu_torch/ops/fourier.py": "host-f64",
     "fakepta_tpu_torch/ops/white.py": "host-f64",
+    # the statistic kernels' wrappers and plain versions take a float64
+    # batch's rows, tables and weights at float64 (fpt_binned_corr_f64,
+    # fpt_project_f64), as the JAX kernels compute at float64 operands
+    "fakepta_tpu_torch/ops/binned_corr.py": "host-f64",
+    "fakepta_tpu_torch/ops/megakernel.py": "host-f64",
     # the key tree draws float64 normals and uniforms bit for bit as
     # jax.random does under x64 (erfinv_f64, _uniform64)
     "fakepta_tpu_torch/utils/rng.py": "host-f64",

@@ -107,9 +107,25 @@
 //     holding more realizations (tools/binned_corr_variants.py
 //     --kernel vpu).
 //
+// fpt_binned_corr_f64 (#1 on a float64 batch, the same TPU kernel at float64
+// operands): in the 'f32' mode, corr_f64_kernel (its design is beside it)
+// on the FP64 tensor cores, with the pair sums rounded to float32 and binned
+// at float64 (the fused path; float32 output) or kept at float64 (the
+// megakernel's pass 2; float64 output); in the 'bf16' mode, #1's bf16 kernel
+// with each float64 residual rounded straight to bf16 at staging and the
+// float32 pair sums binned at float64 against the float64 weights. What
+// bounds the DMMA kernel at the flagship (R = 1024, P = 100, T = 780): the
+// residual read, R P T 8 = 639 MB, 0.19 ms at 3.35 TB/s, against the
+// P (P + 1) / 2 distinct pairs' 8.0 GFLOP, 0.12 ms at the FP64 tensor
+// cores' 67 TFLOP/s (the whole block, which the kernel computes: 16 GFLOP,
+// 0.24 ms). It is a first, simple design: one realization per block, so
+// each block reads its tile's float64 weights once per realization through
+// L2, and one block of 16 warps per SM.
+//
 // No float atomic anywhere: reruns are bit-identical.
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "corr_common.cuh"
 
@@ -183,6 +199,34 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// A residual as the mainloop stages it: a float32 one as it is; a float64
+// one (the bf16 mode of a float64 batch, fpt_binned_corr_f64) rounded once,
+// straight to bf16 (not through float32), then held in float
+__device__ __forceinline__ float stage_in(float x) { return x; }
+__device__ __forceinline__ float stage_in(double x) {
+  return __bfloat162float(__double2bfloat16(x));
+}
+
+// four consecutive residuals from a 16-byte aligned address (float32) or a
+// 32-byte aligned one (float64: two 16-byte loads), as stage_in gives them
+__device__ __forceinline__ float4 load4(const float* x) {
+  return __ldg(reinterpret_cast<const float4*>(x));
+}
+__device__ __forceinline__ float4 load4(const double* x) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(x));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(x) + 1);
+  return make_float4(stage_in(a.x), stage_in(a.y), stage_in(b.x),
+                     stage_in(b.y));
+}
+
+// c + a b at the binning's type, rounded once
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
 // ---------------------------------------------------------------------------
 // The mainloop of both kernels
 
@@ -213,9 +257,9 @@ struct MmaAcc {
 //                    c3 (g + 8, 2k + 1)
 // A[m][t] is row pulsar m's residual at TOA t, B[t][n] column pulsar n's;
 // both sit in shared memory as [t][pulsar], so a0 is As[k][g] and b0 Bs[k][g].
-template <int FM, int FN, int RB, bool F32, bool DUAL>
+template <int FM, int FN, int RB, bool F32, bool DUAL, typename TI = float>
 __device__ __forceinline__ MmaAcc<RB, FM, FN> mma_mainloop(
-    const float* __restrict__ res_l, const float* __restrict__ res_f, int R,
+    const TI* __restrict__ res_l, const TI* __restrict__ res_f, int R,
     int PL, int PF, int T, int wgm, int ntf, int rb, int r1, float* smem) {
   // per realization: the row operand's tile, then the column operand's
   // (DUAL), each [TT][ld] and in the 'f32' mode a hi tile then a lo tile
@@ -272,7 +316,7 @@ __device__ __forceinline__ MmaAcc<RB, FM, FN> mma_mainloop(
 #pragma unroll
       for (int k = 0; k < PER; ++k) {
         const int rho = ROWS_PER_K * k + 8 * (warp >> 1) + g;
-        const float* x = nullptr;
+        const TI* x = nullptr;
         if (rho < arows) {
           if (rho < nrows) x = res_l + (rr * PL + row0 + rho) * T + t;
         } else if (DUAL && rho < staged && rho - arows < ncols) {
@@ -281,12 +325,12 @@ __device__ __forceinline__ MmaAcc<RB, FM, FN> mma_mainloop(
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         if (x != nullptr) {
           if (vec) {
-            if (t < T) v = __ldg(reinterpret_cast<const float4*>(x));
+            if (t < T) v = load4(x);
           } else {
-            v.x = t < T ? x[0] : 0.f;
-            v.y = t + 1 < T ? x[1] : 0.f;
-            v.z = t + 2 < T ? x[2] : 0.f;
-            v.w = t + 3 < T ? x[3] : 0.f;
+            v.x = t < T ? stage_in(x[0]) : 0.f;
+            v.y = t + 1 < T ? stage_in(x[1]) : 0.f;
+            v.z = t + 2 < T ? stage_in(x[2]) : 0.f;
+            v.w = t + 3 < T ? stage_in(x[3]) : 0.f;
           }
         }
         reg[r][k][0] = v.x;
@@ -392,14 +436,20 @@ __device__ __forceinline__ MmaAcc<RB, FM, FN> mma_mainloop(
 // ---------------------------------------------------------------------------
 // #1: RB realizations per block, binned in registers (fpt_binned_corr)
 
-template <int FM, int FN, int RB, bool F32, bool DUAL>
+// TI: the residuals' type; TW: the weights', the binning's and the
+// partials'; TO: the output's. float32 throughout, or, for the bf16 mode of a
+// float64 batch (fpt_binned_corr_f64), float64 residuals staged as bf16, the
+// float32 pair sums binned against float64 weights at float64 and the sum
+// rounded once to a float32 output.
+template <int FM, int FN, int RB, bool F32, bool DUAL, typename TI = float,
+          typename TW = float, typename TO = float>
 __global__ void __launch_bounds__(THREADS, 2)
-mma_corr_kernel(const float* __restrict__ res_l,
-                const float* __restrict__ res_f, const float* __restrict__ w,
-                float* __restrict__ out, float* __restrict__ partial, int R,
-                int PL, int PF, int T, int NB, int wgm, int ntf) {
+mma_corr_kernel(const TI* __restrict__ res_l, const TI* __restrict__ res_f,
+                const TW* __restrict__ w, TO* __restrict__ out,
+                TW* __restrict__ partial, int R, int PL, int PF, int T, int NB,
+                int wgm, int ntf) {
   extern __shared__ float smem[];
-  const MmaAcc<RB, FM, FN> mma = mma_mainloop<FM, FN, RB, F32, DUAL>(
+  const MmaAcc<RB, FM, FN> mma = mma_mainloop<FM, FN, RB, F32, DUAL, TI>(
       res_l, res_f, R, PL, PF, T, wgm, ntf, RB, 0, smem);
   const auto& acc = mma.v;
   const int r0 = blockIdx.x * RB, nr = min(RB, R - r0);
@@ -417,10 +467,10 @@ mma_corr_kernel(const float* __restrict__ res_l,
   // tile's edge has a zero correlation and reads the edge's weight (no
   // branch). The staging tiles are free now and hold the [RB][NB][WARPS]
   // warp sums.
-  float* red = smem;
+  TW* red = reinterpret_cast<TW*>(smem);
   for (int n = 0; n < NB; ++n) {
-    const float* wn_ = w + (size_t)n * PL * PF + (size_t)row0 * PF + col0;
-    float wv[FM][2][FN][2];
+    const TW* wn_ = w + (size_t)n * PL * PF + (size_t)row0 * PF + col0;
+    TW wv[FM][2][FN][2];
 #pragma unroll
     for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -433,10 +483,10 @@ mma_corr_kernel(const float* __restrict__ res_l,
             const int q = min((wn * FN + j) * 8 + 2 * k4 + c, ncols - 1);
             wv[i][h][j][c] = __ldg(wn_ + (size_t)p * PF + q);
           }
-    float s[RB];
+    TW s[RB];
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
-      s[r] = 0.f;
+      s[r] = 0;
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -445,7 +495,7 @@ mma_corr_kernel(const float* __restrict__ res_l,
           for (int j = 0; j < FN; ++j)
 #pragma unroll
             for (int c = 0; c < 2; ++c)
-              s[r] = fmaf(acc[r][i][j][2 * h + c], wv[i][h][j][c], s[r]);
+              s[r] = fma_t((TW)acc[r][i][j][2 * h + c], wv[i][h][j][c], s[r]);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         s[r] += __shfl_down_sync(0xffffffffu, s[r], off);
@@ -455,33 +505,35 @@ mma_corr_kernel(const float* __restrict__ res_l,
   __syncthreads();
   for (int idx = tid; idx < nr * NB; idx += THREADS) {
     const int r = idx / NB, n = idx - r * NB;
-    float s = 0.f;
+    TW s = 0;
 #pragma unroll
     for (int k = 0; k < WARPS; ++k) s += red[idx * WARPS + k];
     if (ntiles == 1)
-      out[(size_t)(r0 + r) * NB + n] = s;
+      out[(size_t)(r0 + r) * NB + n] = (TO)s;
     else
       partial[((size_t)(r0 + r) * ntiles + tile) * NB + n] = s;
   }
 }
 
-template <int FM, int FN, bool F32, bool DUAL>
-int launch_mma_kernel(const float* res_l, const float* res_f, const float* w,
-                      float* out, float* partial, int R, int PL, int PF,
-                      int T, int NB, int wgm, int ntl, int ntf,
-                      cudaStream_t stream) {
+template <int FM, int FN, bool F32, bool DUAL, typename TI, typename TW,
+          typename TO>
+int launch_mma_kernel(const TI* res_l, const TI* res_f, const TW* w, TO* out,
+                      TW* partial, int R, int PL, int PF, int T, int NB,
+                      int wgm, int ntl, int ntf, cudaStream_t stream) {
   constexpr int RB = rb_max(FM, FN, DUAL);
-  const size_t staging = (size_t)RB * staging_floats(FM, FN, wgm, F32, DUAL);
-  const size_t sums = (size_t)RB * NB * WARPS;
-  const size_t smem = (staging > sums ? staging : sums) * sizeof(float);
-  auto kernel = mma_corr_kernel<FM, FN, RB, F32, DUAL>;
+  const size_t staging =
+      (size_t)RB * staging_floats(FM, FN, wgm, F32, DUAL) * sizeof(float);
+  const size_t sums = (size_t)RB * NB * WARPS * sizeof(TW);
+  const size_t smem = staging > sums ? staging : sums;
+  auto kernel = mma_corr_kernel<FM, FN, RB, F32, DUAL, TI, TW, TO>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((R + RB - 1) / RB), (unsigned)(ntl * ntf));
   kernel<<<grid, THREADS, smem, stream>>>(res_l, res_f, w, out, partial, R,
                                           PL, PF, T, NB, wgm, ntf);
-  if (ntl * ntf > 1) launch_reduce(partial, out, R, ntl * ntf, NB, stream);
+  if (ntl * ntf > 1)
+    launch_reduce<TW, TO>(partial, out, R, ntl * ntf, NB, stream);
   return 0;
 }
 
@@ -639,15 +691,16 @@ int launch_vpu_kernel(const float* res_l, const float* res_f, const float* w,
   const dim3 grid((unsigned)((R + rb - 1) / rb), (unsigned)(ntl * ntf));
   kernel<<<grid, THREADS, smem, stream>>>(res_l, res_f, w, out, partial, R,
                                           PL, PF, T, NB, wgm, ntf, rb, lay);
-  if (ntl * ntf > 1) launch_reduce(partial, out, R, ntl * ntf, NB, stream);
+  if (ntl * ntf > 1)
+    launch_reduce<float, float>(partial, out, R, ntl * ntf, NB, stream);
   return 0;
 }
 
 // Both entries' arguments, decoded and checked: the warp grid (wgm, fm, fn)
 // from the packed tiling, the pair tiles, the operand sets, the mode.
 struct Launch {
-  const float *res_l, *res_f, *w;
-  float *out, *partial;
+  const void *res_l, *res_f, *w;
+  void *out, *partial;
   int R, PL, PF, T, NB, wgm, fm, fn, rb, ntl, ntf;
   bool f32, dual;
   cudaStream_t stream;
@@ -657,11 +710,8 @@ inline bool decode(Launch& a, const void* res_l, const void* res_f,
                    const void* w, void* out, void* partial, int R, int PL,
                    int PF, int T, int NB, int tiling, int bf16, int shared,
                    void* stream) {
-  a.res_l = static_cast<const float*>(res_l);
-  a.res_f = static_cast<const float*>(res_f);
-  a.w = static_cast<const float*>(w);
-  a.out = static_cast<float*>(out);
-  a.partial = static_cast<float*>(partial);
+  a.res_l = res_l, a.res_f = res_f, a.w = w;
+  a.out = out, a.partial = partial;
   a.R = R, a.PL = PL, a.PF = PF, a.T = T, a.NB = NB;
   a.wgm = tiling & 15, a.fm = (tiling >> 4) & 15, a.fn = (tiling >> 8) & 15;
   a.rb = (tiling >> 12) & 15;
@@ -677,13 +727,36 @@ inline bool decode(Launch& a, const void* res_l, const void* res_f,
          8 * a.fn * (WARPS / a.wgm) >= bn;
 }
 
-template <int FM, int FN>
+// #1 on the decoded arguments at (TI, TW, TO) (mma_corr_kernel); the float64
+// residuals take the bf16 mode only, so no 'f32' kernel is built for them
+template <int FM, int FN, typename TI = float, typename TW = float,
+          typename TO = float>
 int launch_mma(const Launch& a) {
-#define FPT_LAUNCH(F, D)                                                    \
-  return launch_mma_kernel<FM, FN, F, D>(a.res_l, a.res_f, a.w, a.out,     \
-                                         a.partial, a.R, a.PL, a.PF, a.T,  \
-                                         a.NB, a.wgm, a.ntl, a.ntf,        \
-                                         a.stream)
+#define FPT_LAUNCH(F, D)                                                   \
+  return launch_mma_kernel<FM, FN, F, D, TI, TW, TO>(                     \
+      static_cast<const TI*>(a.res_l), static_cast<const TI*>(a.res_f),   \
+      static_cast<const TW*>(a.w), static_cast<TO*>(a.out),               \
+      static_cast<TW*>(a.partial), a.R, a.PL, a.PF, a.T, a.NB, a.wgm,     \
+      a.ntl, a.ntf, a.stream)
+  if constexpr (std::is_same<TI, float>::value) {
+    if (a.f32) {
+      if (a.dual) FPT_LAUNCH(true, true);
+      FPT_LAUNCH(true, false);
+    }
+  }
+  if (a.dual) FPT_LAUNCH(false, true);
+  FPT_LAUNCH(false, false);
+#undef FPT_LAUNCH
+}
+
+template <int FM, int FN>
+int launch_vpu(const Launch& a) {
+#define FPT_LAUNCH(F, D)                                                   \
+  return launch_vpu_kernel<FM, FN, F, D>(                                 \
+      static_cast<const float*>(a.res_l), static_cast<const float*>(a.res_f), \
+      static_cast<const float*>(a.w), static_cast<float*>(a.out),         \
+      static_cast<float*>(a.partial), a.R, a.PL, a.PF, a.T, a.NB, a.wgm,  \
+      a.rb, a.ntl, a.ntf, a.stream)
   if (a.f32) {
     if (a.dual) FPT_LAUNCH(true, true);
     FPT_LAUNCH(true, false);
@@ -693,20 +766,270 @@ int launch_mma(const Launch& a) {
 #undef FPT_LAUNCH
 }
 
-template <int FM, int FN>
-int launch_vpu(const Launch& a) {
-#define FPT_LAUNCH(F, D)                                                    \
-  return launch_vpu_kernel<FM, FN, F, D>(a.res_l, a.res_f, a.w, a.out,     \
-                                         a.partial, a.R, a.PL, a.PF, a.T,  \
-                                         a.NB, a.wgm, a.rb, a.ntl, a.ntf,  \
-                                         a.stream)
-  if (a.f32) {
-    if (a.dual) FPT_LAUNCH(true, true);
-    FPT_LAUNCH(true, false);
+// ---------------------------------------------------------------------------
+// #1 at float64 on the FP64 tensor cores (fpt_binned_corr_f64, bf16 = 0)
+//
+// One realization per block on binned_corr.py::mma_tiling's pair tiles (the
+// float32 kernel's; a wider array adds the tiles in the fixed-order second
+// pass), 16 warps in a 4 x 4 grid, each owning 2 x 4 m16n8 fragments of
+// the at most 128 x 128 tile (fragments wholly past the tile's edge
+// skipped, warp-uniform). Products: mma.sync.aligned.m16n8k8 .f64 (DMMA),
+// float64 accumulation: the m8n8k4 shape runs at half the FP64 tensor
+// cores' rate on an H100 (33.3 against 66.6 TFLOP/s,
+// tools/dmma_shapes.py). T streams through shared memory in tiles of D_TT
+// TOAs, both operands [pulsar][t] with row stride D_LDT = 4 (mod 16)
+// doubles, so the fragment loads (lane g + 8 i reads [g][k]) stay on 32
+// banks; cp.async
+// copies the next tile while the current one is multiplied (two stages). The
+// epilogue puts the pair sums in shared memory and bins them against their
+// float64 weights at float64, every weight read once per block and
+// coalesced (binning from the registers, each thread reading its pairs'
+// scattered weights slot by slot, took 1.03 of the kernel's 1.32 ms at the
+// flagship, tools/f64_kernel_variants.py): in the fused flavour (OUT_F32)
+// the pair sums are first rounded to float32 and each slot's sum is rounded
+// once to a float32 output (the TPU kernel's float32 correlation scratch
+// and output at float64 operands); in the megakernel's (pass 2 of
+// chunk_stats at float64) every value stays float64.
+
+constexpr int D_WARPS = 16;                     // one block of 16 warps an SM
+constexpr int D_THREADS = 32 * D_WARPS;
+constexpr int D_WGM = 4, D_WGN = 4;             // warp grid over the tile
+constexpr int D_FM = MMA_TILE / (16 * D_WGM);   // m16 row fragments a warp
+constexpr int D_FN = MMA_TILE / (8 * D_WGN);    // n8 column fragments
+constexpr int D_TT = 16;                        // TOAs per staged tile
+constexpr int D_LDT = D_TT + 4;                 // = 4 (mod 16) doubles
+constexpr int D_STAGE = 2 * MMA_TILE * D_LDT;   // doubles per stage
+constexpr int D_LDC = MMA_TILE + 4;             // the epilogue tile's stride
+constexpr int D_SLOTS = 4;                      // weight slots a pass
+
+// the epilogue's warp sums, in doubles from the start of shared memory:
+// past the [MMA_TILE][D_LDC] pair-sum tile (float32 or float64)
+__host__ __device__ constexpr int d_red_offset(bool f32) {
+  return MMA_TILE * D_LDC / (f32 ? 2 : 1);
+}
+
+// shared-memory bytes of corr_f64_kernel: the two staging stages, or the
+// epilogue's tile and its NB x D_WARPS warp sums where that is larger
+__host__ __device__ constexpr long d_smem(bool f32, int NB) {
+  return 8L * (2 * D_STAGE > d_red_offset(f32) + NB * D_WARPS
+                   ? 2 * D_STAGE
+                   : d_red_offset(f32) + NB * D_WARPS);
+}
+
+// c += a b: one m16n8k8 float64 product; its fragments are the TF32
+// m16n8k8 ones (mma_mainloop's comment) at float64
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4],
+                                     double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// 16 bytes from global to shared memory, asynchronously; the bytes past
+// `valid` (0, 8 or 16) are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <bool OUT_F32>
+__global__ void __launch_bounds__(D_THREADS, 1)
+corr_f64_kernel(const double* __restrict__ res_l,
+                 const double* __restrict__ res_f,
+                 const double* __restrict__ w, void* __restrict__ out,
+                 double* __restrict__ partial, int R, int PL, int PF, int T,
+                 int NB, int ntf) {
+  extern __shared__ double dsm[];
+  const int r = blockIdx.x;
+  const int tile = blockIdx.y, ntiles = gridDim.y;
+  const int ti = tile / ntf, tj = tile % ntf;
+  const int row0 = ti * MMA_TILE, col0 = tj * MMA_TILE;
+  const int nrows = min(MMA_TILE, PL - row0), ncols = min(MMA_TILE, PF - col0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, k4 = lane & 3;
+  const int wm = warp % D_WGM, wn = warp / D_WGM;
+  // this warp's fragments that hold a row (column) of the tile
+  const int live_m = max(0, min(D_FM, (nrows - 16 * D_FM * wm + 15) / 16));
+  const int live_n = max(0, min(D_FN, (ncols - 8 * D_FN * wn + 7) / 8));
+
+  double acc[D_FM][D_FN][4];
+#pragma unroll
+  for (int i = 0; i < D_FM; ++i)
+#pragma unroll
+    for (int j = 0; j < D_FN; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0;
+
+  // A stage holds the row operand's 128 rows, then the column operand's
+  // 128, [row][t]; rows past the tile and TOAs past T are zeros. Each thread
+  // copies 16-byte pairs of TOAs (a row's D_TT TOAs are 8 consecutive
+  // threads' 128 contiguous bytes); without 16-byte alignment (T odd) it
+  // loads and stores them itself.
+  const bool vec = T % 2 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(res_l) |
+                     reinterpret_cast<uintptr_t>(res_f)) & 15) == 0;
+  const size_t rl = (size_t)r * PL + row0, rf = (size_t)r * PF + col0;
+  auto load = [&](int t0, double* st) {
+    constexpr int PAIRS = D_TT / 2;
+    for (int c = tid; c < 2 * MMA_TILE * PAIRS; c += D_THREADS) {
+      const int row = c / PAIRS, t = t0 + 2 * (c % PAIRS);
+      const bool col = row >= MMA_TILE;
+      const int rho = col ? row - MMA_TILE : row;
+      const bool ok = rho < (col ? ncols : nrows) && t < T;
+      const double* src =
+          ok ? (col ? res_f + (rf + rho) * T : res_l + (rl + rho) * T) + t
+             : res_l;
+      double* dst = st + row * D_LDT + 2 * (c % PAIRS);
+      if (vec) {
+        cp_async16(dst, src, ok ? 16 : 0);
+      } else {
+        dst[0] = ok ? __ldg(src) : 0.0;
+        dst[1] = ok && t + 1 < T ? __ldg(src + 1) : 0.0;
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int nt = (T + D_TT - 1) / D_TT;
+  if (nt > 0) load(0, dsm);
+  for (int k = 0; k < nt; ++k) {
+    const double* cur = dsm + (k & 1) * D_STAGE;
+    if (k + 1 < nt) {
+      load((k + 1) * D_TT, dsm + ((k + 1) & 1) * D_STAGE);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < D_TT; ks += 8) {
+      // A (16 x 8): a0 (g, k), a1 (g + 8, k), a2 (g, k + 4), a3 (g + 8,
+      // k + 4); B (8 x 8): b0 (k, g), b1 (k + 4, g)
+      double a[D_FM][4], b[D_FN][2];
+#pragma unroll
+      for (int i = 0; i < D_FM; ++i) {
+        const double* x = cur + ((wm * D_FM + i) * 16 + g) * D_LDT + ks + k4;
+        a[i][0] = x[0];
+        a[i][1] = x[8 * D_LDT];
+        a[i][2] = x[4];
+        a[i][3] = x[8 * D_LDT + 4];
+      }
+#pragma unroll
+      for (int j = 0; j < D_FN; ++j) {
+        const double* x =
+            cur + (MMA_TILE + (wn * D_FN + j) * 8 + g) * D_LDT + ks + k4;
+        b[j][0] = x[0];
+        b[j][1] = x[4];
+      }
+#pragma unroll
+      for (int i = 0; i < D_FM; ++i)
+#pragma unroll
+        for (int j = 0; j < D_FN; ++j)
+          if (i < live_m && j < live_n)
+            dmma(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+    __syncthreads();
   }
-  if (a.dual) FPT_LAUNCH(false, true);
-  FPT_LAUNCH(false, false);
-#undef FPT_LAUNCH
+
+  // Epilogue. The pair sums (rounded to float32 in the fused flavour) go to
+  // a [128][D_LDC] tile in shared memory (the staging room and past it);
+  // then each slot pass of D_SLOTS slots reads every weight of the tile
+  // once, coalesced (warp w takes rows w, w + 16, ..., its lanes
+  // consecutive columns), sums at float64 in a fixed order per thread, then
+  // over the lanes (fixed shuffle tree) and the warps in order (the
+  // [NB][D_WARPS] warp sums past the tile).
+  using TC = typename std::conditional<OUT_F32, float, double>::type;
+  TC* Cs = reinterpret_cast<TC*>(dsm);
+#pragma unroll
+  for (int i = 0; i < D_FM; ++i)
+#pragma unroll
+    for (int j = 0; j < D_FN; ++j) {
+      if (i >= live_m || j >= live_n) continue;
+      // C (16 x 8): c0 (g, 2k), c1 (g, 2k + 1), c2 (g + 8, 2k),
+      // c3 (g + 8, 2k + 1)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int p = (wm * D_FM + i) * 16 + g + 8 * (c >> 1);
+        const int q = (wn * D_FN + j) * 8 + 2 * k4 + (c & 1);
+        if (p < nrows && q < ncols) Cs[p * D_LDC + q] = (TC)acc[i][j][c];
+      }
+    }
+  __syncthreads();
+  double* red = dsm + d_red_offset(OUT_F32);
+  const double* wt = w + (size_t)row0 * PF + col0;
+  for (int n0 = 0; n0 < NB; n0 += D_SLOTS) {
+    double s[D_SLOTS];
+#pragma unroll
+    for (int k = 0; k < D_SLOTS; ++k) s[k] = 0.0;
+    for (int p = warp; p < nrows; p += D_WARPS) {
+#pragma unroll 2
+      for (int q = lane; q < ncols; q += 32) {
+        const double c = (double)Cs[p * D_LDC + q];
+        const double* wp = wt + (size_t)p * PF + q;
+#pragma unroll
+        for (int k = 0; k < D_SLOTS; ++k)
+          if (n0 + k < NB)
+            s[k] = fma(c, __ldg(wp + (size_t)(n0 + k) * PL * PF), s[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < D_SLOTS; ++k) {
+      if (n0 + k >= NB) continue;
+      double v = s[k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) red[(n0 + k) * D_WARPS + warp] = v;
+    }
+  }
+  __syncthreads();
+  for (int n = tid; n < NB; n += D_THREADS) {
+    double s = 0.0;
+#pragma unroll
+    for (int k = 0; k < D_WARPS; ++k) s += red[n * D_WARPS + k];
+    if (ntiles > 1)
+      partial[((size_t)r * ntiles + tile) * NB + n] = s;
+    else if (OUT_F32)
+      static_cast<float*>(out)[(size_t)r * NB + n] = (float)s;
+    else
+      static_cast<double*>(out)[(size_t)r * NB + n] = s;
+  }
+}
+
+template <bool OUT_F32>
+int launch_dmma(const Launch& a) {
+  const size_t smem = (size_t)d_smem(OUT_F32, a.NB);
+  auto kernel = corr_f64_kernel<OUT_F32>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)a.R, (unsigned)(a.ntl * a.ntf));
+  kernel<<<grid, D_THREADS, smem, a.stream>>>(
+      static_cast<const double*>(a.res_l), static_cast<const double*>(a.res_f),
+      static_cast<const double*>(a.w), a.out, static_cast<double*>(a.partial),
+      a.R, a.PL, a.PF, a.T, a.NB, a.ntf);
+  if (a.ntl * a.ntf > 1) {
+    const double* part = static_cast<const double*>(a.partial);
+    if (OUT_F32)
+      launch_reduce<double, float>(part, static_cast<float*>(a.out), a.R,
+                                   a.ntl * a.ntf, a.NB, a.stream);
+    else
+      launch_reduce<double, double>(part, static_cast<double*>(a.out), a.R,
+                                    a.ntl * a.ntf, a.NB, a.stream);
+  }
+  return 0;
 }
 
 // the warp tiles both kernels are instantiated for (binned_corr.py::
@@ -782,4 +1105,43 @@ extern "C" long long fpt_binned_corr_vpu_smem(int PL, int PF, int NB,
     return -1;
   return (long long)vpu_layout(PL, PF, NB, a.fm, a.fn, a.wgm, a.rb, a.f32,
                                a.dual).floats * (long long)sizeof(float);
+}
+
+// #1 on a float64 batch, one contract with fpt_binned_corr's but res_l,
+// res_f and w float64 and partial float64 scratch. bf16 = 0: the DMMA kernel
+// (corr_f64_kernel, which reads no warp tiling: the pair tiles are BM = PL
+// rounded up to 16 and BN = PF rounded up to 8, each at most 128, as
+// fpt_binned_corr's), out float32 (out_f64 = 0: the fused flavour) or
+// float64 (out_f64 = 1: chunk_stats' pass 2). bf16 = 1: fpt_binned_corr's
+// bf16 kernel at `tiling` on the float64 rows, each rounded straight to bf16,
+// the float32 pair sums binned at float64, out float32 (out_f64 must be 0).
+// Returns cudaGetLastError() after the launch(es), or cudaErrorInvalidValue
+// for arguments it has no kernel for.
+extern "C" int fpt_binned_corr_f64(const void* res_l, const void* res_f,
+                                   const void* w, void* out, void* partial,
+                                   int R, int PL, int PF, int T, int NB,
+                                   int tiling, int bf16, int shared,
+                                   int out_f64, void* stream) {
+  using namespace fpt;
+  Launch a;
+  if (!decode(a, res_l, res_f, w, out, partial, R, PL, PF, T, NB, tiling,
+              bf16, shared, stream))
+    return (int)cudaErrorInvalidValue;
+  int rc;
+  if (bf16) {
+    if (out_f64) return (int)cudaErrorInvalidValue;
+#define FPT_SHAPE(FM_, FN_)                                       \
+  if (a.fm == FM_ && a.fn == FN_)                                 \
+    rc = launch_mma<FM_, FN_, double, double, float>(a);          \
+  else
+    FPT_WARP_TILES(FPT_SHAPE)
+    return (int)cudaErrorInvalidValue;
+#undef FPT_SHAPE
+  } else {
+    // the epilogue's tile and warp sums fit one block's shared memory
+    if (d_smem(!out_f64, NB) > 232448) return (int)cudaErrorInvalidValue;
+    rc = out_f64 ? launch_dmma<false>(a) : launch_dmma<true>(a);
+  }
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
 }

@@ -67,6 +67,25 @@
 //     storage) and is written as f32, consecutive threads on consecutive
 //     TOAs.
 //   With no stage (K = 0) the kernel only converts base to f32.
+//
+// On a float64 batch (fpt_project_f64; pass 2 is binned_corr.cu's
+// fpt_binned_corr_f64, or fpt_binned_corr under bf16 storage), as the TPU
+// kernel computes at float64 (its cdtype is the batch's):
+//   'f32': project_f64_kernel (its design is beside it), float64 throughout
+//     on the FP64 tensor cores (DMMA): the basis from float64 sincos of the
+//     float64 phase (2 pi t) n, the projection at float64, float64
+//     residuals. What bounds it on the flagship shared set: 2 R rows K T =
+//     51.1 GFLOP, 0.76 ms at the FP64 tensor cores' 67 TFLOP/s, against
+//     base + coef + res = 639 + 262 + 639 MB, 0.46 ms at 3.35 TB/s: the
+//     products; plus (R / BM) rows T K / 2 = 1.0e8 float64 sincos at
+//     BM = 128.
+//   'bf16' (bf16 storage): the TPU kernel's cdtype is float32, but its
+//     float64 time and scale tables promote the phase and the basis to
+//     float64, which its float32 product then rounds to float32. So
+//     project_kernel runs as on a float32 batch (3xTF32, two products, float32
+//     residuals) with only the basis built otherwise: float64 sincos of the
+//     float64 phase, times the float64 scale, rounded once to float32
+//     (basis_pair).
 // Every sum runs in a fixed order and no float atomic is used: reruns are
 // bit-identical.
 #include <cstdint>
@@ -92,28 +111,30 @@ struct Stages {
   int k0[MAX_STAGES];
 };
 
-// One operand set: base (R, P, T), coef (R, P, K), times (2, P, T) and
-// scales (S, P, T).
-template <typename TS>
+// One operand set: base (R, P, T), coef (R, P, K) at the storage type TS,
+// times (2, P, T) and scales (S, P, T) at the tables' type TB.
+template <typename TS, typename TB = float>
 struct Operands {
   const TS* base;
   const TS* coef;
-  const float* times;
-  const float* scales;
+  const TB* times;
+  const TB* scales;
   int P;
 };
 
 // Shared-memory floats of a (BM, BN) block with S scale rows: the staging
 // tiles or the epilogue's accumulator tile, whichever is larger, then the
-// time and scale rows. ops/megakernel.py::project_smem mirrors it.
+// time and scale rows (tb floats a value: 1 for float32 tables, 2 for
+// float64). ops/megakernel.py::project_smem mirrors it.
 __host__ __device__ constexpr int proj_tile_floats(int bm, int bn) {
   return 2 * bm * LDA + 2 * KC * (bn + 8) > bm * (bn + 8)
              ? 2 * bm * LDA + 2 * KC * (bn + 8)
              : bm * (bn + 8);
 }
 
-__host__ __device__ constexpr int proj_floats(int bm, int bn, int S) {
-  return proj_tile_floats(bm, bn) + (2 + S) * bn;
+__host__ __device__ constexpr int proj_floats(int bm, int bn, int S,
+                                              int tb = 1) {
+  return proj_tile_floats(bm, bn) + (2 + S) * bn * tb;
 }
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
@@ -138,6 +159,27 @@ __device__ __forceinline__ void store_split(float* dst, int lo, float x) {
   dst[lo] = __uint_as_float(to_tf32(x - __uint_as_float(hi)));
 }
 
+// A basis pair (cos, sin) of harmonic n at one TOA: tw is the TOA's 2 pi t,
+// sv its scale. float32 tables: one accurate sincosf of the float32 phase
+// (the reference's, float32 throughout). float64 tables (bf16 storage of a
+// float64 batch, whose reference computes at float32 but promotes the phase
+// with its float64 tables): sincos of the float64 phase, times the scale at
+// float64, each rounded once to float32.
+__device__ __forceinline__ void basis_pair(float tw, int n, float sv,
+                                           float& bc, float& bs) {
+  float sn, cs;
+  sincosf(tw * (float)n, &sn, &cs);
+  bc = cs * sv;
+  bs = sn * sv;
+}
+__device__ __forceinline__ void basis_pair(double tw, int n, double sv,
+                                           float& bc, float& bs) {
+  double sn, cs;
+  sincos(tw * (double)n, &sn, &cs);
+  bc = (float)(cs * sv);
+  bs = (float)(sn * sv);
+}
+
 // The stage s and harmonic index n (0-based) of the harmonic slot that lies
 // `h` slots past (s, n); s = st.n past the last slot.
 __device__ __forceinline__ void walk(const Stages& st, int& s, int& n, int h) {
@@ -155,9 +197,9 @@ __device__ __forceinline__ void walk(const Stages& st, int& s, int& n, int h) {
 //                    c3 (g + 8, 2k + 1)
 // A[m][k] is realization m's coefficient of chunk column k (As, [m][k]);
 // B[k][n] is column k's basis value at TOA n (Bs, [k][n]).
-template <int BM, int BN, int WGM, typename TS>
+template <int BM, int BN, int WGM, typename TS, typename TB = float>
 __global__ void __launch_bounds__(PROJ_THREADS, PROJ_BLOCKS)
-project_kernel(Operands<TS> loc, Operands<TS> full, Stages st,
+project_kernel(Operands<TS, TB> loc, Operands<TS, TB> full, Stages st,
                float* __restrict__ res_l, float* __restrict__ res_f, int R,
                int T, int K, int S, int nloc) {
   constexpr int WGN = PROJ_WARPS / WGM;
@@ -173,7 +215,8 @@ project_kernel(Operands<TS> loc, Operands<TS> full, Stages st,
                                          // under EXACT_A)
   float* Bs = smem + 2 * BM * LDA;       // [2][KC][LDB]: hi, lo
   float* Cs = smem;                      // [BM][LDC], after the mainloop
-  float* rows = smem + proj_tile_floats(BM, BN);  // [2 + S][BN]
+  TB* rows = reinterpret_cast<TB*>(smem + proj_tile_floats(BM, BN));
+                                         // [2 + S][BN]
 
   const int z = blockIdx.z;
   const bool is_loc = z < nloc;
@@ -181,22 +224,23 @@ project_kernel(Operands<TS> loc, Operands<TS> full, Stages st,
   const int P = is_loc ? loc.P : full.P;
   const TS* __restrict__ base = is_loc ? loc.base : full.base;
   const TS* __restrict__ coef = is_loc ? loc.coef : full.coef;
-  const float* __restrict__ times = is_loc ? loc.times : full.times;
-  const float* __restrict__ scales = is_loc ? loc.scales : full.scales;
+  const TB* __restrict__ times = is_loc ? loc.times : full.times;
+  const TB* __restrict__ scales = is_loc ? loc.scales : full.scales;
   float* __restrict__ out = is_loc ? res_l : res_f;
   const int r0 = blockIdx.x * BM, t0 = blockIdx.y * BN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, k4 = lane & 3;
   const int wm = warp % WGM, wn = warp / WGM;
 
-  // the block's time rows (times 2 pi, in f32 as the reference rounds it)
-  // and scale rows; 0 past T
+  // the block's time rows (times 2 pi, 2 pi rounded to f32 as the
+  // reference rounds it, the product at the tables' type) and scale rows;
+  // 0 past T
   const float two_pi = 6.28318530717958647692f;
   for (int e = tid; e < (2 + S) * BN; e += PROJ_THREADS) {
     const int row = e / BN, t = t0 + e % BN;
-    float v = 0.f;
+    TB v = 0;
     if (t < T)
-      v = row < 2 ? two_pi * times[((size_t)row * P + p) * T + t]
+      v = row < 2 ? (TB)two_pi * times[((size_t)row * P + p) * T + t]
                   : scales[((size_t)(row - 2) * P + p) * T + t];
     rows[e] = v;
   }
@@ -236,13 +280,9 @@ project_kernel(Operands<TS> loc, Operands<TS> full, Stages st,
       int s = s0, n = n0;
       walk(st, s, n, h);
       float bc = 0.f, bs = 0.f;
-      if (s < st.n) {
-        float sn, cs;
-        sincosf(rows[st.tcol[s] * BN + bt] * (float)(n + 1), &sn, &cs);
-        const float sv = rows[(2 + st.scol[s]) * BN + bt];
-        bc = cs * sv;
-        bs = sn * sv;
-      }
+      if (s < st.n)
+        basis_pair(rows[st.tcol[s] * BN + bt], n + 1,
+                   rows[(2 + st.scol[s]) * BN + bt], bc, bs);
       store_split(Bs + h * LDB + bt, KC * LDB, bc);
       store_split(Bs + (NH + h) * LDB + bt, KC * LDB, bs);
     }
@@ -305,13 +345,15 @@ project_kernel(Operands<TS> loc, Operands<TS> full, Stages st,
   }
 }
 
-template <int BM, int BN, int WGM, typename TS>
-int launch_project(const Operands<TS>& loc, const Operands<TS>& full,
+template <int BM, int BN, int WGM, typename TS, typename TB>
+int launch_project(const Operands<TS, TB>& loc, const Operands<TS, TB>& full,
                    const Stages& st, float* res_l, float* res_f, int R,
                    int T, int K, int S, int nloc, int rows,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)proj_floats(BM, BN, S) * sizeof(float);
-  auto kernel = project_kernel<BM, BN, WGM, TS>;
+  const size_t smem =
+      (size_t)proj_floats(BM, BN, S, sizeof(TB) / sizeof(float)) *
+      sizeof(float);
+  auto kernel = project_kernel<BM, BN, WGM, TS, TB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -326,27 +368,255 @@ int launch_project(const Operands<TS>& loc, const Operands<TS>& full,
 // (ops/megakernel.py::PROJ_TILE)
 #define FPT_PROJ_TILES(X) X(128, 128, 4)
 
-template <typename TS>
+template <typename TS, typename TB = float>
 int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
              float* res_l, float* res_f, int R, int T, int K, int S,
              int shared, int bm, int bn, int wgm, cudaStream_t stream) {
-  const Operands<TS> loc{static_cast<const TS*>(ptrs[0]),
-                         static_cast<const TS*>(ptrs[1]),
-                         static_cast<const float*>(ptrs[2]),
-                         static_cast<const float*>(ptrs[3]), PL};
-  const Operands<TS> full{static_cast<const TS*>(ptrs[4]),
-                          static_cast<const TS*>(ptrs[5]),
-                          static_cast<const float*>(ptrs[6]),
-                          static_cast<const float*>(ptrs[7]), PF};
+  const Operands<TS, TB> loc{static_cast<const TS*>(ptrs[0]),
+                             static_cast<const TS*>(ptrs[1]),
+                             static_cast<const TB*>(ptrs[2]),
+                             static_cast<const TB*>(ptrs[3]), PL};
+  const Operands<TS, TB> full{static_cast<const TS*>(ptrs[4]),
+                              static_cast<const TS*>(ptrs[5]),
+                              static_cast<const TB*>(ptrs[6]),
+                              static_cast<const TB*>(ptrs[7]), PF};
   const int nloc = shared ? 0 : PL;
   const int rows = nloc + PF;
-#define FPT_TILE(BM_, BN_, WGM_)                                              \
-  if (bm == BM_ && bn == BN_ && wgm == WGM_)                                  \
-    return launch_project<BM_, BN_, WGM_, TS>(loc, full, st, res_l, res_f, R, \
-                                              T, K, S, nloc, rows, stream);
+#define FPT_TILE(BM_, BN_, WGM_)                                            \
+  if (bm == BM_ && bn == BN_ && wgm == WGM_)                                \
+    return launch_project<BM_, BN_, WGM_, TS, TB>(                          \
+        loc, full, st, res_l, res_f, R, T, K, S, nloc, rows, stream);
   FPT_PROJ_TILES(FPT_TILE)
 #undef FPT_TILE
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The projection at float64 on the FP64 tensor cores (fpt_project_f64,
+// store_bf16 = 0): the same GEMM per pulsar, with float64 coefficients, a
+// float64 basis and float64 residuals. A block takes BM realizations x BN
+// TOAs of one pulsar row (P64_TILE, 128 x 64: 64 float64 accumulators a
+// thread at two blocks per SM), 8 warps in a WGM x (8 / WGM) grid each
+// owning FM x FN m16n8 fragments; products mma.sync.aligned.m16n8k8 .f64
+// (DMMA; the m8n8k4 shape runs at half the FP64 tensor cores' rate on an
+// H100, tools/dmma_shapes.py). Per harmonic chunk the block stages its coefficients [m][k] and
+// builds the chunk's basis [t][k] (one float64 sincos of the float64 phase
+// (2 pi t) n gives the cos and the sin value, times the scale), both with
+// row stride KC + 4 = 4 (mod 16) doubles, so the fragment loads (lane g + 8 i
+// reads [g][k]) stay on 32 banks. The epilogue adds base from the fragments
+// and writes the float64 residuals, a thread's two consecutive TOAs at a
+// time.
+
+constexpr int P64_WARPS = 8;
+constexpr int P64_THREADS = 32 * P64_WARPS;
+constexpr int P64_LD = KC + 4;   // coef and basis tile row stride (doubles)
+
+// Shared-memory doubles of a (BM, BN) float64 block with S scale rows: the
+// coef tile, the basis tile, the time and scale rows.
+// ops/megakernel.py::project_smem mirrors it.
+__host__ __device__ constexpr int proj_f64_doubles(int bm, int bn, int S) {
+  return (bm + bn) * P64_LD + (2 + S) * bn;
+}
+
+// c += a b: one m16n8k8 float64 product
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4],
+                                     double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// Fragment layouts (PTX ISA, m16n8k8 .f64, the .tf32 ones at float64),
+// g = lane >> 2, k = lane & 3:
+//   A (16 x 8, row): a0 (g, k), a1 (g + 8, k), a2 (g, k + 4), a3 (g + 8, k + 4)
+//   B (8 x 8, col):  b0 (k, g), b1 (k + 4, g)
+//   C (16 x 8):      c0 (g, 2k), c1 (g, 2k + 1), c2 (g + 8, 2k),
+//                    c3 (g + 8, 2k + 1)
+// A[m][k] is realization m's coefficient of chunk column k (As, [m][k]);
+// B[k][n] is column k's basis value at TOA n (Bs, [n][k]).
+template <int BM, int BN, int WGM>
+__global__ void __launch_bounds__(P64_THREADS, PROJ_BLOCKS)
+project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
+                   Stages st, double* __restrict__ res_l,
+                   double* __restrict__ res_f, int R, int T, int K, int S,
+                   int nloc) {
+  constexpr int WGN = P64_WARPS / WGM;
+  constexpr int FM = BM / (16 * WGM), FN = BN / (8 * WGN);
+  static_assert(FM * 16 * WGM == BM && FN * 8 * WGN == BN, "warp grid");
+  static_assert(P64_THREADS % BN == 0 && P64_THREADS % KC == 0, "lanes");
+  extern __shared__ double dsm[];
+  double* As = dsm;                        // [BM][P64_LD]
+  double* Bs = dsm + BM * P64_LD;          // [BN][P64_LD]
+  double* rows = Bs + BN * P64_LD;         // [2 + S][BN]
+
+  const int z = blockIdx.z;
+  const bool is_loc = z < nloc;
+  const int p = is_loc ? z : z - nloc;
+  const int P = is_loc ? loc.P : full.P;
+  const double* __restrict__ base = is_loc ? loc.base : full.base;
+  const double* __restrict__ coef = is_loc ? loc.coef : full.coef;
+  const double* __restrict__ times = is_loc ? loc.times : full.times;
+  const double* __restrict__ scales = is_loc ? loc.scales : full.scales;
+  double* __restrict__ out = is_loc ? res_l : res_f;
+  const int r0 = blockIdx.x * BM, t0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, k4 = lane & 3;
+  const int wm = warp % WGM, wn = warp / WGM;
+
+  // the block's time rows (times 2 pi at float64, as the reference's float64
+  // phase) and scale rows; 0 past T
+  const double two_pi = 6.28318530717958647692;
+  for (int e = tid; e < (2 + S) * BN; e += P64_THREADS) {
+    const int row = e / BN, t = t0 + e % BN;
+    double v = 0.0;
+    if (t < T)
+      v = row < 2 ? two_pi * times[((size_t)row * P + p) * T + t]
+                  : scales[((size_t)(row - 2) * P + p) * T + t];
+    rows[e] = v;
+  }
+  __syncthreads();
+
+  double acc[FM][FN][4];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0;
+
+  // staging roles, as project_kernel's: coef column aj for rows
+  // tid / KC + m (P64_THREADS / KC), basis TOA bt for slots tid / BN + h
+  const int aj = tid % KC, bt = tid % BN;
+  const bool a_sin = aj >= NH;
+  int s0 = 0, n0 = 0;   // the chunk's first slot (block-uniform)
+  for (int q0 = 0; 2 * q0 < K; q0 += NH) {
+    {
+      int s = s0, n = n0;
+      walk(st, s, n, aj % NH);
+      const bool live = s < st.n;
+      const int col = live ? st.k0[s] + (a_sin ? st.nbin[s] : 0) + n : 0;
+      for (int m = tid / KC; m < BM; m += P64_THREADS / KC) {
+        const int r = r0 + m;
+        As[m * P64_LD + aj] =
+            live && r < R ? coef[((size_t)r * P + p) * K + col] : 0.0;
+      }
+    }
+    for (int h = tid / BN; h < NH; h += P64_THREADS / BN) {
+      int s = s0, n = n0;
+      walk(st, s, n, h);
+      double bc = 0.0, bs = 0.0;
+      if (s < st.n) {
+        double sn, cs;
+        sincos(rows[st.tcol[s] * BN + bt] * (double)(n + 1), &sn, &cs);
+        const double sv = rows[(2 + st.scol[s]) * BN + bt];
+        bc = cs * sv;
+        bs = sn * sv;
+      }
+      Bs[bt * P64_LD + h] = bc;
+      Bs[bt * P64_LD + NH + h] = bs;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < KC; ks += 8) {
+      double a[FM][4], b[FN][2];
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        const double* x = As + ((wm * FM + i) * 16 + g) * P64_LD + ks + k4;
+        a[i][0] = x[0];
+        a[i][1] = x[8 * P64_LD];
+        a[i][2] = x[4];
+        a[i][3] = x[8 * P64_LD + 4];
+      }
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const double* x = Bs + ((wn * FN + j) * 8 + g) * P64_LD + ks + k4;
+        b[j][0] = x[0];
+        b[j][1] = x[4];
+      }
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j)
+          dmma(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+    __syncthreads();
+    walk(st, s0, n0, NH);
+  }
+
+  // epilogue: res = base + acc from the fragments
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + (wm * FM + i) * 16 + g + 8 * h;
+      if (r >= R) continue;
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
+        const size_t o = ((size_t)r * P + p) * T + t;
+        if (t < T) out[o] = base[o] + acc[i][j][2 * h];
+        if (t + 1 < T) out[o + 1] = base[o + 1] + acc[i][j][2 * h + 1];
+      }
+    }
+}
+
+// the (BM, BN, WGM) block tiles the float64 kernel is instantiated for
+// (ops/megakernel.py::PROJ_TILE_F64)
+#define FPT_PROJ_F64_TILES(X) X(128, 64, 4)
+
+int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
+                 double* res_l, double* res_f, int R, int T, int K, int S,
+                 int shared, int bm, int bn, int wgm, cudaStream_t stream) {
+  const Operands<double, double> loc{static_cast<const double*>(ptrs[0]),
+                                     static_cast<const double*>(ptrs[1]),
+                                     static_cast<const double*>(ptrs[2]),
+                                     static_cast<const double*>(ptrs[3]),
+                                     PL};
+  const Operands<double, double> full{static_cast<const double*>(ptrs[4]),
+                                      static_cast<const double*>(ptrs[5]),
+                                      static_cast<const double*>(ptrs[6]),
+                                      static_cast<const double*>(ptrs[7]),
+                                      PF};
+  const int nloc = shared ? 0 : PL;
+  const int rows = nloc + PF;
+#define FPT_TILE(BM_, BN_, WGM_)                                            \
+  if (bm == BM_ && bn == BN_ && wgm == WGM_) {                              \
+    const size_t smem = (size_t)proj_f64_doubles(BM_, BN_, S) *            \
+                        sizeof(double);                                     \
+    auto kernel = project_f64_kernel<BM_, BN_, WGM_>;                       \
+    cudaError_t err = cudaFuncSetAttribute(                                 \
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
+    if (err != cudaSuccess) return (int)err;                                \
+    const dim3 grid((unsigned)((R + BM_ - 1) / BM_),                        \
+                    (unsigned)((T + BN_ - 1) / BN_), (unsigned)rows);       \
+    kernel<<<grid, P64_THREADS, smem, stream>>>(loc, full, st, res_l,       \
+                                                res_f, R, T, K, S, nloc);   \
+    return 0;                                                               \
+  }
+  FPT_PROJ_F64_TILES(FPT_TILE)
+#undef FPT_TILE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The stage table of the C entries' arrays, checked against S and K.
+inline bool make_stages(Stages& st, int n_stages, const int* nbin,
+                        const int* tcol, const int* scol, int S, int K) {
+  if (n_stages < 0 || n_stages > MAX_STAGES) return false;
+  st.n = n_stages;
+  int k0 = 0;
+  for (int s = 0; s < MAX_STAGES; ++s) {
+    const bool live = s < n_stages;
+    st.nbin[s] = live ? nbin[s] : 0;
+    st.tcol[s] = live ? tcol[s] : 0;
+    st.scol[s] = live ? scol[s] : 0;
+    st.k0[s] = k0;
+    if (live && (st.nbin[s] <= 0 || st.tcol[s] < 0 || st.tcol[s] > 1 ||
+                 st.scol[s] < 0 || st.scol[s] >= S))
+      return false;
+    k0 += 2 * st.nbin[s];
+  }
+  return k0 == K;
 }
 
 }  // namespace fpt
@@ -372,23 +642,10 @@ extern "C" int fpt_project(const void* base_l, const void* coef_l,
                            int wgm, int store_bf16, int shared,
                            void* stream) {
   using namespace fpt;
-  if (n_stages < 0 || n_stages > MAX_STAGES) return (int)cudaErrorInvalidValue;
   if (shared && PL != PF) return (int)cudaErrorInvalidValue;
   Stages st;
-  st.n = n_stages;
-  int k0 = 0;
-  for (int s = 0; s < MAX_STAGES; ++s) {
-    const bool live = s < n_stages;
-    st.nbin[s] = live ? nbin[s] : 0;
-    st.tcol[s] = live ? tcol[s] : 0;
-    st.scol[s] = live ? scol[s] : 0;
-    st.k0[s] = k0;
-    if (live && (st.nbin[s] <= 0 || st.tcol[s] < 0 || st.tcol[s] > 1 ||
-                 st.scol[s] < 0 || st.scol[s] >= S))
-      return (int)cudaErrorInvalidValue;
-    k0 += 2 * st.nbin[s];
-  }
-  if (k0 != K) return (int)cudaErrorInvalidValue;
+  if (!make_stages(st, n_stages, nbin, tcol, scol, S, K))
+    return (int)cudaErrorInvalidValue;
   const void* ptrs[8] = {base_l, coef_l, times_l, scales_l,
                          base_f, coef_f, times_f, scales_f};
   float* rl = static_cast<float*>(res_l);
@@ -408,4 +665,52 @@ extern "C" int fpt_project(const void* base_l, const void* coef_l,
 // scale rows (ops/megakernel.py::project_smem must agree).
 extern "C" long long fpt_project_smem(int bm, int bn, int S) {
   return (long long)fpt::proj_floats(bm, bn, S) * (long long)sizeof(float);
+}
+
+// C entry on a float64 batch: fpt_project's contract with float64 tables
+// (times_*, scales_*). store_bf16 = 0: base and coef float64, the float64
+// residuals res_l and res_f written by project_f64_kernel at (bm, bn, wgm)
+// of FPT_PROJ_F64_TILES. store_bf16 = 1: base and coef bfloat16, the float32
+// residuals written by project_kernel at (bm, bn, wgm) of FPT_PROJ_TILES,
+// its basis built from the float64 tables (basis_pair). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments it has no kernel for.
+extern "C" int fpt_project_f64(const void* base_l, const void* coef_l,
+                               const void* times_l, const void* scales_l,
+                               const void* base_f, const void* coef_f,
+                               const void* times_f, const void* scales_f,
+                               void* res_l, void* res_f, int R, int PL,
+                               int PF, int T, int K, int S, int n_stages,
+                               const int* nbin, const int* tcol,
+                               const int* scol, int bm, int bn, int wgm,
+                               int store_bf16, int shared, void* stream) {
+  using namespace fpt;
+  if (shared && PL != PF) return (int)cudaErrorInvalidValue;
+  Stages st;
+  if (!make_stages(st, n_stages, nbin, tcol, scol, S, K))
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[8] = {base_l, coef_l, times_l, scales_l,
+                         base_f, coef_f, times_f, scales_f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc =
+      store_bf16
+          ? dispatch<__nv_bfloat16, double>(
+                ptrs, PL, PF, st, static_cast<float*>(res_l),
+                static_cast<float*>(res_f), R, T, K, S, shared, bm, bn, wgm,
+                s)
+          : dispatch_f64(ptrs, PL, PF, st, static_cast<double*>(res_l),
+                         static_cast<double*>(res_f), R, T, K, S, shared, bm,
+                         bn, wgm, s);
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+// The shared-memory bytes fpt_project_f64 requests (ops/megakernel.py::
+// project_smem must agree).
+extern "C" long long fpt_project_f64_smem(int store_bf16, int bm, int bn,
+                                          int S) {
+  if (store_bf16)
+    return (long long)fpt::proj_floats(bm, bn, S, 2) * (long long)sizeof(float);
+  return (long long)fpt::proj_f64_doubles(bm, bn, S) *
+         (long long)sizeof(double);
 }

@@ -21,10 +21,22 @@ block-wide, fixed-order reduction over them.
 :func:`binned_correlation_plain` is the same function in plain torch, the
 plain version of both.
 
+On a float64 batch :func:`binned_correlation` launches ``fpt_binned_corr_f64``
+(the same source), as the TPU kernel computes at float64 operands: at
+``'f32'`` the pair sums on the FP64 tensor cores, rounded once to float32 (its
+float32 correlation scratch), then binned against the float64 weights at
+float64 and rounded once to float32 curves and autos (its float32 output); at
+``'bf16'`` the float64 residuals rounded straight to bf16 (not through
+float32: :func:`round_bf16_f64`) through #1's bf16 kernel, the float32 pair
+sums binned the same way. :func:`binned_correlation_vpu` refuses float64 rows
+(``ValueError``), as the TPU kernel's ``mxu_binning=False`` variant cannot
+store its float64 per-slot sums into its float32 output.
+
 Wrapper rules: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises (no fallback). ``launches`` and ``vpu_launches`` count
-each kernel's launches in the process; :func:`thread_launches` those made
-on the calling thread.
+each kernel's launches in the process, ``f64_launches`` those of
+``fpt_binned_corr_f64``; :func:`thread_launches` those made on the calling
+thread.
 """
 
 from __future__ import annotations
@@ -41,6 +53,8 @@ from . import _build
 launches = 0
 #: number of times :func:`binned_correlation_vpu` launched its kernel
 vpu_launches = 0
+#: number of times :func:`binned_correlation` launched its float64 kernel
+f64_launches = 0
 #: each thread's launches by kernel, beside the process counts
 _tally = threading.local()
 
@@ -224,10 +238,35 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def round_bf16_f64(x: torch.Tensor) -> torch.Tensor:
+    """Round float64 values straight to bfloat16 (to nearest even, one
+    rounding, as ``__double2bfloat16``) and return them as float32. Not
+    ``x.to(torch.bfloat16)``, which rounds through float32 first and differs
+    on the rare values within 2^-24 of a bf16 tie. Exact for results in
+    bf16's normal range."""
+    bits = x.double().contiguous().view(torch.int64)
+    # 45 of float64's 52 fraction bits go; a carry moves into the exponent
+    bits = (bits + ((1 << 44) - 1) + ((bits >> 45) & 1)) & ~((1 << 45) - 1)
+    return bits.view(torch.float64).float()
+
+
 def binned_correlation_plain(res_local, res_full, weights, nbins: int,
                              precision: str = "bf16"):
-    """Plain torch version: f32 einsums, bf16 mode rounds the operands."""
+    """Plain torch version: f32 einsums, bf16 mode rounds the operands.
+    Float64 rows (float64 weights): the pair sums at float64 rounded once
+    to float32 (``'bf16'``: on operands rounded straight to bf16, summed at
+    float32), binned at float64 and rounded once to float32."""
     _check_precision(precision)
+    if res_local.dtype == torch.float64:
+        if precision == "bf16":
+            corr = torch.einsum("rpt,rqt->rpq", round_bf16_f64(res_local),
+                                round_bf16_f64(res_full))
+        else:
+            corr = torch.einsum("rpt,rqt->rpq", res_local,
+                                res_full).float()
+        out = torch.einsum("rpq,npq->rn", corr.double(),
+                           weights.double()).float()
+        return out[:, :nbins], out[:, nbins]
     a, b = res_local.float(), res_full.float()
     if precision == "bf16":
         a, b = round_bf16(a), round_bf16(b)
@@ -239,29 +278,37 @@ def binned_correlation_plain(res_local, res_full, weights, nbins: int,
 def bind(lib: ctypes.CDLL, entry: str):
     """The C entry ``entry`` of a library built from ``csrc/binned_corr.cu``,
     with its signature: (res_local, res_full, weights, out, partial, R, PL,
-    PF, T, NB, tiling, bf16, shared, stream) -> CUDA error code."""
+    PF, T, NB, tiling, bf16, shared[, out_f64 for fpt_binned_corr_f64],
+    stream) -> CUDA error code."""
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 5 \
+        + [ctypes.c_int] * (9 if entry == "fpt_binned_corr_f64" else 8) \
         + [ctypes.c_void_p]
     return fn
 
 
 def _launch(entry: str, what: str, res_local, res_full, weights,
-            nbins: int, precision: str):
+            nbins: int, precision: str, out_f64: bool = False):
     """Check the operands, launch the C entry ``entry`` of
     ``csrc/binned_corr.cu`` and return ((curves (R, nbins), autos (R,)),
-    launched?): an empty ensemble or time axis launches nothing. Both
-    entries share one C signature; its tiling argument is
-    :func:`mma_tiling`'s code for ``fpt_binned_corr`` and
-    :func:`vpu_tiling`'s for ``fpt_binned_corr_vpu``."""
+    launched?): an empty ensemble or time axis launches nothing. The
+    entries share one C signature (``fpt_binned_corr_f64`` adds
+    ``out_f64``: float64 output, the megakernel's pass 2, at ``'f32'``
+    only); its tiling argument is :func:`mma_tiling`'s code for
+    ``fpt_binned_corr`` and ``fpt_binned_corr_f64`` and :func:`vpu_tiling`'s
+    for ``fpt_binned_corr_vpu``. The float64 entry takes float64 operands
+    and the others float32."""
+    f64 = entry == "fpt_binned_corr_f64"
+    want = torch.float64 if f64 else torch.float32
     for name, x in (("res_local", res_local), ("res_full", res_full),
                     ("weights", weights)):
         if x.device != res_local.device:
             raise ValueError(f"{name} is on {x.device}, res_local on "
                              f"{res_local.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.dtype != want:
+            raise TypeError(f"{name} must be {str(want)[6:]}, got "
+                            f"{x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if res_local.ndim != 3 or res_full.ndim != 3 or weights.ndim != 3:
@@ -277,21 +324,25 @@ def _launch(entry: str, what: str, res_local, res_full, weights,
                          f"(nbins+1, {PL}, {PF})")
     if not 0 <= nbins < NB:
         raise ValueError(f"nbins={nbins} needs nbins+1 <= {NB} weight slots")
+    if out_f64 and (not f64 or precision != "f32"):
+        raise ValueError("a float64 output is fpt_binned_corr_f64's at "
+                         "'f32' only")
     shared = int(res_local.data_ptr() == res_full.data_ptr() and PL == PF)
-    if entry == "fpt_binned_corr":
-        t = mma_tiling(PL, PF)
-        arg = t.code()
-    else:
+    if entry == "fpt_binned_corr_vpu":
         v = vpu_tiling(PL, PF, NB, precision, bool(shared))
         t, arg = v.mma, v.code()
+    else:
+        t = mma_tiling(PL, PF)
+        arg = t.code()
     ntiles = t.row_tiles * t.col_tiles
     dev = res_local.device
-    out = torch.empty((R, NB), dtype=torch.float32, device=dev)
+    out = torch.empty((R, NB), dtype=torch.float64 if out_f64
+                      else torch.float32, device=dev)
     if R == 0 or T == 0:
         out.zero_()
         return (out[:, :nbins], out[:, nbins]), False
-    partial = (torch.empty((R, ntiles, NB), dtype=torch.float32,
-                           device=dev) if ntiles > 1 else None)
+    partial = (torch.empty((R, ntiles, NB), dtype=want, device=dev)
+               if ntiles > 1 else None)
     lib = _build.load("binned_corr")
     fn = bind(lib, entry)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -299,7 +350,8 @@ def _launch(entry: str, what: str, res_local, res_full, weights,
         rc = fn(res_local.data_ptr(), res_full.data_ptr(), weights.data_ptr(),
                 out.data_ptr(), partial.data_ptr() if partial is not None
                 else None, R, PL, PF, T, NB, arg,
-                int(precision == "bf16"), shared, stream)
+                int(precision == "bf16"), shared,
+                *((int(out_f64),) if f64 else ()), stream)
     _build.check(lib, rc, what)
     return (out[:, :nbins], out[:, nbins]), True
 
@@ -309,6 +361,12 @@ def _run(entry: str, what: str, res_local, res_full, weights,
     """The wrapper rules: the plain version for CPU tensors, the kernel for
     CUDA tensors. Returns (outputs, launched?)."""
     _check_precision(precision)
+    if entry == "fpt_binned_corr_vpu" and res_local.dtype == torch.float64:
+        raise ValueError(
+            "binned_correlation_vpu (mxu_binning=False) takes no float64 "
+            "rows: the TPU kernel's per-slot sums are promoted to float64 "
+            "and cannot be stored into its float32 output, so the JAX "
+            "package raises; use binned_correlation")
     if res_local.device.type == "cpu":
         return binned_correlation_plain(res_local, res_full, weights, nbins,
                                         precision), False
@@ -331,8 +389,16 @@ def binned_correlation(res_local, res_full, weights, nbins: int,
     ``precision``: ``'bf16'`` (bf16 operands, f32 accumulation) or
     ``'f32'`` (3xTF32 products, ~2^-21 relative each). Returns (curves
     (R, nbins), autos (R,)), the shard's partial sums when PL < PF.
+    Float64 rows and weights take the float64 kernel (module docstring);
+    the curves and autos are float32 then too.
     """
-    global launches
+    global launches, f64_launches
+    if res_local.dtype == torch.float64:
+        out, launched = _run("fpt_binned_corr_f64", "binned_correlation",
+                             res_local, res_full, weights, nbins, precision)
+        f64_launches += launched
+        _count("binned_correlation_f64", launched)
+        return out
     out, launched = _run("fpt_binned_corr", "binned_correlation", res_local,
                          res_full, weights, nbins, precision)
     launches += launched

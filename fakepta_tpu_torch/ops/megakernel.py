@@ -35,6 +35,17 @@ recomputes the full rows from the gathered coefficients). Wrapper rules as
 in :mod:`.binned_corr`; ``launches`` counts :func:`chunk_stats`' calls on
 the shared set and ``sharded_launches`` on the local+full set (one each for
 both passes).
+
+On a float64 batch (float64 time and scale tables) the route follows the TPU
+kernel's dtypes, whose ``cdtype`` is the base's: float64 base and
+coefficients (``'f32'``) run pass 1 as ``fpt_project_f64``'s float64 DMMA
+projection and pass 2 as ``fpt_binned_corr_f64``, float64 throughout, with
+float64 curves and autos; bf16 storage runs at float32 as on a float32 batch,
+but its basis is built from the float64 tables at float64 and rounded once to
+float32 (the TPU kernel's float64 tables promote the phase and the basis,
+and its float32 product rounds the basis), and pass 2 bins against the
+weights rounded to float32; its curves and autos are float32.
+``f64_launches`` and ``f64_sharded_launches`` count these calls.
 """
 
 from __future__ import annotations
@@ -56,6 +67,10 @@ from .binned_corr import (SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED,
 launches = 0
 #: ... and on the local+full operand set (a psr shard)
 sharded_launches = 0
+#: :func:`chunk_stats`' calls on float64 tables, on the shared set and on
+#: the local+full set
+f64_launches = 0
+f64_sharded_launches = 0
 
 # time-table rows staged for the in-kernel basis recompute
 T_OWN, T_COMMON = 0, 1
@@ -71,6 +86,13 @@ PROJ_THREADS = 256
 PROJ_BLOCKS = 2
 NH = 16
 PROJ_LDA = 2 * NH + 4
+#: the float64 projection's (BM, BN, WGM) block tile (FPT_PROJ_F64_TILES)
+#: and its coef and basis tiles' row stride in doubles (P64_LD)
+PROJ_TILE_F64 = (128, 64, 4)
+PROJ_F64_LD = 2 * NH + 4
+#: 2 pi rounded to float32: the phase's factor where the TPU kernel's
+#: compute type is float32
+TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 
 
 class MegaStage(NamedTuple):
@@ -145,22 +167,29 @@ class ProjTiling(NamedTuple):
     smem: int
 
 
-def project_smem(bm: int, bn: int, n_scales: int) -> int:
+def project_smem(bm: int, bn: int, n_scales: int, route: str = "f32") -> int:
     """Shared-memory bytes of a (bm, bn) projection block with
-    ``n_scales`` scale rows (megakernel.cu's proj_floats): the hi/lo coef
-    and basis tiles, or the epilogue's [bm][bn + 8] accumulator tile where
-    that is larger, then the 2 time rows and the scale rows."""
+    ``n_scales`` scale rows. ``'f32'`` (megakernel.cu's proj_floats): the
+    hi/lo coef and basis tiles, or the epilogue's [bm][bn + 8] accumulator
+    tile where that is larger, then the 2 time rows and the scale rows;
+    ``'bf16_f64'``: the same with float64 rows; ``'f64'``
+    (proj_f64_doubles): the float64 coef and basis tiles and rows."""
+    if route == "f64":
+        return 8 * ((bm + bn) * PROJ_F64_LD + (2 + n_scales) * bn)
     kc = 2 * NH
     staging = 2 * bm * PROJ_LDA + 2 * kc * (bn + 8)
-    return 4 * (max(staging, bm * (bn + 8)) + (2 + n_scales) * bn)
+    tb = 2 if route == "bf16_f64" else 1
+    return 4 * (max(staging, bm * (bn + 8)) + (2 + n_scales) * bn * tb)
 
 
-def project_tiling(R: int, T: int, rows: int, n_scales: int) -> ProjTiling:
+def project_tiling(R: int, T: int, rows: int, n_scales: int,
+                   route: str = "f32") -> ProjTiling:
     """The projection's launch shape for ``rows`` pulsar rows (PF on the
-    shared set, PL + PF on the local+full set): the source's
-    :data:`PROJ_TILE`, at :data:`PROJ_BLOCKS` blocks per SM."""
-    bm, bn, wgm = PROJ_TILE
-    smem = project_smem(bm, bn, n_scales)
+    shared set, PL + PF on the local+full set) on ``route``
+    (:func:`_route`): the source's :data:`PROJ_TILE` (:data:`PROJ_TILE_F64`
+    on ``'f64'``), at :data:`PROJ_BLOCKS` blocks per SM."""
+    bm, bn, wgm = PROJ_TILE_F64 if route == "f64" else PROJ_TILE
+    smem = project_smem(bm, bn, n_scales, route)
     if (smem > SMEM_PER_BLOCK
             or PROJ_BLOCKS * (smem + SMEM_RESERVED) > SMEM_PER_SM):
         raise ValueError(f"{n_scales} scale rows leave no room for "
@@ -171,14 +200,18 @@ def project_tiling(R: int, T: int, rows: int, n_scales: int) -> ProjTiling:
 # -- plain versions ----------------------------------------------------------
 
 def dense_basis(times: torch.Tensor, scales: torch.Tensor,
-                stages: Sequence[MegaStage]) -> torch.Tensor:
-    """(P, T, K) basis the kernel recomputes: per stage cos rows then sin
-    rows of ``(2 pi t) n``, times the stage's scale row."""
+                stages: Sequence[MegaStage],
+                two_pi: float = 2.0 * np.pi) -> torch.Tensor:
+    """(P, T, K) basis the kernel recomputes, at the tables' dtype: per
+    stage cos rows then sin rows of ``(2 pi t) n``, times the stage's scale
+    row. ``two_pi``: the phase's factor (:data:`TWO_PI_F32` where the TPU
+    kernel rounds it to a float32 compute type; on float32 tables both
+    round to it)."""
     blocks = []
     for st in stages:
         n = torch.arange(1, st.nbin + 1, dtype=times.dtype,
                          device=times.device)
-        phase = (2.0 * np.pi) * times[st.tcol][..., None] * n    # (P, T, N)
+        phase = two_pi * times[st.tcol][..., None] * n    # (P, T, N)
         s = scales[st.scol][..., None]
         blocks.append(torch.cat([torch.cos(phase) * s,
                                  torch.sin(phase) * s], dim=-1))
@@ -226,12 +259,27 @@ def full_f32():
         torch.set_float32_matmul_precision(prev)
 
 
+def basis_f32(times, scales, stages) -> torch.Tensor:
+    """The float32 projection's dense basis: built at the tables' dtype
+    with 2 pi rounded to float32 and rounded once to float32 (float32
+    tables: float32 throughout; float64 tables under bf16 storage: the TPU
+    kernel's float64 phase and basis, which its float32 product rounds)."""
+    return dense_basis(times, scales, stages, TWO_PI_F32).float()
+
+
 def project_plain(base, coef, times, scales, stages):
-    """Pass 1 in plain torch: res = base + coef @ B with the dense basis,
-    float32 throughout (full-precision matmul)."""
+    """Pass 1 in plain torch: res = base + coef @ B with the dense basis.
+    float32 throughout (full-precision matmul), the basis
+    :func:`basis_f32`'s, unless base is float64: then float64 throughout."""
+    if base.dtype == torch.float64:
+        res = base
+        if stages:
+            res = res + torch.einsum("rpk,ptk->rpt", coef,
+                                     dense_basis(times, scales, stages))
+        return res
     res = base.float()
     if stages:
-        basis = dense_basis(times.float(), scales.float(), stages)
+        basis = basis_f32(times, scales, stages)
         with full_f32():
             res = res + torch.einsum("rpk,ptk->rpt", coef.float(), basis)
     return res
@@ -247,7 +295,7 @@ def project_3xtf32(base, coef, times, scales, stages):
     res = base.float()
     if not stages:
         return res
-    basis = dense_basis(times.float(), scales.float(), stages)
+    basis = basis_f32(times, scales, stages)
     (ch, cl), (bh, bl) = split_tf32(coef.float()), split_tf32(basis)
     pairs = ((ch, bl), (ch, bh)) if coef.dtype == torch.bfloat16 else (
         (ch, bl), (cl, bh), (ch, bh))
@@ -268,8 +316,19 @@ def chunk_stats_plain(base, coef, times, scales, weights, *,
                       precision: str = "f32", base_local=None,
                       coef_local=None, times_local=None, scales_local=None):
     """Plain torch version: dense-basis projection in f32, then einsums,
-    every matmul at full float32 precision."""
+    every matmul at full float32 precision. A float64 base: float64
+    throughout, float64 output; bf16 storage on float64 tables: the float32
+    route with :func:`basis_f32`'s basis and float32 weights, float32
+    output (module docstring)."""
     _check_precision(precision)
+    _check_f64(base, times, precision)
+    if base.dtype == torch.float64:
+        res = project_plain(base, coef, times, scales, stages)
+        res_l = res if base_local is None else project_plain(
+            base_local, coef_local, times_local, scales_local, stages)
+        corr = torch.einsum("rpt,rqt->rpq", res_l, res)
+        out = torch.einsum("rpq,npq->rn", corr, weights.double())
+        return out[:, :nbins], out[:, nbins]
     with full_f32():
         res = project_plain(base, coef, times, scales, stages)
         res_l = res if base_local is None else project_plain(
@@ -283,6 +342,17 @@ def chunk_stats_plain(base, coef, times, scales, weights, *,
 
 # -- the kernels --------------------------------------------------------------
 
+def _check_f64(base, times, precision: str) -> None:
+    """A float64 base goes with float64 tables at ``'f32'`` (the engine's
+    float64 mega path; its ``'bf16'`` is bf16 storage)."""
+    if base.dtype == torch.float64 and (times.dtype != torch.float64
+                                        or precision != "f32"):
+        raise ValueError(f"a float64 base takes float64 tables at "
+                         f"precision 'f32' (bf16 storage is the 'bf16' "
+                         f"mode), got {times.dtype} tables at "
+                         f"{precision!r}")
+
+
 def _check_operands(base, coef, times, scales, stages, local):
     """Check one call's operands and return the local set's four (the full
     set's own on the shared set)."""
@@ -291,8 +361,12 @@ def _check_operands(base, coef, times, scales, stages, local):
         raise ValueError("pass all four local operands or none")
     if shared:
         local = (base, coef, times, scales)
-    if base.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"base must be float32 or bfloat16, got {base.dtype}")
+    if times.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"times must be float32 or float64, got "
+                        f"{times.dtype}")
+    if base.dtype not in (torch.bfloat16, times.dtype):
+        raise TypeError(f"base must be bfloat16 or the tables' "
+                        f"{times.dtype}, got {base.dtype}")
     names = ("base", "coef", "times", "scales")
     for tag, ops in (("", (base, coef, times, scales)), ("_local", local)):
         for name, x in zip(names, ops):
@@ -304,8 +378,9 @@ def _check_operands(base, coef, times, scales, stages, local):
                 if x.dtype != base.dtype:
                     raise TypeError(f"{name} dtype {x.dtype} must match "
                                     f"base {base.dtype}")
-            elif x.dtype != torch.float32:
-                raise TypeError(f"{name} must be float32, got {x.dtype}")
+            elif x.dtype != times.dtype:
+                raise TypeError(f"{name} dtype {x.dtype} must match times "
+                                f"{times.dtype}")
             if not x.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
             if x.ndim != 3:
@@ -328,13 +403,14 @@ def _check_operands(base, coef, times, scales, stages, local):
     return local
 
 
-def bind(lib: ctypes.CDLL):
-    """The projection's C entry ``fpt_project`` of a library built from
-    ``csrc/megakernel.cu``, with its signature: (the local set's base, coef,
-    times, scales, the full set's, res_l, res_f, R, PL, PF, T, K, S,
+def bind(lib: ctypes.CDLL, entry: str = "fpt_project"):
+    """The projection's C entry ``entry`` (``fpt_project``, or
+    ``fpt_project_f64`` for float64 tables) of a library built from
+    ``csrc/megakernel.cu``, with their one signature: (the local set's base,
+    coef, times, scales, the full set's, res_l, res_f, R, PL, PF, T, K, S,
     n_stages, nbin, tcol, scol, bm, bn, wgm, store_bf16, shared, stream) ->
     CUDA error code."""
-    fn = lib.fpt_project
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_int)] * 3
@@ -342,26 +418,39 @@ def bind(lib: ctypes.CDLL):
     return fn
 
 
+def _route(base, times) -> str:
+    """The projection's route for these operand types: ``'f32'`` (float32
+    tables), ``'bf16_f64'`` (bf16 storage on float64 tables) or ``'f64'``
+    (float64 throughout, the float64 kernel)."""
+    if times.dtype != torch.float64:
+        return "f32"
+    return "f64" if base.dtype == torch.float64 else "bf16_f64"
+
+
 def _launch_project(base, coef, times, scales, stages, local):
     """Pass 1 on the card, operands checked first: (res_local, res_full),
-    float32; ``local`` is the local set's (base, coef, times, scales), all
-    None on the shared set, where res_local is res_full."""
+    float64 on the ``'f64'`` route, else float32; ``local`` is the local
+    set's (base, coef, times, scales), all None on the shared set, where
+    res_local is res_full."""
     local = _check_operands(base, coef, times, scales, stages, local)
     shared = local[0] is base
+    route = _route(base, times)
     R, P, T = base.shape
     PL = local[0].shape[1]
     S = scales.shape[0]
-    res = torch.empty((R, P, T), dtype=torch.float32, device=base.device)
-    res_l = res if shared else torch.empty((R, PL, T), dtype=torch.float32,
+    dt = torch.float64 if route == "f64" else torch.float32
+    res = torch.empty((R, P, T), dtype=dt, device=base.device)
+    res_l = res if shared else torch.empty((R, PL, T), dtype=dt,
                                            device=base.device)
     if R == 0 or T == 0:
         return res_l, res
-    t = project_tiling(R, T, P if shared else PL + P, S)
+    t = project_tiling(R, T, P if shared else PL + P, S, route)
     ints = ctypes.c_int * MAX_STAGES
     lib = _build.load("megakernel")
     stream = torch.cuda.current_stream(base.device).cuda_stream
+    fn = bind(lib) if route == "f32" else bind(lib, "fpt_project_f64")
     with torch.cuda.device(base.device):
-        rc = bind(lib)(*(x.data_ptr() for x in local),
+        rc = fn(*(x.data_ptr() for x in local),
                        base.data_ptr(), coef.data_ptr(), times.data_ptr(),
                        scales.data_ptr(), res_l.data_ptr(), res.data_ptr(),
                        R, PL, P, T, stage_k(stages), S, len(stages),
@@ -391,10 +480,15 @@ def chunk_stats(base, coef, times, scales, weights, *,
     correlated against the full set above and the shard's partial sums
     returned. ``precision='bf16'`` rounds the correlation operands to
     bf16 (f32 accumulation); the projection always runs at f32. Returns
-    (curves (R, nbins), autos (R,)).
+    (curves (R, nbins), autos (R,)). On float64 tables (a float64 batch):
+    a float64 base and coefficients at ``'f32'`` run at float64 and return
+    float64; a bfloat16 base and coefficients run the float32 route with
+    the basis from the float64 tables (module docstring) and return
+    float32; the weights are float64.
     """
-    global launches, sharded_launches
+    global launches, sharded_launches, f64_launches, f64_sharded_launches
     _check_precision(precision)
+    _check_f64(base, times, precision)
     stages = tuple(MegaStage(*s) for s in stages)
     local = (base_local, coef_local, times_local, scales_local)
     if any((x is None) != (base_local is None) for x in local):
@@ -411,12 +505,26 @@ def chunk_stats(base, coef, times, scales, weights, *,
                          f"{base.device}")
     res_l, res = _launch_project(base, coef, times, scales, stages, local)
     # pass 2 checks the weights and nbins
-    out, launched = _correlate("fpt_binned_corr", "chunk_stats", res_l, res,
-                               weights, nbins, precision)
-    if base_local is None:
+    route = _route(base, times)
+    if route == "f64":
+        out, launched = _correlate("fpt_binned_corr_f64", "chunk_stats",
+                                   res_l, res, weights, nbins, precision,
+                                   out_f64=True)
+    else:
+        # float64 weights under bf16 storage: the TPU kernel's float32
+        # binning product rounds them to float32
+        out, launched = _correlate("fpt_binned_corr", "chunk_stats", res_l,
+                                   res, weights.float(), nbins, precision)
+    name = "chunk_stats" if base_local is None else "chunk_stats_sharded"
+    if route != "f32":
+        name += "_f64"
+        if base_local is None:
+            f64_launches += launched
+        else:
+            f64_sharded_launches += launched
+    elif base_local is None:
         launches += launched
-        _count("chunk_stats", launched)
     else:
         sharded_launches += launched
-        _count("chunk_stats_sharded", launched)
+    _count(name, launched)
     return out

@@ -16,10 +16,16 @@ nor on the mesh shape.
 Precision: the draws, the residuals and the sums run at the batch's dtype,
 as the JAX engine's do (``dtype = batch.t_own.dtype``). A float32 batch
 runs every path; a float64 batch (the JAX engine's under ``jax_enable_x64``)
-runs the einsum path, its default, on every mesh and with every stage,
-sampler and lane, and the kernel paths refuse it (their kernels take
-float32). The correlation's pair sums are float32 on either, as the JAX
-contraction's ``preferred_element_type`` makes them.
+runs every path too, the einsum one by default, on every mesh and with
+every stage, sampler and lane. On the einsum and fused paths the
+correlation's pair sums are float32, as the JAX contraction's
+``preferred_element_type`` makes them; the fused kernel's float64 kernel
+returns float32 curves and autos, as the JAX kernel does. The mega path
+runs at float64 (``'f32'``) or, under bf16 storage, at float32 with the
+basis from the float64 tables, its curves and autos cast to the batch's
+dtype as the JAX engine casts them (:mod:`..ops.megakernel`). The fused
+path's ``pallas_mxu_binning=False`` refuses a float64 batch, as the JAX
+kernel raises on one.
 
 Per-realization hyperparameter sampling: :class:`NoiseSampling` draws a
 registered spectrum's hyperparameters per realization (per pulsar for
@@ -1207,21 +1213,19 @@ def _sum_parts(parts, comm) -> dict:
             for k in first}
 
 
-_F64_ONLY = ("stat_path={!r} runs float32 batches (its kernels take "
-             "float32; got {}); a float64 batch runs on stat_path='einsum', "
-             "the JAX package's XLA path and the default for it")
-
-
 def _check_path(path: str, *, toa_shards: int, dtype, stats_bf16: bool,
-                bases_bf16: bool) -> None:
+                bases_bf16: bool, mxu_binning: bool = True) -> None:
     """Raise when ``stat_path=path`` cannot run on a simulator with these
     settings: the constructor's rules for its path, which a tuned path
     meets too before a run takes it."""
     if path == "einsum":
         return
-    if dtype != torch.float32:
-        # the kernels take float32; the float64 path is the einsum one
-        raise TypeError(_F64_ONLY.format(path, dtype))
+    if path == "fused" and not mxu_binning and dtype == torch.float64:
+        raise ValueError(
+            "pallas_mxu_binning=False takes no float64 batch: the JAX "
+            "kernel's mxu_binning=False variant raises on one (its float64 "
+            "per-slot sums cannot be stored into its float32 output); use "
+            "pallas_mxu_binning=True, the default")
     if toa_shards > 1:
         raise ValueError(
             f"stat_path={path!r} is incompatible with toa sharding (its "
@@ -1281,7 +1285,8 @@ class EnsembleSimulator:
     unless ``device="cpu"``; pass one of the two. ``stat_path``:
     ``"einsum"``, ``"fused"`` (the default on a float32 batch) or
     ``"mega"`` (see the module docstring); a float64 batch defaults to
-    ``"einsum"``, and ``"fused"`` / ``"mega"`` refuse it (``TypeError``).
+    ``"einsum"`` and takes ``"fused"`` and ``"mega"`` too, but not
+    ``pallas_mxu_binning=False`` (``ValueError``).
     ``pallas_precision`` is the fused path's default statistic precision
     (``'bf16'``: bf16 operands, f32 accumulation; ``'f32'``: full f32);
     the mega and einsum paths default to ``'f32'``, and
@@ -1372,7 +1377,7 @@ class EnsembleSimulator:
                             f"got {batch.dtype}")
         if stat_path is None:
             # a float64 batch's default is the JAX default path (XLA, the
-            # port's einsum): the kernel paths take float32
+            # port's einsum)
             stat_path = "fused" if batch.dtype == torch.float32 else "einsum"
         if stat_path not in STAT_PATHS:
             raise ValueError(f"stat_path must be one of {STAT_PATHS}, got "
@@ -1388,7 +1393,8 @@ class EnsembleSimulator:
         self._bases_bf16 = bases_dtype == "bf16"
         self._stats_bf16 = stats_dtype == "bf16"
         _check_path(stat_path, toa_shards=n_toa, dtype=batch.dtype,
-                    stats_bf16=self._stats_bf16, bases_bf16=self._bases_bf16)
+                    stats_bf16=self._stats_bf16, bases_bf16=self._bases_bf16,
+                    mxu_binning=pallas_mxu_binning)
         self.stat_path = stat_path
         self.pallas_precision = pallas_precision
         self.pallas_mxu_binning = bool(pallas_mxu_binning)
@@ -2093,6 +2099,15 @@ class EnsembleSimulator:
             return sh.weights, None
         return lanes.weights[id(sh)]
 
+    def _packed_dtype(self, path: str, lanes) -> torch.dtype:
+        """A chunk's packed statistics' dtype: float32 on the fused path
+        (its kernels' curves and autos are float32 at either batch dtype,
+        as the JAX kernel's are) unless the likelihood lane's batch-dtype
+        values promote the pack; the batch's elsewhere."""
+        if path == "fused" and not isinstance(lanes, _LnlLanes):
+            return torch.float32
+        return self.batch.dtype
+
     def _pack(self, curves, autos, *after):
         """Packed lanes: the bins, the auto, the OS slots that ride after
         the bins in ``curves`` (when any), then the given lanes (the null
@@ -2148,7 +2163,8 @@ class EnsembleSimulator:
         with span("gather_real"):
             width = self.nbins + 1 + (0 if lanes is None else lanes.n_extra)
             out = self.mesh.gather_real(packed, (r_local, width),
-                                        self.batch.dtype, self.device)
+                                        self._packed_dtype(path, lanes),
+                                        self.device)
             corr = None
             if with_corr:
                 P = self.batch.npsr
@@ -2208,7 +2224,9 @@ class EnsembleSimulator:
         curves, autos = mega_ops.chunk_stats(
             base, coefs, sh.times, sh.scales, weights, stages=stages,
             nbins=nb, precision=precision)
-        return curves, autos, None
+        # at the batch's dtype, as the JAX engine casts the kernel's
+        dt = self.batch.dtype
+        return curves.to(dt), autos.to(dt), None
 
     def _step_sharded(self, r: int, shards, keys, path: str, precision: str,
                       with_corr: bool, bulks: Optional[tuple] = None,
@@ -2278,12 +2296,14 @@ class EnsembleSimulator:
                 [None if x is None else x[0] for x in local])
             coef_f = comms.row.all_gather(
                 [None if x is None else x[1] for x in local])
+            # each shard's partials at the batch's dtype before the psum,
+            # as the JAX engine casts the kernel's
             parts = _some(lambda sh, x, bf, cf, w: pack_stats(
                 *mega_ops.chunk_stats(
                     bf, cf, sh.times_full, sh.scales_full, w, stages=stages,
                     nbins=nb, precision=precision, base_local=x[0],
                     coef_local=x[1], times_local=sh.times,
-                    scales_local=sh.scales)),
+                    scales_local=sh.scales)).to(self.batch.dtype),
                 shards, local, base_f, coef_f, weights)
             return comms.row.psum(parts), None
         if path == "fused":
@@ -2499,7 +2519,8 @@ class EnsembleSimulator:
         try:
             _check_path(path, toa_shards=self.mesh.shape[TOA_AXIS],
                         dtype=self.batch.dtype, stats_bf16=self._stats_bf16,
-                        bases_bf16=self._bases_bf16)
+                        bases_bf16=self._bases_bf16,
+                        mxu_binning=self.pallas_mxu_binning)
         except (TypeError, ValueError) as exc:
             return str(exc)
         return None

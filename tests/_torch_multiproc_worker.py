@@ -64,7 +64,9 @@ SEARCH = dict(nreal_hint=64, budget_s=120.0, max_candidates=3,
 #: every toa window, each psr shard's toa psum and the heads' psum all
 #: cross ranks; ``rank_major``: initialize_multihost's own mesh (each rank
 #: one whole real row, nothing crosses inside a row); ``psr``: one entry
-#: per rank on a real 1 x psr 2 mesh; ``real``: real 2 x psr 1
+#: per rank on a real 1 x psr 2 mesh; ``real``: real 2 x psr 1. An engine
+#: argument ``dtype="float64"`` runs the case on the float64 batch (the
+#: kernel paths' float64 kernels across ranks)
 CASES = {
     "einsum_cross": ("cross", (2, 2), dict(stat_path="einsum"),
                      dict(keep_corr=True)),
@@ -87,6 +89,11 @@ CASES = {
                dict(precision="f32", os="os")),
     "lnl_cross": ("cross", (2, 2), dict(stat_path="einsum"),
                   dict(lnlike="grad")),
+    "fused_psr_f64": ("psr", (2, 1), dict(stat_path="fused",
+                                          dtype="float64"),
+                      dict(precision="f32")),
+    "mega_psr_f64": ("psr", (2, 1), dict(stat_path="mega", dtype="float64"),
+                     dict(precision="f32")),
 }
 
 
@@ -150,12 +157,23 @@ def batch_digest(batch) -> str:
     return h.hexdigest()
 
 
+def f64_batch(batch):
+    """The float64 cases' batch: the float32 batch's leaves at float64 (the
+    test builds the JAX package's from the same leaves)."""
+    import torch
+
+    from fakepta_tpu_torch.batch import PulsarBatch
+    return PulsarBatch.from_numpy(batch.numpy(), device="cpu",
+                                  dtype=torch.float64)
+
+
 def _lists(x):
     return np.asarray(x, dtype=np.float64).tolist()
 
 
 def _result(out) -> dict:
-    got = {"curves": _lists(out["curves"]), "autos": _lists(out["autos"])}
+    got = {"curves": _lists(out["curves"]), "autos": _lists(out["autos"]),
+           "dtype": str(out["curves"].dtype)}
     if "corr" in out:
         got["corr"] = _lists(out["corr"])
     if "os" in out:
@@ -388,8 +406,12 @@ def main():
                                 gamma=cfg.GWB["gamma"]).numpy()
     theta = infer.theta_grid(lnl_model(infer), THETA_SHAPE)
 
+    batch64 = f64_batch(batch)
+
     def sim_on(mesh, kw):
-        return EnsembleSimulator(batch, gwb=GWBConfig(psd=psd, orf="hd"),
+        kw = dict(kw)
+        b = batch64 if kw.pop("dtype", None) == "float64" else batch
+        return EnsembleSimulator(b, gwb=GWBConfig(psd=psd, orf="hd"),
                                  mesh=mesh, **kw)
 
     def run_kw(kw):

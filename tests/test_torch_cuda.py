@@ -1902,10 +1902,11 @@ def test_golden_run_on_the_card(cuda):
     assert np.isfinite(row["value"]) and row["value"] > 0
 
 
-def _f64_engine(device, npsr=8, ntoa=64):
+def _f64_engine(device, npsr=8, ntoa=64, **kw):
     """A float64 simulator with every noise stage, the noise and white
     samplers, the HD GWB and the sampled Roemer and CGW terms (the
-    float64 path's whole program), on ``device``."""
+    float64 path's whole program), on ``device``; ``kw`` adds engine
+    arguments."""
     from fakepta_tpu_torch.parallel import montecarlo as tmc
 
     base = PulsarBatch.synthetic(npsr=npsr, ntoa=ntoa, tspan_years=10.0,
@@ -1944,7 +1945,7 @@ def _f64_engine(device, npsr=8, ntoa=64):
                                    tref=53000 * 86400.0),
         toas_abs=toas_abs,
         pdist=np.column_stack([np.linspace(0.6, 1.8, p), np.full(p, 0.1)]),
-        device=device)
+        device=device, **kw)
 
 
 @pytest.mark.cuda
@@ -1952,7 +1953,7 @@ def test_float64_einsum_on_the_card_matches_the_cpu(cuda):
     """The float64 path on the card: its default einsum path, every stage
     and sampler, within 1e-12 of the CPU run's curve scale (float64
     residuals whose pair sums both round to float32), correlations too;
-    the kernel paths refuse the batch."""
+    the kernel paths take the batch."""
     card, host = _f64_engine("cuda"), _f64_engine("cpu")
     assert card.stat_path == "einsum" and card.include == (True,) * 7
     got = card.run(16, seed=5, chunk=8, keep_corr=True)
@@ -1963,8 +1964,8 @@ def test_float64_einsum_on_the_card_matches_the_cpu(cuda):
                                    atol=1e-12 * np.abs(want[key]).max())
     np.testing.assert_allclose(got["autos"], want["autos"], rtol=1e-12)
     for path in ("fused", "mega"):
-        with pytest.raises(TypeError, match="runs float32 batches"):
-            EnsembleSimulator(card.batch, stat_path=path, device="cuda")
+        sim = EnsembleSimulator(card.batch, stat_path=path, device="cuda")
+        assert sim.stat_path == path
 
 
 @pytest.mark.cuda
@@ -2020,3 +2021,205 @@ def test_static_reservation_reported_on_the_card(cuda):
     # reuses a finished thread's handle, whose workspace it then reuses)
     assert sim.static_reservation_bytes - static in (0, max(sizes),
                                                      sum(sizes))
+
+
+# -- the kernels on a float64 batch --------------------------------------------
+
+#: float64 outputs against their plain version (PERF.md's card-against-CPU
+#: float64 bound), and the fused kernel's float32 ones at 'f32' (pair sums
+#: and slots each rounded once to float32) and at 'bf16' (float32 sums of
+#: the same bf16 products in another order)
+F64_TOL = {"f64": 1e-12, "f32": 1e-6, "bf16": 1e-5}
+
+# (R, PL, PF, T): the flagship's shared set and a 2-shard mesh's rows at
+# T = 780, pair spaces past one 128 tile, PL not a multiple of 8, T odd (no
+# 16-byte copies), one pulsar, R = 0
+F64_SHAPES = [(5, 100, 100, 780), (4, 50, 100, 780), (3, 130, 130, 50),
+              (2, 12, 40, 33), (3, 25, 100, 64), (7, 1, 1, 8),
+              (0, 20, 20, 33)]
+
+
+def _close_over_scale(got, want, tol):
+    (gc, ga), (wc, wa) = ([np.asarray(torch.as_tensor(x).cpu(), np.float64)
+                           for x in pair] for pair in (got, want))
+    scale = np.abs(np.concatenate([wc.ravel(), wa.ravel()])).max()
+    np.testing.assert_allclose(gc, wc, rtol=0, atol=tol * scale)
+    np.testing.assert_allclose(ga, wa, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16"])
+@pytest.mark.parametrize("R,PL,PF,T", F64_SHAPES)
+def test_binned_correlation_f64_kernel_matches_plain(cuda, prec, R, PL, PF,
+                                                     T):
+    """#1 on float64 rows (fpt_binned_corr_f64): float32 curves and autos
+    against the plain version, one counted launch per call on its own
+    counter, and a bit-identical rerun."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    res_f = torch.randn(R, PF, T, device=cuda, generator=g,
+                        dtype=torch.float64)
+    res_l = res_f if PL == PF else res_f[:, PF - PL:].contiguous()
+    w = torch.randn(7, PL, PF, device=cuda, generator=g, dtype=torch.float64)
+    before = (bc.launches, bc.f64_launches)
+    got = bc.binned_correlation(res_l, res_f, w, 6, precision=prec)
+    torch.cuda.synchronize()
+    assert (bc.launches, bc.f64_launches) == (before[0],
+                                              before[1] + int(R > 0))
+    assert got[0].dtype == got[1].dtype == torch.float32
+    assert got[0].shape == (R, 6)
+    if R:
+        want = bc.binned_correlation_plain(res_l, res_f, w, 6,
+                                           precision=prec)
+        _close_over_scale(got, want, F64_TOL[prec])
+    again = bc.binned_correlation(res_l, res_f, w, 6, precision=prec)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,PL,PF,T", F64_SHAPES[:4])
+def test_binned_correlation_f64_float64_output(cuda, R, PL, PF, T):
+    """The megakernel's pass-2 flavour of fpt_binned_corr_f64: float64
+    pair sums, binning and output, within 1e-12 of a float64 einsum's
+    scale; the bf16 mode has no float64 output."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    res_f = torch.randn(R, PF, T, device=cuda, generator=g,
+                        dtype=torch.float64)
+    res_l = res_f if PL == PF else res_f[:, PF - PL:].contiguous()
+    w = torch.randn(5, PL, PF, device=cuda, generator=g, dtype=torch.float64)
+    (got, launched) = bc._launch("fpt_binned_corr_f64", "pass 2", res_l,
+                                 res_f, w, 4, "f32", out_f64=True)
+    torch.cuda.synchronize()
+    assert launched and got[0].dtype == torch.float64
+    out = torch.einsum("rpt,rqt,npq->rn", res_l, res_f, w)
+    _close_over_scale(got, (out[:, :4], out[:, 4]), F64_TOL["f64"])
+    with pytest.raises(ValueError):
+        bc._launch("fpt_binned_corr_f64", "pass 2", res_l, res_f, w, 4,
+                   "bf16", out_f64=True)
+
+
+@pytest.mark.cuda
+def test_binned_correlation_vpu_refuses_float64(cuda):
+    res = torch.randn(2, 8, 16, device=cuda, dtype=torch.float64)
+    w = torch.randn(3, 8, 8, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float64"):
+        bc.binned_correlation_vpu(res, res, w, 2)
+
+
+def _f64_tables(full):
+    """_proj_inputs' time and scale rows at float64."""
+    return [x.double() for x in full[2:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f64", "bf16"])
+@pytest.mark.parametrize("R,PL,PF,T,stages", PROJ_SHAPES)
+def test_project_f64_kernel_matches_plain(cuda, storage, R, PL, PF, T,
+                                          stages):
+    """Pass 1 on float64 tables (fpt_project_f64) against its plain
+    version: float64 storage within 1e-12 of the residual scale (DMMA
+    products, CUDA's sincos against torch's cos and sin), bf16 storage
+    within 1e-5 (3xTF32 products of the float32-rounded float64 basis); a
+    rerun is bit-identical."""
+    dt = torch.float64 if storage == "f64" else torch.bfloat16
+    full = _proj_inputs(cuda, 23, R, PF, T, stages, dt)
+    full[2:] = _f64_tables(full)
+    local = (None,) * 4
+    if PL < PF:
+        local = tuple(x[:, PF - PL:].contiguous() for x in full)
+    want = [mk.project_plain(*full, stages)]
+    if PL < PF:
+        want.insert(0, mk.project_plain(*local, stages))
+    got = mk._launch_project(*full, stages, local)
+    torch.cuda.synchronize()
+    assert got[1].dtype == (torch.float64 if storage == "f64"
+                            else torch.float32)
+    tol = 1e-12 if storage == "f64" else 1e-5
+    for g_, w_ in zip(got[2 - len(want):], want):
+        scale = float(w_.abs().max())
+        err = float((g_ - w_).abs().max())
+        assert err <= tol * scale, (err, scale)
+    again = mk._launch_project(*full, stages, local)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["f64", "bf16"])
+@pytest.mark.parametrize("pl", [40, 20])
+def test_chunk_stats_f64_matches_plain(cuda, storage, pl):
+    """Both passes on float64 tables at K = 320, both operand sets: float64
+    storage ('f32') against the plain version within 1e-12 of the scale,
+    float64 out; bf16 storage within the bf16 bound, float32 out; one
+    launch per call on the float64 counters, reruns bit-identical."""
+    dt = torch.float64 if storage == "f64" else torch.bfloat16
+    prec = "f32" if storage == "f64" else "bf16"
+    P = 40
+    full = _proj_inputs(cuda, 24, 130, P, 100, FLAGSHIP_STAGES, dt)
+    full[2:] = _f64_tables(full)
+    w = torch.randn(8, pl, P, device=cuda, dtype=torch.float64,
+                    generator=torch.Generator(device=cuda).manual_seed(5))
+    kw = {}
+    if pl < P:
+        kw = dict(zip(("base_local", "coef_local", "times_local",
+                       "scales_local"), (x[:, :pl].contiguous()
+                                         for x in full)))
+    before = (mk.launches, mk.sharded_launches, mk.f64_launches,
+              mk.f64_sharded_launches)
+    got = mk.chunk_stats(*full, w, stages=FLAGSHIP_STAGES, nbins=7,
+                         precision=prec, **kw)
+    torch.cuda.synchronize()
+    assert (mk.launches, mk.sharded_launches, mk.f64_launches,
+            mk.f64_sharded_launches) == (before[0], before[1],
+                                         before[2] + (pl == P),
+                                         before[3] + (pl < P))
+    assert got[0].dtype == (torch.float64 if storage == "f64"
+                            else torch.float32)
+    want = mk.chunk_stats_plain(*full, w, stages=FLAGSHIP_STAGES, nbins=7,
+                                precision=prec, **kw)
+    if storage == "f64":
+        _close_over_scale(got, want, F64_TOL["f64"])
+    else:
+        _assert_close(got, want, "bf16")
+    again = mk.chunk_stats(*full, w, stages=FLAGSHIP_STAGES, nbins=7,
+                           precision=prec, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_project_f64_smem_matches_the_source(cuda):
+    """megakernel.py::project_smem mirrors what fpt_project_f64 requests
+    on both of its routes."""
+    smem = _build.load("megakernel").fpt_project_f64_smem
+    smem.restype = ctypes.c_longlong
+    smem.argtypes = [ctypes.c_int] * 4
+    for route, tile, bf16 in (("f64", mk.PROJ_TILE_F64, 0),
+                              ("bf16_f64", mk.PROJ_TILE, 1)):
+        bm, bn, _ = tile
+        for n_scales in (1, 2, 5):
+            assert smem(bf16, bm, bn, n_scales) == mk.project_smem(
+                bm, bn, n_scales, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,prec", [("fused", "f32"), ("fused", "bf16"),
+                                       ("mega", "f32"), ("mega", "bf16")])
+def test_float64_kernel_paths_on_the_card_match_the_cpu(cuda, path, prec):
+    """The float64 engine on a kernel path, every stage and sampler, on
+    the card against the same run on the CPU: float64 mega curves within
+    1e-12 of the scale, the float32 ones within the fused kernel's 'f32'
+    bound (a pair sum may round to the other float32 neighbour) or the bf16
+    bound; the path's float64 kernel launched, a rerun bit-identical."""
+    card = _f64_engine("cuda", stat_path=path)
+    host = _f64_engine("cpu", stat_path=path)
+    before = (bc.f64_launches, mk.f64_launches)
+    got = card.run(16, seed=5, chunk=8, precision=prec)
+    want = host.run(16, seed=5, chunk=8, precision=prec)
+    moved = (bc.f64_launches - before[0], mk.f64_launches - before[1])
+    assert moved == ((2, 0) if path == "fused" else (0, 2))
+    f32_out = path == "fused"
+    assert got["curves"].dtype == (np.float32 if f32_out else np.float64)
+    tol = (TOL["bf16"] if prec == "bf16"
+           else F64_TOL["f32"] if f32_out else F64_TOL["f64"])
+    _close_over_scale((got["curves"], got["autos"]),
+                      (want["curves"], want["autos"]), tol)
+    again = card.run(16, seed=5, chunk=8, precision=prec)
+    np.testing.assert_array_equal(got["curves"], again["curves"])

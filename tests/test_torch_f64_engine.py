@@ -25,9 +25,11 @@ goes through both engines with the same seeds. Tolerances:
 - ``model_bytes_per_chunk`` and the dispatch surface equal the JAX
   engine's (8-byte elements), bit for bit.
 
-The kernel paths take float32 and refuse a float64 batch with a
-``TypeError``; ``stat_path=None`` on a float64 batch is the einsum path
-(the JAX engine's default path at any dtype).
+``stat_path=None`` on a float64 batch is the einsum path (the JAX
+engine's default path at any dtype); the kernel paths take a float64 batch
+too (tests/test_torch_f64_kernels.py holds them to the JAX package), but
+not ``pallas_mxu_binning=False``, which the JAX kernel raises on; a tuned
+kernel path is taken.
 """
 
 import dataclasses
@@ -173,18 +175,31 @@ _THETA = np.array([[-13.6, 3.3], [-13.1, 4.4], [-12.8, 5.2]])
 # -- the path rules --------------------------------------------------------------
 
 def test_float64_defaults_to_einsum_and_the_kernels_refuse_it():
+    """The einsum default; both kernel paths taken; the fused path's
+    mxu_binning=False refused (the JAX kernel raises); a tuned kernel path
+    taken."""
     b64 = PulsarBatch.from_numpy(LEAVES, device="cpu")
     assert tmc.EnsembleSimulator(b64, device="cpu").stat_path == "einsum"
     b32 = PulsarBatch.from_numpy(LEAVES, device="cpu", dtype=torch.float32)
     assert tmc.EnsembleSimulator(b32, device="cpu").stat_path == "fused"
     for path in ("fused", "mega"):
-        with pytest.raises(TypeError, match="runs float32 batches"):
-            tmc.EnsembleSimulator(b64, device="cpu", stat_path=path)
+        assert tmc.EnsembleSimulator(b64, device="cpu",
+                                     stat_path=path).stat_path == path
+    with pytest.raises(ValueError, match="pallas_mxu_binning=False"):
+        tmc.EnsembleSimulator(b64, device="cpu", stat_path="fused",
+                              pallas_mxu_binning=False)
+    # float32 takes the per-slot-reduction kernel, as before
+    tmc.EnsembleSimulator(b32, device="cpu", stat_path="fused",
+                          pallas_mxu_binning=False)
     sim = tmc.EnsembleSimulator(b64, device="cpu")
-    assert "float32" in sim._path_refusal("fused")
-    # a tuned kernel path is ignored on a float64 simulator
+    assert sim._path_refusal("fused") is None
+    assert sim._path_refusal("mega") is None
+    vpu = tmc.EnsembleSimulator(b64, device="cpu", pallas_mxu_binning=False)
+    assert "pallas_mxu_binning=False" in vpu._path_refusal("fused")
+    assert vpu._path_refusal("mega") is None
+    # a tuned kernel path is taken on a float64 simulator
     assert sim._tuned_knobs({"path": "mega", "chunk": 4}, False) == (
-        {"path": "mega", "chunk": 4}, None)
+        {"path": "mega", "chunk": 4}, "mega")
     b16 = PulsarBatch.from_numpy(LEAVES, device="cpu", dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or float64"):
         tmc.EnsembleSimulator(b16, device="cpu", stat_path="einsum")

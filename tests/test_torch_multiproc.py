@@ -12,7 +12,9 @@ JAX engine on the conftest's virtual CPU devices within rtol 1e-5 / atol
 modes at the port's 1e-2 bf16 bound, the OS lanes at the detection lane's
 1e-4 of max|amp2|, the likelihood lanes at tests/lane_bound.py's float32
 bound, against the JAX lane on one device: its gradient over a psr mesh is
-wrong, ROADMAP Queue 3). Only rank 0 writes checkpoint files, a cut run resumes from a
+wrong, ROADMAP Queue 3; the float64 batch's fused and mega cases against
+the JAX XLA run of the same float64 leaves at those bounds, their curves
+float32 and float64 as the JAX engine's are). Only rank 0 writes checkpoint files, a cut run resumes from a
 shared directory to the uninterrupted one, the event-log shards merge
 into one trace with pid lanes {0, 1}, the 2-rank sampler's chains (over
 'real', 'psr' and a replicated 'toa' axis) equal the one-process run bit
@@ -50,6 +52,7 @@ import sys
 import time
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -58,10 +61,13 @@ import _multihost_worker as cfg
 import _torch_multiproc_worker as wcfg
 from fakepta_tpu import infer as jinfer
 from fakepta_tpu import obs as jobs
+from fakepta_tpu import spectrum as jax_spectrum
 from fakepta_tpu.batch import PulsarBatch as JaxBatch
 from fakepta_tpu.detect import OSSpec as JaxOSSpec
 from fakepta_tpu.detect.streaming import StreamingOS as JaxOS
 from fakepta_tpu.parallel.mesh import make_mesh as jax_mesh
+from fakepta_tpu.parallel.montecarlo import EnsembleSimulator as JaxSim
+from fakepta_tpu.parallel.montecarlo import GWBConfig as JaxGWB
 from fakepta_tpu.sample import SampleSpec as JSpec
 from fakepta_tpu.sample import SamplingRun as JRun
 from fakepta_tpu.stream import StreamState as JaxStream
@@ -149,10 +155,20 @@ def jax_runs():
     nreal = run.pop("nreal")
     psr2 = sim(2, 1, 2)
     jb = JaxBatch.synthetic(**cfg.SIM)
+    # the float64 cases' batch: the port's float32 leaves at float64
+    leaves = wcfg.f64_batch(PulsarBatch.synthetic(**cfg.SIM,
+                                                  device="cpu")).numpy()
+    jb64 = JaxBatch(**{k: jnp.asarray(v) for k, v in leaves.items()})
+    f = np.arange(1, cfg.GWB["ncomp"] + 1) / float(jb64.tspan_common)
+    psd = np.asarray(jax_spectrum.powerlaw(f, log10_A=cfg.GWB["log10_A"],
+                                           gamma=cfg.GWB["gamma"]))
+    psr2_f64 = JaxSim(jb64, gwb=JaxGWB(psd=psd, orf="hd"),
+                      mesh=jax_mesh(jax.devices()[:2], psr_shards=2))
     theta = jinfer.theta_grid(wcfg.lnl_model(jinfer), wcfg.THETA_SHAPE)
     return {
         "cross": sim(2, 2).run(nreal, keep_corr=True, **run),
         "psr2": psr2.run(nreal, **run),
+        "psr2_f64": psr2_f64.run(nreal, **run),
         "os": psr2.run(nreal, os=JaxOSSpec(orf=wcfg.OS_ORFS, null=True),
                        **run),
         # on one device: the JAX lane's gradient over a psr mesh is its
@@ -182,9 +198,14 @@ def test_case_bit_identical_to_the_one_process_mesh(ranks, case):
 @pytest.mark.parametrize("case", CASES)
 def test_case_matches_the_jax_engine(ranks, jax_runs, case):
     got = ranks[1]["cases"][case]
-    layout, _, _, rkw = wcfg.CASES[case]
+    layout, _, kw, rkw = wcfg.CASES[case]
+    if kw.get("dtype") == "float64":
+        assert got["dtype"] == ("float32" if kw["stat_path"] == "fused"
+                                else "float64")
     want = jax_runs["cross" if layout in ("cross", "rank_major")
-                    else "os" if "os" in rkw else "psr2"]
+                    else "os" if "os" in rkw
+                    else "psr2_f64" if kw.get("dtype") == "float64"
+                    else "psr2"]
     if "lnlike" in rkw:
         want = jax_runs["lnl"]
     tol = BF16_TOL if rkw.get("precision") == "bf16" else 1e-6
