@@ -112,8 +112,8 @@
 // on the FP64 tensor cores, with the pair sums rounded to float32 and binned
 // at float64 (the fused path; float32 output) or kept at float64 (the
 // megakernel's pass 2; float64 output); in the 'bf16' mode, #1's bf16 kernel
-// with each float64 residual rounded straight to bf16 at staging and the
-// float32 pair sums binned at float64 against the float64 weights. What
+// with each float64 residual rounded to bf16 through float32 at staging (as
+// the TPU kernel's astype rounds it) and the float32 pair sums binned at float64 against the float64 weights. What
 // bounds the DMMA kernel at the flagship (R = 1024, P = 100, T = 780): the
 // residual read, R P T 8 = 639 MB, 0.19 ms at 3.35 TB/s, against the
 // P (P + 1) / 2 distinct pairs' 8.0 GFLOP, 0.12 ms at the FP64 tensor
@@ -200,11 +200,12 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // A residual as the mainloop stages it: a float32 one as it is; a float64
-// one (the bf16 mode of a float64 batch, fpt_binned_corr_f64) rounded once,
-// straight to bf16 (not through float32), then held in float
+// one (the bf16 mode of a float64 batch, fpt_binned_corr_f64) rounded to
+// float32, then to bf16, as the TPU kernel's astype(bfloat16) of a float64
+// row rounds (through float32), then held in float
 __device__ __forceinline__ float stage_in(float x) { return x; }
 __device__ __forceinline__ float stage_in(double x) {
-  return __bfloat162float(__double2bfloat16(x));
+  return __bfloat162float(__float2bfloat16_rn(__double2float_rn(x)));
 }
 
 // four consecutive residuals from a 16-byte aligned address (float32) or a
@@ -1113,8 +1114,8 @@ extern "C" long long fpt_binned_corr_vpu_smem(int PL, int PF, int NB,
 // rounded up to 16 and BN = PF rounded up to 8, each at most 128, as
 // fpt_binned_corr's), out float32 (out_f64 = 0: the fused flavour) or
 // float64 (out_f64 = 1: chunk_stats' pass 2). bf16 = 1: fpt_binned_corr's
-// bf16 kernel at `tiling` on the float64 rows, each rounded straight to bf16,
-// the float32 pair sums binned at float64, out float32 (out_f64 must be 0).
+// bf16 kernel at `tiling` on the float64 rows, each rounded to bf16 through
+// float32, the float32 pair sums binned at float64, out float32 (out_f64 must be 0).
 // Returns cudaGetLastError() after the launch(es), or cudaErrorInvalidValue
 // for arguments it has no kernel for.
 extern "C" int fpt_binned_corr_f64(const void* res_l, const void* res_f,

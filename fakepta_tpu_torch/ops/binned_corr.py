@@ -26,9 +26,9 @@ On a float64 batch :func:`binned_correlation` launches ``fpt_binned_corr_f64``
 ``'f32'`` the pair sums on the FP64 tensor cores, rounded once to float32 (its
 float32 correlation scratch), then binned against the float64 weights at
 float64 and rounded once to float32 curves and autos (its float32 output); at
-``'bf16'`` the float64 residuals rounded straight to bf16 (not through
-float32: :func:`round_bf16_f64`) through #1's bf16 kernel, the float32 pair
-sums binned the same way. :func:`binned_correlation_vpu` refuses float64 rows
+``'bf16'`` the float64 residuals rounded to bf16 through float32 (as the
+TPU kernel's ``astype(bfloat16)`` rounds them) through #1's bf16 kernel,
+the float32 pair sums binned the same way. :func:`binned_correlation_vpu` refuses float64 rows
 (``ValueError``), as the TPU kernel's ``mxu_binning=False`` variant cannot
 store its float64 per-slot sums into its float32 output.
 
@@ -238,40 +238,27 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def round_bf16_f64(x: torch.Tensor) -> torch.Tensor:
-    """Round float64 values straight to bfloat16 (to nearest even, one
-    rounding, as ``__double2bfloat16``) and return them as float32. Not
-    ``x.to(torch.bfloat16)``, which rounds through float32 first and differs
-    on the rare values within 2^-24 of a bf16 tie. Exact for results in
-    bf16's normal range."""
-    bits = x.double().contiguous().view(torch.int64)
-    # 45 of float64's 52 fraction bits go; a carry moves into the exponent
-    bits = (bits + ((1 << 44) - 1) + ((bits >> 45) & 1)) & ~((1 << 45) - 1)
-    return bits.view(torch.float64).float()
-
-
 def binned_correlation_plain(res_local, res_full, weights, nbins: int,
                              precision: str = "bf16"):
     """Plain torch version: f32 einsums, bf16 mode rounds the operands.
     Float64 rows (float64 weights): the pair sums at float64 rounded once
-    to float32 (``'bf16'``: on operands rounded straight to bf16, summed at
-    float32), binned at float64 and rounded once to float32."""
+    to float32 (``'bf16'``: on operands rounded to float32, then to bf16,
+    as the TPU kernel rounds them, summed at float32), binned at float64
+    and rounded once to float32."""
     _check_precision(precision)
-    if res_local.dtype == torch.float64:
+    f64 = res_local.dtype == torch.float64
+    if f64 and precision == "f32":
+        corr = torch.einsum("rpt,rqt->rpq", res_local, res_full).float()
+    else:
+        a, b = res_local.float(), res_full.float()
         if precision == "bf16":
-            corr = torch.einsum("rpt,rqt->rpq", round_bf16_f64(res_local),
-                                round_bf16_f64(res_full))
-        else:
-            corr = torch.einsum("rpt,rqt->rpq", res_local,
-                                res_full).float()
+            a, b = round_bf16(a), round_bf16(b)
+        corr = torch.einsum("rpt,rqt->rpq", a, b)
+    if f64:
         out = torch.einsum("rpq,npq->rn", corr.double(),
                            weights.double()).float()
-        return out[:, :nbins], out[:, nbins]
-    a, b = res_local.float(), res_full.float()
-    if precision == "bf16":
-        a, b = round_bf16(a), round_bf16(b)
-    corr = torch.einsum("rpt,rqt->rpq", a, b)
-    out = torch.einsum("rpq,npq->rn", corr, weights.float())
+    else:
+        out = torch.einsum("rpq,npq->rn", corr, weights.float())
     return out[:, :nbins], out[:, nbins]
 
 
