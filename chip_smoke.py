@@ -615,10 +615,12 @@ def compare(got, want, prec: str, what: str, tol=None, rtol=None,
     return row
 
 
-def os_compare(got: dict, want: dict, prec: str, what: str) -> dict:
+def os_compare(got: dict, want: dict, prec: str, what: str,
+               tol=None) -> dict:
     """Each ORF's amp2 (and null amp2 where the run has the null stream)
-    against the reference run's within OS_TOL[prec] of its max|amp2| (the
-    JAX package's bound for the fused OS lanes); raises past it."""
+    against the reference run's within ``tol`` (default OS_TOL[prec], the
+    JAX package's bound for the fused OS lanes) of its max|amp2|; raises
+    past it."""
     errs = {}
     for orf in got["os"]["orfs"]:
         g, w = got["os"]["stats"][orf], want["os"]["stats"][orf]
@@ -631,12 +633,13 @@ def os_compare(got: dict, want: dict, prec: str, what: str) -> dict:
                                      f"{g[k].shape} or non-finite values")
             errs[f"{orf}/{k}"] = float(np.abs(g[k] - w[k]).max()) / scale
     worst = max(errs.values())
+    tol = OS_TOL[prec] if tol is None else tol
     print(f"  {what} [{prec}]: OS lanes max|d|/max|amp2| {worst:.3e} "
-          f"(tolerance {OS_TOL[prec]:g})", flush=True)
-    if worst > OS_TOL[prec]:
+          f"(tolerance {tol:g})", flush=True)
+    if worst > tol:
         raise AssertionError(f"{what} [{prec}] OS lanes outside tolerance: "
                              f"{errs}")
-    return {"os_err_over_scale": errs, "os_tolerance": OS_TOL[prec]}
+    return {"os_err_over_scale": errs, "os_tolerance": tol}
 
 
 def flagship_sim(stat_path: str, mesh=None, batch=None, **kw):
@@ -955,6 +958,93 @@ def rerun_identical(fn, what: str) -> bool:
     return True
 
 
+def f64_chunk_rows(rows: dict, base, coefs, times, scales, w, stages,
+                   nbins: int, pls, tag, precs=("f32", "bf16")) -> None:
+    """chunk_stats at float64 held to its plain version and timed (rows
+    ``rows[(name, prec, tag(pl))]``) on the shared set (pl = P) and a psr
+    shard's first pl rows, with pass 1 alone beside its float64 einsum and
+    its bound, and a rerun bit-identical. 'f32' stores base and coef at
+    float64, 'bf16' in bfloat16 (as the engine does); the tables and
+    weights float64."""
+    import torch
+    from fakepta_tpu_torch.ops import megakernel as mk
+    R, P, T = base.shape
+    NB, K, S = w.shape[0], mk.stage_k(stages), scales.shape[0]
+    operands = {"f32": (base, coefs),
+                "bf16": (base.to(torch.bfloat16), coefs.to(torch.bfloat16))}
+    operands = {p: operands[p] for p in precs}
+    basis = mk.dense_basis(times, scales, stages)
+
+    def local(x, pl):
+        return x[:, :pl].contiguous()
+
+    for pl in pls:
+        shared = pl == P
+        name = "chunk_stats_f64" if shared else "chunk_stats_sharded_f64"
+        kw = {p: {} if shared else dict(
+            base_local=local(operands[p][0], pl),
+            coef_local=local(operands[p][1], pl),
+            times_local=local(times, pl), scales_local=local(scales, pl))
+            for p in operands}
+        w_l = w if shared else local(w, pl)
+        rows_read = pl if shared else pl + P
+        corr, binf = stat_flops(R, pl, P, T, NB, shared=shared)
+        proj = 2.0 * R * rows_read * K * T
+        kernel_rows(
+            rows, name, tag(pl),
+            lambda p, kw=kw, ww=w_l: mk.chunk_stats(
+                *operands[p], times, scales, ww, stages=stages, nbins=nbins,
+                precision=p, **kw[p]),
+            lambda p, kw=kw, ww=w_l: mk.chunk_stats_plain(
+                *operands[p], times, scales, ww, stages=stages, nbins=nbins,
+                precision=p, **kw[p]),
+            None,
+            lambda p, n=rows_read, pl=pl: (
+                (8 if p == "f32" else 2) * R * n * (T + K)
+                + 8.0 * ((2 + S) * n * T + NB * pl * P)
+                + (8 if p == "f32" else 4) * R * NB),
+            lambda p, c=corr, b=binf, j=proj: (
+                (0.0, 0.0, 0.0, j + c + b) if p == "f32"
+                else mega_route_flops(p, c, b, j)),
+            iters=10, precs=tuple(operands), tol=F64_KERNEL_TOL[
+                "chunk_stats_f64"])
+        local_ops = {p: tuple(kw[p].values()) or (None,) * 4
+                     for p in operands}
+        lib_coef = torch.cat([coefs[:, :pl], coefs], 1) if not shared \
+            else coefs
+        lib_basis = torch.cat([basis[:pl], basis], 0) if not shared \
+            else basis
+        ms = in_turns({p: (lambda p=p: mk._launch_project(
+            *operands[p], times, scales, stages, local_ops[p]))
+            for p in operands}, 10)
+        lib_ms = time_ms(lambda: torch.einsum("rpk,ptk->rpt", lib_coef,
+                                              lib_basis), 10)
+        for p in operands:
+            row = rows[(name, p, tag(pl))]
+            # pass 1's own bound: base and coef read, the residuals written
+            # (float64, or float32 under bf16 storage) and the tables read,
+            # against its products on the FP64 tensor cores (the TF32 ones,
+            # two products, under bf16 storage)
+            p1_bytes = ((8 if p == "f32" else 2) * R * rows_read * (T + K)
+                        + (8 if p == "f32" else 4) * R * rows_read * T
+                        + 8.0 * (2 + S) * rows_read * T)
+            p1_flops = ((0.0, 0.0, 0.0, proj) if p == "f32"
+                        else (0.0, 0.0, 2 * proj))
+            p1_bound, p1_by = bound(p1_bytes, *p1_flops)
+            row.update(pass1_ms=ms[p], pass1_library_ms=lib_ms,
+                       pass1_bound_ms=p1_bound, pass1_bound_by=p1_by,
+                       rerun_identical=rerun_identical(
+                           lambda p=p, kw=kw, ww=w_l: mk.chunk_stats(
+                               *operands[p], times, scales, ww,
+                               stages=stages, nbins=nbins, precision=p,
+                               **kw[p]), f"{name} [{p}]"))
+            print(f"  {name} {tag(pl)} [{p}]: pass 1 {ms[p]:.4f} ms of "
+                  f"{row['ms']:.4f} ms, its bound {p1_bound:.4f} ms "
+                  f"({p1_by}); pass-1 library (einsum rpk,ptk->rpt at "
+                  f"float64, {rows_read} rows, prebuilt basis) "
+                  f"{lib_ms:.4f} ms", flush=True)
+
+
 def measure_f64_kernels(report: dict) -> None:
     """The float64 kernels held against their plain versions and timed on
     one chunk of the float64 flagship's own residuals (module docstring,
@@ -980,7 +1070,7 @@ def measure_f64_kernels(report: dict) -> None:
     stages, times, scales = sim._mega_tables
     nbins = sim.nbins
     R, P, T = res.shape
-    NB, K, S = w.shape[0], mk.stage_k(stages), scales.shape[0]
+    NB, K = w.shape[0], mk.stage_k(stages)
     print(f"kernels f64: R={R} P={P} T={T} K={K} NB={NB}", flush=True)
     rows = {}
 
@@ -1013,65 +1103,8 @@ def measure_f64_kernels(report: dict) -> None:
                                                       precision=p),
                                 f"{name} PL={pl} [{p}]")
 
-    # chunk_stats at float64: 'f32' stores base and coef at float64, 'bf16'
-    # in bfloat16 (as the engine does), the tables and weights float64
-    operands = {"f32": (base, coefs),
-                "bf16": (base.to(torch.bfloat16), coefs.to(torch.bfloat16))}
-    basis = mk.dense_basis(times, scales, stages)
-    for pl in (P, F64_SHARD_PL):
-        shared = pl == P
-        name = "chunk_stats_f64" if shared else "chunk_stats_sharded_f64"
-        tag = shape_tag(pl, P, T)
-        kw = {p: {} if shared else dict(
-            base_local=local(operands[p][0], pl),
-            coef_local=local(operands[p][1], pl),
-            times_local=local(times, pl), scales_local=local(scales, pl))
-            for p in operands}
-        w_l = w if shared else local(w, pl)
-        rows_read = pl if shared else pl + P
-        corr, binf = stat_flops(R, pl, P, T, NB, shared=shared)
-        proj = 2.0 * R * rows_read * K * T
-        kernel_rows(
-            rows, name, tag,
-            lambda p, kw=kw, ww=w_l: mk.chunk_stats(
-                *operands[p], times, scales, ww, stages=stages, nbins=nbins,
-                precision=p, **kw[p]),
-            lambda p, kw=kw, ww=w_l: mk.chunk_stats_plain(
-                *operands[p], times, scales, ww, stages=stages, nbins=nbins,
-                precision=p, **kw[p]),
-            None,
-            lambda p, n=rows_read, pl=pl: (
-                (8 if p == "f32" else 2) * R * n * (T + K)
-                + 8.0 * ((2 + S) * n * T + NB * pl * P)
-                + (8 if p == "f32" else 4) * R * NB),
-            lambda p, c=corr, b=binf, j=proj: (
-                (0.0, 0.0, 0.0, j + c + b) if p == "f32"
-                else mega_route_flops(p, c, b, j)),
-            iters=10, precs=("f32", "bf16"), tol=F64_KERNEL_TOL[
-                "chunk_stats_f64"])
-        local_ops = {p: tuple(kw[p].values()) or (None,) * 4
-                     for p in operands}
-        lib_coef = torch.cat([coefs[:, :pl], coefs], 1) if not shared \
-            else coefs
-        lib_basis = torch.cat([basis[:pl], basis], 0) if not shared \
-            else basis
-        ms = in_turns({p: (lambda p=p: mk._launch_project(
-            *operands[p], times, scales, stages, local_ops[p]))
-            for p in operands}, 10)
-        lib_ms = time_ms(lambda: torch.einsum("rpk,ptk->rpt", lib_coef,
-                                              lib_basis), 10)
-        for p in operands:
-            row = rows[(name, p, tag)]
-            row.update(pass1_ms=ms[p], pass1_library_ms=lib_ms,
-                       rerun_identical=rerun_identical(
-                           lambda p=p, kw=kw, ww=w_l: mk.chunk_stats(
-                               *operands[p], times, scales, ww,
-                               stages=stages, nbins=nbins, precision=p,
-                               **kw[p]), f"{name} [{p}]"))
-            print(f"  {name} {tag} [{p}]: pass 1 {ms[p]:.4f} ms of "
-                  f"{row['ms']:.4f} ms; pass-1 library (einsum rpk,ptk->rpt "
-                  f"at float64, {rows_read} rows, prebuilt basis) "
-                  f"{lib_ms:.4f} ms", flush=True)
+    f64_chunk_rows(rows, base, coefs, times, scales, w, stages, nbins,
+                   (P, F64_SHARD_PL), lambda pl: shape_tag(pl, P, T))
     report.setdefault("kernels", {}).update(
         {"/".join(k): v for k, v in rows.items()})
     # launches made to compare with the plain versions do not count
@@ -6485,6 +6518,84 @@ def f64_kernel_paths(report: dict, scn, ein) -> dict:
     return rows
 
 
+def f64_lane_run(report: dict, scn, ein) -> dict:
+    """The float64 flagship on mega with three OS lanes and the null stream
+    (module docstring, phase 21): pass 1 at K = 320 under the main launch
+    (NB = 19) and at the null stream's GWB-free K = 260 (NB = 4), first
+    held to its plain version and timed at both shapes on one chunk, then
+    the run in turns with the float64 einsum run of the same lanes, held to
+    it at F64_PATH_TOL (curves, autos and every amp2 lane) and rerun bit
+    for bit. Returns the run's row."""
+    import torch
+    from fakepta_tpu_torch.detect import OSSpec
+    from fakepta_tpu_torch.ops import megakernel as mk
+    from fakepta_tpu_torch.parallel.montecarlo import _NULL_TAG, _chunk_keys
+    from fakepta_tpu_torch.utils import rng
+
+    spec = OSSpec(orf=DETECT_ORFS, null=True)
+    sim = scn.build(device="cuda", dtype=torch.float64, stat_path="mega")
+    P, T = sim.batch.npsr, sim.batch.max_toa
+    main_w, null_w = sim._prepare_lanes(spec).weights[id(sim._full)]
+    rows = {}
+    for null in (False, True):
+        keys = _chunk_keys(rng.key(7, device="cuda"), 0, CHUNK)
+        if null:
+            keys = rng.fold_in(keys, _NULL_TAG)
+        with torch.no_grad():
+            base, coefs = sim._residuals(keys, split_gp=True, null=null)
+        stages = sim._mega_stages_null if null else sim._mega_tables[0]
+        w = null_w if null else main_w
+        f64_chunk_rows(rows, base, coefs, *sim._mega_tables[1:], w, stages,
+                       w.shape[0] - 1, (P,),
+                       lambda pl, w=w, k=mk.stage_k(stages): shape_tag(
+                           pl, P, T, w.shape[0], k), precs=("f32",))
+    report.setdefault("kernels", {}).update(
+        {"/".join(k): v for k, v in rows.items()})
+    nchunks = -(-F64_PATH_NREAL // CHUNK)
+    sim.run(CHUNK, seed=99, chunk=CHUNK, precision="f32", os=spec)
+    outs, rates = {}, {"einsum": [], "mega": []}
+    for path in ("einsum", "mega", "mega", "einsum"):
+        reset_counts()
+        got, dt = timed_run(ein if path == "einsum" else sim,
+                            F64_PATH_NREAL, "f32", seed=1, os=spec)
+        moved = {k: n for k, n in counts().items() if n}
+        want = {} if path == "einsum" else {"chunk_stats_f64": 2 * nchunks}
+        if moved != want:
+            raise AssertionError(f"f64 os+null {path} launched {moved}")
+        if path == "mega":
+            lane_launches(report, sim, "mega", len(DETECT_ORFS), moved)
+        rates[path].append(F64_PATH_NREAL / dt)
+        outs.setdefault(path, []).append(got)
+    reset_counts()
+    got, again = outs["mega"]
+    lanes = [(o, k) for o in got["os"]["orfs"] for k in ("amp2", "null_amp2")]
+    if not (np.array_equal(got["curves"], again["curves"])
+            and np.array_equal(got["autos"], again["autos"])
+            and all(np.array_equal(got["os"]["stats"][o][k],
+                                   again["os"]["stats"][o][k])
+                    for o, k in lanes)):
+        raise AssertionError("f64 os+null mega: rerun is not bit-identical")
+    ref = outs["einsum"][0]
+    row = compare((got["curves"], got["autos"]),
+                  (ref["curves"], ref["autos"]), "f32",
+                  "f64 mega os+null vs einsum float64",
+                  tol=F64_PATH_TOL["f32"])
+    row.update(os_compare(got, ref, "f32", "f64 mega os+null vs einsum "
+                          "float64", tol=F64_PATH_TOL["f32"]))
+    row.update(realizations_per_s=rates["mega"],
+               einsum_realizations_per_s=rates["einsum"],
+               kernel_launches={"chunk_stats_f64": 2 * nchunks},
+               rerun_identical=True)
+    print(f"f64 flagship os+null ({len(DETECT_ORFS)} ORFs, null stream), "
+          f"{F64_PATH_NREAL} realizations at chunk {CHUNK}, in turns "
+          f"(realizations/s): einsum float64 "
+          f"{' / '.join(f'{r:.1f}' for r in rates['einsum'])}, mega "
+          f"{' / '.join(f'{r:.1f}' for r in rates['mega'])}; "
+          f"chunk_stats_f64 launched {2 * nchunks} times a run (K = 320 "
+          f"and 260), rerun bit-identical", flush=True)
+    return row
+
+
 def phase_f64(report: dict) -> None:
     """The float64 path on the card (module docstring, phase 21)."""
     import torch
@@ -6536,6 +6647,8 @@ def phase_f64(report: dict) -> None:
           f"(x{out['flagship']['ratio_f64_f32']:.3f}); mean auto within "
           f"{drift:.2e} of float32; no kernel launched", flush=True)
     out["kernel_paths"] = f64_kernel_paths(report, scn, sims["f64"])
+    out["kernel_paths"]["mega_os_null/f32"] = f64_lane_run(report, scn,
+                                                           sims["f64"])
     del sims, outs
     torch.cuda.empty_cache()
 

@@ -71,14 +71,14 @@
 // On a float64 batch (fpt_project_f64; pass 2 is binned_corr.cu's
 // fpt_binned_corr_f64, or fpt_binned_corr under bf16 storage), as the TPU
 // kernel computes at float64 (its cdtype is the batch's):
-//   'f32': project_f64_kernel (its design is beside it), float64 throughout
-//     on the FP64 tensor cores (DMMA): the basis from float64 sincos of the
-//     float64 phase (2 pi t) n, the projection at float64, float64
-//     residuals. What bounds it on the flagship shared set: 2 R rows K T =
-//     51.1 GFLOP, 0.76 ms at the FP64 tensor cores' 67 TFLOP/s, against
-//     base + coef + res = 639 + 262 + 639 MB, 0.46 ms at 3.35 TB/s: the
-//     products; plus (R / BM) rows T K / 2 = 1.0e8 float64 sincos at
-//     BM = 128.
+//   'f32': project_f64_kernel (its design, a pipelined mainloop, is beside
+//     it), float64 throughout on the FP64 tensor cores (DMMA): the basis
+//     from float64 sincos of the float64 phase (2 pi t) n, the projection
+//     at float64, float64 residuals. What bounds it on the flagship shared
+//     set: 2 R rows K T = 51.1 GFLOP, 0.76 ms at the FP64 tensor cores' 67
+//     TFLOP/s, against base + coef + res = 639 + 262 + 639 MB, 0.46 ms at
+//     3.35 TB/s: the products; plus (R / BM) rows T K / 2 = 1.0e8 float64
+//     sincos at BM = 128, on the FP64 units beside the DMMAs.
 //   'bf16' (bf16 storage): the TPU kernel's cdtype is float32, but its
 //     float64 time and scale tables promote the phase and the basis to
 //     float64, which its float32 product then rounds to float32. So
@@ -394,28 +394,51 @@ int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
 // ---------------------------------------------------------------------------
 // The projection at float64 on the FP64 tensor cores (fpt_project_f64,
 // store_bf16 = 0): the same GEMM per pulsar, with float64 coefficients, a
-// float64 basis and float64 residuals. A block takes BM realizations x BN
-// TOAs of one pulsar row (P64_TILE, 128 x 64: 64 float64 accumulators a
-// thread at two blocks per SM), 8 warps in a WGM x (8 / WGM) grid each
-// owning FM x FN m16n8 fragments; products mma.sync.aligned.m16n8k8 .f64
-// (DMMA; the m8n8k4 shape runs at half the FP64 tensor cores' rate on an
-// H100, tools/dmma_shapes.py). Per harmonic chunk the block stages its coefficients [m][k] and
-// builds the chunk's basis [t][k] (one float64 sincos of the float64 phase
-// (2 pi t) n gives the cos and the sin value, times the scale), both with
-// row stride KC + 4 = 4 (mod 16) doubles, so the fragment loads (lane g + 8 i
-// reads [g][k]) stay on 32 banks. The epilogue adds base from the fragments
-// and writes the float64 residuals, a thread's two consecutive TOAs at a
-// time.
+// float64 basis and float64 residuals. Products mma.sync.aligned.m16n8k8
+// .f64 (DMMA; the m8n8k4 shape runs at half the FP64 tensor cores' rate on
+// an H100, tools/dmma_shapes.py; wgmma has no float64 form).
+//
+// Design: a pipelined mainloop, one barrier a stage.
+//   Blocks. A block takes BM realizations x BN TOAs of one pulsar row
+//     (FPT_PROJ_F64_TILES), WARPS warps in a WGM x (WARPS / WGM) grid each
+//     owning FM x FN m16n8 fragments. The accumulators start at base (its
+//     loads are in flight while the prologue fills the first stages), so
+//     the epilogue only writes them.
+//   Stages. K is consumed KC columns a stage: KC / 32 chunks of NH harmonic
+//     slots each, the chunk's cos columns then its sin columns, the slots
+//     of all stages in order (a stage may straddle GP stages; the last is
+//     zero-padded): kernel_columns' order (ops/megakernel.py).
+//   Rings. The coefficient tiles ([m][k]) fill a ring of STAGES shared
+//     stages by cp.async (8-byte copies: a chunk's columns start at any
+//     column of a coef row, so they are only 8-byte aligned; zero-filled
+//     past R and past the last slot), issued STAGES - 1 stages ahead. The
+//     basis tiles ([t][k]) fill a ring of two: the same threads build
+//     stage q + 1 (one float64 sincos of the float64 phase (2 pi t) n gives
+//     the cos and the sin value, times the scale; none past T) while the
+//     DMMAs of stage q run, both interleaved with stage q's k-steps. Stage
+//     q's end waits for the copies of stage q + 1 and meets one
+//     __syncthreads: stage q + STAGES - 1 overwrites the coef slot stage
+//     q - 1 read, stage q + 1 the basis slot.
+//   Shared loads. Row stride LD = KC + 8 (8 mod 16 doubles) with columns k
+//     and k + 4 of every k-step side by side (p64_col), so a lane's a0/a2,
+//     a1/a3 and b0/b1 are one 16-byte load each, a quarter-warp on 32 banks
+//     (VEC; without it LD = KC + 4 and 8-byte loads, a half-warp on 32
+//     banks).
+// Every sum runs in a fixed order: reruns are bit-identical.
 
-constexpr int P64_WARPS = 8;
-constexpr int P64_THREADS = 32 * P64_WARPS;
-constexpr int P64_LD = KC + 4;   // coef and basis tile row stride (doubles)
+constexpr int P64_BSTAGES = 2;   // basis ring
 
-// Shared-memory doubles of a (BM, BN) float64 block with S scale rows: the
-// coef tile, the basis tile, the time and scale rows.
+__host__ __device__ constexpr int p64_ld(int kc, bool vec) {
+  return kc + (vec ? 8 : 4);
+}
+
+// Shared-memory doubles of a float64 block with S scale rows: the coef
+// ring, the basis ring, the time and scale rows.
 // ops/megakernel.py::project_smem mirrors it.
-__host__ __device__ constexpr int proj_f64_doubles(int bm, int bn, int S) {
-  return (bm + bn) * P64_LD + (2 + S) * bn;
+__host__ __device__ constexpr int proj_f64_doubles(int bm, int bn, int kc,
+                                                   int stages, bool vec,
+                                                   int S) {
+  return (stages * bm + P64_BSTAGES * bn) * p64_ld(kc, vec) + (2 + S) * bn;
 }
 
 // c += a b: one m16n8k8 float64 product
@@ -427,28 +450,66 @@ __device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
 }
 
+// 8 bytes from global to shared memory, asynchronously; zero-filled unless
+// `ok`
+__device__ __forceinline__ void cp_async8(double* dst, const double* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The shared-memory column of a stage's column c: with VEC, columns k and
+// k + 4 of each k-step side by side
+template <bool VEC>
+__device__ __forceinline__ int p64_col(int c) {
+  if (!VEC) return c;
+  const int k = c & 7;
+  return (c & ~7) | (k < 4 ? 2 * k : 2 * k - 7);
+}
+
 // Fragment layouts (PTX ISA, m16n8k8 .f64, the .tf32 ones at float64),
 // g = lane >> 2, k = lane & 3:
 //   A (16 x 8, row): a0 (g, k), a1 (g + 8, k), a2 (g, k + 4), a3 (g + 8, k + 4)
 //   B (8 x 8, col):  b0 (k, g), b1 (k + 4, g)
 //   C (16 x 8):      c0 (g, 2k), c1 (g, 2k + 1), c2 (g + 8, 2k),
 //                    c3 (g + 8, 2k + 1)
-// A[m][k] is realization m's coefficient of chunk column k (As, [m][k]);
-// B[k][n] is column k's basis value at TOA n (Bs, [n][k]).
-template <int BM, int BN, int WGM>
-__global__ void __launch_bounds__(P64_THREADS, PROJ_BLOCKS)
+// A[m][k] is realization m's coefficient of stage column k (the coef ring,
+// [m][k]); B[k][n] is column k's basis value at TOA n (the basis ring,
+// [n][k]).
+template <int BM, int BN, int WGM, int WARPS, int KC, int STAGES, int MINB,
+          bool VEC>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
 project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
                    Stages st, double* __restrict__ res_l,
                    double* __restrict__ res_f, int R, int T, int K, int S,
                    int nloc) {
-  constexpr int WGN = P64_WARPS / WGM;
+  constexpr int THREADS = 32 * WARPS, WGN = WARPS / WGM;
   constexpr int FM = BM / (16 * WGM), FN = BN / (8 * WGN);
+  constexpr int NSL = KC / 2;                   // harmonic slots a stage
+  constexpr int LD = p64_ld(KC, VEC);
+  constexpr int KSTEPS = KC / 8;
+  constexpr int A_ITEMS = BM * KC / THREADS;    // copies a thread a stage
+  constexpr int B_ITEMS = BN * NSL / THREADS;   // sincos a thread a stage
+  constexpr int AHEAD = STAGES - 1;             // stages copied ahead
   static_assert(FM * 16 * WGM == BM && FN * 8 * WGN == BN, "warp grid");
-  static_assert(P64_THREADS % BN == 0 && P64_THREADS % KC == 0, "lanes");
+  static_assert(KC % (2 * NH) == 0 && STAGES >= 3, "stages");
+  static_assert(THREADS % KC == 0 && A_ITEMS * THREADS == BM * KC, "copies");
+  static_assert(THREADS % NSL == 0 && B_ITEMS * THREADS == BN * NSL, "basis");
   extern __shared__ double dsm[];
-  double* As = dsm;                        // [BM][P64_LD]
-  double* Bs = dsm + BM * P64_LD;          // [BN][P64_LD]
-  double* rows = Bs + BN * P64_LD;         // [2 + S][BN]
+  double* As = dsm;                             // [STAGES][BM][LD]
+  double* Bs = As + STAGES * BM * LD;           // [2][BN][LD]
+  double* rows = Bs + P64_BSTAGES * BN * LD;    // [2 + S][BN]
 
   const int z = blockIdx.z;
   const bool is_loc = z < nloc;
@@ -467,7 +528,7 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
   // the block's time rows (times 2 pi at float64, as the reference's float64
   // phase) and scale rows; 0 past T
   const double two_pi = 6.28318530717958647692;
-  for (int e = tid; e < (2 + S) * BN; e += P64_THREADS) {
+  for (int e = tid; e < (2 + S) * BN; e += THREADS) {
     const int row = e / BN, t = t0 + e % BN;
     double v = 0.0;
     if (t < T)
@@ -475,76 +536,162 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
                   : scales[((size_t)(row - 2) * P + p) * T + t];
     rows[e] = v;
   }
-  __syncthreads();
 
+  // the accumulators start at base
   double acc[FM][FN][4];
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0;
-
-  // staging roles, as project_kernel's: coef column aj for rows
-  // tid / KC + m (P64_THREADS / KC), basis TOA bt for slots tid / BN + h
-  const int aj = tid % KC, bt = tid % BN;
-  const bool a_sin = aj >= NH;
-  int s0 = 0, n0 = 0;   // the chunk's first slot (block-uniform)
-  for (int q0 = 0; 2 * q0 < K; q0 += NH) {
-    {
-      int s = s0, n = n0;
-      walk(st, s, n, aj % NH);
-      const bool live = s < st.n;
-      const int col = live ? st.k0[s] + (a_sin ? st.nbin[s] : 0) + n : 0;
-      for (int m = tid / KC; m < BM; m += P64_THREADS / KC) {
-        const int r = r0 + m;
-        As[m * P64_LD + aj] =
-            live && r < R ? coef[((size_t)r * P + p) * K + col] : 0.0;
-      }
-    }
-    for (int h = tid / BN; h < NH; h += P64_THREADS / BN) {
-      int s = s0, n = n0;
-      walk(st, s, n, h);
-      double bc = 0.0, bs = 0.0;
-      if (s < st.n) {
-        double sn, cs;
-        sincos(rows[st.tcol[s] * BN + bt] * (double)(n + 1), &sn, &cs);
-        const double sv = rows[(2 + st.scol[s]) * BN + bt];
-        bc = cs * sv;
-        bs = sn * sv;
-      }
-      Bs[bt * P64_LD + h] = bc;
-      Bs[bt * P64_LD + NH + h] = bs;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < KC; ks += 8) {
-      double a[FM][4], b[FN][2];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const double* x = As + ((wm * FM + i) * 16 + g) * P64_LD + ks + k4;
-        a[i][0] = x[0];
-        a[i][1] = x[8 * P64_LD];
-        a[i][2] = x[4];
-        a[i][3] = x[8 * P64_LD + 4];
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + (wm * FM + i) * 16 + g + 8 * h;
 #pragma unroll
       for (int j = 0; j < FN; ++j) {
-        const double* x = Bs + ((wn * FN + j) * 8 + g) * P64_LD + ks + k4;
-        b[j][0] = x[0];
-        b[j][1] = x[4];
+        const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
+        const size_t o = ((size_t)r * P + p) * T + t;
+        acc[i][j][2 * h] = r < R && t < T ? base[o] : 0.0;
+        acc[i][j][2 * h + 1] = r < R && t + 1 < T ? base[o + 1] : 0.0;
+      }
+    }
+
+  // Roles, fixed for the whole loop. Copies: the thread's stage column aj
+  // (harmonic slot a_slot, cos or sin) for rows tid / KC + (THREADS / KC) i.
+  // Basis: slot bu for TOAs tid / NSL + (THREADS / NSL) i.
+  const int aj = tid % KC;
+  const int a_slot = aj / (2 * NH) * NH + aj % NH;
+  const bool a_sin = aj % (2 * NH) >= NH;
+  const int a_pos = p64_col<VEC>(aj);
+  const int bu = tid % NSL;
+  const int b_cos = p64_col<VEC>(bu / NH * 2 * NH + bu % NH);
+  const int b_sin = p64_col<VEC>(bu / NH * 2 * NH + NH + bu % NH);
+  const double* __restrict__ coef_p = coef + (size_t)p * K;
+  const size_t coef_r = (size_t)P * K;
+  const int nq = (K / 2 + NSL - 1) / NSL;       // stages of the contraction
+
+  // the coef column the thread copies in the stage whose first slot is
+  // (s, n), or -1 past the last slot
+  auto source_col = [&](int s, int n) {
+    walk(st, s, n, a_slot);
+    return s < st.n ? st.k0[s] + (a_sin ? st.nbin[s] : 0) + n : -1;
+  };
+  auto copy = [&](double* dst, int col, int i) {
+    const int m = tid / KC + THREADS / KC * i, r = r0 + m;
+    const bool ok = col >= 0 && r < R;
+    cp_async8(dst + m * LD + a_pos, ok ? coef_p + r * coef_r + col : coef,
+              ok);
+  };
+  // the thread's basis slot in the stage whose first slot is (s, n): its
+  // time row, scale row and harmonic number; live = 0 past the last slot
+  struct Slot {
+    int trow, srow;
+    double hn;
+    bool live;
+  };
+  auto basis_slot = [&](int s, int n) {
+    walk(st, s, n, bu);
+    const bool live = s < st.n;
+    return Slot{live ? st.tcol[s] : 0, 2 + (live ? st.scol[s] : 0),
+                (double)(n + 1), live};
+  };
+  auto build = [&](double* dst, const Slot& sl, int i) {
+    const int t = tid / NSL + THREADS / NSL * i;
+    double bc = 0.0, bs = 0.0;
+    if (sl.live && t0 + t < T) {
+      const double ph = rows[sl.trow * BN + t] * sl.hn;
+      double sn, cs;
+      sincos(ph, &sn, &cs);
+      const double sv = rows[sl.srow * BN + t];
+      bc = cs * sv;
+      bs = sn * sv;
+    }
+    dst[t * LD + b_cos] = bc;
+    dst[t * LD + b_sin] = bs;
+  };
+
+  // prologue: the copies of the first AHEAD stages, the basis of stage 0
+  int sa = 0, na = 0;   // the first slot of the next stage to copy
+  int sb = 0, nb = 0;   // ... and to build (block-uniform)
+  __syncthreads();      // the rows
+#pragma unroll
+  for (int q = 0; q < AHEAD; ++q) {
+    if (q < nq) {
+      const int col = source_col(sa, na);
+#pragma unroll
+      for (int i = 0; i < A_ITEMS; ++i) copy(As + q * BM * LD, col, i);
+    }
+    cp_async_commit();
+    walk(st, sa, na, NSL);
+  }
+  if (nq > 0) {
+    const Slot sl = basis_slot(sb, nb);
+#pragma unroll
+    for (int i = 0; i < B_ITEMS; ++i) build(Bs, sl, i);
+  }
+  walk(st, sb, nb, NSL);
+  cp_async_wait<AHEAD - 1>();
+  __syncthreads();
+
+  for (int q = 0; q < nq; ++q) {
+    const double* A = As + q % STAGES * BM * LD;
+    const double* B = Bs + (q & 1) * BN * LD;
+    double* An = As + (q + AHEAD) % STAGES * BM * LD;
+    double* Bn = Bs + ((q + 1) & 1) * BN * LD;
+    const bool copying = q + AHEAD < nq, building = q + 1 < nq;
+    const int col = copying ? source_col(sa, na) : -1;
+    const Slot sl = basis_slot(sb, nb);
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      if (copying) {
+#pragma unroll
+        for (int i = ks; i < A_ITEMS; i += KSTEPS) copy(An, col, i);
+      }
+      double b[FN][2];
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const double* x = B + ((wn * FN + j) * 8 + g) * LD + ks * 8 +
+                          (VEC ? 2 * k4 : k4);
+        if (VEC) {
+          const double2 v = *reinterpret_cast<const double2*>(x);
+          b[j][0] = v.x;
+          b[j][1] = v.y;
+        } else {
+          b[j][0] = x[0];
+          b[j][1] = x[4];
+        }
       }
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
+      for (int i = 0; i < FM; ++i) {
+        const double* x = A + ((wm * FM + i) * 16 + g) * LD + ks * 8 +
+                          (VEC ? 2 * k4 : k4);
+        double a[4];
+        if (VEC) {
+          const double2 u = *reinterpret_cast<const double2*>(x);
+          const double2 v = *reinterpret_cast<const double2*>(x + 8 * LD);
+          a[0] = u.x;
+          a[1] = v.x;
+          a[2] = u.y;
+          a[3] = v.y;
+        } else {
+          a[0] = x[0];
+          a[1] = x[8 * LD];
+          a[2] = x[4];
+          a[3] = x[8 * LD + 4];
+        }
 #pragma unroll
-        for (int j = 0; j < FN; ++j)
-          dmma(acc[i][j], a[i], b[j][0], b[j][1]);
+        for (int j = 0; j < FN; ++j) dmma(acc[i][j], a, b[j][0], b[j][1]);
+      }
+      if (building) {
+#pragma unroll
+        for (int i = ks; i < B_ITEMS; i += KSTEPS) build(Bn, sl, i);
+      }
     }
+    cp_async_commit();
+    cp_async_wait<AHEAD - 1>();
     __syncthreads();
-    walk(st, s0, n0, NH);
+    walk(st, sa, na, NSL);
+    walk(st, sb, nb, NSL);
   }
 
-  // epilogue: res = base + acc from the fragments
+  // epilogue: res = base + coef B, from the fragments
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -555,15 +702,18 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
       for (int j = 0; j < FN; ++j) {
         const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
         const size_t o = ((size_t)r * P + p) * T + t;
-        if (t < T) out[o] = base[o] + acc[i][j][2 * h];
-        if (t + 1 < T) out[o + 1] = base[o + 1] + acc[i][j][2 * h + 1];
+        if (t < T) out[o] = acc[i][j][2 * h];
+        if (t + 1 < T) out[o + 1] = acc[i][j][2 * h + 1];
       }
     }
 }
 
-// the (BM, BN, WGM) block tiles the float64 kernel is instantiated for
-// (ops/megakernel.py::PROJ_TILE_F64)
-#define FPT_PROJ_F64_TILES(X) X(128, 64, 4)
+// The float64 kernel's block tile, (BM, BN, WGM, WARPS, KC, STAGES, MINB,
+// VEC) (ops/megakernel.py::PROJ_TILE_F64 and PROJ_F64_*): 128 x 128, 8
+// warps of 4 x 4 fragments, 32 columns a stage, a 3-stage coef ring, one
+// block an SM (tools/f64_kernel_variants.py builds the other steps and
+// tiles as patched copies)
+#define FPT_PROJ_F64_TILES(X) X(128, 128, 2, 8, 32, 3, 1, true)
 
 int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
                  double* res_l, double* res_f, int R, int T, int K, int S,
@@ -580,23 +730,36 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
                                       PF};
   const int nloc = shared ? 0 : PL;
   const int rows = nloc + PF;
-#define FPT_TILE(BM_, BN_, WGM_)                                            \
+#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_)                     \
   if (bm == BM_ && bn == BN_ && wgm == WGM_) {                              \
-    const size_t smem = (size_t)proj_f64_doubles(BM_, BN_, S) *            \
-                        sizeof(double);                                     \
-    auto kernel = project_f64_kernel<BM_, BN_, WGM_>;                       \
+    const size_t smem =                                                     \
+        (size_t)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, S) *              \
+        sizeof(double);                                                     \
+    auto kernel = project_f64_kernel<BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_>; \
     cudaError_t err = cudaFuncSetAttribute(                                 \
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
     if (err != cudaSuccess) return (int)err;                                \
     const dim3 grid((unsigned)((R + BM_ - 1) / BM_),                        \
                     (unsigned)((T + BN_ - 1) / BN_), (unsigned)rows);       \
-    kernel<<<grid, P64_THREADS, smem, stream>>>(loc, full, st, res_l,       \
-                                                res_f, R, T, K, S, nloc);   \
+    kernel<<<grid, 32 * W_, smem, stream>>>(loc, full, st, res_l, res_f, R, \
+                                            T, K, S, nloc);                 \
     return 0;                                                               \
   }
   FPT_PROJ_F64_TILES(FPT_TILE)
 #undef FPT_TILE
   return (int)cudaErrorInvalidValue;
+}
+
+// The shared-memory bytes of the float64 kernel's (bm, bn) tile with S
+// scale rows, or -1 if it has none
+long long proj_f64_smem(int bm, int bn, int S) {
+#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_)                     \
+  if (bm == BM_ && bn == BN_)                                               \
+    return (long long)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, S) *         \
+           (long long)sizeof(double);
+  FPT_PROJ_F64_TILES(FPT_TILE)
+#undef FPT_TILE
+  return -1;
 }
 
 // The stage table of the C entries' arrays, checked against S and K.
@@ -711,6 +874,5 @@ extern "C" long long fpt_project_f64_smem(int store_bf16, int bm, int bn,
                                           int S) {
   if (store_bf16)
     return (long long)fpt::proj_floats(bm, bn, S, 2) * (long long)sizeof(float);
-  return (long long)fpt::proj_f64_doubles(bm, bn, S) *
-         (long long)sizeof(double);
+  return fpt::proj_f64_smem(bm, bn, S);
 }

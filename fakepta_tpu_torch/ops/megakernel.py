@@ -39,7 +39,9 @@ both passes).
 On a float64 batch (float64 time and scale tables) the route follows the TPU
 kernel's dtypes, whose ``cdtype`` is the base's: float64 base and
 coefficients (``'f32'``) run pass 1 as ``fpt_project_f64``'s float64 DMMA
-projection and pass 2 as ``fpt_binned_corr_f64``, float64 throughout, with
+projection (a pipelined mainloop: a ``cp.async`` coefficient ring, the basis
+built a stage ahead, one barrier a stage; :data:`PROJ_TILE_F64`) and pass 2
+as ``fpt_binned_corr_f64``, float64 throughout, with
 float64 curves and autos; bf16 storage runs at float32 as on a float32 batch,
 but its basis is built from the float64 tables at float64 and rounded once to
 float32 (the TPU kernel's float64 tables promote the phase and the basis,
@@ -86,10 +88,16 @@ PROJ_THREADS = 256
 PROJ_BLOCKS = 2
 NH = 16
 PROJ_LDA = 2 * NH + 4
-#: the float64 projection's (BM, BN, WGM) block tile (FPT_PROJ_F64_TILES)
-#: and its coef and basis tiles' row stride in doubles (P64_LD)
-PROJ_TILE_F64 = (128, 64, 4)
-PROJ_F64_LD = 2 * NH + 4
+#: the float64 projection (FPT_PROJ_F64_TILES): its (BM, BN, WGM) block
+#: tile, warps, columns a pipeline stage (KC), stages of its coef ring (the
+#: basis ring has two), blocks per SM, and the coef and basis tiles' row
+#: stride in doubles (p64_ld: KC + 8)
+PROJ_TILE_F64 = (128, 128, 2)
+PROJ_F64_WARPS = 8
+PROJ_F64_KC = 2 * NH
+PROJ_F64_STAGES = 3
+PROJ_F64_BLOCKS = 1
+PROJ_F64_LD = PROJ_F64_KC + 8
 #: 2 pi rounded to float32: the phase's factor where the TPU kernel's
 #: compute type is float32
 TWO_PI_F32 = float(np.float32(2.0 * np.pi))
@@ -173,9 +181,11 @@ def project_smem(bm: int, bn: int, n_scales: int, route: str = "f32") -> int:
     hi/lo coef and basis tiles, or the epilogue's [bm][bn + 8] accumulator
     tile where that is larger, then the 2 time rows and the scale rows;
     ``'bf16_f64'``: the same with float64 rows; ``'f64'``
-    (proj_f64_doubles): the float64 coef and basis tiles and rows."""
+    (proj_f64_doubles): the float64 coef ring (:data:`PROJ_F64_STAGES`
+    tiles), the basis ring (two tiles) and the rows."""
     if route == "f64":
-        return 8 * ((bm + bn) * PROJ_F64_LD + (2 + n_scales) * bn)
+        return 8 * ((PROJ_F64_STAGES * bm + 2 * bn) * PROJ_F64_LD
+                    + (2 + n_scales) * bn)
     kc = 2 * NH
     staging = 2 * bm * PROJ_LDA + 2 * kc * (bn + 8)
     tb = 2 if route == "bf16_f64" else 1
@@ -186,14 +196,17 @@ def project_tiling(R: int, T: int, rows: int, n_scales: int,
                    route: str = "f32") -> ProjTiling:
     """The projection's launch shape for ``rows`` pulsar rows (PF on the
     shared set, PL + PF on the local+full set) on ``route``
-    (:func:`_route`): the source's :data:`PROJ_TILE` (:data:`PROJ_TILE_F64`
-    on ``'f64'``), at :data:`PROJ_BLOCKS` blocks per SM."""
-    bm, bn, wgm = PROJ_TILE_F64 if route == "f64" else PROJ_TILE
+    (:func:`_route`): the source's :data:`PROJ_TILE` at
+    :data:`PROJ_BLOCKS` blocks per SM (:data:`PROJ_TILE_F64` at
+    :data:`PROJ_F64_BLOCKS` on ``'f64'``)."""
+    f64 = route == "f64"
+    bm, bn, wgm = PROJ_TILE_F64 if f64 else PROJ_TILE
+    blocks = PROJ_F64_BLOCKS if f64 else PROJ_BLOCKS
     smem = project_smem(bm, bn, n_scales, route)
     if (smem > SMEM_PER_BLOCK
-            or PROJ_BLOCKS * (smem + SMEM_RESERVED) > SMEM_PER_SM):
+            or blocks * (smem + SMEM_RESERVED) > SMEM_PER_SM):
         raise ValueError(f"{n_scales} scale rows leave no room for "
-                         f"{PROJ_BLOCKS} projection blocks per SM")
+                         f"{blocks} projection blocks per SM")
     return ProjTiling(bm, bn, wgm, (-(-R // bm), -(-T // bn), rows), smem)
 
 

@@ -283,7 +283,8 @@ FLAGSHIP_STAGES = (MegaStage(30, T_OWN, 0), MegaStage(100, T_OWN, 1),
 def _proj_inputs(cuda, seed, R, P, T, stages, dt):
     """base (R, P, T) ~1e-6 and coef (R, P, K) ~1e-7 in ``dt``, and float32
     time rows (own sorted TOAs, a common grid) and scale rows (the TOA mask
-    with 7 padding TOAs, and a chromatic scale), on the card."""
+    with 7 padding TOAs, then chromatic scales, as many as the stages
+    read), on the card."""
     rng = np.random.default_rng(seed)
     t_own = np.sort(rng.uniform(0.0, 1.0, (P, T)), axis=1)
     mask = np.ones((P, T))
@@ -292,7 +293,9 @@ def _proj_inputs(cuda, seed, R, P, T, stages, dt):
     base = rng.standard_normal((R, P, T)) * 1e-6 * mask[None]
     coef = rng.standard_normal((R, P, mk.stage_k(stages))) * 1e-7
     times = np.stack([t_own, np.tile(np.linspace(0.0, 1.05, T), (P, 1))])
-    scales = np.stack([mask, mask * chrom])
+    # a chromatic scale row per power of chrom the stages read (two at least)
+    n_scales = max([2] + [st.scol + 1 for st in stages])
+    scales = np.stack([mask * chrom ** k for k in range(n_scales)])
     return ([torch.tensor(x).to(dt).to(cuda) for x in (base, coef)]
             + [torch.tensor(x).float().to(cuda) for x in (times, scales)])
 
@@ -2097,12 +2100,66 @@ def test_binned_correlation_f64_float64_output(cuda, R, PL, PF, T):
                    "bf16", out_f64=True)
 
 
+def _tie_adjacent(rng, shape):
+    """float64 values ~1e-6, nine in ten of them a bf16 tie times 1 +-
+    2^-30: float32 holds each as the tie, so rounding through float32 and
+    rounding straight to bf16 differ on about half of them
+    (tests/test_torch_f64_rounding.py holds the plain version to the JAX
+    kernel on such rows)."""
+    v = rng.standard_normal(shape) * 1e-6
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(v))) - 7)
+    tie = np.trunc(v / ulp) * ulp + np.sign(v) * ulp / 2
+    near = tie * (1 + rng.choice([-2.0 ** -30, 2.0 ** -30], shape))
+    return np.where(rng.uniform(size=shape) < 0.9, near, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("PL", [8, 3])
+def test_binned_correlation_f64_bf16_rounds_ties_as_plain(cuda, PL):
+    """fpt_binned_corr_f64 at 'bf16' on float64 rows next to bf16 ties
+    against its plain version (both round through float32, as the JAX
+    kernel): within the 'bf16' bound, where one rounding straight to bf16
+    moves the curves by ~1e-3 of their scale; a rerun is bit-identical."""
+    rng = np.random.default_rng(26)
+    res_f = torch.from_numpy(_tie_adjacent(rng, (4, 8, 64))).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((7, PL, 8))).to(cuda)
+    res_l = res_f[:, :PL].contiguous()
+    before = bc.f64_launches
+    got = bc.binned_correlation(res_l, res_f, w, 6, precision="bf16")
+    torch.cuda.synchronize()
+    assert bc.f64_launches == before + 1
+    want = bc.binned_correlation_plain(res_l, res_f, w, 6, precision="bf16")
+    _close_over_scale(got, want, F64_TOL["bf16"])
+    again = bc.binned_correlation(res_l, res_f, w, 6, precision="bf16")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.cuda
 def test_binned_correlation_vpu_refuses_float64(cuda):
     res = torch.randn(2, 8, 16, device=cuda, dtype=torch.float64)
     w = torch.randn(3, 8, 8, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="float64"):
         bc.binned_correlation_vpu(res, res, w, 2)
+
+
+#: the GP stage sets the float64 engine launches pass 1 at beyond the
+#: flagship's K = 320: the null stream's GWB-free set (K = 260), ng15's
+#: (K = 210, a third scale row) and ipta_dr3's (K = 180); and one whose
+#: first 16-slot chunk straddles three stages
+NULL_STAGES = FLAGSHIP_STAGES[:2]
+NG15_STAGES = (MegaStage(30, T_OWN, 0), MegaStage(30, T_OWN, 1),
+               MegaStage(15, T_OWN, 2), MegaStage(30, T_COMMON, 0))
+IPTA_STAGES = (MegaStage(30, T_OWN, 0), MegaStage(30, T_OWN, 1),
+               MegaStage(30, T_COMMON, 0))
+STRADDLE_STAGES = (MegaStage(10, T_OWN, 0), MegaStage(3, T_COMMON, 1),
+                   MegaStage(20, T_OWN, 1))
+
+# PROJ_SHAPES and, for the float64 kernel's 128 x 128 tile: R and T not
+# multiples of 128 at each stage set above, on both operand sets
+PROJ_F64_SHAPES = PROJ_SHAPES + [
+    (200, 5, 5, 300, NULL_STAGES), (67, 3, 9, 200, NULL_STAGES),
+    (130, 7, 7, 130, NG15_STAGES), (129, 2, 6, 257, NG15_STAGES),
+    (257, 4, 4, 140, IPTA_STAGES), (129, 4, 4, 257, STRADDLE_STAGES)]
 
 
 def _f64_tables(full):
@@ -2112,7 +2169,7 @@ def _f64_tables(full):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("storage", ["f64", "bf16"])
-@pytest.mark.parametrize("R,PL,PF,T,stages", PROJ_SHAPES)
+@pytest.mark.parametrize("R,PL,PF,T,stages", PROJ_F64_SHAPES)
 def test_project_f64_kernel_matches_plain(cuda, storage, R, PL, PF, T,
                                           stages):
     """Pass 1 on float64 tables (fpt_project_f64) against its plain
@@ -2191,6 +2248,8 @@ def test_project_f64_smem_matches_the_source(cuda):
     smem = _build.load("megakernel").fpt_project_f64_smem
     smem.restype = ctypes.c_longlong
     smem.argtypes = [ctypes.c_int] * 4
+    assert smem(0, *mk.PROJ_TILE_F64[:2], 2) == mk.project_tiling(
+        1024, 780, 100, 2, "f64").smem
     for route, tile, bf16 in (("f64", mk.PROJ_TILE_F64, 0),
                               ("bf16_f64", mk.PROJ_TILE, 1)):
         bm, bn, _ = tile

@@ -66,6 +66,43 @@ def test_project_tiling_covers_and_fits(pl, pf):
         mk.project_tiling(1024, 780, rows, n_scales=400)
 
 
+@pytest.mark.parametrize("pl,pf", [(8, 8), (16, 16), (100, 100),
+                                   (128, 128), (130, 130), (300, 300),
+                                   (25, 100), (1, 100), (50, 100),
+                                   (25, 130)])
+def test_project_f64_tiling_covers_and_fits(pl, pf):
+    """The float64 projection's tile: every (realization, TOA, row) in one
+    block, no block empty, the warp grid over the tile, each thread's share
+    of a stage's coefficient copies and basis values whole, and its coef
+    ring, basis ring and rows in one block's shared memory at
+    PROJ_F64_BLOCKS blocks an SM, at the flagship, at a ragged R and T, and
+    at ng15's three scale rows."""
+    rows = pf if pl == pf else pl + pf
+    bm, bn, wgm = mk.PROJ_TILE_F64
+    threads = 32 * mk.PROJ_F64_WARPS
+    kc, stages = mk.PROJ_F64_KC, mk.PROJ_F64_STAGES
+    assert kc % (2 * mk.NH) == 0 and stages >= 3
+    assert bm % (16 * wgm) == 0 and bn % (8 * (mk.PROJ_F64_WARPS // wgm)) == 0
+    assert threads % kc == 0 and (bm * kc) % threads == 0
+    assert threads % (kc // 2) == 0 and (bn * kc // 2) % threads == 0
+    assert mk.PROJ_F64_LD % 16 == 8
+    for R, T, S in ((1024, 780, 2), (5, 33, 2), (129, 257, 3),
+                    (1024, 512, 3)):
+        t = mk.project_tiling(R, T, rows, n_scales=S, route="f64")
+        (gx, gy, gz) = t.grid
+        assert (t.bm, t.bn, t.wgm) == mk.PROJ_TILE_F64
+        assert gx * t.bm >= R > (gx - 1) * t.bm
+        assert gy * t.bn >= T > (gy - 1) * t.bn
+        assert gz == rows
+        assert t.smem == 8 * ((stages * bm + 2 * bn) * mk.PROJ_F64_LD
+                              + (2 + S) * bn)
+        assert t.smem <= bc.SMEM_PER_BLOCK
+        assert mk.PROJ_F64_BLOCKS * (t.smem + bc.SMEM_RESERVED) \
+            <= bc.SMEM_PER_SM
+    with pytest.raises(ValueError):
+        mk.project_tiling(1024, 780, rows, n_scales=40, route="f64")
+
+
 @pytest.mark.parametrize("stages", [
     STAGES, (MegaStage(3, T_OWN, 0),),
     (MegaStage(16, T_OWN, 0), MegaStage(17, T_COMMON, 1),

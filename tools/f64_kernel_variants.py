@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Split the float64 kernels' time into their parts on one GPU.
+"""Split the float64 kernels' time into their parts, and time the float64
+projection's design steps, on one GPU.
 
-    python3 tools/f64_kernel_variants.py
+    python3 tools/f64_kernel_variants.py [--only corr|project]
+                                         [--parent DIR]
 
 Builds ``fakepta_tpu_torch/csrc/binned_corr.cu`` and ``megakernel.cu`` as
 shipped and patched copies of them (under ``build/f64_variants/``, one nvcc
@@ -21,16 +23,27 @@ on one card (``chip_smoke.in_turns``):
 ``fpt_project_f64`` (pass 1 of ``chunk_stats`` at float64), the shared set
 and a 2-shard mesh's local+full set:
 
-- ``shipped``;
-- ``no_sincos``: the basis from the phase without sincos (cos = 1 - phase,
-  sin = phase);
-- ``no_products``: no DMMA, as above.
+- ``shipped``; ``no_sincos``: the basis from the phase without sincos (cos
+  = 1 - phase, sin = phase); ``no_products``: no DMMA, as above;
+- the design steps of the pipelined kernel, each the shipped source with
+  another ``FPT_PROJ_F64_TILES`` entry (BM, BN, WGM, warps, KC, coef
+  stages, blocks an SM, 16-byte fragment loads): ``step1`` the pipeline at
+  the unpipelined kernel's 128 x 64 tile and 8-byte loads, ``step1_vec``
+  with 16-byte loads, ``tile_128x80``, ``tile_64x64_2blk`` (4 warps, two
+  blocks an SM), ``kc64`` (64 columns a stage), ``stages4``;
+- with ``--parent DIR`` (a checkout, e.g. a ``git archive``, of another
+  commit), that commit's ``megakernel.cu`` as ``parent`` and its
+  ``parent_no_sincos`` / ``parent_no_products``, launched at its own
+  128 x 64 tile.
 
-The patched variants are wrong by construction; only their times mean
-anything. Prints one line per kernel, shape and variant, the card's name
-and power limit, and a JSON object.
+Each unpatched variant is held to ``project_plain`` within 1e-12 of the
+residual scale first; the patched ones are wrong by construction and only
+their times mean anything. Prints each library's ptxas line for the float64
+kernels, one line per kernel, shape and variant, the card's name and power
+limit, and a JSON object.
 """
 
+import argparse
 import json
 import os
 import re
@@ -39,6 +52,23 @@ from pathlib import Path
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+
+SINCOS = ("      sincos(ph, &sn, &cs);",
+          "      sn = ph;\n      cs = 1.0 - sn;")
+PRODUCTS = ("        for (int j = 0; j < FN; ++j) dmma(acc[i][j], a, b[j][0], "
+            "b[j][1]);",
+            "        for (int j = 0; j < FN; ++j) acc[i][j][0] += a[0] * "
+            "b[j][0] + a[3] * b[j][1];")
+TILE_LINE = "#define FPT_PROJ_F64_TILES(X) X(128, 128, 2, 8, 32, 3, 1, true)"
+
+#: the design steps: (BM, BN, WGM, warps, KC, coef stages, blocks an SM,
+#: 16-byte loads)
+TILES = {"step1": (128, 64, 4, 8, 32, 3, 1, False),
+         "step1_vec": (128, 64, 4, 8, 32, 3, 1, True),
+         "tile_128x80": (128, 80, 4, 8, 32, 3, 1, True),
+         "tile_64x64_2blk": (64, 64, 2, 4, 32, 3, 2, True),
+         "kc64": (64, 64, 2, 8, 64, 3, 1, True),
+         "stages4": (128, 64, 4, 8, 32, 4, 1, True)}
 
 PATCHES = {
     "binned_corr": {
@@ -52,41 +82,76 @@ PATCHES = {
         "no_loads": [("        cp_async16(dst, src, ok ? 16 : 0);",
                       "        cp_async16(dst, src, 0);")],
     },
-    "megakernel": {
-        "no_sincos": [("        sincos(rows[st.tcol[s] * BN + bt] * "
-                       "(double)(n + 1), &sn, &cs);",
-                       "        sn = rows[st.tcol[s] * BN + bt] * "
-                       "(double)(n + 1);\n        cs = 1.0 - sn;")],
-        "no_products": [("          dmma(acc[i][j], a[i], b[j][0], "
-                         "b[j][1]);",
-                         "          acc[i][j][0] += a[i][0] * b[j][0] "
-                         "+ a[i][3] * b[j][1];")],
-    },
+    "megakernel": dict(
+        no_sincos=[SINCOS], no_products=[PRODUCTS],
+        **{name: [(TILE_LINE, "#define FPT_PROJ_F64_TILES(X) X("
+                   + ", ".join(str(v).lower() for v in tile) + ")")]
+           for name, tile in TILES.items()}),
 }
 
+#: the unpipelined kernel (PR 25): its patches and launch tile
+PARENT_PATCHES = {
+    "": [],
+    "_no_sincos": [("        sincos(rows[st.tcol[s] * BN + bt] * "
+                    "(double)(n + 1), &sn, &cs);",
+                    "        sn = rows[st.tcol[s] * BN + bt] * "
+                    "(double)(n + 1);\n        cs = 1.0 - sn;")],
+    "_no_products": [("          dmma(acc[i][j], a[i], b[j][0], "
+                      "b[j][1]);",
+                      "          acc[i][j][0] += a[i][0] * b[j][0] "
+                      "+ a[i][3] * b[j][1];")],
+}
+PARENT_TILE = (128, 64, 4)
 
-def build_variants() -> dict:
+
+def tile_of(variant: str):
+    """(BM, BN, WGM) and smem(S) of a megakernel variant's float64 tile."""
+    from fakepta_tpu_torch.ops import megakernel as mk
+    if variant.startswith("parent"):
+        bm, bn, _ = PARENT_TILE
+        return PARENT_TILE, lambda s: 8 * ((bm + bn) * (2 * mk.NH + 4)
+                                           + (2 + s) * bn)
+    if variant in TILES:
+        bm, bn, wgm, _, kc, stages, _, vec = TILES[variant]
+        ld = kc + (8 if vec else 4)
+        return (bm, bn, wgm), lambda s: 8 * ((stages * bm + 2 * bn) * ld
+                                             + (2 + s) * bn)
+    bm, bn, _ = mk.PROJ_TILE_F64
+    return mk.PROJ_TILE_F64, lambda s: mk.project_smem(bm, bn, s, "f64")
+
+
+def patched(text: str, patches, what: str) -> str:
+    for old, new in patches:
+        if old not in text:
+            raise RuntimeError(f"{what}: patch target not found: {old}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(libs_wanted, parent) -> dict:
     """{(source, variant): library path}, the shipped libraries and the
     patched copies, all compiled together."""
     from fakepta_tpu_torch.ops import _build
     _build.build()
     out_dir = Path(HERE, "build", "f64_variants")
     out_dir.mkdir(parents=True, exist_ok=True)
-    paths, procs = {}, {}
-    for lib, patches_of in PATCHES.items():
+    paths, procs, sources = {}, {}, {}
+    for lib in libs_wanted:
         src = (_build.CSRC / f"{lib}.cu").read_text()
         paths[(lib, "shipped")] = _build.library_path(lib)
-        for name, patches in patches_of.items():
-            text = src
-            for old, new in patches:
-                if old not in text:
-                    raise RuntimeError(f"{lib} {name}: patch target not "
-                                       f"found: {old}")
-                text = text.replace(old, new)
-            cu = out_dir / f"{lib}_{name}.cu"
-            cu.write_text(text)
-            paths[(lib, name)] = out_dir / f"{lib}_{name}.so"
-            procs[(lib, name)] = _build.start_nvcc(cu, paths[(lib, name)])
+        for name, patches in PATCHES[lib].items():
+            sources[(lib, name)] = patched(src, patches, f"{lib} {name}")
+    if parent is not None and "megakernel" in libs_wanted:
+        src = (Path(parent) / "fakepta_tpu_torch" / "csrc"
+               / "megakernel.cu").read_text()
+        for tag, patches in PARENT_PATCHES.items():
+            sources[("megakernel", "parent" + tag)] = patched(
+                src, patches, f"parent{tag}")
+    for key, text in sources.items():
+        cu = out_dir / f"{key[0]}_{key[1]}.cu"
+        cu.write_text(text)
+        paths[key] = out_dir / f"{key[0]}_{key[1]}.so"
+        procs[key] = _build.start_nvcc(cu, paths[key])
     for key, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
@@ -94,6 +159,13 @@ def build_variants() -> dict:
         spills = re.findall(r"(\d+) bytes spill stores", log)
         print(f"{key}: built, most spill stores "
               f"{max(map(int, spills)) if spills else 0} bytes", flush=True)
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and "project_f64_kernel" in line:
+                for info in lines[i + 1:i + 4]:
+                    if "registers" in info or "spill" in info:
+                        print(f"  {key[1]} project_f64_kernel: "
+                              f"{info.split(':', 1)[-1].strip()}")
     return paths
 
 
@@ -101,6 +173,11 @@ def main() -> int:
     import ctypes
 
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=("corr", "project"))
+    ap.add_argument("--parent", help="a checkout of another commit whose "
+                    "megakernel.cu is timed beside this one")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("f64_kernel_variants: no CUDA device is available",
               file=sys.stderr)
@@ -113,7 +190,9 @@ def main() -> int:
     from fakepta_tpu_torch.scenarios import registry
     from fakepta_tpu_torch.utils import rng
 
-    paths = build_variants()
+    wanted = {"corr": ["binned_corr"], "project": ["megakernel"]}.get(
+        args.only, ["binned_corr", "megakernel"])
+    paths = build_variants(wanted, args.parent)
     libs = {}
     for key, path in paths.items():
         lib = ctypes.CDLL(str(path))
@@ -132,39 +211,70 @@ def main() -> int:
     nbins, P = sim.nbins, res.shape[1]
 
     def with_lib(lib_name, variant, fn):
-        """fn() with the variant's library loaded under the shipped name."""
+        """fn() with the variant's library loaded under the shipped name
+        (and, for the projection, launched at the variant's tile)."""
+        tiling = mk.project_tiling
+        if lib_name == "megakernel":
+            (bm, bn, wgm), smem = tile_of(variant)
+
+            def tiling(R, T, rows, n_scales, route="f32"):
+                return mk.ProjTiling(bm, bn, wgm, (-(-R // bm), -(-T // bn),
+                                                   rows), smem(n_scales))
+
         def call():
-            saved = _build._LIBS.get(lib_name)
+            saved = _build._LIBS.get(lib_name), mk.project_tiling
             _build._LIBS[lib_name] = libs[(lib_name, variant)]
+            mk.project_tiling = tiling
             try:
                 return fn()
             finally:
-                _build._LIBS[lib_name] = saved
+                _build._LIBS[lib_name], mk.project_tiling = saved
         return call
 
     out = {"card": card_line(), "binned_correlation_f64": {},
-           "project_f64": {}}
+           "project_f64": {}, "project_f64_err": {}}
     for pl in (P, 50):
-        a = res if pl == P else res[:, :pl].contiguous()
-        ww = w if pl == P else w[:, :pl].contiguous()
-        fns = {v: with_lib("binned_corr", v, lambda a=a, ww=ww: bc._launch(
-            "fpt_binned_corr_f64", "variant", a, res, ww, nbins, "f32"))
-            for v in ["shipped"] + list(PATCHES["binned_corr"])}
-        ms = in_turns(fns, 10)
-        out["binned_correlation_f64"][f"PL={pl}"] = ms
-        for v, t in ms.items():
-            print(f"binned_correlation_f64 PL={pl} {v}: {t:.4f} ms",
-                  flush=True)
+        if "binned_corr" in wanted:
+            a = res if pl == P else res[:, :pl].contiguous()
+            ww = w if pl == P else w[:, :pl].contiguous()
+            fns = {v: with_lib("binned_corr", v, lambda a=a, ww=ww:
+                               bc._launch("fpt_binned_corr_f64", "variant",
+                                          a, res, ww, nbins, "f32"))
+                   for v in ["shipped"] + list(PATCHES["binned_corr"])}
+            ms = in_turns(fns, 10)
+            out["binned_correlation_f64"][f"PL={pl}"] = ms
+            for v, t in ms.items():
+                print(f"binned_correlation_f64 PL={pl} {v}: {t:.4f} ms",
+                      flush=True)
+        if "megakernel" not in wanted:
+            continue
         local = (None,) * 4 if pl == P else tuple(
             x[:, :pl].contiguous() for x in (base, coefs, times, scales))
+        variants = [k[1] for k in libs if k[0] == "megakernel"]
         fns = {v: with_lib("megakernel", v, lambda local=local:
                            mk._launch_project(base, coefs, times, scales,
                                               stages, local))
-               for v in ["shipped"] + list(PATCHES["megakernel"])}
-        ms = in_turns(fns, 5)
+               for v in variants}
+        want = [mk.project_plain(base, coefs, times, scales, stages)]
+        if pl < P:
+            want.insert(0, mk.project_plain(*local, stages))
+        errs = {}
+        for v, fn in fns.items():
+            if "no_" in v:
+                continue
+            got = fn()
+            torch.cuda.synchronize()
+            errs[v] = max(float((g - x).abs().max() / x.abs().max())
+                          for g, x in zip(got[2 - len(want):], want))
+            if errs[v] > 1e-12:
+                raise AssertionError(f"project_f64 PL={pl} {v}: "
+                                     f"{errs[v]:.3e} of the scale")
+        out["project_f64_err"][f"PL={pl}"] = errs
+        ms = in_turns(fns, 10)
         out["project_f64"][f"PL={pl}"] = ms
         for v, t in ms.items():
-            print(f"project_f64 PL={pl} {v}: {t:.4f} ms", flush=True)
+            err = f", {errs[v]:.2e} of scale" if v in errs else ""
+            print(f"project_f64 PL={pl} {v}: {t:.4f} ms{err}", flush=True)
     print(f"card: {out['card']}")
     print(json.dumps(out))
     return 0
