@@ -442,7 +442,15 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    ``binned_correlation_f64`` a chunk on fused, one ``chunk_stats_f64``
    (``fpt_project_f64`` then ``fpt_binned_corr_f64``) on mega, none on
    einsum; and one ``"mega"`` run at 'f32' on a psr-2 mesh on the card
-   (#4's local+full set, ``chunk_stats_sharded_f64`` twice a chunk). The
+   (#4's local+full set, ``chunk_stats_sharded_f64`` twice a chunk). Then
+   ``"mega"`` at 'f32' with three OS lanes (hd, monopole, dipole) and the
+   null stream, so pass 1 runs at K = 320 (NB = 19) and at the null
+   stream's GWB-free K = 260 (NB = 4): ``chunk_stats_f64`` first held to
+   its plain version and timed at both shapes on one chunk, then
+   ``run(2048, chunk=1024, os=...)`` in turns with the float64 einsum run
+   of the same lanes (einsum, mega, mega, einsum), the curves, autos and
+   every amp2 lane within 1e-6 of their scale, the mega rerun
+   bit-identical and ``chunk_stats_f64`` launched twice a chunk. The
    reduced flagship at float64 on the card against the same run on the CPU
    within 1e-12 of the curve scale (the CPU tests' float64 bound),
    correlations too.

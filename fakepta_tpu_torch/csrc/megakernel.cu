@@ -398,27 +398,33 @@ int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
 // .f64 (DMMA; the m8n8k4 shape runs at half the FP64 tensor cores' rate on
 // an H100, tools/dmma_shapes.py; wgmma has no float64 form).
 //
-// Design: a pipelined mainloop, one barrier a stage.
-//   Blocks. A block takes BM realizations x BN TOAs of one pulsar row
-//     (FPT_PROJ_F64_TILES), WARPS warps in a WGM x (WARPS / WGM) grid each
-//     owning FM x FN m16n8 fragments. The accumulators start at base (its
-//     loads are in flight while the prologue fills the first stages), so
-//     the epilogue only writes them.
-//   Stages. K is consumed KC columns a stage: KC / 32 chunks of NH harmonic
-//     slots each, the chunk's cos columns then its sin columns, the slots
-//     of all stages in order (a stage may straddle GP stages; the last is
-//     zero-padded): kernel_columns' order (ops/megakernel.py).
-//   Rings. The coefficient tiles ([m][k]) fill a ring of STAGES shared
-//     stages by cp.async (8-byte copies: a chunk's columns start at any
+// Design: a persistent, warp-specialized pipeline (PERF.md, PR 26: with
+// the same threads building the basis between their DMMAs, the float64
+// sincos and the copies' latency sat in series with the products, and at
+// one block an SM nothing else hid them).
+//   Tiles. A tile is BM realizations x BN TOAs of one pulsar row; tiles
+//     are numbered realization tile fastest, then TOA tile, then row (the
+//     set's P on the shared set, PL local rows then PF full rows on the
+//     local+full set). One block an SM walks tiles blockIdx.x, + gridDim.x,
+//     ... (FPT_PROJ_F64_TILES).
+//   Stages. Each tile's K is consumed KC columns a stage: KC / 32 chunks of
+//     NH harmonic slots, a chunk's cos columns then its sin columns, the
+//     slots of all GP stages in order (a stage may straddle GP stages; the
+//     last is zero-padded): kernel_columns' order (ops/megakernel.py).
+//   Producers (PW warps) fill a ring of STAGES shared stages, each a coef
+//     tile ([m][k], cp.async 8-byte copies: a chunk's columns start at any
 //     column of a coef row, so they are only 8-byte aligned; zero-filled
-//     past R and past the last slot), issued STAGES - 1 stages ahead. The
-//     basis tiles ([t][k]) fill a ring of two: the same threads build
-//     stage q + 1 (one float64 sincos of the float64 phase (2 pi t) n gives
-//     the cos and the sin value, times the scale; none past T) while the
-//     DMMAs of stage q run, both interleaved with stage q's k-steps. Stage
-//     q's end waits for the copies of stage q + 1 and meets one
-//     __syncthreads: stage q + STAGES - 1 overwrites the coef slot stage
-//     q - 1 read, stage q + 1 the basis slot.
+//     past R and past the last slot) and a basis tile ([t][k]: one float64
+//     sincos of the float64 phase (2 pi t) n gives the cos and the sin
+//     value, times the scale; none past T), the copies in flight while they
+//     build the basis. They run up to STAGES stages ahead, across tiles, and
+//     pull the next tile's base into L2.
+//   Consumers (CW warps in a WGM x (CW / WGM) grid, FM x FN m16n8 fragments
+//     each) start their accumulators at base, take each stage's DMMAs and
+//     write the residuals from the fragments.
+//   Each stage has two named barriers: FULL (producers arrive, consumers
+//     wait) and EMPTY (consumers arrive, producers wait before refilling):
+//     one wait a stage on each side.
 //   Shared loads. Row stride LD = KC + 8 (8 mod 16 doubles) with columns k
 //     and k + 4 of every k-step side by side (p64_col), so a lane's a0/a2,
 //     a1/a3 and b0/b1 are one 16-byte load each, a quarter-warp on 32 banks
@@ -426,19 +432,15 @@ int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
 //     banks).
 // Every sum runs in a fixed order: reruns are bit-identical.
 
-constexpr int P64_BSTAGES = 2;   // basis ring
-
 __host__ __device__ constexpr int p64_ld(int kc, bool vec) {
   return kc + (vec ? 8 : 4);
 }
 
-// Shared-memory doubles of a float64 block with S scale rows: the coef
-// ring, the basis ring, the time and scale rows.
+// Shared-memory doubles of a float64 block: STAGES coef and basis tiles.
 // ops/megakernel.py::project_smem mirrors it.
 __host__ __device__ constexpr int proj_f64_doubles(int bm, int bn, int kc,
-                                                   int stages, bool vec,
-                                                   int S) {
-  return (stages * bm + P64_BSTAGES * bn) * p64_ld(kc, vec) + (2 + S) * bn;
+                                                   int stages, bool vec) {
+  return stages * (bm + bn) * p64_ld(kc, vec);
 }
 
 // c += a b: one m16n8k8 float64 product
@@ -469,6 +471,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// named barrier `id` over n threads: wait for it, or arrive without waiting
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
 // The shared-memory column of a stage's column c: with VEC, columns k and
 // k + 4 of each k-step side by side
 template <bool VEC>
@@ -478,245 +492,250 @@ __device__ __forceinline__ int p64_col(int c) {
   return (c & ~7) | (k < 4 ? 2 * k : 2 * k - 7);
 }
 
+// One tile of the float64 projection: its operand set's arrays, pulsar,
+// first realization and first TOA.
+struct P64Tile {
+  const double* base;
+  const double* coef;
+  const double* times;
+  const double* scales;
+  double* out;
+  int P, p, r0, t0;
+};
+
+__device__ __forceinline__ P64Tile p64_tile(
+    const Operands<double, double>& loc, const Operands<double, double>& full,
+    double* res_l, double* res_f, int nloc, int nx, int ny, int bm, int bn,
+    int tile) {
+  const int z = tile / (nx * ny), y = tile / nx % ny, x = tile % nx;
+  const bool is_loc = z < nloc;
+  const Operands<double, double>& o = is_loc ? loc : full;
+  return P64Tile{o.base,          o.coef, o.times, o.scales,
+                 is_loc ? res_l : res_f, o.P,  is_loc ? z : z - nloc,
+                 x * bm,          y * bn};
+}
+
 // Fragment layouts (PTX ISA, m16n8k8 .f64, the .tf32 ones at float64),
 // g = lane >> 2, k = lane & 3:
 //   A (16 x 8, row): a0 (g, k), a1 (g + 8, k), a2 (g, k + 4), a3 (g + 8, k + 4)
 //   B (8 x 8, col):  b0 (k, g), b1 (k + 4, g)
 //   C (16 x 8):      c0 (g, 2k), c1 (g, 2k + 1), c2 (g + 8, 2k),
 //                    c3 (g + 8, 2k + 1)
-// A[m][k] is realization m's coefficient of stage column k (the coef ring,
-// [m][k]); B[k][n] is column k's basis value at TOA n (the basis ring,
+// A[m][k] is realization m's coefficient of stage column k (the coef tile,
+// [m][k]); B[k][n] is column k's basis value at TOA n (the basis tile,
 // [n][k]).
-template <int BM, int BN, int WGM, int WARPS, int KC, int STAGES, int MINB,
+template <int BM, int BN, int WGM, int CW, int PW, int KC, int STAGES,
           bool VEC>
-__global__ void __launch_bounds__(32 * WARPS, MINB)
+__global__ void __launch_bounds__(32 * (CW + PW), 1)
 project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
                    Stages st, double* __restrict__ res_l,
-                   double* __restrict__ res_f, int R, int T, int K, int S,
-                   int nloc) {
-  constexpr int THREADS = 32 * WARPS, WGN = WARPS / WGM;
+                   double* __restrict__ res_f, int R, int T, int K, int nloc,
+                   int rows) {
+  constexpr int CT = 32 * CW, PT = 32 * PW, THREADS = CT + PT;
+  constexpr int WGN = CW / WGM;
   constexpr int FM = BM / (16 * WGM), FN = BN / (8 * WGN);
   constexpr int NSL = KC / 2;                   // harmonic slots a stage
   constexpr int LD = p64_ld(KC, VEC);
   constexpr int KSTEPS = KC / 8;
-  constexpr int A_ITEMS = BM * KC / THREADS;    // copies a thread a stage
-  constexpr int B_ITEMS = BN * NSL / THREADS;   // sincos a thread a stage
-  constexpr int AHEAD = STAGES - 1;             // stages copied ahead
+  constexpr int A_ITEMS = BM * KC / PT;         // copies a producer a stage
+  constexpr int B_ITEMS = BN * NSL / PT;        // sincos a producer a stage
+  constexpr int FULL = 1, EMPTY = 1 + STAGES;   // named barrier ids
   static_assert(FM * 16 * WGM == BM && FN * 8 * WGN == BN, "warp grid");
-  static_assert(KC % (2 * NH) == 0 && STAGES >= 3, "stages");
-  static_assert(THREADS % KC == 0 && A_ITEMS * THREADS == BM * KC, "copies");
-  static_assert(THREADS % NSL == 0 && B_ITEMS * THREADS == BN * NSL, "basis");
+  static_assert(KC % (2 * NH) == 0 && STAGES >= 2 && EMPTY + STAGES <= 16,
+                "stages");
+  static_assert(PT % KC == 0 && A_ITEMS * PT == BM * KC, "copies");
+  static_assert(PT % NSL == 0 && B_ITEMS * PT == BN * NSL, "basis");
   extern __shared__ double dsm[];
   double* As = dsm;                             // [STAGES][BM][LD]
-  double* Bs = As + STAGES * BM * LD;           // [2][BN][LD]
-  double* rows = Bs + P64_BSTAGES * BN * LD;    // [2 + S][BN]
+  double* Bs = As + STAGES * BM * LD;           // [STAGES][BN][LD]
 
-  const int z = blockIdx.z;
-  const bool is_loc = z < nloc;
-  const int p = is_loc ? z : z - nloc;
-  const int P = is_loc ? loc.P : full.P;
-  const double* __restrict__ base = is_loc ? loc.base : full.base;
-  const double* __restrict__ coef = is_loc ? loc.coef : full.coef;
-  const double* __restrict__ times = is_loc ? loc.times : full.times;
-  const double* __restrict__ scales = is_loc ? loc.scales : full.scales;
-  double* __restrict__ out = is_loc ? res_l : res_f;
-  const int r0 = blockIdx.x * BM, t0 = blockIdx.y * BN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nx = (R + BM - 1) / BM, ny = (T + BN - 1) / BN;
+  const int ntiles = nx * ny * rows;
+  const int nq = (K / 2 + NSL - 1) / NSL;       // stages a tile
+  const int tid = threadIdx.x;
+
+  if (tid >= CT) {
+    // -- producers ---------------------------------------------------------
+    // Roles: the coef column aj of a stage (harmonic slot a_slot, cos or
+    // sin) for rows tp / KC + (PT / KC) i; the basis slot bu for TOAs
+    // tp / NSL + (PT / NSL) i.
+    const int tp = tid - CT;
+    const int aj = tp % KC;
+    const int a_slot = aj / (2 * NH) * NH + aj % NH;
+    const bool a_sin = aj % (2 * NH) >= NH;
+    const int a_pos = p64_col<VEC>(aj);
+    const int bu = tp % NSL;
+    const int b_cos = p64_col<VEC>(bu / NH * 2 * NH + bu % NH);
+    const int b_sin = p64_col<VEC>(bu / NH * 2 * NH + NH + bu % NH);
+    const double two_pi = 6.28318530717958647692;
+    int q = 0;                                  // stages filled so far
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const P64Tile tl =
+          p64_tile(loc, full, res_l, res_f, nloc, nx, ny, BM, BN, tile);
+      // the next tile's base into L2, one 128-byte line a prefetch
+      if (tile + (int)gridDim.x < ntiles) {
+        const P64Tile nt = p64_tile(loc, full, res_l, res_f, nloc, nx, ny,
+                                    BM, BN, tile + gridDim.x);
+        const int tn = min(BN, T - nt.t0);
+        for (int m = tp; m < BM; m += PT) {
+          const int r = nt.r0 + m;
+          if (r >= R) break;
+          const double* row = nt.base + ((size_t)r * nt.P + nt.p) * T + nt.t0;
+          for (int c = 0; c < tn; c += 16) prefetch_l2(row + c);
+          prefetch_l2(row + tn - 1);
+        }
+      }
+      const double* __restrict__ coef_p = tl.coef + (size_t)tl.p * K;
+      const size_t coef_r = (size_t)tl.P * K;
+      const size_t plane = (size_t)tl.P * T;
+      const double* __restrict__ times_p = tl.times + (size_t)tl.p * T;
+      const double* __restrict__ scales_p = tl.scales + (size_t)tl.p * T;
+      int s0 = 0, n0 = 0;                       // the stage's first slot
+      for (int c = 0; c < nq; ++c, ++q) {
+        const int slot = q % STAGES;
+        if (q >= STAGES) bar_sync(EMPTY + slot, THREADS);
+        double* A = As + slot * BM * LD;
+        double* B = Bs + slot * BN * LD;
+        int s = s0, n = n0;
+        walk(st, s, n, a_slot);
+        const int col =
+            s < st.n ? st.k0[s] + (a_sin ? st.nbin[s] : 0) + n : -1;
+#pragma unroll
+        for (int i = 0; i < A_ITEMS; ++i) {
+          const int m = tp / KC + PT / KC * i, r = tl.r0 + m;
+          const bool ok = col >= 0 && r < R;
+          cp_async8(A + m * LD + a_pos,
+                    ok ? coef_p + r * coef_r + col : tl.coef, ok);
+        }
+        cp_async_commit();
+        s = s0;
+        n = n0;
+        walk(st, s, n, bu);
+        const bool live = s < st.n;
+        const size_t trow = live ? st.tcol[s] * plane : 0;
+        const size_t srow = live ? st.scol[s] * plane : 0;
+        const double hn = (double)(n + 1);
+#pragma unroll
+        for (int i = 0; i < B_ITEMS; ++i) {
+          const int t = tp / NSL + PT / NSL * i, tg = tl.t0 + t;
+          double bc = 0.0, bs = 0.0;
+          if (live && tg < T) {
+            const double ph = two_pi * times_p[trow + tg] * hn;
+            double sn, cs;
+            sincos(ph, &sn, &cs);
+            const double sv = scales_p[srow + tg];
+            bc = cs * sv;
+            bs = sn * sv;
+          }
+          B[t * LD + b_cos] = bc;
+          B[t * LD + b_sin] = bs;
+        }
+        cp_async_wait<0>();
+        bar_arrive(FULL + slot, THREADS);
+        walk(st, s0, n0, NSL);
+      }
+    }
+    // meet the consumers' last EMPTY arrivals, so every barrier completes
+    for (int k = q < STAGES ? 0 : q - STAGES; k < q; ++k)
+      bar_sync(EMPTY + k % STAGES, THREADS);
+    return;
+  }
+
+  // -- consumers -------------------------------------------------------------
+  const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, k4 = lane & 3;
   const int wm = warp % WGM, wn = warp / WGM;
-
-  // the block's time rows (times 2 pi at float64, as the reference's float64
-  // phase) and scale rows; 0 past T
-  const double two_pi = 6.28318530717958647692;
-  for (int e = tid; e < (2 + S) * BN; e += THREADS) {
-    const int row = e / BN, t = t0 + e % BN;
-    double v = 0.0;
-    if (t < T)
-      v = row < 2 ? two_pi * times[((size_t)row * P + p) * T + t]
-                  : scales[((size_t)(row - 2) * P + p) * T + t];
-    rows[e] = v;
-  }
-
-  // the accumulators start at base
-  double acc[FM][FN][4];
+  int q = 0;                                    // stages taken so far
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const P64Tile tl =
+        p64_tile(loc, full, res_l, res_f, nloc, nx, ny, BM, BN, tile);
+    // the accumulators start at base
+    double acc[FM][FN][4];
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+    for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + (wm * FM + i) * 16 + g + 8 * h;
+      for (int h = 0; h < 2; ++h) {
+        const int r = tl.r0 + (wm * FM + i) * 16 + g + 8 * h;
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
-        const size_t o = ((size_t)r * P + p) * T + t;
-        acc[i][j][2 * h] = r < R && t < T ? base[o] : 0.0;
-        acc[i][j][2 * h + 1] = r < R && t + 1 < T ? base[o + 1] : 0.0;
-      }
-    }
-
-  // Roles, fixed for the whole loop. Copies: the thread's stage column aj
-  // (harmonic slot a_slot, cos or sin) for rows tid / KC + (THREADS / KC) i.
-  // Basis: slot bu for TOAs tid / NSL + (THREADS / NSL) i.
-  const int aj = tid % KC;
-  const int a_slot = aj / (2 * NH) * NH + aj % NH;
-  const bool a_sin = aj % (2 * NH) >= NH;
-  const int a_pos = p64_col<VEC>(aj);
-  const int bu = tid % NSL;
-  const int b_cos = p64_col<VEC>(bu / NH * 2 * NH + bu % NH);
-  const int b_sin = p64_col<VEC>(bu / NH * 2 * NH + NH + bu % NH);
-  const double* __restrict__ coef_p = coef + (size_t)p * K;
-  const size_t coef_r = (size_t)P * K;
-  const int nq = (K / 2 + NSL - 1) / NSL;       // stages of the contraction
-
-  // the coef column the thread copies in the stage whose first slot is
-  // (s, n), or -1 past the last slot
-  auto source_col = [&](int s, int n) {
-    walk(st, s, n, a_slot);
-    return s < st.n ? st.k0[s] + (a_sin ? st.nbin[s] : 0) + n : -1;
-  };
-  auto copy = [&](double* dst, int col, int i) {
-    const int m = tid / KC + THREADS / KC * i, r = r0 + m;
-    const bool ok = col >= 0 && r < R;
-    cp_async8(dst + m * LD + a_pos, ok ? coef_p + r * coef_r + col : coef,
-              ok);
-  };
-  // the thread's basis slot in the stage whose first slot is (s, n): its
-  // time row, scale row and harmonic number; live = 0 past the last slot
-  struct Slot {
-    int trow, srow;
-    double hn;
-    bool live;
-  };
-  auto basis_slot = [&](int s, int n) {
-    walk(st, s, n, bu);
-    const bool live = s < st.n;
-    return Slot{live ? st.tcol[s] : 0, 2 + (live ? st.scol[s] : 0),
-                (double)(n + 1), live};
-  };
-  auto build = [&](double* dst, const Slot& sl, int i) {
-    const int t = tid / NSL + THREADS / NSL * i;
-    double bc = 0.0, bs = 0.0;
-    if (sl.live && t0 + t < T) {
-      const double ph = rows[sl.trow * BN + t] * sl.hn;
-      double sn, cs;
-      sincos(ph, &sn, &cs);
-      const double sv = rows[sl.srow * BN + t];
-      bc = cs * sv;
-      bs = sn * sv;
-    }
-    dst[t * LD + b_cos] = bc;
-    dst[t * LD + b_sin] = bs;
-  };
-
-  // prologue: the copies of the first AHEAD stages, the basis of stage 0
-  int sa = 0, na = 0;   // the first slot of the next stage to copy
-  int sb = 0, nb = 0;   // ... and to build (block-uniform)
-  __syncthreads();      // the rows
-#pragma unroll
-  for (int q = 0; q < AHEAD; ++q) {
-    if (q < nq) {
-      const int col = source_col(sa, na);
-#pragma unroll
-      for (int i = 0; i < A_ITEMS; ++i) copy(As + q * BM * LD, col, i);
-    }
-    cp_async_commit();
-    walk(st, sa, na, NSL);
-  }
-  if (nq > 0) {
-    const Slot sl = basis_slot(sb, nb);
-#pragma unroll
-    for (int i = 0; i < B_ITEMS; ++i) build(Bs, sl, i);
-  }
-  walk(st, sb, nb, NSL);
-  cp_async_wait<AHEAD - 1>();
-  __syncthreads();
-
-  for (int q = 0; q < nq; ++q) {
-    const double* A = As + q % STAGES * BM * LD;
-    const double* B = Bs + (q & 1) * BN * LD;
-    double* An = As + (q + AHEAD) % STAGES * BM * LD;
-    double* Bn = Bs + ((q + 1) & 1) * BN * LD;
-    const bool copying = q + AHEAD < nq, building = q + 1 < nq;
-    const int col = copying ? source_col(sa, na) : -1;
-    const Slot sl = basis_slot(sb, nb);
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      if (copying) {
-#pragma unroll
-        for (int i = ks; i < A_ITEMS; i += KSTEPS) copy(An, col, i);
-      }
-      double b[FN][2];
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const double* x = B + ((wn * FN + j) * 8 + g) * LD + ks * 8 +
-                          (VEC ? 2 * k4 : k4);
-        if (VEC) {
-          const double2 v = *reinterpret_cast<const double2*>(x);
-          b[j][0] = v.x;
-          b[j][1] = v.y;
-        } else {
-          b[j][0] = x[0];
-          b[j][1] = x[4];
+        for (int j = 0; j < FN; ++j) {
+          const int t = tl.t0 + (wn * FN + j) * 8 + 2 * k4;
+          const size_t o = ((size_t)r * tl.P + tl.p) * T + t;
+          acc[i][j][2 * h] = r < R && t < T ? tl.base[o] : 0.0;
+          acc[i][j][2 * h + 1] = r < R && t + 1 < T ? tl.base[o + 1] : 0.0;
         }
       }
+    for (int c = 0; c < nq; ++c, ++q) {
+      const int slot = q % STAGES;
+      bar_sync(FULL + slot, THREADS);
+      const double* A = As + slot * BM * LD;
+      const double* B = Bs + slot * BN * LD;
 #pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const double* x = A + ((wm * FM + i) * 16 + g) * LD + ks * 8 +
-                          (VEC ? 2 * k4 : k4);
-        double a[4];
-        if (VEC) {
-          const double2 u = *reinterpret_cast<const double2*>(x);
-          const double2 v = *reinterpret_cast<const double2*>(x + 8 * LD);
-          a[0] = u.x;
-          a[1] = v.x;
-          a[2] = u.y;
-          a[3] = v.y;
-        } else {
-          a[0] = x[0];
-          a[1] = x[8 * LD];
-          a[2] = x[4];
-          a[3] = x[8 * LD + 4];
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        double b[FN][2];
+#pragma unroll
+        for (int j = 0; j < FN; ++j) {
+          const double* x = B + ((wn * FN + j) * 8 + g) * LD + ks * 8 +
+                            (VEC ? 2 * k4 : k4);
+          if (VEC) {
+            const double2 v = *reinterpret_cast<const double2*>(x);
+            b[j][0] = v.x;
+            b[j][1] = v.y;
+          } else {
+            b[j][0] = x[0];
+            b[j][1] = x[4];
+          }
         }
 #pragma unroll
-        for (int j = 0; j < FN; ++j) dmma(acc[i][j], a, b[j][0], b[j][1]);
-      }
-      if (building) {
+        for (int i = 0; i < FM; ++i) {
+          const double* x = A + ((wm * FM + i) * 16 + g) * LD + ks * 8 +
+                            (VEC ? 2 * k4 : k4);
+          double a[4];
+          if (VEC) {
+            const double2 u = *reinterpret_cast<const double2*>(x);
+            const double2 v = *reinterpret_cast<const double2*>(x + 8 * LD);
+            a[0] = u.x;
+            a[1] = v.x;
+            a[2] = u.y;
+            a[3] = v.y;
+          } else {
+            a[0] = x[0];
+            a[1] = x[8 * LD];
+            a[2] = x[4];
+            a[3] = x[8 * LD + 4];
+          }
 #pragma unroll
-        for (int i = ks; i < B_ITEMS; i += KSTEPS) build(Bn, sl, i);
+          for (int j = 0; j < FN; ++j) dmma(acc[i][j], a, b[j][0], b[j][1]);
+        }
       }
+      bar_arrive(EMPTY + slot, THREADS);
     }
-    cp_async_commit();
-    cp_async_wait<AHEAD - 1>();
-    __syncthreads();
-    walk(st, sa, na, NSL);
-    walk(st, sb, nb, NSL);
+    // res = base + coef B, from the fragments
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = tl.r0 + (wm * FM + i) * 16 + g + 8 * h;
+        if (r >= R) continue;
+#pragma unroll
+        for (int j = 0; j < FN; ++j) {
+          const int t = tl.t0 + (wn * FN + j) * 8 + 2 * k4;
+          const size_t o = ((size_t)r * tl.P + tl.p) * T + t;
+          if (t < T) tl.out[o] = acc[i][j][2 * h];
+          if (t + 1 < T) tl.out[o + 1] = acc[i][j][2 * h + 1];
+        }
+      }
   }
-
-  // epilogue: res = base + coef B, from the fragments
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + (wm * FM + i) * 16 + g + 8 * h;
-      if (r >= R) continue;
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
-        const size_t o = ((size_t)r * P + p) * T + t;
-        if (t < T) out[o] = acc[i][j][2 * h];
-        if (t + 1 < T) out[o + 1] = acc[i][j][2 * h + 1];
-      }
-    }
 }
 
-// The float64 kernel's block tile, (BM, BN, WGM, WARPS, KC, STAGES, MINB,
-// VEC) (ops/megakernel.py::PROJ_TILE_F64 and PROJ_F64_*): 128 x 128, 8
-// warps of 4 x 4 fragments, 32 columns a stage, a 3-stage coef ring, one
-// block an SM (tools/f64_kernel_variants.py builds the other steps and
-// tiles as patched copies)
-#define FPT_PROJ_F64_TILES(X) X(128, 128, 2, 8, 32, 3, 1, true)
+// The float64 kernel's tile, (BM, BN, WGM, CW, PW, KC, STAGES, VEC)
+// (ops/megakernel.py::PROJ_TILE_F64 and PROJ_F64_*): 128 x 64, 8 consumer
+// warps of 2 x 4 fragments, 4 producer warps, 32 columns a stage, a ring of
+// 3 stages, 16-byte fragment loads (tools/f64_kernel_variants.py builds
+// the other steps and tiles as patched copies)
+#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 4, 32, 3, true)
 
 int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
-                 double* res_l, double* res_f, int R, int T, int K, int S,
+                 double* res_l, double* res_f, int R, int T, int K,
                  int shared, int bm, int bn, int wgm, cudaStream_t stream) {
   const Operands<double, double> loc{static_cast<const double*>(ptrs[0]),
                                      static_cast<const double*>(ptrs[1]),
@@ -730,19 +749,26 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
                                       PF};
   const int nloc = shared ? 0 : PL;
   const int rows = nloc + PF;
-#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_)                     \
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+#define FPT_TILE(BM_, BN_, WGM_, CW_, PW_, KC_, ST_, V_)                    \
   if (bm == BM_ && bn == BN_ && wgm == WGM_) {                              \
     const size_t smem =                                                     \
-        (size_t)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, S) *              \
-        sizeof(double);                                                     \
-    auto kernel = project_f64_kernel<BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_>; \
-    cudaError_t err = cudaFuncSetAttribute(                                 \
+        (size_t)proj_f64_doubles(BM_, BN_, KC_, ST_, V_) * sizeof(double);  \
+    auto kernel = project_f64_kernel<BM_, BN_, WGM_, CW_, PW_, KC_, ST_, V_>; \
+    err = cudaFuncSetAttribute(                                             \
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
     if (err != cudaSuccess) return (int)err;                                \
-    const dim3 grid((unsigned)((R + BM_ - 1) / BM_),                        \
-                    (unsigned)((T + BN_ - 1) / BN_), (unsigned)rows);       \
-    kernel<<<grid, 32 * W_, smem, stream>>>(loc, full, st, res_l, res_f, R, \
-                                            T, K, S, nloc);                 \
+    const long long tiles = (long long)((R + BM_ - 1) / BM_) *              \
+                            ((T + BN_ - 1) / BN_) * rows;                   \
+    if (tiles == 0) return 0;                                               \
+    const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);            \
+    kernel<<<grid, 32 * (CW_ + PW_), smem, stream>>>(loc, full, st, res_l,  \
+                                                     res_f, R, T, K, nloc,  \
+                                                     rows);                 \
     return 0;                                                               \
   }
   FPT_PROJ_F64_TILES(FPT_TILE)
@@ -750,12 +776,12 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
   return (int)cudaErrorInvalidValue;
 }
 
-// The shared-memory bytes of the float64 kernel's (bm, bn) tile with S
-// scale rows, or -1 if it has none
-long long proj_f64_smem(int bm, int bn, int S) {
-#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_)                     \
+// The shared-memory bytes of the float64 kernel's (bm, bn) tile, or -1 if
+// it has none
+long long proj_f64_smem(int bm, int bn) {
+#define FPT_TILE(BM_, BN_, WGM_, CW_, PW_, KC_, ST_, V_)                    \
   if (bm == BM_ && bn == BN_)                                               \
-    return (long long)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, S) *         \
+    return (long long)proj_f64_doubles(BM_, BN_, KC_, ST_, V_) *            \
            (long long)sizeof(double);
   FPT_PROJ_F64_TILES(FPT_TILE)
 #undef FPT_TILE
@@ -862,8 +888,8 @@ extern "C" int fpt_project_f64(const void* base_l, const void* coef_l,
                 static_cast<float*>(res_f), R, T, K, S, shared, bm, bn, wgm,
                 s)
           : dispatch_f64(ptrs, PL, PF, st, static_cast<double*>(res_l),
-                         static_cast<double*>(res_f), R, T, K, S, shared, bm,
-                         bn, wgm, s);
+                         static_cast<double*>(res_f), R, T, K, shared, bm, bn,
+                         wgm, s);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
@@ -874,5 +900,5 @@ extern "C" long long fpt_project_f64_smem(int store_bf16, int bm, int bn,
                                           int S) {
   if (store_bf16)
     return (long long)fpt::proj_floats(bm, bn, S, 2) * (long long)sizeof(float);
-  return fpt::proj_f64_smem(bm, bn, S);
+  return fpt::proj_f64_smem(bm, bn);
 }

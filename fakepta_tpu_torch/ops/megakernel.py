@@ -39,8 +39,9 @@ both passes).
 On a float64 batch (float64 time and scale tables) the route follows the TPU
 kernel's dtypes, whose ``cdtype`` is the base's: float64 base and
 coefficients (``'f32'``) run pass 1 as ``fpt_project_f64``'s float64 DMMA
-projection (a pipelined mainloop: a ``cp.async`` coefficient ring, the basis
-built a stage ahead, one barrier a stage; :data:`PROJ_TILE_F64`) and pass 2
+projection (persistent and warp-specialized: producer warps fill a ring of
+``cp.async`` coefficient tiles and sincos basis tiles, consumer warps take
+the DMMAs; :data:`PROJ_TILE_F64`) and pass 2
 as ``fpt_binned_corr_f64``, float64 throughout, with
 float64 curves and autos; bf16 storage runs at float32 as on a float32 batch,
 but its basis is built from the float64 tables at float64 and rounded once to
@@ -88,12 +89,14 @@ PROJ_THREADS = 256
 PROJ_BLOCKS = 2
 NH = 16
 PROJ_LDA = 2 * NH + 4
-#: the float64 projection (FPT_PROJ_F64_TILES): its (BM, BN, WGM) block
-#: tile, warps, columns a pipeline stage (KC), stages of its coef ring (the
-#: basis ring has two), blocks per SM, and the coef and basis tiles' row
+#: the float64 projection (FPT_PROJ_F64_TILES), persistent and
+#: warp-specialized: its (BM, BN, WGM) tile, consumer warps (a WGM x
+#: (8 / WGM) grid) and producer warps, columns a pipeline stage (KC), the
+#: stages of its ring, blocks per SM, and the coef and basis tiles' row
 #: stride in doubles (p64_ld: KC + 8)
-PROJ_TILE_F64 = (128, 128, 2)
+PROJ_TILE_F64 = (128, 64, 4)
 PROJ_F64_WARPS = 8
+PROJ_F64_PRODUCERS = 4
 PROJ_F64_KC = 2 * NH
 PROJ_F64_STAGES = 3
 PROJ_F64_BLOCKS = 1
@@ -165,9 +168,10 @@ def chunk_bytes_model(nreal: int, npsr: int, ntoa: int, k_coef: int,
 
 class ProjTiling(NamedTuple):
     """The projection's launch shape: BM realizations x BN TOAs of one
-    pulsar row per block, 8 warps in a WGM x (8 / WGM) grid, the grid
-    (ceil(R / BM), ceil(T / BN), rows) and the block's shared-memory
-    bytes."""
+    pulsar row per block (per tile on the persistent float64 kernel, whose
+    blocks walk the tiles), 8 warps in a WGM x (8 / WGM) grid (its consumer
+    warps), the tile grid (ceil(R / BM), ceil(T / BN), rows) and the
+    block's shared-memory bytes."""
     bm: int
     bn: int
     wgm: int
@@ -181,11 +185,11 @@ def project_smem(bm: int, bn: int, n_scales: int, route: str = "f32") -> int:
     hi/lo coef and basis tiles, or the epilogue's [bm][bn + 8] accumulator
     tile where that is larger, then the 2 time rows and the scale rows;
     ``'bf16_f64'``: the same with float64 rows; ``'f64'``
-    (proj_f64_doubles): the float64 coef ring (:data:`PROJ_F64_STAGES`
-    tiles), the basis ring (two tiles) and the rows."""
+    (proj_f64_doubles): the ring's :data:`PROJ_F64_STAGES` float64 coef
+    and basis tiles (its producers read the time and scale rows from
+    device memory, so ``n_scales`` does not enter)."""
     if route == "f64":
-        return 8 * ((PROJ_F64_STAGES * bm + 2 * bn) * PROJ_F64_LD
-                    + (2 + n_scales) * bn)
+        return 8 * PROJ_F64_STAGES * (bm + bn) * PROJ_F64_LD
     kc = 2 * NH
     staging = 2 * bm * PROJ_LDA + 2 * kc * (bn + 8)
     tb = 2 if route == "bf16_f64" else 1

@@ -72,19 +72,20 @@ def test_project_tiling_covers_and_fits(pl, pf):
                                    (25, 130)])
 def test_project_f64_tiling_covers_and_fits(pl, pf):
     """The float64 projection's tile: every (realization, TOA, row) in one
-    block, no block empty, the warp grid over the tile, each thread's share
-    of a stage's coefficient copies and basis values whole, and its coef
-    ring, basis ring and rows in one block's shared memory at
-    PROJ_F64_BLOCKS blocks an SM, at the flagship, at a ragged R and T, and
-    at ng15's three scale rows."""
+    tile, no tile empty, the consumer warps' grid over the tile, each
+    producer's share of a stage's coefficient copies and basis values
+    whole, two named barriers a ring stage, and the ring in one block's
+    shared memory at PROJ_F64_BLOCKS blocks an SM, at the flagship, at a
+    ragged R and T, and at ng15's three scale rows."""
     rows = pf if pl == pf else pl + pf
     bm, bn, wgm = mk.PROJ_TILE_F64
-    threads = 32 * mk.PROJ_F64_WARPS
+    producers = 32 * mk.PROJ_F64_PRODUCERS
     kc, stages = mk.PROJ_F64_KC, mk.PROJ_F64_STAGES
-    assert kc % (2 * mk.NH) == 0 and stages >= 3
+    assert kc % (2 * mk.NH) == 0 and 2 <= stages and 1 + 2 * stages <= 16
     assert bm % (16 * wgm) == 0 and bn % (8 * (mk.PROJ_F64_WARPS // wgm)) == 0
-    assert threads % kc == 0 and (bm * kc) % threads == 0
-    assert threads % (kc // 2) == 0 and (bn * kc // 2) % threads == 0
+    assert producers % kc == 0 and (bm * kc) % producers == 0
+    assert producers % (kc // 2) == 0 and (bn * kc // 2) % producers == 0
+    assert 32 * (mk.PROJ_F64_WARPS + mk.PROJ_F64_PRODUCERS) <= 1024
     assert mk.PROJ_F64_LD % 16 == 8
     for R, T, S in ((1024, 780, 2), (5, 33, 2), (129, 257, 3),
                     (1024, 512, 3)):
@@ -94,13 +95,10 @@ def test_project_f64_tiling_covers_and_fits(pl, pf):
         assert gx * t.bm >= R > (gx - 1) * t.bm
         assert gy * t.bn >= T > (gy - 1) * t.bn
         assert gz == rows
-        assert t.smem == 8 * ((stages * bm + 2 * bn) * mk.PROJ_F64_LD
-                              + (2 + S) * bn)
+        assert t.smem == 8 * stages * (bm + bn) * mk.PROJ_F64_LD
         assert t.smem <= bc.SMEM_PER_BLOCK
         assert mk.PROJ_F64_BLOCKS * (t.smem + bc.SMEM_RESERVED) \
             <= bc.SMEM_PER_SM
-    with pytest.raises(ValueError):
-        mk.project_tiling(1024, 780, rows, n_scales=40, route="f64")
 
 
 @pytest.mark.parametrize("stages", [

@@ -25,12 +25,16 @@ and a 2-shard mesh's local+full set:
 
 - ``shipped``; ``no_sincos``: the basis from the phase without sincos (cos
   = 1 - phase, sin = phase); ``no_products``: no DMMA, as above;
-- the design steps of the pipelined kernel, each the shipped source with
-  another ``FPT_PROJ_F64_TILES`` entry (BM, BN, WGM, warps, KC, coef
-  stages, blocks an SM, 16-byte fragment loads): ``step1`` the pipeline at
-  the unpipelined kernel's 128 x 64 tile and 8-byte loads, ``step1_vec``
-  with 16-byte loads, ``tile_128x80``, ``tile_64x64_2blk`` (4 warps, two
-  blocks an SM), ``kc64`` (64 columns a stage), ``stages4``;
+  ``no_copies``: no coefficient read (the copies zero-fill their tiles);
+- the design steps of the warp-specialized kernel, each the shipped
+  source with another ``FPT_PROJ_F64_TILES`` entry (BM, BN, WGM, consumer
+  warps, producer warps, KC, ring stages, 16-byte fragment loads):
+  ``stages2`` (a ring of two), ``novec`` (8-byte fragment loads),
+  ``producers2`` / ``producers8`` (producer warps), ``tile_128x80``,
+  ``tile_64x128``, ``kc64`` (64 columns a stage at 64 x 64),
+  ``tile_128x128_regs`` (4 x 4 fragments a consumer warp, ``setmaxnreg``
+  moving registers from the producers to the consumers; 8-byte loads, so
+  three stages fit) and ``tile_128x128_regs_s2`` (two stages);
 - with ``--parent DIR`` (a checkout, e.g. a ``git archive``, of another
   commit), that commit's ``megakernel.cu`` as ``parent`` and its
   ``parent_no_sincos`` / ``parent_no_products``, launched at its own
@@ -53,22 +57,31 @@ from pathlib import Path
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-SINCOS = ("      sincos(ph, &sn, &cs);",
-          "      sn = ph;\n      cs = 1.0 - sn;")
-PRODUCTS = ("        for (int j = 0; j < FN; ++j) dmma(acc[i][j], a, b[j][0], "
-            "b[j][1]);",
-            "        for (int j = 0; j < FN; ++j) acc[i][j][0] += a[0] * "
-            "b[j][0] + a[3] * b[j][1];")
-TILE_LINE = "#define FPT_PROJ_F64_TILES(X) X(128, 128, 2, 8, 32, 3, 1, true)"
+SINCOS = ("sincos(ph, &sn, &cs);", "sn = ph;\n            cs = 1.0 - sn;")
+PRODUCTS = ("dmma(acc[i][j], a, b[j][0], b[j][1]);",
+            "acc[i][j][0] += a[0] * b[j][0] + a[3] * b[j][1];")
+TILE_LINE = "#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 4, 32, 3, true)"
 
-#: the design steps: (BM, BN, WGM, warps, KC, coef stages, blocks an SM,
-#: 16-byte loads)
-TILES = {"step1": (128, 64, 4, 8, 32, 3, 1, False),
-         "step1_vec": (128, 64, 4, 8, 32, 3, 1, True),
-         "tile_128x80": (128, 80, 4, 8, 32, 3, 1, True),
-         "tile_64x64_2blk": (64, 64, 2, 4, 32, 3, 2, True),
-         "kc64": (64, 64, 2, 8, 64, 3, 1, True),
-         "stages4": (128, 64, 4, 8, 32, 4, 1, True)}
+#: the design steps and tiles: (BM, BN, WGM, consumer warps, producer
+#: warps, KC, ring stages, 16-byte loads)
+TILES = {"stages2": (128, 64, 4, 8, 4, 32, 2, True),
+         "novec": (128, 64, 4, 8, 4, 32, 3, False),
+         "producers2": (128, 64, 4, 8, 2, 32, 3, True),
+         "producers8": (128, 64, 4, 8, 8, 32, 3, True),
+         "tile_128x80": (128, 80, 4, 8, 4, 32, 3, True),
+         "tile_64x128": (64, 128, 2, 8, 4, 32, 3, True),
+         "kc64": (64, 64, 2, 8, 4, 64, 3, True),
+         "tile_128x128_regs": (128, 128, 2, 8, 4, 32, 3, False),
+         "tile_128x128_regs_s2": (128, 128, 2, 8, 4, 32, 2, True)}
+#: setmaxnreg for the 4 x 4 fragments of a 128 x 128 tile: the producer
+#: warpgroup gives registers up (56), the consumers take them (224)
+SETMAXNREG = [("    const int tp = tid - CT;\n",
+               "    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 56;\\n\");\n"
+               "    const int tp = tid - CT;\n"),
+              ("  int q = 0;                                    // stages "
+               "taken so far",
+               "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 224;\\n\");\n"
+               "  int q = 0;")]
 
 PATCHES = {
     "binned_corr": {
@@ -84,8 +97,11 @@ PATCHES = {
     },
     "megakernel": dict(
         no_sincos=[SINCOS], no_products=[PRODUCTS],
+        no_copies=[("ok ? coef_p + r * coef_r + col : tl.coef, ok);",
+                    "tl.coef, false);")],
         **{name: [(TILE_LINE, "#define FPT_PROJ_F64_TILES(X) X("
                    + ", ".join(str(v).lower() for v in tile) + ")")]
+           + (SETMAXNREG if name.endswith(("_regs", "_regs_s2")) else [])
            for name, tile in TILES.items()}),
 }
 
@@ -112,10 +128,9 @@ def tile_of(variant: str):
         return PARENT_TILE, lambda s: 8 * ((bm + bn) * (2 * mk.NH + 4)
                                            + (2 + s) * bn)
     if variant in TILES:
-        bm, bn, wgm, _, kc, stages, _, vec = TILES[variant]
+        bm, bn, wgm, _, _, kc, stages, vec = TILES[variant]
         ld = kc + (8 if vec else 4)
-        return (bm, bn, wgm), lambda s: 8 * ((stages * bm + 2 * bn) * ld
-                                             + (2 + s) * bn)
+        return (bm, bn, wgm), lambda s: 8 * stages * (bm + bn) * ld
     bm, bn, _ = mk.PROJ_TILE_F64
     return mk.PROJ_TILE_F64, lambda s: mk.project_smem(bm, bn, s, "f64")
 
