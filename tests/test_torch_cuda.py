@@ -2144,8 +2144,8 @@ def test_binned_correlation_vpu_refuses_float64(cuda):
 
 #: the GP stage sets the float64 engine launches pass 1 at beyond the
 #: flagship's K = 320: the null stream's GWB-free set (K = 260), ng15's
-#: (K = 210, a third scale row) and ipta_dr3's (K = 180); and one whose
-#: first 16-slot chunk straddles three stages
+#: (K = 210, a third scale row) and ipta_dr3's (K = 180); one whose first
+#: 16-slot chunk straddles three stages
 NULL_STAGES = FLAGSHIP_STAGES[:2]
 NG15_STAGES = (MegaStage(30, T_OWN, 0), MegaStage(30, T_OWN, 1),
                MegaStage(15, T_OWN, 2), MegaStage(30, T_COMMON, 0))
@@ -2153,13 +2153,18 @@ IPTA_STAGES = (MegaStage(30, T_OWN, 0), MegaStage(30, T_OWN, 1),
                MegaStage(30, T_COMMON, 0))
 STRADDLE_STAGES = (MegaStage(10, T_OWN, 0), MegaStage(3, T_COMMON, 1),
                    MegaStage(20, T_OWN, 1))
+#: K = 660: more stages than one basis panel of the float64 kernel holds
+WIDE_STAGES = (MegaStage(100, T_OWN, 0), MegaStage(100, T_OWN, 1),
+               MegaStage(100, T_COMMON, 0), MegaStage(30, T_COMMON, 1))
 
-# PROJ_SHAPES and, for the float64 kernel's 128 x 128 tile: R and T not
-# multiples of 128 at each stage set above, on both operand sets
+# PROJ_SHAPES and, for the float64 kernel's 64 x 64 tile: R and T not
+# multiples of 64 at each stage set above, on both operand sets, and K =
+# 660 (three basis panels of 7 stages)
 PROJ_F64_SHAPES = PROJ_SHAPES + [
     (200, 5, 5, 300, NULL_STAGES), (67, 3, 9, 200, NULL_STAGES),
     (130, 7, 7, 130, NG15_STAGES), (129, 2, 6, 257, NG15_STAGES),
-    (257, 4, 4, 140, IPTA_STAGES), (129, 4, 4, 257, STRADDLE_STAGES)]
+    (257, 4, 4, 140, IPTA_STAGES), (129, 4, 4, 257, STRADDLE_STAGES),
+    (70, 2, 3, 90, WIDE_STAGES)]
 
 
 def _f64_tables(full):
@@ -2247,15 +2252,16 @@ def test_project_f64_smem_matches_the_source(cuda):
     on both of its routes."""
     smem = _build.load("megakernel").fpt_project_f64_smem
     smem.restype = ctypes.c_longlong
-    smem.argtypes = [ctypes.c_int] * 4
-    assert smem(0, *mk.PROJ_TILE_F64[:2], 2) == mk.project_tiling(
-        1024, 780, 100, 2, "f64").smem
+    smem.argtypes = [ctypes.c_int] * 5
+    assert smem(0, *mk.PROJ_TILE_F64[:2], 2, 320) == mk.project_tiling(
+        1024, 780, 100, 2, "f64", 320).smem
     for route, tile, bf16 in (("f64", mk.PROJ_TILE_F64, 0),
                               ("bf16_f64", mk.PROJ_TILE, 1)):
         bm, bn, _ = tile
         for n_scales in (1, 2, 5):
-            assert smem(bf16, bm, bn, n_scales) == mk.project_smem(
-                bm, bn, n_scales, route)
+            for k in (22, 210, 320, 660):
+                assert smem(bf16, bm, bn, n_scales, k) == mk.project_smem(
+                    bm, bn, n_scales, route, k)
 
 
 @pytest.mark.cuda

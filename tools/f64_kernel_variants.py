@@ -26,15 +26,11 @@ and a 2-shard mesh's local+full set:
 - ``shipped``; ``no_sincos``: the basis from the phase without sincos (cos
   = 1 - phase, sin = phase); ``no_products``: no DMMA, as above;
   ``no_copies``: no coefficient read (the copies zero-fill their tiles);
-- the design steps of the warp-specialized kernel, each the shipped
-  source with another ``FPT_PROJ_F64_TILES`` entry (BM, BN, WGM, consumer
-  warps, producer warps, KC, ring stages, 16-byte fragment loads):
-  ``stages2`` (a ring of two), ``novec`` (8-byte fragment loads),
-  ``producers2`` / ``producers8`` (producer warps), ``tile_128x80``,
-  ``tile_64x128``, ``kc64`` (64 columns a stage at 64 x 64),
-  ``tile_128x128_regs`` (4 x 4 fragments a consumer warp, ``setmaxnreg``
-  moving registers from the producers to the consumers; 8-byte loads, so
-  three stages fit) and ``tile_128x128_regs_s2`` (two stages);
+- the design steps of the basis-resident kernel, each the shipped source
+  with another ``FPT_PROJ_F64_TILES`` entry (BM, BN, WGM, warps, KC, ring
+  stages, 16-byte fragment loads): ``warps4`` (4 warps of 2 x 4
+  fragments), ``novec`` (8-byte fragment loads), ``tile_128x64`` (two
+  basis panels at K = 320) and ``tile_128x32``;
 - with ``--parent DIR`` (a checkout, e.g. a ``git archive``, of another
   commit), that commit's ``megakernel.cu`` as ``parent`` and its
   ``parent_no_sincos`` / ``parent_no_products``, launched at its own
@@ -57,31 +53,17 @@ from pathlib import Path
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-SINCOS = ("sincos(ph, &sn, &cs);", "sn = ph;\n            cs = 1.0 - sn;")
+SINCOS = ("sincos(ph, &sn, &cs);", "sn = ph;\n          cs = 1.0 - sn;")
 PRODUCTS = ("dmma(acc[i][j], a, b[j][0], b[j][1]);",
             "acc[i][j][0] += a[0] * b[j][0] + a[3] * b[j][1];")
-TILE_LINE = "#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 4, 32, 3, true)"
+TILE_LINE = "#define FPT_PROJ_F64_TILES(X) X(64, 64, 2, 8, 32, 3, true)"
 
-#: the design steps and tiles: (BM, BN, WGM, consumer warps, producer
-#: warps, KC, ring stages, 16-byte loads)
-TILES = {"stages2": (128, 64, 4, 8, 4, 32, 2, True),
-         "novec": (128, 64, 4, 8, 4, 32, 3, False),
-         "producers2": (128, 64, 4, 8, 2, 32, 3, True),
-         "producers8": (128, 64, 4, 8, 8, 32, 3, True),
-         "tile_128x80": (128, 80, 4, 8, 4, 32, 3, True),
-         "tile_64x128": (64, 128, 2, 8, 4, 32, 3, True),
-         "kc64": (64, 64, 2, 8, 4, 64, 3, True),
-         "tile_128x128_regs": (128, 128, 2, 8, 4, 32, 3, False),
-         "tile_128x128_regs_s2": (128, 128, 2, 8, 4, 32, 2, True)}
-#: setmaxnreg for the 4 x 4 fragments of a 128 x 128 tile: the producer
-#: warpgroup gives registers up (56), the consumers take them (224)
-SETMAXNREG = [("    const int tp = tid - CT;\n",
-               "    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 56;\\n\");\n"
-               "    const int tp = tid - CT;\n"),
-              ("  int q = 0;                                    // stages "
-               "taken so far",
-               "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 224;\\n\");\n"
-               "  int q = 0;")]
+#: the design steps and tiles: (BM, BN, WGM, warps, KC, ring stages,
+#: 16-byte loads)
+TILES = {"warps4": (64, 64, 2, 4, 32, 3, True),
+         "novec": (64, 64, 2, 8, 32, 3, False),
+         "tile_128x64": (128, 64, 4, 8, 32, 3, True),
+         "tile_128x32": (128, 32, 4, 8, 32, 3, True)}
 
 PATCHES = {
     "binned_corr": {
@@ -97,11 +79,10 @@ PATCHES = {
     },
     "megakernel": dict(
         no_sincos=[SINCOS], no_products=[PRODUCTS],
-        no_copies=[("ok ? coef_p + r * coef_r + col : tl.coef, ok);",
-                    "tl.coef, false);")],
+        no_copies=[("ok ? coef_p + r * coef_r + col : coef, ok);",
+                    "coef, false);")],
         **{name: [(TILE_LINE, "#define FPT_PROJ_F64_TILES(X) X("
                    + ", ".join(str(v).lower() for v in tile) + ")")]
-           + (SETMAXNREG if name.endswith(("_regs", "_regs_s2")) else [])
            for name, tile in TILES.items()}),
 }
 
@@ -120,19 +101,25 @@ PARENT_PATCHES = {
 PARENT_TILE = (128, 64, 4)
 
 
-def tile_of(variant: str):
-    """(BM, BN, WGM) and smem(S) of a megakernel variant's float64 tile."""
+def launch_shape(variant: str) -> dict:
+    """The megakernel module attributes a variant launches at: its tile
+    and, for the PR 25 kernel (``parent*``), its own tiling."""
     from fakepta_tpu_torch.ops import megakernel as mk
     if variant.startswith("parent"):
-        bm, bn, _ = PARENT_TILE
-        return PARENT_TILE, lambda s: 8 * ((bm + bn) * (2 * mk.NH + 4)
-                                           + (2 + s) * bn)
+        bm, bn, wgm = PARENT_TILE
+
+        def tiling(R, T, rows, n_scales, route="f32", k=0):
+            return mk.ProjTiling(bm, bn, wgm, (-(-R // bm), -(-T // bn),
+                                               rows),
+                                 8 * ((bm + bn) * (2 * mk.NH + 4)
+                                      + (2 + n_scales) * bn))
+        return {"project_tiling": tiling}
     if variant in TILES:
-        bm, bn, wgm, _, _, kc, stages, vec = TILES[variant]
-        ld = kc + (8 if vec else 4)
-        return (bm, bn, wgm), lambda s: 8 * stages * (bm + bn) * ld
-    bm, bn, _ = mk.PROJ_TILE_F64
-    return mk.PROJ_TILE_F64, lambda s: mk.project_smem(bm, bn, s, "f64")
+        bm, bn, wgm, warps, kc, stages, vec = TILES[variant]
+        return {"PROJ_TILE_F64": (bm, bn, wgm), "PROJ_F64_WARPS": warps,
+                "PROJ_F64_KC": kc, "PROJ_F64_STAGES": stages,
+                "PROJ_F64_PAD": 8 if vec else 4}
+    return {}
 
 
 def patched(text: str, patches, what: str) -> str:
@@ -228,22 +215,20 @@ def main() -> int:
     def with_lib(lib_name, variant, fn):
         """fn() with the variant's library loaded under the shipped name
         (and, for the projection, launched at the variant's tile)."""
-        tiling = mk.project_tiling
-        if lib_name == "megakernel":
-            (bm, bn, wgm), smem = tile_of(variant)
-
-            def tiling(R, T, rows, n_scales, route="f32"):
-                return mk.ProjTiling(bm, bn, wgm, (-(-R // bm), -(-T // bn),
-                                                   rows), smem(n_scales))
+        shape = launch_shape(variant) if lib_name == "megakernel" else {}
 
         def call():
-            saved = _build._LIBS.get(lib_name), mk.project_tiling
+            saved = _build._LIBS.get(lib_name)
+            saved_attrs = {k: getattr(mk, k) for k in shape}
             _build._LIBS[lib_name] = libs[(lib_name, variant)]
-            mk.project_tiling = tiling
+            for k, v in shape.items():
+                setattr(mk, k, v)
             try:
                 return fn()
             finally:
-                _build._LIBS[lib_name], mk.project_tiling = saved
+                _build._LIBS[lib_name] = saved
+                for k, v in saved_attrs.items():
+                    setattr(mk, k, v)
         return call
 
     out = {"card": card_line(), "binned_correlation_f64": {},
