@@ -71,14 +71,14 @@
 // On a float64 batch (fpt_project_f64; pass 2 is binned_corr.cu's
 // fpt_binned_corr_f64, or fpt_binned_corr under bf16 storage), as the TPU
 // kernel computes at float64 (its cdtype is the batch's):
-//   'f32': project_f64_kernel (its design, the basis resident and the
-//     coefficients streamed, is beside it), float64 throughout on the FP64
-//     tensor cores (DMMA): the basis from float64 sincos of the float64
-//     phase (2 pi t) n, the projection at float64, float64 residuals. What
-//     bounds it on the flagship shared set: 2 R rows K T = 51.1 GFLOP,
-//     0.76 ms at the FP64 tensor cores' 67 TFLOP/s, against base + coef +
-//     res = 639 + 262 + 639 MB, 0.46 ms at 3.35 TB/s: the products; plus
-//     rows T K / 2 = 1.25e7 float64 sincos (each basis value built once).
+//   'f32': project_f64_kernel (its design, a pipelined mainloop, is beside
+//     it), float64 throughout on the FP64 tensor cores (DMMA): the basis
+//     from float64 sincos of the float64 phase (2 pi t) n, the projection
+//     at float64, float64 residuals. What bounds it on the flagship shared
+//     set: 2 R rows K T = 51.1 GFLOP, 0.76 ms at the FP64 tensor cores' 67
+//     TFLOP/s, against base + coef + res = 639 + 262 + 639 MB, 0.46 ms at
+//     3.35 TB/s: the products; plus (R / BM) rows T K / 2 = 1.0e8 float64
+//     sincos at BM = 128, on the FP64 units beside the DMMAs.
 //   'bf16' (bf16 storage): the TPU kernel's cdtype is float32, but its
 //     float64 time and scale tables promote the phase and the basis to
 //     float64, which its float32 product then rounds to float32. So
@@ -398,68 +398,53 @@ int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
 // .f64 (DMMA; the m8n8k4 shape runs at half the FP64 tensor cores' rate on
 // an H100, tools/dmma_shapes.py; wgmma has no float64 form).
 //
-// Design: the basis resident, the coefficients streamed (PERF.md, PR 26:
-// rebuilt once per 128 realizations, the basis took 1.0e8 float64 sincos
-// a flagship chunk, each a ~400-cycle dependent chain, and held the kernel
-// whether the same threads or producer warps built it).
-//   Items. An item is BN TOAs of one pulsar row (the set's P on the shared
-//     set, PL local rows then PF full rows on the local+full set); one
-//     block an SM walks items blockIdx.x, + gridDim.x, ...
-//   Panels. For each item the block builds the basis of as many stages as
-//     fit beside the coef ring (a panel, `pcols` columns; one panel up to
-//     K = 320 at BN = 64) into shared memory, all threads at once: one
-//     float64 sincos of the float64 phase (2 pi t) n gives the cos and the
-//     sin value, times the scale; 0 past T. So each basis value is built
-//     once per item, not once per realization tile.
-//   Stages. A panel is consumed KC columns a stage: KC / 32 chunks of NH
-//     harmonic slots, a chunk's cos columns then its sin columns, the slots
-//     of all GP stages in order (a stage may straddle GP stages; the last
-//     is zero-padded): kernel_columns' order (ops/megakernel.py).
-//   Ring. The block walks the panel's realization tiles (BM each) stage by
-//     stage through a ring of STAGES coefficient tiles ([m][k]), filled by
-//     cp.async (8-byte copies: a chunk's columns start at any column of a
-//     coef row, so they are only 8-byte aligned; zero-filled past R and past
-//     the last slot) STAGES - 1 stages ahead, across tile boundaries. Each
-//     stage waits for its copies and meets one __syncthreads; stage
-//     g + STAGES - 1 overwrites the slot stage g - 1 read.
-//   Products. WARPS warps in a WGM x (WARPS / WGM) grid each own FM x FN
-//     m16n8 fragments of the BM x BN tile, started at base (at the previous
-//     panel's residuals past the first panel: a float64 store and load are
-//     exact, so the sums are those of one pass) and written from the
-//     fragments. The next tile's base is pulled into L2 a tile ahead.
-//   Shared loads. Row strides KC + 8 and pcols + 8 (8 mod 16 doubles) with
-//     columns k and k + 4 of every k-step side by side (p64_col), so a
-//     lane's a0/a2, a1/a3 and b0/b1 are one 16-byte load each, a
-//     quarter-warp on 32 banks (VEC; without it + 4 and 8-byte loads, a
-//     half-warp on 32 banks).
+// Design: a pipelined mainloop, one barrier a stage.
+//   Blocks. A block takes BM realizations x BN TOAs of one pulsar row
+//     (FPT_PROJ_F64_TILES), WARPS warps in a WGM x (WARPS / WGM) grid each
+//     owning FM x FN m16n8 fragments. The accumulators start at base (its
+//     loads are in flight while the prologue fills the first stages), so
+//     the epilogue only writes them.
+//   Stages. K is consumed KC columns a stage: KC / 32 chunks of NH harmonic
+//     slots each, the chunk's cos columns then its sin columns, the slots
+//     of all stages in order (a stage may straddle GP stages; the last is
+//     zero-padded): kernel_columns' order (ops/megakernel.py).
+//   Rings. The coefficient tiles ([m][k]) fill a ring of STAGES shared
+//     stages by cp.async (8-byte copies: a chunk's columns start at any
+//     column of a coef row, so they are only 8-byte aligned; zero-filled
+//     past R and past the last slot), issued STAGES - 1 stages ahead. The
+//     basis tiles ([t][k]) fill a ring of two: the same threads build
+//     stage q + 1 (one float64 sincos of the float64 phase (2 pi t) n gives
+//     the cos and the sin value, times the scale; none past T) while the
+//     DMMAs of stage q run, both interleaved with stage q's k-steps. Stage
+//     q's end waits for the copies of stage q + 1 and meets one
+//     __syncthreads: stage q + STAGES - 1 overwrites the coef slot stage
+//     q - 1 read, stage q + 1 the basis slot.
+//   Shared loads. Row stride LD = KC + 8 (8 mod 16 doubles) with columns k
+//     and k + 4 of every k-step side by side (p64_col), so a lane's a0/a2,
+//     a1/a3 and b0/b1 are one 16-byte load each, a quarter-warp on 32 banks
+//     (VEC; without it LD = KC + 4 and 8-byte loads, a half-warp on 32
+//     banks).
 // Every sum runs in a fixed order: reruns are bit-identical.
 
-__host__ __device__ constexpr int p64_pad(bool vec) { return vec ? 8 : 4; }
+constexpr int P64_BSTAGES = 2;   // basis ring
 
-// Shared-memory doubles of a float64 block: the coef ring and a basis
-// panel of pcols columns. ops/megakernel.py::project_smem mirrors it.
-__host__ __device__ constexpr int proj_f64_doubles(int bm, int bn, int kc,
-                                                   int stages, bool vec,
-                                                   int pcols) {
-  return stages * bm * (kc + p64_pad(vec)) + bn * (pcols + p64_pad(vec));
+__host__ __device__ constexpr int p64_ld(int kc, bool vec) {
+  return kc + (vec ? 8 : 4);
 }
 
-// The most shared memory a block may take (an H100's 227 KB)
-constexpr long long P64_SMEM_MAX = 232448;
+// Shared-memory doubles of a float64 block with S scale rows: the coef
+// ring, the basis ring, the time and scale rows.
+// ops/megakernel.py::project_smem mirrors it.
+// The epilogue's accumulator tile row stride: 8 (mod 16) doubles
+#define P64_LDC(bn) ((bn) + 8)
 
-// The stages of one basis panel for K columns: as many whole stages of kc
-// columns as fit beside the coef ring in P64_SMEM_MAX bytes, split evenly
-// over the fewest panels; 0 if not even one fits
-inline int p64_panel_stages(int bm, int bn, int kc, int stages, bool vec,
-                            int K) {
-  const long long nq = (K / 2 + kc / 2 - 1) / (kc / 2);
-  const long long room =
-      P64_SMEM_MAX / 8 - (long long)stages * bm * (kc + p64_pad(vec));
-  const long long fit = (room / bn - p64_pad(vec)) / kc;
-  if (fit < 1) return 0;
-  if (nq == 0) return 1;
-  const long long npanel = (nq + fit - 1) / fit;
-  return (int)((nq + npanel - 1) / npanel);
+__host__ __device__ constexpr int proj_f64_doubles(int bm, int bn, int kc,
+                                                   int stages, bool vec,
+                                                   int S) {
+  return (stages * bm * p64_ld(kc, vec) > bm * P64_LDC(bn)
+              ? stages * bm * p64_ld(kc, vec)
+              : bm * P64_LDC(bn)) +
+         P64_BSTAGES * bn * p64_ld(kc, vec) + (2 + S) * bn;
 }
 
 // c += a b: one m16n8k8 float64 product
@@ -490,12 +475,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
-// The shared-memory column of column c: with VEC, columns k and k + 4 of
-// each k-step side by side
+// The shared-memory column of a stage's column c: with VEC, columns k and
+// k + 4 of each k-step side by side
 template <bool VEC>
 __device__ __forceinline__ int p64_col(int c) {
   if (!VEC) return c;
@@ -510,222 +491,244 @@ __device__ __forceinline__ int p64_col(int c) {
 //   C (16 x 8):      c0 (g, 2k), c1 (g, 2k + 1), c2 (g + 8, 2k),
 //                    c3 (g + 8, 2k + 1)
 // A[m][k] is realization m's coefficient of stage column k (the coef ring,
-// [m][k]); B[k][n] is column k's basis value at TOA n (the basis panel,
+// [m][k]); B[k][n] is column k's basis value at TOA n (the basis ring,
 // [n][k]).
-template <int BM, int BN, int WGM, int WARPS, int KC, int STAGES, bool VEC>
-__global__ void __launch_bounds__(32 * WARPS, 1)
+template <int BM, int BN, int WGM, int WARPS, int KC, int STAGES, int MINB,
+          bool VEC>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
 project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
                    Stages st, double* __restrict__ res_l,
-                   double* __restrict__ res_f, int R, int T, int K, int nloc,
-                   int rows, int pst) {
+                   double* __restrict__ res_f, int R, int T, int K, int S,
+                   int nloc) {
   constexpr int THREADS = 32 * WARPS, WGN = WARPS / WGM;
   constexpr int FM = BM / (16 * WGM), FN = BN / (8 * WGN);
   constexpr int NSL = KC / 2;                   // harmonic slots a stage
-  constexpr int LDA = KC + p64_pad(VEC);
+  constexpr int LD = p64_ld(KC, VEC);
   constexpr int KSTEPS = KC / 8;
   constexpr int A_ITEMS = BM * KC / THREADS;    // copies a thread a stage
+  constexpr int B_ITEMS = BN * NSL / THREADS;   // sincos a thread a stage
   constexpr int AHEAD = STAGES - 1;             // stages copied ahead
   static_assert(FM * 16 * WGM == BM && FN * 8 * WGN == BN, "warp grid");
-  static_assert(KC % (2 * NH) == 0 && STAGES >= 3, "stages");
+  static_assert(KC % (2 * NH) == 0 && STAGES >= 2, "stages");
   static_assert(THREADS % KC == 0 && A_ITEMS * THREADS == BM * KC, "copies");
+  static_assert(THREADS % NSL == 0 && B_ITEMS * THREADS == BN * NSL, "basis");
   extern __shared__ double dsm[];
-  double* As = dsm;                             // [STAGES][BM][LDA]
-  double* Bs = As + STAGES * BM * LDA;          // [BN][LDB]
-  const int LDB = pst * KC + p64_pad(VEC);
+  constexpr int A_ROOM = STAGES * BM * LD > BM * P64_LDC(BN)
+                             ? STAGES * BM * LD
+                             : BM * P64_LDC(BN);
+  double* As = dsm;                             // [STAGES][BM][LD], then
+                                                // the epilogue's [BM][LDC]
+  double* Bs = As + A_ROOM;                     // [2][BN][LD]
+  double* rows = Bs + P64_BSTAGES * BN * LD;    // [2 + S][BN]
 
+  const int z = blockIdx.z;
+  const bool is_loc = z < nloc;
+  const int p = is_loc ? z : z - nloc;
+  const int P = is_loc ? loc.P : full.P;
+  const double* __restrict__ base = is_loc ? loc.base : full.base;
+  const double* __restrict__ coef = is_loc ? loc.coef : full.coef;
+  const double* __restrict__ times = is_loc ? loc.times : full.times;
+  const double* __restrict__ scales = is_loc ? loc.scales : full.scales;
+  double* __restrict__ out = is_loc ? res_l : res_f;
+  const int r0 = blockIdx.x * BM, t0 = blockIdx.y * BN;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, k4 = lane & 3;
   const int wm = warp % WGM, wn = warp / WGM;
-  // copies: the thread's stage column aj (harmonic slot a_slot of the
-  // stage, cos or sin) for rows tid / KC + (THREADS / KC) i
+
+  // the block's time rows (times 2 pi at float64, as the reference's float64
+  // phase) and scale rows; 0 past T
+  const double two_pi = 6.28318530717958647692;
+  for (int e = tid; e < (2 + S) * BN; e += THREADS) {
+    const int row = e / BN, t = t0 + e % BN;
+    double v = 0.0;
+    if (t < T)
+      v = row < 2 ? two_pi * times[((size_t)row * P + p) * T + t]
+                  : scales[((size_t)(row - 2) * P + p) * T + t];
+    rows[e] = v;
+  }
+
+  double acc[FM][FN][4];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0;
+
+  // Roles, fixed for the whole loop. Copies: the thread's stage column aj
+  // (harmonic slot a_slot, cos or sin) for rows tid / KC + (THREADS / KC) i.
+  // Basis: slot bu for TOAs tid / NSL + (THREADS / NSL) i.
   const int aj = tid % KC;
   const int a_slot = aj / (2 * NH) * NH + aj % NH;
   const bool a_sin = aj % (2 * NH) >= NH;
   const int a_pos = p64_col<VEC>(aj);
-  const double two_pi = 6.28318530717958647692;
-
-  const int nx = (R + BM - 1) / BM, ny = (T + BN - 1) / BN;
+  const int bu = tid % NSL;
+  const int b_cos = p64_col<VEC>(bu / NH * 2 * NH + bu % NH);
+  const int b_sin = p64_col<VEC>(bu / NH * 2 * NH + NH + bu % NH);
+  const double* __restrict__ coef_p = coef + (size_t)p * K;
+  const size_t coef_r = (size_t)P * K;
   const int nq = (K / 2 + NSL - 1) / NSL;       // stages of the contraction
-  const int npanel = (nq + pst - 1) / pst;
-  for (int item = blockIdx.x; item < ny * rows; item += gridDim.x) {
-    const int z = item / ny, t0 = item % ny * BN;
-    const bool is_loc = z < nloc;
-    const int P = is_loc ? loc.P : full.P, p = is_loc ? z : z - nloc;
-    const double* __restrict__ base = is_loc ? loc.base : full.base;
-    const double* __restrict__ coef = is_loc ? loc.coef : full.coef;
-    const double* __restrict__ times = is_loc ? loc.times : full.times;
-    const double* __restrict__ scales = is_loc ? loc.scales : full.scales;
-    double* __restrict__ out = is_loc ? res_l : res_f;
-    const double* __restrict__ coef_p = coef + (size_t)p * K;
-    const size_t coef_r = (size_t)P * K;
-    if (nq == 0) {
-      // no GP column: res = base
-      for (int e = tid; e < R * BN; e += THREADS) {
-        const int r = e / BN, t = t0 + e % BN;
-        const size_t ix = ((size_t)r * P + p) * T + t;
-        if (t < T) out[ix] = base[ix];
-      }
-      continue;
-    }
-    for (int pan = 0; pan < npanel; ++pan) {
-      const int q0 = pan * pst;                 // the panel's first stage
-      const int pq = min(pst, nq - q0);         // ... and its stages
-      const int nstage = nx * pq;               // stages walked: tiles x pq
-      // the coef column the thread copies in stage g of the walk, or -1
-      // past the last slot
-      auto source_col = [&](int gs) {
-        int s = 0, n = 0;
-        walk(st, s, n, (q0 + gs % pq) * NSL + a_slot);
-        return s < st.n ? st.k0[s] + (a_sin ? st.nbin[s] : 0) + n : -1;
-      };
-      auto copy = [&](int gs) {
-        double* dst = As + gs % STAGES * BM * LDA;
-        const int col = source_col(gs), r0 = gs / pq * BM;
-#pragma unroll
-        for (int i = 0; i < A_ITEMS; ++i) {
-          const int m = tid / KC + THREADS / KC * i, r = r0 + m;
-          const bool ok = col >= 0 && r < R;
-          cp_async8(dst + m * LDA + a_pos,
-                    ok ? coef_p + r * coef_r + col : coef, ok);
-        }
-      };
-      __syncthreads();   // the last panel's readers are done with the ring
-                         // and the basis
-      // the ring's first stages, in flight while the basis is built
-#pragma unroll
-      for (int gs = 0; gs < AHEAD; ++gs) {
-        if (gs < nstage) copy(gs);
-        cp_async_commit();
-      }
-      // the basis panel: slot u of the panel at TOA t
-      const int nsl = pq * NSL;
-      for (int e = tid; e < BN * nsl; e += THREADS) {
-        const int u = e % nsl, t = e / nsl, tg = t0 + t;
-        int s = 0, n = 0;
-        walk(st, s, n, q0 * NSL + u);
-        double bc = 0.0, bs = 0.0;
-        if (s < st.n && tg < T) {
-          const double ph =
-              two_pi * times[((size_t)st.tcol[s] * P + p) * T + tg] *
-              (double)(n + 1);
-          double sn, cs;
-          sincos(ph, &sn, &cs);
-          const double sv = scales[((size_t)st.scol[s] * P + p) * T + tg];
-          bc = cs * sv;
-          bs = sn * sv;
-        }
-        const int c = u / NSL * KC + u % NSL / NH * 2 * NH + u % NH;
-        Bs[t * LDB + p64_col<VEC>(c)] = bc;
-        Bs[t * LDB + p64_col<VEC>(c + NH)] = bs;
-      }
-      cp_async_wait<AHEAD - 1>();
-      __syncthreads();
 
-      double acc[FM][FN][4];
-      for (int gs = 0; gs < nstage; ++gs) {
-        const int q = gs % pq, r0 = gs / pq * BM;
-        if (gs + AHEAD < nstage) copy(gs + AHEAD);
-        cp_async_commit();
-        if (q == 0) {
-          // the accumulators start at base (at the residuals so far past
-          // the first panel); the next tile's base into L2
-          const double* __restrict__ from = pan == 0 ? base : out;
+  // the coef column the thread copies in the stage whose first slot is
+  // (s, n), or -1 past the last slot
+  auto source_col = [&](int s, int n) {
+    walk(st, s, n, a_slot);
+    return s < st.n ? st.k0[s] + (a_sin ? st.nbin[s] : 0) + n : -1;
+  };
+  auto copy = [&](double* dst, int col, int i) {
+    const int m = tid / KC + THREADS / KC * i, r = r0 + m;
+    const bool ok = col >= 0 && r < R;
+    cp_async8(dst + m * LD + a_pos, ok ? coef_p + r * coef_r + col : coef,
+              ok);
+  };
+  // the thread's basis slot in the stage whose first slot is (s, n): its
+  // time row, scale row and harmonic number; live = 0 past the last slot
+  struct Slot {
+    int trow, srow;
+    double hn;
+    bool live;
+  };
+  auto basis_slot = [&](int s, int n) {
+    walk(st, s, n, bu);
+    const bool live = s < st.n;
+    return Slot{live ? st.tcol[s] : 0, 2 + (live ? st.scol[s] : 0),
+                (double)(n + 1), live};
+  };
+  auto build = [&](double* dst, const Slot& sl, int i) {
+    const int t = tid / NSL + THREADS / NSL * i;
+    double bc = 0.0, bs = 0.0;
+    if (sl.live && t0 + t < T) {
+      const double ph = rows[sl.trow * BN + t] * sl.hn;
+      double sn, cs;
+      sincos(ph, &sn, &cs);
+      const double sv = rows[sl.srow * BN + t];
+      bc = cs * sv;
+      bs = sn * sv;
+    }
+    dst[t * LD + b_cos] = bc;
+    dst[t * LD + b_sin] = bs;
+  };
+
+  // prologue: the copies of the first AHEAD stages, the basis of stage 0
+  int sa = 0, na = 0;   // the first slot of the next stage to copy
+  int sb = 0, nb = 0;   // ... and to build (block-uniform)
+  __syncthreads();      // the rows
 #pragma unroll
-          for (int i = 0; i < FM; ++i)
+  for (int q = 0; q < AHEAD; ++q) {
+    if (q < nq) {
+      const int col = source_col(sa, na);
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int r = r0 + (wm * FM + i) * 16 + g + 8 * h;
+      for (int i = 0; i < A_ITEMS; ++i) copy(As + q * BM * LD, col, i);
+    }
+    cp_async_commit();
+    walk(st, sa, na, NSL);
+  }
+  if (nq > 0) {
+    const Slot sl = basis_slot(sb, nb);
 #pragma unroll
-              for (int j = 0; j < FN; ++j) {
-                const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
-                const size_t ix = ((size_t)r * P + p) * T + t;
-                acc[i][j][2 * h] = r < R && t < T ? from[ix] : 0.0;
-                acc[i][j][2 * h + 1] = r < R && t + 1 < T ? from[ix + 1]
-                                                          : 0.0;
-              }
-            }
-          if (pan == 0 && tid < BM && r0 + BM + tid < R) {
-            const double* row =
-                base + ((size_t)(r0 + BM + tid) * P + p) * T + t0;
-            const int tn = min(BN, T - t0);
-            for (int c = 0; c < tn; c += 16) prefetch_l2(row + c);
-            prefetch_l2(row + tn - 1);
-          }
-        }
-        const double* A = As + gs % STAGES * BM * LDA;
-        const double* B = Bs + q * KC;
+    for (int i = 0; i < B_ITEMS; ++i) build(Bs, sl, i);
+  }
+  walk(st, sb, nb, NSL);
+  cp_async_wait<AHEAD - 1>();
+  __syncthreads();
+
+  for (int q = 0; q < nq; ++q) {
+    const double* A = As + q % STAGES * BM * LD;
+    const double* B = Bs + (q & 1) * BN * LD;
+    double* An = As + (q + AHEAD) % STAGES * BM * LD;
+    double* Bn = Bs + ((q + 1) & 1) * BN * LD;
+    const bool copying = q + AHEAD < nq, building = q + 1 < nq;
+    const int col = copying ? source_col(sa, na) : -1;
+    const Slot sl = basis_slot(sb, nb);
 #pragma unroll
-        for (int ks = 0; ks < KSTEPS; ++ks) {
-          double b[FN][2];
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      if (copying) {
 #pragma unroll
-          for (int j = 0; j < FN; ++j) {
-            const double* x = B + ((wn * FN + j) * 8 + g) * LDB + ks * 8 +
-                              (VEC ? 2 * k4 : k4);
-            if (VEC) {
-              const double2 v = *reinterpret_cast<const double2*>(x);
-              b[j][0] = v.x;
-              b[j][1] = v.y;
-            } else {
-              b[j][0] = x[0];
-              b[j][1] = x[4];
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < FM; ++i) {
-            const double* x = A + ((wm * FM + i) * 16 + g) * LDA + ks * 8 +
-                              (VEC ? 2 * k4 : k4);
-            double a[4];
-            if (VEC) {
-              const double2 u = *reinterpret_cast<const double2*>(x);
-              const double2 v =
-                  *reinterpret_cast<const double2*>(x + 8 * LDA);
-              a[0] = u.x;
-              a[1] = v.x;
-              a[2] = u.y;
-              a[3] = v.y;
-            } else {
-              a[0] = x[0];
-              a[1] = x[8 * LDA];
-              a[2] = x[4];
-              a[3] = x[8 * LDA + 4];
-            }
-#pragma unroll
-            for (int j = 0; j < FN; ++j) dmma(acc[i][j], a, b[j][0], b[j][1]);
-          }
-        }
-        if (q == pq - 1) {
-          // res = base + coef B (so far), from the fragments
-#pragma unroll
-          for (int i = 0; i < FM; ++i)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int r = r0 + (wm * FM + i) * 16 + g + 8 * h;
-              if (r >= R) continue;
-#pragma unroll
-              for (int j = 0; j < FN; ++j) {
-                const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
-                const size_t ix = ((size_t)r * P + p) * T + t;
-                if (t < T) out[ix] = acc[i][j][2 * h];
-                if (t + 1 < T) out[ix + 1] = acc[i][j][2 * h + 1];
-              }
-            }
-        }
-        cp_async_wait<AHEAD - 1>();
-        __syncthreads();
+        for (int i = ks; i < A_ITEMS; i += KSTEPS) copy(An, col, i);
       }
+      double b[FN][2];
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const double* x = B + ((wn * FN + j) * 8 + g) * LD + ks * 8 +
+                          (VEC ? 2 * k4 : k4);
+        if (VEC) {
+          const double2 v = *reinterpret_cast<const double2*>(x);
+          b[j][0] = v.x;
+          b[j][1] = v.y;
+        } else {
+          b[j][0] = x[0];
+          b[j][1] = x[4];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        const double* x = A + ((wm * FM + i) * 16 + g) * LD + ks * 8 +
+                          (VEC ? 2 * k4 : k4);
+        double a[4];
+        if (VEC) {
+          const double2 u = *reinterpret_cast<const double2*>(x);
+          const double2 v = *reinterpret_cast<const double2*>(x + 8 * LD);
+          a[0] = u.x;
+          a[1] = v.x;
+          a[2] = u.y;
+          a[3] = v.y;
+        } else {
+          a[0] = x[0];
+          a[1] = x[8 * LD];
+          a[2] = x[4];
+          a[3] = x[8 * LD + 4];
+        }
+#pragma unroll
+        for (int j = 0; j < FN; ++j) dmma(acc[i][j], a, b[j][0], b[j][1]);
+      }
+      if (building) {
+#pragma unroll
+        for (int i = ks; i < B_ITEMS; i += KSTEPS) build(Bn, sl, i);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<AHEAD - 1>();
+    __syncthreads();
+    walk(st, sa, na, NSL);
+    walk(st, sb, nb, NSL);
+  }
+
+  // epilogue: the accumulators to [BM][LDC] in the coef ring's room
+  // (16-byte stores, a quarter-warp on 32 banks), then res = base + acc row
+  // by row, consecutive threads on consecutive TOAs
+  double* Cs = As;
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < FN; ++j) {
+        const int m = (wm * FM + i) * 16 + g + 8 * h;
+        const int c = (wn * FN + j) * 8 + 2 * k4;
+        *reinterpret_cast<double2*>(Cs + m * P64_LDC(BN) + c) =
+            make_double2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+  __syncthreads();
+  for (int e = tid; e < BM * BN; e += THREADS) {
+    const int m = e / BN, c = e % BN;
+    const int r = r0 + m, t = t0 + c;
+    if (r < R && t < T) {
+      const size_t o = ((size_t)r * P + p) * T + t;
+      out[o] = base[o] + Cs[m * P64_LDC(BN) + c];
     }
   }
 }
 
-// The float64 kernel's tile, (BM, BN, WGM, WARPS, KC, STAGES, VEC)
-// (ops/megakernel.py::PROJ_TILE_F64 and PROJ_F64_*): 64 realizations x 64
-// TOAs, 8 warps of 2 x 2 fragments, 32 columns a stage, a ring of 3
-// stages, 16-byte fragment loads (tools/f64_kernel_variants.py builds the
-// other steps and tiles as patched copies)
-#define FPT_PROJ_F64_TILES(X) X(64, 64, 2, 8, 32, 3, true)
+// The float64 kernel's block tile, (BM, BN, WGM, WARPS, KC, STAGES, MINB,
+// VEC) (ops/megakernel.py::PROJ_TILE_F64 and PROJ_F64_*): 128 x 64, 8 warps
+// of 2 x 4 fragments, 32 columns a stage, a 2-stage coef ring and 8-byte
+// fragment loads, so two blocks share an SM and each hides the other's
+// copies and sincos (tools/f64_kernel_variants.py builds the other steps
+// and tiles as patched copies)
+#define FPT_PROJ_F64_TILES(X) X(64, 64, 2, 8, 32, 3, 2, false)
 
 int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
-                 double* res_l, double* res_f, int R, int T, int K,
+                 double* res_l, double* res_f, int R, int T, int K, int S,
                  int shared, int bm, int bn, int wgm, cudaStream_t stream) {
   const Operands<double, double> loc{static_cast<const double*>(ptrs[0]),
                                      static_cast<const double*>(ptrs[1]),
@@ -739,27 +742,19 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
                                       PF};
   const int nloc = shared ? 0 : PL;
   const int rows = nloc + PF;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, V_)                          \
+#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_)                     \
   if (bm == BM_ && bn == BN_ && wgm == WGM_) {                              \
-    const int pst = p64_panel_stages(BM_, BN_, KC_, ST_, V_, K);            \
-    if (pst == 0) return (int)cudaErrorInvalidValue;                        \
     const size_t smem =                                                     \
-        (size_t)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, pst * KC_) *       \
+        (size_t)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, S) *              \
         sizeof(double);                                                     \
-    auto kernel = project_f64_kernel<BM_, BN_, WGM_, W_, KC_, ST_, V_>;     \
-    err = cudaFuncSetAttribute(                                             \
+    auto kernel = project_f64_kernel<BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_>; \
+    cudaError_t err = cudaFuncSetAttribute(                                 \
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
     if (err != cudaSuccess) return (int)err;                                \
-    const long long items = (long long)((T + BN_ - 1) / BN_) * rows;        \
-    if (items == 0) return 0;                                               \
-    const unsigned grid = (unsigned)(items < sms ? items : sms);            \
+    const dim3 grid((unsigned)((R + BM_ - 1) / BM_),                        \
+                    (unsigned)((T + BN_ - 1) / BN_), (unsigned)rows);       \
     kernel<<<grid, 32 * W_, smem, stream>>>(loc, full, st, res_l, res_f, R, \
-                                            T, K, nloc, rows, pst);         \
+                                            T, K, S, nloc);                 \
     return 0;                                                               \
   }
   FPT_PROJ_F64_TILES(FPT_TILE)
@@ -767,14 +762,12 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
   return (int)cudaErrorInvalidValue;
 }
 
-// The shared-memory bytes of the float64 kernel's (bm, bn) tile at K
-// columns, or -1 if it has none
-long long proj_f64_smem(int bm, int bn, int K) {
-#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, V_)                          \
+// The shared-memory bytes of the float64 kernel's (bm, bn) tile with S
+// scale rows, or -1 if it has none
+long long proj_f64_smem(int bm, int bn, int S) {
+#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_)                     \
   if (bm == BM_ && bn == BN_)                                               \
-    return (long long)proj_f64_doubles(                                     \
-               BM_, BN_, KC_, ST_, V_,                                      \
-               p64_panel_stages(BM_, BN_, KC_, ST_, V_, K) * KC_) *         \
+    return (long long)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, S) *         \
            (long long)sizeof(double);
   FPT_PROJ_F64_TILES(FPT_TILE)
 #undef FPT_TILE
@@ -881,17 +874,17 @@ extern "C" int fpt_project_f64(const void* base_l, const void* coef_l,
                 static_cast<float*>(res_f), R, T, K, S, shared, bm, bn, wgm,
                 s)
           : dispatch_f64(ptrs, PL, PF, st, static_cast<double*>(res_l),
-                         static_cast<double*>(res_f), R, T, K, shared, bm, bn,
-                         wgm, s);
+                         static_cast<double*>(res_f), R, T, K, S, shared, bm,
+                         bn, wgm, s);
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 
-// The shared-memory bytes fpt_project_f64 requests for a (bm, bn) tile, S
-// scale rows and K columns (ops/megakernel.py::project_smem must agree).
+// The shared-memory bytes fpt_project_f64 requests for a (bm, bn) tile and
+// S scale rows (ops/megakernel.py::project_smem must agree).
 extern "C" long long fpt_project_f64_smem(int store_bf16, int bm, int bn,
-                                          int S, int K) {
+                                          int S) {
   if (store_bf16)
     return (long long)fpt::proj_floats(bm, bn, S, 2) * (long long)sizeof(float);
-  return fpt::proj_f64_smem(bm, bn, K);
+  return fpt::proj_f64_smem(bm, bn, S);
 }

@@ -39,10 +39,9 @@ both passes).
 On a float64 batch (float64 time and scale tables) the route follows the TPU
 kernel's dtypes, whose ``cdtype`` is the base's: float64 base and
 coefficients (``'f32'``) run pass 1 as ``fpt_project_f64``'s float64 DMMA
-projection (persistent: a block builds the sincos basis of 64 TOAs of a
-pulsar row once and walks every realization tile against it through a
-``cp.async`` coefficient ring, one barrier a stage; :data:`PROJ_TILE_F64`)
-and pass 2
+projection (a pipelined mainloop: a ``cp.async`` coefficient ring, the basis
+built a stage ahead between the k-steps, one barrier a stage;
+:data:`PROJ_TILE_F64`) and pass 2
 as ``fpt_binned_corr_f64``, float64 throughout, with
 float64 curves and autos; bf16 storage runs at float32 as on a float32 batch,
 but its basis is built from the float64 tables at float64 and rounded once to
@@ -90,17 +89,17 @@ PROJ_THREADS = 256
 PROJ_BLOCKS = 2
 NH = 16
 PROJ_LDA = 2 * NH + 4
-#: the float64 projection (FPT_PROJ_F64_TILES), persistent, its basis
-#: resident: its (BM, BN, WGM) tile, warps (a WGM x (8 / WGM) grid), columns
-#: a pipeline stage (KC), the coef ring's stages, blocks per SM, and the
-#: padding of the coef and basis rows in doubles (p64_pad: rows of KC + 8
-#: and of a panel's columns + 8)
+#: the float64 projection (FPT_PROJ_F64_TILES): its (BM, BN, WGM) block
+#: tile, warps (a WGM x (8 / WGM) grid), columns a pipeline stage (KC),
+#: stages of its coef ring (the basis ring has two), blocks per SM, and the
+#: padding of the coef and basis rows in doubles (p64_ld: KC + 4 for
+#: 8-byte fragment loads, KC + 8 for 16-byte ones)
 PROJ_TILE_F64 = (64, 64, 2)
 PROJ_F64_WARPS = 8
 PROJ_F64_KC = 2 * NH
 PROJ_F64_STAGES = 3
-PROJ_F64_BLOCKS = 1
-PROJ_F64_PAD = 8
+PROJ_F64_BLOCKS = 2
+PROJ_F64_PAD = 4
 #: 2 pi rounded to float32: the phase's factor where the TPU kernel's
 #: compute type is float32
 TWO_PI_F32 = float(np.float32(2.0 * np.pi))
@@ -168,9 +167,8 @@ def chunk_bytes_model(nreal: int, npsr: int, ntoa: int, k_coef: int,
 
 class ProjTiling(NamedTuple):
     """The projection's launch shape: BM realizations x BN TOAs of one
-    pulsar row per block (per tile on the persistent float64 kernel, whose
-    blocks walk the tiles), 8 warps in a WGM x (8 / WGM) grid, the tile
-    grid (ceil(R / BM), ceil(T / BN), rows) and the block's shared-memory
+    pulsar row per block, 8 warps in a WGM x (8 / WGM) grid, the grid
+    (ceil(R / BM), ceil(T / BN), rows) and the block's shared-memory
     bytes."""
     bm: int
     bn: int
@@ -179,39 +177,19 @@ class ProjTiling(NamedTuple):
     smem: int
 
 
-def project_f64_panel_stages(bm: int, bn: int, k: int) -> int:
-    """The float64 projection's basis panel, in stages of
-    :data:`PROJ_F64_KC` columns (megakernel.cu's p64_panel_stages): as many
-    as fit beside its coef ring in one block's shared memory, the K columns'
-    stages split evenly over the fewest panels; 0 if not one fits."""
-    kc, pad = PROJ_F64_KC, PROJ_F64_PAD
-    nq = -(-(k // 2) // (kc // 2))
-    room = SMEM_PER_BLOCK // 8 - PROJ_F64_STAGES * bm * (kc + pad)
-    fit = (room // bn - pad) // kc
-    if fit < 1:
-        return 0
-    if nq == 0:
-        return 1
-    npanel = -(-nq // fit)
-    return -(-nq // npanel)
-
-
-def project_smem(bm: int, bn: int, n_scales: int, route: str = "f32",
-                 k: int = 0) -> int:
+def project_smem(bm: int, bn: int, n_scales: int, route: str = "f32") -> int:
     """Shared-memory bytes of a (bm, bn) projection block with
     ``n_scales`` scale rows. ``'f32'`` (megakernel.cu's proj_floats): the
     hi/lo coef and basis tiles, or the epilogue's [bm][bn + 8] accumulator
     tile where that is larger, then the 2 time rows and the scale rows;
     ``'bf16_f64'``: the same with float64 rows; ``'f64'``
-    (proj_f64_doubles): the coef ring's :data:`PROJ_F64_STAGES` float64
-    tiles and the basis panel for ``k`` columns
-    (:func:`project_f64_panel_stages`; the scale rows are read from device
-    memory, so ``n_scales`` does not enter)."""
+    (proj_f64_doubles): the float64 coef ring (:data:`PROJ_F64_STAGES`
+    tiles, or the epilogue's [bm][bn + 8] accumulator tile where that is
+    larger), the basis ring (two tiles) and the rows."""
     if route == "f64":
-        pst = project_f64_panel_stages(bm, bn, k)
-        pad = PROJ_F64_PAD
-        return 8 * (PROJ_F64_STAGES * bm * (PROJ_F64_KC + pad)
-                    + bn * (pst * PROJ_F64_KC + pad))
+        ld = PROJ_F64_KC + PROJ_F64_PAD
+        return 8 * (max(PROJ_F64_STAGES * bm * ld, bm * (bn + 8))
+                    + 2 * bn * ld + (2 + n_scales) * bn)
     kc = 2 * NH
     staging = 2 * bm * PROJ_LDA + 2 * kc * (bn + 8)
     tb = 2 if route == "bf16_f64" else 1
@@ -219,20 +197,18 @@ def project_smem(bm: int, bn: int, n_scales: int, route: str = "f32",
 
 
 def project_tiling(R: int, T: int, rows: int, n_scales: int,
-                   route: str = "f32", k: int = 0) -> ProjTiling:
+                   route: str = "f32") -> ProjTiling:
     """The projection's launch shape for ``rows`` pulsar rows (PF on the
     shared set, PL + PF on the local+full set) on ``route``
     (:func:`_route`): the source's :data:`PROJ_TILE` at
     :data:`PROJ_BLOCKS` blocks per SM (:data:`PROJ_TILE_F64` at
-    :data:`PROJ_F64_BLOCKS` on ``'f64'``, with a basis panel for ``k``
-    columns)."""
+    :data:`PROJ_F64_BLOCKS` on ``'f64'``)."""
     f64 = route == "f64"
     bm, bn, wgm = PROJ_TILE_F64 if f64 else PROJ_TILE
     blocks = PROJ_F64_BLOCKS if f64 else PROJ_BLOCKS
-    smem = project_smem(bm, bn, n_scales, route, k)
+    smem = project_smem(bm, bn, n_scales, route)
     if (smem > SMEM_PER_BLOCK
-            or blocks * (smem + SMEM_RESERVED) > SMEM_PER_SM
-            or (f64 and project_f64_panel_stages(bm, bn, k) == 0)):
+            or blocks * (smem + SMEM_RESERVED) > SMEM_PER_SM):
         raise ValueError(f"{n_scales} scale rows leave no room for "
                          f"{blocks} projection blocks per SM")
     return ProjTiling(bm, bn, wgm, (-(-R // bm), -(-T // bn), rows), smem)
@@ -485,8 +461,7 @@ def _launch_project(base, coef, times, scales, stages, local):
                                            device=base.device)
     if R == 0 or T == 0:
         return res_l, res
-    t = project_tiling(R, T, P if shared else PL + P, S, route,
-                       stage_k(stages))
+    t = project_tiling(R, T, P if shared else PL + P, S, route)
     ints = ctypes.c_int * MAX_STAGES
     lib = _build.load("megakernel")
     stream = torch.cuda.current_stream(base.device).cuda_stream

@@ -2153,13 +2153,13 @@ IPTA_STAGES = (MegaStage(30, T_OWN, 0), MegaStage(30, T_OWN, 1),
                MegaStage(30, T_COMMON, 0))
 STRADDLE_STAGES = (MegaStage(10, T_OWN, 0), MegaStage(3, T_COMMON, 1),
                    MegaStage(20, T_OWN, 1))
-#: K = 660: more stages than one basis panel of the float64 kernel holds
+#: K = 660: 21 stages of 32 columns
 WIDE_STAGES = (MegaStage(100, T_OWN, 0), MegaStage(100, T_OWN, 1),
                MegaStage(100, T_COMMON, 0), MegaStage(30, T_COMMON, 1))
 
-# PROJ_SHAPES and, for the float64 kernel's 64 x 64 tile: R and T not
-# multiples of 64 at each stage set above, on both operand sets, and K =
-# 660 (three basis panels of 7 stages)
+# PROJ_SHAPES and, for the float64 kernel's 128 x 64 tile: R and T not
+# multiples of the tile at each stage set above, on both operand sets, and
+# K = 660
 PROJ_F64_SHAPES = PROJ_SHAPES + [
     (200, 5, 5, 300, NULL_STAGES), (67, 3, 9, 200, NULL_STAGES),
     (130, 7, 7, 130, NG15_STAGES), (129, 2, 6, 257, NG15_STAGES),
@@ -2252,16 +2252,15 @@ def test_project_f64_smem_matches_the_source(cuda):
     on both of its routes."""
     smem = _build.load("megakernel").fpt_project_f64_smem
     smem.restype = ctypes.c_longlong
-    smem.argtypes = [ctypes.c_int] * 5
-    assert smem(0, *mk.PROJ_TILE_F64[:2], 2, 320) == mk.project_tiling(
-        1024, 780, 100, 2, "f64", 320).smem
+    smem.argtypes = [ctypes.c_int] * 4
+    assert smem(0, *mk.PROJ_TILE_F64[:2], 2) == mk.project_tiling(
+        1024, 780, 100, 2, "f64").smem
     for route, tile, bf16 in (("f64", mk.PROJ_TILE_F64, 0),
                               ("bf16_f64", mk.PROJ_TILE, 1)):
         bm, bn, _ = tile
         for n_scales in (1, 2, 5):
-            for k in (22, 210, 320, 660):
-                assert smem(bf16, bm, bn, n_scales, k) == mk.project_smem(
-                    bm, bn, n_scales, route, k)
+            assert smem(bf16, bm, bn, n_scales) == mk.project_smem(
+                bm, bn, n_scales, route)
 
 
 @pytest.mark.cuda

@@ -72,37 +72,36 @@ def test_project_tiling_covers_and_fits(pl, pf):
                                    (25, 130)])
 def test_project_f64_tiling_covers_and_fits(pl, pf):
     """The float64 projection's tile: every (realization, TOA, row) in one
-    tile, no tile empty, the warp grid over the tile, each thread's share
-    of a stage's coefficient copies whole, and the coef ring and basis
-    panel in one block's shared memory at PROJ_F64_BLOCKS blocks an SM: one
-    panel at the flagship's K = 320 (and the null stream's, ng15's and
-    ipta_dr3's K), K = 660 split evenly over the fewest panels, at a ragged
-    R and T."""
+    block, no block empty, the warp grid over the tile, each thread's share
+    of a stage's coefficient copies and basis values whole, and its coef
+    ring, basis ring and rows in one block's shared memory at
+    PROJ_F64_BLOCKS blocks an SM, at the flagship, at a ragged R and T, and
+    at ng15's three scale rows."""
     rows = pf if pl == pf else pl + pf
     bm, bn, wgm = mk.PROJ_TILE_F64
     threads = 32 * mk.PROJ_F64_WARPS
-    kc, pad = mk.PROJ_F64_KC, mk.PROJ_F64_PAD
-    assert kc % (2 * mk.NH) == 0 and mk.PROJ_F64_STAGES >= 3
+    kc, stages = mk.PROJ_F64_KC, mk.PROJ_F64_STAGES
+    ld = kc + mk.PROJ_F64_PAD
+    assert kc % (2 * mk.NH) == 0 and stages >= 2
     assert bm % (16 * wgm) == 0 and bn % (8 * (mk.PROJ_F64_WARPS // wgm)) == 0
     assert threads % kc == 0 and (bm * kc) % threads == 0
-    assert (kc + pad) % 16 == 8
-    for k, panels in ((0, 0), (22, 1), (180, 1), (210, 1), (260, 1),
-                      (320, 1), (660, 3)):
-        nq = -(-(k // 2) // (kc // 2))
-        pst = mk.project_f64_panel_stages(bm, bn, k)
-        assert -(-nq // pst) == panels and (nq == 0 or pst <= nq)
-        for R, T in ((1024, 780), (5, 33), (129, 257)):
-            t = mk.project_tiling(R, T, rows, n_scales=3, route="f64", k=k)
-            (gx, gy, gz) = t.grid
-            assert (t.bm, t.bn, t.wgm) == mk.PROJ_TILE_F64
-            assert gx * t.bm >= R > (gx - 1) * t.bm
-            assert gy * t.bn >= T > (gy - 1) * t.bn
-            assert gz == rows
-            assert t.smem == 8 * (mk.PROJ_F64_STAGES * bm * (kc + pad)
-                                  + bn * (pst * kc + pad))
-            assert t.smem <= bc.SMEM_PER_BLOCK
-            assert mk.PROJ_F64_BLOCKS * (t.smem + bc.SMEM_RESERVED) \
-                <= bc.SMEM_PER_SM
+    assert threads % (kc // 2) == 0 and (bn * kc // 2) % threads == 0
+    assert ld % 16 in (4, 8)
+    for R, T, S in ((1024, 780, 2), (5, 33, 2), (129, 257, 3),
+                    (1024, 512, 3)):
+        t = mk.project_tiling(R, T, rows, n_scales=S, route="f64")
+        (gx, gy, gz) = t.grid
+        assert (t.bm, t.bn, t.wgm) == mk.PROJ_TILE_F64
+        assert gx * t.bm >= R > (gx - 1) * t.bm
+        assert gy * t.bn >= T > (gy - 1) * t.bn
+        assert gz == rows
+        assert t.smem == 8 * (max(stages * bm * ld, bm * (bn + 8))
+                              + 2 * bn * ld + (2 + S) * bn)
+        assert t.smem <= bc.SMEM_PER_BLOCK
+        assert mk.PROJ_F64_BLOCKS * (t.smem + bc.SMEM_RESERVED) \
+            <= bc.SMEM_PER_SM
+    with pytest.raises(ValueError):
+        mk.project_tiling(1024, 780, rows, n_scales=40, route="f64")
 
 
 @pytest.mark.parametrize("stages", [

@@ -26,15 +26,18 @@ and a 2-shard mesh's local+full set:
 - ``shipped``; ``no_sincos``: the basis from the phase without sincos (cos
   = 1 - phase, sin = phase); ``no_products``: no DMMA, as above;
   ``no_copies``: no coefficient read (the copies zero-fill their tiles);
-- the design steps of the basis-resident kernel, each the shipped source
-  with another ``FPT_PROJ_F64_TILES`` entry (BM, BN, WGM, warps, KC, ring
-  stages, 16-byte fragment loads): ``warps4`` (4 warps of 2 x 4
-  fragments), ``novec`` (8-byte fragment loads), ``tile_128x64`` (two
-  basis panels at K = 320) and ``tile_128x32``;
-- with ``--parent DIR`` (a checkout, e.g. a ``git archive``, of another
+  ``no_epilogue``: no base read and no residual write (a store that never
+  happens keeps the sums live);
+- the design steps, each the shipped source with another
+  ``FPT_PROJ_F64_TILES`` entry (BM, BN, WGM, warps, KC, coef stages,
+  blocks an SM, 16-byte fragment loads): ``tile_64x64_w4`` (4 warps of
+  2 x 4 fragments), ``tile_64x64_s2`` (a 2-stage ring), ``tile_64x128``
+  and ``tile_128x64_b1`` (one block an SM);
+- with ``--parent DIR`` (a checkout, e.g. a ``git archive``, of the PR 25
   commit), that commit's ``megakernel.cu`` as ``parent`` and its
   ``parent_no_sincos`` / ``parent_no_products``, launched at its own
-  128 x 64 tile.
+  128 x 64 tile; with ``--also NAME=DIR:BM,BN,WGM`` (repeatable) another
+  commit's ``megakernel.cu`` as ``NAME`` at its (BM, BN, WGM) tile.
 
 Each unpatched variant is held to ``project_plain`` within 1e-12 of the
 residual scale first; the patched ones are wrong by construction and only
@@ -53,17 +56,18 @@ from pathlib import Path
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-SINCOS = ("sincos(ph, &sn, &cs);", "sn = ph;\n          cs = 1.0 - sn;")
+SINCOS = ("sincos(ph, &sn, &cs);", "sn = ph;\n      cs = 1.0 - sn;")
 PRODUCTS = ("dmma(acc[i][j], a, b[j][0], b[j][1]);",
             "acc[i][j][0] += a[0] * b[j][0] + a[3] * b[j][1];")
-TILE_LINE = "#define FPT_PROJ_F64_TILES(X) X(64, 64, 2, 8, 32, 3, true)"
+TILE_LINE = ("#define FPT_PROJ_F64_TILES(X) X(64, 64, 2, 8, 32, 3, 2, "
+             "false)")
 
-#: the design steps and tiles: (BM, BN, WGM, warps, KC, ring stages,
-#: 16-byte loads)
-TILES = {"warps4": (64, 64, 2, 4, 32, 3, True),
-         "novec": (64, 64, 2, 8, 32, 3, False),
-         "tile_128x64": (128, 64, 4, 8, 32, 3, True),
-         "tile_128x32": (128, 32, 4, 8, 32, 3, True)}
+#: the design steps and tiles: (BM, BN, WGM, warps, KC, coef stages,
+#: blocks an SM, 16-byte loads)
+TILES = {"tile_64x64_w4": (64, 64, 2, 4, 32, 3, 2, False),
+         "tile_64x64_s2": (64, 64, 2, 8, 32, 2, 2, False),
+         "tile_64x128": (64, 128, 2, 8, 32, 2, 1, True),
+         "tile_128x64_b1": (128, 64, 4, 8, 32, 3, 1, True)}
 
 PATCHES = {
     "binned_corr": {
@@ -79,8 +83,11 @@ PATCHES = {
     },
     "megakernel": dict(
         no_sincos=[SINCOS], no_products=[PRODUCTS],
-        no_copies=[("ok ? coef_p + r * coef_r + col : coef, ok);",
-                    "coef, false);")],
+        no_copies=[("    const bool ok = col >= 0 && r < R;\n    cp_async8(",
+                    "    const bool ok = false;\n    cp_async8(")],
+        no_epilogue=[("      out[o] = base[o] + Cs[m * P64_LDC(BN) + c];",
+                      "      if (Cs[m * P64_LDC(BN) + c] == 1.5e300) "
+                      "out[o] = 0.0;")],
         **{name: [(TILE_LINE, "#define FPT_PROJ_F64_TILES(X) X("
                    + ", ".join(str(v).lower() for v in tile) + ")")]
            for name, tile in TILES.items()}),
@@ -99,6 +106,8 @@ PARENT_PATCHES = {
                       "+ a[i][3] * b[j][1];")],
 }
 PARENT_TILE = (128, 64, 4)
+#: --also NAME=DIR:BM,BN,WGM: another commit's megakernel.cu and its tile
+ALSO = {}
 
 
 def launch_shape(variant: str) -> dict:
@@ -115,10 +124,17 @@ def launch_shape(variant: str) -> dict:
                                       + (2 + n_scales) * bn))
         return {"project_tiling": tiling}
     if variant in TILES:
-        bm, bn, wgm, warps, kc, stages, vec = TILES[variant]
+        bm, bn, wgm, warps, kc, stages, blocks, vec = TILES[variant]
         return {"PROJ_TILE_F64": (bm, bn, wgm), "PROJ_F64_WARPS": warps,
                 "PROJ_F64_KC": kc, "PROJ_F64_STAGES": stages,
-                "PROJ_F64_PAD": 8 if vec else 4}
+                "PROJ_F64_BLOCKS": blocks, "PROJ_F64_PAD": 8 if vec else 4}
+    if variant in ALSO:
+        bm, bn, wgm = ALSO[variant][1]
+
+        def tiling(R, T, rows, n_scales, route="f32", k=0):
+            return mk.ProjTiling(bm, bn, wgm, (-(-R // bm), -(-T // bn),
+                                               rows), 0)
+        return {"project_tiling": tiling}
     return {}
 
 
@@ -143,6 +159,10 @@ def build_variants(libs_wanted, parent) -> dict:
         paths[(lib, "shipped")] = _build.library_path(lib)
         for name, patches in PATCHES[lib].items():
             sources[(lib, name)] = patched(src, patches, f"{lib} {name}")
+    for name, (path, _) in ALSO.items():
+        sources[("megakernel", name)] = (Path(path) / "fakepta_tpu_torch"
+                                         / "csrc" / "megakernel.cu"
+                                         ).read_text()
     if parent is not None and "megakernel" in libs_wanted:
         src = (Path(parent) / "fakepta_tpu_torch" / "csrc"
                / "megakernel.cu").read_text()
@@ -179,7 +199,15 @@ def main() -> int:
     ap.add_argument("--only", choices=("corr", "project"))
     ap.add_argument("--parent", help="a checkout of another commit whose "
                     "megakernel.cu is timed beside this one")
+    ap.add_argument("--also", action="append", default=[],
+                    metavar="NAME=DIR:BM,BN,WGM", help="another commit's "
+                    "megakernel.cu, timed as NAME at its (BM, BN, WGM) "
+                    "float64 tile")
     args = ap.parse_args()
+    for spec in args.also:
+        name, rest = spec.split("=", 1)
+        path, tile = rest.rsplit(":", 1)
+        ALSO[name] = (path, tuple(int(x) for x in tile.split(",")))
     if not torch.cuda.is_available():
         print("f64_kernel_variants: no CUDA device is available",
               file=sys.stderr)
