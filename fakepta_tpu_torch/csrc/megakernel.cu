@@ -494,7 +494,7 @@ __device__ __forceinline__ int p64_col(int c) {
 // [m][k]); B[k][n] is column k's basis value at TOA n (the basis ring,
 // [n][k]).
 template <int BM, int BN, int WGM, int WARPS, int KC, int STAGES, int MINB,
-          bool VEC>
+          bool VEC, bool ILV, bool EPI>
 __global__ void __launch_bounds__(32 * WARPS, MINB)
 project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
                    Stages st, double* __restrict__ res_l,
@@ -547,13 +547,22 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
     rows[e] = v;
   }
 
+  // the accumulators start at 0 (EPI: base is added in the epilogue) or at
+  // base
   double acc[FM][FN][4];
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + (wm * FM + i) * 16 + g + 8 * h;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0;
+      for (int j = 0; j < FN; ++j) {
+        const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
+        const size_t o = ((size_t)r * P + p) * T + t;
+        acc[i][j][2 * h] = !EPI && r < R && t < T ? base[o] : 0.0;
+        acc[i][j][2 * h + 1] = !EPI && r < R && t + 1 < T ? base[o + 1] : 0.0;
+      }
+    }
 
   // Roles, fixed for the whole loop. Copies: the thread's stage column aj
   // (harmonic slot a_slot, cos or sin) for rows tid / KC + (THREADS / KC) i.
@@ -681,10 +690,14 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
 #pragma unroll
         for (int j = 0; j < FN; ++j) dmma(acc[i][j], a, b[j][0], b[j][1]);
       }
-      if (building) {
+      if (ILV && building) {
 #pragma unroll
         for (int i = ks; i < B_ITEMS; i += KSTEPS) build(Bn, sl, i);
       }
+    }
+    if (!ILV && building) {
+#pragma unroll
+      for (int i = 0; i < B_ITEMS; ++i) build(Bn, sl, i);
     }
     cp_async_commit();
     cp_async_wait<AHEAD - 1>();
@@ -693,6 +706,24 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
     walk(st, sb, nb, NSL);
   }
 
+  if (!EPI) {
+    // epilogue: res = base + coef B from the fragments
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + (wm * FM + i) * 16 + g + 8 * h;
+        if (r >= R) continue;
+#pragma unroll
+        for (int j = 0; j < FN; ++j) {
+          const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
+          const size_t o = ((size_t)r * P + p) * T + t;
+          if (t < T) out[o] = acc[i][j][2 * h];
+          if (t + 1 < T) out[o + 1] = acc[i][j][2 * h + 1];
+        }
+      }
+    return;
+  }
   // epilogue: the accumulators to [BM][LDC] in the coef ring's room
   // (16-byte stores, a quarter-warp on 32 banks), then res = base + acc row
   // by row, consecutive threads on consecutive TOAs
@@ -725,7 +756,7 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
 // fragment loads, so two blocks share an SM and each hides the other's
 // copies and sincos (tools/f64_kernel_variants.py builds the other steps
 // and tiles as patched copies)
-#define FPT_PROJ_F64_TILES(X) X(64, 64, 2, 8, 32, 3, 2, false)
+#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 32, 2, 2, false, false, true)
 
 int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
                  double* res_l, double* res_f, int R, int T, int K, int S,
@@ -742,12 +773,13 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
                                       PF};
   const int nloc = shared ? 0 : PL;
   const int rows = nloc + PF;
-#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_)                     \
+#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_, I_, E_)             \
   if (bm == BM_ && bn == BN_ && wgm == WGM_) {                              \
     const size_t smem =                                                     \
         (size_t)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, S) *              \
         sizeof(double);                                                     \
-    auto kernel = project_f64_kernel<BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_>; \
+    auto kernel =                                                           \
+        project_f64_kernel<BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_, I_, E_>;  \
     cudaError_t err = cudaFuncSetAttribute(                                 \
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
     if (err != cudaSuccess) return (int)err;                                \
@@ -765,7 +797,7 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
 // The shared-memory bytes of the float64 kernel's (bm, bn) tile with S
 // scale rows, or -1 if it has none
 long long proj_f64_smem(int bm, int bn, int S) {
-#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_)                     \
+#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_, I_, E_)             \
   if (bm == BM_ && bn == BN_)                                               \
     return (long long)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, S) *         \
            (long long)sizeof(double);

@@ -94,10 +94,10 @@ PROJ_LDA = 2 * NH + 4
 #: stages of its coef ring (the basis ring has two), blocks per SM, and the
 #: padding of the coef and basis rows in doubles (p64_ld: KC + 4 for
 #: 8-byte fragment loads, KC + 8 for 16-byte ones)
-PROJ_TILE_F64 = (64, 64, 2)
+PROJ_TILE_F64 = (128, 64, 4)
 PROJ_F64_WARPS = 8
 PROJ_F64_KC = 2 * NH
-PROJ_F64_STAGES = 3
+PROJ_F64_STAGES = 2
 PROJ_F64_BLOCKS = 2
 PROJ_F64_PAD = 4
 #: 2 pi rounded to float32: the phase's factor where the TPU kernel's

@@ -101,7 +101,7 @@ def test_project_f64_tiling_covers_and_fits(pl, pf):
         assert mk.PROJ_F64_BLOCKS * (t.smem + bc.SMEM_RESERVED) \
             <= bc.SMEM_PER_SM
     with pytest.raises(ValueError):
-        mk.project_tiling(1024, 780, rows, n_scales=40, route="f64")
+        mk.project_tiling(1024, 780, rows, n_scales=400, route="f64")
 
 
 @pytest.mark.parametrize("stages", [

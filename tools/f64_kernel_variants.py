@@ -27,12 +27,16 @@ and a 2-shard mesh's local+full set:
   = 1 - phase, sin = phase); ``no_products``: no DMMA, as above;
   ``no_copies``: no coefficient read (the copies zero-fill their tiles);
   ``no_epilogue``: no base read and no residual write (a store that never
-  happens keeps the sums live);
+  happens keeps the sums live); ``no_base``: no base read; ``skeleton``:
+  no sincos, products or copies; ``skeleton_no_epilogue``: nor the
+  epilogue; ``products_only``: no sincos, copies or epilogue;
 - the design steps, each the shipped source with another
   ``FPT_PROJ_F64_TILES`` entry (BM, BN, WGM, warps, KC, coef stages,
-  blocks an SM, 16-byte fragment loads): ``tile_64x64_w4`` (4 warps of
-  2 x 4 fragments), ``tile_64x64_s2`` (a 2-stage ring), ``tile_64x128``
-  and ``tile_128x64_b1`` (one block an SM);
+  blocks an SM, 16-byte fragment loads, the basis built between the
+  k-steps, the epilogue through shared memory): ``fragment_epilogue``,
+  ``interleaved``, ``tile_64x64`` and ``tile_64x64_ilv`` (8 warps of
+  2 x 2), ``tile_128x64_b1`` (a 3-stage ring, one block an SM) and
+  ``tile_128x128_b1`` (4 x 4 fragments);
 - with ``--parent DIR`` (a checkout, e.g. a ``git archive``, of the PR 25
   commit), that commit's ``megakernel.cu`` as ``parent`` and its
   ``parent_no_sincos`` / ``parent_no_products``, launched at its own
@@ -59,15 +63,23 @@ sys.path.insert(0, HERE)
 SINCOS = ("sincos(ph, &sn, &cs);", "sn = ph;\n      cs = 1.0 - sn;")
 PRODUCTS = ("dmma(acc[i][j], a, b[j][0], b[j][1]);",
             "acc[i][j][0] += a[0] * b[j][0] + a[3] * b[j][1];")
-TILE_LINE = ("#define FPT_PROJ_F64_TILES(X) X(64, 64, 2, 8, 32, 3, 2, "
-             "false)")
+COPIES = ("    const bool ok = col >= 0 && r < R;\n    cp_async8(",
+          "    const bool ok = false;\n    cp_async8(")
+EPILOGUE = ("      out[o] = base[o] + Cs[m * P64_LDC(BN) + c];",
+            "      if (Cs[m * P64_LDC(BN) + c] == 1.5e300) out[o] = 0.0;")
+TILE_LINE = ("#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 32, 2, 2, "
+             "false, false, true)")
 
 #: the design steps and tiles: (BM, BN, WGM, warps, KC, coef stages,
-#: blocks an SM, 16-byte loads)
-TILES = {"tile_64x64_w4": (64, 64, 2, 4, 32, 3, 2, False),
-         "tile_64x64_s2": (64, 64, 2, 8, 32, 2, 2, False),
-         "tile_64x128": (64, 128, 2, 8, 32, 2, 1, True),
-         "tile_128x64_b1": (128, 64, 4, 8, 32, 3, 1, True)}
+#: blocks an SM, 16-byte loads, basis built between the k-steps, epilogue
+#: through shared memory)
+TILES = {
+    "fragment_epilogue": (128, 64, 4, 8, 32, 2, 2, False, False, False),
+    "interleaved": (128, 64, 4, 8, 32, 2, 2, False, True, True),
+    "tile_64x64": (64, 64, 2, 8, 32, 3, 2, False, False, True),
+    "tile_64x64_ilv": (64, 64, 2, 8, 32, 3, 2, False, True, True),
+    "tile_128x64_b1": (128, 64, 4, 8, 32, 3, 1, True, False, True),
+    "tile_128x128_b1": (128, 128, 2, 8, 32, 2, 1, True, False, True)}
 
 PATCHES = {
     "binned_corr": {
@@ -83,11 +95,13 @@ PATCHES = {
     },
     "megakernel": dict(
         no_sincos=[SINCOS], no_products=[PRODUCTS],
-        no_copies=[("    const bool ok = col >= 0 && r < R;\n    cp_async8(",
-                    "    const bool ok = false;\n    cp_async8(")],
-        no_epilogue=[("      out[o] = base[o] + Cs[m * P64_LDC(BN) + c];",
-                      "      if (Cs[m * P64_LDC(BN) + c] == 1.5e300) "
-                      "out[o] = 0.0;")],
+        no_copies=[COPIES],
+        no_epilogue=[EPILOGUE],
+        no_base=[("      out[o] = base[o] + Cs[m * P64_LDC(BN) + c];",
+                  "      out[o] = Cs[m * P64_LDC(BN) + c];")],
+        skeleton=[SINCOS, PRODUCTS, COPIES],
+        skeleton_no_epilogue=[SINCOS, PRODUCTS, COPIES, EPILOGUE],
+        products_only=[SINCOS, COPIES, EPILOGUE],
         **{name: [(TILE_LINE, "#define FPT_PROJ_F64_TILES(X) X("
                    + ", ".join(str(v).lower() for v in tile) + ")")]
            for name, tile in TILES.items()}),
@@ -124,7 +138,7 @@ def launch_shape(variant: str) -> dict:
                                       + (2 + n_scales) * bn))
         return {"project_tiling": tiling}
     if variant in TILES:
-        bm, bn, wgm, warps, kc, stages, blocks, vec = TILES[variant]
+        bm, bn, wgm, warps, kc, stages, blocks, vec = TILES[variant][:8]
         return {"PROJ_TILE_F64": (bm, bn, wgm), "PROJ_F64_WARPS": warps,
                 "PROJ_F64_KC": kc, "PROJ_F64_STAGES": stages,
                 "PROJ_F64_BLOCKS": blocks, "PROJ_F64_PAD": 8 if vec else 4}
