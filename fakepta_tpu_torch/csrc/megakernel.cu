@@ -398,12 +398,12 @@ int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
 // .f64 (DMMA; the m8n8k4 shape runs at half the FP64 tensor cores' rate on
 // an H100, tools/dmma_shapes.py; wgmma has no float64 form).
 //
-// Design: a pipelined mainloop, one barrier a stage.
+// Design: a pipelined mainloop, one barrier a stage (PERF.md, PR 26, has
+// the steps and the designs measured against it).
 //   Blocks. A block takes BM realizations x BN TOAs of one pulsar row
 //     (FPT_PROJ_F64_TILES), WARPS warps in a WGM x (WARPS / WGM) grid each
-//     owning FM x FN m16n8 fragments. The accumulators start at base (its
-//     loads are in flight while the prologue fills the first stages), so
-//     the epilogue only writes them.
+//     owning FM x FN m16n8 fragments, MINB blocks an SM, so that one
+//     block's copies and sincos stand beside another's DMMAs.
 //   Stages. K is consumed KC columns a stage: KC / 32 chunks of NH harmonic
 //     slots each, the chunk's cos columns then its sin columns, the slots
 //     of all stages in order (a stage may straddle GP stages; the last is
@@ -414,16 +414,20 @@ int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
 //     past R and past the last slot), issued STAGES - 1 stages ahead. The
 //     basis tiles ([t][k]) fill a ring of two: the same threads build
 //     stage q + 1 (one float64 sincos of the float64 phase (2 pi t) n gives
-//     the cos and the sin value, times the scale; none past T) while the
-//     DMMAs of stage q run, both interleaved with stage q's k-steps. Stage
-//     q's end waits for the copies of stage q + 1 and meets one
-//     __syncthreads: stage q + STAGES - 1 overwrites the coef slot stage
-//     q - 1 read, stage q + 1 the basis slot.
-//   Shared loads. Row stride LD = KC + 8 (8 mod 16 doubles) with columns k
-//     and k + 4 of every k-step side by side (p64_col), so a lane's a0/a2,
-//     a1/a3 and b0/b1 are one 16-byte load each, a quarter-warp on 32 banks
-//     (VEC; without it LD = KC + 4 and 8-byte loads, a half-warp on 32
-//     banks).
+//     the cos and the sin value, times the scale; none past T) after the
+//     DMMAs of stage q, or between its k-steps (ILV). Stage q's end waits
+//     for the copies of stage q + 1 and meets one __syncthreads: stage
+//     q + STAGES - 1 overwrites the coef slot stage q - 1 read, stage q + 1
+//     the basis slot.
+//   Epilogue (EPI). The accumulators start at 0, go to shared memory in
+//     the coef ring's room, and res = base + acc is formed row by row,
+//     consecutive threads on consecutive TOAs (without EPI they start at
+//     base and are written from the fragments).
+//   Shared loads. Row stride LD = KC + 4 (4 mod 16 doubles): a lane's
+//     fragment loads are 8 bytes, a half-warp on 32 banks; with VEC, KC + 8
+//     (8 mod 16) and columns k and k + 4 of every k-step side by side
+//     (p64_col), so a lane's a0/a2, a1/a3 and b0/b1 are one 16-byte load
+//     each, a quarter-warp on 32 banks.
 // Every sum runs in a fixed order: reruns are bit-identical.
 
 constexpr int P64_BSTAGES = 2;   // basis ring
@@ -751,11 +755,12 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
 }
 
 // The float64 kernel's block tile, (BM, BN, WGM, WARPS, KC, STAGES, MINB,
-// VEC) (ops/megakernel.py::PROJ_TILE_F64 and PROJ_F64_*): 128 x 64, 8 warps
-// of 2 x 4 fragments, 32 columns a stage, a 2-stage coef ring and 8-byte
-// fragment loads, so two blocks share an SM and each hides the other's
-// copies and sincos (tools/f64_kernel_variants.py builds the other steps
-// and tiles as patched copies)
+// VEC, ILV, EPI) (ops/megakernel.py::PROJ_TILE_F64 and PROJ_F64_*): 128 x
+// 64, 8 warps of 2 x 4 fragments, 32 columns a stage, a 2-stage coef ring
+// and 8-byte fragment loads, so that two blocks share an SM; the basis
+// built after each stage's DMMAs; the epilogue through shared memory
+// (tools/f64_kernel_variants.py builds the other settings as patched
+// copies)
 #define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 32, 2, 2, false, false, true)
 
 int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
