@@ -415,26 +415,22 @@ int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
 //     basis tiles ([t][k]) fill a ring of two: the same threads build
 //     stage q + 1 (one float64 sincos of the float64 phase (2 pi t) n gives
 //     the cos and the sin value, times the scale; none past T) after the
-//     DMMAs of stage q, or between its k-steps (ILV). Stage q's end waits
-//     for the copies of stage q + 1 and meets one __syncthreads: stage
+//     DMMAs of stage q (built between the k-steps it kept more registers
+//     live, which spill at two blocks an SM). Stage q's end waits for the
+//     copies of stage q + 1 and meets one __syncthreads: stage
 //     q + STAGES - 1 overwrites the coef slot stage q - 1 read, stage q + 1
 //     the basis slot.
-//   Epilogue (EPI). The accumulators start at 0, go to shared memory in
-//     the coef ring's room, and res = base + acc is formed row by row,
-//     consecutive threads on consecutive TOAs (without EPI they start at
-//     base and are written from the fragments).
+//   Epilogue. The accumulators start at 0, go to shared memory in the
+//     coef ring's room, and res = base + acc is formed row by row,
+//     consecutive threads on consecutive TOAs (written from the fragments,
+//     8 bytes a lane, it took 0.3 ms more at the flagship).
 //   Shared loads. Row stride LD = KC + 4 (4 mod 16 doubles): a lane's
-//     fragment loads are 8 bytes, a half-warp on 32 banks; with VEC, KC + 8
-//     (8 mod 16) and columns k and k + 4 of every k-step side by side
-//     (p64_col), so a lane's a0/a2, a1/a3 and b0/b1 are one 16-byte load
-//     each, a quarter-warp on 32 banks.
+//     fragment loads are 8 bytes, a half-warp on 32 banks.
 // Every sum runs in a fixed order: reruns are bit-identical.
 
 constexpr int P64_BSTAGES = 2;   // basis ring
 
-__host__ __device__ constexpr int p64_ld(int kc, bool vec) {
-  return kc + (vec ? 8 : 4);
-}
+__host__ __device__ constexpr int p64_ld(int kc) { return kc + 4; }
 
 // Shared-memory doubles of a float64 block with S scale rows: the coef
 // ring, the basis ring, the time and scale rows.
@@ -443,12 +439,11 @@ __host__ __device__ constexpr int p64_ld(int kc, bool vec) {
 #define P64_LDC(bn) ((bn) + 8)
 
 __host__ __device__ constexpr int proj_f64_doubles(int bm, int bn, int kc,
-                                                   int stages, bool vec,
-                                                   int S) {
-  return (stages * bm * p64_ld(kc, vec) > bm * P64_LDC(bn)
-              ? stages * bm * p64_ld(kc, vec)
+                                                   int stages, int S) {
+  return (stages * bm * p64_ld(kc) > bm * P64_LDC(bn)
+              ? stages * bm * p64_ld(kc)
               : bm * P64_LDC(bn)) +
-         P64_BSTAGES * bn * p64_ld(kc, vec) + (2 + S) * bn;
+         P64_BSTAGES * bn * p64_ld(kc) + (2 + S) * bn;
 }
 
 // c += a b: one m16n8k8 float64 product
@@ -479,15 +474,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The shared-memory column of a stage's column c: with VEC, columns k and
-// k + 4 of each k-step side by side
-template <bool VEC>
-__device__ __forceinline__ int p64_col(int c) {
-  if (!VEC) return c;
-  const int k = c & 7;
-  return (c & ~7) | (k < 4 ? 2 * k : 2 * k - 7);
-}
-
 // Fragment layouts (PTX ISA, m16n8k8 .f64, the .tf32 ones at float64),
 // g = lane >> 2, k = lane & 3:
 //   A (16 x 8, row): a0 (g, k), a1 (g + 8, k), a2 (g, k + 4), a3 (g + 8, k + 4)
@@ -497,8 +483,7 @@ __device__ __forceinline__ int p64_col(int c) {
 // A[m][k] is realization m's coefficient of stage column k (the coef ring,
 // [m][k]); B[k][n] is column k's basis value at TOA n (the basis ring,
 // [n][k]).
-template <int BM, int BN, int WGM, int WARPS, int KC, int STAGES, int MINB,
-          bool VEC, bool ILV, bool EPI>
+template <int BM, int BN, int WGM, int WARPS, int KC, int STAGES, int MINB>
 __global__ void __launch_bounds__(32 * WARPS, MINB)
 project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
                    Stages st, double* __restrict__ res_l,
@@ -507,7 +492,7 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
   constexpr int THREADS = 32 * WARPS, WGN = WARPS / WGM;
   constexpr int FM = BM / (16 * WGM), FN = BN / (8 * WGN);
   constexpr int NSL = KC / 2;                   // harmonic slots a stage
-  constexpr int LD = p64_ld(KC, VEC);
+  constexpr int LD = p64_ld(KC);
   constexpr int KSTEPS = KC / 8;
   constexpr int A_ITEMS = BM * KC / THREADS;    // copies a thread a stage
   constexpr int B_ITEMS = BN * NSL / THREADS;   // sincos a thread a stage
@@ -551,22 +536,13 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
     rows[e] = v;
   }
 
-  // the accumulators start at 0 (EPI: base is added in the epilogue) or at
-  // base
   double acc[FM][FN][4];
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + (wm * FM + i) * 16 + g + 8 * h;
+    for (int j = 0; j < FN; ++j)
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
-        const size_t o = ((size_t)r * P + p) * T + t;
-        acc[i][j][2 * h] = !EPI && r < R && t < T ? base[o] : 0.0;
-        acc[i][j][2 * h + 1] = !EPI && r < R && t + 1 < T ? base[o + 1] : 0.0;
-      }
-    }
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0;
 
   // Roles, fixed for the whole loop. Copies: the thread's stage column aj
   // (harmonic slot a_slot, cos or sin) for rows tid / KC + (THREADS / KC) i.
@@ -574,10 +550,10 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
   const int aj = tid % KC;
   const int a_slot = aj / (2 * NH) * NH + aj % NH;
   const bool a_sin = aj % (2 * NH) >= NH;
-  const int a_pos = p64_col<VEC>(aj);
+  const int a_pos = aj;
   const int bu = tid % NSL;
-  const int b_cos = p64_col<VEC>(bu / NH * 2 * NH + bu % NH);
-  const int b_sin = p64_col<VEC>(bu / NH * 2 * NH + NH + bu % NH);
+  const int b_cos = bu / NH * 2 * NH + bu % NH;
+  const int b_sin = b_cos + NH;
   const double* __restrict__ coef_p = coef + (size_t)p * K;
   const size_t coef_r = (size_t)P * K;
   const int nq = (K / 2 + NSL - 1) / NSL;       // stages of the contraction
@@ -662,44 +638,19 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
       double b[FN][2];
 #pragma unroll
       for (int j = 0; j < FN; ++j) {
-        const double* x = B + ((wn * FN + j) * 8 + g) * LD + ks * 8 +
-                          (VEC ? 2 * k4 : k4);
-        if (VEC) {
-          const double2 v = *reinterpret_cast<const double2*>(x);
-          b[j][0] = v.x;
-          b[j][1] = v.y;
-        } else {
-          b[j][0] = x[0];
-          b[j][1] = x[4];
-        }
+        const double* x = B + ((wn * FN + j) * 8 + g) * LD + ks * 8 + k4;
+        b[j][0] = x[0];
+        b[j][1] = x[4];
       }
 #pragma unroll
       for (int i = 0; i < FM; ++i) {
-        const double* x = A + ((wm * FM + i) * 16 + g) * LD + ks * 8 +
-                          (VEC ? 2 * k4 : k4);
-        double a[4];
-        if (VEC) {
-          const double2 u = *reinterpret_cast<const double2*>(x);
-          const double2 v = *reinterpret_cast<const double2*>(x + 8 * LD);
-          a[0] = u.x;
-          a[1] = v.x;
-          a[2] = u.y;
-          a[3] = v.y;
-        } else {
-          a[0] = x[0];
-          a[1] = x[8 * LD];
-          a[2] = x[4];
-          a[3] = x[8 * LD + 4];
-        }
+        const double* x = A + ((wm * FM + i) * 16 + g) * LD + ks * 8 + k4;
+        const double a[4] = {x[0], x[8 * LD], x[4], x[8 * LD + 4]};
 #pragma unroll
         for (int j = 0; j < FN; ++j) dmma(acc[i][j], a, b[j][0], b[j][1]);
       }
-      if (ILV && building) {
-#pragma unroll
-        for (int i = ks; i < B_ITEMS; i += KSTEPS) build(Bn, sl, i);
-      }
     }
-    if (!ILV && building) {
+    if (building) {
 #pragma unroll
       for (int i = 0; i < B_ITEMS; ++i) build(Bn, sl, i);
     }
@@ -710,24 +661,6 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
     walk(st, sb, nb, NSL);
   }
 
-  if (!EPI) {
-    // epilogue: res = base + coef B from the fragments
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r0 + (wm * FM + i) * 16 + g + 8 * h;
-        if (r >= R) continue;
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          const int t = t0 + (wn * FN + j) * 8 + 2 * k4;
-          const size_t o = ((size_t)r * P + p) * T + t;
-          if (t < T) out[o] = acc[i][j][2 * h];
-          if (t + 1 < T) out[o + 1] = acc[i][j][2 * h + 1];
-        }
-      }
-    return;
-  }
   // epilogue: the accumulators to [BM][LDC] in the coef ring's room
   // (16-byte stores, a quarter-warp on 32 banks), then res = base + acc row
   // by row, consecutive threads on consecutive TOAs
@@ -754,14 +687,12 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
   }
 }
 
-// The float64 kernel's block tile, (BM, BN, WGM, WARPS, KC, STAGES, MINB,
-// VEC, ILV, EPI) (ops/megakernel.py::PROJ_TILE_F64 and PROJ_F64_*): 128 x
-// 64, 8 warps of 2 x 4 fragments, 32 columns a stage, a 2-stage coef ring
-// and 8-byte fragment loads, so that two blocks share an SM; the basis
-// built after each stage's DMMAs; the epilogue through shared memory
-// (tools/f64_kernel_variants.py builds the other settings as patched
-// copies)
-#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 32, 2, 2, false, false, true)
+// The float64 kernel's block tile, (BM, BN, WGM, WARPS, KC, STAGES, MINB)
+// (ops/megakernel.py::PROJ_TILE_F64 and PROJ_F64_*): 128 x 64, 8 warps of
+// 2 x 4 fragments, 32 columns a stage and a 2-stage coef ring, so that two
+// blocks share an SM (tools/f64_kernel_variants.py builds the other tiles
+// as patched copies)
+#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 32, 2, 2)
 
 int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
                  double* res_l, double* res_f, int R, int T, int K, int S,
@@ -778,13 +709,11 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
                                       PF};
   const int nloc = shared ? 0 : PL;
   const int rows = nloc + PF;
-#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_, I_, E_)             \
+#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_)                         \
   if (bm == BM_ && bn == BN_ && wgm == WGM_) {                              \
     const size_t smem =                                                     \
-        (size_t)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, S) *              \
-        sizeof(double);                                                     \
-    auto kernel =                                                           \
-        project_f64_kernel<BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_, I_, E_>;  \
+        (size_t)proj_f64_doubles(BM_, BN_, KC_, ST_, S) * sizeof(double);  \
+    auto kernel = project_f64_kernel<BM_, BN_, WGM_, W_, KC_, ST_, MB_>;    \
     cudaError_t err = cudaFuncSetAttribute(                                 \
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
     if (err != cudaSuccess) return (int)err;                                \
@@ -802,9 +731,9 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
 // The shared-memory bytes of the float64 kernel's (bm, bn) tile with S
 // scale rows, or -1 if it has none
 long long proj_f64_smem(int bm, int bn, int S) {
-#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_, V_, I_, E_)             \
+#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_)                         \
   if (bm == BM_ && bn == BN_)                                               \
-    return (long long)proj_f64_doubles(BM_, BN_, KC_, ST_, V_, S) *         \
+    return (long long)proj_f64_doubles(BM_, BN_, KC_, ST_, S) *             \
            (long long)sizeof(double);
   FPT_PROJ_F64_TILES(FPT_TILE)
 #undef FPT_TILE

@@ -91,15 +91,13 @@ NH = 16
 PROJ_LDA = 2 * NH + 4
 #: the float64 projection (FPT_PROJ_F64_TILES): its (BM, BN, WGM) block
 #: tile, warps (a WGM x (8 / WGM) grid), columns a pipeline stage (KC),
-#: stages of its coef ring (the basis ring has two), blocks per SM, and the
-#: padding of the coef and basis rows in doubles (p64_ld: KC + 4 for
-#: 8-byte fragment loads, KC + 8 for 16-byte ones)
+#: stages of its coef ring (the basis ring has two) and blocks per SM; the
+#: coef and basis rows are KC + 4 doubles (p64_ld)
 PROJ_TILE_F64 = (128, 64, 4)
 PROJ_F64_WARPS = 8
 PROJ_F64_KC = 2 * NH
 PROJ_F64_STAGES = 2
 PROJ_F64_BLOCKS = 2
-PROJ_F64_PAD = 4
 #: 2 pi rounded to float32: the phase's factor where the TPU kernel's
 #: compute type is float32
 TWO_PI_F32 = float(np.float32(2.0 * np.pi))
@@ -187,7 +185,7 @@ def project_smem(bm: int, bn: int, n_scales: int, route: str = "f32") -> int:
     tiles, or the epilogue's [bm][bn + 8] accumulator tile where that is
     larger), the basis ring (two tiles) and the rows."""
     if route == "f64":
-        ld = PROJ_F64_KC + PROJ_F64_PAD
+        ld = PROJ_F64_KC + 4
         return 8 * (max(PROJ_F64_STAGES * bm * ld, bm * (bn + 8))
                     + 2 * bn * ld + (2 + n_scales) * bn)
     kc = 2 * NH

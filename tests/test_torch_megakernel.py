@@ -81,12 +81,12 @@ def test_project_f64_tiling_covers_and_fits(pl, pf):
     bm, bn, wgm = mk.PROJ_TILE_F64
     threads = 32 * mk.PROJ_F64_WARPS
     kc, stages = mk.PROJ_F64_KC, mk.PROJ_F64_STAGES
-    ld = kc + mk.PROJ_F64_PAD
+    ld = kc + 4
     assert kc % (2 * mk.NH) == 0 and stages >= 2
     assert bm % (16 * wgm) == 0 and bn % (8 * (mk.PROJ_F64_WARPS // wgm)) == 0
     assert threads % kc == 0 and (bm * kc) % threads == 0
     assert threads % (kc // 2) == 0 and (bn * kc // 2) % threads == 0
-    assert ld % 16 in (4, 8)
+    assert ld % 16 == 4
     for R, T, S in ((1024, 780, 2), (5, 33, 2), (129, 257, 3),
                     (1024, 512, 3)):
         t = mk.project_tiling(R, T, rows, n_scales=S, route="f64")

@@ -30,13 +30,11 @@ and a 2-shard mesh's local+full set:
   happens keeps the sums live); ``no_base``: no base read; ``skeleton``:
   no sincos, products or copies; ``skeleton_no_epilogue``: nor the
   epilogue; ``products_only``: no sincos, copies or epilogue;
-- the design steps, each the shipped source with another
+- the tiles, each the shipped source with another
   ``FPT_PROJ_F64_TILES`` entry (BM, BN, WGM, warps, KC, coef stages,
-  blocks an SM, 16-byte fragment loads, the basis built between the
-  k-steps, the epilogue through shared memory): ``fragment_epilogue``,
-  ``interleaved``, ``tile_64x64`` and ``tile_64x64_ilv`` (8 warps of
-  2 x 2), ``tile_128x64_b1`` (a 3-stage ring, one block an SM) and
-  ``tile_128x128_b1`` (4 x 4 fragments);
+  blocks an SM): ``tile_64x64`` (8 warps of 2 x 2, two blocks an SM),
+  ``tile_128x64_b1`` (a 3-stage ring, one block an SM) and
+  ``tile_128x128_b1`` (4 x 4 fragments, one block an SM);
 - with ``--parent DIR`` (a checkout, e.g. a ``git archive``, of the PR 25
   commit), that commit's ``megakernel.cu`` as ``parent`` and its
   ``parent_no_sincos`` / ``parent_no_products``, launched at its own
@@ -67,19 +65,13 @@ COPIES = ("    const bool ok = col >= 0 && r < R;\n    cp_async8(",
           "    const bool ok = false;\n    cp_async8(")
 EPILOGUE = ("      out[o] = base[o] + Cs[m * P64_LDC(BN) + c];",
             "      if (Cs[m * P64_LDC(BN) + c] == 1.5e300) out[o] = 0.0;")
-TILE_LINE = ("#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 32, 2, 2, "
-             "false, false, true)")
+TILE_LINE = "#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 32, 2, 2)"
 
 #: the design steps and tiles: (BM, BN, WGM, warps, KC, coef stages,
-#: blocks an SM, 16-byte loads, basis built between the k-steps, epilogue
-#: through shared memory)
-TILES = {
-    "fragment_epilogue": (128, 64, 4, 8, 32, 2, 2, False, False, False),
-    "interleaved": (128, 64, 4, 8, 32, 2, 2, False, True, True),
-    "tile_64x64": (64, 64, 2, 8, 32, 3, 2, False, False, True),
-    "tile_64x64_ilv": (64, 64, 2, 8, 32, 3, 2, False, True, True),
-    "tile_128x64_b1": (128, 64, 4, 8, 32, 3, 1, True, False, True),
-    "tile_128x128_b1": (128, 128, 2, 8, 32, 2, 1, True, False, True)}
+#: blocks an SM)
+TILES = {"tile_64x64": (64, 64, 2, 8, 32, 3, 2),
+         "tile_128x64_b1": (128, 64, 4, 8, 32, 3, 1),
+         "tile_128x128_b1": (128, 128, 2, 8, 32, 2, 1)}
 
 PATCHES = {
     "binned_corr": {
@@ -145,10 +137,10 @@ def launch_shape(variant: str) -> dict:
                                       + (2 + n_scales) * bn))
         return {"project_tiling": tiling}
     if variant in TILES:
-        bm, bn, wgm, warps, kc, stages, blocks, vec = TILES[variant][:8]
+        bm, bn, wgm, warps, kc, stages, blocks = TILES[variant]
         return {"PROJ_TILE_F64": (bm, bn, wgm), "PROJ_F64_WARPS": warps,
                 "PROJ_F64_KC": kc, "PROJ_F64_STAGES": stages,
-                "PROJ_F64_BLOCKS": blocks, "PROJ_F64_PAD": 8 if vec else 4}
+                "PROJ_F64_BLOCKS": blocks}
     if variant in ALSO:
         bm, bn, wgm = ALSO[variant][1]
 
