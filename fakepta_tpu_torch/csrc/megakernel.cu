@@ -398,8 +398,8 @@ int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
 // .f64 (DMMA; the m8n8k4 shape runs at half the FP64 tensor cores' rate on
 // an H100, tools/dmma_shapes.py; wgmma has no float64 form).
 //
-// Design: a pipelined mainloop, one barrier a stage (PERF.md, PR 26, has
-// the steps and the designs measured against it).
+// Design: a pipelined mainloop, one barrier a stage (PERF.md's float64
+// findings have the steps and the designs measured against it).
 //   Blocks. A block takes BM realizations x BN TOAs of one pulsar row
 //     (FPT_PROJ_F64_TILES), WARPS warps in a WGM x (WARPS / WGM) grid each
 //     owning FM x FN m16n8 fragments, MINB blocks an SM, so that one

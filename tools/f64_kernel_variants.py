@@ -35,8 +35,8 @@ and a 2-shard mesh's local+full set:
   blocks an SM): ``tile_64x64`` (8 warps of 2 x 2, two blocks an SM),
   ``tile_128x64_b1`` (a 3-stage ring, one block an SM) and
   ``tile_128x128_b1`` (4 x 4 fragments, one block an SM);
-- with ``--parent DIR`` (a checkout, e.g. a ``git archive``, of the PR 25
-  commit), that commit's ``megakernel.cu`` as ``parent`` and its
+- with ``--parent DIR`` (a checkout, e.g. a ``git archive``, of a commit
+  with the unpipelined kernel), that commit's ``megakernel.cu`` as ``parent`` and its
   ``parent_no_sincos`` / ``parent_no_products``, launched at its own
   128 x 64 tile; with ``--also NAME=DIR:BM,BN,WGM`` (repeatable) another
   commit's ``megakernel.cu`` as ``NAME`` at its (BM, BN, WGM) tile.
@@ -99,7 +99,7 @@ PATCHES = {
            for name, tile in TILES.items()}),
 }
 
-#: the unpipelined kernel (PR 25): its patches and launch tile
+#: the unpipelined kernel (--parent): its patches and launch tile
 PARENT_PATCHES = {
     "": [],
     "_no_sincos": [("        sincos(rows[st.tcol[s] * BN + bt] * "
@@ -125,7 +125,7 @@ def wrong_by_construction(variant: str) -> bool:
 
 def launch_shape(variant: str) -> dict:
     """The megakernel module attributes a variant launches at: its tile
-    and, for the PR 25 kernel (``parent*``), its own tiling."""
+    and, for the unpipelined kernel (``parent*``), its own tiling."""
     from fakepta_tpu_torch.ops import megakernel as mk
     if variant.startswith("parent"):
         bm, bn, wgm = PARENT_TILE
