@@ -401,49 +401,54 @@ int dispatch(const void* const* ptrs, int PL, int PF, const Stages& st,
 // Design: a pipelined mainloop, one barrier a stage (PERF.md's float64
 // findings have the steps and the designs measured against it).
 //   Blocks. A block takes BM realizations x BN TOAs of one pulsar row
-//     (FPT_PROJ_F64_TILES), WARPS warps in a WGM x (WARPS / WGM) grid each
-//     owning FM x FN m16n8 fragments, MINB blocks an SM, so that one
-//     block's copies and sincos stand beside another's DMMAs.
-//   Stages. K is consumed KC columns a stage: KC / 32 chunks of NH harmonic
-//     slots each, the chunk's cos columns then its sin columns, the slots
-//     of all stages in order (a stage may straddle GP stages; the last is
-//     zero-padded): kernel_columns' order (ops/megakernel.py).
-//   Rings. The coefficient tiles ([m][k]) fill a ring of STAGES shared
+//     (FPT_PROJ_F64_TILES), P64_WARPS warps in a WGM x (P64_WARPS / WGM)
+//     grid each owning FM x FN m16n8 fragments, P64_BLOCKS blocks an SM,
+//     so that one block's copies and sincos stand beside another's DMMAs.
+//   Stages. K is consumed P64_KC columns a stage: P64_KC / 32 chunks of NH
+//     harmonic slots each, the chunk's cos columns then its sin columns,
+//     the slots of all stages in order (a stage may straddle GP stages; the
+//     last is zero-padded): kernel_columns' order (ops/megakernel.py).
+//   Rings. The coefficient tiles ([m][k]) fill a ring of P64_STAGES shared
 //     stages by cp.async (8-byte copies: a chunk's columns start at any
 //     column of a coef row, so they are only 8-byte aligned; zero-filled
-//     past R and past the last slot), issued STAGES - 1 stages ahead. The
-//     basis tiles ([t][k]) fill a ring of two: the same threads build
+//     past R and past the last slot), issued P64_STAGES - 1 stages ahead.
+//     The basis tiles ([t][k]) fill a ring of two: the same threads build
 //     stage q + 1 (one float64 sincos of the float64 phase (2 pi t) n gives
 //     the cos and the sin value, times the scale; none past T) after the
 //     DMMAs of stage q (built between the k-steps it kept more registers
 //     live, which spill at two blocks an SM). Stage q's end waits for the
 //     copies of stage q + 1 and meets one __syncthreads: stage
-//     q + STAGES - 1 overwrites the coef slot stage q - 1 read, stage q + 1
-//     the basis slot.
+//     q + P64_STAGES - 1 overwrites the coef slot stage q - 1 read, stage
+//     q + 1 the basis slot.
 //   Epilogue. The accumulators start at 0, go to shared memory in the
 //     coef ring's room, and res = base + acc is formed row by row,
 //     consecutive threads on consecutive TOAs (written from the fragments,
 //     8 bytes a lane, it took 0.3 ms more at the flagship).
-//   Shared loads. Row stride LD = KC + 4 (4 mod 16 doubles): a lane's
-//     fragment loads are 8 bytes, a half-warp on 32 banks.
+//   Shared loads. Row stride P64_LD = P64_KC + 4 (4 mod 16 doubles): a
+//     lane's fragment loads are 8 bytes, a half-warp on 32 banks.
 // Every sum runs in a fixed order: reruns are bit-identical.
 
-constexpr int P64_BSTAGES = 2;   // basis ring
-
-__host__ __device__ constexpr int p64_ld(int kc) { return kc + 4; }
-
-// Shared-memory doubles of a float64 block with S scale rows: the coef
-// ring, the basis ring, the time and scale rows.
-// ops/megakernel.py::project_smem mirrors it.
+// The float64 kernel's fixed shape (ops/megakernel.py::PROJ_F64_STAGES and
+// PROJ_F64_BLOCKS; tools/f64_kernel_variants.py times other values as
+// patched copies)
+constexpr int P64_WARPS = 8;
+constexpr int P64_THREADS = 32 * P64_WARPS;
+constexpr int P64_KC = 2 * NH;          // columns a stage
+constexpr int P64_STAGES = 2;           // coef ring
+constexpr int P64_BSTAGES = 2;          // basis ring
+constexpr int P64_BLOCKS = 2;           // blocks an SM
+constexpr int P64_LD = P64_KC + 4;      // coef and basis row stride
 // The epilogue's accumulator tile row stride: 8 (mod 16) doubles
 #define P64_LDC(bn) ((bn) + 8)
 
-__host__ __device__ constexpr int proj_f64_doubles(int bm, int bn, int kc,
-                                                   int stages, int S) {
-  return (stages * bm * p64_ld(kc) > bm * P64_LDC(bn)
-              ? stages * bm * p64_ld(kc)
+// Shared-memory doubles of a float64 block with S scale rows: the coef
+// ring (or the epilogue's accumulator tile where that is larger), the basis
+// ring, the time and scale rows. ops/megakernel.py::project_smem mirrors it.
+__host__ __device__ constexpr int proj_f64_doubles(int bm, int bn, int S) {
+  return (P64_STAGES * bm * P64_LD > bm * P64_LDC(bn)
+              ? P64_STAGES * bm * P64_LD
               : bm * P64_LDC(bn)) +
-         P64_BSTAGES * bn * p64_ld(kc) + (2 + S) * bn;
+         P64_BSTAGES * bn * P64_LD + (2 + S) * bn;
 }
 
 // c += a b: one m16n8k8 float64 product
@@ -483,16 +488,16 @@ __device__ __forceinline__ void cp_async_wait() {
 // A[m][k] is realization m's coefficient of stage column k (the coef ring,
 // [m][k]); B[k][n] is column k's basis value at TOA n (the basis ring,
 // [n][k]).
-template <int BM, int BN, int WGM, int WARPS, int KC, int STAGES, int MINB>
-__global__ void __launch_bounds__(32 * WARPS, MINB)
+template <int BM, int BN, int WGM>
+__global__ void __launch_bounds__(P64_THREADS, P64_BLOCKS)
 project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
                    Stages st, double* __restrict__ res_l,
                    double* __restrict__ res_f, int R, int T, int K, int S,
                    int nloc) {
-  constexpr int THREADS = 32 * WARPS, WGN = WARPS / WGM;
+  constexpr int THREADS = P64_THREADS, WGN = P64_WARPS / WGM;
   constexpr int FM = BM / (16 * WGM), FN = BN / (8 * WGN);
+  constexpr int KC = P64_KC, LD = P64_LD, STAGES = P64_STAGES;
   constexpr int NSL = KC / 2;                   // harmonic slots a stage
-  constexpr int LD = p64_ld(KC);
   constexpr int KSTEPS = KC / 8;
   constexpr int A_ITEMS = BM * KC / THREADS;    // copies a thread a stage
   constexpr int B_ITEMS = BN * NSL / THREADS;   // sincos a thread a stage
@@ -550,7 +555,6 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
   const int aj = tid % KC;
   const int a_slot = aj / (2 * NH) * NH + aj % NH;
   const bool a_sin = aj % (2 * NH) >= NH;
-  const int a_pos = aj;
   const int bu = tid % NSL;
   const int b_cos = bu / NH * 2 * NH + bu % NH;
   const int b_sin = b_cos + NH;
@@ -567,7 +571,7 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
   auto copy = [&](double* dst, int col, int i) {
     const int m = tid / KC + THREADS / KC * i, r = r0 + m;
     const bool ok = col >= 0 && r < R;
-    cp_async8(dst + m * LD + a_pos, ok ? coef_p + r * coef_r + col : coef,
+    cp_async8(dst + m * LD + aj, ok ? coef_p + r * coef_r + col : coef,
               ok);
   };
   // the thread's basis slot in the stage whose first slot is (s, n): its
@@ -687,12 +691,10 @@ project_f64_kernel(Operands<double, double> loc, Operands<double, double> full,
   }
 }
 
-// The float64 kernel's block tile, (BM, BN, WGM, WARPS, KC, STAGES, MINB)
-// (ops/megakernel.py::PROJ_TILE_F64 and PROJ_F64_*): 128 x 64, 8 warps of
-// 2 x 4 fragments, 32 columns a stage and a 2-stage coef ring, so that two
-// blocks share an SM (tools/f64_kernel_variants.py builds the other tiles
-// as patched copies)
-#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 32, 2, 2)
+// The float64 kernel's block tile, (BM, BN, WGM) (ops/megakernel.py::
+// PROJ_TILE_F64): 128 x 64, 8 warps of 2 x 4 fragments, so that with 32
+// columns a stage and a 2-stage coef ring two blocks share an SM
+#define FPT_PROJ_F64_TILES(X) X(128, 64, 4)
 
 int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
                  double* res_l, double* res_f, int R, int T, int K, int S,
@@ -709,18 +711,18 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
                                       PF};
   const int nloc = shared ? 0 : PL;
   const int rows = nloc + PF;
-#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_)                         \
+#define FPT_TILE(BM_, BN_, WGM_)                                            \
   if (bm == BM_ && bn == BN_ && wgm == WGM_) {                              \
     const size_t smem =                                                     \
-        (size_t)proj_f64_doubles(BM_, BN_, KC_, ST_, S) * sizeof(double);  \
-    auto kernel = project_f64_kernel<BM_, BN_, WGM_, W_, KC_, ST_, MB_>;    \
+        (size_t)proj_f64_doubles(BM_, BN_, S) * sizeof(double);             \
+    auto kernel = project_f64_kernel<BM_, BN_, WGM_>;                       \
     cudaError_t err = cudaFuncSetAttribute(                                 \
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
     if (err != cudaSuccess) return (int)err;                                \
     const dim3 grid((unsigned)((R + BM_ - 1) / BM_),                        \
                     (unsigned)((T + BN_ - 1) / BN_), (unsigned)rows);       \
-    kernel<<<grid, 32 * W_, smem, stream>>>(loc, full, st, res_l, res_f, R, \
-                                            T, K, S, nloc);                 \
+    kernel<<<grid, P64_THREADS, smem, stream>>>(loc, full, st, res_l,      \
+                                                res_f, R, T, K, S, nloc);   \
     return 0;                                                               \
   }
   FPT_PROJ_F64_TILES(FPT_TILE)
@@ -731,9 +733,9 @@ int dispatch_f64(const void* const* ptrs, int PL, int PF, const Stages& st,
 // The shared-memory bytes of the float64 kernel's (bm, bn) tile with S
 // scale rows, or -1 if it has none
 long long proj_f64_smem(int bm, int bn, int S) {
-#define FPT_TILE(BM_, BN_, WGM_, W_, KC_, ST_, MB_)                         \
+#define FPT_TILE(BM_, BN_, WGM_)                                            \
   if (bm == BM_ && bn == BN_)                                               \
-    return (long long)proj_f64_doubles(BM_, BN_, KC_, ST_, S) *             \
+    return (long long)proj_f64_doubles(BM_, BN_, S) *                       \
            (long long)sizeof(double);
   FPT_PROJ_F64_TILES(FPT_TILE)
 #undef FPT_TILE

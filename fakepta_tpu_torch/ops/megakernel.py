@@ -90,12 +90,10 @@ PROJ_BLOCKS = 2
 NH = 16
 PROJ_LDA = 2 * NH + 4
 #: the float64 projection (FPT_PROJ_F64_TILES): its (BM, BN, WGM) block
-#: tile, warps (a WGM x (8 / WGM) grid), columns a pipeline stage (KC),
-#: stages of its coef ring (the basis ring has two) and blocks per SM; the
-#: coef and basis rows are KC + 4 doubles (p64_ld)
+#: tile (8 warps in a WGM x (8 / WGM) grid), the stages of its coef ring
+#: (P64_STAGES; the basis ring has two) and blocks per SM (P64_BLOCKS); a
+#: stage is 2 NH columns, the coef and basis rows PROJ_LDA doubles (P64_LD)
 PROJ_TILE_F64 = (128, 64, 4)
-PROJ_F64_WARPS = 8
-PROJ_F64_KC = 2 * NH
 PROJ_F64_STAGES = 2
 PROJ_F64_BLOCKS = 2
 #: 2 pi rounded to float32: the phase's factor where the TPU kernel's
@@ -185,7 +183,7 @@ def project_smem(bm: int, bn: int, n_scales: int, route: str = "f32") -> int:
     tiles, or the epilogue's [bm][bn + 8] accumulator tile where that is
     larger), the basis ring (two tiles) and the rows."""
     if route == "f64":
-        ld = PROJ_F64_KC + 4
+        ld = PROJ_LDA
         return 8 * (max(PROJ_F64_STAGES * bm * ld, bm * (bn + 8))
                     + 2 * bn * ld + (2 + n_scales) * bn)
     kc = 2 * NH

@@ -79,11 +79,10 @@ def test_project_f64_tiling_covers_and_fits(pl, pf):
     at ng15's three scale rows."""
     rows = pf if pl == pf else pl + pf
     bm, bn, wgm = mk.PROJ_TILE_F64
-    threads = 32 * mk.PROJ_F64_WARPS
-    kc, stages = mk.PROJ_F64_KC, mk.PROJ_F64_STAGES
-    ld = kc + 4
-    assert kc % (2 * mk.NH) == 0 and stages >= 2
-    assert bm % (16 * wgm) == 0 and bn % (8 * (mk.PROJ_F64_WARPS // wgm)) == 0
+    threads, kc, stages = mk.PROJ_THREADS, 2 * mk.NH, mk.PROJ_F64_STAGES
+    ld = mk.PROJ_LDA
+    assert ld == kc + 4 and stages >= 2
+    assert bm % (16 * wgm) == 0 and bn % (8 * (threads // 32 // wgm)) == 0
     assert threads % kc == 0 and (bm * kc) % threads == 0
     assert threads % (kc // 2) == 0 and (bn * kc // 2) % threads == 0
     assert ld % 16 == 4

@@ -30,16 +30,15 @@ and a 2-shard mesh's local+full set:
   happens keeps the sums live); ``no_base``: no base read; ``skeleton``:
   no sincos, products or copies; ``skeleton_no_epilogue``: nor the
   epilogue; ``products_only``: no sincos, copies or epilogue;
-- the tiles, each the shipped source with another
-  ``FPT_PROJ_F64_TILES`` entry (BM, BN, WGM, warps, KC, coef stages,
-  blocks an SM): ``tile_64x64`` (8 warps of 2 x 2, two blocks an SM),
-  ``tile_128x64_b1`` (a 3-stage ring, one block an SM) and
-  ``tile_128x128_b1`` (4 x 4 fragments, one block an SM);
+- the tiles, each the shipped source with another ``FPT_PROJ_F64_TILES``
+  entry (BM, BN, WGM) and other ``P64_*`` constants (coef stages, blocks
+  an SM): ``tile_64x64`` (8 warps of 2 x 2, a 3-stage ring,
+  two blocks an SM), ``tile_128x64_b1`` (a 3-stage ring, one block an SM)
+  and ``tile_128x128_b1`` (4 x 4 fragments, one block an SM);
 - with ``--parent DIR`` (a checkout, e.g. a ``git archive``, of a commit
-  with the unpipelined kernel), that commit's ``megakernel.cu`` as ``parent`` and its
-  ``parent_no_sincos`` / ``parent_no_products``, launched at its own
-  128 x 64 tile; with ``--also NAME=DIR:BM,BN,WGM`` (repeatable) another
-  commit's ``megakernel.cu`` as ``NAME`` at its (BM, BN, WGM) tile.
+  with the unpipelined kernel), that commit's ``megakernel.cu`` as
+  ``parent`` and its ``parent_no_sincos`` / ``parent_no_products``,
+  launched at its own 128 x 64 tile.
 
 Each unpatched variant is held to ``project_plain`` within 1e-12 of the
 residual scale first; the patched ones are wrong by construction and only
@@ -65,13 +64,26 @@ COPIES = ("    const bool ok = col >= 0 && r < R;\n    cp_async8(",
           "    const bool ok = false;\n    cp_async8(")
 EPILOGUE = ("      out[o] = base[o] + Cs[m * P64_LDC(BN) + c];",
             "      if (Cs[m * P64_LDC(BN) + c] == 1.5e300) out[o] = 0.0;")
-TILE_LINE = "#define FPT_PROJ_F64_TILES(X) X(128, 64, 4, 8, 32, 2, 2)"
+#: the tiles' (BM, BN, WGM) and their P64_* constants
+TILES = {"tile_64x64": ((64, 64, 2), dict(STAGES=3)),
+         "tile_128x64_b1": ((128, 64, 4), dict(STAGES=3, BLOCKS=1)),
+         "tile_128x128_b1": ((128, 128, 2), dict(BLOCKS=1))}
+#: the shipped source's lines that the tiles patch
+SHIPPED = {"TILE": "#define FPT_PROJ_F64_TILES(X) X(128, 64, 4)",
+           "STAGES": "constexpr int P64_STAGES = 2; ",
+           "BLOCKS": "constexpr int P64_BLOCKS = 2; "}
 
-#: the design steps and tiles: (BM, BN, WGM, warps, KC, coef stages,
-#: blocks an SM)
-TILES = {"tile_64x64": (64, 64, 2, 8, 32, 3, 2),
-         "tile_128x64_b1": (128, 64, 4, 8, 32, 3, 1),
-         "tile_128x128_b1": (128, 128, 2, 8, 32, 2, 1)}
+
+def tile_patches(tile, consts) -> list:
+    """The patches that build the shipped kernel at another tile and
+    P64_* constants."""
+    out = [(SHIPPED["TILE"], "#define FPT_PROJ_F64_TILES(X) X("
+            + ", ".join(map(str, tile)) + ")")]
+    for name, value in consts.items():
+        old = SHIPPED[name]
+        out.append((old, f"{old.split('=')[0]}= {value}; "))
+    return out
+
 
 PATCHES = {
     "binned_corr": {
@@ -94,9 +106,7 @@ PATCHES = {
         skeleton=[SINCOS, PRODUCTS, COPIES],
         skeleton_no_epilogue=[SINCOS, PRODUCTS, COPIES, EPILOGUE],
         products_only=[SINCOS, COPIES, EPILOGUE],
-        **{name: [(TILE_LINE, "#define FPT_PROJ_F64_TILES(X) X("
-                   + ", ".join(str(v).lower() for v in tile) + ")")]
-           for name, tile in TILES.items()}),
+        **{name: tile_patches(*spec) for name, spec in TILES.items()}),
 }
 
 #: the unpipelined kernel (--parent): its patches and launch tile
@@ -112,8 +122,6 @@ PARENT_PATCHES = {
                       "+ a[i][3] * b[j][1];")],
 }
 PARENT_TILE = (128, 64, 4)
-#: --also NAME=DIR:BM,BN,WGM: another commit's megakernel.cu and its tile
-ALSO = {}
 
 
 def wrong_by_construction(variant: str) -> bool:
@@ -123,32 +131,12 @@ def wrong_by_construction(variant: str) -> bool:
         variant in PATCHES["megakernel"] and variant not in TILES)
 
 
-def launch_shape(variant: str) -> dict:
-    """The megakernel module attributes a variant launches at: its tile
-    and, for the unpipelined kernel (``parent*``), its own tiling."""
-    from fakepta_tpu_torch.ops import megakernel as mk
+def launch_tile(variant: str):
+    """The (BM, BN, WGM) tile a megakernel variant is launched at, or None
+    for the shipped one."""
     if variant.startswith("parent"):
-        bm, bn, wgm = PARENT_TILE
-
-        def tiling(R, T, rows, n_scales, route="f32", k=0):
-            return mk.ProjTiling(bm, bn, wgm, (-(-R // bm), -(-T // bn),
-                                               rows),
-                                 8 * ((bm + bn) * (2 * mk.NH + 4)
-                                      + (2 + n_scales) * bn))
-        return {"project_tiling": tiling}
-    if variant in TILES:
-        bm, bn, wgm, warps, kc, stages, blocks = TILES[variant]
-        return {"PROJ_TILE_F64": (bm, bn, wgm), "PROJ_F64_WARPS": warps,
-                "PROJ_F64_KC": kc, "PROJ_F64_STAGES": stages,
-                "PROJ_F64_BLOCKS": blocks}
-    if variant in ALSO:
-        bm, bn, wgm = ALSO[variant][1]
-
-        def tiling(R, T, rows, n_scales, route="f32", k=0):
-            return mk.ProjTiling(bm, bn, wgm, (-(-R // bm), -(-T // bn),
-                                               rows), 0)
-        return {"project_tiling": tiling}
-    return {}
+        return PARENT_TILE
+    return TILES[variant][0] if variant in TILES else None
 
 
 def patched(text: str, patches, what: str) -> str:
@@ -172,10 +160,6 @@ def build_variants(libs_wanted, parent) -> dict:
         paths[(lib, "shipped")] = _build.library_path(lib)
         for name, patches in PATCHES[lib].items():
             sources[(lib, name)] = patched(src, patches, f"{lib} {name}")
-    for name, (path, _) in ALSO.items():
-        sources[("megakernel", name)] = (Path(path) / "fakepta_tpu_torch"
-                                         / "csrc" / "megakernel.cu"
-                                         ).read_text()
     if parent is not None and "megakernel" in libs_wanted:
         src = (Path(parent) / "fakepta_tpu_torch" / "csrc"
                / "megakernel.cu").read_text()
@@ -212,15 +196,7 @@ def main() -> int:
     ap.add_argument("--only", choices=("corr", "project"))
     ap.add_argument("--parent", help="a checkout of another commit whose "
                     "megakernel.cu is timed beside this one")
-    ap.add_argument("--also", action="append", default=[],
-                    metavar="NAME=DIR:BM,BN,WGM", help="another commit's "
-                    "megakernel.cu, timed as NAME at its (BM, BN, WGM) "
-                    "float64 tile")
     args = ap.parse_args()
-    for spec in args.also:
-        name, rest = spec.split("=", 1)
-        path, tile = rest.rsplit(":", 1)
-        ALSO[name] = (path, tuple(int(x) for x in tile.split(",")))
     if not torch.cuda.is_available():
         print("f64_kernel_variants: no CUDA device is available",
               file=sys.stderr)
@@ -255,21 +231,26 @@ def main() -> int:
 
     def with_lib(lib_name, variant, fn):
         """fn() with the variant's library loaded under the shipped name
-        (and, for the projection, launched at the variant's tile)."""
-        shape = launch_shape(variant) if lib_name == "megakernel" else {}
+        (and, for the projection, launched at the variant's tile: the
+        library sizes its shared memory itself)."""
+        tile = launch_tile(variant) if lib_name == "megakernel" else None
+        shipped_tiling = mk.project_tiling
+
+        def tiling(R, T, rows, n_scales, route="f32"):
+            bm, bn, wgm = tile
+            return mk.ProjTiling(bm, bn, wgm, (-(-R // bm), -(-T // bn),
+                                               rows), 0)
 
         def call():
             saved = _build._LIBS.get(lib_name)
-            saved_attrs = {k: getattr(mk, k) for k in shape}
             _build._LIBS[lib_name] = libs[(lib_name, variant)]
-            for k, v in shape.items():
-                setattr(mk, k, v)
+            if tile is not None:
+                mk.project_tiling = tiling
             try:
                 return fn()
             finally:
                 _build._LIBS[lib_name] = saved
-                for k, v in saved_attrs.items():
-                    setattr(mk, k, v)
+                mk.project_tiling = shipped_tiling
         return call
 
     out = {"card": card_line(), "binned_correlation_f64": {},
